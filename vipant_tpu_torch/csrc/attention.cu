@@ -1,0 +1,211 @@
+// attention_fwd: softmax(q.k^T * scale + bias) . v for every head, reading
+// the packed [B, T, 3C] projection and writing [B, T, C].
+//
+// Replaces: the score / softmax / context steps of the Pallas kernel
+//   vipant_tpu/ops/fused_attn.py::_fwd_kernel (lines 105-111).
+// On the TPU one grid step held all heads' [H, T, T] scores in VMEM. A
+// Hopper block has 227 KB of shared memory and many blocks must be in
+// flight, so the work is cut into one block per (query tile, head, item)
+// and the keys are streamed through shared memory in tiles of 64.
+//
+// Bound: at T ~ 300 and D = 64 the products are small (2*T*T*D per head
+// and pass); the kernel is bound by latency and shared-memory traffic more
+// than by the tensor cores. Scores are computed twice (one pass for the
+// statistics, one for the probabilities), which costs one extra q.k^T
+// product per tile and keeps no [T, T] array anywhere.
+//
+// Rounding order, as in the Pallas kernel: scores are fp32 products of the
+// bf16 q and k, multiplied by `scale`, then the fp32 bias is added; the
+// softmax is exact (row max and sum in fp32 over all keys first, then
+// p = exp(s - max) / sum) and p is rounded to bf16 before p.v, which
+// accumulates in fp32 and is rounded to bf16 once. A flash-style online
+// softmax would rescale after p.v and so round p differently.
+//
+// Layout: q, k and v are the three C-wide sections of each row of qkv, and
+// head h occupies columns [h*64, h*64+64) of each section (torch
+// MultiheadAttention's order). The output puts head h in the same columns.
+// Query rows and keys past T are masked: keys past T get probability 0 and
+// zero-filled v rows, query rows past T are not stored.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int D = 64;         // head dim (checked by the wrapper)
+constexpr int BQ = 64;        // query rows per block: 4 warps x 16
+constexpr int BKV = 64;       // keys per tile
+constexpr int LDH = D + 8;    // bf16 tile row: 144 bytes
+constexpr int LDS = BKV + 4;  // fp32 score row: 272 bytes
+constexpr int kThreads = 128;
+constexpr int kTileBytes = BQ * LDH * 2;  // one bf16 64 x 72 tile
+constexpr int kSmemBytes = 4 * kTileBytes + BQ * LDS * 4;
+
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
+using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// rows [r0, r0 + 64) of one head's section into a 64 x LDH tile; rows past T
+// are zero
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* base, int r0,
+                                          int T, int C3) {
+  for (int c = threadIdx.x; c < 64 * (D / 8); c += kThreads) {
+    const int r = c >> 3, k = (c & 7) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < T) v = *reinterpret_cast<const uint4*>(base + static_cast<size_t>(r0 + r) * C3 + k);
+    *reinterpret_cast<uint4*>(dst + r * LDH + k) = v;
+  }
+}
+
+// raw fp32 q.k^T for this warp's 16 query rows against the 64 keys in Ks,
+// stored to the warp's rows of Ss
+__device__ __forceinline__ void score_tile(const __nv_bfloat16* Qs, const __nv_bfloat16* Ks,
+                                           float* Ss, int warp) {
+  FragC s[BKV / 16];
+#pragma unroll
+  for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(s[j], 0.f);
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    FragA a;
+    wmma::load_matrix_sync(a, Qs + warp * 16 * LDH + kk, LDH);
+#pragma unroll
+    for (int j = 0; j < BKV / 16; ++j) {
+      FragBc b;
+      wmma::load_matrix_sync(b, Ks + j * 16 * LDH + kk, LDH);
+      wmma::mma_sync(s[j], a, b, s[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BKV / 16; ++j)
+    wmma::store_matrix_sync(Ss + warp * 16 * LDS + j * 16, s[j], LDS, wmma::mem_row_major);
+  __syncwarp();
+}
+
+// the Pallas order: (q.k) * scale, then + bias, each rounded in fp32
+__device__ __forceinline__ float scaled(float raw, float scale, const float* bias, int i, int j,
+                                        int T) {
+  const float bv = (bias != nullptr && i < T) ? bias[static_cast<size_t>(i) * T + j] : 0.f;
+  return __fadd_rn(__fmul_rn(raw, scale), bv);
+}
+
+__global__ void __launch_bounds__(kThreads)
+attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, int T, int H, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = Qs + BQ * LDH;
+  __nv_bfloat16* Vs = Ks + BKV * LDH;
+  __nv_bfloat16* Ps = Vs + BKV * LDH;
+  float* Ss = reinterpret_cast<float*>(Ps + BQ * LDH);
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int C = H * D, C3 = 3 * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const __nv_bfloat16* item = qkv + static_cast<size_t>(b) * T * C3;
+  const __nv_bfloat16* qbase = item + h * D;
+  const __nv_bfloat16* kbase = item + C + h * D;
+  const __nv_bfloat16* vbase = item + 2 * C + h * D;
+
+  // each lane owns half of one of the warp's 16 rows
+  const int r = lane >> 1, half = lane & 1;
+  const int i = q0 + warp * 16 + r;  // global query index
+  float* srow = Ss + (warp * 16 + r) * LDS + half * 32;
+  __nv_bfloat16* prow = Ps + (warp * 16 + r) * LDH + half * 32;
+
+  load_rows(Qs, qbase, q0, T, C3);
+  const int nkt = (T + BKV - 1) / BKV;
+
+  // pass 1: row max and row sum over all keys
+  float m = -INFINITY, l = 0.f;
+  for (int t = 0; t < nkt; ++t) {
+    const int k0 = t * BKV;
+    __syncthreads();  // previous tile's readers are done with Ks
+    load_rows(Ks, kbase, k0, T, C3);
+    __syncthreads();
+    score_tile(Qs, Ks, Ss, warp);
+    float tmax = -INFINITY;
+    for (int c = 0; c < 32; ++c) {
+      const int j = k0 + half * 32 + c;
+      if (j < T) {
+        const float s = scaled(srow[c], scale, bias, i, j, T);
+        srow[c] = s;
+        tmax = fmaxf(tmax, s);
+      }
+    }
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    const float mnew = fmaxf(m, tmax);
+    float tsum = 0.f;
+    for (int c = 0; c < 32; ++c) {
+      const int j = k0 + half * 32 + c;
+      if (j < T) tsum += expf(srow[c] - mnew);
+    }
+    tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
+    l = l * expf(m - mnew) + tsum;  // m = -inf on the first tile: exp(-inf) = 0
+    m = mnew;
+    __syncwarp();
+  }
+
+  // pass 2: normalised bf16 p, then p.v accumulated in fp32
+  FragC o[D / 16];
+#pragma unroll
+  for (int dj = 0; dj < D / 16; ++dj) wmma::fill_fragment(o[dj], 0.f);
+  for (int t = 0; t < nkt; ++t) {
+    const int k0 = t * BKV;
+    __syncthreads();
+    load_rows(Ks, kbase, k0, T, C3);
+    load_rows(Vs, vbase, k0, T, C3);
+    __syncthreads();
+    score_tile(Qs, Ks, Ss, warp);
+    for (int c = 0; c < 32; ++c) {
+      const int j = k0 + half * 32 + c;
+      float p = 0.f;
+      if (j < T) p = expf(scaled(srow[c], scale, bias, i, j, T) - m) / l;
+      prow[c] = __float2bfloat16(p);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < BKV; kk += 16) {
+      FragA a;
+      wmma::load_matrix_sync(a, Ps + warp * 16 * LDH + kk, LDH);
+#pragma unroll
+      for (int dj = 0; dj < D / 16; ++dj) {
+        FragBr vb;
+        wmma::load_matrix_sync(vb, Vs + kk * LDH + dj * 16, LDH);
+        wmma::mma_sync(o[dj], a, vb, o[dj]);
+      }
+    }
+  }
+
+  // o (fp32) -> the warp's rows of Ss -> bf16 out
+#pragma unroll
+  for (int dj = 0; dj < D / 16; ++dj)
+    wmma::store_matrix_sync(Ss + warp * 16 * LDS + dj * 16, o[dj], LDS, wmma::mem_row_major);
+  __syncwarp();
+  for (int e = lane; e < 16 * D; e += 32) {
+    const int rr = e / D, d = e % D;
+    const int qi = q0 + warp * 16 + rr;
+    if (qi < T)
+      out[(static_cast<size_t>(b) * T + qi) * C + h * D + d] =
+          __float2bfloat16(Ss[(warp * 16 + rr) * LDS + d]);
+  }
+}
+
+}  // namespace
+
+extern "C" int vt_attention_fwd(const void* qkv, const void* bias, void* out, int B, int T, int H,
+                                float scale, void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
+  attention_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), T, H, scale);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,52 @@
+"""Model assembly: config -> ``nn.Module``, and seeded random init.
+
+Counterpart of ``vipant_tpu/models/build.py:26-115`` for the CVAP and CLAP
+workers. Parameters are fp32 (``param_dtype``); activations run in
+``compute_dtype`` (bfloat16 in the default config).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..nn.heads import build_audio_head, build_image_head, build_text_head
+from ..nn.losses import build_loss_head
+from .tasks import CLAP, CVAP
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.get("compute_dtype", "float32") == "bfloat16" else torch.float32
+
+
+def build_main_model(cfg, device=None) -> nn.Module:
+    """cfg.worker -> model on ``device``, parameters not yet initialised
+    (see :func:`init_weights`)."""
+    m = cfg.model
+    kw = dict(dtype=compute_dtype(cfg), device=device)
+    if cfg.worker == "CVAP":
+        return CVAP(
+            image=build_image_head(m.image, **kw),
+            audio=build_audio_head(m.audio, **kw),
+            loss=build_loss_head(m.loss, device=device),
+        )
+    if cfg.worker == "CLAP":
+        if m.text.name == "SeqGenerationHead":
+            raise NotImplementedError("the CLAP captioning decoder is not ported yet")
+        return CLAP(
+            audio=build_audio_head(m.audio, **kw),
+            text=build_text_head(m.text, **kw),
+            loss=build_loss_head(m.loss, device=device),
+        )
+    raise NotImplementedError(f"worker {cfg.worker!r} is not ported yet (CVAP, CLAP)")
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random init in the JAX package's scheme (CLIP's depth-scaled normals,
+    lecun-normal patch kernel), drawn from ``generator``, which must live on
+    the parameters' device."""
+    with torch.no_grad():
+        for module in model.modules():
+            if hasattr(module, "init_weights"):
+                module.init_weights(generator)
+    return model
