@@ -6,25 +6,63 @@
 1. Prints the card's name and power limit (nvidia-smi); fails without CUDA.
 2. Builds the CUDA kernels from ``vipant_tpu_torch/csrc`` and prints the
    build time and the compiler's register / spill report.
-3. Kernel phase: each hand-written kernel and each fused sub-block, at the
+3. Kernel phase: each forward kernel and each fused sub-block, at the
    serving path's shapes, against its plain PyTorch version on the card
-   from the same seeded bf16 inputs (atol = rtol = 2e-2 on bf16 outputs:
-   one bf16 ulp of the output plus a different fp32 summation order), with
-   CUDA-event times of both.
-4. Slice phase: the full-size CLAP serving engine (ViT-B/32 audio tower at
+   from the same seeded bf16 inputs, with CUDA-event times of both.
+4. Backward kernel phase: each backward kernel, and each sub-block's
+   backward through its autograd boundary (``torch.autograd.grad`` from fp32
+   params, as the training step takes it), against its plain version, from
+   seeded bf16 inputs and a seeded cotangent: attention at the audio tower's
+   B4 T306 C768 H12 (no bias), the text tower's B1 T308 C512 H8 (causal +
+   packing) and the training step's B64 T306 C768 H12 (M = 19,584 rows),
+   MLP at the same three shapes (E3072, E2048, E3072) for QuickGELU and
+   exact GELU.
+5. Serving slice: the full-size CLAP serving engine (ViT-B/32 audio tower at
    T = 306, 12-layer width-512 text tower packed 4 captions per call at
-   T = 308) with seeded random weights: embed_audio over 6 fbanks at
-   batch 4 (one ragged chunk), embed_texts, zero_shot over 3 classes.
-   Checks finite unit-norm outputs, the launch counts of every sub-block of
-   both towers, and cosine >= 0.999 against the same engine on the plain
-   ops on the card; prints ms per batch.
+   T = 308) with seeded random weights: embed_audio over 6 fbanks at batch
+   4, embed_texts, zero_shot over 3 classes. Checks finite unit-norm
+   outputs, the launch counts of every sub-block, and cosine >= 0.999
+   against the same engine on the plain ops on the card.
+6. Training slice: the flagship VA pre-training step (``bench.py``'s
+   overrides: frozen ViT-B/32 image tower packed 4 per call at T = 200,
+   trainable audio tower at T = 306, CELossHead, LARS at production knobs
+   with ``steps_per_epoch=1000``) with seeded random weights:
+   (i) at B = 16, loss, grad_norm and every trainable grad from the kernels
+   against the plain ops on the card, both in bf16, and against the plain
+   ops in fp32 from the same init. Per grad, the kernels may be no further
+   from the fp32 grads than the plain bf16 grads are: cosine at most 5e-3
+   lower, relative error |K - F| / |F| at most 3e-2 higher, and the scale
+   along the fp32 grad, s(V) = V.F / |F|^2, within |s(K) - s(P)| <= 5e-2
+   (a mis-scaled grad, which cosine cannot see; unlike the norm, s is not
+   raised by noise orthogonal to F). The loss head's ``logit_scale`` is left
+   out of these two:
+   its grad is one scalar, a sum over B^2 near-cancelling logits taken
+   from the forward's features before any backward kernel runs. bf16 rounding alone puts the two bf16 paths 1-2 % apart on
+   the smallest bias grads, so their mutual cosine is printed but not held
+   to 0.999; (ii) the launch
+   counts of one step: 12 backward launches of each sub-block, all from the
+   audio tower; (iii) five LARS steps: finite losses, audio params moved by
+   step 2, image params bitwise unchanged; (iv) at B = 64, ms per step,
+   forward / forward+backward / optimizer split and clips/s for kernels and
+   plain ops, and a ``torch.profiler`` trace: device idle share and the top
+   kernels by device time; (v) an Adam descent smoke (lr 1e-3, 4 fixed
+   batches of 32, 60 steps) whose first 10 losses agree with the plain ops.
 
-Prints a JSON line of per-kernel results, then, as the last line,
-``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
+Tolerances: bf16 outputs at atol = rtol = 2e-2 (one bf16 ulp of the output
+plus a different fp32 summation order); fp32 outputs (weight, bias and
+LayerNorm grads, the fp32 dqkv and pre-activation) at max |d| <= 1e-2 *
+max |plain|, since they sum over thousands of rows in another order.
+
+Prints a JSON line of per-kernel results (``launches`` is the sum of the
+counts read on each main path, the serving slice's and the training
+step's, which ``launches_by_path`` gives apart; ``cases`` holds each shape's
+times and error), then, as the last line, ``{"ok": true, "device": {...}}``.
+Any failure raises (non-zero exit).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -34,7 +72,11 @@ from unittest import mock
 import numpy as np
 
 ATOL = RTOL = 2e-2
+REL = 1e-2
 COS_MIN = 0.999
+COS_SLACK = 5e-3
+ERR_SLACK = 3e-2   # per grad: |K - F| / |F| may exceed |P - F| / |F| by this much
+SCALE_SLACK = 5e-2  # per grad: |s(K) - s(P)|, s(V) = V.F / |F|^2 the scale along the fp32 grad
 BATCH = 4
 CLAP_FULL = [
     "+running=clotho", "+model/image=vit_val", "+model/audio=vit_val",
@@ -42,6 +84,13 @@ CLAP_FULL = [
     "+running/audio=default", "model.audio.pre_encoder.stride=[16,24]",
     "running.audio.max_len=1000", "worker=CLAP", "model_file=",
 ]
+FLAGSHIP = [  # bench.py's VA pre-training step
+    "+running=bimodal", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=dummy",
+    "+model/loss=ce", "+optimizer=standard", "+running/audio=default",
+    "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=1000",
+    "model.image.token_pack=4", "worker=CVAP", "model_file=",
+]
+STEPS_PER_EPOCH = 1000
 PROMPTS = ["the sound of a dog barking", "heavy rain on a roof", "a car passing by",
            "birds singing in the morning", "people talking in a crowded room"]
 CLASSES = {
@@ -49,19 +98,21 @@ CLASSES = {
     "rain": ["the sound of rain", "rain falling"],
     "car": ["the sound of a car"],
 }
-REPLACES = {
-    "layernorm_fwd": "vipant_tpu/ops/fused_attn.py:81",
-    "gemm_bias_act": "vipant_tpu/ops/fused_mlp.py:51",
-    "attention_fwd": "vipant_tpu/ops/fused_attn.py:81",
-    "fused_ln_attention_block": "vipant_tpu/ops/fused_attn.py:81",
-    "fused_ln_mlp_block": "vipant_tpu/ops/fused_mlp.py:51",
-}
-SOURCES = {
-    "layernorm_fwd": "vipant_tpu_torch/csrc/layernorm.cu",
-    "gemm_bias_act": "vipant_tpu_torch/csrc/gemm.cu",
-    "attention_fwd": "vipant_tpu_torch/csrc/attention.cu",
-    "fused_ln_attention_block": "vipant_tpu_torch/ops/fused_attn.py",
-    "fused_ln_mlp_block": "vipant_tpu_torch/ops/fused_mlp.py",
+B2, B4B = "vipant_tpu/ops/fused_attn.py:168", "vipant_tpu/ops/fused_mlp.py:60"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "layernorm_fwd": ("vipant_tpu_torch/csrc/layernorm.cu", "vipant_tpu/ops/fused_attn.py:81"),
+    "gemm_bias_act": ("vipant_tpu_torch/csrc/gemm.cu", "vipant_tpu/ops/fused_mlp.py:51"),
+    "attention_fwd": ("vipant_tpu_torch/csrc/attention.cu", "vipant_tpu/ops/fused_attn.py:81"),
+    "fused_ln_attention_block": ("vipant_tpu_torch/ops/fused_attn.py",
+                                 "vipant_tpu/ops/fused_attn.py:81"),
+    "fused_ln_mlp_block": ("vipant_tpu_torch/ops/fused_mlp.py", "vipant_tpu/ops/fused_mlp.py:51"),
+    "layernorm_bwd": ("vipant_tpu_torch/csrc/layernorm.cu", B2),
+    "gemm_dgrad": ("vipant_tpu_torch/csrc/gemm.cu", B4B),
+    "gemm_wgrad": ("vipant_tpu_torch/csrc/gemm.cu", B2),
+    "colsum": ("vipant_tpu_torch/csrc/reduce.cu", B2),
+    "attention_bwd": ("vipant_tpu_torch/csrc/attention_bwd.cu", B2),
+    "fused_ln_attention_block_bwd": ("vipant_tpu_torch/ops/fused_attn.py", B2),
+    "fused_ln_mlp_block_bwd": ("vipant_tpu_torch/ops/fused_mlp.py", B4B),
 }
 
 
@@ -78,38 +129,79 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_phase(torch, results):
-    from vipant_tpu_torch.nn.layers import causal_mask, pack_tokens
-    from vipant_tpu_torch.ops import fused_attn, fused_mlp, kernels
+def _outputs(out):
+    return [t for t in (out if isinstance(out, (tuple, list)) else (out,)) if t is not None]
 
+
+def compare(torch, results, name, case, fn, plain, iters=20):
+    """Hold ``fn()`` (kernels) to ``plain()`` output by output, time both
+    (CUDA events, order plain, kernel, kernel, plain) and record the result
+    under ``name``. Raises on any disagreement."""
+    got, want = _outputs(fn()), _outputs(plain())
+    torch.cuda.synchronize()
+    if len(got) != len(want):
+        raise AssertionError(f"{name} {case}: {len(got)} outputs, plain has {len(want)}")
+    errs, case_err = [], 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} {case} output {i}: {g.dtype} {tuple(g.shape)} vs "
+                                 f"{w.dtype} {tuple(w.shape)}, finite {bool(torch.isfinite(g).all())}")
+        d = (g.float() - w.float()).abs()
+        err, scale = d.max().item(), w.float().abs().max().item()
+        if g.dtype == torch.bfloat16:
+            ok = torch.allclose(g.float(), w.float(), atol=ATOL, rtol=RTOL)
+            errs.append(f"{err:.2e}")
+        else:
+            ok = err <= REL * scale
+            errs.append(f"{err:.2e}(rel {err / max(scale, 1e-30):.1e})")
+        if not ok:
+            raise AssertionError(f"{name} {case} output {i}: kernel disagrees with its plain "
+                                 f"version (max|d| {err:.3e}, max|plain| {scale:.3e})")
+        case_err = max(case_err, err)
+    tp1 = cuda_ms(torch, plain, iters)
+    tk1 = cuda_ms(torch, fn, iters)
+    tk2 = cuda_ms(torch, fn, iters)
+    tp2 = cuda_ms(torch, plain, iters)
+    ms, plain_ms = (tk1 + tk2) / 2, (tp1 + tp2) / 2
+    print(f"  {name:28s} {case:40s} ms={ms:.4f} plain_ms={plain_ms:.4f} max|d|={' '.join(errs)}")
+    r = results.setdefault(name, {"max_abs_err": 0.0, "cases": [], "launches": {}})
+    r["max_abs_err"] = max(r["max_abs_err"], case_err)
+    r["cases"].append({"case": case, "ms": ms, "plain_ms": plain_ms, "max_abs_err": case_err})
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Both fused sub-blocks on their plain versions, forward and backward."""
+    from vipant_tpu_torch.ops import fused_attn, fused_mlp
+
+    with mock.patch.object(fused_attn, "fused_ln_attention_block",
+                           fused_attn.fused_ln_attention_block_plain), \
+         mock.patch.object(fused_mlp, "fused_ln_mlp_block", fused_mlp.fused_ln_mlp_block_plain):
+        yield
+
+
+def _seeded(torch):
     g = torch.Generator(device="cuda").manual_seed(0)
-    dev = "cuda"
 
     def rn(*shape, std=1.0, dtype=torch.bfloat16):
-        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
-    def compare(name, case, fn, plain):
-        got, want = fn(), plain()
-        torch.cuda.synchronize()
-        d = (got.float() - want.float()).abs()
-        ok = torch.allclose(got.float(), want.float(), atol=ATOL, rtol=RTOL)
-        finite = bool(torch.isfinite(got).all())
-        tp1 = cuda_ms(torch, plain)
-        tk1 = cuda_ms(torch, fn)
-        tk2 = cuda_ms(torch, fn)
-        tp2 = cuda_ms(torch, plain)
-        ms, plain_ms = (tk1 + tk2) / 2, (tp1 + tp2) / 2
-        print(f"  {name:26s} {case:34s} max|d|={d.max().item():.3e} mean|d|="
-              f"{d.mean().item():.3e} ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        if not (ok and finite):
-            raise AssertionError(f"{name} {case}: kernel disagrees with its plain version "
-                                 f"(max|d| {d.max().item():.3e}, finite {finite})")
-        r = results.setdefault(name, {"max_abs_err": 0.0, "cases": []})
-        r["max_abs_err"] = max(r["max_abs_err"], d.max().item())
-        r["cases"].append({"case": case, "ms": ms, "plain_ms": plain_ms})
+    return rn
 
-    pack_bias = lambda T, k: pack_tokens(torch.zeros(k, T, 1, device=dev), k)[1]
-    text_bias = causal_mask(4 * 77, device=dev) + pack_bias(77, 4)
+
+def _biases(torch):
+    from vipant_tpu_torch.nn.layers import causal_mask, pack_tokens
+
+    pack_bias = lambda T, k: pack_tokens(torch.zeros(k, T, 1, device="cuda"), k)[1]
+    return pack_bias, causal_mask(4 * 77, device="cuda") + pack_bias(77, 4)
+
+
+def kernel_phase(torch, results):
+    from vipant_tpu_torch.ops import fused_attn, fused_mlp, kernels
+
+    rn = _seeded(torch)
+    cmp = lambda *a: compare(torch, results, *a)
+    pack_bias, text_bias = _biases(torch)
     attn_cases = [  # (case, B, T, C, H, bias): audio, packed text, packed image
         ("audio B4 T306 C768 H12", BATCH, 306, 768, 12, None),
         ("text B1 T308 C512 H8 causal+pack", 1, 308, 512, 8, text_bias),
@@ -125,18 +217,18 @@ def kernel_phase(torch, results):
         qkv = kernels.gemm_bias_act_plain(h, wqkv, bqkv)
         o = kernels.attention_plain(qkv, cb, H, 0.125)
         args = (x, lns, lnb, wqkv, bqkv, wout, bout, bias, H)
-        compare("layernorm_fwd", case, lambda: kernels.layernorm_fwd(x, lns, lnb),
-                lambda: kernels.layernorm_plain(x, lns, lnb))
-        compare("gemm_bias_act", case + " qkv", lambda: kernels.gemm_bias_act(h, wqkv, bqkv),
-                lambda: kernels.gemm_bias_act_plain(h, wqkv, bqkv))
-        compare("attention_fwd", case, lambda: kernels.attention_fwd(qkv, cb, H, 0.125),
-                lambda: kernels.attention_plain(qkv, cb, H, 0.125))
-        compare("gemm_bias_act", case + " out+res",
-                lambda: kernels.gemm_bias_act(o, wout, bout, residual=x),
-                lambda: kernels.gemm_bias_act_plain(o, wout, bout, residual=x))
-        compare("fused_ln_attention_block", case,
-                lambda: fused_attn.fused_ln_attention_block(*args),
-                lambda: fused_attn.fused_ln_attention_block_plain(*args))
+        cmp("layernorm_fwd", case, lambda: kernels.layernorm_fwd(x, lns, lnb),
+            lambda: kernels.layernorm_plain(x, lns, lnb))
+        cmp("gemm_bias_act", case + " qkv", lambda: kernels.gemm_bias_act(h, wqkv, bqkv),
+            lambda: kernels.gemm_bias_act_plain(h, wqkv, bqkv))
+        cmp("attention_fwd", case, lambda: kernels.attention_fwd(qkv, cb, H, 0.125),
+            lambda: kernels.attention_plain(qkv, cb, H, 0.125))
+        cmp("gemm_bias_act", case + " out+res",
+            lambda: kernels.gemm_bias_act(o, wout, bout, residual=x),
+            lambda: kernels.gemm_bias_act_plain(o, wout, bout, residual=x))
+        cmp("fused_ln_attention_block", case,
+            lambda: fused_attn.fused_ln_attention_block(*args),
+            lambda: fused_attn.fused_ln_attention_block_plain(*args))
 
     for case, B, T, C in (("audio B4 T306 C768 E3072", BATCH, 306, 768),
                           ("text B1 T308 C512 E2048", 1, 308, 512)):
@@ -147,18 +239,120 @@ def kernel_phase(torch, results):
         wproj, bproj = rn(C, E, std=E ** -0.5), rn(C, std=0.02, dtype=torch.float32)
         h = kernels.layernorm_plain(x, lns, lnb)
         args = (x, lns, lnb, wfc, bfc, wproj, bproj, "quick_gelu")
-        compare("gemm_bias_act", case + " fc+quick_gelu",
-                lambda: kernels.gemm_bias_act(h, wfc, bfc, "quick_gelu"),
-                lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, "quick_gelu"))
-        compare("gemm_bias_act", case + " fc+gelu",
-                lambda: kernels.gemm_bias_act(h, wfc, bfc, "gelu"),
-                lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, "gelu"))
-        compare("fused_ln_mlp_block", case, lambda: fused_mlp.fused_ln_mlp_block(*args),
-                lambda: fused_mlp.fused_ln_mlp_block_plain(*args))
+        cmp("gemm_bias_act", case + " fc+quick_gelu",
+            lambda: kernels.gemm_bias_act(h, wfc, bfc, "quick_gelu"),
+            lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, "quick_gelu"))
+        cmp("gemm_bias_act", case + " fc+gelu",
+            lambda: kernels.gemm_bias_act(h, wfc, bfc, "gelu"),
+            lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, "gelu"))
+        cmp("fused_ln_mlp_block", case, lambda: fused_mlp.fused_ln_mlp_block(*args),
+            lambda: fused_mlp.fused_ln_mlp_block_plain(*args))
+
+
+def _block_bwd(torch, block, args, g, **kw):
+    """Runs ``block(*args, **kw)`` forward once through its autograd boundary
+    and returns a callable that reruns only the backward for the output grad
+    ``g``: ``torch.autograd.grad`` with respect to every argument, the grads
+    in the params' dtypes, as the training step gets them."""
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    out = block(*leaves, **kw)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def backward_kernel_phase(torch, results):
+    """Each backward kernel on the inputs its chain gives it, and each
+    sub-block's backward through its autograd boundary, against the plain
+    versions: at the serving path's shapes and at the training step's
+    (audio B = 64, M = 19,584 rows)."""
+    from vipant_tpu_torch.ops import fused_attn, fused_mlp, kernels
+
+    rn = _seeded(torch)
+    _, text_bias = _biases(torch)
+    for case, B, T, C, H, bias in (("audio B4 T306 C768 H12", BATCH, 306, 768, 12, None),
+                                   ("text B1 T308 C512 H8 causal+pack", 1, 308, 512, 8, text_bias),
+                                   ("audio B64 T306 C768 H12 (train step)", 64, 306, 768, 12, None)):
+        cmp = lambda *a: compare(torch, results, *a, iters=5 if B > BATCH else 10)
+        x, g = rn(B, T, C), rn(B, T, C)
+        lns, lnb = 1 + rn(C, std=0.1, dtype=torch.float32), rn(C, std=0.1, dtype=torch.float32)
+        wqkv, bqkv = rn(3 * C, C, std=C ** -0.5), rn(3 * C, std=0.02, dtype=torch.float32)
+        wout, bout = rn(C, C, std=C ** -0.5), rn(C, std=0.02, dtype=torch.float32)
+        cb, scale = fused_attn.canon_bias(bias), 1.0 / (C // H) ** 0.5
+        h = kernels.layernorm_plain(x, lns, lnb)
+        qkv = kernels.gemm_bias_act_plain(h, wqkv, bqkv)
+        o, stats = kernels.attention_fwd(qkv, cb, H, scale, stats=True)
+        do = kernels.gemm_dgrad_plain(g, wout, True)
+        dqkv, dqkv_b = kernels.attention_bwd_plain(qkv, do, cb, H, scale)
+        dh = kernels.gemm_dgrad_plain(dqkv_b, wqkv, False)
+        cmp("colsum", case + " dbout", lambda: kernels.colsum(g), lambda: kernels.colsum_plain(g))
+        cmp("gemm_dgrad", case + " do=g.Wout", lambda: kernels.gemm_dgrad(g, wout, True),
+            lambda: kernels.gemm_dgrad_plain(g, wout, True))
+        cmp("gemm_wgrad", case + " dWout", lambda: kernels.gemm_wgrad(g, o),
+            lambda: kernels.gemm_wgrad_plain(g, o))
+        cmp("attention_bwd", case, lambda: kernels.attention_bwd(qkv, do, cb, H, scale, stats),
+            lambda: kernels.attention_bwd_plain(qkv, do, cb, H, scale))
+        cmp("colsum", case + " dbqkv fp32", lambda: kernels.colsum(dqkv),
+            lambda: kernels.colsum_plain(dqkv))
+        cmp("gemm_dgrad", case + " dh=dqkv.Wqkv fp32", lambda: kernels.gemm_dgrad(dqkv_b, wqkv, False),
+            lambda: kernels.gemm_dgrad_plain(dqkv_b, wqkv, False))
+        cmp("gemm_wgrad", case + " dWqkv", lambda: kernels.gemm_wgrad(dqkv_b, h),
+            lambda: kernels.gemm_wgrad_plain(dqkv_b, h))
+        cmp("layernorm_bwd", case, lambda: kernels.layernorm_bwd(x, lns, dh, residual=g),
+            lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=g))
+        del qkv, o, stats, do, dqkv, dqkv_b, dh
+        args = (x, lns, lnb, wqkv.float(), bqkv, wout.float(), bout)  # fp32 params, as trained
+        cmp("fused_ln_attention_block_bwd", case,
+            _block_bwd(torch, fused_attn.fused_ln_attention_block, args, g, bias=bias, heads=H),
+            _block_bwd(torch, fused_attn.fused_ln_attention_block_plain, args, g, bias=bias, heads=H))
+        torch.cuda.empty_cache()
+
+    for case, B, T, C in (("audio B4 T306 C768 E3072", BATCH, 306, 768),
+                          ("text B1 T308 C512 E2048", 1, 308, 512),
+                          ("audio B64 T306 C768 E3072 (train step)", 64, 306, 768)):
+        cmp = lambda *a: compare(torch, results, *a, iters=5 if B > BATCH else 10)
+        E = 4 * C
+        x, gy = rn(B, T, C), rn(B, T, C)
+        lns, lnb = 1 + rn(C, std=0.1, dtype=torch.float32), rn(C, std=0.1, dtype=torch.float32)
+        wfc, bfc = rn(E, C, std=C ** -0.5), rn(E, std=0.02, dtype=torch.float32)
+        wproj, bproj = rn(C, E, std=E ** -0.5), rn(C, std=0.02, dtype=torch.float32)
+        h = kernels.layernorm_plain(x, lns, lnb)
+        for act in ("quick_gelu", "gelu"):
+            c = f"{case} {act}"
+            ga, a = kernels.gemm_bias_act_plain(h, wfc, bfc, act, preact=True)
+            da = kernels.gemm_dgrad_plain(gy, wproj, True, act, a)
+            dh = kernels.gemm_dgrad_plain(da, wfc, False)
+            cmp("gemm_bias_act", c + " fc recompute, fp32 preact",
+                lambda: kernels.gemm_bias_act(h, wfc, bfc, act, preact=True),
+                lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, act, preact=True))
+            cmp("colsum", c + " dbproj", lambda: kernels.colsum(gy), lambda: kernels.colsum_plain(gy))
+            cmp("gemm_wgrad", c + " dWproj", lambda: kernels.gemm_wgrad(gy, ga),
+                lambda: kernels.gemm_wgrad_plain(gy, ga))
+            cmp("gemm_dgrad", c + " da=(gy.Wproj)*act'(a)",
+                lambda: kernels.gemm_dgrad(gy, wproj, True, act, a),
+                lambda: kernels.gemm_dgrad_plain(gy, wproj, True, act, a))
+            cmp("colsum", c + " dbfc", lambda: kernels.colsum(da), lambda: kernels.colsum_plain(da))
+            cmp("gemm_wgrad", c + " dWfc", lambda: kernels.gemm_wgrad(da, h),
+                lambda: kernels.gemm_wgrad_plain(da, h))
+            cmp("gemm_dgrad", c + " dh=da.Wfc fp32", lambda: kernels.gemm_dgrad(da, wfc, False),
+                lambda: kernels.gemm_dgrad_plain(da, wfc, False))
+            cmp("layernorm_bwd", c, lambda: kernels.layernorm_bwd(x, lns, dh, residual=gy),
+                lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=gy))
+            del ga, a, da, dh
+            args = (x, lns, lnb, wfc.float(), bfc, wproj.float(), bproj)  # fp32 params, as trained
+            cmp("fused_ln_mlp_block_bwd", c,
+                _block_bwd(torch, fused_mlp.fused_ln_mlp_block, args, gy, act=act),
+                _block_bwd(torch, fused_mlp.fused_ln_mlp_block_plain, args, gy, act=act))
+            torch.cuda.empty_cache()
+
+
+def record_launches(results, path, counts):
+    """Each kernel's launch count on one main path (``serve`` or ``train``),
+    read right after that path ran from counts set to 0 just before it."""
+    for name, n in counts.items():
+        results.setdefault(name, {"max_abs_err": 0.0, "cases": [], "launches": {}})["launches"][path] = n
 
 
 def slice_phase(torch, results):
-    from vipant_tpu_torch.ops import LAUNCHES, fused_attn, fused_mlp, reset_launches
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
     from vipant_tpu_torch.serve import InferenceEngine
 
     t0 = time.perf_counter()
@@ -171,14 +365,14 @@ def slice_phase(torch, results):
     nchunks = lambda n: -(-n // BATCH)
     n_prompts = sum(len(v) for v in CLASSES.values())
 
-    # the main path: these launches are the ones that count
+    # the serving path: its launches are counted from here
     reset_launches()
     a = eng.embed_audio(fb)
     t = eng.embed_texts(PROMPTS)
     zs = eng.zero_shot(fb[:3], CLASSES)
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
-    print(f"launches on the main path: {json.dumps(counts, sort_keys=True)}")
+    print(f"launches on the serving path: {json.dumps(counts, sort_keys=True)}")
 
     audio_chunks, text_chunks = nchunks(6) + nchunks(3), nchunks(len(PROMPTS)) + nchunks(n_prompts)
     blocks = audio_layers * audio_chunks + text_layers * text_chunks
@@ -191,8 +385,7 @@ def slice_phase(torch, results):
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
-    for name, n in counts.items():
-        results.setdefault(name, {"max_abs_err": 0.0, "cases": []})["launches"] = n
+    record_launches(results, "serve", counts)
 
     for name, e, n in (("audio", a, 6), ("text", t, len(PROMPTS))):
         if e.shape != (n, eng._embed_dim()) or not np.isfinite(e).all():
@@ -217,9 +410,7 @@ def slice_phase(torch, results):
           "text": timed(lambda: eng.embed_texts(PROMPTS[:BATCH]))}
 
     # the same engine on the plain ops, on the card
-    with mock.patch.object(fused_attn, "fused_ln_attention_block",
-                           fused_attn.fused_ln_attention_block_plain), \
-         mock.patch.object(fused_mlp, "fused_ln_mlp_block", fused_mlp.fused_ln_mlp_block_plain):
+    with plain_ops():
         a_ref, t_ref = eng.embed_audio(fb), eng.embed_texts(PROMPTS)
         plain_ms = {"audio": timed(lambda: eng.embed_audio(fb[:BATCH])),
                     "text": timed(lambda: eng.embed_texts(PROMPTS[:BATCH]))}
@@ -231,6 +422,219 @@ def slice_phase(torch, results):
     for k in ms:
         print(f"{k}: {ms[k]:.3f} ms per batch of {BATCH} (kernels), "
               f"{plain_ms[k]:.3f} ms (plain ops)")
+
+
+def _cos(torch, a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = a.norm().item(), b.norm().item()
+    return 1.0 if na == nb == 0 else (a @ b).item() / max(na * nb, 1e-300)
+
+
+def _va_batch(tr, rng, B):
+    return tr.make_batch(rng.standard_normal((B, 3, 224, 224)).astype(np.float32),
+                         rng.standard_normal((B, 1, 1000, 128)).astype(np.float32))
+
+
+def _trainer(torch, B, *extra):
+    from vipant_tpu_torch.train import Trainer
+
+    torch.cuda.empty_cache()
+    return Trainer(FLAGSHIP + [f"running.batch_size={B}", *extra], device="cuda",
+                   steps_per_epoch=STEPS_PER_EPOCH)
+
+
+def _profile(torch, fn, steps=3):
+    """Device time per call over ``steps`` calls from a ``torch.profiler``
+    trace: busy time (kernel, copy and fill intervals merged on the
+    timeline), the span from the first device event to the last, and device
+    time and launches by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False):
+            continue  # host events, and annotations that only mark a range on the card
+        s, t = e.time_range.start, e.time_range.end
+        if t <= s:
+            continue
+        spans.append((s, t))
+        n, d = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, d + (t - s) / 1e3)
+    if not spans:
+        raise AssertionError("the profiler saw no device activity")
+    spans.sort()
+    busy, cur_s, cur_t = 0.0, spans[0][0], spans[0][1]
+    for s, t in spans[1:]:
+        if s > cur_t:
+            busy += cur_t - cur_s
+            cur_s, cur_t = s, t
+        else:
+            cur_t = max(cur_t, t)
+    busy += cur_t - cur_s
+    span = spans[-1][1] - spans[0][0]
+    return busy / 1e3 / steps, span / 1e3 / steps, by_name
+
+
+def train_phase(torch, results):
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.optim import global_norm
+    from vipant_tpu_torch.train import loss_and_grads
+
+    # (i) one init and batch (B = 16): kernels against the plain ops
+    B = 16
+    tr = _trainer(torch, B)
+    audio_layers, image_layers = len(tr.model.audio.encoder.resblocks), len(tr.model.image.encoder.resblocks)
+    T_audio = tr.model.audio.grid[0] * tr.model.audio.grid[1] + 1
+    print(f"VA step: audio tower T={T_audio}, {audio_layers} layers trainable; image tower "
+          f"{image_layers} layers frozen, token_pack={tr.model.image.token_pack}; "
+          f"{sum(p.numel() for p in tr.trainable.values()):,} trainable / "
+          f"{sum(p.numel() for p in tr.frozen.values()):,} frozen params")
+    batch = _va_batch(tr, np.random.default_rng(0), B)
+    loss_k, g_k = loss_and_grads(tr.state, *batch)
+    with plain_ops():
+        loss_p, g_p = loss_and_grads(tr.state, *batch)
+        ref = _trainer(torch, B, "compute_dtype=float32")  # same seed: same init
+        loss_f, g_f = loss_and_grads(ref.state, *batch)
+    del ref
+    n_k, n_p = float(global_norm(list(g_k.values()))), float(global_norm(list(g_p.values())))
+    loss_k, loss_p, loss_f = float(loss_k), float(loss_p), float(loss_f)
+    rows = []  # (cos(K, F) - cos(P, F), cos(K, P), cos(K, F), cos(P, F), name)
+    scale = []  # (rel err(K) - rel err(P), |s(K) - s(P)|, rel err(K), rel err(P), name, s(K), s(P))
+    for k in g_k:
+        if not bool(torch.isfinite(g_k[k]).all()):
+            raise AssertionError(f"grad {k} is not finite")
+        kp, kf, pf = (_cos(torch, a, b) for a, b in ((g_k[k], g_p[k]), (g_k[k], g_f[k]),
+                                                      (g_p[k], g_f[k])))
+        rows.append((kf - pf, kp, kf, pf, k))
+        K, P, F = (g[k].double().flatten() for g in (g_k, g_p, g_f))
+        nf = max(F.norm().item(), 1e-300)
+        ek, ep = (K - F).norm().item() / nf, (P - F).norm().item() / nf
+        sk, sp = (K @ F).item() / nf ** 2, (P @ F).item() / nf ** 2
+        row = (ek - ep, abs(sk - sp), ek, ep, k, sk, sp)
+        if k.startswith("loss."):  # the loss head's grads come before any backward kernel
+            print(f"    {k} (forward features only): |K-F|/|F| {ek:.6f} |P-F|/|F| {ep:.6f} "
+                  f"s(K) {sk:.6f} s(P) {sp:.6f}")
+        else:
+            scale.append(row)
+    flat = {n: torch.cat([g[k].flatten() for k in g_k]) for n, g in (("K", g_k), ("P", g_p), ("F", g_f))}
+    whole = {n: _cos(torch, flat[a], flat[b]) for n, (a, b) in
+             (("K,P", ("K", "P")), ("K,F", ("K", "F")), ("P,F", ("P", "F")))}
+    print(f"(i) B={B} loss kernels {loss_k:.6f} plain {loss_p:.6f} fp32 {loss_f:.6f}; grad_norm "
+          f"kernels {n_k:.6f} plain {n_p:.6f}; whole-grad cosine "
+          + ", ".join(f"{n} {v:.6f}" for n, v in whole.items()))
+    print(f"    per grad ({len(rows)}): min cos(K,P) {min(r[1] for r in rows):.6f}, "
+          f"min cos(K,F) {min(r[2] for r in rows):.6f}, min cos(P,F) {min(r[3] for r in rows):.6f}")
+    for r in sorted(rows)[:3]:
+        print(f"    largest shortfall of the kernels against fp32: {r[4]}: cos(K,F) {r[2]:.6f} "
+              f"cos(P,F) {r[3]:.6f} cos(K,P) {r[1]:.6f}")
+    for r in sorted(scale, reverse=True)[:3]:
+        print(f"    largest excess of the kernels' relative error to fp32: {r[4]}: |K-F|/|F| "
+              f"{r[2]:.6f} |P-F|/|F| {r[3]:.6f}")
+    gaps = sorted(scale, key=lambda r: -r[1])
+    worst = gaps[0]
+    print(f"    max relative error to fp32: kernels {max(r[2] for r in scale):.6f}, plain "
+          f"{max(r[3] for r in scale):.6f}; scale along fp32 s-1: mean kernels "
+          f"{np.mean([r[5] for r in scale]) - 1:+.6f}, plain {np.mean([r[6] for r in scale]) - 1:+.6f}; "
+          f"largest |s(K)-s(P)| " + ", ".join(f"{r[1]:.6f} ({r[4]})" for r in gaps[:3]))
+    if not (np.isfinite(loss_k) and abs(loss_k - loss_p) <= REL * abs(loss_p)
+            and abs(n_k - n_p) <= REL * n_p and min(rows)[0] >= -COS_SLACK
+            and whole["K,F"] >= whole["P,F"] - COS_SLACK / 5
+            and max(scale)[0] <= ERR_SLACK and worst[1] <= SCALE_SLACK):
+        raise AssertionError("the VA step's loss or grads on the kernels are further from the "
+                             "fp32 reference than the plain ops' bf16 grads")
+
+    # (ii) the training path: its launches are counted from here, one step
+    init = {k: p.detach().clone() for k, p in tr.model.named_parameters()}
+    reset_launches()
+    losses = [float(tr.train_step(*batch)["loss"])]
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    print(f"(ii) launches in one training step: {json.dumps(counts, sort_keys=True)}")
+    fwd_blocks, bwd_blocks = audio_layers + image_layers, audio_layers
+    want = {
+        "fused_ln_attention_block": fwd_blocks, "fused_ln_mlp_block": fwd_blocks,
+        "fused_ln_attention_block_bwd": bwd_blocks, "fused_ln_mlp_block_bwd": bwd_blocks,
+        "layernorm_fwd": 2 * fwd_blocks + 2 * bwd_blocks, "gemm_bias_act": 4 * fwd_blocks + bwd_blocks,
+        "attention_fwd": fwd_blocks, "attention_bwd": bwd_blocks, "layernorm_bwd": 2 * bwd_blocks,
+        "colsum": 4 * bwd_blocks, "gemm_dgrad": 4 * bwd_blocks, "gemm_wgrad": 4 * bwd_blocks,
+    }
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    record_launches(results, "train", counts)
+
+    # (iii) five LARS steps at production knobs
+    for i in range(4):
+        losses.append(float(tr.train_step(*batch)["loss"]))
+        if i == 0:
+            moved = [k for k, p in tr.trainable.items() if not torch.equal(p.detach(), init[k])]
+    step = max((p.detach() - init[k]).abs().max().item() for k, p in tr.trainable.items())
+    print(f"(iii) LARS losses {[round(v, 5) for v in losses]}; lr at step 4 "
+          f"{tr.state.optimizer.schedule(4):.3e}; {len(moved)} of {len(tr.trainable)} "
+          f"trainable params moved by step 2; largest change of a param after 5 steps {step:.3e}")
+    if not np.isfinite(losses).all() or not any(k.startswith("audio.") for k in moved):
+        raise AssertionError("LARS steps: non-finite loss or the audio tower did not move")
+    for k, p in tr.frozen.items():
+        if not torch.equal(p.detach(), init[k]) or p.grad is not None:
+            raise AssertionError(f"frozen image param {k} changed")
+    del tr, batch, g_k, g_p, init
+
+    # (iv) time at B = 64, kernels against plain ops
+    B = 64
+    tr = _trainer(torch, B)
+    batch = _va_batch(tr, np.random.default_rng(1), B)
+
+    def fwd():
+        with torch.no_grad():
+            return tr.model(*batch, train=True)
+
+    timing = {}
+    for label, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_ops)):
+        with ctx():
+            timing[label] = {"fwd": cuda_ms(torch, fwd, 5, 2),
+                             "fwd_bwd": cuda_ms(torch, lambda: loss_and_grads(tr.state, *batch), 5, 2),
+                             "step": cuda_ms(torch, lambda: tr.train_step(*batch), 5, 2)}
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_step(*batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for label, t in timing.items():
+        print(f"(iv) B={B} {label}: {t['step']:.2f} ms/step ({B / t['step'] * 1e3:.1f} clips/s): "
+              f"fwd {t['fwd']:.2f}, fwd+bwd {t['fwd_bwd']:.2f}, "
+              f"optimizer and the rest {t['step'] - t['fwd_bwd']:.2f} ms")
+    print(f"(iv) peak device memory of a kernel step at B={B}: {peak:.2f} GiB")
+    busy, span, by_name = _profile(torch, lambda: tr.train_step(*batch))
+    step_ms = timing["kernels"]["step"]
+    print(f"(iv) profiler, kernel step at B={B}: device busy {busy:.2f} ms / span {span:.2f} ms "
+          f"per step (idle {100 * (1 - busy / span):.1f} % of the traced span, "
+          f"{100 * max(0.0, 1 - busy / step_ms):.1f} % of the untraced {step_ms:.2f} ms step); "
+          f"top kernels by device time per step:")
+    for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"    {d / 3:9.3f} ms  {n // 3:5d}x  {name[:90]}")
+    del tr, batch
+
+    # (v) Adam descent smoke, and its first losses on the plain ops
+    B, n_steps = 32, 60
+    adam = ["optimizer.use_lars=False", "optimizer.warmup=False", "optimizer.lr=1.0e-3"]
+    curves = {}
+    for label, ctx, steps in (("kernels", contextlib.nullcontext, n_steps), ("plain", plain_ops, 10)):
+        tr = _trainer(torch, B, *adam)
+        batches = [_va_batch(tr, np.random.default_rng(7 + i), B) for i in range(4)]
+        with ctx():
+            curves[label] = [float(tr.train_step(*batches[i % 4])["loss"]) for i in range(steps)]
+        del tr, batches
+    k, p = np.asarray(curves["kernels"]), np.asarray(curves["plain"])
+    print(f"(v) Adam B={B}: kernels {np.round(k[::5], 4).tolist()} ... last 5 mean "
+          f"{k[-5:].mean():.4f}; plain first 10 {np.round(p, 4).tolist()}")
+    if not (np.isfinite(k).all() and k[-5:].mean() < 0.9 * k[0]):
+        raise AssertionError(f"Adam smoke did not descend: {k.tolist()}")
+    if (np.abs(k[:10] - p) > 0.02 * np.abs(p)).any():
+        raise AssertionError(f"first 10 Adam losses: kernels {k[:10]} vs plain {p}")
 
 
 def main() -> int:
@@ -259,21 +663,24 @@ def main() -> int:
                 print("  " + line.strip())
 
     results: dict = {}
-    print("kernel phase (kernel vs plain PyTorch on the card):")
-    kernel_phase(torch, results)
-    print("slice phase (full-size CLAP serving engine):")
-    slice_phase(torch, results)
+    for title, phase in (("kernel phase (forward kernels vs plain PyTorch on the card)", kernel_phase),
+                         ("backward kernel phase (vs plain PyTorch on the card)", backward_kernel_phase),
+                         ("serving slice (full-size CLAP engine)", slice_phase),
+                         ("training slice (flagship VA step, full width)", train_phase)):
+        t0 = time.perf_counter()
+        print(title + ":")
+        phase(torch, results)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
 
     line = {"kernels": []}
-    for name in ("layernorm_fwd", "gemm_bias_act", "attention_fwd",
-                 "fused_ln_attention_block", "fused_ln_mlp_block"):
+    for name, (source, replaces) in KERNELS.items():
         r = results[name]
         main_case = r["cases"][0]
         line["kernels"].append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": r["launches"],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(r["launches"].values()), "launches_by_path": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": main_case["ms"],
-            "plain_ms": main_case["plain_ms"],
+            "plain_ms": main_case["plain_ms"], "cases": r["cases"],
         })
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

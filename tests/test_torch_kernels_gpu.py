@@ -1,12 +1,14 @@
 """The hand-written CUDA kernels (vipant_tpu_torch/csrc) against their plain
-PyTorch versions on the card, at the serving path's shapes. Every test here
-needs a CUDA device and skips without one. This file imports no JAX, so it
-runs on a GPU machine without it:
+PyTorch versions on the card, at the serving and training paths' shapes.
+Every test here needs a CUDA device and skips without one. This file
+imports no JAX, so it runs on a GPU machine without it:
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu --noconftest
 
-Tolerance: atol = rtol = 2e-2 on bf16 outputs, one bf16 ulp of the output
-plus a different fp32 summation order."""
+Tolerances: atol = rtol = 2e-2 on bf16 outputs, one bf16 ulp of the output
+plus a different fp32 summation order; max |d| <= 1e-2 * max |plain| on
+fp32 grads (weight, bias and LayerNorm grads, the fp32 dqkv), which sum
+over thousands of rows in another order."""
 
 from unittest import mock
 
@@ -20,6 +22,7 @@ from vipant_tpu_torch.serve import InferenceEngine
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=2e-2, rtol=2e-2)
+REL = 1e-2
 
 
 @pytest.fixture
@@ -31,6 +34,17 @@ def gen():
 
 def _rn(gen, *shape, std=1.0):
     return torch.randn(*shape, generator=gen, device="cuda") * std
+
+
+def _close(got, want, what=""):
+    """bf16: atol = rtol = 2e-2; fp32: max |d| <= 1e-2 * max |want|."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert torch.isfinite(got).all(), what
+    if got.dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), **TOL, msg=what)
+    else:
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        assert err <= REL * scale, f"{what}: max|d| {err:.3e} > {REL} * {scale:.3e}"
 
 
 def _bias(kind, T, k=4):
@@ -113,3 +127,153 @@ def test_engine_runs_every_sub_block_through_the_kernels(gen):
         assert np.isfinite(got).all()
         cos = (got * want).sum(-1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(want, axis=-1)
         assert cos.min() >= 0.999
+
+
+@pytest.mark.parametrize("B,T,C", [(4, 306, 768), (64, 306, 768), (1, 308, 512), (3, 37, 64)])
+def test_layernorm_bwd_kernel_matches_plain(gen, B, T, C):
+    x, w = _rn(gen, B, T, C).bfloat16(), 1 + _rn(gen, C, std=0.1)
+    dh, res = _rn(gen, B, T, C), _rn(gen, B, T, C).bfloat16()
+    for r in (res, None):
+        got = kernels.layernorm_bwd(x, w, dh, r)
+        want = kernels.layernorm_bwd_plain(x, w, dh, r)
+        for name, g, wt in zip(("dx", "dw", "db"), got, want):
+            _close(g, wt, name)
+
+
+@pytest.mark.parametrize("M,N,K", [
+    (1224, 2304, 768), (1224, 768, 3072), (111, 64, 256),
+    (19584, 2304, 768), (19584, 768, 3072),  # the training step's audio batch, B = 64
+])
+def test_gemm_backward_kernels_match_plain(gen, M, N, K):
+    x, w, b = _rn(gen, M, K).bfloat16(), _rn(gen, N, K, std=K ** -0.5).bfloat16(), _rn(gen, N)
+    y, a = kernels.gemm_bias_act(x, w, b, "gelu", preact=True)
+    y0, a0 = kernels.gemm_bias_act_plain(x, w, b, "gelu", preact=True)
+    _close(y, y0, "y")
+    _close(a, a0, "preact")
+    dy, a_in = _rn(gen, M, N).bfloat16(), _rn(gen, M, K)  # a_in: the preact of dy . w
+    for act in ("none", "quick_gelu", "gelu"):
+        pre = None if act == "none" else a_in
+        for rounded in (True, False):
+            _close(kernels.gemm_dgrad(dy, w, rounded, act, pre),
+                   kernels.gemm_dgrad_plain(dy, w, rounded, act, pre), f"dgrad {act} {rounded}")
+    _close(kernels.gemm_wgrad(dy, x), kernels.gemm_wgrad_plain(dy, x), "wgrad")
+    for t in (dy, a0):
+        _close(kernels.colsum(t), kernels.colsum_plain(t), f"colsum {t.dtype}")
+
+
+@pytest.mark.parametrize("B,T,C,H,kind", [
+    (4, 306, 768, 12, "none"),          # audio tower
+    (64, 306, 768, 12, "none"),         # the training step's audio batch
+    (1, 308, 512, 8, "causal_pack"),    # text tower, 4 captions packed
+    (3, 37, 128, 2, "causal"),          # short ragged tail
+])
+def test_attention_bwd_kernel_matches_plain(gen, B, T, C, H, kind):
+    qkv, do = _rn(gen, B, T, 3 * C).bfloat16(), _rn(gen, B, T, C).bfloat16()
+    bias = fused_attn.canon_bias(_bias(kind, T))
+    o, stats = kernels.attention_fwd(qkv, bias, H, 0.125, stats=True)
+    _close(o, kernels.attention_plain(qkv, bias, H, 0.125), "o")
+    got = kernels.attention_bwd(qkv, do, bias, H, 0.125, stats)
+    want = kernels.attention_bwd_plain(qkv, do, bias, H, 0.125)
+    _close(got[0], want[0], "dqkv")
+    _close(got[1], want[1], "dqkv bf16")
+
+
+def _grads(block, args, g, **kw):
+    """Grads of ``block(*args, **kw)`` for the output grad ``g`` with respect
+    to every argument, through the sub-block's autograd boundary."""
+    leaves = [a.clone().requires_grad_() for a in args]
+    return torch.autograd.grad(block(*leaves, **kw), leaves, g)
+
+
+@pytest.mark.parametrize("B,T,C,H,kind", [
+    (4, 306, 768, 12, "none"),
+    (64, 306, 768, 12, "none"),         # the training step's audio batch
+    (1, 308, 512, 8, "causal_pack"),
+    (3, 37, 128, 2, "causal"),
+])
+def test_attention_block_backward_matches_plain(gen, B, T, C, H, kind):
+    args = (_rn(gen, B, T, C).bfloat16(), 1 + _rn(gen, C, std=0.1), _rn(gen, C, std=0.1),
+            _rn(gen, 3 * C, C, std=C ** -0.5), _rn(gen, 3 * C, std=0.02),
+            _rn(gen, C, C, std=C ** -0.5), _rn(gen, C, std=0.02))
+    bias, g = _bias(kind, T), _rn(gen, B, T, C).bfloat16()
+    names = ("dx", "dlns", "dlnb", "dwqkv", "dbqkv", "dwout", "dbout")
+    reset_launches()
+    got = _grads(fused_attn.fused_ln_attention_block, args, g, bias=bias, heads=H)
+    assert LAUNCHES["fused_ln_attention_block_bwd"] == 1 and LAUNCHES["attention_bwd"] == 1
+    want = _grads(fused_attn.fused_ln_attention_block_plain, args, g, bias=bias, heads=H)
+    for name, a, b in zip(names, got, want):
+        _close(a, b, name)
+    bare = (args[0], *args[3:])
+    got = _grads(fused_attn.fused_attention_block, bare, g, bias=bias, heads=H)
+    want = _grads(fused_attn.fused_attention_block_plain, bare, g, bias=bias, heads=H)
+    for name, a, b in zip(names[:1] + names[3:], got, want):
+        _close(a, b, "bare " + name)
+
+
+@pytest.mark.parametrize("B,T,C", [(4, 306, 768), (64, 306, 768), (1, 308, 512), (2, 37, 64)])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+def test_mlp_block_backward_matches_plain(gen, B, T, C, act):
+    E = 4 * C
+    args = (_rn(gen, B, T, C).bfloat16(), 1 + _rn(gen, C, std=0.1), _rn(gen, C, std=0.1),
+            _rn(gen, E, C, std=C ** -0.5), _rn(gen, E, std=0.02),
+            _rn(gen, C, E, std=E ** -0.5), _rn(gen, C, std=0.02))
+    gy = _rn(gen, B, T, C).bfloat16()
+    names = ("dx", "dlns", "dlnb", "dwfc", "dbfc", "dwproj", "dbproj")
+    reset_launches()
+    got = _grads(fused_mlp.fused_ln_mlp_block, args, gy, act=act)
+    assert LAUNCHES["fused_ln_mlp_block_bwd"] == 1 and LAUNCHES["layernorm_bwd"] == 1
+    want = _grads(fused_mlp.fused_ln_mlp_block_plain, args, gy, act=act)
+    for name, a, b in zip(names, got, want):
+        _close(a, b, name)
+
+
+def test_train_step_runs_every_backward_through_the_kernels(gen):
+    """Two-layer VA step at full width (B = 8): one backward launch of each
+    sub-block per trainable layer, none from the frozen image tower, and
+    every trainable grad as close to the fp32 grads of the plain ops (same
+    init, same batch) as the plain ops' own bf16 grads: cosine within 5e-3,
+    relative error within 3e-2, and the scale along the fp32 grad,
+    V.F / |F|^2, within 5e-2 (which cosine alone cannot see), these two
+    for every grad but the loss
+    head's scalar logit_scale, whose grad is taken from the forward's
+    features before any backward kernel runs. bf16 rounding alone puts the kernels'
+    and the plain ops' bf16 grads about 0.5 % apart on the bias grads, so
+    they are not held to each other at 0.999."""
+    from vipant_tpu_torch.train import Trainer, loss_and_grads
+
+    def trainer(dtype):
+        return Trainer([
+            "+running=bimodal", "+model/image=vit_val", "+model/audio=vit_val",
+            "+model/text=dummy", "+model/loss=ce", "+optimizer=standard", "+running/audio=default",
+            "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=1000",
+            "model.image.token_pack=4", "worker=CVAP", "model_file=", "running.batch_size=8",
+            "model.image.encoder.layers=2", f"compute_dtype={dtype}",
+        ], device="cuda", steps_per_epoch=1000)
+
+    tr = trainer("bfloat16")
+    r = np.random.default_rng(0)
+    batch = tr.make_batch(r.standard_normal((8, 3, 224, 224)).astype(np.float32),
+                          r.standard_normal((8, 1, 1000, 128)).astype(np.float32))
+    reset_launches()
+    loss, grads = loss_and_grads(tr.state, *batch)
+    assert LAUNCHES["fused_ln_attention_block_bwd"] == LAUNCHES["fused_ln_mlp_block_bwd"] == 2
+    assert LAUNCHES["fused_ln_attention_block"] == LAUNCHES["fused_ln_mlp_block"] == 4
+    with mock.patch.object(fused_attn, "fused_ln_attention_block",
+                           fused_attn.fused_ln_attention_block_plain), \
+         mock.patch.object(fused_mlp, "fused_ln_mlp_block", fused_mlp.fused_ln_mlp_block_plain):
+        loss_p, grads_p = loss_and_grads(tr.state, *batch)
+        loss_f, grads_f = loss_and_grads(trainer("float32").state, *batch)
+    assert torch.isfinite(loss) and abs(loss.item() - loss_p.item()) <= 1e-2 * abs(loss_p.item())
+
+    def cos(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return (a @ b / (a.norm() * b.norm())).item()
+
+    for k, g in grads.items():
+        K, P, F = (t.double().flatten() for t in (g, grads_p[k], grads_f[k]))
+        nf = F.norm().item()
+        if nf > 0:
+            assert cos(K, F) >= cos(P, F) - 5e-3, k
+        if nf > 0 and not k.startswith("loss."):  # logit_scale: a scalar before any kernel
+            assert (K - F).norm().item() / nf <= (P - F).norm().item() / nf + 3e-2, k
+            assert abs((K - P) @ F).item() <= 5e-2 * nf ** 2, k  # scale along F

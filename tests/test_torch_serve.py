@@ -121,8 +121,8 @@ def test_bridge_matches_reference_export():
     reference exporter, and the port model holds every one of them."""
     jeng = JaxEngine(TINY, batch_size=4)
     params = jeng.variables["params"]
-    for got, want in ((from_jax.visual_state_dict(params["audio"]), export_visual_sd(params["audio"])),
-                      (from_jax.text_state_dict(params["text"]), export_text_sd(params["text"]))):
+    for got, want in ((from_jax.tower_state_dict(params["audio"]), export_visual_sd(params["audio"])),
+                      (from_jax.tower_state_dict(params["text"]), export_text_sd(params["text"]))):
         assert sorted(got) == sorted(want)
         for k in want:
             np.testing.assert_array_equal(got[k], np.asarray(want[k], np.float32), err_msg=k)

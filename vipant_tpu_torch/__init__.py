@@ -10,7 +10,9 @@ the JAX package's config (``vipant_tpu.config``) and tokenizer
 of it.
 
 Ported so far: the serving path (``serve.InferenceEngine``: audio, text and
-image embeddings, zero-shot) of the CVAP and CLAP models.
+image embeddings, zero-shot) of the CVAP and CLAP models, and the VA
+training step (``train.Trainer``: trainable/frozen split, LARS or Adam with
+clipping, forward and backward through the kernels) on device arrays.
 """
 
 __version__ = "0.1.0"

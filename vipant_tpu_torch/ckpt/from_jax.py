@@ -13,12 +13,18 @@ the layouts change on the way:
 - the HWIO patch kernel -> OIHW ``pre_encoder.conv1.weight``;
 - LayerNorm {scale, bias} -> {weight, bias}.
 
+The mapping goes leaf by leaf, so a partial tree converts too: the
+trainable subtree of a train state, its grads or its optimizer moments
+(same shapes as the params), or a bool mask (``convert=False`` keeps the
+leaves as they are and only renames them).
+
 Re-written here because ``vipant_tpu.ckpt`` imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import re
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,79 +36,89 @@ def _a(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
-def _ln(tree: Tree, prefix: str) -> Dict[str, np.ndarray]:
-    return {f"{prefix}.weight": _a(tree["scale"]), f"{prefix}.bias": _a(tree["bias"])}
+def _t(a: np.ndarray) -> np.ndarray:
+    return a.T
 
 
-def _blocks(encoder: Tree) -> Dict[str, np.ndarray]:
-    trunk = encoder["transformer"]
-    if "blocks" in trunk:
+# leaf path inside a trunk block -> (port name, layout change)
+_BLOCK_LEAVES: Dict[str, Tuple[str, Optional[Callable]]] = {
+    "attn/qkv/kernel": ("attn.in_proj_weight", lambda a: a.reshape(a.shape[0], -1).T),
+    "attn/qkv/bias": ("attn.in_proj_bias", lambda a: a.reshape(-1)),
+    "attn/out/kernel": ("attn.out_proj.weight", _t),
+    "attn/out/bias": ("attn.out_proj.bias", None),
+    "ln_1/scale": ("ln_1.weight", None),
+    "ln_1/bias": ("ln_1.bias", None),
+    "ln_2/scale": ("ln_2.weight", None),
+    "ln_2/bias": ("ln_2.bias", None),
+    "mlp/fc/kernel": ("mlp.c_fc.weight", _t),
+    "mlp/fc/bias": ("mlp.c_fc.bias", None),
+    "mlp/proj/kernel": ("mlp.c_proj.weight", _t),
+    "mlp/proj/bias": ("mlp.c_proj.bias", None),
+}
+# leaf path inside a ViT or text tower, outside the trunk
+_TOWER_LEAVES: Dict[str, Tuple[str, Optional[Callable]]] = {
+    "misc/positional_embedding": ("misc.positional_embedding", None),
+    "misc/class_embedding": ("misc.class_embedding", None),
+    "pre/kernel": ("pre_encoder.conv1.weight", lambda a: np.transpose(a, (3, 2, 0, 1))),
+    "pre/ln/scale": ("pre_encoder.ln.weight", None),
+    "pre/ln/bias": ("pre_encoder.ln.bias", None),
+    "pre/token_embedding": ("pre_encoder.token_embedding.weight", None),
+    "post/ln/scale": ("post_encoder.ln.weight", None),
+    "post/ln/bias": ("post_encoder.ln.bias", None),
+    "post/proj": ("post_encoder.proj", None),
+}
+_BLOCK = re.compile(r"encoder/transformer/block_(\d+)/(.+)")
+
+
+def _flat(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def port_name(path: str) -> Tuple[str, Optional[Callable]]:
+    """A '/'-joined leaf path inside a JAX tower -> (the port's parameter
+    name inside the tower, the layout change or None)."""
+    m = _BLOCK.fullmatch(path)
+    if m is not None:
+        name, fn = _BLOCK_LEAVES[m.group(2)]
+        return f"encoder.resblocks.{int(m.group(1))}.{name}", fn
+    if path.startswith("encoder/transformer/blocks/"):
         raise NotImplementedError("pipeline-stacked trunks are not supported; unstack first")
-    out: Dict[str, np.ndarray] = {}
-    for name in sorted(trunk, key=lambda n: int(n.split("_")[1])):
-        blk, p = trunk[name], f"encoder.resblocks.{int(name.split('_')[1])}"
-        qk = _a(blk["attn"]["qkv"]["kernel"])
-        out[f"{p}.attn.in_proj_weight"] = qk.reshape(qk.shape[0], -1).T
-        out[f"{p}.attn.in_proj_bias"] = _a(blk["attn"]["qkv"]["bias"]).reshape(-1)
-        out[f"{p}.attn.out_proj.weight"] = _a(blk["attn"]["out"]["kernel"]).T
-        out[f"{p}.attn.out_proj.bias"] = _a(blk["attn"]["out"]["bias"])
-        out.update(_ln(blk["ln_1"], f"{p}.ln_1"))
-        out.update(_ln(blk["ln_2"], f"{p}.ln_2"))
-        out[f"{p}.mlp.c_fc.weight"] = _a(blk["mlp"]["fc"]["kernel"]).T
-        out[f"{p}.mlp.c_fc.bias"] = _a(blk["mlp"]["fc"]["bias"])
-        out[f"{p}.mlp.c_proj.weight"] = _a(blk["mlp"]["proj"]["kernel"]).T
-        out[f"{p}.mlp.c_proj.bias"] = _a(blk["mlp"]["proj"]["bias"])
+    if path not in _TOWER_LEAVES:
+        raise KeyError(f"JAX parameter {path!r} has no counterpart in the port")
+    return _TOWER_LEAVES[path]
+
+
+def tower_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
+    """One ViT (``VisionTower``) or ``TextTower`` tree -> its port names."""
+    out = {}
+    for path, leaf in _flat(params):
+        name, fn = port_name(path)
+        if convert:
+            leaf = _a(leaf) if fn is None else fn(_a(leaf))
+        out[name] = leaf
     return out
 
 
-def visual_state_dict(params: Tree) -> Dict[str, np.ndarray]:
-    """ViT ``VisionTower`` params -> tower state dict."""
-    out = {
-        "misc.positional_embedding": _a(params["misc"]["positional_embedding"]),
-        "misc.class_embedding": _a(params["misc"]["class_embedding"]),
-        "pre_encoder.conv1.weight": np.transpose(_a(params["pre"]["kernel"]), (3, 2, 0, 1)),
-        "post_encoder.proj": _a(params["post"]["proj"]),
-    }
-    out.update(_ln(params["pre"]["ln"], "pre_encoder.ln"))
-    out.update(_ln(params["post"]["ln"], "post_encoder.ln"))
-    out.update(_blocks(params["encoder"]))
-    return out
-
-
-def text_state_dict(params: Tree) -> Dict[str, np.ndarray]:
-    """``TextTower`` params -> tower state dict."""
-    out = {
-        "misc.positional_embedding": _a(params["misc"]["positional_embedding"]),
-        "pre_encoder.token_embedding.weight": _a(params["pre"]["token_embedding"]),
-        "post_encoder.proj": _a(params["post"]["proj"]),
-    }
-    out.update(_ln(params["post"]["ln"], "post_encoder.ln"))
-    out.update(_blocks(params["encoder"]))
-    return out
-
-
-def loss_state_dict(params: Tree) -> Dict[str, np.ndarray]:
-    """Loss-head params: ``logit_scale`` (a scalar) is the only one the
-    ported ``CELossHead`` holds."""
-    return {k: _a(v) for k, v in params.items() if k == "logit_scale"}
-
-
-def model_state_dict(params: Tree) -> Dict[str, np.ndarray]:
-    """Whole-model params {"image"|"audio"|"text"|"loss": subtree} -> the
-    port model's state dict, keys prefixed with the tower name."""
-    out: Dict[str, np.ndarray] = {}
+def model_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
+    """Whole-model tree {"image"|"audio"|"text"|"loss": subtree}, or any part
+    of one -> the port model's names, prefixed with the tower name. The
+    loss head's ``logit_scale`` (a scalar) is the only loss leaf the ported
+    ``CELossHead`` holds."""
+    out: Dict[str, Any] = {}
     for tower, sub in params.items():
         if not sub:
             continue
         if tower == "loss":
-            conv = loss_state_dict
-        elif tower == "text":
-            conv = text_state_dict
-        elif tower in ("image", "audio"):
-            conv = visual_state_dict
+            conv = {k: _a(v) if convert else v for k, v in sub.items() if k == "logit_scale"}
+        elif tower in ("image", "audio", "text"):
+            conv = tower_state_dict(sub, convert)
         else:
             raise KeyError(f"unknown tower {tower!r} in the JAX params")
-        out.update({f"{tower}.{k}": v for k, v in conv(sub).items()})
+        out.update({f"{tower}.{k}": v for k, v in conv.items()})
     return out
 
 

@@ -1,5 +1,6 @@
 // attention_fwd: softmax(q.k^T * scale + bias) . v for every head, reading
-// the packed [B, T, 3C] projection and writing [B, T, C].
+// the packed [B, T, 3C] projection and writing [B, T, C]; for training also
+// the softmax's row max and row sum, which attention_bwd reads.
 //
 // Replaces: the score / softmax / context steps of the Pallas kernel
 //   vipant_tpu/ops/fused_attn.py::_fwd_kernel (lines 105-111).
@@ -21,81 +22,21 @@
 // accumulates in fp32 and is rounded to bf16 once. A flash-style online
 // softmax would rescale after p.v and so round p differently.
 //
-// Layout: q, k and v are the three C-wide sections of each row of qkv, and
-// head h occupies columns [h*64, h*64+64) of each section (torch
-// MultiheadAttention's order). The output puts head h in the same columns.
-// Query rows and keys past T are masked: keys past T get probability 0 and
-// zero-filled v rows, query rows past T are not stored.
+// Layout and masking: see attention.cuh. Keys past T get probability 0
+// against zero-filled v rows; query rows past T are not stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
+#include "attention.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace attn;
 
-constexpr int D = 64;         // head dim (checked by the wrapper)
-constexpr int BQ = 64;        // query rows per block: 4 warps x 16
-constexpr int BKV = 64;       // keys per tile
-constexpr int LDH = D + 8;    // bf16 tile row: 144 bytes
-constexpr int LDS = BKV + 4;  // fp32 score row: 272 bytes
-constexpr int kThreads = 128;
-constexpr int kTileBytes = BQ * LDH * 2;  // one bf16 64 x 72 tile
-constexpr int kSmemBytes = 4 * kTileBytes + BQ * LDS * 4;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// rows [r0, r0 + 64) of one head's section into a 64 x LDH tile; rows past T
-// are zero
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* base, int r0,
-                                          int T, int C3) {
-  for (int c = threadIdx.x; c < 64 * (D / 8); c += kThreads) {
-    const int r = c >> 3, k = (c & 7) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T) v = *reinterpret_cast<const uint4*>(base + static_cast<size_t>(r0 + r) * C3 + k);
-    *reinterpret_cast<uint4*>(dst + r * LDH + k) = v;
-  }
-}
-
-// raw fp32 q.k^T for this warp's 16 query rows against the 64 keys in Ks,
-// stored to the warp's rows of Ss
-__device__ __forceinline__ void score_tile(const __nv_bfloat16* Qs, const __nv_bfloat16* Ks,
-                                           float* Ss, int warp) {
-  FragC s[BKV / 16];
-#pragma unroll
-  for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(s[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, Qs + warp * 16 * LDH + kk, LDH);
-#pragma unroll
-    for (int j = 0; j < BKV / 16; ++j) {
-      FragBc b;
-      wmma::load_matrix_sync(b, Ks + j * 16 * LDH + kk, LDH);
-      wmma::mma_sync(s[j], a, b, s[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BKV / 16; ++j)
-    wmma::store_matrix_sync(Ss + warp * 16 * LDS + j * 16, s[j], LDS, wmma::mem_row_major);
-  __syncwarp();
-}
-
-// the Pallas order: (q.k) * scale, then + bias, each rounded in fp32
-__device__ __forceinline__ float scaled(float raw, float scale, const float* bias, int i, int j,
-                                        int T) {
-  const float bv = (bias != nullptr && i < T) ? bias[static_cast<size_t>(i) * T + j] : 0.f;
-  return __fadd_rn(__fmul_rn(raw, scale), bv);
-}
+constexpr int kSmemBytes = 4 * kTileBytes + kScoreBytes;
 
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ out, int T, int H, float scale) {
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ stat_m,
+                     float* __restrict__ stat_l, int T, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = Qs + BQ * LDH;
@@ -149,6 +90,11 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
     m = mnew;
     __syncwarp();
   }
+  if (stat_m != nullptr && i < T && half == 0) {
+    const size_t row = (static_cast<size_t>(b) * H + h) * T + i;
+    stat_m[row] = m;
+    stat_l[row] = l;
+  }
 
   // pass 2: normalised bf16 p, then p.v accumulated in fp32
   FragC o[D / 16];
@@ -164,7 +110,7 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
     for (int c = 0; c < 32; ++c) {
       const int j = k0 + half * 32 + c;
       float p = 0.f;
-      if (j < T) p = expf(scaled(srow[c], scale, bias, i, j, T) - m) / l;
+      if (j < T) p = prob(scaled(srow[c], scale, bias, i, j, T), m, l);
       prow[c] = __float2bfloat16(p);
     }
     __syncwarp();
@@ -197,15 +143,18 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
 
 }  // namespace
 
-extern "C" int vt_attention_fwd(const void* qkv, const void* bias, void* out, int B, int T, int H,
-                                float scale, void* stream) {
+// stats: null, or [2, B, H, T] fp32 receiving the row max and the row sum
+extern "C" int vt_attention_fwd(const void* qkv, const void* bias, void* out, void* stats, int B,
+                                int T, int H, float scale, void* stream) {
   if (B <= 0 || T <= 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
+  float* stat_m = static_cast<float*>(stats);
+  float* stat_l = stat_m == nullptr ? nullptr : stat_m + static_cast<size_t>(B) * H * T;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   attention_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), T, H, scale);
+      static_cast<__nv_bfloat16*>(out), stat_m, stat_l, T, H, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,14 @@
-"""Model assembly: config -> ``nn.Module``, and seeded random init.
+"""Model assembly: config -> ``nn.Module``, seeded random init, and the
+trainable-parameter mask.
 
-Counterpart of ``vipant_tpu/models/build.py:26-115`` for the CVAP and CLAP
-workers. Parameters are fp32 (``param_dtype``); activations run in
-``compute_dtype`` (bfloat16 in the default config).
+Counterpart of ``vipant_tpu/models/build.py:26-115`` and ``:205-250`` for
+the CVAP and CLAP workers. Parameters are fp32 (``param_dtype``);
+activations run in ``compute_dtype`` (bfloat16 in the default config).
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 from torch import nn
@@ -50,3 +53,31 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if hasattr(module, "init_weights"):
                 module.init_weights(generator)
     return model
+
+
+# excl_modules names (the reference's stage names, or the JAX package's
+# aliases of them) -> the port's stage modules
+_STAGES = {"pre": "pre_encoder", "post": "post_encoder", "pre_addon": "pre_encoder_addon",
+           "post_addon": "post_encoder_addon"}
+
+
+def tunable_mask(cfg, model: nn.Module) -> Dict[str, bool]:
+    """Parameter name -> True if trainable: the JAX package's rule
+    (``vipant_tpu/models/build.py:tunable_mask``). A tower whose config sets
+    ``freeze`` is frozen, the stages listed in ``running.excl_modules``
+    (``vmodules`` image, ``amodules`` audio, ``lmodules`` text) are frozen,
+    and the loss head is always trainable. Siamese ties are not ported."""
+    run = cfg.get("running", None)
+    if run is not None and "siamese" in run and bool(run.siamese.get("alive", False)):
+        raise NotImplementedError("siamese parameter ties are not ported yet")
+    m = cfg.model
+    frozen = {t: bool(m[t].freeze) for t in ("image", "audio", "text") if t in m and "freeze" in m[t]}
+    excl = {}
+    if run is not None and "excl_modules" in run:
+        for key, tower in (("vmodules", "image"), ("amodules", "audio"), ("lmodules", "text")):
+            excl[tower] = [_STAGES.get(n, n) for n in run.excl_modules.get(key, []) or []]
+    mask = {}
+    for name, _ in model.named_parameters():
+        tower, stage = name.split(".")[:2]
+        mask[name] = not frozen.get(tower, False) and stage not in excl.get(tower, [])
+    return mask

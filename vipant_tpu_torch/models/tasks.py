@@ -6,6 +6,8 @@ CLAP (audio-text retrieval; the captioning decoder is not ported).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
@@ -18,10 +20,13 @@ MODELS = Registry("MODELS")
 
 def _encode(tower: nn.Module, x: torch.Tensor, train: bool):
     """Float rank-2 inputs are precomputed embeddings and are only
-    (re-)normalised; token ids (integer rank-2) go through the tower."""
+    (re-)normalised; token ids (integer rank-2) go through the tower. A
+    tower whose params are all frozen runs without autograd."""
     if x.dim() == 2 and x.is_floating_point():
         return normalize(x)
-    return tower(x, train=train, normalized=True)
+    frozen = not any(p.requires_grad for p in tower.parameters())
+    with torch.no_grad() if frozen else contextlib.nullcontext():
+        return tower(x, train=train, normalized=True)
 
 
 @MODELS.register()

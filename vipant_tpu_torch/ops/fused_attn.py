@@ -1,24 +1,36 @@
-"""The pre-LN attention sub-block ``x + proj(attn(LN(x)))``, forward only.
+"""The pre-LN attention sub-block ``x + proj(attn(LN(x)))`` and its backward.
 
-Port of the Pallas kernel ``vipant_tpu/ops/fused_attn.py::_fwd_kernel`` and
-its public ops ``fused_ln_attention_block`` / ``fused_attention_block``. On
-the TPU the whole sub-block ran in one VMEM-resident grid step per item. On
+Port of the Pallas kernels ``vipant_tpu/ops/fused_attn.py::_fwd_kernel`` and
+``::_bwd_kernel`` and their public ops ``fused_ln_attention_block`` /
+``fused_attention_block``. On the TPU the whole sub-block ran in one
+VMEM-resident grid step per item, and the backward recomputed it there. On
 Hopper its [T, 3C] projection and [H, T, T] scores do not fit one block's
-shared memory, so the sub-block is a chain of four hand-written kernels
+shared memory, so each direction is a chain of hand-written kernels
 (:mod:`.kernels`):
 
-    h   = layernorm_fwd(x)                     (optional)
-    qkv = gemm_bias_act(h, Wqkv, bqkv)         [B, T, 3C] bf16
-    o   = attention_fwd(qkv, bias)             [B, T, C]  bf16
-    out = gemm_bias_act(o, Wout, bout, residual=x)
+    forward                                   backward (g = d out)
+    h   = layernorm_fwd(x)       (optional)   h    = layernorm_fwd(x)     (recomputed)
+    qkv = gemm_bias_act(h, Wqkv, bqkv)        dbout = colsum(g)
+    o   = attention_fwd(qkv, bias)            do   = gemm_dgrad(g, Wout)        bf16
+    out = gemm_bias_act(o, Wout, bout,        dWout = gemm_wgrad(g, o)
+                        residual=x)           dqkv = attention_bwd(qkv, do)    fp32 + bf16
+                                              dbqkv = colsum(dqkv fp32)
+                                              dh   = gemm_dgrad(dqkv, Wqkv)    fp32
+                                              dWqkv = gemm_wgrad(dqkv, h)
+                                              dx, dlns, dlnb = layernorm_bwd(x, dh, +g)
+
+The forward keeps qkv, o and the softmax's row statistics for the backward
+(the Pallas kernel stashed qkv above T = 128 and recomputed the rest); the
+backward recomputes only h. Saved per layer at the audio tower's B = 64,
+T = 306, C = 768: qkv 90.2 MB, o 30.1 MB, statistics 1.9 MB, besides x.
 
 Weights are in the torch ``nn.MultiheadAttention`` layout the port's modules
 hold: ``wqkv`` [3C, C] (``in_proj_weight``), ``bqkv`` [3C], ``wout`` [C, C]
 (``out_proj.weight``, [out, in]), ``bout`` [C]. The JAX package's [C, 3, C]
 qkv layout exists for TPU head sharding and is not carried over.
 
-``*_plain`` compose the kernels' plain versions: the same function, for
-holding the kernels to on the card.
+``*_plain`` run the same chains, forward and backward, on the kernels'
+plain versions: the same function, for holding the kernels to on the card.
 """
 
 from __future__ import annotations
@@ -27,8 +39,7 @@ from typing import Optional
 
 import torch
 
-from . import kernels
-from .kernels import LAUNCHES
+from .kernels import KERNEL_OPS, LAUNCHES, PLAIN_OPS, acc
 
 
 def canon_bias(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -39,34 +50,77 @@ def canon_bias(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return torch.clamp(bias.float(), min=-1e30).contiguous()
 
 
-def _block(ops, x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads):
-    layernorm, gemm, attention = ops
+def _scale(C: int, heads: int) -> float:
+    return 1.0 / float((C // heads) ** 0.5)
+
+
+def _forward(ops, x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads, keep=False):
+    """The forward chain. With ``keep`` also returns what the backward reads:
+    ``(wqkv, wout)`` in x's dtype, qkv, o and the attention statistics."""
     dt = x.dtype
-    h = layernorm(x, lns.float(), lnb.float()) if lns is not None else x
-    qkv = gemm(h, wqkv.to(dt).contiguous(), bqkv.float())
-    o = attention(qkv, canon_bias(bias), heads, 1.0 / float((x.shape[-1] // heads) ** 0.5))
-    return gemm(o, wout.to(dt).contiguous(), bout.float(),
-                residual=x if lns is not None else None)
+    wq, wo = wqkv.to(dt).contiguous(), wout.to(dt).contiguous()
+    h = ops.layernorm_fwd(x, acc(lns), acc(lnb)) if lns is not None else x
+    qkv = ops.gemm_bias_act(h, wq, acc(bqkv))
+    att = ops.attention_fwd(qkv, canon_bias(bias), heads, _scale(x.shape[-1], heads), stats=keep)
+    o, stats = att if keep else (att, None)
+    out = ops.gemm_bias_act(o, wo, acc(bout), residual=x if lns is not None else None)
+    return (out, (wq, wo, qkv, o, stats)) if keep else out
 
 
-_KERNELS = (kernels.layernorm_fwd, kernels.gemm_bias_act, kernels.attention_fwd)
-_PLAIN = (kernels.layernorm_plain, kernels.gemm_bias_act_plain, kernels.attention_plain)
+def _backward(ops, g, x, lns, lnb, bqkv, bias, heads, kept):
+    """The backward chain (Pallas ``_bwd_kernel``'s rounding order) for the
+    output grad ``g``: ``(dx, dlns, dlnb, dwqkv, dbqkv, dwout, dbout)``, the
+    LN grads None for the bare variant."""
+    wq, wo, qkv, o, stats = kept
+    g = g.to(x.dtype).contiguous()
+    h = ops.layernorm_fwd(x, acc(lns), acc(lnb)) if lns is not None else x
+    dbout = ops.colsum(g)
+    do = ops.gemm_dgrad(g, wo, rounded=True)
+    dwout = ops.gemm_wgrad(g, o)
+    dqkv, dqkv_b = ops.attention_bwd(qkv, do, canon_bias(bias), heads,
+                                     _scale(x.shape[-1], heads), stats)
+    dbqkv = ops.colsum(dqkv)
+    dh = ops.gemm_dgrad(dqkv_b, wq, rounded=lns is None)
+    dwqkv = ops.gemm_wgrad(dqkv_b, h)
+    if lns is None:
+        return dh, None, None, dwqkv, dbqkv, dwout, dbout
+    dx, dlns, dlnb = ops.layernorm_bwd(x, acc(lns), dh, residual=g)
+    return dx, dlns, dlnb, dwqkv, dbqkv, dwout, dbout
+
+
+def _name(lns) -> str:
+    return "fused_ln_attention_block" if lns is not None else "fused_attention_block"
 
 
 class _FusedAttention(torch.autograd.Function):
-    """Autograd boundary of the kernel chain. The backward is the port of
-    the Pallas ``_bwd_kernel``, which is not written yet."""
+    """Autograd boundary of the chains, for ``ops`` the kernels or their
+    plain versions. Takes the fp32 params, casts the weight matrices to x's
+    dtype inside, and returns their grads in the params' dtypes and torch
+    shapes; the mask, ``heads`` and ``ops`` get none."""
 
     @staticmethod
-    def forward(ctx, x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads):
-        out = _block(_KERNELS, x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads)
-        if x.is_cuda:
-            LAUNCHES["fused_ln_attention_block" if lns is not None else "fused_attention_block"] += 1
+    def forward(ctx, x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads, ops):
+        train = any(ctx.needs_input_grad)
+        out = _forward(ops, x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads, keep=train)
+        if train:
+            out, kept = out
+            ctx.save_for_backward(x, lns, lnb, bqkv, bias, *kept)
+            ctx.heads, ctx.ops = heads, ops
+            ctx.dtypes = (wqkv.dtype, bqkv.dtype, wout.dtype, bout.dtype)
+        if x.is_cuda and ops is KERNEL_OPS:
+            LAUNCHES[_name(lns)] += 1
         return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("backward kernel lands with training")
+    def backward(ctx, g):
+        x, lns, lnb, bqkv, bias, *kept = ctx.saved_tensors
+        dx, dlns, dlnb, dwq, dbq, dwo, dbo = _backward(
+            ctx.ops, g, x, lns, lnb, bqkv, bias, ctx.heads, kept)
+        if x.is_cuda and ctx.ops is KERNEL_OPS:
+            LAUNCHES[_name(lns) + "_bwd"] += 1
+        tq, tbq, to, tbo = ctx.dtypes
+        ln = (None, None) if lns is None else (dlns.to(lns.dtype), dlnb.to(lnb.dtype))
+        return (dx, *ln, dwq.to(tq), dbq.to(tbq), dwo.to(to), dbo.to(tbo), None, None, None)
 
 
 def fused_ln_attention_block(
@@ -82,7 +136,7 @@ def fused_ln_attention_block(
 ) -> torch.Tensor:
     """x + proj(attn(LN(x))). x: [B, T, C]; lns/lnb: LayerNorm [C];
     bias: optional additive [T, T]. Returns [B, T, C] in x's dtype."""
-    return _FusedAttention.apply(x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads)
+    return _FusedAttention.apply(x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads, KERNEL_OPS)
 
 
 def fused_attention_block(
@@ -95,12 +149,15 @@ def fused_attention_block(
     heads: int = 12,
 ) -> torch.Tensor:
     """proj(attn(x)): the packed attention without LN or residual."""
-    return _FusedAttention.apply(x, None, None, wqkv, bqkv, wout, bout, bias, heads)
+    return _FusedAttention.apply(x, None, None, wqkv, bqkv, wout, bout, bias, heads, KERNEL_OPS)
 
 
 def fused_ln_attention_block_plain(x, lns, lnb, wqkv, bqkv, wout, bout, bias=None, heads=12):
-    return _block(_PLAIN, x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads)
+    """:func:`fused_ln_attention_block` on the plain versions, forward and
+    backward (the chain above), on any device."""
+    return _FusedAttention.apply(x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads, PLAIN_OPS)
 
 
 def fused_attention_block_plain(x, wqkv, bqkv, wout, bout, bias=None, heads=12):
-    return _block(_PLAIN, x, None, None, wqkv, bqkv, wout, bout, bias, heads)
+    return _FusedAttention.apply(x, None, None, wqkv, bqkv, wout, bout, bias, heads, PLAIN_OPS)
+

@@ -1,14 +1,25 @@
-"""The pre-LN MLP sub-block ``x + proj(act(fc(LN(x))))``, forward only.
+"""The pre-LN MLP sub-block ``x + proj(act(fc(LN(x))))`` and its backward.
 
-Port of the Pallas kernel ``vipant_tpu/ops/fused_mlp.py::_fwd_kernel`` and
-its public op ``fused_ln_mlp_block``. The TPU kernel kept the [T, 4C]
-activation in VMEM; on Hopper it is a chain of three hand-written kernels
-(:mod:`.kernels`) and the activation makes one bf16 round trip through
-device memory:
+Port of the Pallas kernels ``vipant_tpu/ops/fused_mlp.py::_fwd_kernel`` and
+``::_bwd_kernel`` and their public op ``fused_ln_mlp_block``. The TPU
+kernels kept the [T, 4C] activation in VMEM; on Hopper each direction is a
+chain of hand-written kernels (:mod:`.kernels`) and the activation makes a
+bf16 round trip through device memory:
 
-    h   = layernorm_fwd(x)
-    g   = gemm_bias_act(h, Wfc, bfc, act)       [B, T, E] bf16
-    out = gemm_bias_act(g, Wproj, bproj, residual=x)
+    forward                                   backward (gy = d out)
+    h   = layernorm_fwd(x)                    h     = layernorm_fwd(x)           (recomputed)
+    g   = gemm_bias_act(h, Wfc, bfc, act)     g, a  = gemm_bias_act(h, Wfc, bfc, act,
+    out = gemm_bias_act(g, Wproj, bproj,                            preact)    a fp32
+                        residual=x)           dbproj = colsum(gy)
+                                              dWproj = gemm_wgrad(gy, g)
+                                              da    = gemm_dgrad(gy, Wproj, act'(a))  bf16
+                                              dbfc  = colsum(da)
+                                              dWfc  = gemm_wgrad(da, h)
+                                              dh    = gemm_dgrad(da, Wfc)           fp32
+                                              dx, dlns, dlnb = layernorm_bwd(x, dh, +gy)
+
+As in the Pallas kernel the backward keeps only x and recomputes h, a and
+act(a) (one extra fc product).
 
 Weights are in the torch Linear layout: ``wfc`` [E, C] (``c_fc.weight``),
 ``wproj`` [C, E] (``c_proj.weight``). ``act`` is ``quick_gelu`` (CLIP) or
@@ -19,40 +30,66 @@ from __future__ import annotations
 
 import torch
 
-from . import kernels
-from .kernels import LAUNCHES
+from .kernels import KERNEL_OPS, LAUNCHES, PLAIN_OPS, acc
 
 ACTS = ("quick_gelu", "gelu")
 
 
-def _block(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act):
+def _weights(x, wfc, wproj):
+    return wfc.to(x.dtype).contiguous(), wproj.to(x.dtype).contiguous()
+
+
+def _forward(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act):
     if act not in ACTS:
         raise ValueError(f"unknown MLP activation {act!r} (expected one of {ACTS})")
-    layernorm, gemm = ops
-    dt = x.dtype
-    h = layernorm(x, lns.float(), lnb.float())
-    g = gemm(h, wfc.to(dt).contiguous(), bfc.float(), act)
-    return gemm(g, wproj.to(dt).contiguous(), bproj.float(), residual=x)
+    wf, wp = _weights(x, wfc, wproj)
+    h = ops.layernorm_fwd(x, acc(lns), acc(lnb))
+    g = ops.gemm_bias_act(h, wf, acc(bfc), act)
+    return ops.gemm_bias_act(g, wp, acc(bproj), residual=x)
 
 
-_KERNELS = (kernels.layernorm_fwd, kernels.gemm_bias_act)
-_PLAIN = (kernels.layernorm_plain, kernels.gemm_bias_act_plain)
+def _backward(ops, gy, x, lns, lnb, wfc, bfc, wproj, act):
+    """The backward chain (Pallas ``_bwd_kernel``'s rounding order) for the
+    output grad ``gy``: ``(dx, dlns, dlnb, dwfc, dbfc, dwproj, dbproj)``."""
+    wf, wp = _weights(x, wfc, wproj)
+    gy = gy.to(x.dtype).contiguous()
+    h = ops.layernorm_fwd(x, acc(lns), acc(lnb))
+    g, a = ops.gemm_bias_act(h, wf, acc(bfc), act, preact=True)
+    dbproj = ops.colsum(gy)
+    dwproj = ops.gemm_wgrad(gy, g)
+    da = ops.gemm_dgrad(gy, wp, rounded=True, act=act, preact=a)
+    dbfc = ops.colsum(da)  # of the rounded da, as in the Pallas kernel
+    dwfc = ops.gemm_wgrad(da, h)
+    dh = ops.gemm_dgrad(da, wf, rounded=False)
+    dx, dlns, dlnb = ops.layernorm_bwd(x, acc(lns), dh, residual=gy)
+    return dx, dlns, dlnb, dwfc, dbfc, dwproj, dbproj
 
 
 class _FusedLNMLP(torch.autograd.Function):
-    """Autograd boundary of the kernel chain. The backward is the port of
-    the Pallas ``_bwd_kernel``, which is not written yet."""
+    """Autograd boundary of the chains, for ``ops`` the kernels or their
+    plain versions. Takes the fp32 params, casts the weight matrices to x's
+    dtype inside, and returns their grads in the params' dtypes and torch
+    shapes; ``act`` and ``ops`` get none."""
 
     @staticmethod
-    def forward(ctx, x, lns, lnb, wfc, bfc, wproj, bproj, act):
-        out = _block(_KERNELS, x, lns, lnb, wfc, bfc, wproj, bproj, act)
-        if x.is_cuda:
+    def forward(ctx, x, lns, lnb, wfc, bfc, wproj, bproj, act, ops):
+        out = _forward(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(x, lns, lnb, wfc, bfc, wproj, bproj)
+            ctx.act, ctx.ops = act, ops
+        if x.is_cuda and ops is KERNEL_OPS:
             LAUNCHES["fused_ln_mlp_block"] += 1
         return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("backward kernel lands with training")
+    def backward(ctx, gy):
+        x, lns, lnb, wfc, bfc, wproj, bproj = ctx.saved_tensors
+        grads = _backward(ctx.ops, gy, x, lns, lnb, wfc, bfc, wproj, ctx.act)
+        if x.is_cuda and ctx.ops is KERNEL_OPS:
+            LAUNCHES["fused_ln_mlp_block_bwd"] += 1
+        dx, *rest = grads
+        params = (lns, lnb, wfc, bfc, wproj, bproj)
+        return (dx, *(d.to(p.dtype) for d, p in zip(rest, params)), None, None)
 
 
 def fused_ln_mlp_block(
@@ -66,8 +103,11 @@ def fused_ln_mlp_block(
     act: str = "quick_gelu",
 ) -> torch.Tensor:
     """x + proj(act(fc(LN(x)))). x: [B, T, C]; wfc: [E, C]; wproj: [C, E]."""
-    return _FusedLNMLP.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act)
+    return _FusedLNMLP.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, KERNEL_OPS)
 
 
 def fused_ln_mlp_block_plain(x, lns, lnb, wfc, bfc, wproj, bproj, act="quick_gelu"):
-    return _block(_PLAIN, x, lns, lnb, wfc, bfc, wproj, bproj, act)
+    """:func:`fused_ln_mlp_block` on the plain versions, forward and backward
+    (the chain above), on any device."""
+    return _FusedLNMLP.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, PLAIN_OPS)
+

@@ -1,35 +1,50 @@
 """Wrappers of the hand-written CUDA kernels, each beside its plain version.
 
-Three kernels (``csrc/``) make up the two fused transformer sub-blocks:
+The kernels (``csrc/``) make up the two fused transformer sub-blocks and
+their backward chains:
 
-- :func:`layernorm_fwd` (``csrc/layernorm.cu``): fp32-statistics LayerNorm,
-  bf16 out;
+- :func:`layernorm_fwd` / :func:`layernorm_bwd` (``csrc/layernorm.cu``):
+  fp32-statistics LayerNorm, and its backward with the residual grad and
+  the per-column weight and bias grads;
 - :func:`gemm_bias_act` (``csrc/gemm.cu``): ``epilogue(x . w^T + b)`` with an
-  optional QuickGELU / exact GELU and an optional residual;
-- :func:`attention_fwd` (``csrc/attention.cu``): exact two-pass softmax
-  attention over the packed ``[B, T, 3C]`` projection.
+  optional QuickGELU / exact GELU, an optional residual and an optional
+  fp32 copy of the pre-activation;
+- :func:`gemm_dgrad` (``csrc/gemm.cu``): ``dy . w`` with ``w`` read as
+  stored, an optional activation-grad epilogue, fp32 or rounded out;
+- :func:`gemm_wgrad` (``csrc/gemm.cu``): ``a^T . b`` reduced over all rows,
+  fp32 out;
+- :func:`colsum` (``csrc/reduce.cu``): fp32 column sums (the bias grads);
+- :func:`attention_fwd` / :func:`attention_bwd` (``csrc/attention.cu``,
+  ``csrc/attention_bwd.cu``): exact two-pass softmax attention over the
+  packed ``[B, T, 3C]`` projection, and its backward.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU and
-launches its kernel for a CUDA tensor, after checking device, dtype (bf16),
-shapes, contiguity and alignment; it raises on anything the kernel does not
-take. ``LAUNCHES[name]`` counts kernel launches and nothing else.
+launches its kernel for a CUDA tensor, after checking device, dtype (bf16
+activations, fp32 params and grads), shapes, contiguity and alignment; it
+raises on anything the kernel does not take. ``LAUNCHES[name]`` counts
+kernel launches and nothing else.
 
 The plain versions follow the Pallas kernels' rounding order (see the notes
 in the CUDA sources), so that they are the reference the kernels are held to
-on the card and the path the CPU tests compare with the JAX package.
+on the card and the path the CPU tests compare with the JAX package. They
+accumulate in fp32, or in float64 for float64 inputs, where every rounding
+to the activations' dtype is a no-op (``tests/test_torch_backward_plain.py``
+runs them through ``torch.autograd.gradcheck``).
 """
 
 from __future__ import annotations
 
 from collections import Counter
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
 LN_EPS = 1e-5
-HEAD_DIM = 64  # the attention kernel's head dim
+HEAD_DIM = 64  # the attention kernels' head dim
+LN_BWD_ROWS = 32  # rows per block of layernorm_bwd; one partial weight-grad row each
+COLSUM_ROWS = 256  # rows per block of colsum; one partial row each
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
 
 LAUNCHES: Counter = Counter()
@@ -44,12 +59,41 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
+def acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the accumulation dtype: fp32, or float64 for float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _ln_stats(x: torch.Tensor, eps: float = LN_EPS):
+    """(xhat, rstd) of the fp32-island LayerNorm, in the accumulation dtype."""
+    x32 = acc(x)
+    xc = x32 - x32.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    return xc * rstd, rstd
+
+
 def layernorm_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     eps: float = LN_EPS) -> torch.Tensor:
-    x32 = x.float()
-    xc = x32 - x32.mean(dim=-1, keepdim=True)
-    var = (xc * xc).mean(dim=-1, keepdim=True)
-    return (xc * torch.rsqrt(var + eps) * w.float() + b.float()).to(x.dtype)
+    xhat, _ = _ln_stats(x, eps)
+    return (xhat * acc(w) + acc(b)).to(x.dtype)
+
+
+def layernorm_bwd_plain(x: torch.Tensor, w: torch.Tensor, dh: torch.Tensor,
+                        residual: Optional[torch.Tensor] = None):
+    """Backward of :func:`layernorm_plain` given the fp32 grad ``dh`` of its
+    output: ``(dx, dw, db)``. ``dx`` is rounded once to ``x.dtype`` after
+    the optional ``residual`` grad is added; ``dw``, ``db`` sum over rows."""
+    C = x.shape[-1]
+    xhat, rstd = _ln_stats(x)
+    dh = acc(dh)
+    dw = (dh * xhat).reshape(-1, C).sum(0)
+    db = dh.reshape(-1, C).sum(0)
+    dxhat = dh * acc(w)
+    dx = rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    if residual is not None:
+        dx = dx + acc(residual)
+    return dx.to(x.dtype), dw, db
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -65,25 +109,90 @@ def act_plain(a: torch.Tensor, act: str) -> torch.Tensor:
     return a
 
 
+def act_grad_plain(a: torch.Tensor, act: str) -> torch.Tensor:
+    """d act(a) / d a, elementwise (``_act_vjp`` of the JAX package)."""
+    if act == "quick_gelu":
+        sig = torch.sigmoid(1.702 * a)
+        return sig * (1.0 + 1.702 * a * (1.0 - sig))
+    if act == "gelu":
+        phi = torch.exp(-0.5 * a * a) * (2 * torch.pi) ** -0.5
+        return 0.5 * (1.0 + torch.erf(a / 2 ** 0.5)) + a * phi
+    return torch.ones_like(a)
+
+
 def gemm_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                        act: str = "none",
-                        residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = torch.matmul(x.float(), w.float().t()) + b.float()
-    y = act_plain(y, act).to(x.dtype)
-    return y if residual is None else residual + y
+                        act: str = "none", residual: Optional[torch.Tensor] = None,
+                        preact: bool = False):
+    a = torch.matmul(acc(x), acc(w).t()) + acc(b)
+    y = act_plain(a, act).to(x.dtype)
+    y = y if residual is None else residual + y
+    return (y, a) if preact else y
+
+
+def gemm_dgrad_plain(dy: torch.Tensor, w: torch.Tensor, rounded: bool, act: str = "none",
+                     preact: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = torch.matmul(acc(dy), acc(w))
+    if act != "none":
+        y = y * act_grad_plain(preact, act)
+    return y.to(dy.dtype) if rounded else y
+
+
+def gemm_wgrad_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(acc(a).reshape(-1, a.shape[-1]).t(), acc(b).reshape(-1, b.shape[-1]))
+
+
+def colsum_plain(x: torch.Tensor) -> torch.Tensor:
+    return acc(x).reshape(-1, x.shape[-1]).sum(0)
+
+
+def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, T, H*D] -> [B, H, T, D]."""
+    B, T, C = t.shape
+    return t.view(B, T, heads, C // heads).transpose(1, 2)
+
+
+def _softmax_p(qkv, bias, heads, scale):
+    """(q, k, v, p) in the accumulation dtype; p is the exact fp32 softmax."""
+    B, T, C3 = qkv.shape
+    q, k, v = acc(qkv).view(B, T, 3, heads, C3 // 3 // heads).permute(2, 0, 3, 1, 4)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias
+    return q, k, v, torch.softmax(s, dim=-1)
 
 
 def attention_plain(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int,
-                    scale: float) -> torch.Tensor:
+                    scale: float, stats: bool = False):
+    """Returns [B, T, C], or ``(out, None)`` with ``stats``: the kernel's row
+    statistics exist only for its backward, which the plain backward does
+    not read."""
     B, T, C3 = qkv.shape
-    C = C3 // 3
-    q, k, v = qkv.view(B, T, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if bias is not None:
-        s = s + bias
-    p = torch.softmax(s, dim=-1).to(qkv.dtype)
-    o = torch.matmul(p.float(), v.float()).to(qkv.dtype)  # [B, H, T, D]
-    return o.transpose(1, 2).reshape(B, T, C)
+    _, _, v, p = _softmax_p(qkv, bias, heads, scale)
+    o = torch.matmul(acc(p.to(qkv.dtype)), v).to(qkv.dtype)  # [B, H, T, D]
+    o = o.transpose(1, 2).reshape(B, T, C3 // 3)
+    return (o, None) if stats else o
+
+
+def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, bias: Optional[torch.Tensor],
+                        heads: int, scale: float, stats=None):
+    """Backward of :func:`attention_plain` for the output grad ``do``
+    [B, T, C]: ``(dqkv, dqkv rounded to qkv.dtype)``, dqkv [B, T, 3C] in
+    the accumulation dtype. The softmax is recomputed; ``stats`` is ignored.
+    ``delta`` sums the fp32 p times dp (not FA2's rowsum(do * o)), ds and p
+    are rounded before their products, as in the Pallas kernel."""
+    B, T, C3 = qkv.shape
+    q, k, v, p = _softmax_p(qkv, bias, heads, scale)
+    dt = qkv.dtype
+    do_h = acc(_heads(do, heads))
+    dp = torch.matmul(do_h, v.transpose(-1, -2))
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = acc((p * (dp - delta) * scale).to(dt))
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dv = torch.matmul(acc(p.to(dt)).transpose(-1, -2), do_h)
+    dqkv = torch.stack((dq, dk, dv), dim=2)  # [B, H, 3, T, D]
+    dqkv = dqkv.permute(0, 3, 2, 1, 4).reshape(B, T, C3)
+    return dqkv, dqkv.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +212,10 @@ def _cuda_operand(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.
     _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     lib = _build.library()
     with torch.cuda.device(device):
@@ -112,6 +225,11 @@ def _launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _param_vector(t: torch.Tensor, name: str, n: int, device: torch.device) -> None:
+    _cuda_operand(t, name, torch.float32, device)
+    _require(t.shape == (n,), f"{name} must be [{n}], got {tuple(t.shape)}")
+
+
 def layernorm_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """LayerNorm over the last dim with fp32 statistics (eps 1e-5); the
     affine result is rounded once to ``x.dtype``. w, b: [C] fp32."""
@@ -119,30 +237,54 @@ def layernorm_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
         return layernorm_plain(x, w, b)
     C = x.shape[-1]
     _cuda_operand(x, "x", torch.bfloat16, x.device)
-    for t, n in ((w, "w"), (b, "b")):
-        _cuda_operand(t, n, torch.float32, x.device)
-        _require(t.shape == (C,), f"{n} must be [{C}], got {tuple(t.shape)}")
+    _param_vector(w, "w", C, x.device)
+    _param_vector(b, "b", C, x.device)
     y = torch.empty_like(x)
     _launch("layernorm_fwd", x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
             y.data_ptr(), x.numel() // C, C, LN_EPS)
     return y
 
 
+def layernorm_bwd(x: torch.Tensor, w: torch.Tensor, dh: torch.Tensor,
+                  residual: Optional[torch.Tensor] = None):
+    """Backward of :func:`layernorm_fwd` (statistics recomputed from ``x``)
+    for the fp32 output grad ``dh``: ``(dx, dw, db)``, dx rounded once to
+    ``x.dtype`` after adding ``residual``; dw, db [C] fp32 column sums."""
+    if not x.is_cuda:
+        return layernorm_bwd_plain(x, w, dh, residual)
+    C = x.shape[-1]
+    rows = x.numel() // C
+    _cuda_operand(x, "x", torch.bfloat16, x.device)
+    _param_vector(w, "w", C, x.device)
+    _cuda_operand(dh, "dh", torch.float32, x.device)
+    _require(dh.shape == x.shape, f"dh must be {tuple(x.shape)}, got {tuple(dh.shape)}")
+    if residual is not None:
+        _cuda_operand(residual, "residual", torch.bfloat16, x.device)
+        _require(residual.shape == x.shape, f"residual must be {tuple(x.shape)}")
+    dx = torch.empty_like(x)
+    partial = torch.empty((-(-rows // LN_BWD_ROWS), 2 * C), dtype=torch.float32, device=x.device)
+    dwb = torch.empty(2 * C, dtype=torch.float32, device=x.device)
+    _launch("layernorm_bwd", x.device, x.data_ptr(), w.data_ptr(), dh.data_ptr(),
+            _ptr(residual), dx.data_ptr(), partial.data_ptr(), dwb.data_ptr(), rows, C, LN_BWD_ROWS,
+            LN_EPS)
+    return dx, dwb[:C], dwb[C:]
+
+
 def gemm_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = "none",
-                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  residual: Optional[torch.Tensor] = None, preact: bool = False):
     """``act(x . w^T + b)`` rounded to ``x.dtype``, plus ``residual`` (added
     after the rounding). x: [..., K]; w: [N, K] (torch Linear layout);
-    b: [N] fp32; residual: [..., N] like x."""
+    b: [N] fp32; residual: [..., N] like x. With ``preact`` it returns
+    ``(y, a)``, ``a = x . w^T + b`` kept in fp32."""
     _require(act in ACTS, f"unknown activation {act!r}")
     if not x.is_cuda:
-        return gemm_bias_act_plain(x, w, b, act, residual)
+        return gemm_bias_act_plain(x, w, b, act, residual, preact)
     K = x.shape[-1]
     N = w.shape[0]
     _cuda_operand(x, "x", torch.bfloat16, x.device)
     _cuda_operand(w, "w", torch.bfloat16, x.device)
-    _cuda_operand(b, "b", torch.float32, x.device)
     _require(w.dim() == 2 and w.shape[1] == K, f"w must be [N, {K}], got {tuple(w.shape)}")
-    _require(b.shape == (N,), f"b must be [{N}], got {tuple(b.shape)}")
+    _param_vector(b, "b", N, x.device)
     _require(K % 8 == 0, f"K={K} must be a multiple of 8")
     out_shape = (*x.shape[:-1], N)
     if residual is not None:
@@ -150,29 +292,137 @@ def gemm_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = 
         _require(tuple(residual.shape) == out_shape,
                  f"residual must be {out_shape}, got {tuple(residual.shape)}")
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    a = torch.empty(out_shape, dtype=torch.float32, device=x.device) if preact else None
     _launch("gemm_bias_act", x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            None if residual is None else residual.data_ptr(), y.data_ptr(),
-            x.numel() // K, N, K, ACTS[act])
+            _ptr(residual), y.data_ptr(), _ptr(a), x.numel() // K, N, K, ACTS[act])
+    return (y, a) if preact else y
+
+
+def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, rounded: bool, act: str = "none",
+               preact: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``dy . w`` for dy [..., K] and w [K, N] read as stored (the data grad
+    of ``y = x . w^T``). With ``act`` the product is multiplied by
+    ``act'(preact)`` (preact: [..., N] fp32) before the rounding. Returns
+    [..., N] rounded to ``dy.dtype`` if ``rounded``, else fp32."""
+    _require(act in ACTS, f"unknown activation {act!r}")
+    _require((act == "none") == (preact is None), "preact goes with an activation grad")
+    if not dy.is_cuda:
+        return gemm_dgrad_plain(dy, w, rounded, act, preact)
+    K = dy.shape[-1]
+    _cuda_operand(dy, "dy", torch.bfloat16, dy.device)
+    _cuda_operand(w, "w", torch.bfloat16, dy.device)
+    _require(w.dim() == 2 and w.shape[0] == K, f"w must be [{K}, N], got {tuple(w.shape)}")
+    N = w.shape[1]
+    _require(K % 8 == 0 and N % 8 == 0, f"K={K} and N={N} must be multiples of 8")
+    out_shape = (*dy.shape[:-1], N)
+    if preact is not None:
+        _cuda_operand(preact, "preact", torch.float32, dy.device)
+        _require(tuple(preact.shape) == out_shape, f"preact must be {out_shape}")
+    y = torch.empty(out_shape, dtype=dy.dtype if rounded else torch.float32, device=dy.device)
+    _launch("gemm_dgrad", dy.device, dy.data_ptr(), w.data_ptr(), _ptr(preact),
+            None if rounded else y.data_ptr(), y.data_ptr() if rounded else None,
+            dy.numel() // K, N, K, ACTS[act])
     return y
 
 
-def attention_fwd(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int,
-                  scale: float) -> torch.Tensor:
-    """softmax(q.k^T * scale + bias) . v for all heads. qkv: [B, T, 3C] with
-    q|k|v sections and head-major columns inside each; bias: optional
-    [T, T] fp32 (finite: clamp with ``canon_bias``). Returns [B, T, C]."""
-    if not qkv.is_cuda:
-        return attention_plain(qkv, bias, heads, scale)
+def gemm_wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a^T . b`` over all rows: a [..., N1], b [..., N2] -> [N1, N2] fp32
+    (the weight grad of ``y = x . w^T`` is ``gemm_wgrad(dy, x)``)."""
+    if not a.is_cuda:
+        return gemm_wgrad_plain(a, b)
+    N1, N2 = a.shape[-1], b.shape[-1]
+    M = a.numel() // N1
+    _cuda_operand(a, "a", torch.bfloat16, a.device)
+    _cuda_operand(b, "b", torch.bfloat16, a.device)
+    _require(b.numel() // N2 == M, f"a and b must have the same rows: {tuple(a.shape)}, {tuple(b.shape)}")
+    _require(N1 % 8 == 0 and N2 % 8 == 0, f"N1={N1} and N2={N2} must be multiples of 8")
+    y = torch.empty((N1, N2), dtype=torch.float32, device=a.device)
+    _launch("gemm_wgrad", a.device, a.data_ptr(), b.data_ptr(), y.data_ptr(), N1, N2, M)
+    return y
+
+
+def colsum(x: torch.Tensor) -> torch.Tensor:
+    """fp32 sums over all rows of x [..., N] (bf16 or fp32) -> [N]."""
+    if not x.is_cuda:
+        return colsum_plain(x)
+    N = x.shape[-1]
+    rows = x.numel() // N
+    _require(x.dtype in (torch.bfloat16, torch.float32), f"x must be bf16 or fp32, got {x.dtype}")
+    _cuda_operand(x, "x", x.dtype, x.device)
+    partial = torch.empty((-(-rows // COLSUM_ROWS), N), dtype=torch.float32, device=x.device)
+    y = torch.empty(N, dtype=torch.float32, device=x.device)
+    _launch("colsum", x.device, x.data_ptr(), int(x.dtype == torch.float32), partial.data_ptr(),
+            y.data_ptr(), rows, N, COLSUM_ROWS)
+    return y
+
+
+def _attention_operands(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int):
     _require(qkv.dim() == 3 and qkv.shape[-1] % 3 == 0, f"qkv must be [B, T, 3C], got {tuple(qkv.shape)}")
     B, T, C3 = qkv.shape
     C = C3 // 3
     _require(C == heads * HEAD_DIM,
-             f"the attention kernel takes head dim {HEAD_DIM}; got C={C}, heads={heads}")
+             f"the attention kernels take head dim {HEAD_DIM}; got C={C}, heads={heads}")
     _cuda_operand(qkv, "qkv", torch.bfloat16, qkv.device)
     if bias is not None:
         _cuda_operand(bias, "bias", torch.float32, qkv.device)
         _require(tuple(bias.shape) == (T, T), f"bias must be [{T}, {T}], got {tuple(bias.shape)}")
+    return B, T, C
+
+
+def attention_fwd(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int,
+                  scale: float, stats: bool = False):
+    """softmax(q.k^T * scale + bias) . v for all heads. qkv: [B, T, 3C] with
+    q|k|v sections and head-major columns inside each; bias: optional
+    [T, T] fp32 (finite: clamp with ``canon_bias``). Returns [B, T, C], or
+    with ``stats`` ``(out, stats)``: the softmax's row max and row sum,
+    [2, B, H, T] fp32, which :func:`attention_bwd` reads."""
+    if not qkv.is_cuda:
+        return attention_plain(qkv, bias, heads, scale, stats)
+    B, T, C = _attention_operands(qkv, bias, heads)
     out = torch.empty((B, T, C), dtype=qkv.dtype, device=qkv.device)
-    _launch("attention_fwd", qkv.device, qkv.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), B, T, heads, scale)
-    return out
+    st = torch.empty((2, B, heads, T), dtype=torch.float32, device=qkv.device) if stats else None
+    _launch("attention_fwd", qkv.device, qkv.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(st),
+            B, T, heads, scale)
+    return (out, st) if stats else out
+
+
+def attention_bwd(qkv: torch.Tensor, do: torch.Tensor, bias: Optional[torch.Tensor], heads: int,
+                  scale: float, stats: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of :func:`attention_fwd` for the output grad ``do`` [B, T, C]
+    bf16, from the forward's ``stats``: ``(dqkv, dqkv rounded to bf16)``,
+    dqkv [B, T, 3C] fp32."""
+    if not qkv.is_cuda:
+        return attention_bwd_plain(qkv, do, bias, heads, scale, stats)
+    B, T, C = _attention_operands(qkv, bias, heads)
+    _cuda_operand(do, "do", torch.bfloat16, qkv.device)
+    _require(tuple(do.shape) == (B, T, C), f"do must be {(B, T, C)}, got {tuple(do.shape)}")
+    _require(stats is not None, "attention_bwd needs the forward's row statistics")
+    _cuda_operand(stats, "stats", torch.float32, qkv.device)
+    _require(tuple(stats.shape) == (2, B, heads, T), f"stats must be {(2, B, heads, T)}")
+    delta = torch.empty((B, heads, T), dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty(qkv.shape, dtype=torch.float32, device=qkv.device)
+    dqkv_b = torch.empty_like(qkv)
+    _launch("attention_bwd", qkv.device, qkv.data_ptr(), do.data_ptr(), _ptr(bias),
+            stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), dqkv_b.data_ptr(),
+            B, T, heads, scale)
+    return dqkv, dqkv_b
+
+
+class Ops(NamedTuple):
+    """The operations the sub-blocks are built from: the kernels' wrappers
+    (:data:`KERNEL_OPS`) or their plain versions (:data:`PLAIN_OPS`)."""
+
+    layernorm_fwd: object
+    layernorm_bwd: object
+    gemm_bias_act: object
+    gemm_dgrad: object
+    gemm_wgrad: object
+    colsum: object
+    attention_fwd: object
+    attention_bwd: object
+
+
+KERNEL_OPS = Ops(layernorm_fwd, layernorm_bwd, gemm_bias_act, gemm_dgrad, gemm_wgrad, colsum,
+                 attention_fwd, attention_bwd)
+PLAIN_OPS = Ops(layernorm_plain, layernorm_bwd_plain, gemm_bias_act_plain, gemm_dgrad_plain,
+                gemm_wgrad_plain, colsum_plain, attention_plain, attention_bwd_plain)
