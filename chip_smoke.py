@@ -7,8 +7,9 @@
 2. Builds the CUDA kernels from ``vipant_tpu_torch/csrc`` and prints the
    build time and the compiler's register / spill report.
 3. Kernel phase: each forward kernel and each fused sub-block, at the
-   serving path's shapes, against its plain PyTorch version on the card
-   from the same seeded bf16 inputs, with CUDA-event times of both.
+   serving path's shapes and at the audio tower's batch of 64, against its
+   plain PyTorch version on the card from the same seeded bf16 inputs, with
+   CUDA-event times of both.
 4. Backward kernel phase: each backward kernel, and each sub-block's
    backward through its autograd boundary (``torch.autograd.grad`` from fp32
    params, as the training step takes it), against its plain version, from
@@ -48,15 +49,50 @@
    kernels by device time; (v) an Adam descent smoke (lr 1e-3, 4 fixed
    batches of 32, 60 steps) whose first 10 losses agree with the plain ops.
 
-Tolerances: bf16 outputs at atol = rtol = 2e-2 (one bf16 ulp of the output
+7. Int8 kernel phase: ``rowquant``, ``layernorm_rowquant``, ``gemm_i8`` with
+   each epilogue, the fp32-context attention and both int8 sub-blocks
+   against their plain versions from seeded inputs (one all-zero token), at
+   audio B4 and B64 T306 C768 H12, text B1 and B16 T308 C512 H8 (causal +
+   packing), image B16 T200 C768 H12 (block-diagonal); QuickGELU and exact
+   GELU; with the time of the bf16 kernel chain of the same sub-block.
+8. Int8 serving: the full CLAP engine with ``quantize="int8"`` from the
+   bf16 engine's seed: finite unit-norm embeddings; every sub-block call of
+   both towers on the int8 chain and none on the bf16 one; cosine >= 0.999
+   against the same engine on the plain int8 ops; cosine against the bf16
+   kernel engine >= 0.99 per tower, or at least no further from it than the
+   plain int8 path is (both printed); zero-shot predictions beside the bf16
+   engine's; ms per batch of 4 and of 64, int8 beside bf16.
+9. Training with ``model.image.int8_frozen=True``: at B = 16 the image
+   features against the bf16 frozen tower, loss and grad_norm beside the
+   bf16 step's; the launch counts of one step (the image tower on the int8
+   chain only, the audio tower's forward and backward unchanged); five LARS
+   steps with the image params bitwise unchanged; at B = 64 ms per step
+   beside the bf16 step's, with the profiler's device busy time of both;
+   the Adam descent smoke under ``int8_frozen``.
+
+Every kernel's time stands beside its bound, the least time the card could
+take for the same work: the larger of the bytes it must move (each input
+read once, each output written once, taken from the tensors of this run)
+over the card's memory rate and its operations over the card's peak rate
+for their type (H100 SXM data sheet: 3.35 TB/s; dense 989 TFLOP/s bf16,
+1,979 TOP/s int8, 67 TFLOP/s fp32 outside the tensor cores), and beside the
+time of the one PyTorch call that computes the same function where there is
+one (``library_ms``: ``F.layer_norm``, ``F.linear``, ``torch.matmul``,
+``F.scaled_dot_product_attention``, ``torch.sum``, ``torch._int_mm``). Those
+calls are timed here and used nowhere in the port.
+
+Tolerances: int8 codes equal to the plain version's except a share of at
+most 1e-3 off by exactly one (x / scale within an fp32 ulp of a half),
+scales to 1e-6 relative; bf16 outputs at atol = rtol = 2e-2 (one bf16 ulp of the output
 plus a different fp32 summation order); fp32 outputs (weight, bias and
 LayerNorm grads, the fp32 dqkv and pre-activation) at max |d| <= 1e-2 *
 max |plain|, since they sum over thousands of rows in another order.
 
 Prints a JSON line of per-kernel results (``launches`` is the sum of the
-counts read on each main path, the serving slice's and the training
-step's, which ``launches_by_path`` gives apart; ``cases`` holds each shape's
-times and error), then, as the last line, ``{"ok": true, "device": {...}}``.
+counts read on each main path (``serve``, ``train``, ``serve_int8``,
+``train_int8_frozen``), which ``launches_by_path`` gives apart; ``ms``,
+``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` are those of the
+kernel's first case, its main-path shape; ``cases`` holds each shape's), then, as the last line, ``{"ok": true, "device": {...}}``.
 Any failure raises (non-zero exit).
 """
 
@@ -99,6 +135,7 @@ CLASSES = {
     "car": ["the sound of a car"],
 }
 B2, B4B = "vipant_tpu/ops/fused_attn.py:168", "vipant_tpu/ops/fused_mlp.py:60"
+B5, B6 = "vipant_tpu/ops/fused_attn.py:117", "vipant_tpu/ops/fused_mlp.py:97"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "layernorm_fwd": ("vipant_tpu_torch/csrc/layernorm.cu", "vipant_tpu/ops/fused_attn.py:81"),
     "gemm_bias_act": ("vipant_tpu_torch/csrc/gemm.cu", "vipant_tpu/ops/fused_mlp.py:51"),
@@ -113,7 +150,19 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "attention_bwd": ("vipant_tpu_torch/csrc/attention_bwd.cu", B2),
     "fused_ln_attention_block_bwd": ("vipant_tpu_torch/ops/fused_attn.py", B2),
     "fused_ln_mlp_block_bwd": ("vipant_tpu_torch/ops/fused_mlp.py", B4B),
+    "rowquant": ("vipant_tpu_torch/csrc/quant.cu", B6),
+    "layernorm_rowquant": ("vipant_tpu_torch/csrc/quant.cu", B5),
+    "gemm_i8": ("vipant_tpu_torch/csrc/gemm_i8.cu", B6),
+    "attention_fwd_f32": ("vipant_tpu_torch/csrc/attention.cu", B5),
+    "fused_ln_attention_block_int8": ("vipant_tpu_torch/ops/fused_attn.py", B5),
+    "fused_ln_mlp_block_int8": ("vipant_tpu_torch/ops/fused_mlp.py", B6),
 }
+PATHS = ("serve", "train", "serve_int8", "train_int8_frozen")
+# H100 SXM data sheet, dense rates: the bounds are stated against these
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+FLIP_SHARE = 1e-3  # int8 codes that may be off by one against the plain version
+INT8_COS_MIN = 0.99  # an int8 tower against its bf16 self (the JAX package's bar)
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -133,18 +182,28 @@ def _outputs(out):
     return [t for t in (out if isinstance(out, (tuple, list)) else (out,)) if t is not None]
 
 
-def compare(torch, results, name, case, fn, plain, iters=20):
-    """Hold ``fn()`` (kernels) to ``plain()`` output by output, time both
-    (CUDA events, order plain, kernel, kernel, plain) and record the result
-    under ``name``. Raises on any disagreement."""
-    got, want = _outputs(fn()), _outputs(plain())
-    torch.cuda.synchronize()
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(nbytes, ops):
+    """The least time in ms the card could take: ``nbytes`` over its memory
+    rate, or ``ops``, a list of (count, type), each over the peak rate for
+    its type, whichever is larger, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for n, kind in ops) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_default(torch, got, want, what):
+    """bf16 outputs at atol = rtol = 2e-2, fp32 outputs at max |d| <= 1e-2 *
+    max |plain|; returns (max |d|, its description per output)."""
     if len(got) != len(want):
-        raise AssertionError(f"{name} {case}: {len(got)} outputs, plain has {len(want)}")
-    errs, case_err = [], 0.0
+        raise AssertionError(f"{what}: {len(got)} outputs, plain has {len(want)}")
+    errs, worst = [], 0.0
     for i, (g, w) in enumerate(zip(got, want)):
         if g.dtype != w.dtype or g.shape != w.shape or not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"{name} {case} output {i}: {g.dtype} {tuple(g.shape)} vs "
+            raise AssertionError(f"{what} output {i}: {g.dtype} {tuple(g.shape)} vs "
                                  f"{w.dtype} {tuple(w.shape)}, finite {bool(torch.isfinite(g).all())}")
         d = (g.float() - w.float()).abs()
         err, scale = d.max().item(), w.float().abs().max().item()
@@ -155,28 +214,74 @@ def compare(torch, results, name, case, fn, plain, iters=20):
             ok = err <= REL * scale
             errs.append(f"{err:.2e}(rel {err / max(scale, 1e-30):.1e})")
         if not ok:
-            raise AssertionError(f"{name} {case} output {i}: kernel disagrees with its plain "
+            raise AssertionError(f"{what} output {i}: kernel disagrees with its plain "
                                  f"version (max|d| {err:.3e}, max|plain| {scale:.3e})")
-        case_err = max(case_err, err)
+        worst = max(worst, err)
+    return worst, " ".join(errs)
+
+
+def check_codes(torch, got, want, what):
+    """(int8 codes, fp32 scales) against the plain version's: scales to 1e-6
+    relative; codes equal except a share of at most FLIP_SHARE off by exactly
+    one. Returns (max |d| of the dequantized values, description)."""
+    (q, s), (q0, s0) = got, want
+    if q.dtype != torch.int8 or q.shape != q0.shape or s.shape != s0.shape:
+        raise AssertionError(f"{what}: codes {q.dtype} {tuple(q.shape)}, scales {tuple(s.shape)}")
+    if not torch.allclose(s, s0, rtol=1e-6, atol=0):
+        raise AssertionError(f"{what}: scales differ by {(s - s0).abs().max().item():.3e}")
+    d = (q.int() - q0.int()).abs()
+    off, share = d.max().item(), (d != 0).float().mean().item()
+    if off > 1 or share > FLIP_SHARE:
+        raise AssertionError(f"{what}: codes off by up to {off}, share {share:.2e} > {FLIP_SHARE}")
+    err = (q.float() * s - q0.float() * s0).abs().max().item()
+    return err, f"codes: {share:.1e} off by one; dequantized {err:.2e}"
+
+
+def compare(torch, results, name, case, fn, plain, reads=(), ops=(), library=None, check=None,
+            also=None, iters=20):
+    """Hold ``fn()`` (kernels) to ``plain()`` (``check``, by default output
+    by output), time both (CUDA events, order plain, kernel, kernel, plain)
+    and record the result under ``name``, beside the bound from ``reads``
+    (the input tensors; the outputs are taken from the run) and ``ops``, the
+    time of ``library()`` if given, and of each callable in ``also``. Raises
+    on any disagreement."""
+    got, want = _outputs(fn()), _outputs(plain())
+    torch.cuda.synchronize()
+    case_err, errs = (check or check_default)(torch, got, want, f"{name} {case}")
     tp1 = cuda_ms(torch, plain, iters)
     tk1 = cuda_ms(torch, fn, iters)
     tk2 = cuda_ms(torch, fn, iters)
     tp2 = cuda_ms(torch, plain, iters)
     ms, plain_ms = (tk1 + tk2) / 2, (tp1 + tp2) / 2
-    print(f"  {name:28s} {case:40s} ms={ms:.4f} plain_ms={plain_ms:.4f} max|d|={' '.join(errs)}")
+    bound_ms, bound_by = bound(_nbytes(reads) + _nbytes(got), ops)
+    library_ms = None
+    if library is not None:
+        try:
+            library_ms = cuda_ms(torch, library, iters)
+        except RuntimeError as e:  # a yardstick outside the port: report, do not fail the port
+            print(f"  library call for {name} {case} refused: {str(e).splitlines()[0]}")
+    extra = {k: cuda_ms(torch, f, iters) for k, f in (also or {}).items()}
+    lib = "-" if library_ms is None else f"{library_ms:.4f}"
+    print(f"  {name:30s} {case:44s} ms={ms:.4f} plain={plain_ms:.4f} bound={bound_ms:.4f}({bound_by[:5]}) "
+          f"library={lib}" + "".join(f" {k}={v:.4f}" for k, v in extra.items()) + f" max|d|={errs}")
     r = results.setdefault(name, {"max_abs_err": 0.0, "cases": [], "launches": {}})
     r["max_abs_err"] = max(r["max_abs_err"], case_err)
-    r["cases"].append({"case": case, "ms": ms, "plain_ms": plain_ms, "max_abs_err": case_err})
+    r["cases"].append({"case": case, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": library_ms, "max_abs_err": case_err,
+                       **extra})
 
 
 @contextlib.contextmanager
 def plain_ops():
-    """Both fused sub-blocks on their plain versions, forward and backward."""
+    """Every fused sub-block, bf16 and int8, on its plain version, forward
+    and backward."""
     from vipant_tpu_torch.ops import fused_attn, fused_mlp
 
-    with mock.patch.object(fused_attn, "fused_ln_attention_block",
-                           fused_attn.fused_ln_attention_block_plain), \
-         mock.patch.object(fused_mlp, "fused_ln_mlp_block", fused_mlp.fused_ln_mlp_block_plain):
+    with contextlib.ExitStack() as stack:
+        for mod, names in ((fused_attn, ("fused_ln_attention_block", "fused_ln_attention_block_int8")),
+                           (fused_mlp, ("fused_ln_mlp_block", "fused_ln_mlp_block_int8"))):
+            for n in names:
+                stack.enter_context(mock.patch.object(mod, n, getattr(mod, n + "_plain")))
         yield
 
 
@@ -196,18 +301,40 @@ def _biases(torch):
     return pack_bias, causal_mask(4 * 77, device="cuda") + pack_bias(77, 4)
 
 
+def gemm_ops(M, N, K, kind="bf16"):
+    return [(2 * M * N * K, kind)]
+
+
+def attn_ops(B, T, H, products=2):
+    """``products`` T x T x 64 products per head: 2 forward (q.k^T, p.v), 5
+    backward (scores, dp, dv, dq, dk)."""
+    return [(products * 2 * B * H * T * T * 64, "bf16")]
+
+
+def _sdpa(torch, qkv, cb, H, scale):
+    """The library's attention on the packed projection: q, k, v as views."""
+    B, T, C3 = qkv.shape
+    q, k, v = qkv.view(B, T, 3, H, C3 // 3 // H).permute(2, 0, 3, 1, 4)
+    mask = None if cb is None else cb.to(qkv.dtype)
+    F = torch.nn.functional
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+
 def kernel_phase(torch, results):
     from vipant_tpu_torch.ops import fused_attn, fused_mlp, kernels
 
+    F = torch.nn.functional
     rn = _seeded(torch)
-    cmp = lambda *a: compare(torch, results, *a)
     pack_bias, text_bias = _biases(torch)
-    attn_cases = [  # (case, B, T, C, H, bias): audio, packed text, packed image
+    attn_cases = [  # (case, B, T, C, H, bias): audio, packed text, packed image, audio at batch 64
         ("audio B4 T306 C768 H12", BATCH, 306, 768, 12, None),
         ("text B1 T308 C512 H8 causal+pack", 1, 308, 512, 8, text_bias),
         ("image B1 T200 C768 H12 pack", 1, 200, 768, 12, pack_bias(50, 4)),
+        ("audio B64 T306 C768 H12", 64, 306, 768, 12, None),
     ]
     for case, B, T, C, H, bias in attn_cases:
+        cmp = lambda *a, **k: compare(torch, results, *a, iters=10 if B > BATCH else 20, **k)
+        M = B * T
         x = rn(B, T, C)
         lns, lnb = 1 + rn(C, std=0.1, dtype=torch.float32), rn(C, std=0.1, dtype=torch.float32)
         wqkv, bqkv = rn(3 * C, C, std=C ** -0.5), rn(3 * C, std=0.02, dtype=torch.float32)
@@ -217,36 +344,45 @@ def kernel_phase(torch, results):
         qkv = kernels.gemm_bias_act_plain(h, wqkv, bqkv)
         o = kernels.attention_plain(qkv, cb, H, 0.125)
         args = (x, lns, lnb, wqkv, bqkv, wout, bout, bias, H)
+        lns_b, lnb_b, bqkv_b, bout_b = (v.bfloat16() for v in (lns, lnb, bqkv, bout))
         cmp("layernorm_fwd", case, lambda: kernels.layernorm_fwd(x, lns, lnb),
-            lambda: kernels.layernorm_plain(x, lns, lnb))
+            lambda: kernels.layernorm_plain(x, lns, lnb), reads=(x, lns, lnb),
+            ops=[(8 * M * C, "fp32")], library=lambda: F.layer_norm(x, (C,), lns_b, lnb_b))
         cmp("gemm_bias_act", case + " qkv", lambda: kernels.gemm_bias_act(h, wqkv, bqkv),
-            lambda: kernels.gemm_bias_act_plain(h, wqkv, bqkv))
+            lambda: kernels.gemm_bias_act_plain(h, wqkv, bqkv), reads=(h, wqkv, bqkv),
+            ops=gemm_ops(M, 3 * C, C), library=lambda: F.linear(h, wqkv, bqkv_b))
         cmp("attention_fwd", case, lambda: kernels.attention_fwd(qkv, cb, H, 0.125),
-            lambda: kernels.attention_plain(qkv, cb, H, 0.125))
+            lambda: kernels.attention_plain(qkv, cb, H, 0.125), reads=(qkv, cb),
+            ops=attn_ops(B, T, H), library=_sdpa(torch, qkv, cb, H, 0.125))
         cmp("gemm_bias_act", case + " out+res",
             lambda: kernels.gemm_bias_act(o, wout, bout, residual=x),
-            lambda: kernels.gemm_bias_act_plain(o, wout, bout, residual=x))
+            lambda: kernels.gemm_bias_act_plain(o, wout, bout, residual=x),
+            reads=(o, wout, bout, x), ops=gemm_ops(M, C, C), library=lambda: F.linear(o, wout, bout_b))
         cmp("fused_ln_attention_block", case,
             lambda: fused_attn.fused_ln_attention_block(*args),
-            lambda: fused_attn.fused_ln_attention_block_plain(*args))
+            lambda: fused_attn.fused_ln_attention_block_plain(*args), reads=args[:8],
+            ops=gemm_ops(M, 3 * C, C) + attn_ops(B, T, H) + gemm_ops(M, C, C))
 
     for case, B, T, C in (("audio B4 T306 C768 E3072", BATCH, 306, 768),
-                          ("text B1 T308 C512 E2048", 1, 308, 512)):
-        E = 4 * C
+                          ("text B1 T308 C512 E2048", 1, 308, 512),
+                          ("audio B64 T306 C768 E3072", 64, 306, 768)):
+        cmp = lambda *a, **k: compare(torch, results, *a, iters=10 if B > BATCH else 20, **k)
+        E, M = 4 * C, B * T
         x = rn(B, T, C)
         lns, lnb = 1 + rn(C, std=0.1, dtype=torch.float32), rn(C, std=0.1, dtype=torch.float32)
         wfc, bfc = rn(E, C, std=C ** -0.5), rn(E, std=0.02, dtype=torch.float32)
         wproj, bproj = rn(C, E, std=E ** -0.5), rn(C, std=0.02, dtype=torch.float32)
         h = kernels.layernorm_plain(x, lns, lnb)
         args = (x, lns, lnb, wfc, bfc, wproj, bproj, "quick_gelu")
-        cmp("gemm_bias_act", case + " fc+quick_gelu",
-            lambda: kernels.gemm_bias_act(h, wfc, bfc, "quick_gelu"),
-            lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, "quick_gelu"))
-        cmp("gemm_bias_act", case + " fc+gelu",
-            lambda: kernels.gemm_bias_act(h, wfc, bfc, "gelu"),
-            lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, "gelu"))
+        bfc_b = bfc.bfloat16()
+        for act in ("quick_gelu", "gelu"):
+            cmp("gemm_bias_act", f"{case} fc+{act}",
+                lambda: kernels.gemm_bias_act(h, wfc, bfc, act),
+                lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, act), reads=(h, wfc, bfc),
+                ops=gemm_ops(M, E, C), library=lambda: F.linear(h, wfc, bfc_b))
         cmp("fused_ln_mlp_block", case, lambda: fused_mlp.fused_ln_mlp_block(*args),
-            lambda: fused_mlp.fused_ln_mlp_block_plain(*args))
+            lambda: fused_mlp.fused_ln_mlp_block_plain(*args), reads=args[:7],
+            ops=gemm_ops(M, E, C) + gemm_ops(M, C, E))
 
 
 def _block_bwd(torch, block, args, g, **kw):
@@ -268,10 +404,14 @@ def backward_kernel_phase(torch, results):
 
     rn = _seeded(torch)
     _, text_bias = _biases(torch)
+    colsum_lib = lambda t: (lambda: t.reshape(-1, t.shape[-1]).sum(0, dtype=torch.float32))
+    wgrad_lib = lambda a, b: (lambda: torch.matmul(a.reshape(-1, a.shape[-1]).t(),
+                                                   b.reshape(-1, b.shape[-1])))
     for case, B, T, C, H, bias in (("audio B4 T306 C768 H12", BATCH, 306, 768, 12, None),
                                    ("text B1 T308 C512 H8 causal+pack", 1, 308, 512, 8, text_bias),
                                    ("audio B64 T306 C768 H12 (train step)", 64, 306, 768, 12, None)):
-        cmp = lambda *a: compare(torch, results, *a, iters=5 if B > BATCH else 10)
+        cmp = lambda *a, **k: compare(torch, results, *a, iters=5 if B > BATCH else 10, **k)
+        M = B * T
         x, g = rn(B, T, C), rn(B, T, C)
         lns, lnb = 1 + rn(C, std=0.1, dtype=torch.float32), rn(C, std=0.1, dtype=torch.float32)
         wqkv, bqkv = rn(3 * C, C, std=C ** -0.5), rn(3 * C, std=0.02, dtype=torch.float32)
@@ -283,38 +423,49 @@ def backward_kernel_phase(torch, results):
         do = kernels.gemm_dgrad_plain(g, wout, True)
         dqkv, dqkv_b = kernels.attention_bwd_plain(qkv, do, cb, H, scale)
         dh = kernels.gemm_dgrad_plain(dqkv_b, wqkv, False)
-        cmp("colsum", case + " dbout", lambda: kernels.colsum(g), lambda: kernels.colsum_plain(g))
+        cmp("colsum", case + " dbout", lambda: kernels.colsum(g), lambda: kernels.colsum_plain(g),
+            reads=(g,), ops=[(M * C, "fp32")], library=colsum_lib(g))
         cmp("gemm_dgrad", case + " do=g.Wout", lambda: kernels.gemm_dgrad(g, wout, True),
-            lambda: kernels.gemm_dgrad_plain(g, wout, True))
+            lambda: kernels.gemm_dgrad_plain(g, wout, True), reads=(g, wout),
+            ops=gemm_ops(M, C, C), library=lambda: torch.matmul(g, wout))
         cmp("gemm_wgrad", case + " dWout", lambda: kernels.gemm_wgrad(g, o),
-            lambda: kernels.gemm_wgrad_plain(g, o))
+            lambda: kernels.gemm_wgrad_plain(g, o), reads=(g, o), ops=gemm_ops(M, C, C),
+            library=wgrad_lib(g, o))
         cmp("attention_bwd", case, lambda: kernels.attention_bwd(qkv, do, cb, H, scale, stats),
-            lambda: kernels.attention_bwd_plain(qkv, do, cb, H, scale))
+            lambda: kernels.attention_bwd_plain(qkv, do, cb, H, scale), reads=(qkv, do, cb, stats),
+            ops=attn_ops(B, T, H, products=5))
         cmp("colsum", case + " dbqkv fp32", lambda: kernels.colsum(dqkv),
-            lambda: kernels.colsum_plain(dqkv))
+            lambda: kernels.colsum_plain(dqkv), reads=(dqkv,), ops=[(3 * M * C, "fp32")],
+            library=colsum_lib(dqkv))
         cmp("gemm_dgrad", case + " dh=dqkv.Wqkv fp32", lambda: kernels.gemm_dgrad(dqkv_b, wqkv, False),
-            lambda: kernels.gemm_dgrad_plain(dqkv_b, wqkv, False))
+            lambda: kernels.gemm_dgrad_plain(dqkv_b, wqkv, False), reads=(dqkv_b, wqkv),
+            ops=gemm_ops(M, C, 3 * C), library=lambda: torch.matmul(dqkv_b, wqkv))
         cmp("gemm_wgrad", case + " dWqkv", lambda: kernels.gemm_wgrad(dqkv_b, h),
-            lambda: kernels.gemm_wgrad_plain(dqkv_b, h))
+            lambda: kernels.gemm_wgrad_plain(dqkv_b, h), reads=(dqkv_b, h),
+            ops=gemm_ops(M, 3 * C, C), library=wgrad_lib(dqkv_b, h))
         cmp("layernorm_bwd", case, lambda: kernels.layernorm_bwd(x, lns, dh, residual=g),
-            lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=g))
+            lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=g), reads=(x, lns, dh, g),
+            ops=[(20 * M * C, "fp32")])
         del qkv, o, stats, do, dqkv, dqkv_b, dh
         args = (x, lns, lnb, wqkv.float(), bqkv, wout.float(), bout)  # fp32 params, as trained
         cmp("fused_ln_attention_block_bwd", case,
             _block_bwd(torch, fused_attn.fused_ln_attention_block, args, g, bias=bias, heads=H),
-            _block_bwd(torch, fused_attn.fused_ln_attention_block_plain, args, g, bias=bias, heads=H))
+            _block_bwd(torch, fused_attn.fused_ln_attention_block_plain, args, g, bias=bias, heads=H),
+            reads=(*args, g, cb),
+            ops=gemm_ops(M, C, C) * 2 + gemm_ops(M, 3 * C, C) * 2 + attn_ops(B, T, H, products=5))
         torch.cuda.empty_cache()
 
     for case, B, T, C in (("audio B4 T306 C768 E3072", BATCH, 306, 768),
                           ("text B1 T308 C512 E2048", 1, 308, 512),
                           ("audio B64 T306 C768 E3072 (train step)", 64, 306, 768)):
-        cmp = lambda *a: compare(torch, results, *a, iters=5 if B > BATCH else 10)
-        E = 4 * C
+        cmp = lambda *a, **k: compare(torch, results, *a, iters=5 if B > BATCH else 10, **k)
+        E, M = 4 * C, B * T
         x, gy = rn(B, T, C), rn(B, T, C)
         lns, lnb = 1 + rn(C, std=0.1, dtype=torch.float32), rn(C, std=0.1, dtype=torch.float32)
         wfc, bfc = rn(E, C, std=C ** -0.5), rn(E, std=0.02, dtype=torch.float32)
         wproj, bproj = rn(C, E, std=E ** -0.5), rn(C, std=0.02, dtype=torch.float32)
         h = kernels.layernorm_plain(x, lns, lnb)
+        bfc_b = bfc.bfloat16()
         for act in ("quick_gelu", "gelu"):
             c = f"{case} {act}"
             ga, a = kernels.gemm_bias_act_plain(h, wfc, bfc, act, preact=True)
@@ -322,25 +473,35 @@ def backward_kernel_phase(torch, results):
             dh = kernels.gemm_dgrad_plain(da, wfc, False)
             cmp("gemm_bias_act", c + " fc recompute, fp32 preact",
                 lambda: kernels.gemm_bias_act(h, wfc, bfc, act, preact=True),
-                lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, act, preact=True))
-            cmp("colsum", c + " dbproj", lambda: kernels.colsum(gy), lambda: kernels.colsum_plain(gy))
+                lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, act, preact=True),
+                reads=(h, wfc, bfc), ops=gemm_ops(M, E, C),
+                library=lambda: torch.nn.functional.linear(h, wfc, bfc_b))
+            cmp("colsum", c + " dbproj", lambda: kernels.colsum(gy), lambda: kernels.colsum_plain(gy),
+                reads=(gy,), ops=[(M * C, "fp32")], library=colsum_lib(gy))
             cmp("gemm_wgrad", c + " dWproj", lambda: kernels.gemm_wgrad(gy, ga),
-                lambda: kernels.gemm_wgrad_plain(gy, ga))
+                lambda: kernels.gemm_wgrad_plain(gy, ga), reads=(gy, ga), ops=gemm_ops(M, C, E),
+                library=wgrad_lib(gy, ga))
             cmp("gemm_dgrad", c + " da=(gy.Wproj)*act'(a)",
                 lambda: kernels.gemm_dgrad(gy, wproj, True, act, a),
-                lambda: kernels.gemm_dgrad_plain(gy, wproj, True, act, a))
-            cmp("colsum", c + " dbfc", lambda: kernels.colsum(da), lambda: kernels.colsum_plain(da))
+                lambda: kernels.gemm_dgrad_plain(gy, wproj, True, act, a), reads=(gy, wproj, a),
+                ops=gemm_ops(M, E, C), library=lambda: torch.matmul(gy, wproj))
+            cmp("colsum", c + " dbfc", lambda: kernels.colsum(da), lambda: kernels.colsum_plain(da),
+                reads=(da,), ops=[(M * E, "fp32")], library=colsum_lib(da))
             cmp("gemm_wgrad", c + " dWfc", lambda: kernels.gemm_wgrad(da, h),
-                lambda: kernels.gemm_wgrad_plain(da, h))
+                lambda: kernels.gemm_wgrad_plain(da, h), reads=(da, h), ops=gemm_ops(M, E, C),
+                library=wgrad_lib(da, h))
             cmp("gemm_dgrad", c + " dh=da.Wfc fp32", lambda: kernels.gemm_dgrad(da, wfc, False),
-                lambda: kernels.gemm_dgrad_plain(da, wfc, False))
+                lambda: kernels.gemm_dgrad_plain(da, wfc, False), reads=(da, wfc),
+                ops=gemm_ops(M, C, E), library=lambda: torch.matmul(da, wfc))
             cmp("layernorm_bwd", c, lambda: kernels.layernorm_bwd(x, lns, dh, residual=gy),
-                lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=gy))
+                lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=gy), reads=(x, lns, dh, gy),
+                ops=[(20 * M * C, "fp32")])
             del ga, a, da, dh
             args = (x, lns, lnb, wfc.float(), bfc, wproj.float(), bproj)  # fp32 params, as trained
             cmp("fused_ln_mlp_block_bwd", c,
                 _block_bwd(torch, fused_mlp.fused_ln_mlp_block, args, gy, act=act),
-                _block_bwd(torch, fused_mlp.fused_ln_mlp_block_plain, args, gy, act=act))
+                _block_bwd(torch, fused_mlp.fused_ln_mlp_block_plain, args, gy, act=act),
+                reads=(*args, gy), ops=gemm_ops(M, E, C) * 5)
             torch.cuda.empty_cache()
 
 
@@ -351,42 +512,29 @@ def record_launches(results, path, counts):
         results.setdefault(name, {"max_abs_err": 0.0, "cases": [], "launches": {}})["launches"][path] = n
 
 
-def slice_phase(torch, results):
-    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+def _engine(torch, batch_size, quantize=""):
     from vipant_tpu_torch.serve import InferenceEngine
 
     t0 = time.perf_counter()
-    eng = InferenceEngine(CLAP_FULL, batch_size=BATCH, device="cuda", seed=0)
+    eng = InferenceEngine(CLAP_FULL, batch_size=batch_size, seed=0, quantize=quantize)  # on the card
     torch.cuda.synchronize()
-    print(f"engine built in {time.perf_counter() - t0:.2f} s (seeded random weights)")
-    audio_layers = len(eng.model.audio.encoder.resblocks)
-    text_layers = len(eng.model.text.encoder.resblocks)
-    fb = np.random.default_rng(0).standard_normal((6, 1000, 128)).astype(np.float32)
-    nchunks = lambda n: -(-n // BATCH)
+    print(f"engine (batch {batch_size}, quantize={quantize!r}) built in "
+          f"{time.perf_counter() - t0:.2f} s (seeded random weights)")
+    return eng
+
+
+def _serve_blocks(eng, n_audio=6, n_zero_shot=3):
+    """Sub-block calls of each kind on the serving path below: layers times
+    chunks, for the audio and the text tower."""
+    nchunks = lambda n: -(-n // eng.batch_size)
     n_prompts = sum(len(v) for v in CLASSES.values())
+    audio_chunks = nchunks(n_audio) + nchunks(n_zero_shot)
+    text_chunks = nchunks(len(PROMPTS)) + nchunks(n_prompts)
+    return (len(eng.model.audio.encoder.resblocks) * audio_chunks
+            + len(eng.model.text.encoder.resblocks) * text_chunks)
 
-    # the serving path: its launches are counted from here
-    reset_launches()
-    a = eng.embed_audio(fb)
-    t = eng.embed_texts(PROMPTS)
-    zs = eng.zero_shot(fb[:3], CLASSES)
-    torch.cuda.synchronize()
-    counts = dict(LAUNCHES)
-    print(f"launches on the serving path: {json.dumps(counts, sort_keys=True)}")
 
-    audio_chunks, text_chunks = nchunks(6) + nchunks(3), nchunks(len(PROMPTS)) + nchunks(n_prompts)
-    blocks = audio_layers * audio_chunks + text_layers * text_chunks
-    want = {
-        "fused_ln_attention_block": blocks,
-        "fused_ln_mlp_block": blocks,
-        "layernorm_fwd": 2 * blocks,
-        "gemm_bias_act": 4 * blocks,
-        "attention_fwd": blocks,
-    }
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != expected {want}")
-    record_launches(results, "serve", counts)
-
+def _check_embeddings(eng, a, t, zs):
     for name, e, n in (("audio", a, 6), ("text", t, len(PROMPTS))):
         if e.shape != (n, eng._embed_dim()) or not np.isfinite(e).all():
             raise AssertionError(f"{name} embeddings: shape {e.shape}, finite {np.isfinite(e).all()}")
@@ -397,15 +545,50 @@ def slice_phase(torch, results):
         raise AssertionError(f"zero_shot output malformed: {zs}")
     print(f"zero_shot predictions: {zs['prediction']}")
 
-    def timed(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
 
+def _timed_ms(torch, fn, reps=10):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _row_cos(e, r):
+    return (e * r).sum(-1) / (np.linalg.norm(e, axis=-1) * np.linalg.norm(r, axis=-1))
+
+
+def slice_phase(torch, results):
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+
+    eng = _engine(torch, BATCH)
+    fb = np.random.default_rng(0).standard_normal((6, 1000, 128)).astype(np.float32)
+
+    # the serving path: its launches are counted from here
+    reset_launches()
+    a = eng.embed_audio(fb)
+    t = eng.embed_texts(PROMPTS)
+    zs = eng.zero_shot(fb[:3], CLASSES)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    print(f"launches on the serving path: {json.dumps(counts, sort_keys=True)}")
+
+    blocks = _serve_blocks(eng)
+    want = {
+        "fused_ln_attention_block": blocks,
+        "fused_ln_mlp_block": blocks,
+        "layernorm_fwd": 2 * blocks,
+        "gemm_bias_act": 4 * blocks,
+        "attention_fwd": blocks,
+    }
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    record_launches(results, "serve", counts)
+    _check_embeddings(eng, a, t, zs)
+
+    timed = lambda fn: _timed_ms(torch, fn)
     ms = {"audio": timed(lambda: eng.embed_audio(fb[:BATCH])),
           "text": timed(lambda: eng.embed_texts(PROMPTS[:BATCH]))}
 
@@ -415,13 +598,205 @@ def slice_phase(torch, results):
         plain_ms = {"audio": timed(lambda: eng.embed_audio(fb[:BATCH])),
                     "text": timed(lambda: eng.embed_texts(PROMPTS[:BATCH]))}
     for name, e, r in (("audio", a, a_ref), ("text", t, t_ref)):
-        cos = (e * r).sum(-1) / (np.linalg.norm(e, axis=-1) * np.linalg.norm(r, axis=-1))
+        cos = _row_cos(e, r)
         print(f"{name} embedding cosine vs plain ops on the card: min {cos.min():.6f}")
         if cos.min() < COS_MIN:
             raise AssertionError(f"{name} cosine {cos.min()} < {COS_MIN}")
     for k in ms:
         print(f"{k}: {ms[k]:.3f} ms per batch of {BATCH} (kernels), "
               f"{plain_ms[k]:.3f} ms (plain ops)")
+
+
+def int8_kernel_phase(torch, results):
+    """Every int8 kernel on the inputs its chain gives it, and both int8
+    sub-blocks, against the plain versions; each sub-block also beside the
+    bf16 kernel chain of the same sub-block."""
+    from vipant_tpu_torch.ops import fused_attn, fused_mlp, kernels
+
+    rn = _seeded(torch)
+    pack_bias, text_bias = _biases(torch)
+    f32 = torch.float32
+    codes = check_codes
+    quant_ops = lambda t: [(4 * t.numel(), "fp32")]
+
+    def ln_codes(x, lns, lnb):
+        """layernorm_rowquant: bitwise the chain layernorm_fwd -> rowquant (the
+        LayerNorm code is shared). Against the plain LayerNorm a normalised
+        value may round to the neighbouring bf16: its code then moves by
+        one, and where it is the row's largest, the scale by a bf16 ulp."""
+        def check(_, got, want, what):
+            q, s = kernels.rowquant(kernels.layernorm_fwd(x, lns, lnb))
+            if not (torch.equal(got[0], q) and torch.equal(got[1], s)):
+                raise AssertionError(f"{what}: differs from layernorm_fwd -> rowquant")
+            d = (got[0].int() - want[0].int()).abs()
+            off, share = d.max().item(), (d != 0).float().mean().item()
+            if off > 1 or share > 1e-2 or not torch.allclose(got[1], want[1], rtol=2 ** -7, atol=0):
+                raise AssertionError(f"{what}: codes off by up to {off} (share {share:.2e}) or scales "
+                                     f"beyond one bf16 ulp of the plain LayerNorm's")
+            err = (got[0].float() * got[1] - want[0].float() * want[1]).abs().max().item()
+            return err, f"= layernorm_fwd->rowquant bitwise; vs plain LN {share:.1e} codes off by one"
+        return check
+
+    def int_mm(xq, wq):
+        x2 = xq.reshape(-1, xq.shape[-1])
+        return lambda: torch._int_mm(x2, wq.t())
+
+    attn_cases = [  # audio, packed text, packed image; serving and batch shapes
+        ("audio B4 T306 C768 H12", BATCH, 306, 768, 12, None),
+        ("audio B64 T306 C768 H12", 64, 306, 768, 12, None),
+        ("text B1 T308 C512 H8 causal+pack", 1, 308, 512, 8, text_bias),
+        ("text B16 T308 C512 H8 causal+pack", 16, 308, 512, 8, text_bias),
+        ("image B16 T200 C768 H12 pack", 16, 200, 768, 12, pack_bias(50, 4)),
+    ]
+    for case, B, T, C, H, bias in attn_cases:
+        cmp = lambda *a, **k: compare(torch, results, *a, iters=10 if B > BATCH else 20, **k)
+        M = B * T
+        x = rn(B, T, C)
+        x[0, 1] = 0  # an all-zero token
+        lns, lnb = 1 + rn(C, std=0.1, dtype=f32), rn(C, std=0.1, dtype=f32)
+        wqkv, bqkv = rn(3 * C, C, std=C ** -0.5, dtype=f32), rn(3 * C, std=0.02, dtype=f32)
+        wout, bout = rn(C, C, std=C ** -0.5, dtype=f32), rn(C, std=0.02, dtype=f32)
+        cb = fused_attn.canon_bias(bias)
+        wq_b = wqkv.bfloat16()
+        wq8, swq = kernels.rowquant_plain(wq_b)
+        wo8, swo = kernels.rowquant_plain(wout.bfloat16())
+        h8, sh = kernels.layernorm_rowquant_plain(x, lns, lnb)
+        qkv = kernels.gemm_i8_plain(h8, sh, wq8, swq, bqkv, col_first=True)
+        o = kernels.attention_plain(qkv, cb, H, 0.125, fp32_out=True)
+        o8, so = kernels.rowquant_plain(o)
+        args = (x, lns, lnb, wqkv, bqkv, wout, bout, bias, H)
+        cmp("rowquant", case + " Wqkv bf16", lambda: kernels.rowquant(wq_b),
+            lambda: kernels.rowquant_plain(wq_b), reads=(wq_b,), ops=quant_ops(wq_b), check=codes)
+        cmp("layernorm_rowquant", case, lambda: kernels.layernorm_rowquant(x, lns, lnb),
+            lambda: kernels.layernorm_rowquant_plain(x, lns, lnb), reads=(x, lns, lnb),
+            ops=[(12 * M * C, "fp32")], check=ln_codes(x, lns, lnb))
+        cmp("gemm_i8", case + " qkv (column scale first)",
+            lambda: kernels.gemm_i8(h8, sh, wq8, swq, bqkv, col_first=True),
+            lambda: kernels.gemm_i8_plain(h8, sh, wq8, swq, bqkv, col_first=True),
+            reads=(h8, sh, wq8, swq, bqkv), ops=gemm_ops(M, 3 * C, C, "int8"), library=int_mm(h8, wq8))
+        cmp("attention_fwd_f32", case, lambda: kernels.attention_fwd(qkv, cb, H, 0.125, fp32_out=True),
+            lambda: kernels.attention_plain(qkv, cb, H, 0.125, fp32_out=True), reads=(qkv, cb),
+            ops=attn_ops(B, T, H), library=_sdpa(torch, qkv, cb, H, 0.125))
+        cmp("rowquant", case + " context fp32", lambda: kernels.rowquant(o),
+            lambda: kernels.rowquant_plain(o), reads=(o,), ops=quant_ops(o), check=codes)
+        cmp("gemm_i8", case + " out+res", lambda: kernels.gemm_i8(o8, so, wo8, swo, bout, residual=x),
+            lambda: kernels.gemm_i8_plain(o8, so, wo8, swo, bout, residual=x),
+            reads=(o8, so, wo8, swo, bout, x), ops=gemm_ops(M, C, C, "int8"), library=int_mm(o8, wo8))
+        del qkv, o, o8, h8
+        cmp("fused_ln_attention_block_int8", case,
+            lambda: fused_attn.fused_ln_attention_block_int8(*args),
+            lambda: fused_attn.fused_ln_attention_block_int8_plain(*args), reads=args[:8],
+            ops=gemm_ops(M, 3 * C, C, "int8") + attn_ops(B, T, H) + gemm_ops(M, C, C, "int8"),
+            also={"bf16_chain_ms": lambda: fused_attn.fused_ln_attention_block(*args)})
+        torch.cuda.empty_cache()
+
+    for case, B, T, C in (("audio B4 T306 C768 E3072", BATCH, 306, 768),
+                          ("audio B64 T306 C768 E3072", 64, 306, 768),
+                          ("text B1 T308 C512 E2048", 1, 308, 512),
+                          ("text B16 T308 C512 E2048", 16, 308, 512),
+                          ("image B16 T200 C768 E3072", 16, 200, 768)):
+        cmp = lambda *a, **k: compare(torch, results, *a, iters=10 if B > BATCH else 20, **k)
+        E, M = 4 * C, B * T
+        x = rn(B, T, C)
+        x[0, 1] = 0
+        lns, lnb = 1 + rn(C, std=0.1, dtype=f32), rn(C, std=0.1, dtype=f32)
+        wfc, bfc = rn(E, C, std=C ** -0.5, dtype=f32), rn(E, std=0.02, dtype=f32)
+        wproj, bproj = rn(C, E, std=E ** -0.5, dtype=f32), rn(C, std=0.02, dtype=f32)
+        wf8, sfc = kernels.rowquant_plain(wfc)
+        wp8, spj = kernels.rowquant_plain(wproj)
+        h8, hs = kernels.layernorm_rowquant_plain(x, lns, lnb)
+        cmp("rowquant", case + " Wfc fp32", lambda: kernels.rowquant(wfc),
+            lambda: kernels.rowquant_plain(wfc), reads=(wfc,), ops=quant_ops(wfc), check=codes)
+        for act in ("quick_gelu", "gelu"):
+            c = f"{case} {act}"
+            g = kernels.gemm_i8_plain(h8, hs, wf8, sfc, bfc, act=act, out_dtype=f32)
+            g8, gs = kernels.rowquant_plain(g)
+            args = (x, lns, lnb, wfc, bfc, wproj, bproj, act)
+            cmp("gemm_i8", c + " fc, fp32 out",
+                lambda: kernels.gemm_i8(h8, hs, wf8, sfc, bfc, act=act, out_dtype=f32),
+                lambda: kernels.gemm_i8_plain(h8, hs, wf8, sfc, bfc, act=act, out_dtype=f32),
+                reads=(h8, hs, wf8, sfc, bfc), ops=gemm_ops(M, E, C, "int8"), library=int_mm(h8, wf8))
+            cmp("rowquant", c + " act(a) fp32", lambda: kernels.rowquant(g),
+                lambda: kernels.rowquant_plain(g), reads=(g,), ops=quant_ops(g), check=codes)
+            cmp("gemm_i8", c + " proj+res", lambda: kernels.gemm_i8(g8, gs, wp8, spj, bproj, residual=x),
+                lambda: kernels.gemm_i8_plain(g8, gs, wp8, spj, bproj, residual=x),
+                reads=(g8, gs, wp8, spj, bproj, x), ops=gemm_ops(M, C, E, "int8"),
+                library=int_mm(g8, wp8))
+            del g, g8
+            cmp("fused_ln_mlp_block_int8", c, lambda: fused_mlp.fused_ln_mlp_block_int8(*args),
+                lambda: fused_mlp.fused_ln_mlp_block_int8_plain(*args), reads=args[:7],
+                ops=gemm_ops(M, E, C, "int8") + gemm_ops(M, C, E, "int8"),
+                also={"bf16_chain_ms": lambda: fused_mlp.fused_ln_mlp_block(*args)})
+            torch.cuda.empty_cache()
+
+
+def int8_serve_phase(torch, results):
+    """The full CLAP engine with ``quantize="int8"`` beside the bf16 engine
+    of the same seed."""
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+
+    eng8, eng = _engine(torch, BATCH, "int8"), _engine(torch, BATCH)
+    fb = np.random.default_rng(0).standard_normal((6, 1000, 128)).astype(np.float32)
+
+    # the int8 serving path: its launches are counted from here
+    reset_launches()
+    a = eng8.embed_audio(fb)
+    t = eng8.embed_texts(PROMPTS)
+    zs = eng8.zero_shot(fb[:3], CLASSES)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    print(f"launches on the int8 serving path: {json.dumps(counts, sort_keys=True)}")
+    blocks = _serve_blocks(eng8)
+    want = {  # every sub-block call of both towers on the int8 chain, none on the bf16 one
+        "fused_ln_attention_block_int8": blocks, "fused_ln_mlp_block_int8": blocks,
+        "rowquant": 6 * blocks, "layernorm_rowquant": 2 * blocks, "gemm_i8": 4 * blocks,
+        "attention_fwd_f32": blocks,
+    }
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    record_launches(results, "serve_int8", counts)
+    _check_embeddings(eng8, a, t, zs)
+
+    with plain_ops():  # the same int8 engine on the plain ops, on the card
+        a_plain, t_plain = eng8.embed_audio(fb), eng8.embed_texts(PROMPTS)
+    a_bf16, t_bf16 = eng.embed_audio(fb), eng.embed_texts(PROMPTS)
+    zs_bf16 = eng.zero_shot(fb[:3], CLASSES)
+    for name, e, pl, ref in (("audio", a, a_plain, a_bf16), ("text", t, t_plain, t_bf16)):
+        kp, kb, pb = _row_cos(e, pl).min(), _row_cos(e, ref).min(), _row_cos(pl, ref).min()
+        print(f"{name} int8 embedding cosine: kernels vs plain int8 ops {kp:.6f}; vs the bf16 kernel "
+              f"engine: kernels {kb:.6f}, plain int8 ops {pb:.6f}")
+        if kp < COS_MIN:
+            raise AssertionError(f"{name}: int8 kernels vs plain int8 ops cosine {kp} < {COS_MIN}")
+        if kb < INT8_COS_MIN and kb < pb - COS_SLACK:
+            raise AssertionError(f"{name}: int8 kernels are further from bf16 ({kb}) than the bar "
+                                 f"{INT8_COS_MIN} and than the plain int8 path ({pb})")
+    if zs["prediction"] == zs_bf16["prediction"]:
+        print(f"zero_shot: int8 picks the bf16 engine's classes {zs_bf16['prediction']}")
+    else:
+        print(f"zero_shot: int8 picks {zs['prediction']}, bf16 {zs_bf16['prediction']}; scores int8 "
+              f"{np.round(zs['scores'], 4).tolist()} bf16 {np.round(zs_bf16['scores'], 4).tolist()}")
+
+    def ms_per_batch(e8, e, B):
+        fbb = np.random.default_rng(1).standard_normal((B, 1000, 128)).astype(np.float32)
+        texts = [PROMPTS[i % len(PROMPTS)] for i in range(B)]
+        for name, fn in (("embed_audio", lambda en: en.embed_audio(fbb)),
+                         ("embed_texts", lambda en: en.embed_texts(texts))):
+            tb1, t81 = _timed_ms(torch, lambda: fn(e), 5), _timed_ms(torch, lambda: fn(e8), 5)
+            t82, tb2 = _timed_ms(torch, lambda: fn(e8), 5), _timed_ms(torch, lambda: fn(e), 5)
+            print(f"{name}: {(t81 + t82) / 2:.3f} ms per batch of {B} (int8), "
+                  f"{(tb1 + tb2) / 2:.3f} ms (bf16)")
+        if B > BATCH:  # where the device time of an audio batch goes, int8 beside bf16
+            for label, en in (("int8", e8), ("bf16", e)):
+                busy, span, by_name = _profile(torch, lambda: en.embed_audio(fbb))
+                top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+                print(f"profiler, embed_audio batch {B} {label}: device busy {busy:.2f} ms / span "
+                      f"{span:.2f} ms per batch; top kernels by device time per batch: "
+                      + "; ".join(f"{d / 3:.3f} ms {n / 3:.1f}x {k[:60]}" for k, (n, d) in top))
+
+    ms_per_batch(eng8, eng, BATCH)
+    del eng8, eng
+    torch.cuda.empty_cache()
+    ms_per_batch(_engine(torch, 64, "int8"), _engine(torch, 64), 64)
 
 
 def _cos(torch, a, b):
@@ -439,7 +814,7 @@ def _trainer(torch, B, *extra):
     from vipant_tpu_torch.train import Trainer
 
     torch.cuda.empty_cache()
-    return Trainer(FLAGSHIP + [f"running.batch_size={B}", *extra], device="cuda",
+    return Trainer(FLAGSHIP + [f"running.batch_size={B}", *extra],  # on the card, the default
                    steps_per_epoch=STEPS_PER_EPOCH)
 
 
@@ -637,6 +1012,98 @@ def train_phase(torch, results):
         raise AssertionError(f"first 10 Adam losses: kernels {k[:10]} vs plain {p}")
 
 
+def train_int8_phase(torch, results):
+    """The VA step with ``model.image.int8_frozen=True``: the frozen image
+    tower on the int8 kernels, the trainable audio tower on the bf16 ones."""
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.optim import global_norm
+    from vipant_tpu_torch.train import loss_and_grads
+
+    INT8 = "model.image.int8_frozen=True"
+
+    # (i) B = 16, beside the bf16 frozen tower from the same init and batch
+    B = 16
+    tr8, tr = _trainer(torch, B, INT8), _trainer(torch, B)
+    audio_layers, image_layers = len(tr8.model.audio.encoder.resblocks), len(tr8.model.image.encoder.resblocks)
+    batch = _va_batch(tr8, np.random.default_rng(0), B)
+    with torch.no_grad():
+        v8, v = tr8.model.encode_image(batch[0]), tr.model.encode_image(batch[0])
+        with plain_ops():
+            v8_plain = tr8.model.encode_image(batch[0])
+    cos = lambda a, b: torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1).min().item()
+    kp, kb, pb = cos(v8, v8_plain), cos(v8, v), cos(v8_plain, v)
+    (loss8, g8), (loss, g) = loss_and_grads(tr8.state, *batch), loss_and_grads(tr.state, *batch)
+    n8, n = float(global_norm(list(g8.values()))), float(global_norm(list(g.values())))
+    print(f"(i) B={B} image features, int8 frozen tower: cosine vs plain int8 ops {kp:.6f}; vs the bf16 "
+          f"frozen tower: kernels {kb:.6f}, plain int8 ops {pb:.6f}; loss int8_frozen {float(loss8):.6f} "
+          f"bf16 {float(loss):.6f}; grad_norm int8_frozen {n8:.6f} bf16 {n:.6f}")
+    if kp < COS_MIN or (kb < INT8_COS_MIN and kb < pb - COS_SLACK):
+        raise AssertionError("the int8 frozen tower's features are off its plain version or the bf16 tower")
+    if not (np.isfinite(float(loss8)) and np.isfinite(n8) and abs(float(loss8) - float(loss)) <= 0.05 * abs(float(loss))):
+        raise AssertionError(f"int8_frozen loss {float(loss8)} against bf16 {float(loss)}")
+    del tr, g8, g, v8, v, v8_plain
+
+    # (ii) the int8_frozen training path: its launches are counted from here, one step
+    init = {k: p.detach().clone() for k, p in tr8.model.named_parameters()}
+    reset_launches()
+    losses = [float(tr8.train_step(*batch)["loss"])]
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    print(f"(ii) launches in one int8_frozen training step: {json.dumps(counts, sort_keys=True)}")
+    fwd, bwd, q = audio_layers, audio_layers, image_layers
+    want = {  # the image tower on the int8 chain only; the audio tower as in the bf16 step
+        "fused_ln_attention_block_int8": q, "fused_ln_mlp_block_int8": q, "rowquant": 6 * q,
+        "layernorm_rowquant": 2 * q, "gemm_i8": 4 * q, "attention_fwd_f32": q,
+        "fused_ln_attention_block": fwd, "fused_ln_mlp_block": fwd,
+        "fused_ln_attention_block_bwd": bwd, "fused_ln_mlp_block_bwd": bwd,
+        "layernorm_fwd": 2 * fwd + 2 * bwd, "gemm_bias_act": 4 * fwd + bwd,
+        "attention_fwd": fwd, "attention_bwd": bwd, "layernorm_bwd": 2 * bwd,
+        "colsum": 4 * bwd, "gemm_dgrad": 4 * bwd, "gemm_wgrad": 4 * bwd,
+    }
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    record_launches(results, "train_int8_frozen", counts)
+
+    # (iii) five LARS steps: the image params stay bitwise as they were
+    losses += [float(tr8.train_step(*batch)["loss"]) for _ in range(4)]
+    moved = sum(not torch.equal(p.detach(), init[k]) for k, p in tr8.trainable.items())
+    print(f"(iii) LARS losses under int8_frozen {[round(v, 5) for v in losses]}; {moved} of "
+          f"{len(tr8.trainable)} trainable params moved; {len(tr8.frozen)} frozen params checked")
+    if not np.isfinite(losses).all() or moved == 0:
+        raise AssertionError("int8_frozen LARS steps: non-finite loss or nothing moved")
+    for k, p in tr8.frozen.items():
+        if not torch.equal(p.detach(), init[k]) or p.grad is not None:
+            raise AssertionError(f"frozen image param {k} changed")
+    del tr8, batch, init
+
+    # (iv) ms per step at B = 64, beside the bf16 step's (order bf16, int8, int8, bf16)
+    B = 64
+    tr8, tr = _trainer(torch, B, INT8), _trainer(torch, B)
+    batch = _va_batch(tr8, np.random.default_rng(1), B)
+    step = lambda t: cuda_ms(torch, lambda: t.train_step(*batch), 5, 2)
+    image = lambda t: cuda_ms(torch, lambda: t.model.encode_image(batch[0]), 10, 2)
+    b1, i1, i2, b2 = step(tr), step(tr8), step(tr8), step(tr)
+    fb1, fi1, fi2, fb2 = image(tr), image(tr8), image(tr8), image(tr)
+    fb, fi = (fb1 + fb2) / 2, (fi1 + fi2) / 2
+    print(f"(iv) B={B}: {(i1 + i2) / 2:.2f} ms/step with int8_frozen ({B / ((i1 + i2) / 2) * 1e3:.1f} "
+          f"clips/s), {(b1 + b2) / 2:.2f} ms/step bf16 ({B / ((b1 + b2) / 2) * 1e3:.1f} clips/s); the "
+          f"frozen image tower alone: {fi:.2f} ms int8, {fb:.2f} ms bf16")
+    for label, t in (("int8_frozen", tr8), ("bf16", tr)):  # device or host: where a difference lies
+        busy, span, by_name = _profile(torch, lambda: t.train_step(*batch))
+        print(f"(iv) profiler, {label} step at B={B}: device busy {busy:.2f} ms / span {span:.2f} ms per "
+              f"step, {sum(n for n, _ in by_name.values()) / 3:.0f} device events per step")
+    del tr8, tr, batch
+
+    # (v) Adam descent smoke under int8_frozen
+    B, n_steps = 32, 60
+    tr8 = _trainer(torch, B, INT8, "optimizer.use_lars=False", "optimizer.warmup=False", "optimizer.lr=1.0e-3")
+    batches = [_va_batch(tr8, np.random.default_rng(7 + i), B) for i in range(4)]
+    k = np.asarray([float(tr8.train_step(*batches[i % 4])["loss"]) for i in range(n_steps)])
+    print(f"(v) Adam B={B} under int8_frozen: {np.round(k[::5], 4).tolist()} ... last 5 mean {k[-5:].mean():.4f}")
+    if not (np.isfinite(k).all() and k[-5:].mean() < 0.9 * k[0]):
+        raise AssertionError(f"Adam smoke under int8_frozen did not descend: {k.tolist()}")
+
+
 def main() -> int:
     import torch
 
@@ -666,7 +1133,10 @@ def main() -> int:
     for title, phase in (("kernel phase (forward kernels vs plain PyTorch on the card)", kernel_phase),
                          ("backward kernel phase (vs plain PyTorch on the card)", backward_kernel_phase),
                          ("serving slice (full-size CLAP engine)", slice_phase),
-                         ("training slice (flagship VA step, full width)", train_phase)):
+                         ("training slice (flagship VA step, full width)", train_phase),
+                         ("int8 kernel phase (vs plain PyTorch on the card)", int8_kernel_phase),
+                         ("int8 serving slice (full-size CLAP engine, quantize=int8)", int8_serve_phase),
+                         ("training slice with the int8 frozen image tower", train_int8_phase)):
         t0 = time.perf_counter()
         print(title + ":")
         phase(torch, results)
@@ -676,11 +1146,16 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
         main_case = r["cases"][0]
+        if not any(r["launches"].values()):
+            raise AssertionError(f"{name} was launched on no main path")
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(r["launches"].values()), "launches_by_path": r["launches"],
+            "launches": sum(r["launches"].values()),
+            "launches_by_path": {path: r["launches"].get(path, 0) for path in PATHS},
             "max_abs_err": r["max_abs_err"], "ms": main_case["ms"],
-            "plain_ms": main_case["plain_ms"], "cases": r["cases"],
+            "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
+            "cases": r["cases"],
         })
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ imports no JAX, so it runs on a GPU machine without it:
 Tolerances: atol = rtol = 2e-2 on bf16 outputs, one bf16 ulp of the output
 plus a different fp32 summation order; max |d| <= 1e-2 * max |plain| on
 fp32 grads (weight, bias and LayerNorm grads, the fp32 dqkv), which sum
-over thousands of rows in another order."""
+over thousands of rows in another order. Int8 codes: equal except a share
+of at most 1e-3 off by exactly one, scales to 1e-6 relative; the int32 sum
+of gemm_i8 is exact (compared bitwise at unit scales)."""
 
 from unittest import mock
 
@@ -277,3 +279,201 @@ def test_train_step_runs_every_backward_through_the_kernels(gen):
         if nf > 0 and not k.startswith("loss."):  # logit_scale: a scalar before any kernel
             assert (K - F).norm().item() / nf <= (P - F).norm().item() / nf + 3e-2, k
             assert abs((K - P) @ F).item() <= 5e-2 * nf ** 2, k  # scale along F
+
+
+# ---------------------------------------------------------------------------
+# the int8 kernels
+# ---------------------------------------------------------------------------
+
+FLIP_SHARE = 1e-3
+
+
+def _codes_close(got, want, what=""):
+    """(codes, scale) pairs: scales to 1e-6 relative; codes equal except a
+    share of at most 1e-3 that is off by exactly one (x / scale within an
+    fp32 ulp of a half, rounded the other way by another division order)."""
+    (q, s), (q0, s0) = got, want
+    assert q.dtype == torch.int8 and q.shape == q0.shape and s.shape == s0.shape, what
+    torch.testing.assert_close(s, s0, rtol=1e-6, atol=0, msg=what)
+    d = (q.int() - q0.int()).abs()
+    assert d.max().item() <= 1, f"{what}: a code is off by {d.max().item()}"
+    assert (d != 0).float().mean().item() <= FLIP_SHARE, f"{what}: {(d != 0).float().mean().item()}"
+
+
+@pytest.mark.parametrize("rows,K", [(1224, 768), (1224, 3072), (19584, 768), (2304, 768), (37, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rowquant_kernel_matches_plain(gen, rows, K, dtype):
+    x = (_rn(gen, rows, K) * 3).to(dtype)
+    x[1] = 0  # an all-zero row: scale 1e-12, codes 0
+    reset_launches()
+    got = kernels.rowquant(x)
+    assert LAUNCHES == {"rowquant": 1}
+    _codes_close(got, kernels.rowquant_plain(x), "rowquant")
+    assert (got[0][1] == 0).all() and torch.isfinite(got[1]).all()
+
+
+@pytest.mark.parametrize("B,T,C", [(4, 306, 768), (64, 306, 768), (1, 308, 512), (3, 37, 64)])
+def test_layernorm_rowquant_kernel_matches_plain(gen, B, T, C):
+    x = _rn(gen, B, T, C).bfloat16()
+    x[0, 1] = 0
+    w, b = 1 + _rn(gen, C, std=0.1), _rn(gen, C, std=0.1)
+    got = kernels.layernorm_rowquant(x, w, b)
+    # bitwise the chain layernorm_fwd -> rowquant: the LayerNorm code is shared
+    q, s = kernels.rowquant(kernels.layernorm_fwd(x, w, b))
+    assert torch.equal(got[0], q) and torch.equal(got[1], s)
+    # against the plain LayerNorm a normalised value may round to the neighbouring bf16: its code
+    # then moves by one, and where it is the row's largest, the scale by one bf16 ulp (2^-8)
+    pq, ps = kernels.layernorm_rowquant_plain(x, w, b)
+    d = (got[0].int() - pq.int()).abs()
+    assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 1e-2
+    torch.testing.assert_close(got[1], ps, rtol=2 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("M,N,K", [(1224, 2304, 768), (1224, 768, 3072), (308, 1536, 512),
+                                   (308, 512, 2048), (19584, 3072, 768), (111, 64, 256),
+                                   (50, 24, 80)])  # K and N short of a tile, K not a multiple of 32
+def test_gemm_i8_kernel_matches_plain(gen, M, N, K):
+    xq, rs = kernels.rowquant(_rn(gen, M, K))
+    wq, cs = kernels.rowquant(_rn(gen, N, K, std=K ** -0.5))
+    b, res = _rn(gen, N, std=0.02), _rn(gen, M, N).bfloat16()
+    if K == 3072:  # the largest sum there is: every code at its limit
+        xq[0], wq[0] = 127, -127
+    for kw in (dict(), dict(col_first=True), dict(residual=res), dict(act="quick_gelu", out_dtype=torch.float32),
+               dict(act="gelu", out_dtype=torch.float32)):
+        got = kernels.gemm_i8(xq, rs, wq, cs, b, **kw)
+        want = kernels.gemm_i8_plain(xq, rs, wq, cs, b, **kw)
+        _close(got, want, f"gemm_i8 {kw}")
+    # the integer sum itself is exact: unit scales, no bias
+    one_r, one_c = torch.ones(M, 1, device="cuda"), torch.ones(N, 1, device="cuda")
+    got = kernels.gemm_i8(xq, one_r, wq, one_c, torch.zeros(N, device="cuda"), out_dtype=torch.float32)
+    assert torch.equal(got, kernels.int_matmul_plain(xq, wq))
+
+
+@pytest.mark.parametrize("B,T,C,H,kind", [(4, 306, 768, 12, "none"), (1, 308, 512, 8, "causal_pack"),
+                                          (4, 200, 768, 12, "pack"), (3, 37, 128, 2, "causal")])
+def test_attention_fwd_f32_kernel_matches_plain(gen, B, T, C, H, kind):
+    qkv = _rn(gen, B, T, 3 * C).bfloat16()
+    bias = fused_attn.canon_bias(_bias(kind, T))
+    got = kernels.attention_fwd(qkv, bias, H, 0.125, fp32_out=True)
+    want = kernels.attention_plain(qkv, bias, H, 0.125, fp32_out=True)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)  # p is rounded to bf16 in both
+    # rounded once, it is the bf16 kernel's context bitwise
+    assert torch.equal(got.bfloat16(), kernels.attention_fwd(qkv, bias, H, 0.125))
+
+
+@pytest.mark.parametrize("B,T,C,H,kind", [
+    (4, 306, 768, 12, "none"), (16, 308, 512, 8, "causal_pack"), (16, 200, 768, 12, "pack"),
+    (3, 37, 128, 2, "causal"),
+])
+def test_attention_block_int8_kernels_match_plain(gen, B, T, C, H, kind):
+    args = (_rn(gen, B, T, C).bfloat16(), 1 + _rn(gen, C, std=0.1), _rn(gen, C, std=0.1),
+            _rn(gen, 3 * C, C, std=C ** -0.5), _rn(gen, 3 * C, std=0.02),
+            _rn(gen, C, C, std=C ** -0.5), _rn(gen, C, std=0.02))
+    args[0][0, 1] = 0  # an all-zero token
+    bias = _bias(kind, T)
+    reset_launches()
+    got = fused_attn.fused_ln_attention_block_int8(*args, bias=bias, heads=H)
+    assert LAUNCHES == {"rowquant": 3, "layernorm_rowquant": 1, "gemm_i8": 2, "attention_fwd_f32": 1,
+                        "fused_ln_attention_block_int8": 1}
+    want = fused_attn.fused_ln_attention_block_int8_plain(*args, bias=bias, heads=H)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    bf16 = fused_attn.fused_ln_attention_block(*args, bias=bias, heads=H)
+    cos = torch.nn.functional.cosine_similarity(got.float(), bf16.float(), dim=-1)
+    assert cos.min().item() >= 0.999
+    bare = fused_attn.fused_attention_block_int8(args[0], *args[3:], bias=bias, heads=H)
+    want = fused_attn.fused_attention_block_int8_plain(args[0], *args[3:], bias=bias, heads=H)
+    torch.testing.assert_close(bare.float(), want.float(), **TOL)
+    leaf = args[3].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        fused_attn.fused_ln_attention_block_int8(*args[:3], leaf, *args[4:], heads=H).sum().backward()
+
+
+@pytest.mark.parametrize("B,T,C", [(4, 306, 768), (64, 306, 768), (16, 308, 512), (2, 37, 64)])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+def test_mlp_block_int8_kernels_match_plain(gen, B, T, C, act):
+    E = 4 * C
+    args = (_rn(gen, B, T, C).bfloat16(), 1 + _rn(gen, C, std=0.1), _rn(gen, C, std=0.1),
+            _rn(gen, E, C, std=C ** -0.5), _rn(gen, E, std=0.02),
+            _rn(gen, C, E, std=E ** -0.5), _rn(gen, C, std=0.02))
+    args[0][0, 1] = 0
+    reset_launches()
+    got = fused_mlp.fused_ln_mlp_block_int8(*args, act=act)
+    assert LAUNCHES == {"rowquant": 3, "layernorm_rowquant": 1, "gemm_i8": 2,
+                        "fused_ln_mlp_block_int8": 1}
+    want = fused_mlp.fused_ln_mlp_block_int8_plain(*args, act=act)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    bf16 = fused_mlp.fused_ln_mlp_block(*args, act=act)
+    assert torch.nn.functional.cosine_similarity(got.float(), bf16.float(), dim=-1).min().item() >= 0.999
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(gen):
+    xq, rs = kernels.rowquant(_rn(gen, 32, 64))
+    wq, cs = kernels.rowquant(_rn(gen, 16, 64))
+    b = torch.zeros(16, device="cuda")
+    with pytest.raises(ValueError, match="torch.int8"):
+        kernels.gemm_i8(xq.float(), rs, wq, cs, b)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kernels.gemm_i8(xq[:, :40].contiguous(), rs, wq[:, :40].contiguous(), cs, b)
+    with pytest.raises(ValueError, match="row_scale"):
+        kernels.gemm_i8(xq, rs[:5], wq, cs, b)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        kernels.rowquant(_rn(gen, 4, 64).half())
+    with pytest.raises(ValueError, match="bfloat16"):
+        kernels.layernorm_rowquant(_rn(gen, 4, 64), torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"))
+
+
+def test_int8_engine_runs_every_sub_block_through_the_int8_kernels(gen):
+    cfg = [
+        "+running=clotho", "+model/image=vit_val", "+model/audio=vit_val",
+        "+model/text=transformer_val", "+model/loss=ce", "+optimizer=standard",
+        "+running/audio=default", "worker=CLAP", "model.audio.encoder.layers=2",
+        "model.text.encoder.layers=2", "running.audio.max_len=200", "model_file=",
+    ]
+    eng = InferenceEngine(cfg, batch_size=4, quantize="int8")  # the card is the default
+    bf16 = InferenceEngine(cfg, batch_size=4)
+    fb = np.random.default_rng(3).standard_normal((6, 200, 128)).astype(np.float32)
+    texts = ["a dog barking", "rain", "a car", "wind", "birds"]
+    reset_launches()
+    got_a, got_t = eng.embed_audio(fb), eng.embed_texts(texts)
+    assert LAUNCHES["fused_ln_attention_block_int8"] == LAUNCHES["fused_ln_mlp_block_int8"] == 8
+    assert LAUNCHES["fused_ln_attention_block"] == LAUNCHES["fused_ln_mlp_block"] == 0
+    with mock.patch.object(fused_attn, "fused_ln_attention_block_int8",
+                           fused_attn.fused_ln_attention_block_int8_plain), \
+         mock.patch.object(fused_mlp, "fused_ln_mlp_block_int8", fused_mlp.fused_ln_mlp_block_int8_plain):
+        want_a, want_t = eng.embed_audio(fb), eng.embed_texts(texts)
+    ref_a, ref_t = bf16.embed_audio(fb), bf16.embed_texts(texts)
+    cos = lambda a, b: ((a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)).min()
+    for got, want, ref in ((got_a, want_a, ref_a), (got_t, want_t, ref_t)):
+        assert np.isfinite(got).all() and cos(got, want) >= 0.999 and cos(got, ref) >= 0.99
+
+
+def test_int8_frozen_tower_in_a_train_step(gen):
+    from vipant_tpu_torch.train import Trainer
+
+    cfg = [
+        "+running=bimodal", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=dummy",
+        "+model/loss=ce", "+optimizer=standard", "+running/audio=default",
+        "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=1000",
+        "model.image.token_pack=4", "worker=CVAP", "model_file=", "running.batch_size=8",
+        "model.image.encoder.layers=2", "model.audio.encoder.layers=2",
+    ]
+    tr = Trainer(cfg + ["model.image.int8_frozen=True"], steps_per_epoch=1000)
+    ref = Trainer(cfg, steps_per_epoch=1000)
+    r = np.random.default_rng(0)
+    batch = tr.make_batch(r.standard_normal((8, 3, 224, 224)).astype(np.float32),
+                          r.standard_normal((8, 1, 1000, 128)).astype(np.float32))
+    frozen = {k: p.detach().clone() for k, p in tr.frozen.items()}
+    reset_launches()
+    m = tr.train_step(*batch)
+    assert LAUNCHES["fused_ln_attention_block_int8"] == LAUNCHES["fused_ln_mlp_block_int8"] == 2
+    assert LAUNCHES["fused_ln_attention_block"] == LAUNCHES["fused_ln_mlp_block"] == 2  # audio only
+    assert LAUNCHES["fused_ln_attention_block_bwd"] == LAUNCHES["fused_ln_mlp_block_bwd"] == 2
+    m_ref = ref.train_step(*batch)
+    assert np.isfinite(float(m["loss"]))
+    assert abs(float(m["loss"]) - float(m_ref["loss"])) <= 5e-2 * abs(float(m_ref["loss"]))
+    for k, p in tr.frozen.items():
+        assert torch.equal(p.detach(), frozen[k]), k
+    with torch.no_grad():
+        v8, v = tr.model.encode_image(batch[0]), ref.model.encode_image(batch[0])
+    assert torch.nn.functional.cosine_similarity(v8.float(), v.float(), dim=-1).min().item() >= 0.99

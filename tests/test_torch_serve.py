@@ -43,14 +43,14 @@ def engines(request, tmp_path_factory):
     cfg = TINY + [f"compute_dtype={request.param}"]
     jeng = JaxEngine(cfg, batch_size=4)
     params = {k: v for k, v in jeng.variables["params"].items() if k in ("audio", "text", "loss")}
-    direct = InferenceEngine(cfg, batch_size=4)
+    direct = InferenceEngine(cfg, batch_size=4, device="cpu")
     from_jax.load_params(direct.model, params)
     root = tmp_path_factory.mktemp("export")
     os.makedirs(root / "run" / "step")
     np.savez(str(root / "run" / "step" / "model.npz"), **dict(_flatten("", params)))
     npz = InferenceEngine(
         [o for o in cfg if o != "model_file="]
-        + [f"model_root={root}", "model_name=run", "model_file=step"], batch_size=4)
+        + [f"model_root={root}", "model_name=run", "model_file=step"], batch_size=4, device="cpu")
     return request.param, jeng, direct, npz
 
 
@@ -107,8 +107,8 @@ def test_token_pack_is_exact(cfg, method, make):
     """Packing k items per attention call behind the block-diagonal mask
     gives the unpacked tower's embeddings (fp32)."""
     cfg = cfg + ["compute_dtype=float32"]
-    packed = InferenceEngine(cfg, batch_size=4, token_pack=4)
-    plain = InferenceEngine(cfg, batch_size=4, token_pack=1)
+    packed = InferenceEngine(cfg, batch_size=4, token_pack=4, device="cpu")
+    plain = InferenceEngine(cfg, batch_size=4, token_pack=1, device="cpu")
     tower = packed.model.text if method == "embed_texts" else packed.model.image
     assert tower.token_pack == 4
     inputs = make()
@@ -126,16 +126,17 @@ def test_bridge_matches_reference_export():
         assert sorted(got) == sorted(want)
         for k in want:
             np.testing.assert_array_equal(got[k], np.asarray(want[k], np.float32), err_msg=k)
-    model_keys = set(InferenceEngine(TINY, batch_size=4).model.state_dict())
+    model_keys = set(InferenceEngine(TINY, batch_size=4, device="cpu").model.state_dict())
     assert set(from_jax.model_state_dict(params)) == model_keys
 
 
 def test_engine_rejects_what_is_not_ported():
+    with pytest.raises(ValueError):
+        InferenceEngine(TINY, quantize="int4", device="cpu")
     with pytest.raises(NotImplementedError):
-        InferenceEngine(TINY, quantize="int8")
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(TINY, data_parallel=True)
+        InferenceEngine(TINY, data_parallel=True, device="cpu")
     with pytest.raises(FileNotFoundError):
-        InferenceEngine([o for o in TINY if o != "model_file="] + ["model_file=missing"])
-    eng = InferenceEngine(TINY, batch_size=4)
+        InferenceEngine([o for o in TINY if o != "model_file="] + ["model_file=missing"],
+                        device="cpu")
+    eng = InferenceEngine(TINY, batch_size=4, device="cpu")
     assert eng.embed_audio(np.zeros((0, 100, 128), np.float32)).shape == (0, 32)

@@ -90,7 +90,7 @@ def runs(request, jax_init):
                          grads=from_jax.model_state_dict(_np(grads)),
                          params=from_jax.model_state_dict(_np(state.params))))
 
-    tr = Trainer(cfg, steps_per_epoch=SPE)
+    tr = Trainer(cfg, device="cpu", steps_per_epoch=SPE)
     from_jax.load_params(tr.model, jax_init)
     init = {k: v.detach().clone() for k, v in tr.model.named_parameters()}
     batch = tr.make_batch(images, audios)
@@ -185,7 +185,7 @@ def test_cvap_overfits_eight_pairs_with_adam():
     cfg = compose(FLAGSHIP_TINY + ["optimizer.use_lars=False", "optimizer.warmup=False",
                                    "optimizer.lr=4.0e-3", "running.batch_size=8",
                                    "compute_dtype=float32"])
-    tr = Trainer(cfg)
+    tr = Trainer(cfg, device="cpu")
     r = np.random.default_rng(1)
     batch = tr.make_batch(r.standard_normal((8, 3, 224, 224)).astype(np.float32),
                           r.standard_normal((8, 1, 100, 128)).astype(np.float32))
@@ -199,13 +199,13 @@ def test_trainer_refuses_what_is_not_ported():
     for extra in (["model_file=ckpt"], ["running.grad_cache.alive=True"], ["mesh.zero=True"],
                   ["mesh.model=2"]):
         with pytest.raises(NotImplementedError):
-            Trainer(_cfg("float32", *extra))
+            Trainer(_cfg("float32", *extra), device="cpu")
     with pytest.raises(NotImplementedError, match="loader"):
-        Trainer(_cfg("float32")).learn()
+        Trainer(_cfg("float32"), device="cpu").learn()
 
 
 def test_state_dict_round_trips_through_torch_save(tmp_path):
-    tr = Trainer(_cfg("float32"))
+    tr = Trainer(_cfg("float32"), device="cpu")
     r = np.random.default_rng(2)
     batch = tr.make_batch(r.standard_normal((B, 3, 224, 224)).astype(np.float32),
                           r.standard_normal((B, 1, 100, 128)).astype(np.float32))
@@ -214,6 +214,6 @@ def test_state_dict_round_trips_through_torch_save(tmp_path):
     sd = torch.load(tmp_path / "state.pt")
     assert sd["step"] == 1 and sd["opt_state"]["count"] == 1
     assert set(sd["params"]) == set(tr.trainable) and set(sd["frozen_params"]) == set(tr.frozen)
-    tr2 = Trainer(_cfg("float32"))
+    tr2 = Trainer(_cfg("float32"), device="cpu")
     tr2.state.optimizer.load_state_dict(sd["opt_state"])
     assert tr2.state.optimizer.count == 1

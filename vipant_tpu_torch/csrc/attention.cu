@@ -24,6 +24,12 @@
 //
 // Layout and masking: see attention.cuh. Keys past T get probability 0
 // against zero-filled v rows; query rows past T are not stored.
+//
+// attention_fwd_f32 is the same kernel with the context stored in fp32,
+// unrounded: the int8 sub-block (vipant_tpu/ops/fused_attn.py::
+// _fwd_int8_kernel, lines 155-158) quantizes the context from fp32, with one
+// scale per token over all heads, which no (query tile, head) block holds;
+// quant.cu's rowquant reads it back.
 
 #include "attention.cuh"
 
@@ -33,9 +39,13 @@ using namespace attn;
 
 constexpr int kSmemBytes = 4 * kTileBytes + kScoreBytes;
 
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ stat_m,
+                     OutT* __restrict__ out, float* __restrict__ stat_m,
                      float* __restrict__ stat_l, int T, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -127,7 +137,7 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
     }
   }
 
-  // o (fp32) -> the warp's rows of Ss -> bf16 out
+  // o (fp32) -> the warp's rows of Ss -> out (one bf16 rounding, or fp32 as it is)
 #pragma unroll
   for (int dj = 0; dj < D / 16; ++dj)
     wmma::store_matrix_sync(Ss + warp * 16 * LDS + dj * 16, o[dj], LDS, wmma::mem_row_major);
@@ -136,25 +146,38 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
     const int rr = e / D, d = e % D;
     const int qi = q0 + warp * 16 + rr;
     if (qi < T)
-      out[(static_cast<size_t>(b) * T + qi) * C + h * D + d] =
-          __float2bfloat16(Ss[(warp * 16 + rr) * LDS + d]);
+      store_out(out + (static_cast<size_t>(b) * T + qi) * C + h * D + d,
+                Ss[(warp * 16 + rr) * LDS + d]);
   }
 }
 
-}  // namespace
-
-// stats: null, or [2, B, H, T] fp32 receiving the row max and the row sum
-extern "C" int vt_attention_fwd(const void* qkv, const void* bias, void* out, void* stats, int B,
-                                int T, int H, float scale, void* stream) {
+template <typename OutT>
+int launch(const void* qkv, const void* bias, void* out, void* stats, int B, int T, int H,
+           float scale, void* stream) {
   if (B <= 0 || T <= 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      attention_fwd_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* stat_m = static_cast<float*>(stats);
   float* stat_l = stat_m == nullptr ? nullptr : stat_m + static_cast<size_t>(B) * H * T;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  attention_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  attention_fwd_kernel<OutT><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), stat_m, stat_l, T, H, scale);
+      static_cast<OutT*>(out), stat_m, stat_l, T, H, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// out [B, T, C] bf16; stats: null, or [2, B, H, T] fp32 receiving the row
+// max and the row sum
+extern "C" int vt_attention_fwd(const void* qkv, const void* bias, void* out, void* stats, int B,
+                                int T, int H, float scale, void* stream) {
+  return launch<__nv_bfloat16>(qkv, bias, out, stats, B, T, H, scale, stream);
+}
+
+// out [B, T, C] fp32, the unrounded context
+extern "C" int vt_attention_fwd_f32(const void* qkv, const void* bias, void* out, int B, int T,
+                                    int H, float scale, void* stream) {
+  return launch<float>(qkv, bias, out, nullptr, B, T, H, scale, stream);
 }

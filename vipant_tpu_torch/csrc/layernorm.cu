@@ -27,46 +27,22 @@
 // dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) with
 // dxhat = dh * w, adds the residual grad in fp32 and rounds once; each
 // thread keeps its columns' running sums of dh * xhat and dh in shared
-// memory, written as the block's partial row, which reduce.cuh sums.
+// memory, written as the block's partial row, which reduce.cuh sums. The row
+// statistics and block reductions are rows.cuh's, shared with quant.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "reduce.cuh"
+#include "rows.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < (kThreads >> 5) ? red[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-    if (lane == 0) red[0] = t;
-  }
-  __syncthreads();
-  const float total = red[0];
-  __syncthreads();  // `red` is reused by the next reduction
-  return total;
-}
-
-// mean and rstd of one row, fp32, two-pass
-__device__ __forceinline__ float2 row_stats(const __nv_bfloat16* xr, int C, float eps, float* red) {
-  float s = 0.f;
-  for (int c = threadIdx.x; c < C; c += kThreads) s += __bfloat162float(xr[c]);
-  const float mu = block_sum(s, red) / static_cast<float>(C);
-  float v = 0.f;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float d = __bfloat162float(xr[c]) - mu;
-    v += d * d;
-  }
-  const float var = block_sum(v, red) / static_cast<float>(C);
-  return make_float2(mu, rsqrtf(var + eps));
-}
+using rows::block_sum;
+using rows::kThreads;
+using rows::ln_affine;
+using rows::ln_xhat;
+using rows::row_stats;
 
 __global__ void __launch_bounds__(kThreads)
 layernorm_fwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
@@ -78,8 +54,7 @@ layernorm_fwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
   __nv_bfloat16* yr = y + row * C;
   const float2 st = row_stats(xr, C, eps, red);
   for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float xhat = __fmul_rn(__bfloat162float(xr[c]) - st.x, st.y);
-    yr[c] = __float2bfloat16(__fadd_rn(__fmul_rn(xhat, w[c]), b[c]));
+    yr[c] = ln_affine(xr[c], st, w[c], b[c]);
   }
 }
 
@@ -99,7 +74,7 @@ layernorm_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
     const float2 st = row_stats(xr, C, eps, red);
     float s1 = 0.f, s2 = 0.f;
     for (int c = threadIdx.x; c < C; c += kThreads) {
-      const float xhat = __fmul_rn(__bfloat162float(xr[c]) - st.x, st.y);
+      const float xhat = ln_xhat(xr[c], st);
       const float g = dhr[c];
       const float dxhat = g * w[c];
       sums[c] += g * xhat;
@@ -110,7 +85,7 @@ layernorm_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
     const float m1 = block_sum(s1, red) / static_cast<float>(C);
     const float m2 = block_sum(s2, red) / static_cast<float>(C);
     for (int c = threadIdx.x; c < C; c += kThreads) {
-      const float xhat = __fmul_rn(__bfloat162float(xr[c]) - st.x, st.y);
+      const float xhat = ln_xhat(xr[c], st);
       float v = st.y * (dhr[c] * w[c] - m1 - xhat * m2);
       if (res != nullptr) v += __bfloat162float(res[row * C + c]);
       dx[row * C + c] = __float2bfloat16(v);

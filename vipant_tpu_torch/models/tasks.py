@@ -11,7 +11,7 @@ import contextlib
 import torch
 from torch import nn
 
-from vipant_tpu.utils import Registry
+from ..utils import Registry
 
 from ..nn.heads import normalize
 

@@ -2,19 +2,20 @@
 
 Counterpart of ``vipant_tpu/nn/heads.py`` for the ViT vision/audio tower and
 the GPT text tower, forward (eval) path. Not ported yet: the ResNet
-backbone, patchout in training, ``int8_frozen``, ``require_feature``
-(captioning) and the pipeline-stacked trunk; asking for them raises.
+backbone, patchout in training, ``require_feature`` (captioning) and the
+pipeline-stacked trunk; asking for them raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from vipant_tpu.utils import Registry
-
+from ..ops.quant import int8_fwd_context
+from ..utils import Registry
 from .layers import pack_tokens
 from .stages import (
     AddonEncoder,
@@ -51,15 +52,19 @@ class VisionTower(nn.Module):
     ``misc_stored_grid`` is the grid the positional embedding is stored at
     (another tower's, when tied); the forward re-grids to the tower's own.
     ``token_pack`` runs k items per attention call behind a block-diagonal
-    mask (exact)."""
+    mask (exact). ``int8_frozen`` runs the trunk on the forward-only int8
+    sub-blocks: for a frozen tower only, whose output no gradient flows
+    through; on a trainable tower the backward raises."""
 
     def __init__(self, width: int, embed_dim: int, resolution, heads: int, layers: int,
                  patch_size=32, stride=None, in_channels: int = 3,
                  misc_stored_grid: Optional[Tuple[int, int]] = None, token_pack: int = 1,
-                 patchout: float = 0.0, dtype: torch.dtype = torch.float32, device=None):
+                 patchout: float = 0.0, int8_frozen: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.grid, patch_hw, stride_hw = vit_grid(resolution, patch_size, stride)
         self.token_pack, self.patchout = int(token_pack or 1), float(patchout)
+        self.int8_frozen = bool(int8_frozen)
         self.misc = CLIPMisc(width, stored_grid=misc_stored_grid or self.grid,
                              target_grid=self.grid, device=device)
         self.pre_encoder = ViTPreEncoder(width, patch_hw, stride_hw, in_channels,
@@ -76,7 +81,9 @@ class VisionTower(nn.Module):
         h = self.pre_encoder_addon(self.pre_encoder(x, pos, cls))
         B, T, C = h.shape
         h, attn_bias = _pack(h, self.token_pack)
-        h = self.encoder(h, attn_bias=attn_bias).reshape(B, T, C)
+        # not int8_frozen: an enclosing scope (an int8 engine) stays as it is
+        with int8_fwd_context() if self.int8_frozen else contextlib.nullcontext():
+            h = self.encoder(h, attn_bias=attn_bias).reshape(B, T, C)
         out = self.post_encoder(self.post_encoder_addon(h))
         return normalize(out) if normalized else out
 
@@ -124,9 +131,9 @@ class DummyHead(nn.Module):
 
 def _vision_from_cfg(cfg, dtype=torch.float32, device=None) -> VisionTower:
     if cfg.encoder.name != "TransformerBackbone":
+        if cfg.get("int8_frozen", False):
+            raise ValueError("int8_frozen is not supported on the resnet backbone")
         raise NotImplementedError(f"backbone {cfg.encoder.name!r} is not ported yet (ViT only)")
-    if cfg.get("int8_frozen", False):
-        raise NotImplementedError("int8_frozen waits for the int8 kernels")
     if cfg.get("stacked", False):
         raise NotImplementedError("the pipeline-stacked trunk is not ported")
     resolution = cfg.resolution
@@ -144,6 +151,7 @@ def _vision_from_cfg(cfg, dtype=torch.float32, device=None) -> VisionTower:
         in_channels=int(pre.get("in_channels", 3)),
         token_pack=int(cfg.get("token_pack", 1) or 1),
         patchout=float(cfg.get("patchout", 0.0) or 0.0),
+        int8_frozen=bool(cfg.get("int8_frozen", False)),
         dtype=dtype,
         device=device,
     )

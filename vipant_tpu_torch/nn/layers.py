@@ -8,7 +8,9 @@ state dict loads with ``load_state_dict``. Parameters are fp32; the fused
 ops cast the weight matrices to the activations' dtype at use, as the JAX
 package does. Both sub-blocks always run through the fused ops
 (:mod:`..ops.fused_attn`, :mod:`..ops.fused_mlp`): the hand-written kernels
-on a CUDA tensor, their plain versions on the CPU.
+on a CUDA tensor, their plain versions on the CPU. Inside an
+:func:`..ops.quant.int8_fwd_context` scope (int8 serving, a frozen int8
+tower) both run their forward-only int8 variants.
 
 Not ported here: cross-attention, KV-cached decode and the layer-stacked
 ``StackedTransformer`` (captioning and pipeline parallelism).
@@ -24,6 +26,7 @@ from torch import nn
 
 from ..ops import fused_attn, fused_mlp
 from ..ops.kernels import quick_gelu  # noqa: F401  (the MLP's activation, public here)
+from ..ops.quant import int8_fwd_enabled
 
 
 class LayerNorm(nn.Module):
@@ -72,7 +75,9 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, ln: LayerNorm,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return fused_attn.fused_ln_attention_block(
+        block = (fused_attn.fused_ln_attention_block_int8 if int8_fwd_enabled()
+                 else fused_attn.fused_ln_attention_block)
+        return block(
             x, ln.weight, ln.bias, self.in_proj_weight, self.in_proj_bias,
             self.out_proj.weight, self.out_proj.bias, bias=bias, heads=self.heads,
         )
@@ -98,7 +103,9 @@ class MLP(nn.Module):
         nn.init.zeros_(self.c_proj.bias)
 
     def forward(self, x: torch.Tensor, ln: LayerNorm) -> torch.Tensor:
-        return fused_mlp.fused_ln_mlp_block(
+        block = (fused_mlp.fused_ln_mlp_block_int8 if int8_fwd_enabled()
+                 else fused_mlp.fused_ln_mlp_block)
+        return block(
             x, ln.weight, ln.bias, self.c_fc.weight, self.c_fc.bias,
             self.c_proj.weight, self.c_proj.bias, act=self.act,
         )

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vipant_tpu.utils import Registry
+from ..utils import Registry
 
 LOSS_HEADS = Registry("LOSS_HEADS")
 

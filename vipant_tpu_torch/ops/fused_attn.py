@@ -31,6 +31,23 @@ qkv layout exists for TPU head sharding and is not carried over.
 
 ``*_plain`` run the same chains, forward and backward, on the kernels'
 plain versions: the same function, for holding the kernels to on the card.
+
+``*_int8`` are the forward-only int8 variants, port of the Pallas kernel
+``vipant_tpu/ops/fused_attn.py::_fwd_int8_kernel`` and its public ops: the
+qkv and out projections run int8 x int8 -> int32, the score and context
+products stay bf16. Per call:
+
+    wq8, swq = rowquant(bf16(Wqkv))           weights: cast to x's dtype first,
+    wo8, swo = rowquant(bf16(Wout))           then per output column
+    h8, sh   = layernorm_rowquant(x)          (rowquant(x) without LN)
+    qkv = gemm_i8(h8, sh, wq8, swq, bqkv)     bf16, column scale first
+    o   = attention_fwd(qkv, bias, fp32_out)  fp32, unrounded
+    o8, so = rowquant(o)                      one scale per token over all heads
+    out = gemm_i8(o8, so, wo8, swo, bout, residual=x)
+
+The weights are quantized in every call, as the jitted JAX call does: two
+small launches, and no cache to go stale when a weight changes. Asking for
+a gradient through an int8 sub-block raises in its backward.
 """
 
 from __future__ import annotations
@@ -150,6 +167,57 @@ def fused_attention_block(
 ) -> torch.Tensor:
     """proj(attn(x)): the packed attention without LN or residual."""
     return _FusedAttention.apply(x, None, None, wqkv, bqkv, wout, bout, bias, heads, KERNEL_OPS)
+
+
+def _forward_int8(ops, x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads):
+    """The int8 forward chain (Pallas ``_fwd_int8_kernel``'s rounding order)."""
+    dt = x.dtype
+    wq8, swq = ops.rowquant(wqkv.to(dt).contiguous())
+    wo8, swo = ops.rowquant(wout.to(dt).contiguous())
+    h8, sh = ops.layernorm_rowquant(x, acc(lns), acc(lnb)) if lns is not None else ops.rowquant(x)
+    qkv = ops.gemm_i8(h8, sh, wq8, swq, acc(bqkv), out_dtype=dt, col_first=True)
+    o = ops.attention_fwd(qkv, canon_bias(bias), heads, _scale(x.shape[-1], heads), fp32_out=True)
+    o8, so = ops.rowquant(o)
+    return ops.gemm_i8(o8, so, wo8, swo, acc(bout), residual=x if lns is not None else None,
+                       out_dtype=dt)
+
+
+class _FusedAttentionInt8(torch.autograd.Function):
+    """The int8 chain behind an autograd boundary whose backward raises: the
+    sub-block is forward only, as the Pallas kernel has no VJP."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads, ops):
+        out = _forward_int8(ops, x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads)
+        if x.is_cuda and ops is KERNEL_OPS:
+            LAUNCHES[_name(lns) + "_int8"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError(
+            "the int8 attention sub-block is forward only: it has no backward. Run it "
+            "under torch.no_grad() (a frozen tower, serving), not on a trainable tower")
+
+
+def fused_ln_attention_block_int8(x, lns, lnb, wqkv, bqkv, wout, bout, bias=None, heads=12):
+    """Int8 x + proj(attn(LN(x))): forward only. Same signature and
+    semantics as :func:`fused_ln_attention_block`; the qkv and out
+    projections in int8, the score and context products bf16."""
+    return _FusedAttentionInt8.apply(x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads, KERNEL_OPS)
+
+
+def fused_attention_block_int8(x, wqkv, bqkv, wout, bout, bias=None, heads=12):
+    """Int8 proj(attn(x)) without LN or residual: forward only."""
+    return _FusedAttentionInt8.apply(x, None, None, wqkv, bqkv, wout, bout, bias, heads, KERNEL_OPS)
+
+
+def fused_ln_attention_block_int8_plain(x, lns, lnb, wqkv, bqkv, wout, bout, bias=None, heads=12):
+    return _FusedAttentionInt8.apply(x, lns, lnb, wqkv, bqkv, wout, bout, bias, heads, PLAIN_OPS)
+
+
+def fused_attention_block_int8_plain(x, wqkv, bqkv, wout, bout, bias=None, heads=12):
+    return _FusedAttentionInt8.apply(x, None, None, wqkv, bqkv, wout, bout, bias, heads, PLAIN_OPS)
 
 
 def fused_ln_attention_block_plain(x, lns, lnb, wqkv, bqkv, wout, bout, bias=None, heads=12):

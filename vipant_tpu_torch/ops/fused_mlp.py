@@ -24,6 +24,21 @@ act(a) (one extra fc product).
 Weights are in the torch Linear layout: ``wfc`` [E, C] (``c_fc.weight``),
 ``wproj`` [C, E] (``c_proj.weight``). ``act`` is ``quick_gelu`` (CLIP) or
 ``gelu`` (exact, DeiT).
+
+``fused_ln_mlp_block_int8`` is the forward-only int8 variant, port of the
+Pallas kernel ``vipant_tpu/ops/fused_mlp.py::_fwd_int8_kernel`` and its
+public op: both products run int8 x int8 -> int32. Per call:
+
+    wf8, sfc = rowquant(Wfc)                  weights: from the fp32 params,
+    wp8, spj = rowquant(Wproj)                per output column
+    h8, hs = layernorm_rowquant(x)
+    g   = gemm_i8(h8, hs, wf8, sfc, bfc, act)     fp32: act(a) is never rounded to bf16
+    g8, gs = rowquant(g)                      one scale per token over all E columns
+    out = gemm_i8(g8, gs, wp8, spj, bproj, residual=x)
+
+The [B, T, 4C] activation makes its round trip in fp32, because the Pallas
+kernel quantizes it from fp32. The weights are quantized in every call, as
+the jitted JAX call does. A gradient through it raises in its backward.
 """
 
 from __future__ import annotations
@@ -104,6 +119,46 @@ def fused_ln_mlp_block(
 ) -> torch.Tensor:
     """x + proj(act(fc(LN(x)))). x: [B, T, C]; wfc: [E, C]; wproj: [C, E]."""
     return _FusedLNMLP.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, KERNEL_OPS)
+
+
+def _forward_int8(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act):
+    """The int8 forward chain (Pallas ``_fwd_int8_kernel``'s rounding order)."""
+    if act not in ACTS:
+        raise ValueError(f"unknown MLP activation {act!r} (expected one of {ACTS})")
+    wf8, sfc = ops.rowquant(wfc.float().contiguous())
+    wp8, spj = ops.rowquant(wproj.float().contiguous())
+    h8, hs = ops.layernorm_rowquant(x, acc(lns), acc(lnb))
+    g = ops.gemm_i8(h8, hs, wf8, sfc, acc(bfc), act=act, out_dtype=torch.float32)
+    g8, gs = ops.rowquant(g)
+    return ops.gemm_i8(g8, gs, wp8, spj, acc(bproj), residual=x, out_dtype=x.dtype)
+
+
+class _FusedLNMLPInt8(torch.autograd.Function):
+    """The int8 chain behind an autograd boundary whose backward raises: the
+    sub-block is forward only, as the Pallas kernel has no VJP."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, wfc, bfc, wproj, bproj, act, ops):
+        out = _forward_int8(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act)
+        if x.is_cuda and ops is KERNEL_OPS:
+            LAUNCHES["fused_ln_mlp_block_int8"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, gy):
+        raise RuntimeError(
+            "the int8 MLP sub-block is forward only: it has no backward. Run it under "
+            "torch.no_grad() (a frozen tower, serving), not on a trainable tower")
+
+
+def fused_ln_mlp_block_int8(x, lns, lnb, wfc, bfc, wproj, bproj, act="quick_gelu"):
+    """Int8 x + proj(act(fc(LN(x)))): forward only. Same signature and
+    semantics as :func:`fused_ln_mlp_block`; both products in int8."""
+    return _FusedLNMLPInt8.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, KERNEL_OPS)
+
+
+def fused_ln_mlp_block_int8_plain(x, lns, lnb, wfc, bfc, wproj, bproj, act="quick_gelu"):
+    return _FusedLNMLPInt8.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, PLAIN_OPS)
 
 
 def fused_ln_mlp_block_plain(x, lns, lnb, wfc, bfc, wproj, bproj, act="quick_gelu"):

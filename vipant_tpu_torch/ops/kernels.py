@@ -16,7 +16,12 @@ their backward chains:
 - :func:`colsum` (``csrc/reduce.cu``): fp32 column sums (the bias grads);
 - :func:`attention_fwd` / :func:`attention_bwd` (``csrc/attention.cu``,
   ``csrc/attention_bwd.cu``): exact two-pass softmax attention over the
-  packed ``[B, T, 3C]`` projection, and its backward.
+  packed ``[B, T, 3C]`` projection, and its backward; with ``fp32_out``
+  the forward leaves the context unrounded in fp32, for the int8 sub-block;
+- :func:`rowquant` / :func:`layernorm_rowquant` (``csrc/quant.cu``): per-row
+  symmetric int8 codes and fp32 scales, of a tensor or of LayerNorm(x);
+- :func:`gemm_i8` (``csrc/gemm_i8.cu``): int8 x int8 -> int32 product with
+  the dequantizing epilogue (scales, bias, activation, residual).
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor, after checking device, dtype (bf16
@@ -40,6 +45,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from .quant import quantize_rows
 
 LN_EPS = 1e-5
 HEAD_DIM = 64  # the attention kernels' head dim
@@ -162,14 +168,15 @@ def _softmax_p(qkv, bias, heads, scale):
 
 
 def attention_plain(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int,
-                    scale: float, stats: bool = False):
+                    scale: float, stats: bool = False, fp32_out: bool = False):
     """Returns [B, T, C], or ``(out, None)`` with ``stats``: the kernel's row
     statistics exist only for its backward, which the plain backward does
-    not read."""
+    not read. With ``fp32_out`` the context stays in the accumulation dtype,
+    unrounded."""
     B, T, C3 = qkv.shape
     _, _, v, p = _softmax_p(qkv, bias, heads, scale)
-    o = torch.matmul(acc(p.to(qkv.dtype)), v).to(qkv.dtype)  # [B, H, T, D]
-    o = o.transpose(1, 2).reshape(B, T, C3 // 3)
+    o = torch.matmul(acc(p.to(qkv.dtype)), v)  # [B, H, T, D]
+    o = (o if fp32_out else o.to(qkv.dtype)).transpose(1, 2).reshape(B, T, C3 // 3)
     return (o, None) if stats else o
 
 
@@ -193,6 +200,38 @@ def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, bias: Optional[torc
     dqkv = torch.stack((dq, dk, dv), dim=2)  # [B, H, 3, T, D]
     dqkv = dqkv.permute(0, 3, 2, 1, 4).reshape(B, T, C3)
     return dqkv, dqkv.to(dt)
+
+
+def rowquant_plain(x: torch.Tensor):
+    """Per-row symmetric int8 of x [..., K]: ``(codes int8 [..., K], scale
+    fp32 [..., 1])``, ``scale = max|x| / 127 + 1e-12``, ``codes =
+    clip(round_half_even(x / scale), -127, 127)``."""
+    return quantize_rows(x)
+
+
+def layernorm_rowquant_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """:func:`rowquant_plain` of LayerNorm(x) rounded to ``x.dtype``."""
+    return quantize_rows(layernorm_plain(x, w, b))
+
+
+def int_matmul_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The exact integer product xq [..., K] . wq [N, K]^T as fp32 (one
+    rounding of the int32 sum, which passes 2^24 at K = 3072): int32 on the
+    CPU, float64 on CUDA, which has no integer matmul."""
+    if xq.is_cuda:
+        return torch.matmul(xq.double(), wq.double().t()).float()
+    return torch.matmul(xq.int(), wq.int().t()).float()
+
+
+def gemm_i8_plain(xq: torch.Tensor, row_scale: torch.Tensor, wq: torch.Tensor,
+                  col_scale: torch.Tensor, b: torch.Tensor, act: str = "none",
+                  residual: Optional[torch.Tensor] = None,
+                  out_dtype: torch.dtype = torch.bfloat16, col_first: bool = False):
+    v = int_matmul_plain(xq, wq)
+    rs, cs = row_scale.reshape(*xq.shape[:-1], 1), col_scale.reshape(-1)
+    v = (v * cs) * rs if col_first else (v * rs) * cs
+    y = act_plain(v + b.float(), act).to(out_dtype)
+    return y if residual is None else residual + y
 
 
 # ---------------------------------------------------------------------------
@@ -370,15 +409,23 @@ def _attention_operands(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: 
 
 
 def attention_fwd(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int,
-                  scale: float, stats: bool = False):
+                  scale: float, stats: bool = False, fp32_out: bool = False):
     """softmax(q.k^T * scale + bias) . v for all heads. qkv: [B, T, 3C] with
     q|k|v sections and head-major columns inside each; bias: optional
     [T, T] fp32 (finite: clamp with ``canon_bias``). Returns [B, T, C], or
     with ``stats`` ``(out, stats)``: the softmax's row max and row sum,
-    [2, B, H, T] fp32, which :func:`attention_bwd` reads."""
+    [2, B, H, T] fp32, which :func:`attention_bwd` reads. With ``fp32_out``
+    (forward only, no ``stats``) the context is returned in fp32, unrounded
+    (kernel ``attention_fwd_f32``)."""
+    _require(not (stats and fp32_out), "fp32_out is forward only: no stats")
     if not qkv.is_cuda:
-        return attention_plain(qkv, bias, heads, scale, stats)
+        return attention_plain(qkv, bias, heads, scale, stats, fp32_out)
     B, T, C = _attention_operands(qkv, bias, heads)
+    if fp32_out:
+        out = torch.empty((B, T, C), dtype=torch.float32, device=qkv.device)
+        _launch("attention_fwd_f32", qkv.device, qkv.data_ptr(), _ptr(bias), out.data_ptr(),
+                B, T, heads, scale)
+        return out
     out = torch.empty((B, T, C), dtype=qkv.dtype, device=qkv.device)
     st = torch.empty((2, B, heads, T), dtype=torch.float32, device=qkv.device) if stats else None
     _launch("attention_fwd", qkv.device, qkv.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(st),
@@ -408,6 +455,80 @@ def attention_bwd(qkv: torch.Tensor, do: torch.Tensor, bias: Optional[torch.Tens
     return dqkv, dqkv_b
 
 
+def _codes_and_scale(x: torch.Tensor):
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    return q, scale
+
+
+def rowquant(x: torch.Tensor):
+    """Per-row symmetric int8 of x [..., K] (bf16 or fp32): ``(codes int8
+    [..., K], scale fp32 [..., 1])``; see :func:`rowquant_plain`."""
+    if not x.is_cuda:
+        return rowquant_plain(x)
+    _require(x.dtype in (torch.bfloat16, torch.float32), f"x must be bf16 or fp32, got {x.dtype}")
+    _cuda_operand(x, "x", x.dtype, x.device)
+    K = x.shape[-1]
+    q, scale = _codes_and_scale(x)
+    _launch("rowquant", x.device, x.data_ptr(), int(x.dtype == torch.float32), q.data_ptr(),
+            scale.data_ptr(), x.numel() // K, K)
+    return q, scale
+
+
+def layernorm_rowquant(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """:func:`rowquant` of ``layernorm_fwd(x, w, b)`` in one kernel: the
+    normalised row is rounded to bf16 and quantized without leaving the
+    block. w, b: [C] fp32."""
+    if not x.is_cuda:
+        return layernorm_rowquant_plain(x, w, b)
+    C = x.shape[-1]
+    _cuda_operand(x, "x", torch.bfloat16, x.device)
+    _param_vector(w, "w", C, x.device)
+    _param_vector(b, "b", C, x.device)
+    q, scale = _codes_and_scale(x)
+    _launch("layernorm_rowquant", x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            q.data_ptr(), scale.data_ptr(), x.numel() // C, C, LN_EPS)
+    return q, scale
+
+
+def gemm_i8(xq: torch.Tensor, row_scale: torch.Tensor, wq: torch.Tensor, col_scale: torch.Tensor,
+            b: torch.Tensor, act: str = "none", residual: Optional[torch.Tensor] = None,
+            out_dtype: torch.dtype = torch.bfloat16, col_first: bool = False) -> torch.Tensor:
+    """``act(float(xq . wq^T) * row_scale * col_scale + b)`` as ``out_dtype``
+    (fp32, or bf16 with one rounding), plus ``residual`` (added after the
+    rounding). xq: [..., K] int8 with ``row_scale`` one fp32 per row; wq:
+    [N, K] int8 with ``col_scale`` one fp32 per output column; b: [N] fp32.
+    The integer sum is exact; ``col_first`` multiplies by the column scale
+    before the row scale (each product is one fp32 rounding)."""
+    _require(act in ACTS, f"unknown activation {act!r}")
+    if not xq.is_cuda:
+        return gemm_i8_plain(xq, row_scale, wq, col_scale, b, act, residual, out_dtype, col_first)
+    K, N = xq.shape[-1], wq.shape[0]
+    M = xq.numel() // K
+    _cuda_operand(xq, "xq", torch.int8, xq.device)
+    _cuda_operand(wq, "wq", torch.int8, xq.device)
+    _require(wq.dim() == 2 and wq.shape[1] == K, f"wq must be [N, {K}], got {tuple(wq.shape)}")
+    _cuda_operand(row_scale, "row_scale", torch.float32, xq.device)
+    _require(row_scale.numel() == M, f"row_scale must hold {M} values, got {tuple(row_scale.shape)}")
+    _cuda_operand(col_scale, "col_scale", torch.float32, xq.device)
+    _require(col_scale.numel() == N, f"col_scale must hold {N} values, got {tuple(col_scale.shape)}")
+    _param_vector(b, "b", N, xq.device)
+    _require(K % 16 == 0 and N % 8 == 0, f"K={K} must be a multiple of 16 and N={N} of 8")
+    _require(out_dtype in (torch.bfloat16, torch.float32), f"out_dtype {out_dtype} is not taken")
+    out_shape = (*xq.shape[:-1], N)
+    if residual is not None:
+        _require(out_dtype == torch.bfloat16, "the residual is added to a bf16 result")
+        _cuda_operand(residual, "residual", torch.bfloat16, xq.device)
+        _require(tuple(residual.shape) == out_shape,
+                 f"residual must be {out_shape}, got {tuple(residual.shape)}")
+    y = torch.empty(out_shape, dtype=out_dtype, device=xq.device)
+    f32 = out_dtype == torch.float32
+    _launch("gemm_i8", xq.device, xq.data_ptr(), row_scale.data_ptr(), wq.data_ptr(),
+            col_scale.data_ptr(), b.data_ptr(), _ptr(residual), y.data_ptr() if f32 else None,
+            None if f32 else y.data_ptr(), M, N, K, ACTS[act], int(col_first))
+    return y
+
+
 class Ops(NamedTuple):
     """The operations the sub-blocks are built from: the kernels' wrappers
     (:data:`KERNEL_OPS`) or their plain versions (:data:`PLAIN_OPS`)."""
@@ -420,9 +541,13 @@ class Ops(NamedTuple):
     colsum: object
     attention_fwd: object
     attention_bwd: object
+    rowquant: object
+    layernorm_rowquant: object
+    gemm_i8: object
 
 
 KERNEL_OPS = Ops(layernorm_fwd, layernorm_bwd, gemm_bias_act, gemm_dgrad, gemm_wgrad, colsum,
-                 attention_fwd, attention_bwd)
+                 attention_fwd, attention_bwd, rowquant, layernorm_rowquant, gemm_i8)
 PLAIN_OPS = Ops(layernorm_plain, layernorm_bwd_plain, gemm_bias_act_plain, gemm_dgrad_plain,
-                gemm_wgrad_plain, colsum_plain, attention_plain, attention_bwd_plain)
+                gemm_wgrad_plain, colsum_plain, attention_plain, attention_bwd_plain,
+                rowquant_plain, layernorm_rowquant_plain, gemm_i8_plain)

@@ -4,19 +4,27 @@ Counterpart of ``vipant_tpu/serve.py:InferenceEngine`` for fbank arrays,
 token ids and preprocessed images. Every encoder runs at the fixed
 ``batch_size`` (the last chunk is padded by repeating its last row, then
 trimmed), embeddings come back L2-normalised as fp32 numpy, and zero-shot
-takes the max over each class's prompts. On a CUDA device the transformer
-sub-blocks run the hand-written kernels (:mod:`vipant_tpu_torch.ops`).
+takes the max over each class's prompts. The engine runs on the card
+(``device="cuda"``, the default; it raises when there is none), where the
+transformer sub-blocks run the hand-written kernels
+(:mod:`vipant_tpu_torch.ops`); ``device="cpu"`` runs their plain versions.
 
-Not ported yet: the wav -> fbank frontend and image preprocessing (they
-live in ``vipant_tpu.data``, which imports JAX), the HTTP server, captioning,
-``.pth`` / CLIP weight loading, int8 serving and multi-device sharding.
+``quantize="int8"`` runs every sub-block of every tower on the forward-only
+int8 kernels (qkv, out, fc and proj products int8 x int8 -> int32, weights
+per output channel, activations per token), scoped to this engine's encode
+calls: a bf16 engine beside it is not affected.
+
+Not ported yet: the wav -> fbank frontend and image preprocessing (the JAX
+package's data modules import JAX), the HTTP server, captioning,
+``.pth`` / CLIP weight loading and multi-device sharding.
 
 Usage::
 
     from vipant_tpu_torch.serve import InferenceEngine
-    eng = InferenceEngine([...overrides..., "worker=CLAP"], batch_size=64, device="cuda")
+    eng = InferenceEngine([...overrides..., "worker=CLAP"], batch_size=64)   # on the card
     a = eng.embed_audio(fbanks)              # [N, D]
     t = eng.embed_texts(["a dog barking"])   # [N, D]
+    eng8 = InferenceEngine([...], batch_size=64, quantize="int8")
 """
 
 from __future__ import annotations
@@ -28,18 +36,20 @@ from typing import Any, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from vipant_tpu.config import Config, compose
-
 from .ckpt.from_jax import load_params, read_npz
+from .config import Config
 from .models import build_main_model, init_weights
 from .nn.heads import normalize
+from .ops.quant import int8_fwd_context
+from .utils import as_config, require_device
 
 
 class InferenceEngine:
     """Config-to-embeddings engine on one device.
 
-    ``cfg``: a composed :class:`vipant_tpu.config.Config` or a list of
-    override strings. ``token_pack`` packs k items per
+    ``cfg``: a composed :class:`vipant_tpu_torch.config.Config` or a list of
+    override strings. ``device`` defaults to the card. ``quantize`` is ``""``
+    or ``"int8"``. ``token_pack`` packs k items per
     attention call in the image and text towers (exact; applied only when
     it divides ``batch_size``). Weights come from ``model.npz`` under
     ``model_root/model_name/model_file`` when ``model_file`` names a
@@ -50,7 +60,7 @@ class InferenceEngine:
         self,
         cfg,
         batch_size: int = 64,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
         token_pack: int = 4,
         seed: int = 0,
         quantize: str = "",
@@ -58,15 +68,16 @@ class InferenceEngine:
         model_parallel: int = 1,
         echo: Optional[logging.Logger] = None,
     ):
-        if quantize:
-            raise NotImplementedError("int8 serving waits for the int8 kernels")
+        if quantize not in ("", "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r} (only 'int8')")
+        self._int8 = bool(quantize)
         if data_parallel:
             raise NotImplementedError("data-parallel serving is not ported yet")
         if model_parallel != 1:
             raise NotImplementedError("model-parallel serving is not ported yet")
         self.echo = echo or logging.getLogger(__name__)
-        self.cfg = cfg if isinstance(cfg, Config) else compose(list(cfg))
-        self.device = torch.device(device)
+        self.cfg = as_config(cfg)
+        self.device = require_device(device, "InferenceEngine")
         self.batch_size = int(batch_size)
         if token_pack > 1 and self.batch_size % token_pack == 0:
             # patch a copy: the caller's config may build something else later
@@ -133,7 +144,7 @@ class InferenceEngine:
         fn = getattr(self.model, method)
         B = self.batch_size
         outs = []
-        with torch.inference_mode():
+        with torch.inference_mode(), int8_fwd_context(self._int8):
             for i in range(0, arr.shape[0], B):
                 chunk = arr[i : i + B]
                 n = chunk.shape[0]
@@ -152,7 +163,7 @@ class InferenceEngine:
 
     def embed_texts(self, texts: Sequence[str], prompt: str = "") -> np.ndarray:
         """Strings -> BPE ids (fixed ctx padding) -> [N, D] normalised."""
-        from vipant_tpu.tokenizer import tokenize
+        from .tokenizer import tokenize
 
         ctx = int(self.cfg.model.text.get("ctx_len", 77))
         ids = tokenize([f"{prompt}{t}" for t in texts], context_length=ctx)

@@ -8,15 +8,19 @@ trainable/frozen split (:func:`..models.tunable_mask`) -> optimizer
 step on batches the caller provides, as ``bench.py`` drives the JAX step on
 device arrays.
 
+``model.image.int8_frozen=True`` runs the frozen image tower on the
+forward-only int8 kernels (it runs without autograd, so no gradient ever
+reaches them); the trainable towers stay on the bf16 kernels.
+
 Not ported yet, and refused when asked for: the data loaders (the JAX
-package's ``vipant_tpu.data`` imports JAX), the epoch loop with its eval
+package's data modules import JAX), the epoch loop with its eval
 gates, loading weights and save/resume, the gradient cache, ZeRO and every
 mesh axis beyond one device.
 
 Usage::
 
     from vipant_tpu_torch.train import Trainer
-    tr = Trainer([...overrides..., "worker=CVAP"], device="cuda", steps_per_epoch=1000)
+    tr = Trainer([...overrides..., "worker=CVAP"], steps_per_epoch=1000)   # on the card
     images, audios = tr.make_batch(images_np, audios_np)
     metrics = tr.train_step(images, audios)   # {"loss", "grad_norm", "lr"}
 """
@@ -28,10 +32,11 @@ from typing import Dict, Sequence, Union
 import numpy as np
 import torch
 
-from vipant_tpu.config import Config, compose
+from ..config import Config
 
 from ..models import build_main_model, init_weights, tunable_mask
 from ..optim import build_optimizer, partition_params
+from ..utils import as_config, require_device
 from .state import TrainState
 from .step import train_step
 
@@ -53,15 +58,16 @@ def _refuse_unported(cfg) -> None:
 
 class Trainer:
     """Builds the model, the trainable/frozen split and the optimizer from
-    ``cfg`` on ``device``; :meth:`train_step` runs one step. ``cfg`` is a
+    ``cfg`` on ``device`` (the card by default; raises when there is none);
+    :meth:`train_step` runs one step. ``cfg`` is a
     composed config or a list of overrides. ``steps_per_epoch`` sets the
     schedules' epoch length (the JAX trainer takes it from its loader)."""
 
-    def __init__(self, cfg: Union[Config, Sequence[str]], device: Union[str, torch.device] = "cpu",
+    def __init__(self, cfg: Union[Config, Sequence[str]], device: Union[str, torch.device] = "cuda",
                  steps_per_epoch: int = 1):
-        self.cfg = cfg if isinstance(cfg, Config) else compose(list(cfg))
+        self.cfg = as_config(cfg)
         _refuse_unported(self.cfg)
-        self.device = torch.device(device)
+        self.device = require_device(device, "Trainer")
         self.steps_per_epoch = max(int(steps_per_epoch), 1)
         self.build_model()
         self.build_optimizer()
