@@ -70,6 +70,39 @@
    beside the bf16 step's, with the profiler's device busy time of both;
    the Adam descent smoke under ``int8_frozen``.
 
+10. Flash kernel phase: ``flash_attention_fwd``, ``_bwd`` and ``_dbias``
+   against their plain versions at the captioning decoder's cross-attention
+   (B64 and B4, Tq 77 against Tk 61; the re-forward decode's Tq 32), at equal
+   lengths (B16 T971 H12 without bias, T77 causal, B16 T200 H12 with the
+   block-diagonal packing bias and its grad), with q, k, v read as contiguous
+   tensors, as sections of a packed [B, T, 3C] tensor and as transposed
+   [B, H, T, D] views (outputs bitwise equal across the three), the bias grad
+   bitwise equal across two runs; ``F.scaled_dot_product_attention`` and its
+   autograd backward timed beside them.
+11. Probe phase: ``dot_variant`` in its four orientations against the fp32
+   product; ``probe_fused_fwd`` at B64 T306 C768 against its plain version
+   and against ``fused_attention_block``; then the probe path (the port's
+   probe entry and the public ``flash_attention`` op with a trainable bias),
+   whose launches are counted.
+12. Captioning training: CLAP with the ``SeqGenerationHead`` decoder (width
+   512, 12 layers, 8 heads, ctx 77, vocabulary 49,408) cross-attending into
+   the trainable ViT-B/32 audio tower's 61 x 5 feature grid, ``LMLossHead``,
+   LARS: (a) at B = 16 loss and every grad from the kernels against the plain
+   ops and against fp32, by the criterion of phase 6 (i); (b) the launch
+   counts of one step (12 forward and 12 backward flash launches, no bias
+   grad, 24 + 24 fused calls of each sub-block); (c) at B = 64 ms per step
+   with the forward / forward+backward / optimizer split, the plain ops'
+   time, peak memory and the profiler's top kernels; (d) an Adam smoke on one
+   fixed batch: the LM loss falls below 0.9x its start in 60 steps.
+13. Captioning serving: ``InferenceEngine.caption`` at batch 4 and 64, greedy
+   and ``beam=4``: ms per batch, ms per decode step; the launch counts of the
+   path; KV-cached greedy against the re-forward decoder (per-step logits
+   within 0.1 up to a row's first differing token, which must fall where the
+   re-forward's top-2 margin is below that; the share of equal ids is
+   printed); ``beam=1`` gives the greedy ids; teacher-forced logits on the
+   kernels against the plain ops (cosine >= 0.999 per row); the same engine
+   with ``quantize="int8"`` decodes on the int8 sub-blocks.
+
 Every kernel's time stands beside its bound, the least time the card could
 take for the same work: the larger of the bytes it must move (each input
 read once, each output written once, taken from the tensors of this run)
@@ -90,7 +123,7 @@ max |plain|, since they sum over thousands of rows in another order.
 
 Prints a JSON line of per-kernel results (``launches`` is the sum of the
 counts read on each main path (``serve``, ``train``, ``serve_int8``,
-``train_int8_frozen``), which ``launches_by_path`` gives apart; ``ms``,
+``train_int8_frozen``, ``probe``, ``caption_train``, ``caption_serve``), which ``launches_by_path`` gives apart; ``ms``,
 ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` are those of the
 kernel's first case, its main-path shape; ``cases`` holds each shape's), then, as the last line, ``{"ok": true, "device": {...}}``.
 Any failure raises (non-zero exit).
@@ -126,6 +159,12 @@ FLAGSHIP = [  # bench.py's VA pre-training step
     "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=1000",
     "model.image.token_pack=4", "worker=CVAP", "model_file=",
 ]
+CAPTION_FULL = [  # _clap_cfg() with the text tower swapped for the captioning decoder
+    "+running=clotho", "+model/image=vit_val", "+model/audio=vit_val",
+    "+model/text=transformer_decoder", "+model/loss=ce_lm", "+optimizer=standard",
+    "+running/audio=default", "model.audio.pre_encoder.stride=[16,24]",
+    "running.audio.max_len=1000", "running.retrieval=False", "worker=CLAP", "model_file=",
+]
 STEPS_PER_EPOCH = 1000
 PROMPTS = ["the sound of a dog barking", "heavy rain on a roof", "a car passing by",
            "birds singing in the morning", "people talking in a crowded room"]
@@ -136,6 +175,7 @@ CLASSES = {
 }
 B2, B4B = "vipant_tpu/ops/fused_attn.py:168", "vipant_tpu/ops/fused_mlp.py:60"
 B5, B6 = "vipant_tpu/ops/fused_attn.py:117", "vipant_tpu/ops/fused_mlp.py:97"
+B3F, B3B = "vipant_tpu/ops/attention.py:47", "vipant_tpu/ops/attention.py:66"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "layernorm_fwd": ("vipant_tpu_torch/csrc/layernorm.cu", "vipant_tpu/ops/fused_attn.py:81"),
     "gemm_bias_act": ("vipant_tpu_torch/csrc/gemm.cu", "vipant_tpu/ops/fused_mlp.py:51"),
@@ -156,8 +196,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "attention_fwd_f32": ("vipant_tpu_torch/csrc/attention.cu", B5),
     "fused_ln_attention_block_int8": ("vipant_tpu_torch/ops/fused_attn.py", B5),
     "fused_ln_mlp_block_int8": ("vipant_tpu_torch/ops/fused_mlp.py", B6),
+    "flash_attention_fwd": ("vipant_tpu_torch/csrc/flash_attention.cu", B3F),
+    "flash_attention_bwd": ("vipant_tpu_torch/csrc/flash_attention.cu", B3B),
+    "flash_attention_dbias": ("vipant_tpu_torch/csrc/flash_attention.cu", B3B),
+    "dot_variant": ("vipant_tpu_torch/csrc/dot_variants.cu", "experiments/fused_block_probe.py:46"),
+    "probe_fused_fwd": ("vipant_tpu_torch/experiments/fused_block_probe.py",
+                        "experiments/fused_block_probe.py:85"),
 }
-PATHS = ("serve", "train", "serve_int8", "train_int8_frozen")
+PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
+         "caption_serve")
+DECODE_TOL = 0.1  # bf16 per-step logits, KV-cached against re-forward decoding
 # H100 SXM data sheet, dense rates: the bounds are stated against these
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -273,13 +321,14 @@ def compare(torch, results, name, case, fn, plain, reads=(), ops=(), library=Non
 
 @contextlib.contextmanager
 def plain_ops():
-    """Every fused sub-block, bf16 and int8, on its plain version, forward
-    and backward."""
-    from vipant_tpu_torch.ops import fused_attn, fused_mlp
+    """Every fused sub-block, bf16 and int8, and the flash attention under
+    the dispatcher on their plain versions, forward and backward."""
+    from vipant_tpu_torch.ops import attention, fused_attn, fused_mlp
 
     with contextlib.ExitStack() as stack:
         for mod, names in ((fused_attn, ("fused_ln_attention_block", "fused_ln_attention_block_int8")),
-                           (fused_mlp, ("fused_ln_mlp_block", "fused_ln_mlp_block_int8"))):
+                           (fused_mlp, ("fused_ln_mlp_block", "fused_ln_mlp_block_int8")),
+                           (attention, ("flash_attention",))):
             for n in names:
                 stack.enter_context(mock.patch.object(mod, n, getattr(mod, n + "_plain")))
         yield
@@ -856,27 +905,15 @@ def _profile(torch, fn, steps=3):
     return busy / 1e3 / steps, span / 1e3 / steps, by_name
 
 
-def train_phase(torch, results):
-    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+def hold_grads_to_fp32(torch, label, what, kernels, plain, fp32):
+    """One step's (loss, grads) on the kernels (K), on the plain ops in bf16
+    (P) and on the plain ops in fp32 (F), from the same init and batch: the
+    loss and the grad norm of K within 1e-2 of P's, and per grad K no further
+    from F than P is (the module docstring's phase 6 (i) states the slack).
+    The loss heads' ``logit_scale`` is printed and left out of the last two."""
     from vipant_tpu_torch.optim import global_norm
-    from vipant_tpu_torch.train import loss_and_grads
 
-    # (i) one init and batch (B = 16): kernels against the plain ops
-    B = 16
-    tr = _trainer(torch, B)
-    audio_layers, image_layers = len(tr.model.audio.encoder.resblocks), len(tr.model.image.encoder.resblocks)
-    T_audio = tr.model.audio.grid[0] * tr.model.audio.grid[1] + 1
-    print(f"VA step: audio tower T={T_audio}, {audio_layers} layers trainable; image tower "
-          f"{image_layers} layers frozen, token_pack={tr.model.image.token_pack}; "
-          f"{sum(p.numel() for p in tr.trainable.values()):,} trainable / "
-          f"{sum(p.numel() for p in tr.frozen.values()):,} frozen params")
-    batch = _va_batch(tr, np.random.default_rng(0), B)
-    loss_k, g_k = loss_and_grads(tr.state, *batch)
-    with plain_ops():
-        loss_p, g_p = loss_and_grads(tr.state, *batch)
-        ref = _trainer(torch, B, "compute_dtype=float32")  # same seed: same init
-        loss_f, g_f = loss_and_grads(ref.state, *batch)
-    del ref
+    (loss_k, g_k), (loss_p, g_p), (loss_f, g_f) = kernels, plain, fp32
     n_k, n_p = float(global_norm(list(g_k.values()))), float(global_norm(list(g_p.values())))
     loss_k, loss_p, loss_f = float(loss_k), float(loss_p), float(loss_f)
     rows = []  # (cos(K, F) - cos(P, F), cos(K, P), cos(K, F), cos(P, F), name)
@@ -888,11 +925,15 @@ def train_phase(torch, results):
                                                       (g_p[k], g_f[k])))
         rows.append((kf - pf, kp, kf, pf, k))
         K, P, F = (g[k].double().flatten() for g in (g_k, g_p, g_f))
-        nf = max(F.norm().item(), 1e-300)
+        if not bool(F.any()):  # a param the loss does not reach: zero on every path
+            if bool(K.any()) or bool(P.any()):
+                raise AssertionError(f"grad {k} is zero in fp32 and not on the bf16 paths")
+            continue
+        nf = F.norm().item()
         ek, ep = (K - F).norm().item() / nf, (P - F).norm().item() / nf
         sk, sp = (K @ F).item() / nf ** 2, (P @ F).item() / nf ** 2
         row = (ek - ep, abs(sk - sp), ek, ep, k, sk, sp)
-        if k.startswith("loss."):  # the loss head's grads come before any backward kernel
+        if k.startswith(("loss.", "lm_loss.")):  # the loss head's grads come before any backward kernel
             print(f"    {k} (forward features only): |K-F|/|F| {ek:.6f} |P-F|/|F| {ep:.6f} "
                   f"s(K) {sk:.6f} s(P) {sp:.6f}")
         else:
@@ -900,7 +941,7 @@ def train_phase(torch, results):
     flat = {n: torch.cat([g[k].flatten() for k in g_k]) for n, g in (("K", g_k), ("P", g_p), ("F", g_f))}
     whole = {n: _cos(torch, flat[a], flat[b]) for n, (a, b) in
              (("K,P", ("K", "P")), ("K,F", ("K", "F")), ("P,F", ("P", "F")))}
-    print(f"(i) B={B} loss kernels {loss_k:.6f} plain {loss_p:.6f} fp32 {loss_f:.6f}; grad_norm "
+    print(f"{label} loss kernels {loss_k:.6f} plain {loss_p:.6f} fp32 {loss_f:.6f}; grad_norm "
           f"kernels {n_k:.6f} plain {n_p:.6f}; whole-grad cosine "
           + ", ".join(f"{n} {v:.6f}" for n, v in whole.items()))
     print(f"    per grad ({len(rows)}): min cos(K,P) {min(r[1] for r in rows):.6f}, "
@@ -921,8 +962,31 @@ def train_phase(torch, results):
             and abs(n_k - n_p) <= REL * n_p and min(rows)[0] >= -COS_SLACK
             and whole["K,F"] >= whole["P,F"] - COS_SLACK / 5
             and max(scale)[0] <= ERR_SLACK and worst[1] <= SCALE_SLACK):
-        raise AssertionError("the VA step's loss or grads on the kernels are further from the "
-                             "fp32 reference than the plain ops' bf16 grads")
+        raise AssertionError(f"the {what} step's loss or grads on the kernels are further from "
+                             "the fp32 reference than the plain ops' bf16 grads")
+
+
+def train_phase(torch, results):
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.train import loss_and_grads
+
+    # (i) one init and batch (B = 16): kernels against the plain ops
+    B = 16
+    tr = _trainer(torch, B)
+    audio_layers, image_layers = len(tr.model.audio.encoder.resblocks), len(tr.model.image.encoder.resblocks)
+    T_audio = tr.model.audio.grid[0] * tr.model.audio.grid[1] + 1
+    print(f"VA step: audio tower T={T_audio}, {audio_layers} layers trainable; image tower "
+          f"{image_layers} layers frozen, token_pack={tr.model.image.token_pack}; "
+          f"{sum(p.numel() for p in tr.trainable.values()):,} trainable / "
+          f"{sum(p.numel() for p in tr.frozen.values()):,} frozen params")
+    batch = _va_batch(tr, np.random.default_rng(0), B)
+    loss_k, g_k = loss_and_grads(tr.state, *batch)
+    with plain_ops():
+        loss_p, g_p = loss_and_grads(tr.state, *batch)
+        ref = _trainer(torch, B, "compute_dtype=float32")  # same seed: same init
+        loss_f, g_f = loss_and_grads(ref.state, *batch)
+    del ref
+    hold_grads_to_fp32(torch, f"(i) B={B}", "VA", (loss_k, g_k), (loss_p, g_p), (loss_f, g_f))
 
     # (ii) the training path: its launches are counted from here, one step
     init = {k: p.detach().clone() for k, p in tr.model.named_parameters()}
@@ -1104,6 +1168,436 @@ def train_int8_phase(torch, results):
         raise AssertionError(f"Adam smoke under int8_frozen did not descend: {k.tolist()}")
 
 
+def flash_ops(B, Tq, Tk, H, products=2):
+    """``products`` Tq x Tk x 64 products per head: 2 forward and for the
+    bias grad (scores, p.v or dp), 5 backward."""
+    return [(products * 2 * B * H * Tq * Tk * 64, "bf16")]
+
+
+def _sdpa4(torch, q, k, v, bias):
+    """The library's attention on [B, T, H, D] tensors (views to its
+    [B, H, T, D]), its autograd backward for the cotangent ``do``, and that
+    backward taken for a float mask alone: the [Tq, Tk] bias grad."""
+    F = torch.nn.functional
+    mask = None if bias is None else bias.to(q.dtype)
+    heads = lambda t: t.transpose(1, 2)
+    fwd = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=mask)
+
+    def bwd(do):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*(heads(t) for t in leaves), attn_mask=mask)
+        return lambda: torch.autograd.grad(out, leaves, heads(do), retain_graph=True)
+
+    def dbias(do):
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        # the fused backends may refuse a mask that wants a grad at these lengths: then the math backend
+        for backend in (None, SDPBackend.MATH):
+            leaf = mask.detach().clone().requires_grad_()
+            with contextlib.nullcontext() if backend is None else sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=leaf)
+            call = lambda: torch.autograd.grad(out, leaf, heads(do), retain_graph=True)
+            try:
+                call()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                print(f"  library bias grad, backend {backend or 'default'}: {str(e).splitlines()[0]}")
+                continue
+            print(f"  library bias grad: scaled_dot_product_attention's backward, backend {backend or 'default'}")
+            return call
+        return None
+
+    return fwd, bwd, dbias
+
+
+def flash_kernel_phase(torch, results):
+    """The three flash-attention kernels against their plain versions, at
+    the captioning decoder's cross-attention shapes and at the equal-length
+    shapes the JAX package runs its kernel at; layouts; determinism."""
+    from vipant_tpu_torch.nn.layers import causal_mask
+    from vipant_tpu_torch.ops import attention as attention_mod, kernels
+
+    rn = _seeded(torch)
+    pack_bias, _ = _biases(torch)
+    clamp = lambda b: torch.clamp(b.float(), min=-1e30).contiguous()
+    cases = [  # (case, B, Tq, Tk, H, bias): the first is the captioning step's
+        ("cross B64 Tq77 Tk61 H8", 64, 77, 61, 8, None),
+        ("cross B4 Tq77 Tk61 H8", BATCH, 77, 61, 8, None),
+        ("re-forward decode B64 Tq32 Tk61 H8", 64, 32, 61, 8, None),
+        ("re-forward decode B4 Tq32 Tk61 H8", BATCH, 32, 61, 8, None),
+        ("self B16 T971 H12 (patch 32, stride 10x10)", 16, 971, 971, 12, None),
+        ("self B16 T200 H12 pack, bias grad", 16, 200, 200, 12, pack_bias(50, 4)),
+        ("self B64 T77 H8 causal", 64, 77, 77, 8, clamp(causal_mask(77, device="cuda"))),
+    ]
+    for case, B, Tq, Tk, H, bias in cases:
+        cmp = lambda *a, **k: compare(torch, results, *a, iters=10, **k)
+        q, k, v, do = rn(B, Tq, H, 64), rn(B, Tk, H, 64), rn(B, Tk, H, 64), rn(B, Tq, H, 64)
+        o, lse = kernels.flash_attention_fwd_plain(q, k, v, bias, 0.125)
+        lib_fwd, lib_bwd, lib_dbias = _sdpa4(torch, q, k, v, bias)
+        cmp("flash_attention_fwd", case, lambda: kernels.flash_attention_fwd(q, k, v, bias, 0.125),
+            lambda: kernels.flash_attention_fwd_plain(q, k, v, bias, 0.125), reads=(q, k, v, bias),
+            ops=flash_ops(B, Tq, Tk, H), library=lib_fwd)
+        cmp("flash_attention_bwd", case,
+            lambda: kernels.flash_attention_bwd(q, k, v, bias, o, lse, do, 0.125),
+            lambda: kernels.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, 0.125),
+            reads=(q, k, v, bias, o, lse, do), ops=flash_ops(B, Tq, Tk, H, 5), library=lib_bwd(do))
+        if bias is None:
+            if "causal" in case:
+                raise AssertionError("the causal case lost its bias")
+            continue
+        delta = kernels.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, 0.125)[3]
+        dbias = lambda: kernels.flash_attention_dbias(q, k, v, bias, lse, delta, do, 0.125)
+        # the first of these cases is the probe path's shape: the packing bias with its grad
+        cmp("flash_attention_dbias", case, dbias,
+            lambda: kernels.flash_attention_dbias_plain(q, k, v, bias, lse, delta, do, 0.125),
+            reads=(q, k, v, bias, lse, delta, do), ops=flash_ops(B, Tq, Tk, H), library=lib_dbias(do))
+        if not torch.equal(dbias(), dbias()):
+            raise AssertionError(f"flash_attention_dbias {case}: two runs differ")
+        # causal=True through the public op is the same bias folded on the host
+        if "causal" in case and not torch.equal(attention_mod.flash_attention(q, k, v, causal=True),
+                                                kernels.flash_attention_fwd(q, k, v, bias, 0.125)[0]):
+            raise AssertionError("flash_attention(causal=True) differs from the causal bias")
+    print("  bias grad: two runs bitwise equal at T77 causal and T200 pack")
+
+    # the same values as contiguous tensors, sections of a packed [B, T, 3C] and [B, H, T, D] views
+    B, T, H = 16, 200, 12
+    packed = rn(B, T, 3 * H * 64)
+    do = rn(B, T, H, 64)
+    bias = pack_bias(50, 4)
+    sections = packed.view(B, T, 3, H, 64).unbind(dim=2)
+    layouts = {
+        "packed sections": sections,
+        "contiguous": tuple(t.contiguous() for t in sections),
+        "transposed [B, H, T, D]": tuple(t.transpose(1, 2).contiguous().transpose(1, 2) for t in sections),
+    }
+    outs = {}
+    for name, (q, k, v) in layouts.items():
+        o, lse = kernels.flash_attention_fwd(q, k, v, bias, 0.125)
+        grads = kernels.flash_attention_bwd(q, k, v, bias, o, lse, do, 0.125)
+        outs[name] = (o, lse, *grads, kernels.flash_attention_dbias(q, k, v, bias, lse, grads[3], do, 0.125))
+    ref = outs["contiguous"]
+    for name, got in outs.items():
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"flash kernels: layout {name!r} differs from contiguous inputs")
+    print(f"  layouts {list(layouts)}: o, lse, dq, dk, dv, delta, dbias bitwise equal")
+    for bad, why in (((sections[0].float(), *sections[1:]), "fp32"),
+                     ((rn(B, T, H, 32), rn(B, T, H, 32), rn(B, T, H, 32)), "D = 32")):
+        try:
+            kernels.flash_attention_fwd(*bad, None, 0.125)
+        except ValueError:
+            continue
+        raise AssertionError(f"flash_attention_fwd took {why} inputs on the card")
+
+
+def probe_phase(torch, results):
+    """The two probe kernels, then the probe path with its launches counted."""
+    from vipant_tpu_torch.experiments import fused_block_probe as probe
+    from vipant_tpu_torch.nn.layers import pack_tokens
+    from vipant_tpu_torch.ops import LAUNCHES, attention as attention_mod, fused_attn, kernels, reset_launches
+
+    M, K, N = probe.DOT_MKN
+    for name, (ta, tb) in kernels.ORIENTATIONS.items():
+        a, b = probe.dot_variant_inputs(name, device="cuda")
+        lib = lambda a=a, b=b, ta=ta, tb=tb: torch.matmul(a.t() if ta else a, b.t() if tb else b)
+        compare(torch, results, "dot_variant", f"{name} M{M} K{K} N{N}",
+                lambda: kernels.dot_variant(a, b, name), lambda: kernels.dot_variant_plain(a, b, name),
+                reads=(a, b), ops=gemm_ops(M, N, K), library=lib)
+    args = probe.make_inputs(device="cuda")
+    B, T, C = args[0].shape
+    x, wqkv, bqkv, wout, bout = args
+    xt, bqkv_b, bout_b = x.transpose(0, 1), bqkv.to(x.dtype), bout.to(x.dtype)  # the library is sequence-first
+    mha = lambda: torch.nn.functional.multi_head_attention_forward(
+        xt, xt, xt, C, probe.H, wqkv, bqkv_b, None, None, False, 0.0, wout, bout_b, need_weights=False)
+    compare(torch, results, "probe_fused_fwd", f"B{B} T{T} C{C} H{probe.H}",
+            lambda: probe.probe_fused_fwd(*args), lambda: probe.probe_fused_fwd_plain(*args),
+            reads=args, iters=10, library=mha,
+            ops=gemm_ops(B * T, 3 * C, C) + attn_ops(B, T, probe.H) + gemm_ops(B * T, C, C),
+            also={"fused_attention_block_ms": lambda: fused_attn.fused_attention_block(*args, heads=probe.H)})
+    out, block = probe.probe_fused_fwd(*args)[0], fused_attn.fused_attention_block(*args, heads=probe.H)
+    err, _ = check_default(torch, [out], [block], "probe_fused_fwd against fused_attention_block")
+    print(f"  probe_fused_fwd against the fused_attention_block chain (other attention kernel): "
+          f"max|d| {err:.2e} within atol = rtol = {ATOL}")
+
+    # the probe path: its launches are counted from here
+    rn = _seeded(torch)
+    q, k, v = (rn(16, 200, 12, 64).requires_grad_() for _ in range(3))
+    bias = pack_tokens(torch.zeros(4, 50, 1, device="cuda"), 4)[1].requires_grad_()
+    reset_launches()
+    report = probe.probe_dot_variants("cuda")
+    out, lse = probe.probe_fused_fwd(*args)
+    o = attention_mod.flash_attention(q, k, v, bias=bias)  # the public op: bias_grad=True
+    grads = torch.autograd.grad(o, (q, k, v, bias), torch.ones_like(o))
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    print(f"launches on the probe path: {json.dumps(counts, sort_keys=True)}")
+    want = {"dot_variant": 4, "probe_fused_fwd": 1, "gemm_bias_act": 2, "flash_attention_fwd": 2,
+            "flash_attention_bwd": 1, "flash_attention_dbias": 1}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    record_launches(results, "probe", counts)
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, lse, *grads))
+    if not finite or max(report.values()) > 1e-3 or not bool(grads[3].any()):
+        raise AssertionError(f"probe path: finite {finite}, dot variants {report}")
+    print("  dot variants on the path: " + ", ".join(f"{k} max|d| {v:.2e}" for k, v in report.items()))
+
+
+def _caption_trainer(torch, B, *extra):
+    from vipant_tpu_torch.train import Trainer
+
+    torch.cuda.empty_cache()
+    return Trainer(CAPTION_FULL + [f"running.batch_size={B}", *extra],  # on the card, the default
+                   steps_per_epoch=STEPS_PER_EPOCH)
+
+
+def _caption_batch(tr, rng, B, ctx=77, vocab=49408):
+    """(fbank, ids): ids as the tokenizer lays them out (sot, 5-20 words,
+    eot, zero padding)."""
+    ids = np.zeros((B, ctx), np.int64)
+    for row in ids:
+        n = int(rng.integers(5, 21))
+        row[0], row[1:1 + n], row[1 + n] = vocab - 2, rng.integers(1, vocab - 2, n), vocab - 1
+    return tr.make_batch(rng.standard_normal((B, 1, 1000, 128)).astype(np.float32), ids)
+
+
+def caption_train_phase(torch, results):
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.train import loss_and_grads
+
+    # (a) one init and batch (B = 16): kernels against the plain ops and against fp32
+    B = 16
+    tr = _caption_trainer(torch, B)
+    audio_layers, dec_layers = len(tr.model.audio.encoder.resblocks), len(tr.model.decoder.transformer.resblocks)
+    n_dec = sum(p.numel() for k, p in tr.trainable.items() if k.startswith("decoder."))
+    print(f"captioning step: audio tower {audio_layers} layers, grid {tr.model.audio.grid}; decoder "
+          f"{dec_layers} layers, width {tr.model.decoder.width}, vocabulary {tr.model.decoder.vocab_size}; "
+          f"{sum(p.numel() for p in tr.trainable.values()):,} trainable params ({n_dec:,} in the decoder), "
+          f"{len(tr.frozen)} frozen; loss kwargs {tr.state.loss_kwargs}")
+    if tr.frozen or tr.state.loss_kwargs != {"retrieval": False}:
+        raise AssertionError("the captioning trainer froze something or trains retrieval")
+    batch = _caption_batch(tr, np.random.default_rng(0), B)
+    k_run = loss_and_grads(tr.state, *batch)
+    with plain_ops():
+        p_run = loss_and_grads(tr.state, *batch)
+        ref = _caption_trainer(torch, B, "compute_dtype=float32")  # same seed: same init
+        f_run = loss_and_grads(ref.state, *batch)
+    del ref
+    hold_grads_to_fp32(torch, f"(a) B={B}", "captioning", k_run, p_run, f_run)
+    if bool(k_run[1]["decoder.text_proj"].any()):
+        raise AssertionError("text_proj got a grad: the LM loss does not reach it")
+    del k_run, p_run, f_run
+
+    # (b) the captioning training path: its launches are counted from here, one step
+    init = {k: p.detach().clone() for k, p in tr.model.named_parameters()}
+    reset_launches()
+    losses = [float(tr.train_step(*batch)["loss"])]
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    print(f"(b) launches in one captioning step: {json.dumps(counts, sort_keys=True)}")
+    blocks = audio_layers + dec_layers  # every sub-block runs forward and backward
+    want = {
+        "fused_ln_attention_block": blocks, "fused_ln_mlp_block": blocks,
+        "fused_ln_attention_block_bwd": blocks, "fused_ln_mlp_block_bwd": blocks,
+        "layernorm_fwd": 4 * blocks, "gemm_bias_act": 5 * blocks, "attention_fwd": blocks,
+        "attention_bwd": blocks, "layernorm_bwd": 2 * blocks, "colsum": 4 * blocks,
+        "gemm_dgrad": 4 * blocks, "gemm_wgrad": 4 * blocks,
+        "flash_attention_fwd": dec_layers, "flash_attention_bwd": dec_layers,  # and no bias grad
+    }
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    record_launches(results, "caption_train", counts)
+    losses += [float(tr.train_step(*batch)["loss"]) for _ in range(2)]
+    moved = [k for k, p in tr.trainable.items() if not torch.equal(p.detach(), init[k])]
+    print(f"    LARS losses {[round(v, 5) for v in losses]}; {len(moved)} of {len(tr.trainable)} "
+          f"trainable params moved in 3 steps")
+    if not np.isfinite(losses).all() or not any("cross_attn" in k for k in moved):
+        raise AssertionError("captioning LARS steps: non-finite loss or the cross-attention did not move")
+    del tr, batch, init
+
+    # (c) time at B = 64, kernels against plain ops
+    B = 64
+    tr = _caption_trainer(torch, B)
+    batch = _caption_batch(tr, np.random.default_rng(1), B)
+
+    def fwd():
+        with torch.no_grad():
+            return tr.model(*batch, train=True, **tr.state.loss_kwargs)
+
+    timing = {}
+    for label, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_ops)):
+        with ctx():
+            timing[label] = {"fwd": cuda_ms(torch, fwd, 5, 2),
+                             "fwd_bwd": cuda_ms(torch, lambda: loss_and_grads(tr.state, *batch), 5, 2),
+                             "step": cuda_ms(torch, lambda: tr.train_step(*batch), 5, 2)}
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_step(*batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for label, t in timing.items():
+        print(f"(c) B={B} {label}: {t['step']:.2f} ms/step ({B / t['step'] * 1e3:.1f} clips/s): "
+              f"fwd {t['fwd']:.2f}, fwd+bwd {t['fwd_bwd']:.2f}, "
+              f"optimizer and the rest {t['step'] - t['fwd_bwd']:.2f} ms")
+    print(f"(c) peak device memory of a kernel step at B={B}: {peak:.2f} GiB")
+    busy, span, by_name = _profile(torch, lambda: tr.train_step(*batch))
+    step_ms = timing["kernels"]["step"]
+    print(f"(c) profiler, kernel step at B={B}: device busy {busy:.2f} ms / span {span:.2f} ms per "
+          f"step (idle {100 * max(0.0, 1 - busy / step_ms):.1f} % of the untraced {step_ms:.2f} ms "
+          f"step); top kernels by device time per step:")
+    for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:14]:
+        print(f"    {d / 3:9.3f} ms  {n // 3:5d}x  {name[:90]}")
+    flash = {n[n.index("flash_"):].split("(")[0]: d / 3 for n, (_, d) in by_name.items() if "flash_" in n}
+    print("    flash kernels per step: " + ", ".join(f"{n} {d:.3f} ms" for n, d in flash.items()))
+    del tr, batch
+
+    # (d) Adam descent smoke on one fixed batch
+    B, n_steps = 32, 60
+    tr = _caption_trainer(torch, B, "optimizer.use_lars=False", "optimizer.warmup=False",
+                          "optimizer.lr=1.0e-4")
+    batch = _caption_batch(tr, np.random.default_rng(7), B)
+    k = np.asarray([float(tr.train_step(*batch)["loss"]) for _ in range(n_steps)])
+    print(f"(d) Adam B={B}, one fixed batch: LM loss {np.round(k[::5], 4).tolist()} ... last 5 mean "
+          f"{k[-5:].mean():.4f}")
+    if not (np.isfinite(k).all() and k[-5:].mean() < 0.9 * k[0]):
+        raise AssertionError(f"captioning Adam smoke did not descend: {k.tolist()}")
+
+
+def _caption_engine(torch, batch_size, quantize=""):
+    from vipant_tpu_torch.serve import InferenceEngine
+
+    torch.cuda.empty_cache()
+    return InferenceEngine(CAPTION_FULL, batch_size=batch_size, seed=0, quantize=quantize)  # on the card
+
+
+def caption_serve_phase(torch, results):
+    from vipant_tpu_torch.models.tasks import _encode
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+
+    eng = _caption_engine(torch, BATCH)
+    dec = eng.model.decoder
+    L, audio_layers, dec_layers = dec.max_len_dec, len(eng.model.audio.encoder.resblocks), dec.layers
+    fb = np.random.default_rng(0).standard_normal((6, 1000, 128)).astype(np.float32)
+
+    # the captioning serving path: its launches are counted from here
+    reset_launches()
+    greedy = eng.caption(fb)           # 2 chunks of 4, the last padded
+    beamed = eng.caption(fb[:3], beam=4)  # 1 chunk, 16 hypotheses
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    print(f"launches on the captioning serving path: {json.dumps(counts, sort_keys=True)}")
+    chunks = 3
+    mlp = chunks * (audio_layers + L * dec_layers)  # the audio tower's, and one per layer and decode step
+    want = {"fused_ln_attention_block": chunks * audio_layers, "attention_fwd": chunks * audio_layers,
+            "fused_ln_mlp_block": mlp, "layernorm_fwd": chunks * audio_layers + mlp,
+            "gemm_bias_act": 2 * chunks * audio_layers + 2 * mlp}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    record_launches(results, "caption_serve", counts)
+    if len(greedy) != 6 or len(beamed) != 3 or not all(isinstance(c, str) for c in greedy + beamed):
+        raise AssertionError(f"caption output malformed: {greedy} {beamed}")
+    print(f"  captions of seeded random weights (greedy, first 2): {[c[:60] for c in greedy[:2]]}")
+    if eng.caption(fb[:BATCH], beam=1) != greedy[:BATCH]:
+        raise AssertionError("beam=1 does not give the greedy captions")
+
+    # KV-cached greedy against the re-forward decoder (which runs the flash kernel), batch 4
+    with torch.inference_mode():
+        audios = torch.from_numpy(fb[:BATCH, None]).to(eng.device)
+        _, feat = _encode(eng.model.audio, audios, False, require_feature=True)
+        reset_launches()
+        ids_r, logits_r = dec.greedy_decode(feat)
+        reforward_flash = LAUNCHES["flash_attention_fwd"]
+        ids_k, logits_k = dec.greedy_decode_kv(feat)
+        ids_b1, _ = dec.beam_decode_kv(feat, beam=1)
+        # the re-forward decoder's ids fed through the KV-cached step at every position:
+        # no row is cut off by a flipped token
+        memory, states, forced = dec._memory(feat), dec._init_states(BATCH, eng.device), []
+        for t in range(L):
+            step_logits, states = dec._one_step(ids_r[:, t], t, memory, states)
+            forced.append(step_logits)
+        forced_d = (torch.stack(forced, dim=1).float() - logits_r.float()).abs().amax(dim=(0, 2)).cpu().numpy()
+        # teacher-forced logits on the kernels against the plain ops
+        ids_tf = torch.zeros((BATCH, 77), dtype=torch.long, device=eng.device)
+        ids_tf[:, :L + 1] = ids_k
+        _, tf_k = dec(ids_tf, feat)
+        with plain_ops():
+            _, tf_p = dec(ids_tf, feat)
+    if reforward_flash != L * dec_layers:
+        raise AssertionError(f"the re-forward decoder launched the flash kernel {reforward_flash} times")
+    if not torch.equal(ids_b1, ids_k):
+        raise AssertionError("beam_decode_kv(beam=1) differs from greedy_decode_kv")
+    top2 = logits_r.float().topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    same = (ids_r == ids_k).cpu().numpy()[:, 1:]
+    worst = 0.0
+    for row in range(BATCH):
+        first = L if same[row].all() else int(np.argmin(same[row]))
+        upto = min(first + 1, L)  # a differing token feeds different inputs to every later step
+        d = (logits_r[row, :upto].float() - logits_k[row, :upto].float()).abs().max().item()
+        worst = max(worst, d)
+        if d > DECODE_TOL or (first < L and margin[row, first] > DECODE_TOL):
+            raise AssertionError(f"row {row}: KV-cached decode differs from the re-forward decode by {d} "
+                                 f"up to step {first}, margin there {margin[row, min(first, L - 1)]}")
+    print(f"  KV-cached steps forced to the re-forward decoder's ids, all {L} positions: per-step logits "
+          f"max|d| {forced_d.max():.4f} (at step {int(forced_d.argmax())}; tolerance {DECODE_TOL}; "
+          f"max |logit| {logits_r.float().abs().max().item():.2f})")
+    if not forced_d.max() <= DECODE_TOL:
+        raise AssertionError(f"KV-cached steps on the re-forward decoder's ids differ from its logits by "
+                             f"{forced_d.tolist()} per step")
+    cos = torch.nn.functional.cosine_similarity(tf_k.float(), tf_p.float(), dim=-1).min().item()
+    print(f"  KV-cached against re-forward greedy decode (batch {BATCH}): per-step logits max|d| "
+          f"{worst:.4f} up to each row's first differing token (tolerance {DECODE_TOL}); "
+          f"{100 * same.mean():.1f} % of ids equal; median top-2 margin {np.median(margin):.4f}; "
+          f"re-forward decode launched flash_attention_fwd {reforward_flash}x")
+    print(f"  teacher-forced logits, kernels against plain ops: min cosine {cos:.6f}")
+    if cos < COS_MIN:
+        raise AssertionError(f"teacher-forced logits cosine {cos} < {COS_MIN}")
+
+    def timings(en, B):
+        """ms per caption batch, greedy and beam 4, and the decode alone."""
+        fbb = np.random.default_rng(1).standard_normal((B, 1000, 128)).astype(np.float32)
+        with torch.inference_mode():
+            _, f = _encode(en.model.audio, torch.from_numpy(fbb[:, None]).to(en.device), False,
+                           require_feature=True)
+            row = {"caption greedy": _timed_ms(torch, lambda: en.caption(fbb), 3),
+                   "caption beam=4": _timed_ms(torch, lambda: en.caption(fbb, beam=4), 3),
+                   "greedy_decode_kv": _timed_ms(torch, lambda: en.model.decoder.greedy_decode_kv(f), 3),
+                   "beam_decode_kv(4)": _timed_ms(torch, lambda: en.model.decoder.beam_decode_kv(f, beam=4), 3)}
+            if B == BATCH:
+                row["greedy_decode (re-forward)"] = _timed_ms(torch, lambda: en.model.decoder.greedy_decode(f), 3)
+            with plain_ops():
+                row["caption greedy, plain ops"] = _timed_ms(torch, lambda: en.caption(fbb), 3)
+        print(f"  batch {B}: " + "; ".join(
+            f"{k} {v:.2f} ms" + (f" ({v / L:.3f} ms per decode step)" if "decode" in k else "")
+            for k, v in row.items()))
+        return fbb
+
+    fbb = timings(eng, BATCH)
+    busy, span, by_name = _profile(torch, lambda: eng.caption(fbb))
+    print(f"  profiler, caption greedy batch {BATCH}: device busy {busy:.2f} ms / span {span:.2f} ms per "
+          f"batch (idle {100 * (1 - busy / span):.1f} %), {sum(n for n, _ in by_name.values()) / 3:.0f} "
+          f"device events per batch")
+
+    # the same weights with quantize="int8": the decoder's fused sub-blocks decode in int8
+    eng8 = _caption_engine(torch, BATCH, "int8")
+    reset_launches()
+    greedy8 = eng8.caption(fb[:BATCH])
+    c8 = dict(LAUNCHES)
+    if (c8.get("fused_ln_mlp_block_int8") != audio_layers + L * dec_layers
+            or c8.get("fused_ln_attention_block_int8") != audio_layers
+            or any(n in c8 for n in ("fused_ln_mlp_block", "fused_ln_attention_block"))):
+        raise AssertionError(f"int8 captioning launches: {c8}")
+    words = lambda cs: [w for c in cs for w in c.split()]
+    print(f"  quantize='int8': {sum(a == b for a, b in zip(greedy8, greedy))} of {BATCH} captions equal "
+          f"to bf16's ({len(words(greedy8))} against {len(words(greedy[:BATCH]))} words); int8 launches "
+          f"{ {k: v for k, v in c8.items() if 'int8' in k} }")
+    del eng, eng8
+    eng = _caption_engine(torch, 64)
+    fbb = timings(eng, 64)
+    busy, span, by_name = _profile(torch, lambda: eng.caption(fbb))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"  profiler, caption greedy batch 64: device busy {busy:.2f} ms / span {span:.2f} ms per "
+          f"batch (idle {100 * (1 - busy / span):.1f} %); top kernels per batch: "
+          + "; ".join(f"{d / 3:.2f} ms {n // 3}x {k[:50]}" for k, (n, d) in top))
+
+
 def main() -> int:
     import torch
 
@@ -1136,7 +1630,11 @@ def main() -> int:
                          ("training slice (flagship VA step, full width)", train_phase),
                          ("int8 kernel phase (vs plain PyTorch on the card)", int8_kernel_phase),
                          ("int8 serving slice (full-size CLAP engine, quantize=int8)", int8_serve_phase),
-                         ("training slice with the int8 frozen image tower", train_int8_phase)):
+                         ("training slice with the int8 frozen image tower", train_int8_phase),
+                         ("flash kernel phase (vs plain PyTorch on the card)", flash_kernel_phase),
+                         ("probe phase (dot variants, fused forward probe)", probe_phase),
+                         ("captioning training slice (full width, 12 + 12 layers)", caption_train_phase),
+                         ("captioning serving slice (InferenceEngine.caption)", caption_serve_phase)):
         t0 = time.perf_counter()
         print(title + ":")
         phase(torch, results)

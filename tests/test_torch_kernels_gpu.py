@@ -10,7 +10,9 @@ plus a different fp32 summation order; max |d| <= 1e-2 * max |plain| on
 fp32 grads (weight, bias and LayerNorm grads, the fp32 dqkv), which sum
 over thousands of rows in another order. Int8 codes: equal except a share
 of at most 1e-3 off by exactly one, scales to 1e-6 relative; the int32 sum
-of gemm_i8 is exact (compared bitwise at unit scales)."""
+of gemm_i8 is exact (compared bitwise at unit scales). The flash-attention
+kernels give the same bits for every layout of q, k, v, and their bias grad
+the same bits in every run."""
 
 from unittest import mock
 
@@ -477,3 +479,170 @@ def test_int8_frozen_tower_in_a_train_step(gen):
     with torch.no_grad():
         v8, v = tr.model.encode_image(batch[0]), ref.model.encode_image(batch[0])
     assert torch.nn.functional.cosine_similarity(v8.float(), v.float(), dim=-1).min().item() >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# flash attention on separate q, k, v (cross-attention) and the probe kernels
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [  # (B, Tq, Tk, H, bias): the flash kernel phase of chip_smoke.py, and ragged tails
+    (64, 77, 61, 8, "none"),      # the captioning decoder's cross-attention
+    (4, 77, 61, 8, "none"),
+    (64, 32, 61, 8, "none"),      # the re-forward decoder
+    (4, 32, 61, 8, "none"),
+    (16, 971, 971, 12, "none"),   # a sequence the TPU's fused block refuses
+    (64, 77, 77, 8, "causal"),
+    (16, 200, 200, 12, "pack"),
+    (3, 130, 70, 2, "random"),    # ragged on both axes, some entries masked
+    (2, 1, 9, 2, "none"),
+]
+
+
+def _flash_inputs(gen, B, Tq, Tk, H, kind):
+    q, k, v, do = (_rn(gen, B, T, H, 64).bfloat16() for T in (Tq, Tk, Tk, Tq))
+    if kind == "random":
+        bias = _rn(gen, Tq, Tk)
+        bias[torch.rand(Tq, Tk, generator=gen, device="cuda") < 0.2] = -1e30
+    else:
+        bias = _bias(kind, Tq)
+        bias = None if bias is None else torch.clamp(bias.float(), min=-1e30).contiguous()
+    return q, k, v, do, bias
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,kind", FLASH_CASES)
+def test_flash_attention_kernels_match_plain(gen, B, Tq, Tk, H, kind):
+    q, k, v, do, bias = _flash_inputs(gen, B, Tq, Tk, H, kind)
+    reset_launches()
+    o, lse = kernels.flash_attention_fwd(q, k, v, bias, 0.125)
+    o0, lse0 = kernels.flash_attention_fwd_plain(q, k, v, bias, 0.125)
+    _close(o, o0, "o")
+    _close(lse, lse0, "lse")
+    got = kernels.flash_attention_bwd(q, k, v, bias, o0, lse0, do, 0.125)
+    want = kernels.flash_attention_bwd_plain(q, k, v, bias, o0, lse0, do, 0.125)
+    for name, g, w in zip(("dq", "dk", "dv", "delta"), got, want):
+        _close(g, w, name)
+    assert LAUNCHES == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+    if bias is not None:
+        dbias = kernels.flash_attention_dbias(q, k, v, bias, lse0, want[3], do, 0.125)
+        _close(dbias, kernels.flash_attention_dbias_plain(q, k, v, bias, lse0, want[3], do, 0.125), "dbias")
+        again = kernels.flash_attention_dbias(q, k, v, bias, lse0, want[3], do, 0.125)
+        assert torch.equal(dbias, again), "the bias grad must be bitwise repeatable"
+        assert LAUNCHES["flash_attention_dbias"] == 2
+
+
+@pytest.mark.parametrize("kind", ["none", "pack"])
+def test_flash_attention_layouts_are_bitwise_equal(gen, kind):
+    """Contiguous q, k, v, the sections of a packed [B, T, 3C] tensor and
+    transposed [B, H, T, D] views: no copy, the same bits."""
+    B, T, H = 4, 200, 12
+    packed = _rn(gen, B, T, 3 * H * 64).bfloat16()
+    do = _rn(gen, B, T, H, 64).bfloat16()
+    bias = _bias(kind, T)
+    sections = packed.view(B, T, 3, H, 64).unbind(dim=2)
+    assert not sections[1].is_contiguous()
+    outs = []
+    for q, k, v in (sections, tuple(t.contiguous() for t in sections),
+                    tuple(t.transpose(1, 2).contiguous().transpose(1, 2) for t in sections)):
+        o, lse = kernels.flash_attention_fwd(q, k, v, bias, 0.125)
+        outs.append((o, lse, *kernels.flash_attention_bwd(q, k, v, bias, o, lse, do, 0.125)))
+    for got in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(got, outs[0]))
+
+
+@pytest.mark.parametrize("Tq,Tk,kind,bias_grad", [(77, 61, "none", False), (77, 77, "causal", False),
+                                                  (200, 200, "pack", True)])
+def test_flash_attention_op_backward_matches_plain(gen, Tq, Tk, kind, bias_grad):
+    """Through the autograd boundary, as the cross-attention layer calls it."""
+    from vipant_tpu_torch.ops import attention
+
+    q, k, v, do, bias = _flash_inputs(gen, 4, Tq, Tk, 8, kind)
+    outs = []
+    for fn in (attention.flash_attention, attention.flash_attention_plain):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        b = None if bias is None else bias.clone().requires_grad_()
+        reset_launches()
+        o = fn(*leaves, bias=b, bias_grad=bias_grad)
+        grads = torch.autograd.grad(o, leaves + ([] if b is None else [b]), do)
+        outs.append((o, *grads))
+        if fn is attention.flash_attention:
+            assert LAUNCHES == {"flash_attention_fwd": 1, "flash_attention_bwd": 1,
+                                **({"flash_attention_dbias": 1} if bias_grad else {})}
+        else:
+            assert not LAUNCHES
+    for g, w in zip(*outs):
+        _close(g, w)
+    if bias is not None:
+        assert bool(outs[0][4].any()) == bias_grad  # zeros for a constant mask
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(gen):
+    q, k, v = (_rn(gen, 2, 16, 2, 64).bfloat16() for _ in range(3))
+    with pytest.raises(ValueError, match="bfloat16"):
+        kernels.flash_attention_fwd(q.float(), k, v, None, 0.125)
+    with pytest.raises(ValueError, match="64"):
+        kernels.flash_attention_fwd(q[..., :32], k[..., :32], v[..., :32], None, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):  # a strided last dim
+        kernels.flash_attention_fwd(_rn(gen, 2, 16, 2, 128).bfloat16()[..., ::2], k, v, None, 0.125)
+    with pytest.raises(ValueError, match="bias"):
+        kernels.flash_attention_fwd(q, k, v, torch.zeros(16, 8, device="cuda"), 0.125)
+    with pytest.raises(ValueError, match="k and v"):
+        kernels.flash_attention_fwd(q, k[:, :8], v, None, 0.125)
+    o, lse = kernels.flash_attention_fwd(q, k, v, None, 0.125)
+    with pytest.raises(ValueError, match="do must be"):
+        kernels.flash_attention_bwd(q, k, v, None, o, lse, o[:, :8], 0.125)
+
+
+@pytest.mark.parametrize("orientation", ["NN", "NT", "TN", "TT"])
+def test_dot_variant_kernel_matches_the_fp32_product(gen, orientation):
+    from vipant_tpu_torch.experiments import fused_block_probe as probe
+
+    a, b = probe.dot_variant_inputs(orientation, device="cuda")
+    reset_launches()
+    got = kernels.dot_variant(a, b, orientation)
+    assert LAUNCHES == {"dot_variant": 1}
+    _close(got, kernels.dot_variant_plain(a, b, orientation), orientation)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        kernels.dot_variant(a[:24, :24].contiguous(), b[:24, :24].contiguous(), orientation)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kernels.dot_variant(a.float(), b, orientation)
+
+
+def test_probe_fused_fwd_matches_plain_and_the_fused_block(gen):
+    from vipant_tpu_torch.experiments import fused_block_probe as probe
+
+    args = probe.make_inputs(batch=4, device="cuda")
+    reset_launches()
+    out, lse = probe.probe_fused_fwd(*args)
+    assert LAUNCHES == {"gemm_bias_act": 2, "flash_attention_fwd": 1, "probe_fused_fwd": 1}
+    want, lse_want = probe.probe_fused_fwd_plain(*args)
+    _close(out, want, "out")
+    _close(lse, lse_want, "lse")
+    _close(out, fused_attn.fused_attention_block(*args, heads=probe.H), "fused_attention_block")
+
+
+def test_captioning_step_and_caption_run_through_the_kernels(gen):
+    """A 2 + 2 layer captioning model at full width: one training step and
+    one caption batch launch the flash kernels and the fused sub-blocks."""
+    from vipant_tpu_torch.train import Trainer
+
+    cfg = ["+running=clotho", "+model/image=vit_val", "+model/audio=vit_val",
+           "+model/text=transformer_decoder", "+model/loss=ce_lm", "+optimizer=standard",
+           "+running/audio=default", "model.audio.pre_encoder.stride=[16,24]",
+           "running.audio.max_len=1000", "running.retrieval=False", "worker=CLAP", "model_file=",
+           "model.image.encoder.layers=2", "model.text.layers=2", "model.text.max_len_dec=4"]
+    tr = Trainer(cfg + ["running.batch_size=2", "optimizer.warmup_epoch=0"])
+    r = np.random.default_rng(0)
+    ids = np.zeros((2, 77), np.int64)
+    ids[:, 0], ids[:, 1:4], ids[:, 4] = 49406, r.integers(1, 49406, (2, 3)), 49407
+    batch = tr.make_batch(r.standard_normal((2, 1, 1000, 128)).astype(np.float32), ids)
+    reset_launches()
+    m = tr.train_step(*batch)
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    assert LAUNCHES["flash_attention_fwd"] == LAUNCHES["flash_attention_bwd"] == 2
+    assert "flash_attention_dbias" not in LAUNCHES
+    assert LAUNCHES["fused_ln_attention_block_bwd"] == LAUNCHES["fused_ln_mlp_block_bwd"] == 4
+    eng = InferenceEngine(cfg, batch_size=2)
+    reset_launches()
+    out = eng.caption(r.standard_normal((3, 1000, 128)).astype(np.float32))
+    assert len(out) == 3 and all(isinstance(c, str) for c in out)
+    assert LAUNCHES["fused_ln_mlp_block"] == 2 * (2 + 4 * 2)  # 2 chunks: tower, and 4 steps x 2 layers

@@ -1,7 +1,8 @@
 """The port runs without JAX and without the JAX package: a fresh
 interpreter imports vipant_tpu_torch, runs the tiny serving slice, the tiny
-int8 serving slice, or one tiny training step (with an int8 frozen image
-tower too), on the CPU, and never imports jax, jaxlib, flax, optax or any
+int8 serving slice, one tiny training step (with an int8 frozen image
+tower too), or a tiny captioning step and ``caption`` call (bf16 and int8),
+on the CPU, and never imports jax, jaxlib, flax, optax or any
 module of ``vipant_tpu``. A scan of the sources holds the same: no import of
 ``vipant_tpu`` under ``vipant_tpu_torch/`` or in ``chip_smoke.py``."""
 
@@ -64,6 +65,42 @@ print("ok")
 """
 
 
+CAPTION_SCRIPT = """
+import sys
+import numpy as np
+from vipant_tpu_torch.serve import InferenceEngine
+from vipant_tpu_torch.train import Trainer
+
+cfg = [
+    "+running=clotho", "+model/image=vit_val", "+model/audio=vit_val",
+    "+model/text=transformer_decoder", "+model/loss=ce_lm", "+optimizer=standard",
+    "+running/audio=default", "model.audio.pre_encoder.stride=[16,24]",
+    "running.audio.max_len=100", "worker=CLAP", "model.image.width=64",
+    "model.image.embed_dim=32", "model.image.encoder.layers=2", "model.image.heads=4",
+    "model.text.width=32", "model.text.heads=4", "model.text.layers=2", "model.text.mem_width=64",
+    "model.text.max_len_dec=8", "model.text.embed_dim=32", "running.retrieval=False",
+    "model_file=",
+]
+r = np.random.default_rng(0)
+fb = r.standard_normal((3, 100, 128)).astype(np.float32)
+tr = Trainer(cfg + ["running.batch_size=3", "optimizer.warmup_epoch=0"], device="cpu")
+ids = np.zeros((3, 77), np.int64)
+ids[:, 0], ids[:, 1:5], ids[:, 5] = 49406, r.integers(1, 49406, (3, 4)), 49407
+before = {k: p.detach().clone() for k, p in tr.trainable.items()}
+m = tr.train_step(*tr.make_batch(fb[:, None], ids))
+assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0 and m["lr"] > 0
+assert any(not (p.detach() == before[k]).all() for k, p in tr.trainable.items())
+eng = InferenceEngine(cfg, batch_size=2, device="cpu" QUANTIZE)
+for beam in (0, 3):
+    out = eng.caption(fb, beam=beam)
+    assert len(out) == 3 and all(isinstance(c, str) for c in out), out
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -87,6 +124,14 @@ def test_port_trains_without_jax():
 
 def test_port_trains_with_int8_frozen_without_jax():
     _run('EXTRA = ["model.image.int8_frozen=True"]' + TRAIN_SCRIPT)
+
+
+def test_port_trains_and_serves_captioning_without_jax():
+    _run(CAPTION_SCRIPT.replace(" QUANTIZE", ""))
+
+
+def test_port_serves_int8_captioning_without_jax():
+    _run(CAPTION_SCRIPT.replace(" QUANTIZE", ', quantize="int8"'))
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one():
@@ -116,7 +161,9 @@ def test_no_source_of_the_port_imports_the_jax_package():
     sources = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "vipant_tpu_torch")):
         sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
-    assert len(sources) > 30
+    assert len(sources) > 35
+    assert any(p.endswith(os.path.join("experiments", "fused_block_probe.py")) for p in sources)
+    assert any(p.endswith(os.path.join("nn", "seqgen.py")) for p in sources)
     for path in sources:
         with open(path) as fh:
             text = fh.read()

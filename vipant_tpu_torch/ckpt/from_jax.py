@@ -13,7 +13,22 @@ the layouts change on the way:
 - the HWIO patch kernel -> OIHW ``pre_encoder.conv1.weight``;
 - LayerNorm {scale, bias} -> {weight, bias}.
 
-The mapping goes leaf by leaf, so a partial tree converts too: the
+The captioning decoder (``decoder/...``, a ``SeqGenerationHead``) and its
+loss (``lm_loss/logit_scale``) have no counterpart in the reference exporter,
+so their names are the port's own (:mod:`..nn.seqgen`): the decoder's trunk
+blocks map like a tower's, under ``transformer.resblocks.{i}``, with
+``ln_c`` and the cross-attention beside them. The cross-attention's separate
+``q``, ``k``, ``v`` dense layers keep separate weights, in torch
+``nn.MultiheadAttention``'s names for that case (kernels [C, C], [in, out]
+-> ``cross_attn.{q,k,v}_proj_weight`` [out, in]), so each stays one leaf for
+the optimizer (LARS scales every weight leaf by its own trust ratio); their
+three biases are stacked into ``cross_attn.in_proj_bias`` [3C], q first: the
+one place where three JAX leaves make one tensor of the port, so all three
+must be present (a bool mask must agree on the three).
+``predictor/kernel`` [width, vocab] -> ``predictor.weight``
+[vocab, width].
+
+Elsewhere the mapping goes leaf by leaf, so a partial tree converts too: the
 trainable subtree of a train state, its grads or its optimizer moments
 (same shapes as the params), or a bool mask (``convert=False`` keeps the
 leaves as they are and only renames them).
@@ -67,7 +82,28 @@ _TOWER_LEAVES: Dict[str, Tuple[str, Optional[Callable]]] = {
     "post/ln/bias": ("post_encoder.ln.bias", None),
     "post/proj": ("post_encoder.proj", None),
 }
+_BLOCK_LEAVES.update({
+    "ln_c/scale": ("ln_c.weight", None),
+    "ln_c/bias": ("ln_c.bias", None),
+    "cross_attn/out/kernel": ("cross_attn.out_proj.weight", _t),
+    "cross_attn/out/bias": ("cross_attn.out_proj.bias", None),
+})
+# leaf path inside the captioning decoder, outside its trunk
+_DECODER_LEAVES: Dict[str, Tuple[str, Optional[Callable]]] = {
+    "token_embedding": ("token_embedding", None),
+    "positional_embedding": ("positional_embedding", None),
+    "to_txt": ("to_txt", None),
+    "text_proj": ("text_proj", None),
+    "mem_ln/scale": ("mem_ln.weight", None),
+    "mem_ln/bias": ("mem_ln.bias", None),
+    "ln_final/scale": ("ln_final.weight", None),
+    "ln_final/bias": ("ln_final.bias", None),
+    "predictor/kernel": ("predictor.weight", _t),
+    "predictor/bias": ("predictor.bias", None),
+}
 _BLOCK = re.compile(r"encoder/transformer/block_(\d+)/(.+)")
+_DECODER_BLOCK = re.compile(r"transformer/block_(\d+)/(.+)")
+_CROSS_QKV = re.compile(r"cross_attn/([qkv])/(kernel|bias)")
 
 
 def _flat(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -103,19 +139,59 @@ def tower_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
     return out
 
 
+def decoder_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
+    """A ``SeqGenerationHead`` tree -> its port names (see the module
+    docstring for the packing of the cross-attention)."""
+    out: Dict[str, Any] = {}
+    packed: Dict[str, Dict[str, Any]] = {}  # packed bias name -> {"q" | "k" | "v": leaf}
+    for path, leaf in _flat(params):
+        m = _DECODER_BLOCK.fullmatch(path)
+        if m is None:
+            if path not in _DECODER_LEAVES:
+                raise KeyError(f"JAX parameter decoder/{path} has no counterpart in the port")
+            name, fn = _DECODER_LEAVES[path]
+        else:
+            prefix = f"transformer.resblocks.{int(m.group(1))}."
+            qkv = _CROSS_QKV.fullmatch(m.group(2))
+            if qkv is not None and qkv.group(2) == "bias":
+                packed.setdefault(f"{prefix}cross_attn.in_proj_bias", {})[qkv.group(1)] = (
+                    _a(leaf) if convert else leaf)
+                continue
+            if qkv is not None:
+                out[f"{prefix}cross_attn.{qkv.group(1)}_proj_weight"] = _a(leaf).T if convert else leaf
+                continue
+            name, fn = _BLOCK_LEAVES[m.group(2)]
+            name = prefix + name
+        if convert:
+            leaf = _a(leaf) if fn is None else fn(_a(leaf))
+        out[name] = leaf
+    for name, parts in packed.items():
+        if sorted(parts) != ["k", "q", "v"]:
+            raise KeyError(f"{name} packs q, k and v: the tree holds only {sorted(parts)}")
+        if convert:
+            out[name] = np.concatenate([parts["q"], parts["k"], parts["v"]], axis=0)
+        else:
+            if not (parts["q"] == parts["k"] == parts["v"]):
+                raise ValueError(f"{name}: q, k and v carry different leaves {parts}")
+            out[name] = parts["q"]
+    return out
+
+
 def model_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
-    """Whole-model tree {"image"|"audio"|"text"|"loss": subtree}, or any part
-    of one -> the port model's names, prefixed with the tower name. The
-    loss head's ``logit_scale`` (a scalar) is the only loss leaf the ported
-    ``CELossHead`` holds."""
+    """Whole-model tree {"image"|"audio"|"text"|"decoder"|"loss"|"lm_loss":
+    subtree}, or any part of one -> the port model's names, prefixed with
+    the tower name. A loss head's ``logit_scale`` (a scalar) is the only
+    loss leaf the ported ``CELossHead`` and ``LMLossHead`` hold."""
     out: Dict[str, Any] = {}
     for tower, sub in params.items():
         if not sub:
             continue
-        if tower == "loss":
+        if tower in ("loss", "lm_loss"):
             conv = {k: _a(v) if convert else v for k, v in sub.items() if k == "logit_scale"}
         elif tower in ("image", "audio", "text"):
             conv = tower_state_dict(sub, convert)
+        elif tower == "decoder":
+            conv = decoder_state_dict(sub, convert)
         else:
             raise KeyError(f"unknown tower {tower!r} in the JAX params")
         out.update({f"{tower}.{k}": v for k, v in conv.items()})

@@ -1,6 +1,7 @@
-// Tiles and helpers shared by attention.cu (forward) and attention_bwd.cu.
+// Tiles and helpers shared by attention.cu (forward), attention_bwd.cu and
+// flash_attention.cu.
 //
-// q, k and v are the three C-wide sections of each row of the packed
+// In attention.cu and attention_bwd.cu q, k and v are the three C-wide sections of each row of the packed
 // [B, T, 3C] projection, and head h occupies columns [h*64, h*64+64) of each
 // section (torch MultiheadAttention's order). A block owns 64 query rows (or
 // 64 keys), 4 warps of 16 rows each, and streams the other side through
@@ -73,11 +74,18 @@ __device__ __forceinline__ void score_tile(const __nv_bfloat16* As, const __nv_b
   __syncwarp();
 }
 
-// the Pallas order: (q.k) * scale, then + bias, each rounded in fp32
+// the Pallas order: (q.k) * scale, then + bias, each rounded in fp32; the
+// bias is [Tq, Tk] (flash_attention.cu: queries and keys of different length)
+__device__ __forceinline__ float scaled(float raw, float scale, const float* bias, int i, int j,
+                                        int Tq, int Tk) {
+  const float bv = (bias != nullptr && i < Tq) ? bias[static_cast<size_t>(i) * Tk + j] : 0.f;
+  return __fadd_rn(__fmul_rn(raw, scale), bv);
+}
+
+// the same for self-attention's [T, T] bias
 __device__ __forceinline__ float scaled(float raw, float scale, const float* bias, int i, int j,
                                         int T) {
-  const float bv = (bias != nullptr && i < T) ? bias[static_cast<size_t>(i) * T + j] : 0.f;
-  return __fadd_rn(__fmul_rn(raw, scale), bv);
+  return scaled(raw, scale, bias, i, j, T, T);
 }
 
 // the normalised probability from the forward's row max m and row sum l

@@ -2,7 +2,8 @@
 trainable-parameter mask.
 
 Counterpart of ``vipant_tpu/models/build.py:26-115`` and ``:205-250`` for
-the CVAP and CLAP workers. Parameters are fp32 (``param_dtype``);
+the CVAP and CLAP workers (CLAP with a text tower, or with the captioning
+decoder). Parameters are fp32 (``param_dtype``);
 activations run in ``compute_dtype`` (bfloat16 in the default config).
 """
 
@@ -15,6 +16,7 @@ from torch import nn
 
 from ..nn.heads import build_audio_head, build_image_head, build_text_head
 from ..nn.losses import build_loss_head
+from ..nn.seqgen import SeqGenerationHead
 from .tasks import CLAP, CVAP
 
 
@@ -35,7 +37,14 @@ def build_main_model(cfg, device=None) -> nn.Module:
         )
     if cfg.worker == "CLAP":
         if m.text.name == "SeqGenerationHead":
-            raise NotImplementedError("the CLAP captioning decoder is not ported yet")
+            t = m.text
+            decoder = SeqGenerationHead(
+                width=int(t.width), layers=int(t.layers), heads=int(t.heads),
+                ctx_len=int(t.ctx_len), vocab_size=int(t.vocab_size), embed_dim=int(t.embed_dim),
+                mem_width=int(t.mem_width), max_len_dec=int(t.max_len_dec), bias=bool(t.bias), **kw)
+            loss = None if m.loss.name == "LMLossHead" else build_loss_head(m.loss, device=device)
+            return CLAP(audio=build_audio_head(m.audio, **kw), text=None, loss=loss,
+                        decoder=decoder, lm_loss=build_loss_head(m.loss, device=device))
         return CLAP(
             audio=build_audio_head(m.audio, **kw),
             text=build_text_head(m.text, **kw),
@@ -66,7 +75,10 @@ def tunable_mask(cfg, model: nn.Module) -> Dict[str, bool]:
     (``vipant_tpu/models/build.py:tunable_mask``). A tower whose config sets
     ``freeze`` is frozen, the stages listed in ``running.excl_modules``
     (``vmodules`` image, ``amodules`` audio, ``lmodules`` text) are frozen,
-    and the loss head is always trainable. Siamese ties are not ported."""
+    and the loss heads are always trainable. The rule keys on the top-level
+    name: the captioning decoder's is ``decoder``, not ``text``, so
+    ``model.text.freeze`` does not freeze it (nor does the JAX package).
+    Siamese ties are not ported."""
     run = cfg.get("running", None)
     if run is not None and "siamese" in run and bool(run.siamese.get("alive", False)):
         raise NotImplementedError("siamese parameter ties are not ported yet")

@@ -1,9 +1,10 @@
 """Encoder towers ("heads") composed from MetaHead stages, plus registries.
 
 Counterpart of ``vipant_tpu/nn/heads.py`` for the ViT vision/audio tower and
-the GPT text tower, forward (eval) path. Not ported yet: the ResNet
-backbone, patchout in training, ``require_feature`` (captioning) and the
-pipeline-stacked trunk; asking for them raises.
+the GPT text tower; ``require_feature`` also returns the audio tower's
+feature grid, the captioning decoder's memory. Not ported yet: the ResNet
+backbone, patchout in training and the pipeline-stacked trunk; asking for
+them raises.
 """
 
 from __future__ import annotations
@@ -74,8 +75,13 @@ class VisionTower(nn.Module):
         self.post_encoder_addon = AddonEncoder()
         self.post_encoder = ViTPostEncoder(width, embed_dim, device=device)
 
-    def forward(self, x: torch.Tensor, train: bool = False, normalized: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, normalized: bool = False,
+                require_feature: bool = False):
         if train and self.patchout > 0.0:
+            if require_feature:
+                raise ValueError(
+                    "patchout is incompatible with require_feature (captioning decoder memory "
+                    "needs the full patch grid): set model.audio.patchout=0 for captioning configs")
             raise NotImplementedError("patchout (training) is not ported yet")
         pos, cls = self.misc()
         h = self.pre_encoder_addon(self.pre_encoder(x, pos, cls))
@@ -84,7 +90,11 @@ class VisionTower(nn.Module):
         # not int8_frozen: an enclosing scope (an int8 engine) stays as it is
         with int8_fwd_context() if self.int8_frozen else contextlib.nullcontext():
             h = self.encoder(h, attn_bias=attn_bias).reshape(B, T, C)
-        out = self.post_encoder(self.post_encoder_addon(h))
+        out = self.post_encoder(self.post_encoder_addon(h), require_feature=require_feature,
+                                grid=self.grid)
+        if require_feature:
+            emb, feat = out
+            return (normalize(emb) if normalized else emb), feat
         return normalize(out) if normalized else out
 
 

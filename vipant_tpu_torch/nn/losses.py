@@ -1,8 +1,10 @@
-"""Loss heads, forward only.
+"""Loss heads.
 
-Counterpart of ``vipant_tpu/nn/losses.py:39-89``: the symmetric InfoNCE
-``CELossHead`` with its learnable temperature ``logit_scale`` (initialised
-at log 1/0.07, clamped at ``scale_max`` after the exp).
+Counterpart of ``vipant_tpu/nn/losses.py``: the symmetric InfoNCE
+``CELossHead`` (``:39-89``) with its learnable temperature ``logit_scale``
+(initialised at log 1/0.07, clamped at ``scale_max`` after the exp), and the
+captioning ``LMLossHead`` (``:416-434``), cross-entropy over the decoder's
+logits with the same learnable scale, not clamped.
 """
 
 from __future__ import annotations
@@ -56,9 +58,39 @@ class CELossHead(nn.Module):
         return F.cross_entropy(logits, labels) + F.cross_entropy(logits.t(), labels)
 
 
+@LOSS_HEADS.register()
+class LMLossHead(nn.Module):
+    """Captioning cross-entropy over decoder logits [B, T, V] against
+    targets [B, T], pad (id 0) ignored: the mean over the non-pad targets
+    (over 1 when there is none). With ``scaling`` the logits are multiplied
+    by ``exp(logit_scale)`` (initialised at log 1/0.07, never clamped) before
+    the fp32 log-softmax."""
+
+    def __init__(self, scaling: bool = True, device=None):
+        super().__init__()
+        self.logit_scale = (
+            nn.Parameter(torch.tensor(LOGIT_SCALE_INIT, device=device)) if scaling else None
+        )
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.logit_scale is not None:
+            nn.init.constant_(self.logit_scale, LOGIT_SCALE_INIT)
+
+    def forward(self, logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        logits = logits.float()
+        if self.logit_scale is not None:
+            logits = torch.exp(self.logit_scale.float()) * logits
+        nll = F.cross_entropy(logits.flatten(0, -2), targets.flatten(), reduction="none")
+        mask = (targets.flatten() != 0).float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
 def build_loss_head(cfg, device=None) -> nn.Module:
+    if cfg.name == "LMLossHead":
+        return LMLossHead(scaling=bool(cfg.get("scaling", True)), device=device)
     if cfg.name != "CELossHead":
-        raise NotImplementedError(f"loss head {cfg.name!r} is not ported yet (CELossHead only)")
+        raise NotImplementedError(
+            f"loss head {cfg.name!r} is not ported yet (CELossHead, LMLossHead)")
     scale_max = cfg.get("scale_max")
     return LOSS_HEADS.get(cfg.name)(
         scaling=bool(cfg.get("scaling", True)),

@@ -117,7 +117,10 @@ class ViTPreEncoder(nn.Module):
 
 
 class ViTPostEncoder(nn.Module):
-    """ln on the class token + projection to the joint space."""
+    """ln on the class token + projection to the joint space. With
+    ``require_feature`` the ln runs over all tokens and the call returns
+    ``(embedding, feature)``, the patch tokens as [B, grid_h, grid_w, width]
+    when ``grid`` is given: the captioning decoder's memory."""
 
     def __init__(self, width: int, embed_dim: int, device=None):
         super().__init__()
@@ -128,7 +131,15 @@ class ViTPostEncoder(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         nn.init.normal_(self.proj, std=self.width ** -0.5, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, require_feature: bool = False,
+                grid: Optional[Tuple[int, int]] = None):
+        if require_feature:
+            x = self.ln(x)
+            emb = x[:, 0, :] @ self.proj.to(x.dtype)
+            feature = x[:, 1:]
+            if grid is not None:
+                feature = feature.reshape(x.shape[0], grid[0], grid[1], x.shape[-1])
+            return emb, feature
         x = self.ln(x[:, 0, :])
         return x @ self.proj.to(x.dtype)
 

@@ -1,10 +1,12 @@
 """Operators of the port: the hand-written CUDA kernels' wrappers
 (:mod:`.kernels`), the fused transformer sub-blocks built from them
-(:mod:`.fused_attn`, :mod:`.fused_mlp`), bf16 and forward-only int8, the
+(:mod:`.fused_attn`, :mod:`.fused_mlp`), bf16 and forward-only int8,
+attention on separate q, k, v with its dispatcher (:mod:`.attention`), the
 int8 scope and plain quantizers (:mod:`.quant`), and plain-PyTorch helpers
 (:mod:`.patches`, :mod:`.interp`). Importing builds nothing: the kernels
 are compiled at their first launch (:mod:`._build`)."""
 
+from .attention import flash_attention  # not `attention`: the name is the submodule's
 from .fused_attn import (
     fused_attention_block,
     fused_attention_block_int8,
@@ -17,6 +19,7 @@ from .quant import int8_fwd_context, int8_fwd_enabled, quantize_cols, quantize_r
 
 __all__ = [
     "LAUNCHES",
+    "flash_attention",
     "fused_attention_block",
     "fused_attention_block_int8",
     "fused_ln_attention_block",

@@ -21,7 +21,14 @@ their backward chains:
 - :func:`rowquant` / :func:`layernorm_rowquant` (``csrc/quant.cu``): per-row
   symmetric int8 codes and fp32 scales, of a tensor or of LayerNorm(x);
 - :func:`gemm_i8` (``csrc/gemm_i8.cu``): int8 x int8 -> int32 product with
-  the dequantizing epilogue (scales, bias, activation, residual).
+  the dequantizing epilogue (scales, bias, activation, residual);
+- :func:`flash_attention_fwd` / :func:`flash_attention_bwd` /
+  :func:`flash_attention_dbias` (``csrc/flash_attention.cu``): attention on
+  separate q, k, v ``[B, T, H, 64]`` views of any strides, queries and keys
+  of different lengths, with the logsumexp; its backward from the
+  logsumexp; and the bias grad summed over items and heads;
+- :func:`dot_variant` (``csrc/dot_variants.cu``): one product in the four
+  operand orientations (the probe of ``experiments/fused_block_probe.py``).
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor, after checking device, dtype (bf16
@@ -39,6 +46,7 @@ runs them through ``torch.autograd.gradcheck``).
 
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
 from typing import NamedTuple, Optional, Tuple
 
@@ -51,7 +59,9 @@ LN_EPS = 1e-5
 HEAD_DIM = 64  # the attention kernels' head dim
 LN_BWD_ROWS = 32  # rows per block of layernorm_bwd; one partial weight-grad row each
 COLSUM_ROWS = 256  # rows per block of colsum; one partial row each
+DBIAS_CHUNKS = 16  # partial sums of flash_attention_dbias over (items x heads)
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
+ORIENTATIONS = {"NN": (0, 0), "NT": (0, 1), "TN": (1, 0), "TT": (1, 1)}  # (a, b) transposed
 
 LAUNCHES: Counter = Counter()
 
@@ -200,6 +210,64 @@ def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, bias: Optional[torc
     dqkv = torch.stack((dq, dk, dv), dim=2)  # [B, H, 3, T, D]
     dqkv = dqkv.permute(0, 3, 2, 1, 4).reshape(B, T, C3)
     return dqkv, dqkv.to(dt)
+
+
+def _flash_scores(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor], scale: float):
+    """Scores [B, H, Tq, Tk] of q [B, Tq, H, D] and k [B, Tk, H, D] in the
+    accumulation dtype: (q . k^T) * scale, then + bias."""
+    s = torch.matmul(acc(q).transpose(1, 2), acc(k).permute(0, 2, 3, 1)) * scale
+    return s if bias is None else s + bias
+
+
+def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              bias: Optional[torch.Tensor], scale: float):
+    """``(o [B, Tq, H, D] in q's dtype, lse [B, H, Tq])``: exact softmax over
+    all keys, ``p / l`` rounded to v's dtype before ``p . v``, one rounding
+    of o, ``lse = m + log l`` in the accumulation dtype."""
+    s = _flash_scores(q, k, bias, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(acc((p / l).to(v.dtype)), acc(v).transpose(1, 2))  # [B, H, Tq, D]
+    return o.to(q.dtype).transpose(1, 2).contiguous(), (m + torch.log(l))[..., 0]
+
+
+def _flash_ds_raw(q, k, v, bias, lse, delta, do, scale):
+    """(p, ds_raw) [B, H, Tq, Tk]: p = exp(s - lse), ds_raw = p * (dp - delta)."""
+    p = torch.exp(_flash_scores(q, k, bias, scale) - lse[..., None])
+    dp = torch.matmul(acc(do).transpose(1, 2), acc(v).permute(0, 2, 3, 1))
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              bias: Optional[torch.Tensor], o: torch.Tensor, lse: torch.Tensor,
+                              do: torch.Tensor, scale: float):
+    """Backward of :func:`flash_attention_fwd_plain` for the output grad
+    ``do`` [B, Tq, H, D]: ``(dq, dk, dv, delta)``. p is recomputed from
+    ``lse``; ``delta = rowsum(do * o)`` [B, H, Tq] from the rounded ``o``;
+    ``ds_raw * scale`` and p are rounded to q's dtype before their products."""
+    dt = q.dtype
+    do_h = acc(do).transpose(1, 2)  # [B, H, Tq, D]
+    delta = (do_h * acc(o).transpose(1, 2)).sum(dim=-1)
+    p, ds_raw = _flash_ds_raw(q, k, v, bias, lse, delta, do, scale)
+    ds = acc((ds_raw * scale).to(dt))
+    dq = torch.matmul(ds, acc(k).transpose(1, 2))
+    dk = torch.matmul(ds.transpose(-1, -2), acc(q).transpose(1, 2))
+    dv = torch.matmul(acc(p.to(dt)).transpose(-1, -2), do_h)
+    back = lambda t: t.to(dt).transpose(1, 2).contiguous()
+    return back(dq), back(dk), back(dv), delta
+
+
+def flash_attention_dbias_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                bias: Optional[torch.Tensor], lse: torch.Tensor,
+                                delta: torch.Tensor, do: torch.Tensor, scale: float) -> torch.Tensor:
+    """[Tq, Tk] sum over items and heads of the unscaled ``ds_raw``."""
+    return _flash_ds_raw(q, k, v, bias, lse, delta, do, scale)[1].sum(dim=(0, 1))
+
+
+def dot_variant_plain(a: torch.Tensor, b: torch.Tensor, orientation: str) -> torch.Tensor:
+    ta, tb = ORIENTATIONS[orientation]
+    return torch.matmul(acc(a.t() if ta else a), acc(b.t() if tb else b))
 
 
 def rowquant_plain(x: torch.Tensor):
@@ -529,6 +597,127 @@ def gemm_i8(xq: torch.Tensor, row_scale: torch.Tensor, wq: torch.Tensor, col_sca
     return y
 
 
+def _flash_views(device: torch.device, **views: torch.Tensor):
+    """Checks q, k, v as [B, T, H, 64] bf16 views the kernels can read (last
+    dim contiguous, other strides and the address multiples of 8 elements)
+    and returns their 9 element strides as a C array."""
+    strides = []
+    for name, t in views.items():
+        _require(t.device == device, f"{name} is on {t.device}, expected {device}")
+        _require(t.dtype == torch.bfloat16, f"{name} must be bfloat16 on CUDA, got {t.dtype}")
+        _require(t.dim() == 4 and t.shape[-1] == HEAD_DIM,
+                 f"the attention kernels take [B, T, H, {HEAD_DIM}]; {name} is {tuple(t.shape)}")
+        _require(t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
+                 and t.data_ptr() % 16 == 0,
+                 f"{name}: the last dim must be contiguous and every other stride and the "
+                 f"address a multiple of 8 elements; strides {t.stride()}")
+        strides += list(t.stride()[:3])
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
+def _flash_operands(q, k, v, bias):
+    strides = _flash_views(q.device, q=q, k=k, v=v)
+    B, Tq, H, _ = q.shape
+    Tk = k.shape[1]
+    _require(Tk > 0, "attention over no keys")
+    _require(tuple(k.shape) == (B, Tk, H, HEAD_DIM) and v.shape == k.shape,
+             f"k and v must be {(B, Tk, H, HEAD_DIM)}, got {tuple(k.shape)}, {tuple(v.shape)}")
+    if bias is not None:
+        _cuda_operand(bias, "bias", torch.float32, q.device)
+        _require(tuple(bias.shape) == (Tq, Tk), f"bias must be [{Tq}, {Tk}], got {tuple(bias.shape)}")
+    return strides, B, Tq, Tk, H
+
+
+def _flash_dense(t: Optional[torch.Tensor], name: str, shape, dtype, device) -> None:
+    _require(t is not None, f"{name} is missing")
+    _cuda_operand(t, name, dtype, device)
+    _require(tuple(t.shape) == tuple(shape), f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor], scale: float):
+    """softmax(q . k^T * scale + bias) . v per head. q: [B, Tq, H, 64]; k, v:
+    [B, Tk, H, 64]; any strides with a contiguous last dim (sections of a
+    packed projection, transposed views); bias: optional [Tq, Tk] fp32,
+    finite. Returns ``(o [B, Tq, H, 64], lse [B, H, Tq] fp32)``, contiguous."""
+    if not q.is_cuda:
+        return flash_attention_fwd_plain(q, k, v, bias, scale)
+    strides, B, Tq, Tk, H = _flash_operands(q, k, v, bias)
+    o = torch.empty((B, Tq, H, HEAD_DIM), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
+            _ptr(bias), o.data_ptr(), lse.data_ptr(), B, Tq, Tk, H, scale)
+    return o, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor], o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, scale: float):
+    """Backward of :func:`flash_attention_fwd` from its ``o`` and ``lse`` for
+    the output grad ``do`` (both contiguous [B, Tq, H, 64]): ``(dq, dk, dv,
+    delta)``, the grads contiguous bf16 in the shapes of q, k, v, and
+    ``delta = rowsum(do * o)`` [B, H, Tq] fp32, which
+    :func:`flash_attention_dbias` reads."""
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, bias, o, lse, do, scale)
+    strides, B, Tq, Tk, H = _flash_operands(q, k, v, bias)
+    _flash_dense(o, "o", (B, Tq, H, HEAD_DIM), torch.bfloat16, q.device)
+    _flash_dense(do, "do", (B, Tq, H, HEAD_DIM), torch.bfloat16, q.device)
+    _flash_dense(lse, "lse", (B, H, Tq), torch.float32, q.device)
+    delta = torch.empty_like(lse)
+    dq = torch.empty((B, Tq, H, HEAD_DIM), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Tk, H, HEAD_DIM), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    _launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
+            _ptr(bias), o.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, scale)
+    return dq, dk, dv, delta
+
+
+def flash_attention_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor], lse: torch.Tensor, delta: torch.Tensor,
+                          do: torch.Tensor, scale: float) -> torch.Tensor:
+    """The bias grad [Tq, Tk] fp32 of :func:`flash_attention_fwd`: the
+    unscaled ``p * (dp - delta)`` summed over all items and heads in a fixed
+    order (two runs agree bitwise), from the forward's ``lse`` and the
+    backward's ``delta``."""
+    if not q.is_cuda:
+        return flash_attention_dbias_plain(q, k, v, bias, lse, delta, do, scale)
+    strides, B, Tq, Tk, H = _flash_operands(q, k, v, bias)
+    _flash_dense(do, "do", (B, Tq, H, HEAD_DIM), torch.bfloat16, q.device)
+    _flash_dense(lse, "lse", (B, H, Tq), torch.float32, q.device)
+    _flash_dense(delta, "delta", (B, H, Tq), torch.float32, q.device)
+    per = -(-(B * H) // DBIAS_CHUNKS)
+    chunks = -(-(B * H) // per)
+    partial = torch.empty((chunks, Tq, Tk), dtype=torch.float32, device=q.device)
+    dbias = torch.empty((Tq, Tk), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_dbias", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
+            _ptr(bias), lse.data_ptr(), delta.data_ptr(), do.data_ptr(), partial.data_ptr(),
+            dbias.data_ptr(), B, Tq, Tk, H, scale, chunks)
+    return dbias
+
+
+def dot_variant(a: torch.Tensor, b: torch.Tensor, orientation: str) -> torch.Tensor:
+    """The product a . b -> [M, N] fp32 with the operands stored as
+    ``orientation`` says: ``NN`` a [M, K], b [K, N]; ``NT`` b [N, K]; ``TN``
+    a [K, M]; ``TT`` both. M, N, K multiples of 16 on CUDA."""
+    _require(orientation in ORIENTATIONS, f"unknown orientation {orientation!r}")
+    if not a.is_cuda:
+        return dot_variant_plain(a, b, orientation)
+    ta, tb = ORIENTATIONS[orientation]
+    _cuda_operand(a, "a", torch.bfloat16, a.device)
+    _cuda_operand(b, "b", torch.bfloat16, a.device)
+    _require(a.dim() == 2 and b.dim() == 2, "a and b must be matrices")
+    (K, M), (N, Kb) = (a.shape if ta else a.shape[::-1]), (b.shape if tb else b.shape[::-1])
+    _require(K == Kb, f"{orientation}: a {tuple(a.shape)} and b {tuple(b.shape)} do not contract")
+    _require(M % 16 == 0 and N % 16 == 0 and K % 16 == 0 and a.data_ptr() % 32 == 0
+             and b.data_ptr() % 32 == 0,
+             f"M={M}, N={N}, K={K} must be multiples of 16 and the operands 32-byte aligned")
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    _launch("dot_variant", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, ta, tb)
+    return out
+
+
 class Ops(NamedTuple):
     """The operations the sub-blocks are built from: the kernels' wrappers
     (:data:`KERNEL_OPS`) or their plain versions (:data:`PLAIN_OPS`)."""
@@ -544,10 +733,15 @@ class Ops(NamedTuple):
     rowquant: object
     layernorm_rowquant: object
     gemm_i8: object
+    flash_attention_fwd: object
+    flash_attention_bwd: object
+    flash_attention_dbias: object
 
 
 KERNEL_OPS = Ops(layernorm_fwd, layernorm_bwd, gemm_bias_act, gemm_dgrad, gemm_wgrad, colsum,
-                 attention_fwd, attention_bwd, rowquant, layernorm_rowquant, gemm_i8)
+                 attention_fwd, attention_bwd, rowquant, layernorm_rowquant, gemm_i8,
+                 flash_attention_fwd, flash_attention_bwd, flash_attention_dbias)
 PLAIN_OPS = Ops(layernorm_plain, layernorm_bwd_plain, gemm_bias_act_plain, gemm_dgrad_plain,
                 gemm_wgrad_plain, colsum_plain, attention_plain, attention_bwd_plain,
-                rowquant_plain, layernorm_rowquant_plain, gemm_i8_plain)
+                rowquant_plain, layernorm_rowquant_plain, gemm_i8_plain,
+                flash_attention_fwd_plain, flash_attention_bwd_plain, flash_attention_dbias_plain)

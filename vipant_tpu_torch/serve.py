@@ -14,8 +14,13 @@ int8 kernels (qkv, out, fc and proj products int8 x int8 -> int32, weights
 per output channel, activations per token), scoped to this engine's encode
 calls: a bf16 engine beside it is not affected.
 
-Not ported yet: the wav -> fbank frontend and image preprocessing (the JAX
-package's data modules import JAX), the HTTP server, captioning,
+A CLAP model with a captioning decoder also serves :meth:`caption`:
+KV-cached greedy decoding, or beam search, to strings. Under
+``quantize="int8"`` the audio tower and the decoder's self-attention and MLP
+sub-blocks run int8; the cross-attention has no int8 form and stays bf16.
+
+Not ported yet: the wav -> fbank frontend (``caption_files``) and image
+preprocessing (the JAX package's data modules import JAX), the HTTP server,
 ``.pth`` / CLIP weight loading and multi-device sharding.
 
 Usage::
@@ -25,13 +30,15 @@ Usage::
     a = eng.embed_audio(fbanks)              # [N, D]
     t = eng.embed_texts(["a dog barking"])   # [N, D]
     eng8 = InferenceEngine([...], batch_size=64, quantize="int8")
+    cap = InferenceEngine([..., "+model/text=transformer_decoder", "+model/loss=ce_lm"])
+    strings = cap.caption(fbanks, beam=4)    # N captions
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -115,7 +122,8 @@ class InferenceEngine:
             # random weights give plausible unit-norm embeddings: fail loudly
             raise FileNotFoundError(f"model_file {model_file!r}: no model.npz at {npz}")
         params = read_npz(npz)
-        towers = [t for t in ("image", "audio", "text") if hasattr(self.model, t)]
+        towers = [t for t in ("image", "audio", "text", "decoder")
+                  if getattr(self.model, t, None) is not None]
         uncovered = [t for t in towers if t not in params]
         if uncovered:
             raise ValueError(
@@ -172,6 +180,31 @@ class InferenceEngine:
     def embed_images(self, images: np.ndarray) -> np.ndarray:
         """[N, 3, H, W] CLIP-preprocessed images -> [N, D] normalised."""
         return self._run_batched("encode_image", np.ascontiguousarray(images, np.float32))
+
+    # ------------------------------------------------------------ captioning
+    def caption(self, fbanks: np.ndarray, beam: int = 0) -> List[str]:
+        """[N, T, M] or [N, 1, T, M] log-mel -> N caption strings: KV-cached
+        greedy decoding, or beam search with ``beam`` > 1. Needs a captioning
+        model (CLAP with a SeqGenerationHead decoder)."""
+        from .tokenizer import detokenize_ids
+
+        if getattr(self.model, "decoder", None) is None:
+            raise ValueError("caption needs a captioning model: CLAP with "
+                             "model.text.name=SeqGenerationHead")
+        a = np.ascontiguousarray(fbanks, np.float32)
+        if a.ndim == 3:
+            a = a[:, None]
+        B = self.batch_size
+        out: List[str] = []
+        with torch.inference_mode(), int8_fwd_context(self._int8):
+            for i in range(0, a.shape[0], B):
+                chunk = a[i : i + B]
+                n = chunk.shape[0]
+                if n < B:  # pad to the fixed batch by repeating the last row
+                    chunk = np.concatenate([chunk, np.repeat(chunk[-1:], B - n, axis=0)])
+                ids, _ = self.model.decode(torch.from_numpy(chunk).to(self.device), beam=int(beam))
+                out.extend(detokenize_ids(row) for row in ids.cpu().numpy()[:n])
+        return out
 
     # ------------------------------------------------------------ zero-shot
     def zero_shot(

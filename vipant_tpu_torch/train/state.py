@@ -9,7 +9,7 @@ references to them. ``state_dict()`` gathers everything a resume needs, for
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict
 
 import torch
@@ -26,6 +26,9 @@ class TrainState:
     frozen: Dict[str, nn.Parameter]
     optimizer: Optimizer
     generator: torch.Generator
+    # keyword arguments of the model's loss call beside ``train=True``
+    # (CLAP with a decoder: ``retrieval``)
+    loss_kwargs: Dict[str, Any] = field(default_factory=dict)
 
     def state_dict(self) -> Dict[str, Any]:
         return {

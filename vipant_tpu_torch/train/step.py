@@ -2,7 +2,9 @@
 
 Counterpart of ``vipant_tpu/train/step.py:make_train_step``: the loss of the
 task model on a batch, its grads with respect to the trainable params only,
-``grad_norm`` before clipping, then clip and update. Frozen params carry
+``grad_norm`` before clipping, then clip and update. A trainable param the
+loss does not reach (the captioning decoder's ``text_proj``) gets a zero
+grad and the optimizer's update rule all the same, as in the JAX step. Frozen params carry
 ``requires_grad=False`` and their towers run under ``torch.no_grad()``, so
 no backward is built for them (the JAX step keeps them outside the
 differentiated function).
@@ -20,7 +22,7 @@ from .state import TrainState
 def loss_and_grads(state: TrainState, *batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, name -> grad of each trainable param) at the current params;
     nothing is updated."""
-    loss = state.model(*batch, train=True)
+    loss = state.model(*batch, train=True, **state.loss_kwargs)
     names = list(state.trainable)
     grads = torch.autograd.grad(loss, [state.trainable[n] for n in names], allow_unused=True)
     grads = {n: torch.zeros_like(state.trainable[n]) if g is None else g

@@ -1,4 +1,5 @@
-"""The VA pre-training trainer on one device, without a data loader yet.
+"""The trainer on one device, without a data loader yet: VA pre-training
+(CVAP), audio-text retrieval and audio captioning (CLAP).
 
 Counterpart of the model, optimizer and step parts of
 ``vipant_tpu/train/trainer.py:Trainer`` (``build_model`` and
@@ -7,6 +8,12 @@ trainable/frozen split (:func:`..models.tunable_mask`) -> optimizer
 (:func:`..optim.build_optimizer`) -> :class:`TrainState`, and one training
 step on batches the caller provides, as ``bench.py`` drives the JAX step on
 device arrays.
+
+A CLAP model with a captioning decoder trains ``forward_caption`` (audio
+tower -> feature grid -> ``SeqGenerationHead`` -> ``LMLossHead``) on batches
+of ``(fbank, token ids)`` unless ``running.retrieval`` asks for the
+contrastive loss and the model has a text tower: the rule of the JAX
+package's ``LAMonitor.loss_adapter``.
 
 ``model.image.int8_frozen=True`` runs the frozen image tower on the
 forward-only int8 kernels (it runs without autograd, so no gradient ever
@@ -77,12 +84,19 @@ class Trainer:
         self.model = build_main_model(self.cfg, device=self.device)
         init_weights(self.model, torch.Generator(device=self.device).manual_seed(seed))
         self.trainable, self.frozen = partition_params(self.model, tunable_mask(self.cfg, self.model))
+        self.loss_kwargs = {}
+        if hasattr(self.model, "decoder"):  # CLAP: retrieval needs a text tower
+            has_text = self.model.text is not None
+            run = self.cfg.get("running", Config({}))
+            self.loss_kwargs["retrieval"] = self.model.decoder is None or bool(
+                run.get("retrieval", has_text))
 
     def build_optimizer(self) -> None:
         opt = build_optimizer(self.cfg.optimizer, self.steps_per_epoch, self.trainable)
         self.state = TrainState(
             step=0, model=self.model, trainable=self.trainable, frozen=self.frozen,
             optimizer=opt, generator=torch.Generator(device=self.device).manual_seed(int(self.cfg.seed)),
+            loss_kwargs=self.loss_kwargs,
         )
 
     def make_batch(self, *arrays: np.ndarray):
