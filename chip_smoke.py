@@ -17,7 +17,10 @@
    B4 T306 C768 H12 (no bias), the text tower's B1 T308 C512 H8 (causal +
    packing) and the training step's B64 T306 C768 H12 (M = 19,584 rows),
    MLP at the same three shapes (E3072, E2048, E3072) for QuickGELU and
-   exact GELU.
+   exact GELU; ``gemm_wgrad`` also at the captioning decoder's four
+   products (M = 64 x 77 rows, width 512), each weight grad named with its
+   row split (S chunks, blocks launched) and held bitwise equal over two
+   runs.
 5. Serving slice: the full-size CLAP serving engine (ViT-B/32 audio tower at
    T = 306, 12-layer width-512 text tower packed 4 captions per call at
    T = 308) with seeded random weights: embed_audio over 6 fbanks at batch
@@ -111,8 +114,10 @@ for their type (H100 SXM data sheet: 3.35 TB/s; dense 989 TFLOP/s bf16,
 1,979 TOP/s int8, 67 TFLOP/s fp32 outside the tensor cores), and beside the
 time of the one PyTorch call that computes the same function where there is
 one (``library_ms``: ``F.layer_norm``, ``F.linear``, ``torch.matmul``,
-``F.scaled_dot_product_attention``, ``torch.sum``, ``torch._int_mm``). Those
-calls are timed here and used nowhere in the port.
+``F.scaled_dot_product_attention``, ``torch.sum``, ``torch._int_mm``, and
+for ``attention_bwd`` and ``layernorm_bwd`` autograd through
+``F.scaled_dot_product_attention`` and ``F.layer_norm``). Those calls are
+timed here and used nowhere in the port.
 
 Tolerances: int8 codes equal to the plain version's except a share of at
 most 1e-3 off by exactly one (x / scale within an fp32 ulp of a half),
@@ -185,7 +190,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "fused_ln_mlp_block": ("vipant_tpu_torch/ops/fused_mlp.py", "vipant_tpu/ops/fused_mlp.py:51"),
     "layernorm_bwd": ("vipant_tpu_torch/csrc/layernorm.cu", B2),
     "gemm_dgrad": ("vipant_tpu_torch/csrc/gemm.cu", B4B),
-    "gemm_wgrad": ("vipant_tpu_torch/csrc/gemm.cu", B2),
+    "gemm_wgrad": ("vipant_tpu_torch/csrc/gemm_wgrad.cu", B2),
     "colsum": ("vipant_tpu_torch/csrc/reduce.cu", B2),
     "attention_bwd": ("vipant_tpu_torch/csrc/attention_bwd.cu", B2),
     "fused_ln_attention_block_bwd": ("vipant_tpu_torch/ops/fused_attn.py", B2),
@@ -369,6 +374,29 @@ def _sdpa(torch, qkv, cb, H, scale):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
 
+def _sdpa_bwd(torch, qkv, cb, H, scale, do):
+    """The library's attention backward for the output grad ``do`` [B, T, C]:
+    autograd through ``scaled_dot_product_attention`` to q, k and v."""
+    B, T, C3 = qkv.shape
+    leaves = [t.detach().clone().requires_grad_()
+              for t in qkv.view(B, T, 3, H, C3 // 3 // H).permute(2, 0, 3, 1, 4)]
+    mask = None if cb is None else cb.to(qkv.dtype)
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=scale)
+    g = do.view(B, T, H, C3 // 3 // H).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def _layer_norm_bwd(torch, x, w, dh):
+    """The library's LayerNorm backward: autograd through ``F.layer_norm`` in
+    bf16 to x, the weight and the bias, for the output grad ``dh``."""
+    C = x.shape[-1]
+    leaves = [x.detach().clone().requires_grad_(), w.bfloat16().requires_grad_(),
+              torch.zeros(C, dtype=torch.bfloat16, device=x.device, requires_grad=True)]
+    y = torch.nn.functional.layer_norm(leaves[0], (C,), leaves[1], leaves[2])
+    g = dh.to(y.dtype)
+    return lambda: torch.autograd.grad(y, leaves, g, retain_graph=True)
+
+
 def kernel_phase(torch, results):
     from vipant_tpu_torch.ops import fused_attn, fused_mlp, kernels
 
@@ -454,8 +482,21 @@ def backward_kernel_phase(torch, results):
     rn = _seeded(torch)
     _, text_bias = _biases(torch)
     colsum_lib = lambda t: (lambda: t.reshape(-1, t.shape[-1]).sum(0, dtype=torch.float32))
-    wgrad_lib = lambda a, b: (lambda: torch.matmul(a.reshape(-1, a.shape[-1]).t(),
-                                                   b.reshape(-1, b.shape[-1])))
+
+    def wgrad(cmp, case, a, b):
+        """``gemm_wgrad(a, b)`` beside ``torch.matmul`` of a^T . b; the case names the row split."""
+        a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        M, N1, N2 = a2.shape[0], a2.shape[1], b2.shape[1]
+        S, rows = kernels.wgrad_split(M, N1, N2)
+        blocks = S * -(-N1 // kernels.WGRAD_TILE) * -(-N2 // kernels.WGRAD_TILE)
+        if M >= 64 * 77 and blocks < kernels.SM_COUNT:  # a training step's product must fill the card
+            raise AssertionError(f"gemm_wgrad {case}: {blocks} blocks for {kernels.SM_COUNT} SMs")
+        cmp("gemm_wgrad", f"{case} [{N1}x{N2}, M={M}: S={S} chunks of {rows} rows, {blocks} blocks]",
+            lambda: kernels.gemm_wgrad(a, b), lambda: kernels.gemm_wgrad_plain(a, b), reads=(a, b),
+            ops=gemm_ops(M, N1, N2), library=lambda: torch.matmul(a2.t(), b2))
+        if not torch.equal(kernels.gemm_wgrad(a, b), kernels.gemm_wgrad(a, b)):
+            raise AssertionError(f"gemm_wgrad {case}: two runs differ")
+
     for case, B, T, C, H, bias in (("audio B4 T306 C768 H12", BATCH, 306, 768, 12, None),
                                    ("text B1 T308 C512 H8 causal+pack", 1, 308, 512, 8, text_bias),
                                    ("audio B64 T306 C768 H12 (train step)", 64, 306, 768, 12, None)):
@@ -477,24 +518,20 @@ def backward_kernel_phase(torch, results):
         cmp("gemm_dgrad", case + " do=g.Wout", lambda: kernels.gemm_dgrad(g, wout, True),
             lambda: kernels.gemm_dgrad_plain(g, wout, True), reads=(g, wout),
             ops=gemm_ops(M, C, C), library=lambda: torch.matmul(g, wout))
-        cmp("gemm_wgrad", case + " dWout", lambda: kernels.gemm_wgrad(g, o),
-            lambda: kernels.gemm_wgrad_plain(g, o), reads=(g, o), ops=gemm_ops(M, C, C),
-            library=wgrad_lib(g, o))
+        wgrad(cmp, case + " dWout", g, o)
         cmp("attention_bwd", case, lambda: kernels.attention_bwd(qkv, do, cb, H, scale, stats),
             lambda: kernels.attention_bwd_plain(qkv, do, cb, H, scale), reads=(qkv, do, cb, stats),
-            ops=attn_ops(B, T, H, products=5))
+            ops=attn_ops(B, T, H, products=5), library=_sdpa_bwd(torch, qkv, cb, H, scale, do))
         cmp("colsum", case + " dbqkv fp32", lambda: kernels.colsum(dqkv),
             lambda: kernels.colsum_plain(dqkv), reads=(dqkv,), ops=[(3 * M * C, "fp32")],
             library=colsum_lib(dqkv))
         cmp("gemm_dgrad", case + " dh=dqkv.Wqkv fp32", lambda: kernels.gemm_dgrad(dqkv_b, wqkv, False),
             lambda: kernels.gemm_dgrad_plain(dqkv_b, wqkv, False), reads=(dqkv_b, wqkv),
             ops=gemm_ops(M, C, 3 * C), library=lambda: torch.matmul(dqkv_b, wqkv))
-        cmp("gemm_wgrad", case + " dWqkv", lambda: kernels.gemm_wgrad(dqkv_b, h),
-            lambda: kernels.gemm_wgrad_plain(dqkv_b, h), reads=(dqkv_b, h),
-            ops=gemm_ops(M, 3 * C, C), library=wgrad_lib(dqkv_b, h))
+        wgrad(cmp, case + " dWqkv", dqkv_b, h)
         cmp("layernorm_bwd", case, lambda: kernels.layernorm_bwd(x, lns, dh, residual=g),
             lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=g), reads=(x, lns, dh, g),
-            ops=[(20 * M * C, "fp32")])
+            ops=[(20 * M * C, "fp32")], library=_layer_norm_bwd(torch, x, lns, dh))
         del qkv, o, stats, do, dqkv, dqkv_b, dh
         args = (x, lns, lnb, wqkv.float(), bqkv, wout.float(), bout)  # fp32 params, as trained
         cmp("fused_ln_attention_block_bwd", case,
@@ -527,24 +564,20 @@ def backward_kernel_phase(torch, results):
                 library=lambda: torch.nn.functional.linear(h, wfc, bfc_b))
             cmp("colsum", c + " dbproj", lambda: kernels.colsum(gy), lambda: kernels.colsum_plain(gy),
                 reads=(gy,), ops=[(M * C, "fp32")], library=colsum_lib(gy))
-            cmp("gemm_wgrad", c + " dWproj", lambda: kernels.gemm_wgrad(gy, ga),
-                lambda: kernels.gemm_wgrad_plain(gy, ga), reads=(gy, ga), ops=gemm_ops(M, C, E),
-                library=wgrad_lib(gy, ga))
+            wgrad(cmp, c + " dWproj", gy, ga)
             cmp("gemm_dgrad", c + " da=(gy.Wproj)*act'(a)",
                 lambda: kernels.gemm_dgrad(gy, wproj, True, act, a),
                 lambda: kernels.gemm_dgrad_plain(gy, wproj, True, act, a), reads=(gy, wproj, a),
                 ops=gemm_ops(M, E, C), library=lambda: torch.matmul(gy, wproj))
             cmp("colsum", c + " dbfc", lambda: kernels.colsum(da), lambda: kernels.colsum_plain(da),
                 reads=(da,), ops=[(M * E, "fp32")], library=colsum_lib(da))
-            cmp("gemm_wgrad", c + " dWfc", lambda: kernels.gemm_wgrad(da, h),
-                lambda: kernels.gemm_wgrad_plain(da, h), reads=(da, h), ops=gemm_ops(M, E, C),
-                library=wgrad_lib(da, h))
+            wgrad(cmp, c + " dWfc", da, h)
             cmp("gemm_dgrad", c + " dh=da.Wfc fp32", lambda: kernels.gemm_dgrad(da, wfc, False),
                 lambda: kernels.gemm_dgrad_plain(da, wfc, False), reads=(da, wfc),
                 ops=gemm_ops(M, C, E), library=lambda: torch.matmul(da, wfc))
             cmp("layernorm_bwd", c, lambda: kernels.layernorm_bwd(x, lns, dh, residual=gy),
                 lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=gy), reads=(x, lns, dh, gy),
-                ops=[(20 * M * C, "fp32")])
+                ops=[(20 * M * C, "fp32")], library=_layer_norm_bwd(torch, x, lns, dh))
             del ga, a, da, dh
             args = (x, lns, lnb, wfc.float(), bfc, wproj.float(), bproj)  # fp32 params, as trained
             cmp("fused_ln_mlp_block_bwd", c,
@@ -552,6 +585,12 @@ def backward_kernel_phase(torch, results):
                 _block_bwd(torch, fused_mlp.fused_ln_mlp_block_plain, args, gy, act=act),
                 reads=(*args, gy), ops=gemm_ops(M, E, C) * 5)
             torch.cuda.empty_cache()
+
+    # the captioning step's decoder: M = 64 x 77 rows at width 512, its four weight grads
+    cmp = lambda *a, **k: compare(torch, results, *a, iters=10, **k)
+    C = 512
+    for name, N1, N2 in (("dWout", C, C), ("dWqkv", 3 * C, C), ("dWproj", C, 4 * C), ("dWfc", 4 * C, C)):
+        wgrad(cmp, f"caption decoder B64 T77 C512 {name}", rn(64, 77, N1), rn(64, 77, N2))
 
 
 def record_launches(results, path, counts):

@@ -165,6 +165,96 @@ def test_gemm_backward_kernels_match_plain(gen, M, N, K):
         _close(kernels.colsum(t), kernels.colsum_plain(t), f"colsum {t.dtype}")
 
 
+@pytest.mark.parametrize("M,N1,N2", [
+    (19584, 768, 768), (19584, 2304, 768), (19584, 768, 3072), (19584, 3072, 768),  # audio tower, B = 64
+    (4928, 512, 512), (4928, 1536, 512), (4928, 512, 2048), (4928, 2048, 512),      # caption decoder, B = 64
+    (1, 768, 768), (63, 768, 768), (3200, 768, 768),                                # ragged rows
+    (1000, 136, 264), (63, 8, 24), (200, 64, 520),                                  # N short of and past a tile
+])
+def test_gemm_wgrad_kernel_matches_plain_and_repeats(gen, M, N1, N2):
+    a, b = _rn(gen, M, N1).bfloat16(), _rn(gen, M, N2).bfloat16()
+    reset_launches()
+    got = kernels.gemm_wgrad(a, b)
+    assert LAUNCHES == {"gemm_wgrad": 1}
+    _close(got, kernels.gemm_wgrad_plain(a, b), "wgrad")
+    assert torch.equal(got, kernels.gemm_wgrad(a, b))  # no atomics: the same bits in every run
+    # small integers sum exactly in fp32 whatever the order: any misplaced element shows
+    ia = torch.randint(-3, 4, (M, N1), generator=gen, device="cuda").bfloat16()
+    ib = torch.randint(-3, 4, (M, N2), generator=gen, device="cuda").bfloat16()
+    assert torch.equal(kernels.gemm_wgrad(ia, ib), kernels.gemm_wgrad_plain(ia, ib))
+    # the order of the sum is the plan's: one partial per row chunk, added in order
+    S, rows = kernels.wgrad_split(M, N1, N2)
+    assert (S - 1) * rows < M <= S * rows
+
+
+def test_gemm_wgrad_takes_batched_operands_and_rejects_others(gen):
+    a, b = _rn(gen, 3, 70, 64).bfloat16(), _rn(gen, 3, 70, 128).bfloat16()
+    _close(kernels.gemm_wgrad(a, b), kernels.gemm_wgrad_plain(a, b), "batched")
+    assert torch.equal(kernels.gemm_wgrad(a[:0], b[:0]), torch.zeros(64, 128, device="cuda"))  # no rows
+    with pytest.raises(ValueError, match="same rows"):
+        kernels.gemm_wgrad(a, b[:2].contiguous())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernels.gemm_wgrad(_rn(gen, 70, 12).bfloat16(), _rn(gen, 70, 64).bfloat16())
+    with pytest.raises(ValueError, match="bfloat16"):
+        kernels.gemm_wgrad(a.float(), b)
+
+
+@pytest.mark.parametrize("B,T,C,H,kind", [
+    (2, 1, 128, 2, "none"),             # one token
+    (3, 50, 768, 12, "none"),           # one image, less than a key tile
+    (64, 77, 512, 8, "causal"),         # caption decoder
+    (16, 200, 768, 12, "pack"),         # image tower, 4 packed: block-diagonal
+    (64, 306, 768, 12, "none"),         # audio tower, the training step's batch
+    (4, 308, 512, 8, "causal_pack"),    # text tower, 4 captions packed
+    (2, 971, 768, 12, "none"),          # past what shared memory holds: keys streamed
+    (2, 705, 128, 2, "causal"),         # the first length that streams
+    (2, 704, 128, 2, "causal"),         # the last that stays resident
+])
+def test_attention_fwd_kernel_matches_plain(gen, B, T, C, H, kind):
+    qkv = _rn(gen, B, T, 3 * C).bfloat16()
+    bias = fused_attn.canon_bias(_bias(kind, T))
+    reset_launches()
+    out = kernels.attention_fwd(qkv, bias, H, 0.125)
+    assert LAUNCHES == {"attention_fwd": 1}
+    _close(out, kernels.attention_plain(qkv, bias, H, 0.125), "context")
+    out_s, stats = kernels.attention_fwd(qkv, bias, H, 0.125, stats=True)
+    assert torch.equal(out_s, out)  # the statistics are a by-product
+    # they are the row max and the row sum of exp(s - max) over the real keys
+    q, k, _, _ = kernels._softmax_p(qkv, bias, H, 0.125)
+    sc = torch.matmul(q, k.transpose(-1, -2)) * 0.125
+    sc = sc if bias is None else sc + bias
+    m = sc.amax(-1)
+    torch.testing.assert_close(stats[0], m, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(stats[1], torch.exp(sc - m[..., None]).sum(-1), atol=0, rtol=1e-4)
+    f32 = kernels.attention_fwd(qkv, bias, H, 0.125, fp32_out=True)
+    assert LAUNCHES["attention_fwd_f32"] == 1
+    torch.testing.assert_close(f32, kernels.attention_plain(qkv, bias, H, 0.125, fp32_out=True),
+                               atol=1e-2, rtol=1e-2)  # p is rounded to bf16 in both
+    assert torch.equal(f32.bfloat16(), out)
+    # the backward takes these statistics
+    do = _rn(gen, B, T, C).bfloat16()
+    got = kernels.attention_bwd(qkv, do, bias, H, 0.125, stats)
+    want = kernels.attention_bwd_plain(qkv, do, bias, H, 0.125)
+    _close(got[0], want[0], "dqkv")
+    _close(got[1], want[1], "dqkv bf16")
+
+
+@pytest.mark.parametrize("T", [37, 306, 971])
+def test_attention_fwd_row_masked_everywhere_is_uniform_not_nan(gen, T):
+    B, H, C = 2, 2, 128
+    qkv = _rn(gen, B, T, 3 * C).bfloat16()
+    bias = torch.zeros(T, T, device="cuda")
+    bias[5] = -1e30       # row 5 sees no key
+    bias[:, 7] = -1e30    # and no row sees key 7
+    out, stats = kernels.attention_fwd(qkv, bias, H, 0.125, stats=True)
+    assert torch.isfinite(out).all() and torch.isfinite(stats).all()
+    _close(out, kernels.attention_plain(qkv, bias, H, 0.125), "masked")
+    v = qkv.float().view(B, T, 3, H, 64)[:, :, 2]                   # [B, T, H, 64]
+    uniform = v.mean(dim=1).reshape(B, C)                           # the mean of all values
+    torch.testing.assert_close(out[:, 5].float(), uniform, **TOL)
+    assert torch.equal(stats[1][:, :, 5], torch.full((B, H), float(T), device="cuda"))
+
+
 @pytest.mark.parametrize("B,T,C,H,kind", [
     (4, 306, 768, 12, "none"),          # audio tower
     (64, 306, 768, 12, "none"),         # the training step's audio batch

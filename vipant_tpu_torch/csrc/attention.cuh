@@ -3,14 +3,22 @@
 //
 // In attention.cu and attention_bwd.cu q, k and v are the three C-wide sections of each row of the packed
 // [B, T, 3C] projection, and head h occupies columns [h*64, h*64+64) of each
-// section (torch MultiheadAttention's order). A block owns 64 query rows (or
-// 64 keys), 4 warps of 16 rows each, and streams the other side through
-// shared memory in tiles of 64. Rows past T are zero-filled.
+// section (torch MultiheadAttention's order). In attention_bwd.cu and
+// flash_attention.cu a block owns 64 query rows (or 64 keys), 4 warps of 16
+// rows each, and streams the other side through shared memory in tiles of
+// 64, its scores passing through an fp32 tile in shared memory
+// (`score_tile`). attention.cu's forward owns 128 query rows and keeps its
+// scores in registers; it shares the tile shapes, `scaled` and `prob`. Rows
+// past T are zero-filled.
 //
-// The forward and both backward kernels compute a score tile with the same
-// `score_tile` on the same (query tile, key tile) pair, and scale and bias it
-// with the same `scaled`, so the backward's recomputed probabilities are
-// bitwise the forward's.
+// Both backward kernels compute a score tile with the same `score_tile` on
+// the same (query tile, key tile) pair; the forward runs the same
+// tensor-core instruction (`wmma` 16x16x16 bf16 is two `mma.sync.m16n8k16`)
+// over the same four steps of the head dim from a zero accumulator, and all
+// three scale and bias the raw score with the same `scaled` and normalise it
+// with the same `prob`, so the backward's recomputed probabilities are meant
+// to be bitwise the forward's. Nothing is gated on that: the gradients are
+// held to the plain versions and to fp32.
 
 #pragma once
 
@@ -88,7 +96,15 @@ __device__ __forceinline__ float scaled(float raw, float scale, const float* bia
   return scaled(raw, scale, bias, i, j, T, T);
 }
 
-// the normalised probability from the forward's row max m and row sum l
-__device__ __forceinline__ float prob(float s, float m, float l) { return expf(s - m) / l; }
+// exp(x) for x <= 0 as one multiply and the hardware's base-2 exponential
+// (about 2 ulp; the plain versions' exp differs from it far below the bf16
+// rounding that follows)
+__device__ __forceinline__ float exp_fast(float x) { return __expf(x); }
+
+// the normalised probability from the forward's row max m and the reciprocal
+// of its row sum l
+__device__ __forceinline__ float prob(float s, float m, float inv_l) {
+  return __fmul_rn(exp_fast(s - m), inv_l);
+}
 
 }  // namespace attn

@@ -96,7 +96,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(Args a) {
   const int i = q0 + warp * 16 + r;
   const size_t srow_i = (static_cast<size_t>(b) * a.H + h) * T + i;
   const float m = i < T ? a.stat_m[srow_i] : 0.f;
-  const float l = i < T ? a.stat_l[srow_i] : 1.f;
+  const float inv_l = i < T ? 1.f / a.stat_l[srow_i] : 1.f;
   const float* srow = Ss + (warp * 16 + r) * LDS + half * 32;
   const float* dprow = dPs + (warp * 16 + r) * LDS + half * 32;
   __nv_bfloat16* dsrow = dSs + (warp * 16 + r) * LDH + half * 32;
@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(Args a) {
     score_tile(dOs, Vs, dPs, warp);
     for (int c = 0; c < 32; ++c) {
       const int j = k0 + half * 32 + c;
-      if (i < T && j < T) delta += prob(scaled(srow[c], a.scale, a.bias, i, j, T), m, l) * dprow[c];
+      if (i < T && j < T) delta += prob(scaled(srow[c], a.scale, a.bias, i, j, T), m, inv_l) * dprow[c];
     }
     __syncwarp();
   }
@@ -140,7 +140,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(Args a) {
       const int j = k0 + half * 32 + c;
       float ds = 0.f;
       if (i < T && j < T) {
-        const float p = prob(scaled(srow[c], a.scale, a.bias, i, j, T), m, l);
+        const float p = prob(scaled(srow[c], a.scale, a.bias, i, j, T), m, inv_l);
         ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dprow[c], delta)), a.scale);
       }
       dsrow[c] = __float2bfloat16(ds);
@@ -171,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(Args a) {
   __nv_bfloat16* dSs = Ps + BQ * LDH;
   float* Ss = reinterpret_cast<float*>(dSs + BQ * LDH);
   float* dPs = Ss + BQ * LDS;
-  float* ms = dPs + BQ * LDS;  // the query tile's m, l and delta
+  float* ms = dPs + BQ * LDS;  // the query tile's m, 1 / l and delta
   float* ls = ms + BQ;
   float* dls = ls + BQ;
 
@@ -207,7 +207,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(Args a) {
     for (int e = threadIdx.x; e < BQ; e += kThreads) {
       const bool in = q0 + e < T;
       ms[e] = in ? a.stat_m[stat0 + q0 + e] : 0.f;
-      ls[e] = in ? a.stat_l[stat0 + q0 + e] : 1.f;
+      ls[e] = in ? 1.f / a.stat_l[stat0 + q0 + e] : 1.f;
       dls[e] = in ? a.delta[stat0 + q0 + e] : 0.f;
     }
     __syncthreads();

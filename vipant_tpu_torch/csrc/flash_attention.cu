@@ -170,6 +170,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
   if (i < Tq && half == 0) a.lse[(static_cast<size_t>(b) * a.H + h) * Tq + i] = m + logf(l);
 
   // pass 2: normalised bf16 p, then p.v accumulated in fp32
+  const float inv_l = 1.f / l;
   FragC o[D / 16];
 #pragma unroll
   for (int dj = 0; dj < D / 16; ++dj) wmma::fill_fragment(o[dj], 0.f);
@@ -183,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
     for (int c = 0; c < 32; ++c) {
       const int j = k0 + half * 32 + c;
       float p = 0.f;
-      if (j < Tk) p = prob(scaled(srow[c], a.scale, a.bias, i, j, Tq, Tk), m, l);
+      if (j < Tk) p = prob(scaled(srow[c], a.scale, a.bias, i, j, Tq, Tk), m, inv_l);
       prow[c] = __float2bfloat16(p);
     }
     __syncwarp();

@@ -1,34 +1,30 @@
-// The matrix products of both fused sub-blocks, forward and backward:
+// The matrix products of both fused sub-blocks, forward and data grads:
 //
 //   gemm_bias_act  Y = epilogue(X . W^T + b)     X [M, K], W [N, K]   (forward)
 //   gemm_dgrad     Y = epilogue(dY . W)          dY [M, K], W [K, N]  (data grads)
-//   gemm_wgrad     Y = A^T . B                   A [K, M], B [K, N]   (weight grads)
 //
-// bf16 in, fp32 accumulate. All three are one templated kernel that differs
-// only in which dimension of each operand is contiguous.
+// bf16 in, fp32 accumulate. Both are one templated kernel that differs only
+// in which dimension of each operand is contiguous. The weight grads
+// (A^T . B, a few output tiles and a long reduction) are gemm_wgrad.cu.
 //
 // Replaces: the matrix products inside the Pallas kernels
 //   vipant_tpu/ops/fused_attn.py::_fwd_kernel (qkv projection, line 99;
 //     out-projection + residual, lines 112-114),
 //   vipant_tpu/ops/fused_attn.py::_bwd_kernel (do = g.Wout^T, line 218;
-//     dWout, line 220; dh = dqkv.Wqkv^T, line 231; dWqkv, line 232),
+//     dh = dqkv.Wqkv^T, line 231),
 //   vipant_tpu/ops/fused_mlp.py::_fwd_kernel (fc + activation, lines 54-55;
 //     proj + residual, lines 56-57) and
 //   vipant_tpu/ops/fused_mlp.py::_bwd_kernel (recomputed fc, line 74;
-//     dWproj, line 79; dg . act'(a), lines 80-81; dWfc, line 83; dh, line 84).
-// The TPU kernels held whole [T, 4C] intermediates in VMEM and summed the
-// weight grads over the sequential grid; a Hopper block has 227 KB of shared
-// memory and blocks run in parallel, so each product is its own launch, the
-// intermediates make one round trip through device memory, and a weight grad
-// reduces over all B*T rows inside one block per output tile (no atomics:
-// deterministic).
+//     dg . act'(a), lines 80-81; dh, line 84).
+// The TPU kernels held whole [T, 4C] intermediates in VMEM; a Hopper block
+// has 227 KB of shared memory and blocks run in parallel, so each product is
+// its own launch and the intermediates make one round trip through device
+// memory.
 //
 // Bound: tensor-core operations at the slice's shapes (M = B*T in the
 // thousands, N and K in 512..3072); this first version uses warp-level
 // `nvcuda::wmma` 16x16x16 tiles, not Hopper's `wgmma`, so it reaches only a
-// share of the card's bf16 peak. The weight-grad products have few output
-// tiles (36 to 144 of 128x128 against 132 SMs) and a long reduction; a
-// deterministic split over the rows is the next step for them.
+// share of the card's bf16 peak.
 //
 // Design: a block computes a 128x128 tile of Y with 8 warps (2 x 4, 64x32
 // each), walking the reduction in steps of 32 through a two-stage cp.async
@@ -52,9 +48,12 @@
 
 #include <type_traits>
 
+#include "async_copy.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using namespace async_copy;
 
 constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int LDK = BK + 8;    // [rows][BK] staging row: 80 bytes
@@ -65,18 +64,6 @@ constexpr int FM = WM / 16, FN = WN / 16;  // 4 x 2 accumulator fragments per wa
 constexpr int kStageElems = BM * LDK > BK * LDR ? BM * LDK : BK * LDR;
 
 enum Act : int { kNone = 0, kQuickGelu = 1, kGelu = 2 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // src-size 0: write 16 zero bytes, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 // Stage one 128-row x BK slice of an operand, 16-byte chunks, two per
 // thread. kRowsContig = false: the operand is [rows, K] with K contiguous
@@ -175,7 +162,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict
       load_tile<kBTrans>(Bs[s ^ 1], B, n0, N, (kt + 1) * BK, K);
     }
     cp_async_commit();  // possibly empty: keeps "all but the newest group" meaning tile kt
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();
 
 #pragma unroll
@@ -259,11 +246,4 @@ extern "C" int vt_gemm_dgrad(const void* dy, const void* w, const void* preact, 
   Epilogue ep{nullptr, static_cast<const float*>(preact), act, kNone, nullptr,
               static_cast<float*>(y_f32), static_cast<__nv_bfloat16*>(y_bf16), nullptr};
   return launch<false, true>(dy, w, M, N, K, ep, stream);
-}
-
-// y [N1, N2] fp32 = a^T . b summed over the M rows of a [M, N1], b [M, N2].
-extern "C" int vt_gemm_wgrad(const void* a, const void* b, void* y, int N1, int N2, int M,
-                             void* stream) {
-  Epilogue ep{nullptr, nullptr, kNone, kNone, nullptr, static_cast<float*>(y), nullptr, nullptr};
-  return launch<true, true>(a, b, N1, N2, M, ep, stream);
 }

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "vt_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _P],
     "vt_gemm_bias_act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vt_gemm_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "vt_gemm_wgrad": [_P, _P, _P, _I, _I, _I, _P],
+    "vt_gemm_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vt_colsum": [_P, _I, _P, _P, _L, _I, _I, _P],
     "vt_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "vt_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

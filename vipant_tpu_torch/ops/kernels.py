@@ -11,8 +11,8 @@ their backward chains:
   fp32 copy of the pre-activation;
 - :func:`gemm_dgrad` (``csrc/gemm.cu``): ``dy . w`` with ``w`` read as
   stored, an optional activation-grad epilogue, fp32 or rounded out;
-- :func:`gemm_wgrad` (``csrc/gemm.cu``): ``a^T . b`` reduced over all rows,
-  fp32 out;
+- :func:`gemm_wgrad` (``csrc/gemm_wgrad.cu``): ``a^T . b`` reduced over all
+  rows, fp32 out, the rows split into the chunks :func:`wgrad_split` plans;
 - :func:`colsum` (``csrc/reduce.cu``): fp32 column sums (the bias grads);
 - :func:`attention_fwd` / :func:`attention_bwd` (``csrc/attention.cu``,
   ``csrc/attention_bwd.cu``): exact two-pass softmax attention over the
@@ -47,6 +47,7 @@ runs them through ``torch.autograd.gradcheck``).
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 from typing import NamedTuple, Optional, Tuple
 
@@ -60,6 +61,10 @@ HEAD_DIM = 64  # the attention kernels' head dim
 LN_BWD_ROWS = 32  # rows per block of layernorm_bwd; one partial weight-grad row each
 COLSUM_ROWS = 256  # rows per block of colsum; one partial row each
 DBIAS_CHUNKS = 16  # partial sums of flash_attention_dbias over (items x heads)
+WGRAD_TILE = 128  # gemm_wgrad's output tile, both ways
+WGRAD_STEP = 64  # rows of the reduction per pipeline stage of gemm_wgrad
+WGRAD_CHUNK_COST = 40  # a row chunk's fixed cost (ring fill, partial tile out and in), in steps; fitted on the H100
+SM_COUNT = 132  # streaming multiprocessors of the H100 the split is planned for
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
 ORIENTATIONS = {"NN": (0, 0), "NT": (0, 1), "TN": (1, 0), "TT": (1, 1)}  # (a, b) transposed
 
@@ -432,9 +437,38 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, rounded: bool, act: str = "non
     return y
 
 
+@functools.lru_cache(maxsize=1024)
+def wgrad_split(M: int, N1: int, N2: int) -> Tuple[int, int]:
+    """``(S, rows_per_chunk)``: how :func:`gemm_wgrad` cuts its M rows. The
+    kernel launches one block per (128 x 128 output tile, row chunk); each
+    sums its chunk into an fp32 partial tile and a second kernel adds the S
+    partials in order. The output alone has too few tiles for the card (36
+    for 768 x 768), so S is the split that fills it best: among the splits
+    that put at least one block on every SM, the least ``rounds * (steps
+    per chunk + a chunk's fixed cost)``, where ``rounds`` is the most blocks
+    any SM gets; if M is too short for that many blocks, the finest split.
+    Chunks are whole pipeline steps (64 rows), none is empty, and the last
+    may be short: ``(S - 1) * rows_per_chunk < M <= S * rows_per_chunk``.
+    A function of the shapes and the constants above only, so the same
+    shapes always sum in the same order."""
+    tiles = -(-N1 // WGRAD_TILE) * -(-N2 // WGRAD_TILE)
+    steps = max(1, -(-M // WGRAD_STEP))
+    best = None
+    for per_chunk in range(steps, 0, -1):  # coarse to fine: ties go to the coarser split
+        S = -(-steps // per_chunk)
+        blocks = tiles * S
+        cost = -(-blocks // SM_COUNT) * (per_chunk + WGRAD_CHUNK_COST)
+        key = (blocks < SM_COUNT, cost if blocks >= SM_COUNT else -blocks)
+        if best is None or key < best[0]:
+            best = (key, S, per_chunk * WGRAD_STEP)
+    return best[1], best[2]
+
+
 def gemm_wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a^T . b`` over all rows: a [..., N1], b [..., N2] -> [N1, N2] fp32
-    (the weight grad of ``y = x . w^T`` is ``gemm_wgrad(dy, x)``)."""
+    (the weight grad of ``y = x . w^T`` is ``gemm_wgrad(dy, x)``). The rows
+    are summed in the chunks of :func:`wgrad_split`, the chunks in order:
+    two runs give the same bits."""
     if not a.is_cuda:
         return gemm_wgrad_plain(a, b)
     N1, N2 = a.shape[-1], b.shape[-1]
@@ -443,8 +477,13 @@ def gemm_wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _cuda_operand(b, "b", torch.bfloat16, a.device)
     _require(b.numel() // N2 == M, f"a and b must have the same rows: {tuple(a.shape)}, {tuple(b.shape)}")
     _require(N1 % 8 == 0 and N2 % 8 == 0, f"N1={N1} and N2={N2} must be multiples of 8")
+    if M == 0:  # an empty sum, as the plain version gives it
+        return torch.zeros((N1, N2), dtype=torch.float32, device=a.device)
+    S, rows_per_chunk = wgrad_split(M, N1, N2)
     y = torch.empty((N1, N2), dtype=torch.float32, device=a.device)
-    _launch("gemm_wgrad", a.device, a.data_ptr(), b.data_ptr(), y.data_ptr(), N1, N2, M)
+    partial = torch.empty((S, N1, N2), dtype=torch.float32, device=a.device) if S > 1 else None
+    _launch("gemm_wgrad", a.device, a.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(partial),
+            N1, N2, M, S, rows_per_chunk)
     return y
 
 
