@@ -9,7 +9,12 @@
 3. Kernel phase: each forward kernel and each fused sub-block, at the
    serving path's shapes and at the audio tower's batch of 64, against its
    plain PyTorch version on the card from the same seeded bf16 inputs, with
-   CUDA-event times of both.
+   CUDA-event times of both; ``gemm_bias_act`` alone at every product shape
+   the paths give it (``GEMM_FWD_CASES``: the towers at batch 4 and 64, the
+   MLP's proj + residual, the recomputed fc with its fp32 pre-activation, the
+   VA step's image tower, the captioning decoder's four products at
+   M = 64 x 77 and its KV-cached decode at T = 1, M = 4, 16, 64, 256), each
+   held bitwise equal over two runs.
 4. Backward kernel phase: each backward kernel, and each sub-block's
    backward through its autograd boundary (``torch.autograd.grad`` from fp32
    params, as the training step takes it), against its plain version, from
@@ -20,7 +25,11 @@
    exact GELU; ``gemm_wgrad`` also at the captioning decoder's four
    products (M = 64 x 77 rows, width 512), each weight grad named with its
    row split (S chunks, blocks launched) and held bitwise equal over two
-   runs.
+   runs; ``attention_bwd`` also at the decoder's B64 T77 (causal) and at
+   B16 T200 with the packing bias, bitwise equal over two runs, and its
+   recomputed p held bitwise to the forward's (v one-hot on a window of
+   keys gives p out of the forward, do one-hot on a window of queries out
+   of the backward's dv).
 5. Serving slice: the full-size CLAP serving engine (ViT-B/32 audio tower at
    T = 306, 12-layer width-512 text tower packed 4 captions per call at
    T = 308) with seeded random weights: embed_audio over 6 fbanks at batch
@@ -183,7 +192,7 @@ B5, B6 = "vipant_tpu/ops/fused_attn.py:117", "vipant_tpu/ops/fused_mlp.py:97"
 B3F, B3B = "vipant_tpu/ops/attention.py:47", "vipant_tpu/ops/attention.py:66"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "layernorm_fwd": ("vipant_tpu_torch/csrc/layernorm.cu", "vipant_tpu/ops/fused_attn.py:81"),
-    "gemm_bias_act": ("vipant_tpu_torch/csrc/gemm.cu", "vipant_tpu/ops/fused_mlp.py:51"),
+    "gemm_bias_act": ("vipant_tpu_torch/csrc/gemm_fwd.cu", "vipant_tpu/ops/fused_mlp.py:51"),
     "attention_fwd": ("vipant_tpu_torch/csrc/attention.cu", "vipant_tpu/ops/fused_attn.py:81"),
     "fused_ln_attention_block": ("vipant_tpu_torch/ops/fused_attn.py",
                                  "vipant_tpu/ops/fused_attn.py:81"),
@@ -210,6 +219,31 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 }
 PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
          "caption_serve")
+# every product shape the paths give gemm_bias_act: (case, M, N, K, activation, residual, fp32
+# pre-activation). The kernel phase holds each to its plain version; experiments/kernel_times.py
+# times each, parent against change.
+GEMM_FWD_CASES = [
+    *[(f"{tower} {p}", M, N, K, act, res, False)
+      for tower, M, C in (("audio B4 T306", 4 * 306, 768), ("text B1 T308", 308, 512),
+                          ("image B1 T200", 200, 768), ("audio B64 T306", 64 * 306, 768))
+      for p, N, K, act, res in (("qkv", 3 * C, C, "none", False), ("out+res", C, C, "none", True))],
+    *[(f"{tower} {p}", M, N, K, act, res, False)
+      for tower, M, C in (("audio B4 T306", 4 * 306, 768), ("text B1 T308", 308, 512),
+                          ("audio B64 T306", 64 * 306, 768))
+      for p, N, K, act, res in (("fc+quick_gelu", 4 * C, C, "quick_gelu", False),
+                                ("fc+gelu", 4 * C, C, "gelu", False), ("proj+res", C, 4 * C, "none", True))],
+    ("audio B64 T306 fc recompute, fp32 preact", 64 * 306, 3072, 768, "quick_gelu", False, True),
+    ("image B64 (16 x T200) qkv", 16 * 200, 2304, 768, "none", False, False),   # the VA step's frozen tower
+    ("image B64 (16 x T200) fc+quick_gelu", 16 * 200, 3072, 768, "quick_gelu", False, False),
+    *[(f"caption decoder B64 T77 {p}", 64 * 77, N, K, act, res, False)           # the captioning step
+      for p, N, K, act, res in (("qkv", 1536, 512, "none", False), ("out+res", 512, 512, "none", True),
+                                ("fc+quick_gelu", 2048, 512, "quick_gelu", False),
+                                ("proj+res", 512, 2048, "none", True))],
+    *[(f"caption decode T=1 M={M} {p}", M, N, K, act, res, False)                # KV-cached decode: the MLP
+      for M in (4, 16, 64, 256)
+      for p, N, K, act, res in (("fc+quick_gelu", 2048, 512, "quick_gelu", False),
+                                ("proj+res", 512, 2048, "none", True))],
+]
 DECODE_TOL = 0.1  # bf16 per-step logits, KV-cached against re-forward decoding
 # H100 SXM data sheet, dense rates: the bounds are stated against these
 HBM_BYTES_PER_S = 3.35e12
@@ -421,20 +455,13 @@ def kernel_phase(torch, results):
         qkv = kernels.gemm_bias_act_plain(h, wqkv, bqkv)
         o = kernels.attention_plain(qkv, cb, H, 0.125)
         args = (x, lns, lnb, wqkv, bqkv, wout, bout, bias, H)
-        lns_b, lnb_b, bqkv_b, bout_b = (v.bfloat16() for v in (lns, lnb, bqkv, bout))
+        lns_b, lnb_b = lns.bfloat16(), lnb.bfloat16()
         cmp("layernorm_fwd", case, lambda: kernels.layernorm_fwd(x, lns, lnb),
             lambda: kernels.layernorm_plain(x, lns, lnb), reads=(x, lns, lnb),
             ops=[(8 * M * C, "fp32")], library=lambda: F.layer_norm(x, (C,), lns_b, lnb_b))
-        cmp("gemm_bias_act", case + " qkv", lambda: kernels.gemm_bias_act(h, wqkv, bqkv),
-            lambda: kernels.gemm_bias_act_plain(h, wqkv, bqkv), reads=(h, wqkv, bqkv),
-            ops=gemm_ops(M, 3 * C, C), library=lambda: F.linear(h, wqkv, bqkv_b))
         cmp("attention_fwd", case, lambda: kernels.attention_fwd(qkv, cb, H, 0.125),
             lambda: kernels.attention_plain(qkv, cb, H, 0.125), reads=(qkv, cb),
             ops=attn_ops(B, T, H), library=_sdpa(torch, qkv, cb, H, 0.125))
-        cmp("gemm_bias_act", case + " out+res",
-            lambda: kernels.gemm_bias_act(o, wout, bout, residual=x),
-            lambda: kernels.gemm_bias_act_plain(o, wout, bout, residual=x),
-            reads=(o, wout, bout, x), ops=gemm_ops(M, C, C), library=lambda: F.linear(o, wout, bout_b))
         cmp("fused_ln_attention_block", case,
             lambda: fused_attn.fused_ln_attention_block(*args),
             lambda: fused_attn.fused_ln_attention_block_plain(*args), reads=args[:8],
@@ -449,17 +476,22 @@ def kernel_phase(torch, results):
         lns, lnb = 1 + rn(C, std=0.1, dtype=torch.float32), rn(C, std=0.1, dtype=torch.float32)
         wfc, bfc = rn(E, C, std=C ** -0.5), rn(E, std=0.02, dtype=torch.float32)
         wproj, bproj = rn(C, E, std=E ** -0.5), rn(C, std=0.02, dtype=torch.float32)
-        h = kernels.layernorm_plain(x, lns, lnb)
         args = (x, lns, lnb, wfc, bfc, wproj, bproj, "quick_gelu")
-        bfc_b = bfc.bfloat16()
-        for act in ("quick_gelu", "gelu"):
-            cmp("gemm_bias_act", f"{case} fc+{act}",
-                lambda: kernels.gemm_bias_act(h, wfc, bfc, act),
-                lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, act), reads=(h, wfc, bfc),
-                ops=gemm_ops(M, E, C), library=lambda: F.linear(h, wfc, bfc_b))
         cmp("fused_ln_mlp_block", case, lambda: fused_mlp.fused_ln_mlp_block(*args),
             lambda: fused_mlp.fused_ln_mlp_block_plain(*args), reads=args[:7],
             ops=gemm_ops(M, E, C) + gemm_ops(M, C, E))
+
+    # gemm_bias_act alone at every shape the paths give it, bitwise equal over two runs
+    for case, M, N, K, act, res, pre in GEMM_FWD_CASES:
+        x, w, b = rn(M, K), rn(N, K, std=K ** -0.5), rn(N, std=0.02, dtype=torch.float32)
+        r, bb = (rn(M, N) if res else None), b.bfloat16()
+        compare(torch, results, "gemm_bias_act", f"{case} [{M}x{N}x{K}]",
+                lambda: kernels.gemm_bias_act(x, w, b, act, r, pre),
+                lambda: kernels.gemm_bias_act_plain(x, w, b, act, r, pre), reads=(x, w, b, r),
+                ops=gemm_ops(M, N, K), library=lambda: F.linear(x, w, bb), iters=10 if M > 5000 else 20)
+        if not all(torch.equal(u, v) for u, v in zip(_outputs(kernels.gemm_bias_act(x, w, b, act, r, pre)),
+                                                     _outputs(kernels.gemm_bias_act(x, w, b, act, r, pre)))):
+            raise AssertionError(f"gemm_bias_act {case}: two runs differ")
 
 
 def _block_bwd(torch, block, args, g, **kw):
@@ -472,11 +504,48 @@ def _block_bwd(torch, block, args, g, **kw):
     return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
 
 
+def backward_p_is_forward_p(torch):
+    """``attention_bwd`` recomputes p bitwise as ``attention_fwd`` computed
+    it. With v one-hot on a window of 64 keys (v[j, d] = 1 iff j = w0 + d)
+    the forward's output is o[i, d] = bf16(p[i, w0 + d]) exactly; with do
+    one-hot on a window of 64 queries the backward's dv is dv[j, d] =
+    bf16(p[r0 + d, j]) exactly (one nonzero term in each sum). The windows
+    cross the kernels' tile edges; a T = 306 window runs past T."""
+    from vipant_tpu_torch.nn.layers import causal_mask
+    from vipant_tpu_torch.ops import fused_attn, kernels
+
+    rn = _seeded(torch)
+    pack_bias, _ = _biases(torch)
+    B, H, C = 2, 2, 128
+    for case, T, bias, w0, r0 in (("T64", 64, None, 0, 0), ("T306 pack", 306, pack_bias(153, 2), 40, 100),
+                                  ("T77 causal", 77, causal_mask(77, device="cuda"), 10, 13),
+                                  ("T306", 306, None, 250, 200)):
+        cb = fused_attn.canon_bias(bias)
+        nk, nq = min(64, T - w0), min(64, T - r0)
+        qkv, do = rn(B, T, 3 * C), torch.zeros(B, T, H, 64, dtype=torch.bfloat16, device="cuda")
+        v = qkv.view(B, T, 3, H, 64)[:, :, 2]
+        v.zero_()
+        v[:, w0 + torch.arange(nk), :, torch.arange(nk)] = 1
+        do[:, r0 + torch.arange(nq), :, torch.arange(nq)] = 1
+        o, stats = kernels.attention_fwd(qkv, cb, H, 0.125, stats=True)
+        _, dqkv_b = kernels.attention_bwd(qkv, do.view(B, T, C), cb, H, 0.125, stats)
+        p_fwd = o.view(B, T, H, 64)[:, r0:r0 + nq, :, :nk]                                  # [B, query, H, key]
+        p_bwd = dqkv_b.view(B, T, 3, H, 64)[:, w0:w0 + nk, 2, :, :nq].permute(0, 3, 2, 1)
+        share = (p_fwd != 0).float().mean().item()
+        print(f"  C3 {case}, keys {w0}..{w0 + nk - 1}, queries {r0}..{r0 + nq - 1}: the backward's p "
+              f"{'bitwise equal to' if torch.equal(p_fwd, p_bwd) else 'DIFFERS from'} the forward's "
+              f"({100 * share:.1f} % nonzero)")
+        if not torch.equal(p_fwd, p_bwd) or share < 0.25:
+            raise AssertionError(f"C3 {case}: the backward's p is not the forward's "
+                                 f"(max|d| {(p_fwd.float() - p_bwd.float()).abs().max().item():.3e})")
+
+
 def backward_kernel_phase(torch, results):
     """Each backward kernel on the inputs its chain gives it, and each
     sub-block's backward through its autograd boundary, against the plain
     versions: at the serving path's shapes and at the training step's
     (audio B = 64, M = 19,584 rows)."""
+    from vipant_tpu_torch.nn.layers import causal_mask
     from vipant_tpu_torch.ops import fused_attn, fused_mlp, kernels
 
     rn = _seeded(torch)
@@ -540,6 +609,20 @@ def backward_kernel_phase(torch, results):
             reads=(*args, g, cb),
             ops=gemm_ops(M, C, C) * 2 + gemm_ops(M, 3 * C, C) * 2 + attn_ops(B, T, H, products=5))
         torch.cuda.empty_cache()
+
+    # attention_bwd at the captioning decoder's self-attention and at a packed batch of images
+    pack_bias, _ = _biases(torch)
+    for case, B, T, C, H, bias in (("decoder B64 T77 C512 H8 causal", 64, 77, 512, 8, causal_mask(77, device="cuda")),
+                                   ("image B16 T200 C768 H12 pack", 16, 200, 768, 12, pack_bias(50, 4))):
+        qkv, do, cb = rn(B, T, 3 * C), rn(B, T, C), fused_attn.canon_bias(bias)
+        _, stats = kernels.attention_fwd(qkv, cb, H, 0.125, stats=True)
+        bwd = lambda: kernels.attention_bwd(qkv, do, cb, H, 0.125, stats)
+        compare(torch, results, "attention_bwd", case, bwd,
+                lambda: kernels.attention_bwd_plain(qkv, do, cb, H, 0.125), reads=(qkv, do, cb, stats),
+                ops=attn_ops(B, T, H, products=5), library=_sdpa_bwd(torch, qkv, cb, H, 0.125, do), iters=10)
+        if not all(torch.equal(a, b) for a, b in zip(bwd(), bwd())):
+            raise AssertionError(f"attention_bwd {case}: two runs differ")
+    backward_p_is_forward_p(torch)
 
     for case, B, T, C in (("audio B4 T306 C768 E3072", BATCH, 306, 768),
                           ("text B1 T308 C512 E2048", 1, 308, 512),

@@ -12,7 +12,8 @@ over thousands of rows in another order. Int8 codes: equal except a share
 of at most 1e-3 off by exactly one, scales to 1e-6 relative; the int32 sum
 of gemm_i8 is exact (compared bitwise at unit scales). The flash-attention
 kernels give the same bits for every layout of q, k, v, and their bias grad
-the same bits in every run."""
+the same bits in every run; so do gemm_bias_act, gemm_wgrad and
+attention_bwd, whose recomputed p is bitwise the forward's."""
 
 from unittest import mock
 
@@ -187,6 +188,37 @@ def test_gemm_wgrad_kernel_matches_plain_and_repeats(gen, M, N1, N2):
     assert (S - 1) * rows < M <= S * rows
 
 
+@pytest.mark.parametrize("M,N,K", [
+    (1, 64, 64), (4, 2048, 512), (4, 512, 2048), (16, 512, 2048),   # caption decode at T = 1
+    (64, 2048, 512), (64, 512, 2048), (256, 512, 2048),
+    (63, 200, 136), (37, 13, 64), (111, 264, 256),                   # ragged M, N off the tile, odd N
+    (1224, 2304, 768), (1224, 768, 3072),                            # audio tower, B = 4
+    (19584, 2304, 768), (19584, 768, 3072),                          # the training step's audio batch
+])
+def test_gemm_bias_act_kernel_matches_plain_and_repeats(gen, M, N, K):
+    x, w, b = _rn(gen, M, K).bfloat16(), _rn(gen, N, K, std=K ** -0.5).bfloat16(), _rn(gen, N, std=0.1)
+    res = _rn(gen, M, N).bfloat16()
+    for act in ("none", "quick_gelu", "gelu"):
+        for r in (None, res):
+            for pre in (False, True):
+                what = f"{act} residual={r is not None} preact={pre}"
+                reset_launches()
+                got = kernels.gemm_bias_act(x, w, b, act, r, pre)
+                assert LAUNCHES == {"gemm_bias_act": 1}
+                want = kernels.gemm_bias_act_plain(x, w, b, act, r, pre)
+                for g, wt in zip(*((got, want) if pre else ((got,), (want,)))):
+                    _close(g, wt, what)
+    # no atomics: the same bits in every run
+    assert torch.equal(kernels.gemm_bias_act(x, w, b, "gelu", res), kernels.gemm_bias_act(x, w, b, "gelu", res))
+    # small integers sum exactly in fp32 whatever the order: any misplaced element shows
+    ix = torch.randint(-3, 4, (M, K), generator=gen, device="cuda").bfloat16()
+    iw = torch.randint(-3, 4, (N, K), generator=gen, device="cuda").bfloat16()
+    ib = torch.randint(-3, 4, (N,), generator=gen, device="cuda").float()
+    y, a = kernels.gemm_bias_act(ix, iw, ib, preact=True)
+    y0, a0 = kernels.gemm_bias_act_plain(ix, iw, ib, preact=True)
+    assert torch.equal(a, a0) and torch.equal(y, y0)
+
+
 def test_gemm_wgrad_takes_batched_operands_and_rejects_others(gen):
     a, b = _rn(gen, 3, 70, 64).bfloat16(), _rn(gen, 3, 70, 128).bfloat16()
     _close(kernels.gemm_wgrad(a, b), kernels.gemm_wgrad_plain(a, b), "batched")
@@ -260,16 +292,54 @@ def test_attention_fwd_row_masked_everywhere_is_uniform_not_nan(gen, T):
     (64, 306, 768, 12, "none"),         # the training step's audio batch
     (1, 308, 512, 8, "causal_pack"),    # text tower, 4 captions packed
     (3, 37, 128, 2, "causal"),          # short ragged tail
+    (64, 77, 512, 8, "causal"),         # caption decoder
+    (16, 200, 768, 12, "pack"),         # image tower, 4 packed: block-diagonal
+    (2, 1, 128, 2, "none"),             # one token
+    (2, 768, 128, 2, "causal"),         # the last length whose keys stay resident in dq
+    (2, 769, 128, 2, "causal"),         # the first that streams them
+    (2, 971, 128, 2, "none"),
 ])
 def test_attention_bwd_kernel_matches_plain(gen, B, T, C, H, kind):
     qkv, do = _rn(gen, B, T, 3 * C).bfloat16(), _rn(gen, B, T, C).bfloat16()
     bias = fused_attn.canon_bias(_bias(kind, T))
     o, stats = kernels.attention_fwd(qkv, bias, H, 0.125, stats=True)
     _close(o, kernels.attention_plain(qkv, bias, H, 0.125), "o")
+    reset_launches()
     got = kernels.attention_bwd(qkv, do, bias, H, 0.125, stats)
+    assert LAUNCHES == {"attention_bwd": 1}
     want = kernels.attention_bwd_plain(qkv, do, bias, H, 0.125)
     _close(got[0], want[0], "dqkv")
     _close(got[1], want[1], "dqkv bf16")
+    again = kernels.attention_bwd(qkv, do, bias, H, 0.125, stats)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])  # no atomics
+
+
+@pytest.mark.parametrize("T,kind,w0,r0", [
+    (64, "none", 0, 0),           # one tile each way
+    (306, "pack", 40, 100),       # windows across the 64-key and 128-row tile edges
+    (77, "causal", 10, 13),       # the decoder's length, masked
+    (306, "none", 250, 200),      # windows that run past T
+])
+def test_attention_bwd_recomputes_the_forwards_p_bitwise(gen, T, kind, w0, r0):
+    """v one-hot on keys w0 .. w0 + 63 makes the forward's output o[i, d] =
+    bf16(p[i, w0 + d]); do one-hot on queries r0 .. r0 + 63 makes the
+    backward's dv[j, d] = bf16(p[r0 + d, j]); one nonzero term per sum, so
+    both are exact and the two p must be equal bit for bit."""
+    B, H, C = 2, 2, 128
+    bias = fused_attn.canon_bias(_bias(kind, T, k=2 if kind == "pack" else 4))
+    nk, nq = min(64, T - w0), min(64, T - r0)
+    qkv = _rn(gen, B, T, 3 * C).bfloat16()
+    v = qkv.view(B, T, 3, H, 64)[:, :, 2]
+    v.zero_()
+    v[:, w0 + torch.arange(nk), :, torch.arange(nk)] = 1
+    do = torch.zeros(B, T, H, 64, dtype=torch.bfloat16, device="cuda")
+    do[:, r0 + torch.arange(nq), :, torch.arange(nq)] = 1
+    o, stats = kernels.attention_fwd(qkv, bias, H, 0.125, stats=True)
+    _, dqkv_b = kernels.attention_bwd(qkv, do.view(B, T, C), bias, H, 0.125, stats)
+    p_fwd = o.view(B, T, H, 64)[:, r0:r0 + nq, :, :nk]                                  # [B, query, H, key]
+    p_bwd = dqkv_b.view(B, T, 3, H, 64)[:, w0:w0 + nk, 2, :, :nq].permute(0, 3, 2, 1)
+    assert (p_fwd != 0).float().mean().item() > 0.25
+    assert torch.equal(p_fwd, p_bwd)
 
 
 def _grads(block, args, g, **kw):

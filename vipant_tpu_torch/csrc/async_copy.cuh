@@ -1,5 +1,6 @@
-// cp.async helpers shared by gemm.cu and attention.cu: 16-byte asynchronous
-// copies from device to shared memory, committed in groups.
+// cp.async helpers shared by gemm.cu, attention.cu and attention_bwd.cu:
+// 16- and 4-byte asynchronous copies from device to shared memory,
+// committed in groups.
 
 #pragma once
 
@@ -13,6 +14,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+// 4 bytes, the same way (cp.async.ca: the 16-byte .cg form takes no other size)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

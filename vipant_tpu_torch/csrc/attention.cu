@@ -46,9 +46,6 @@
 // scale per token over all heads, which no (query tile, head) block holds;
 // quant.cu's rowquant reads it back.
 
-#include <stdint.h>
-
-#include "async_copy.cuh"
 #include "attention.cuh"
 
 namespace {
@@ -61,78 +58,6 @@ constexpr int kFwdThreads = kFwdQ / 16 * 32;      // one warp per 16 rows
 constexpr int kQBytes = kFwdQ * LDH * 2;
 constexpr int kMaxSmem = 232448;                  // what a block can be given on this card
 constexpr int kResidentTiles = (kMaxSmem - kQBytes) / (2 * kTileBytes);  // 11 tiles of 64 keys
-
-// four 8x8 bf16 matrices, row addresses from lanes 8i .. 8i + 7 for matrix i
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, fp32 accumulate. Lane l holds
-// d[0..1] at row l / 4, columns 2 (l % 4) + {0, 1}, and d[2..3] at row l / 4 + 8.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows [r0, r0 + nrows) of one head's 64 columns (row stride `ld`) into a
-// tile of pitch LDH, asynchronously; rows past T are zero
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* base, int r0,
-                                           int nrows, int T, int ld) {
-  for (int c = threadIdx.x; c < nrows * (D / 8); c += kFwdThreads) {
-    const int r = c >> 3, k = (c & 7) * 8;
-    const bool in = r0 + r < T;
-    cp_async16(dst + r * LDH + k, in ? base + static_cast<size_t>(r0 + r) * ld + k : base, in);
-  }
-}
-
-// raw fp32 scores of this warp's 16 query rows (A fragments qf, one per 16
-// of the 64 head dims) against the 64 keys of tile Ks: s[j] is the 16 x 8
-// block of keys 8 j .. 8 j + 7. Each block sums the head dim in the same four
-// steps of 16, from zero, as attn::score_tile does.
-__device__ __forceinline__ void scores(float (&s)[8][4], const uint32_t (&qf)[4][4],
-                                       const __nv_bfloat16* Ks, int lane) {
-  const __nv_bfloat16* krow = Ks + (lane & 7) * LDH + (lane >> 3) * 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    uint32_t kb[4];
-    ldmatrix_x4(kb, krow + j * 8 * LDH);  // head dims 0 .. 31 of keys 8 j .. 8 j + 7
-    mma_16816(s[j], qf[0], kb[0], kb[1]);
-    mma_16816(s[j], qf[1], kb[2], kb[3]);
-    ldmatrix_x4(kb, krow + j * 8 * LDH + 32);
-    mma_16816(s[j], qf[2], kb[0], kb[1]);
-    mma_16816(s[j], qf[3], kb[2], kb[3]);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
@@ -191,21 +116,7 @@ __device__ __forceinline__ void add_pv(float (&o)[8][4], const Rows& rw, float (
                     ? prob(scaled(s[j][e], scale, bias, rw.i[h], col, T), rw.m[h], rw.l[h])
                     : 0.f;
     }
-  // matrix i of a transposed load: keys + 8 (i & 1), head dims + 8 (i >> 1)
-  const __nv_bfloat16* vrow = Vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDH + (lane >> 4) * 8;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {  // keys 16 u .. 16 u + 15
-    const uint32_t pa[4] = {pack_bf16(s[2 * u][0], s[2 * u][1]), pack_bf16(s[2 * u][2], s[2 * u][3]),
-                            pack_bf16(s[2 * u + 1][0], s[2 * u + 1][1]),
-                            pack_bf16(s[2 * u + 1][2], s[2 * u + 1][3])};
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {  // head dims 16 n .. 16 n + 15
-      uint32_t vb[4];
-      ldmatrix_x4_trans(vb, vrow + u * 16 * LDH + n * 16);
-      mma_16816(o[2 * n], pa, vb[0], vb[1]);
-      mma_16816(o[2 * n + 1], pa, vb[2], vb[3]);
-    }
-  }
+  pv_product(o, s, Vs, lane);
 }
 
 // kResident: K and V of the whole head are in shared memory, tile t in slot
@@ -230,15 +141,15 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
   const __nv_bfloat16* vbase = item + 2 * C + h * D;
   const bool active = q0 + warp * 16 < T;  // else: every row of this warp is past T
 
-  stage_rows(Qs, item + h * D, q0, kFwdQ, T, C3);
+  stage_rows<kFwdThreads>(Qs, item + h * D, q0, kFwdQ, T, C3);
   if constexpr (kResident) {
-    stage_rows(Ks, kbase, 0, nkt * BKV, T, C3);
+    stage_rows<kFwdThreads>(Ks, kbase, 0, nkt * BKV, T, C3);
     cp_async_commit();
-    stage_rows(Vs, vbase, 0, nkt * BKV, T, C3);
+    stage_rows<kFwdThreads>(Vs, vbase, 0, nkt * BKV, T, C3);
     cp_async_commit();
     cp_async_wait<1>();  // Q and K have landed; V follows during pass 1
   } else {
-    stage_rows(Ks, kbase, 0, BKV, T, C3);
+    stage_rows<kFwdThreads>(Ks, kbase, 0, BKV, T, C3);
     cp_async_commit();
     cp_async_wait<0>();
   }
@@ -263,7 +174,7 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
   for (int t = 0; t < nkt; ++t) {
     if constexpr (!kResident) {
       // slot (t + 1) & 1 was last read at tile t - 1, before that tile's closing barrier
-      if (t + 1 < nkt) stage_rows(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3);
+      if (t + 1 < nkt) stage_rows<kFwdThreads>(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3);
       cp_async_commit();   // possibly empty: "all but the newest group" is tile t
       cp_async_wait<1>();
       __syncthreads();
@@ -294,8 +205,8 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
     cp_async_wait<0>();
     __syncthreads();  // every thread's share of V has landed
   } else {
-    stage_rows(Ks, kbase, 0, BKV, T, C3);
-    stage_rows(Vs, vbase, 0, BKV, T, C3);
+    stage_rows<kFwdThreads>(Ks, kbase, 0, BKV, T, C3);
+    stage_rows<kFwdThreads>(Vs, vbase, 0, BKV, T, C3);
     cp_async_commit();
   }
   float o[8][4];
@@ -305,8 +216,8 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
     const int slot = kResident ? t : t & 1;
     if constexpr (!kResident) {
       if (t + 1 < nkt) {
-        stage_rows(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3);
-        stage_rows(Vs + ((t + 1) & 1) * BKV * LDH, vbase, (t + 1) * BKV, BKV, T, C3);
+        stage_rows<kFwdThreads>(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3);
+        stage_rows<kFwdThreads>(Vs + ((t + 1) & 1) * BKV * LDH, vbase, (t + 1) * BKV, BKV, T, C3);
       }
       cp_async_commit();
       cp_async_wait<1>();

@@ -46,17 +46,15 @@
 // 128-byte swizzle the descriptors name, spends no registers or instruction slots
 // of the consumers, and zero-fills whatever a box holds past M, N1 or N2, so
 // ragged shapes need no code in the loop (columns past N1, N2 are masked on
-// store). `cuTensorMapEncodeTiled` lives in libcuda, not in the runtime: it is looked up
-// through the runtime (`cudaGetDriverEntryPoint`), so nothing is linked.
-// Two blocks fit on an SM (3 stages = 96 KB each), so one block's store
+// store). The barrier, TMA, descriptor and `wgmma` helpers are hopper.cuh's,
+// shared with gemm_fwd.cu. Two blocks fit on an SM (3 stages = 96 KB each), so one block's store
 // overlaps the other's products.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 128, BN = 128;  // output tile: columns of A x columns of B
 constexpr int BK = 64;             // rows of the reduction per stage
@@ -67,100 +65,6 @@ constexpr int kStageBytes = 4 * kBoxBytes;      // A: 2 boxes, B: 2 boxes
 constexpr int kConsumerWarps = 8;               // two warpgroups, 64 x 128 of the tile each
 constexpr int kThreads = kConsumerWarps * 32 + 32;  // and one producer warp
 constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kStages * 8;  // 1024: alignment
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// spins until the barrier's phase differs from `parity`
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (done == 0);
-}
-
-// one 64-row x 64-column box at (column c0, row c1) of the tensor -> dst,
-// its bytes counted on `bar`; what lies outside the tensor arrives as zeros
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of an MN-major operand under the 128-byte
-// swizzle. In 16-byte units the canonical layout is ((8, n), (8, k)) :
-// ((1, LBO), (8, SBO)): 64 consecutive MN elements are one 128-byte row, 8
-// reduction rows (1,024 bytes) are one swizzle atom; SBO strides from one
-// atom of 8 reduction rows to the next (1,024 bytes in a box of 128-byte
-// rows), LBO from one span of 64 MN elements to the next (the next box).
-__device__ __forceinline__ uint64_t mn_major_desc(uint32_t addr, uint32_t lbo_bytes) {
-  constexpr uint64_t kSbo = 1024 >> 4, kSwizzle128 = 1;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
-         (kSbo << 32) | (kSwizzle128 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-
-// d[64 x 128] += A[64 x 16] . B[16 x 128], both operands MN-major in shared
-// memory (the two trailing 1s are the transpose bits of A and B)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"  // scale-d: accumulate onto d
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0,  %1,  %2,  %3,  %4,  %5,  %6,  %7,  "
-      " %8,  %9,  %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
 
 __global__ void __launch_bounds__(kThreads, 2)
 wgrad_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
@@ -181,8 +85,7 @@ wgrad_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, kConsumerWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -216,14 +119,14 @@ wgrad_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
     const int s = it % kStages;
     mbar_wait(full + 8 * s, (it / kStages) & 1);
     const uint32_t stage = tiles + s * kStageBytes;
-    const uint64_t desc_a = mn_major_desc(stage + wg * kBoxBytes, kBoxBytes);
-    const uint64_t desc_b = mn_major_desc(stage + 2 * kBoxBytes, kBoxBytes);
+    const uint64_t desc_a = sw128_desc(stage + wg * kBoxBytes, kBoxBytes);
+    const uint64_t desc_b = sw128_desc(stage + 2 * kBoxBytes, kBoxBytes);
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < BK / 16; ++k) {
       // 16 reduction rows further on: 16 x 128 bytes, in the descriptor's 16-byte units
       const uint64_t step = static_cast<uint64_t>(k * 16 * 128) >> 4;
-      wgmma_m64n128k16(acc, desc_a + step, desc_b + step);
+      wgmma_m64n128k16<1>(acc, desc_a + step, desc_b + step);
     }
     wgmma_commit();
     if (it > 0) {
@@ -268,39 +171,6 @@ __global__ void wgrad_reduce_kernel(const float4* __restrict__ partial, float4* 
   y[i] = acc;
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// the tensor map of a row-contiguous [M, N] bf16 matrix, cut into boxes of
-// 64 rows x 64 columns under the 128-byte swizzle; outside the matrix: zeros
-bool make_map(CUtensorMap* map, const void* base, int M, int N) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(M)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * 2};
-  const cuuint32_t box[2] = {kBoxCols, BK};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 // y [N1, N2] fp32 = a^T . b summed over the M rows of a [M, N1], b [M, N2]
@@ -315,7 +185,7 @@ extern "C" int vt_gemm_wgrad(const void* a, const void* b, void* y, void* partia
       static_cast<long long>(S) * rows_per_chunk < M || (S > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_a, map_b;
-  if (!make_map(&map_a, a, M, N1) || !make_map(&map_b, b, M, N2))
+  if (!make_map(&map_a, a, M, N1, BK) || !make_map(&map_b, b, M, N2, BK))
     return static_cast<int>(cudaErrorNotSupported);
   cudaError_t err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kSmemBytes);

@@ -1,0 +1,142 @@
+"""Times ``gemm_bias_act`` and ``attention_bwd`` of one checkout at every
+shape the main paths launch them, beside the one PyTorch call of the same
+function (``F.linear``; autograd through ``scaled_dot_product_attention``),
+which is timed here and used nowhere in the port. To compare two checkouts
+on one card, run it for each in turns (A, B, B, A)::
+
+    python vipant_tpu_torch/experiments/kernel_times.py <checkout root> <label>
+
+It imports the package from the given root, so an older checkout is timed
+with its own kernels; the shapes are ``GEMM_FWD_CASES`` of the
+``chip_smoke.py`` at the root of the checkout this script is in. CUDA-event means over 20 launches
+after 3 warm-ups, seeded inputs. At the decode shapes (M <= 256), where a
+loop of launches is bound by the host, the loop is timed three times and
+two more numbers are printed: the device time per call (the kernels of 20
+calls in a ``torch.profiler`` window) and the host time per call (the
+host clock around 200 calls enqueued without waiting). The backward at
+B64 T306 is split into its two kernels by a profiler window.
+"""
+
+import importlib.util
+import os
+import subprocess
+import sys
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.util.spec_from_file_location(
+    "_chip_smoke_cases", os.path.join(_HERE, os.pardir, os.pardir, "chip_smoke.py"))
+_cases = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_cases)
+GEMMS = _cases.GEMM_FWD_CASES  # (case, M, N, K, activation, residual, fp32 pre-activation)
+ATTENTION = [  # (B, T, C, H, bias)
+    (64, 306, 768, 12, "none"), (4, 306, 768, 12, "none"), (64, 77, 512, 8, "causal"),
+    (16, 200, 768, 12, "pack"), (1, 308, 512, 8, "causal_pack"),
+]
+
+
+def main() -> None:
+    root, label = os.path.abspath(sys.argv[1]), sys.argv[2]
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    from vipant_tpu_torch.nn.layers import causal_mask, pack_tokens
+    from vipant_tpu_torch.ops import _build, fused_attn, kernels
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: needs a CUDA device")
+    F = torch.nn.functional
+    _build.library()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rn = lambda *s, std=1.0: torch.randn(*s, generator=g, device="cuda") * std
+
+    def ms(fn, iters=20, warm=3):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    def device_us(fn, calls=20):
+        """device time per call: the CUDA kernels of ``calls`` calls in a profiler window"""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kinds = {"DeviceType.CUDA", "CUDA"}
+        return sum(e.time_range.elapsed_us() for e in prof.events() if str(e.device_type) in kinds) / calls
+
+    def host_us(fn, calls=200):
+        """host time per call: the host clock around ``calls`` calls that do not wait for the card"""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / calls * 1e6
+
+    for case, M, N, K, act, res, pre in GEMMS:
+        x, w, b = rn(M, K).bfloat16(), rn(N, K, std=K ** -0.5).bfloat16(), rn(N, std=0.1)
+        r, bb = (rn(M, N).bfloat16() if res else None), b.bfloat16()
+        call = lambda: kernels.gemm_bias_act(x, w, b, act, r, pre)
+        t, lib = ms(call), ms(lambda: F.linear(x, w, bb))
+        extra = ""
+        if M <= 256:
+            loops = [t] + [ms(call) for _ in range(2)]
+            extra = (f"; loop {' '.join(f'{v:.4f}' for v in loops)}; device {device_us(call):.2f} us, "
+                     f"host {host_us(call):.2f} us a call")
+        print(f"{label} gemm_bias_act {case} [{M}x{N}x{K}]: {t:.4f} ms ({2 * M * N * K / t / 1e9:.0f} TFLOP/s); "
+              f"F.linear {lib:.4f}; x{t / lib:.2f}{extra}")
+
+    def bias_of(kind, T):
+        """None, the causal mask, the block-diagonal mask of 4 packed items
+        (T % 4 == 0), or both"""
+        if kind == "none":
+            return None
+        bias = causal_mask(T, device="cuda") if "causal" in kind else 0
+        if "pack" in kind:
+            bias = bias + pack_tokens(torch.zeros(4, T // 4, 1, device="cuda"), 4)[1]
+        return bias
+
+    for B, T, C, H, kind in ATTENTION:
+        qkv, do = rn(B, T, 3 * C).bfloat16(), rn(B, T, C).bfloat16()
+        cb = fused_attn.canon_bias(bias_of(kind, T))
+        _, st = kernels.attention_fwd(qkv, cb, H, 0.125, stats=True)
+        bwd = lambda: kernels.attention_bwd(qkv, do, cb, H, 0.125, st)
+        leaves = [t.detach().clone().requires_grad_() for t in qkv.view(B, T, 3, H, 64).permute(2, 0, 3, 1, 4)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=None if cb is None else cb.to(qkv.dtype),
+                                             scale=0.125)
+        gy = do.view(B, T, H, 64).transpose(1, 2)
+        t, lib = ms(bwd), ms(lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True))
+        parts = ""
+        if (B, T) == (64, 306):
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    bwd()
+                torch.cuda.synchronize()
+            found = {e.key: getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                     for e in prof.key_averages()}
+            parts = "; " + ", ".join(f"{k.split('::')[1].split('(')[0].split('<')[0]} {v / 5e3:.4f}"
+                                     for k, v in found.items() if "attention_bwd" in k and v)
+        print(f"{label} attention_bwd B{B} T{T} H{H} {kind}: {t:.4f} ms; SDPA backward {lib:.4f}; "
+              f"x{t / lib:.2f}{parts}")
+
+
+if __name__ == "__main__":
+    main()

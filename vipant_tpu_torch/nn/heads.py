@@ -194,6 +194,14 @@ def build_clip_text_head(cfg, dtype=torch.float32, device=None):
     )
 
 
+# legacy head names: the pre-MetaHead config groups (`model/image/vit.yaml`,
+# `model/audio/vit.yaml`, `model/text/transformer.yaml`) name these; they
+# build the same towers
+IMAGE_HEADS.register(build_clip_image_head, name="ImageHead")
+AUDIO_HEADS.register(build_clip_audio_head, name="NaiveCLIPAudioHead")
+TEXT_HEADS.register(build_clip_text_head, name="TextHead")
+
+
 def _build_dummy(cfg, dtype=torch.float32, device=None):
     return DummyHead()
 

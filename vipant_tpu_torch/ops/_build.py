@@ -39,7 +39,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "vt_layernorm_fwd": [_P, _P, _P, _P, _L, _I, _F, _P],
     "vt_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _P],
-    "vt_gemm_bias_act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vt_gemm_bias_act": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vt_gemm_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vt_gemm_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vt_colsum": [_P, _I, _P, _P, _L, _I, _I, _P],

@@ -6,9 +6,9 @@ their backward chains:
 - :func:`layernorm_fwd` / :func:`layernorm_bwd` (``csrc/layernorm.cu``):
   fp32-statistics LayerNorm, and its backward with the residual grad and
   the per-column weight and bias grads;
-- :func:`gemm_bias_act` (``csrc/gemm.cu``): ``epilogue(x . w^T + b)`` with an
-  optional QuickGELU / exact GELU, an optional residual and an optional
-  fp32 copy of the pre-activation;
+- :func:`gemm_bias_act` (``csrc/gemm_fwd.cu``): ``epilogue(x . w^T + b)``
+  with an optional QuickGELU / exact GELU, an optional residual and an
+  optional fp32 copy of the pre-activation;
 - :func:`gemm_dgrad` (``csrc/gemm.cu``): ``dy . w`` with ``w`` read as
   stored, an optional activation-grad epilogue, fp32 or rounded out;
 - :func:`gemm_wgrad` (``csrc/gemm_wgrad.cu``): ``a^T . b`` reduced over all
@@ -397,16 +397,19 @@ def gemm_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = 
     _cuda_operand(w, "w", torch.bfloat16, x.device)
     _require(w.dim() == 2 and w.shape[1] == K, f"w must be [N, {K}], got {tuple(w.shape)}")
     _param_vector(b, "b", N, x.device)
-    _require(K % 8 == 0, f"K={K} must be a multiple of 8")
+    _require(K > 0 and K % 8 == 0, f"K={K} must be a positive multiple of 8")
     out_shape = (*x.shape[:-1], N)
     if residual is not None:
         _cuda_operand(residual, "residual", torch.bfloat16, x.device)
         _require(tuple(residual.shape) == out_shape,
                  f"residual must be {out_shape}, got {tuple(residual.shape)}")
+    M = x.numel() // K
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     a = torch.empty(out_shape, dtype=torch.float32, device=x.device) if preact else None
+    # odd N: the raw fp32 product, then the epilogue in a second kernel
+    partial = torch.empty((M, N), dtype=torch.float32, device=x.device) if N % 2 else None
     _launch("gemm_bias_act", x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            _ptr(residual), y.data_ptr(), _ptr(a), x.numel() // K, N, K, ACTS[act])
+            _ptr(residual), y.data_ptr(), _ptr(a), _ptr(partial), M, N, K, ACTS[act])
     return (y, a) if preact else y
 
 
@@ -553,11 +556,11 @@ def attention_bwd(qkv: torch.Tensor, do: torch.Tensor, bias: Optional[torch.Tens
     _require(stats is not None, "attention_bwd needs the forward's row statistics")
     _cuda_operand(stats, "stats", torch.float32, qkv.device)
     _require(tuple(stats.shape) == (2, B, heads, T), f"stats must be {(2, B, heads, T)}")
-    delta = torch.empty((B, heads, T), dtype=torch.float32, device=qkv.device)
+    scratch = torch.empty((2, B, heads, T), dtype=torch.float32, device=qkv.device)  # delta, 1 / l
     dqkv = torch.empty(qkv.shape, dtype=torch.float32, device=qkv.device)
     dqkv_b = torch.empty_like(qkv)
     _launch("attention_bwd", qkv.device, qkv.data_ptr(), do.data_ptr(), _ptr(bias),
-            stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), dqkv_b.data_ptr(),
+            stats.data_ptr(), scratch.data_ptr(), dqkv.data_ptr(), dqkv_b.data_ptr(),
             B, T, heads, scale)
     return dqkv, dqkv_b
 
