@@ -14,7 +14,8 @@
    MLP's proj + residual, the recomputed fc with its fp32 pre-activation, the
    VA step's image tower, the captioning decoder's four products at
    M = 64 x 77 and its KV-cached decode at T = 1, M = 4, 16, 64, 256), each
-   held bitwise equal over two runs.
+   held bitwise equal over two runs; ``attention_fwd``'s streaming form
+   (T > 704) at B16 T705 and T971 beside SDPA.
 4. Backward kernel phase: each backward kernel, and each sub-block's
    backward through its autograd boundary (``torch.autograd.grad`` from fp32
    params, as the training step takes it), against its plain version, from
@@ -25,7 +26,10 @@
    exact GELU; ``gemm_wgrad`` also at the captioning decoder's four
    products (M = 64 x 77 rows, width 512), each weight grad named with its
    row split (S chunks, blocks launched) and held bitwise equal over two
-   runs; ``attention_bwd`` also at the decoder's B64 T77 (causal) and at
+   runs; ``gemm_dgrad`` alone at every product shape the training paths
+   give it (``GEMM_DGRAD_CASES``: the audio tower at batch 4 and 64 and the
+   caption decoder's M = 64 x 77, with each activation grad), each held
+   bitwise equal over two runs; ``attention_bwd`` also at the decoder's B64 T77 (causal) and at
    B16 T200 with the packing bias, bitwise equal over two runs, and its
    recomputed p held bitwise to the forward's (v one-hot on a window of
    keys gives p out of the forward, do one-hot on a window of queries out
@@ -61,12 +65,15 @@
    kernels by device time; (v) an Adam descent smoke (lr 1e-3, 4 fixed
    batches of 32, 60 steps) whose first 10 losses agree with the plain ops.
 
-7. Int8 kernel phase: ``rowquant``, ``layernorm_rowquant``, ``gemm_i8`` with
-   each epilogue, the fp32-context attention and both int8 sub-blocks
-   against their plain versions from seeded inputs (one all-zero token), at
-   audio B4 and B64 T306 C768 H12, text B1 and B16 T308 C512 H8 (causal +
-   packing), image B16 T200 C768 H12 (block-diagonal); QuickGELU and exact
-   GELU; with the time of the bf16 kernel chain of the same sub-block.
+7. Int8 kernel phase: ``rowquant``, ``layernorm_rowquant``, the
+   fp32-context attention and both int8 sub-blocks against their plain
+   versions from seeded inputs (one all-zero token), at audio B4 and B64
+   T306 C768 H12, text B1 and B16 T308 C512 H8 (causal + packing), image
+   B16 T200 C768 H12 (block-diagonal); QuickGELU and exact GELU; with the
+   time of the bf16 kernel chain of the same sub-block; ``gemm_i8`` alone at
+   every product shape of those towers (``GEMM_I8_CASES``, each epilogue),
+   bitwise equal over two runs, its integer sum at unit scales bitwise the
+   exact one.
 8. Int8 serving: the full CLAP engine with ``quantize="int8"`` from the
    bf16 engine's seed: finite unit-norm embeddings; every sub-block call of
    both towers on the int8 chain and none on the bf16 one; cosine >= 0.999
@@ -128,10 +135,11 @@ for ``attention_bwd`` and ``layernorm_bwd`` autograd through
 ``F.scaled_dot_product_attention`` and ``F.layer_norm``). Those calls are
 timed here and used nowhere in the port.
 
-Tolerances: int8 codes equal to the plain version's except a share of at
-most 1e-3 off by exactly one (x / scale within an fp32 ulp of a half),
-scales to 1e-6 relative; bf16 outputs at atol = rtol = 2e-2 (one bf16 ulp of the output
-plus a different fp32 summation order); fp32 outputs (weight, bias and
+Tolerances: the int8 integer sum bitwise exact; int8 codes equal to the
+plain version's except a share of at most 1e-3 off by exactly one (x /
+scale within an fp32 ulp of a half), scales to 1e-6 relative; bf16 outputs
+at atol = rtol = 2e-2 (one bf16 ulp of the output plus a different fp32
+summation order); fp32 outputs (weight, bias and
 LayerNorm grads, the fp32 dqkv and pre-activation) at max |d| <= 1e-2 *
 max |plain|, since they sum over thousands of rows in another order.
 
@@ -198,7 +206,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                                  "vipant_tpu/ops/fused_attn.py:81"),
     "fused_ln_mlp_block": ("vipant_tpu_torch/ops/fused_mlp.py", "vipant_tpu/ops/fused_mlp.py:51"),
     "layernorm_bwd": ("vipant_tpu_torch/csrc/layernorm.cu", B2),
-    "gemm_dgrad": ("vipant_tpu_torch/csrc/gemm.cu", B4B),
+    "gemm_dgrad": ("vipant_tpu_torch/csrc/gemm_dgrad.cu", B4B),
     "gemm_wgrad": ("vipant_tpu_torch/csrc/gemm_wgrad.cu", B2),
     "colsum": ("vipant_tpu_torch/csrc/reduce.cu", B2),
     "attention_bwd": ("vipant_tpu_torch/csrc/attention_bwd.cu", B2),
@@ -244,6 +252,38 @@ GEMM_FWD_CASES = [
       for p, N, K, act, res in (("fc+quick_gelu", 2048, 512, "quick_gelu", False),
                                 ("proj+res", 512, 2048, "none", True))],
 ]
+# every product shape the training paths give gemm_dgrad: (case, M, N, K, activation whose grad
+# multiplies the product, rounded to bf16). dy [M, K] . w [K, N]: the attention's do = g.Wout and
+# dh = dqkv.Wqkv, the MLP's da = (gy.Wproj) * act'(a) and dh = da.Wfc, for the audio tower at
+# batch 4 and 64 and the caption decoder at B64 T77. The backward kernel phase holds each to its
+# plain version; experiments/kernel_times.py times each.
+GEMM_DGRAD_CASES = [
+    (f"{tower} {p}", M, N, K, act, rounded)
+    for tower, M, C in (("audio B4 T306", 4 * 306, 768), ("audio B64 T306", 64 * 306, 768),
+                        ("caption decoder B64 T77", 64 * 77, 512))
+    for p, N, K, act, rounded in (("do=g.Wout", C, C, "none", True),
+                                  ("dh=dqkv.Wqkv fp32", C, 3 * C, "none", False),
+                                  ("da=(gy.Wproj)*quick_gelu'(a)", 4 * C, C, "quick_gelu", True),
+                                  ("da=(gy.Wproj)*gelu'(a)", 4 * C, C, "gelu", True),
+                                  ("dh=da.Wfc fp32", C, 4 * C, "none", False))
+]
+# every product shape the int8 paths give gemm_i8: (case, M, N, K, activation, residual, fp32 out,
+# column scale first). xq [M, K] . wq [N, K]^T: qkv, out + residual, fc + activation (fp32 out) and
+# proj + residual, for the audio tower at batch 4 and 64, the text tower (4 captions packed to
+# T = 308) at batch 4 and 64, and the frozen image tower of the VA step (16 x T200). The int8
+# kernel phase holds each to its plain version; experiments/kernel_times.py times each.
+GEMM_I8_CASES = [
+    (f"{tower} {p}", M, N, K, act, res, f32, col_first)
+    for tower, M, C in (("audio B4 T306", 4 * 306, 768), ("audio B64 T306", 64 * 306, 768),
+                        ("text B1 T308", 308, 512), ("text B16 T308", 16 * 308, 512),
+                        ("image B16 (x T200)", 16 * 200, 768))
+    for p, N, K, act, res, f32, col_first in (("qkv", 3 * C, C, "none", False, False, True),
+                                              ("out+res", C, C, "none", True, False, False),
+                                              ("fc+quick_gelu fp32", 4 * C, C, "quick_gelu", False, True, False),
+                                              ("fc+gelu fp32", 4 * C, C, "gelu", False, True, False),
+                                              ("proj+res", C, 4 * C, "none", True, False, False))
+]
+ATTENTION_STREAMING_T = (705, 971)  # attention_fwd past the 704 keys it keeps resident
 DECODE_TOL = 0.1  # bf16 per-step logits, KV-cached against re-forward decoding
 # H100 SXM data sheet, dense rates: the bounds are stated against these
 HBM_BYTES_PER_S = 3.35e12
@@ -493,6 +533,18 @@ def kernel_phase(torch, results):
                                                      _outputs(kernels.gemm_bias_act(x, w, b, act, r, pre)))):
             raise AssertionError(f"gemm_bias_act {case}: two runs differ")
 
+    # attention_fwd's streaming form (T > 704: keys and values pass through the block in tiles of
+    # 64), which no path launches yet (a longer audio input would): held and timed all the same
+    for T in ATTENTION_STREAMING_T:
+        B, C, H = 16, 768, 12
+        qkv = rn(B, T, 3 * C)
+        compare(torch, results, "attention_fwd", f"B{B} T{T} C{C} H{H}, streaming (T > 704)",
+                lambda: kernels.attention_fwd(qkv, None, H, 0.125),
+                lambda: kernels.attention_plain(qkv, None, H, 0.125), reads=(qkv,),
+                ops=attn_ops(B, T, H), library=_sdpa(torch, qkv, None, H, 0.125), iters=10)
+        del qkv
+        torch.cuda.empty_cache()
+
 
 def _block_bwd(torch, block, args, g, **kw):
     """Runs ``block(*args, **kw)`` forward once through its autograd boundary
@@ -584,9 +636,6 @@ def backward_kernel_phase(torch, results):
         dh = kernels.gemm_dgrad_plain(dqkv_b, wqkv, False)
         cmp("colsum", case + " dbout", lambda: kernels.colsum(g), lambda: kernels.colsum_plain(g),
             reads=(g,), ops=[(M * C, "fp32")], library=colsum_lib(g))
-        cmp("gemm_dgrad", case + " do=g.Wout", lambda: kernels.gemm_dgrad(g, wout, True),
-            lambda: kernels.gemm_dgrad_plain(g, wout, True), reads=(g, wout),
-            ops=gemm_ops(M, C, C), library=lambda: torch.matmul(g, wout))
         wgrad(cmp, case + " dWout", g, o)
         cmp("attention_bwd", case, lambda: kernels.attention_bwd(qkv, do, cb, H, scale, stats),
             lambda: kernels.attention_bwd_plain(qkv, do, cb, H, scale), reads=(qkv, do, cb, stats),
@@ -594,9 +643,6 @@ def backward_kernel_phase(torch, results):
         cmp("colsum", case + " dbqkv fp32", lambda: kernels.colsum(dqkv),
             lambda: kernels.colsum_plain(dqkv), reads=(dqkv,), ops=[(3 * M * C, "fp32")],
             library=colsum_lib(dqkv))
-        cmp("gemm_dgrad", case + " dh=dqkv.Wqkv fp32", lambda: kernels.gemm_dgrad(dqkv_b, wqkv, False),
-            lambda: kernels.gemm_dgrad_plain(dqkv_b, wqkv, False), reads=(dqkv_b, wqkv),
-            ops=gemm_ops(M, C, 3 * C), library=lambda: torch.matmul(dqkv_b, wqkv))
         wgrad(cmp, case + " dWqkv", dqkv_b, h)
         cmp("layernorm_bwd", case, lambda: kernels.layernorm_bwd(x, lns, dh, residual=g),
             lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=g), reads=(x, lns, dh, g),
@@ -648,16 +694,9 @@ def backward_kernel_phase(torch, results):
             cmp("colsum", c + " dbproj", lambda: kernels.colsum(gy), lambda: kernels.colsum_plain(gy),
                 reads=(gy,), ops=[(M * C, "fp32")], library=colsum_lib(gy))
             wgrad(cmp, c + " dWproj", gy, ga)
-            cmp("gemm_dgrad", c + " da=(gy.Wproj)*act'(a)",
-                lambda: kernels.gemm_dgrad(gy, wproj, True, act, a),
-                lambda: kernels.gemm_dgrad_plain(gy, wproj, True, act, a), reads=(gy, wproj, a),
-                ops=gemm_ops(M, E, C), library=lambda: torch.matmul(gy, wproj))
             cmp("colsum", c + " dbfc", lambda: kernels.colsum(da), lambda: kernels.colsum_plain(da),
                 reads=(da,), ops=[(M * E, "fp32")], library=colsum_lib(da))
             wgrad(cmp, c + " dWfc", da, h)
-            cmp("gemm_dgrad", c + " dh=da.Wfc fp32", lambda: kernels.gemm_dgrad(da, wfc, False),
-                lambda: kernels.gemm_dgrad_plain(da, wfc, False), reads=(da, wfc),
-                ops=gemm_ops(M, C, E), library=lambda: torch.matmul(da, wfc))
             cmp("layernorm_bwd", c, lambda: kernels.layernorm_bwd(x, lns, dh, residual=gy),
                 lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=gy), reads=(x, lns, dh, gy),
                 ops=[(20 * M * C, "fp32")], library=_layer_norm_bwd(torch, x, lns, dh))
@@ -674,6 +713,19 @@ def backward_kernel_phase(torch, results):
     C = 512
     for name, N1, N2 in (("dWout", C, C), ("dWqkv", 3 * C, C), ("dWproj", C, 4 * C), ("dWfc", 4 * C, C)):
         wgrad(cmp, f"caption decoder B64 T77 C512 {name}", rn(64, 77, N1), rn(64, 77, N2))
+
+    # gemm_dgrad alone at every shape the paths give it, bitwise equal over two runs
+    for case, M, N, K, act, rounded in GEMM_DGRAD_CASES:
+        dy, w = rn(M, K), rn(K, N, std=K ** -0.5)
+        a = None if act == "none" else rn(M, N, dtype=torch.float32)
+        compare(torch, results, "gemm_dgrad", f"{case} [{M}x{N}x{K}]",
+                lambda: kernels.gemm_dgrad(dy, w, rounded, act, a),
+                lambda: kernels.gemm_dgrad_plain(dy, w, rounded, act, a), reads=(dy, w, a),
+                ops=gemm_ops(M, N, K), library=lambda: torch.matmul(dy, w), iters=10 if M > 5000 else 20)
+        if not torch.equal(kernels.gemm_dgrad(dy, w, rounded, act, a), kernels.gemm_dgrad(dy, w, rounded, act, a)):
+            raise AssertionError(f"gemm_dgrad {case}: two runs differ")
+        del dy, w, a
+        torch.cuda.empty_cache()
 
 
 def record_launches(results, path, counts):
@@ -830,30 +882,21 @@ def int8_kernel_phase(torch, results):
         cb = fused_attn.canon_bias(bias)
         wq_b = wqkv.bfloat16()
         wq8, swq = kernels.rowquant_plain(wq_b)
-        wo8, swo = kernels.rowquant_plain(wout.bfloat16())
         h8, sh = kernels.layernorm_rowquant_plain(x, lns, lnb)
         qkv = kernels.gemm_i8_plain(h8, sh, wq8, swq, bqkv, col_first=True)
         o = kernels.attention_plain(qkv, cb, H, 0.125, fp32_out=True)
-        o8, so = kernels.rowquant_plain(o)
         args = (x, lns, lnb, wqkv, bqkv, wout, bout, bias, H)
         cmp("rowquant", case + " Wqkv bf16", lambda: kernels.rowquant(wq_b),
             lambda: kernels.rowquant_plain(wq_b), reads=(wq_b,), ops=quant_ops(wq_b), check=codes)
         cmp("layernorm_rowquant", case, lambda: kernels.layernorm_rowquant(x, lns, lnb),
             lambda: kernels.layernorm_rowquant_plain(x, lns, lnb), reads=(x, lns, lnb),
             ops=[(12 * M * C, "fp32")], check=ln_codes(x, lns, lnb))
-        cmp("gemm_i8", case + " qkv (column scale first)",
-            lambda: kernels.gemm_i8(h8, sh, wq8, swq, bqkv, col_first=True),
-            lambda: kernels.gemm_i8_plain(h8, sh, wq8, swq, bqkv, col_first=True),
-            reads=(h8, sh, wq8, swq, bqkv), ops=gemm_ops(M, 3 * C, C, "int8"), library=int_mm(h8, wq8))
         cmp("attention_fwd_f32", case, lambda: kernels.attention_fwd(qkv, cb, H, 0.125, fp32_out=True),
             lambda: kernels.attention_plain(qkv, cb, H, 0.125, fp32_out=True), reads=(qkv, cb),
             ops=attn_ops(B, T, H), library=_sdpa(torch, qkv, cb, H, 0.125))
         cmp("rowquant", case + " context fp32", lambda: kernels.rowquant(o),
             lambda: kernels.rowquant_plain(o), reads=(o,), ops=quant_ops(o), check=codes)
-        cmp("gemm_i8", case + " out+res", lambda: kernels.gemm_i8(o8, so, wo8, swo, bout, residual=x),
-            lambda: kernels.gemm_i8_plain(o8, so, wo8, swo, bout, residual=x),
-            reads=(o8, so, wo8, swo, bout, x), ops=gemm_ops(M, C, C, "int8"), library=int_mm(o8, wo8))
-        del qkv, o, o8, h8
+        del qkv, o, h8
         cmp("fused_ln_attention_block_int8", case,
             lambda: fused_attn.fused_ln_attention_block_int8(*args),
             lambda: fused_attn.fused_ln_attention_block_int8_plain(*args), reads=args[:8],
@@ -874,31 +917,46 @@ def int8_kernel_phase(torch, results):
         wfc, bfc = rn(E, C, std=C ** -0.5, dtype=f32), rn(E, std=0.02, dtype=f32)
         wproj, bproj = rn(C, E, std=E ** -0.5, dtype=f32), rn(C, std=0.02, dtype=f32)
         wf8, sfc = kernels.rowquant_plain(wfc)
-        wp8, spj = kernels.rowquant_plain(wproj)
         h8, hs = kernels.layernorm_rowquant_plain(x, lns, lnb)
         cmp("rowquant", case + " Wfc fp32", lambda: kernels.rowquant(wfc),
             lambda: kernels.rowquant_plain(wfc), reads=(wfc,), ops=quant_ops(wfc), check=codes)
         for act in ("quick_gelu", "gelu"):
             c = f"{case} {act}"
             g = kernels.gemm_i8_plain(h8, hs, wf8, sfc, bfc, act=act, out_dtype=f32)
-            g8, gs = kernels.rowquant_plain(g)
             args = (x, lns, lnb, wfc, bfc, wproj, bproj, act)
-            cmp("gemm_i8", c + " fc, fp32 out",
-                lambda: kernels.gemm_i8(h8, hs, wf8, sfc, bfc, act=act, out_dtype=f32),
-                lambda: kernels.gemm_i8_plain(h8, hs, wf8, sfc, bfc, act=act, out_dtype=f32),
-                reads=(h8, hs, wf8, sfc, bfc), ops=gemm_ops(M, E, C, "int8"), library=int_mm(h8, wf8))
             cmp("rowquant", c + " act(a) fp32", lambda: kernels.rowquant(g),
                 lambda: kernels.rowquant_plain(g), reads=(g,), ops=quant_ops(g), check=codes)
-            cmp("gemm_i8", c + " proj+res", lambda: kernels.gemm_i8(g8, gs, wp8, spj, bproj, residual=x),
-                lambda: kernels.gemm_i8_plain(g8, gs, wp8, spj, bproj, residual=x),
-                reads=(g8, gs, wp8, spj, bproj, x), ops=gemm_ops(M, C, E, "int8"),
-                library=int_mm(g8, wp8))
-            del g, g8
+            del g
             cmp("fused_ln_mlp_block_int8", c, lambda: fused_mlp.fused_ln_mlp_block_int8(*args),
                 lambda: fused_mlp.fused_ln_mlp_block_int8_plain(*args), reads=args[:7],
                 ops=gemm_ops(M, E, C, "int8") + gemm_ops(M, C, E, "int8"),
                 also={"bf16_chain_ms": lambda: fused_mlp.fused_ln_mlp_block(*args)})
             torch.cuda.empty_cache()
+
+    # gemm_i8 alone at every shape the paths give it (one all-zero row, one row of codes at +127
+    # against a column at -127: the largest sum there is), bitwise equal over two runs, and its
+    # integer sum bitwise the exact one at unit scales
+    for case, M, N, K, act, res, out_f32, col_first in GEMM_I8_CASES:
+        x = rn(M, K)
+        x[1] = 0
+        xq, rs = kernels.rowquant_plain(x)
+        wq, cs = kernels.rowquant_plain(rn(N, K, std=K ** -0.5))
+        xq[2], wq[0] = 127, -127
+        b, r = rn(N, std=0.02, dtype=f32), (rn(M, N) if res else None)
+        kw = dict(act=act, residual=r, out_dtype=f32 if out_f32 else torch.bfloat16, col_first=col_first)
+        run = lambda: kernels.gemm_i8(xq, rs, wq, cs, b, **kw)
+        compare(torch, results, "gemm_i8", f"{case} [{M}x{N}x{K}]", run,
+                lambda: kernels.gemm_i8_plain(xq, rs, wq, cs, b, **kw), reads=(xq, rs, wq, cs, b, r),
+                ops=gemm_ops(M, N, K, "int8"), library=int_mm(xq, wq), iters=10 if M > 5000 else 20)
+        if not torch.equal(run(), run()):
+            raise AssertionError(f"gemm_i8 {case}: two runs differ")
+        ones = lambda n: torch.ones(n, 1, device="cuda")
+        exact = kernels.gemm_i8(xq, ones(M), wq, ones(N), torch.zeros(N, device="cuda"), out_dtype=f32)
+        if not torch.equal(exact, kernels.int_matmul_plain(xq, wq)):
+            raise AssertionError(f"gemm_i8 {case}: the integer sum at unit scales is not the exact one")
+        del x, xq, wq, r, exact
+        torch.cuda.empty_cache()
+    print("  gemm_i8: the integer sum at unit scales bitwise the exact one at every case")
 
 
 def int8_serve_phase(torch, results):

@@ -1,11 +1,15 @@
-"""The product shapes ``chip_smoke.py`` holds ``gemm_bias_act`` to on the
-card (``GEMM_FWD_CASES``, which ``experiments/kernel_times.py`` also times),
-checked on the CPU: every case is one the kernel takes, and together they
-cover the four products of every tower the smoke's configurations build,
-so a width that a path runs cannot go untested on the card.
+"""The product shapes ``chip_smoke.py`` holds ``gemm_bias_act``,
+``gemm_dgrad`` and ``gemm_i8`` to on the card (``GEMM_FWD_CASES``,
+``GEMM_DGRAD_CASES``, ``GEMM_I8_CASES``, which
+``experiments/kernel_times.py`` also times), checked on the CPU: every
+case is one the wrapper takes, and together they cover the four products
+of every tower the smoke's configurations build (forward, data grad of the
+trained towers, int8), so a width that a path runs cannot go untested on
+the card.
 
-The kernel itself runs only on a CUDA device (tests/test_torch_kernels_gpu.py);
-on the CPU the wrapper takes its plain version."""
+The kernels themselves run only on a CUDA device
+(tests/test_torch_kernels_gpu.py); on the CPU each wrapper takes its plain
+version, which the last tests check at a small analogue of every case."""
 
 import os
 import sys
@@ -21,6 +25,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the repo root's smoke script: its case list)
 
 CASES = chip_smoke.GEMM_FWD_CASES
+DGRAD_CASES = chip_smoke.GEMM_DGRAD_CASES
+I8_CASES = chip_smoke.GEMM_I8_CASES
+TRAINED = [("FLAGSHIP", ("audio",)), ("CAPTION_FULL", ("audio", "text"))]  # the towers with a backward
+INT8 = [("CLAP_FULL", ("audio", "text")), ("FLAGSHIP", ("image",)), ("CAPTION_FULL", ("audio", "text"))]
 
 
 @pytest.mark.parametrize("case,M,N,K,act,res,pre", CASES, ids=[c[0] for c in CASES])
@@ -65,3 +73,84 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     kernels.reset_launches()
     assert torch.equal(kernels.gemm_bias_act(x, w, b, "gelu"), kernels.gemm_bias_act_plain(x, w, b, "gelu"))
     assert kernels.LAUNCHES["gemm_bias_act"] == 0
+
+
+@pytest.mark.parametrize("case,M,N,K,act,rounded", DGRAD_CASES, ids=[c[0] for c in DGRAD_CASES])
+def test_every_dgrad_case_is_one_the_wrapper_takes(case, M, N, K, act, rounded):
+    assert M > 0 and K > 0 and K % 8 == 0 and N > 0 and N % 8 == 0  # TMA's 16-byte row strides
+    assert act in kernels.ACTS
+    assert rounded or act == "none"  # the act-grad product feeds the next product in bf16
+
+
+@pytest.mark.parametrize("case,M,N,K,act,res,f32,col_first", I8_CASES, ids=[c[0] for c in I8_CASES])
+def test_every_i8_case_is_one_the_wrapper_takes(case, M, N, K, act, res, f32, col_first):
+    assert M > 16 and K % 16 == 0 and N % 8 == 0  # the wrapper's rule; torch._int_mm's M > 16
+    assert act in kernels.ACTS
+    assert not (res and f32)  # the residual is added to a bf16 result
+    assert not (col_first and act != "none")  # only the qkv projection scales its columns first
+
+
+def _dgrad_products(C):
+    """(N, K) of a transformer layer's four data-grad products at width C:
+    dy [M, K] . w [K, N] for do = g.Wout, dh = dqkv.Wqkv, da = gy.Wproj,
+    dh = da.Wfc."""
+    return {(C, C), (C, 3 * C), (4 * C, C), (C, 4 * C)}
+
+
+@pytest.mark.parametrize("name,towers", TRAINED)
+def test_dgrad_cases_cover_every_trained_tower(name, towers):
+    cfg = compose(getattr(chip_smoke, name))
+    have = {(N, K) for _, _, N, K, *_ in DGRAD_CASES}
+    for tower in towers:
+        C = int(getattr(cfg.model, tower).width)
+        missing = _dgrad_products(C) - have
+        assert not missing, f"{name} {tower} width {C}: no case for (N, K) in {sorted(missing)}"
+        grads = {act for _, _, N, K, act, _ in DGRAD_CASES if (N, K) == (4 * C, C)}
+        assert grads == set(kernels.ACTS) - {"none"}, f"{name} {tower}: activation grads {grads}"
+
+
+@pytest.mark.parametrize("name,towers", INT8)
+def test_i8_cases_cover_every_int8_tower(name, towers):
+    cfg = compose(getattr(chip_smoke, name))
+    have = {(N, K) for _, _, N, K, *_ in I8_CASES}
+    for tower in towers:
+        C = int(getattr(cfg.model, tower).width)
+        missing = _products(C) - have
+        assert not missing, f"{name} {tower} width {C}: no case for (N, K) in {sorted(missing)}"
+
+
+def _small(M, N, K):
+    """A CPU-sized analogue of an [M x N x K] product: a ragged row count,
+    N and K cut by 32 (a tower of width 24 or 16)."""
+    return 3 + M % 29, N // 32, K // 32
+
+
+@pytest.mark.parametrize("case,M,N,K,act,rounded", DGRAD_CASES, ids=[c[0] for c in DGRAD_CASES])
+def test_dgrad_wrapper_takes_the_plain_version_on_the_cpu(case, M, N, K, act, rounded):
+    m, n, k = _small(M, N, K)
+    r = np.random.default_rng(M + N + K)
+    dy = torch.from_numpy(r.standard_normal((2, m, k)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(r.standard_normal((k, n)).astype(np.float32)).bfloat16()
+    a = None if act == "none" else torch.from_numpy(r.standard_normal((2, m, n)).astype(np.float32))
+    kernels.reset_launches()
+    got = kernels.gemm_dgrad(dy, w, rounded, act, a)
+    assert got.shape == (2, m, n) and got.dtype == (torch.bfloat16 if rounded else torch.float32)
+    assert torch.equal(got, kernels.gemm_dgrad_plain(dy, w, rounded, act, a))
+    assert kernels.LAUNCHES["gemm_dgrad"] == 0
+
+
+@pytest.mark.parametrize("case,M,N,K,act,res,f32,col_first", I8_CASES, ids=[c[0] for c in I8_CASES])
+def test_i8_wrapper_takes_the_plain_version_on_the_cpu(case, M, N, K, act, res, f32, col_first):
+    m, n, k = _small(M, N, K)
+    r = np.random.default_rng(M + N + K)
+    xq, rs = kernels.rowquant_plain(torch.from_numpy(r.standard_normal((2, m, k)).astype(np.float32)))
+    wq, cs = kernels.rowquant_plain(torch.from_numpy(r.standard_normal((n, k)).astype(np.float32)))
+    b = torch.from_numpy(r.standard_normal(n).astype(np.float32))
+    residual = torch.from_numpy(r.standard_normal((2, m, n)).astype(np.float32)).bfloat16() if res else None
+    kw = dict(act=act, residual=residual, out_dtype=torch.float32 if f32 else torch.bfloat16,
+              col_first=col_first)
+    kernels.reset_launches()
+    got = kernels.gemm_i8(xq, rs, wq, cs, b, **kw)
+    assert got.shape == (2, m, n) and got.dtype == kw["out_dtype"]
+    assert torch.equal(got, kernels.gemm_i8_plain(xq, rs, wq, cs, b, **kw))
+    assert kernels.LAUNCHES["gemm_i8"] == 0

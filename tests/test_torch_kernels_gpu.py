@@ -12,8 +12,8 @@ over thousands of rows in another order. Int8 codes: equal except a share
 of at most 1e-3 off by exactly one, scales to 1e-6 relative; the int32 sum
 of gemm_i8 is exact (compared bitwise at unit scales). The flash-attention
 kernels give the same bits for every layout of q, k, v, and their bias grad
-the same bits in every run; so do gemm_bias_act, gemm_wgrad and
-attention_bwd, whose recomputed p is bitwise the forward's."""
+the same bits in every run; so do gemm_bias_act, gemm_dgrad, gemm_wgrad,
+gemm_i8 and attention_bwd, whose recomputed p is bitwise the forward's."""
 
 from unittest import mock
 
@@ -217,6 +217,27 @@ def test_gemm_bias_act_kernel_matches_plain_and_repeats(gen, M, N, K):
     y, a = kernels.gemm_bias_act(ix, iw, ib, preact=True)
     y0, a0 = kernels.gemm_bias_act_plain(ix, iw, ib, preact=True)
     assert torch.equal(a, a0) and torch.equal(y, y0)
+
+
+@pytest.mark.parametrize("M,N,K", [
+    (19584, 768, 768), (19584, 768, 2304), (19584, 3072, 768), (19584, 768, 3072),  # audio tower, B = 64
+    (4928, 512, 512), (4928, 512, 1536), (4928, 2048, 512), (4928, 512, 2048),      # caption decoder, B = 64
+    (1224, 768, 768), (111, 64, 256), (111, 200, 40), (63, 136, 24), (1, 64, 8),    # ragged M, N = 64, K < 64
+])
+def test_gemm_dgrad_kernel_matches_plain_and_repeats(gen, M, N, K):
+    dy, w, pre = _rn(gen, M, K).bfloat16(), _rn(gen, K, N, std=K ** -0.5).bfloat16(), _rn(gen, M, N)
+    for act in ("none", "quick_gelu", "gelu"):
+        p = None if act == "none" else pre
+        for rounded in (True, False):
+            reset_launches()
+            got = kernels.gemm_dgrad(dy, w, rounded, act, p)
+            assert LAUNCHES == {"gemm_dgrad": 1}
+            _close(got, kernels.gemm_dgrad_plain(dy, w, rounded, act, p), f"{act} rounded={rounded}")
+            assert torch.equal(got, kernels.gemm_dgrad(dy, w, rounded, act, p))  # no atomics, no K split
+    # small integers sum exactly in fp32 whatever the order: any misplaced element shows
+    idy = torch.randint(-3, 4, (M, K), generator=gen, device="cuda").bfloat16()
+    iw = torch.randint(-3, 4, (K, N), generator=gen, device="cuda").bfloat16()
+    assert torch.equal(kernels.gemm_dgrad(idy, iw, False), kernels.gemm_dgrad_plain(idy, iw, False))
 
 
 def test_gemm_wgrad_takes_batched_operands_and_rejects_others(gen):
@@ -492,7 +513,8 @@ def test_layernorm_rowquant_kernel_matches_plain(gen, B, T, C):
 
 
 @pytest.mark.parametrize("M,N,K", [(1224, 2304, 768), (1224, 768, 3072), (308, 1536, 512),
-                                   (308, 512, 2048), (19584, 3072, 768), (111, 64, 256),
+                                   (308, 512, 2048), (19584, 3072, 768), (19584, 768, 3072),
+                                   (3200, 2304, 768), (111, 64, 256), (111, 64, 80),
                                    (50, 24, 80)])  # K and N short of a tile, K not a multiple of 32
 def test_gemm_i8_kernel_matches_plain(gen, M, N, K):
     xq, rs = kernels.rowquant(_rn(gen, M, K))
@@ -502,9 +524,12 @@ def test_gemm_i8_kernel_matches_plain(gen, M, N, K):
         xq[0], wq[0] = 127, -127
     for kw in (dict(), dict(col_first=True), dict(residual=res), dict(act="quick_gelu", out_dtype=torch.float32),
                dict(act="gelu", out_dtype=torch.float32)):
+        reset_launches()
         got = kernels.gemm_i8(xq, rs, wq, cs, b, **kw)
+        assert LAUNCHES == {"gemm_i8": 1}
         want = kernels.gemm_i8_plain(xq, rs, wq, cs, b, **kw)
         _close(got, want, f"gemm_i8 {kw}")
+        assert torch.equal(got, kernels.gemm_i8(xq, rs, wq, cs, b, **kw))  # no atomics: the same bits
     # the integer sum itself is exact: unit scales, no bias
     one_r, one_c = torch.ones(M, 1, device="cuda"), torch.ones(N, 1, device="cuda")
     got = kernels.gemm_i8(xq, one_r, wq, one_c, torch.zeros(N, device="cuda"), out_dtype=torch.float32)

@@ -1,4 +1,4 @@
-// cp.async helpers shared by gemm.cu, attention.cu and attention_bwd.cu:
+// cp.async helpers shared by attention.cu and attention_bwd.cu:
 // 16- and 4-byte asynchronous copies from device to shared memory,
 // committed in groups.
 

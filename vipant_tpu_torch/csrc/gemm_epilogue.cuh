@@ -1,9 +1,10 @@
-// The epilogue of the bf16 matrix products (gemm_fwd.cu: gemm_bias_act;
-// gemm.cu: gemm_dgrad), in the Pallas rounding order, all in fp32 until the
-// one rounding: + bias; the pre-activation kept in fp32 if asked; times
-// act'(preact) (the MLP's activation grad); the activation; then either an
-// fp32 store or one bf16 rounding, after which a residual is added in bf16
-// (computed in fp32, rounded).
+// The epilogues of the bf16 matrix products, in the Pallas rounding order,
+// all in fp32 until the one rounding. gemm_fwd.cu (gemm_bias_act): + bias;
+// the pre-activation kept in fp32 if asked; the activation; one bf16
+// rounding, after which a residual is added in bf16 (computed in fp32,
+// rounded). gemm_dgrad.cu: times act'(preact) (the MLP's activation grad);
+// then either an fp32 store or one bf16 rounding. The i8 product
+// (gemm_i8.cu) shares the activation.
 
 #pragma once
 
@@ -34,14 +35,12 @@ __device__ __forceinline__ float act_grad(float a, int act) {
   return 1.f;
 }
 
+// gemm_bias_act's epilogue
 struct Epilogue {
   const float* bias;              // [N] or null
-  const float* grad_preact;       // [M, N] fp32: multiply by act_grad(.) (dgrad) or null
-  int grad_act;
   int act;                        // activation applied last
   float* preact;                  // [M, N] fp32 copy of (sum + bias) or null
-  float* out_f32;                 // [M, N] fp32 result or null
-  __nv_bfloat16* out_bf16;        // [M, N] bf16 result or null
+  __nv_bfloat16* out_bf16;        // [M, N] bf16 result
   const __nv_bfloat16* residual;  // added after the bf16 rounding, or null
 };
 
@@ -49,21 +48,17 @@ struct Epilogue {
 __device__ __forceinline__ void epilogue_at(const Epilogue& ep, float v, size_t o, int gn) {
   if (ep.bias != nullptr) v = __fadd_rn(v, ep.bias[gn]);
   if (ep.preact != nullptr) ep.preact[o] = v;
-  if (ep.grad_preact != nullptr) v = v * act_grad(ep.grad_preact[o], ep.grad_act);
   v = act_fwd(v, ep.act);
-  if (ep.out_f32 != nullptr) ep.out_f32[o] = v;
-  if (ep.out_bf16 != nullptr) {
-    __nv_bfloat16 y = __float2bfloat16(v);
-    if (ep.residual != nullptr)
-      y = __float2bfloat16(__bfloat162float(ep.residual[o]) + __bfloat162float(y));
-    ep.out_bf16[o] = y;
-  }
+  __nv_bfloat16 y = __float2bfloat16(v);
+  if (ep.residual != nullptr)
+    y = __float2bfloat16(__bfloat162float(ep.residual[o]) + __bfloat162float(y));
+  ep.out_bf16[o] = y;
 }
 
 // the same for two neighbouring columns (o even, N even) whose bias b and
 // residual r the caller loaded before (r unused without a residual), with a
-// paired store; no activation grad (the forward's epilogue). kAct is
-// ep.act, fixed at compile time so only its activation is compiled in.
+// paired store. kAct is ep.act, fixed at compile time so only its
+// activation is compiled in.
 template <int kAct>
 __device__ __forceinline__ void epilogue_pair(const Epilogue& ep, float v0, float v1, float2 b,
                                               __nv_bfloat162 r, size_t o) {
@@ -75,6 +70,23 @@ __device__ __forceinline__ void epilogue_pair(const Epilogue& ep, float v0, floa
     y = __floats2bfloat162_rn(__bfloat162float(r.x) + __bfloat162float(y.x),
                               __bfloat162float(r.y) + __bfloat162float(y.y));
   *reinterpret_cast<__nv_bfloat162*>(ep.out_bf16 + o) = y;
+}
+
+// gemm_dgrad's epilogue for two neighbouring columns (o even, N even): the
+// sums times act'(a) of their fp32 pre-activations a, which the caller
+// loaded before (unused for kAct = kNone), then a paired fp32 store
+// (out_f32 not null) or one bf16 rounding.
+template <int kAct>
+__device__ __forceinline__ void act_grad_pair(float v0, float v1, float2 a, float* out_f32,
+                                              __nv_bfloat16* out_bf16, size_t o) {
+  if (kAct != kNone) {
+    v0 = v0 * act_grad(a.x, kAct);
+    v1 = v1 * act_grad(a.y, kAct);
+  }
+  if (out_f32 != nullptr)
+    *reinterpret_cast<float2*>(out_f32 + o) = make_float2(v0, v1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(out_bf16 + o) = __floats2bfloat162_rn(v0, v1);
 }
 
 }  // namespace gemm_epi

@@ -143,7 +143,7 @@ gemm_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < BK / 16; ++k)  // 16 k further on: 32 bytes, in the descriptor's 16-byte units
-        wgmma_m64n128k16<0>(acc, desc_x + 2 * k, desc_w + 2 * k);
+        wgmma_m64n128k16<0, 0>(acc, desc_x + 2 * k, desc_w + 2 * k);
       wgmma_commit();
       if (ks > 0) {
         wgmma_wait<1>();  // the group before this one has read its stage
@@ -217,27 +217,7 @@ __global__ void gemm_fwd_epilogue_kernel(const float* __restrict__ partial, Epil
   epilogue_at(ep, partial[i], i, static_cast<int>(i % N));
 }
 
-template <int kAct>
-bool raise_smem_limit() {
-  return cudaFuncSetAttribute(gemm_fwd_kernel<kAct>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes) ==
-         cudaSuccess;
-}
-
-// the SMs of the current device; the kernels' shared-memory limit is raised
-// once per device
-int prepare_device() {
-  static int sms[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return -1;
-  if (sms[dev] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        !raise_smem_limit<kNone>() || !raise_smem_limit<kQuickGelu>() || !raise_smem_limit<kGelu>())
-      return -1;
-    sms[dev] = n;
-  }
-  return sms[dev];
-}
+int sms[64];  // the SMs of each device whose shared-memory limits are raised (prepare_device)
 
 }  // namespace
 
@@ -251,13 +231,14 @@ extern "C" int vt_gemm_bias_act(const void* x, const void* w, const void* bias, 
   const bool odd = N & 1;  // raw fp32 sums, then the epilogue in a second kernel
   if (K <= 0 || K % 8 != 0 || (odd && partial == nullptr) || act < kNone || act > kGelu)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int slots = prepare_device() * kBlocksPerSM;
+  const int slots = kBlocksPerSM * prepare_device(sms, kSmemBytes, gemm_fwd_kernel<kNone>,
+                                                  gemm_fwd_kernel<kQuickGelu>, gemm_fwd_kernel<kGelu>);
   if (slots <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   CUtensorMap map_x, map_w;
   if (!make_map(&map_x, x, M, K, BM) || !make_map(&map_w, w, N, K, BN))
     return static_cast<int>(cudaErrorNotSupported);
-  const Epilogue ep{static_cast<const float*>(bias), nullptr, kNone, act, static_cast<float*>(preact),
-                    nullptr, static_cast<__nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(res)};
+  const Epilogue ep{static_cast<const float*>(bias), act, static_cast<float*>(preact),
+                    static_cast<__nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(res)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long total = static_cast<long long>((N + BN - 1) / BN) * ((M + BM - 1) / BM);
   const dim3 grid(static_cast<unsigned>(total < slots ? total : slots));

@@ -19,224 +19,233 @@
 // kernel quantizes act(a) from fp32 and the per-token scale needs the whole
 // 4C-wide row.
 //
-// Bound: tensor-core operations at the slice's shapes (M = B*T in the
-// thousands, N and K in 512..3072). This first version issues warp-level
-// `mma.sync.m16n8k32` (s8 x s8 -> s32), not Hopper's `wgmma`, through a
-// two-stage cp.async ring, so it reaches only a share of the card's int8
-// peak.
+// Bound: at M = 19,584 (the audio tower at batch 64) int8 tensor-core
+// operations (2 M N K against 1,979 TOP/s: qkv 0.035 ms) where the output is
+// bf16; the fc product's fp32 output (240 MB, 0.077 ms) where it is fp32.
 //
-// Design: a block computes a 128x128 tile of Y with 8 warps (2 x 4, 64x32
-// each: 4 x 4 mma tiles, 64 int32 accumulators a thread), walking K in steps
-// of 64 bytes. Both operands are K-contiguous, staged [128][64 + 16] bytes:
-// the 80-byte row pitch puts the eight rows a warp reads at once on distinct
-// banks, so every fragment register is one conflict-free 4-byte shared load
-// and nothing is transposed. Rows past M, columns past N and steps past K
-// are zero-filled on load (K % 16 == 0, so a 16-byte chunk is wholly in or
-// out) and masked on store: M = B*T is ragged.
+// Design: gemm_dgrad.cu's, with `wgmma.mma_async` m64n128k32 s32.s8.s8.
+// Persistent blocks, two an SM, each walking 128 x 128 output tiles (N
+// fastest) over all of K through a ring of kStages stages filled by TMA
+// (tensor maps of UINT8, completion counted on mbarriers); two warpgroups
+// own 64 x 128 of the tile each and keep one group of `wgmma` in flight
+// while they release the stage before it; thread 0 refills each released
+// stage at once with the stage kStages further on, of this tile or the
+// next. 8 warps a block, no producer warp: 128 registers a thread, no
+// spills (with a producer warp the cap is 96, the epilogue spilled up to 800
+// bytes and every product ran slower). Both operands are K contiguous,
+// the only form 8-bit `wgmma` takes: a 128-byte swizzled row holds 128 k,
+// so a stage (an Xq and a Wq box of 128 rows x 128 k, 32 KB) is four k32
+// steps of +32 bytes on the descriptors' addresses. TMA zero-fills rows past
+// M and N and k past K (K = 80: the stage's last 48 bytes), so ragged shapes
+// need no code in the loop; K % 16 == 0 is TMA's stride rule.
+// The int32 sums are exact (K = 3,072 codes of +-127 stay far below 2^31).
 //
-// The int32 sum is exact. Epilogue, in the Pallas order, every step one fp32
-// rounding (no fused multiply-add): convert the sum to fp32; times the row
-// scale, then the column scale (or the column scale first: the qkv projection
-// of _fwd_int8_kernel multiplies in that order); plus bias; the activation;
-// then an fp32 store, or one bf16 rounding after which the residual is added
-// in bf16.
+// Epilogue straight from the accumulator registers, in pairs of columns, in
+// the Pallas order, every step one fp32 rounding (no fused multiply-add):
+// __int2float_rn of the exact sum; times the row scale, then the column
+// scale (the column scale first under col_first: the qkv projection of
+// _fwd_int8_kernel multiplies in that order); plus bias; the activation;
+// then an fp32 store, or one bf16 rounding after which the residual is
+// added in bf16. The row scales of a lane's two rows, and the column scales,
+// bias and residual of kGroup x 8 columns, are loaded before any store of
+// those columns. No atomics: the same inputs give the same bits in every run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "gemm_epilogue.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64;  // BK in int8 elements = bytes
-constexpr int LD = BK + 16;                 // staged row pitch: 80 bytes
-constexpr int kThreads = 256;
-constexpr int WM = 64, WN = 32;           // warp tile
-constexpr int FM = WM / 16, FN = WN / 8;  // 4 x 4 mma tiles (m16n8) per warp
-constexpr int kStageBytes = BM * LD;
+using namespace hopper;
+using gemm_epi::act_fwd;
+using gemm_epi::kGelu;
+using gemm_epi::kNone;
+using gemm_epi::kQuickGelu;
 
-enum Act : int { kNone = 0, kQuickGelu = 1, kGelu = 2 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // src-size 0: write 16 zero bytes, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Stage rows [row0, row0 + 128) x bytes [k0, k0 + 64) of a [rows, K] int8
-// operand: 512 chunks of 16 bytes, two per thread.
-__device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* src, int row0, int rows,
-                                          int k0, int K) {
-#pragma unroll
-  for (int i = 0; i < (BM * BK / 16) / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c >> 2, kc = (c & 3) * 16;
-    const int gr = row0 + r, gk = k0 + kc;
-    const bool in = gr < rows && gk < K;
-    const int8_t* g = in ? src + static_cast<size_t>(gr) * K + gk : src;
-    cp_async16(dst + r * LD + kc, g, in);
-  }
-}
-
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D = A . B + D for one m16n8k32 tile: A row-major [16, 32], B col-major
-// [32, 8] (both K-contiguous), int8 in, int32 out
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float act_fwd(float v, int act) {
-  if (act == kQuickGelu) return v * (1.f / (1.f + expf(-1.702f * v)));
-  if (act == kGelu) return v * (erff(v * 0.70710678118654752f) + 1.f) * 0.5f;
-  return v;
-}
+constexpr int BM = 128, BN = 128;  // output tile
+constexpr int BK = 128;            // k per stage: one 128-byte swizzled row of codes
+constexpr int kStages = 3;
+constexpr int kBoxBytes = 128 * BK;                 // one TMA box: 128 rows x 128 bytes
+constexpr int kStageBytes = 2 * kBoxBytes;          // Xq, Wq
+constexpr int kConsumerWarps = 8;                   // two warpgroups, 64 x 128 of the tile each
+constexpr int kThreads = kConsumerWarps * 32;       // thread 0 also feeds the ring
+constexpr int kBlocksPerSM = 2;
+constexpr int kGroup = 2;         // epilogue: columns x 8 whose scales, bias, residual load before their stores
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kStages * 8;  // 1024: alignment
 
 struct Epilogue {
   const float* row_scale;         // [M]
   const float* col_scale;         // [N]
   const float* bias;              // [N]
   int col_first;                  // multiply by the column scale before the row scale
-  int act;
   float* out_f32;                 // [M, N] fp32 result or null
   __nv_bfloat16* out_bf16;        // [M, N] bf16 result or null
   const __nv_bfloat16* residual;  // added after the bf16 rounding, or null
 };
 
-__device__ __forceinline__ float finish(int sum, float rs, float cs, float bias,
-                                        const Epilogue& ep) {
-  const float v = __int2float_rn(sum);
-  const float d = ep.col_first ? __fmul_rn(__fmul_rn(v, cs), rs) : __fmul_rn(__fmul_rn(v, rs), cs);
-  return act_fwd(__fadd_rn(d, bias), ep.act);
+// the sum times s0, then s1 (the row and the column scale in the caller's
+// order), plus bias, the activation
+template <int kAct>
+__device__ __forceinline__ float finish(int sum, float s0, float s1, float bias) {
+  return act_fwd(__fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(sum), s0), s1), bias), kAct);
 }
 
-// two neighbouring columns (gn, gn + 1) of row gm; N is even, so both are in
-__device__ __forceinline__ void store_pair(const Epilogue& ep, size_t o, float v0, float v1) {
-  if (ep.out_f32 != nullptr) *reinterpret_cast<float2*>(ep.out_f32 + o) = make_float2(v0, v1);
-  if (ep.out_bf16 != nullptr) {
-    __nv_bfloat16 y0 = __float2bfloat16(v0), y1 = __float2bfloat16(v1);
-    if (ep.residual != nullptr) {
-      const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(ep.residual + o);
-      y0 = __float2bfloat16(__bfloat162float(r.x) + __bfloat162float(y0));
-      y1 = __float2bfloat16(__bfloat162float(r.y) + __bfloat162float(y1));
-    }
-    __nv_bfloat162 y;
-    y.x = y0;
-    y.y = y1;
-    *reinterpret_cast<__nv_bfloat162*>(ep.out_bf16 + o) = y;
-  }
-}
+// persistent: tile t = (M tile, N tile), N fastest, for t = blockIdx.x,
+// blockIdx.x + gridDim.x, ...; kAct is the activation
+template <int kAct>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+gemm_i8_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+               Epilogue ep, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t tiles = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle wants 1,024-byte boxes
+  const uint32_t full = tiles + kStages * kStageBytes;           // one mbarrier per stage: filled
+  const uint32_t empty = full + kStages * 8;                     // one per stage: read by all consumers
 
-__global__ void __launch_bounds__(kThreads)
-gemm_i8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M, int N, int K,
-               Epilogue ep) {
-  __shared__ __align__(128) int8_t As[2][kStageBytes];
-  __shared__ __align__(128) int8_t Bs[2][kStageBytes];
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tn = (N + BN - 1) / BN, total = tn * ((M + BM - 1) / BM), nsteps = (K + BK - 1) / BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;  // the mma fragment's row group and column quad
 
-  int acc[FM][FN][4];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const int nk = (K + BK - 1) / BK;
-  load_tile(As[0], A, m0, M, 0, K);
-  load_tile(Bs[0], B, n0, N, 0, K);
-  cp_async_commit();
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(As[s ^ 1], A, m0, M, (kt + 1) * BK, K);
-      load_tile(Bs[s ^ 1], B, n0, N, (kt + 1) * BK, K);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
     }
-    cp_async_commit();  // possibly empty: keeps "all but the newest group" meaning tile kt
-    cp_async_wait_one();
-    __syncthreads();
-
-    const int8_t* as = As[s] + (wm * WM + g) * LD + t * 4;
-    const int8_t* bs = Bs[s] + (wn * WN + g) * LD + t * 4;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t a[FM][4], b[FN][2];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        const int8_t* p = as + i * 16 * LD + kk;
-        a[i][0] = lds32(p);                // row g,     k = t*4 ..
-        a[i][1] = lds32(p + 8 * LD);       // row g + 8
-        a[i][2] = lds32(p + 16);           // row g,     k = 16 + t*4 ..
-        a[i][3] = lds32(p + 8 * LD + 16);  // row g + 8
-      }
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int8_t* p = bs + j * 8 * LD + kk;
-        b[j][0] = lds32(p);       // column g, k = t*4 ..
-        b[j][1] = lds32(p + 16);  // column g, k = 16 + t*4 ..
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) mma_s8(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();  // stage s is refilled by the next iteration's loads
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  // Epilogue from the accumulator registers: a thread holds rows g and g + 8
-  // and columns 2t, 2t + 1 of each m16n8 tile.
+  // thread 0 feeds the ring: stage g of the block's walk (k step g % nsteps
+  // of its tile g / nsteps) into slot g % kStages, once every consumer warp
+  // has released the slot's previous stage (g - kStages); the first pass
+  // over the ring finds every slot empty (parity 1 passes on a fresh barrier)
+  const int nstages = (total - blockIdx.x + gridDim.x - 1) / gridDim.x * nsteps;
+  const auto load = [&](int g) {
+    if (g >= nstages) return;
+    const int s = g % kStages, t = blockIdx.x + g / nsteps * gridDim.x, ks = g % nsteps;
+    const int m0 = t / tn * BM, n0 = t % tn * BN;
+    mbar_wait(empty + 8 * s, ((g / kStages) & 1) ^ 1);
+    mbar_expect_tx(full + 8 * s, kStageBytes);
+    const uint32_t dst = tiles + s * kStageBytes;
+    tma_load(dst, &map_x, full + 8 * s, ks * BK, m0);
+    tma_load(dst + kBoxBytes, &map_w, full + 8 * s, ks * BK, n0);
+  };
+  if (threadIdx.x == 0)
+    for (int g = 0; g < kStages; ++g) load(g);
+
+  // consumers: warpgroup wg owns tile rows [64 wg, 64 wg + 64) (the second
+  // half of Xq's box, 64 rows x 128 bytes on) against all 128 rows of Wq's box
+  const int wg = warp >> 2;
+  int acc[64];
+  int it = 0;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const int m0 = t / tn * BM, n0 = t % tn * BN;
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
+    fence_acc(acc);
+    for (int ks = 0; ks < nsteps; ++ks, ++it) {
+      const int s = it % kStages;
+      mbar_wait(full + 8 * s, (it / kStages) & 1);
+      const uint32_t stage = tiles + s * kStageBytes;
+      const uint64_t desc_x = sw128_desc(stage + wg * 64 * 128, 16);
+      const uint64_t desc_w = sw128_desc(stage + kBoxBytes, 16);
+      wgmma_fence();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gm = m0 + wm * WM + i * 16 + g + h * 8;
-      if (gm >= M) continue;
-      const float rs = ep.row_scale[gm];
+      for (int k = 0; k < BK / 32; ++k)  // 32 codes further on: 32 bytes, in the descriptor's 16-byte units
+        wgmma_m64n128k32_s8(acc, desc_x + 2 * k, desc_w + 2 * k);
+      wgmma_commit();
+      if (ks > 0) {
+        wgmma_wait<1>();  // the group before this one has read its stage
+        if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kStages));
+        if (threadIdx.x == 0) load(it - 1 + kStages);
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kStages));
+    if (threadIdx.x == 0) load(it - 1 + kStages);  // the next tile's stages arrive during the epilogue
+
+    // accumulator 4 j + 2 h + e: row r + 8 h, column c + 8 j + e (hopper.cuh);
+    // N is a multiple of 8, so a pair is wholly in or out
+    const int r = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+    const int c = n0 + (lane & 3) * 2;
+    float rs[2];
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int gn = n0 + wn * WN + j * 8 + t * 2;
-        if (gn >= N) continue;
-        const float v0 = finish(acc[i][j][2 * h], rs, ep.col_scale[gn], ep.bias[gn], ep);
-        const float v1 =
-            finish(acc[i][j][2 * h + 1], rs, ep.col_scale[gn + 1], ep.bias[gn + 1], ep);
-        store_pair(ep, static_cast<size_t>(gm) * N + gn, v0, v1);
+    for (int h = 0; h < 2; ++h) rs[h] = r + 8 * h < M ? ep.row_scale[r + 8 * h] : 0.f;
+#pragma unroll
+    for (int j0 = 0; j0 < BN / 8; j0 += kGroup) {
+      float2 cs[kGroup], bias[kGroup];
+      __nv_bfloat162 res[kGroup][2];
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+        const int col = c + (j0 + jj) * 8;
+        const bool in = col < N;
+        cs[jj] = in ? *reinterpret_cast<const float2*>(ep.col_scale + col) : make_float2(0.f, 0.f);
+        bias[jj] = in ? *reinterpret_cast<const float2*>(ep.bias + col) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r + 8 * h;
+          res[jj][h] = ep.residual != nullptr && row < M && in
+                           ? *reinterpret_cast<const __nv_bfloat162*>(ep.residual +
+                                                                      static_cast<size_t>(row) * N + col)
+                           : __floats2bfloat162_rn(0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+        const int col = c + (j0 + jj) * 8;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r + 8 * h;
+          if (row >= M || col >= N) continue;
+          const int i = 4 * (j0 + jj) + 2 * h;
+          const float v0 = ep.col_first ? finish<kAct>(acc[i], cs[jj].x, rs[h], bias[jj].x)
+                                        : finish<kAct>(acc[i], rs[h], cs[jj].x, bias[jj].x);
+          const float v1 = ep.col_first ? finish<kAct>(acc[i + 1], cs[jj].y, rs[h], bias[jj].y)
+                                        : finish<kAct>(acc[i + 1], rs[h], cs[jj].y, bias[jj].y);
+          const size_t o = static_cast<size_t>(row) * N + col;
+          if (ep.out_f32 != nullptr) {
+            *reinterpret_cast<float2*>(ep.out_f32 + o) = make_float2(v0, v1);
+          } else {
+            __nv_bfloat162 y = __floats2bfloat162_rn(v0, v1);
+            if (ep.residual != nullptr)
+              y = __floats2bfloat162_rn(__bfloat162float(res[jj][h].x) + __bfloat162float(y.x),
+                                        __bfloat162float(res[jj][h].y) + __bfloat162float(y.y));
+            *reinterpret_cast<__nv_bfloat162*>(ep.out_bf16 + o) = y;
+          }
+        }
       }
     }
   }
 }
+
+int sms[64];  // the SMs of each device whose shared-memory limits are raised (prepare_device)
 
 }  // namespace
 
 // y [M, N] = act(float(xq . wq^T) * scales + bias), fp32 into y_f32 or rounded
-// to bf16 (+ res) into y_bf16. xq [M, K], wq [N, K] int8; K % 16 == 0, N even.
+// to bf16 (+ res) into y_bf16. xq [M, K], wq [N, K] int8; K % 16 == 0, N % 8
+// == 0.
 extern "C" int vt_gemm_i8(const void* xq, const void* row_scale, const void* wq,
                           const void* col_scale, const void* bias, const void* res, void* y_f32,
                           void* y_bf16, int M, int N, int K, int act, int col_first,
                           void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  Epilogue ep{static_cast<const float*>(row_scale), static_cast<const float*>(col_scale),
-              static_cast<const float*>(bias), col_first, act, static_cast<float*>(y_f32),
-              static_cast<__nv_bfloat16*>(y_bf16), static_cast<const __nv_bfloat16*>(res)};
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_i8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wq), M, N, K, ep);
+  if (K <= 0 || K % 16 != 0 || N % 8 != 0 || act < kNone || act > kGelu ||
+      (y_f32 == nullptr) == (y_bf16 == nullptr) || (res != nullptr && y_bf16 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int slots = kBlocksPerSM * prepare_device(sms, kSmemBytes, gemm_i8_kernel<kNone>,
+                                                  gemm_i8_kernel<kQuickGelu>, gemm_i8_kernel<kGelu>);
+  if (slots <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  CUtensorMap map_x, map_w;
+  if (!make_map(&map_x, xq, M, K, BM, CU_TENSOR_MAP_DATA_TYPE_UINT8) ||
+      !make_map(&map_w, wq, N, K, BN, CU_TENSOR_MAP_DATA_TYPE_UINT8))
+    return static_cast<int>(cudaErrorNotSupported);
+  const Epilogue ep{static_cast<const float*>(row_scale), static_cast<const float*>(col_scale),
+                    static_cast<const float*>(bias), col_first, static_cast<float*>(y_f32),
+                    static_cast<__nv_bfloat16*>(y_bf16), static_cast<const __nv_bfloat16*>(res)};
+  const long long total = static_cast<long long>((N + BN - 1) / BN) * ((M + BM - 1) / BM);
+  const dim3 grid(static_cast<unsigned>(total < slots ? total : slots));
+  const auto kernel = act == kQuickGelu ? gemm_i8_kernel<kQuickGelu>
+                      : act == kGelu    ? gemm_i8_kernel<kGelu>
+                                        : gemm_i8_kernel<kNone>;
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(map_x, map_w, ep, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -126,7 +126,7 @@ wgrad_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
     for (int k = 0; k < BK / 16; ++k) {
       // 16 reduction rows further on: 16 x 128 bytes, in the descriptor's 16-byte units
       const uint64_t step = static_cast<uint64_t>(k * 16 * 128) >> 4;
-      wgmma_m64n128k16<1>(acc, desc_a + step, desc_b + step);
+      wgmma_m64n128k16<1, 1>(acc, desc_a + step, desc_b + step);
     }
     wgmma_commit();
     if (it > 0) {

@@ -10,7 +10,7 @@
 // On the TPU the normalised rows never left VMEM and the weight and bias
 // grads were summed over the sequential grid; here the normalised rows make
 // one bf16 round trip through device memory, because the product that
-// follows is a separate kernel (gemm.cu), and the grads are summed in two
+// follows is a separate kernel (gemm_fwd.cu), and the grads are summed in two
 // deterministic stages.
 //
 // Bound: memory. The forward reads a row of C bf16 values twice (from L1/L2

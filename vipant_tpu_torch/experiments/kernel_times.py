@@ -1,20 +1,32 @@
-"""Times ``gemm_bias_act`` and ``attention_bwd`` of one checkout at every
-shape the main paths launch them, beside the one PyTorch call of the same
-function (``F.linear``; autograd through ``scaled_dot_product_attention``),
-which is timed here and used nowhere in the port. To compare two checkouts
-on one card, run it for each in turns (A, B, B, A)::
+"""Times the redesigned kernels of one checkout at every shape the main
+paths launch them, beside the one PyTorch call of the same function, which
+is timed here and used nowhere in the port: ``gemm_bias_act`` (``F.linear``),
+``attention_bwd`` (autograd through ``scaled_dot_product_attention``),
+``gemm_dgrad`` (``torch.matmul``), ``gemm_i8`` (``torch._int_mm``, the
+integer product alone) and ``attention_fwd``'s streaming form at T > 704
+(``scaled_dot_product_attention``). ``gemm_dgrad`` and ``gemm_i8`` also
+print their device time per call (the kernels of 20 calls in a
+``torch.profiler`` window), which at the small shapes (B4, the text tower)
+is the number to compare: their timing loops there are bound by the host. To compare two checkouts on one card,
+run it for each in turns (A, B, B, A)::
 
-    python vipant_tpu_torch/experiments/kernel_times.py <checkout root> <label>
+    python vipant_tpu_torch/experiments/kernel_times.py <checkout root> <label> [kernels]
+
+``kernels``, if given, picks some of ``gemm_bias_act``, ``attention_bwd``,
+``gemm_dgrad``, ``gemm_i8`` and ``attention_fwd``, separated by commas; by
+default all of them are timed.
 
 It imports the package from the given root, so an older checkout is timed
-with its own kernels; the shapes are ``GEMM_FWD_CASES`` of the
-``chip_smoke.py`` at the root of the checkout this script is in. CUDA-event means over 20 launches
-after 3 warm-ups, seeded inputs. At the decode shapes (M <= 256), where a
-loop of launches is bound by the host, the loop is timed three times and
-two more numbers are printed: the device time per call (the kernels of 20
-calls in a ``torch.profiler`` window) and the host time per call (the
-host clock around 200 calls enqueued without waiting). The backward at
-B64 T306 is split into its two kernels by a profiler window.
+with its own kernels; the shapes are ``GEMM_FWD_CASES``,
+``GEMM_DGRAD_CASES``, ``GEMM_I8_CASES`` and ``ATTENTION_STREAMING_T`` of the
+``chip_smoke.py`` at the root of the checkout this script is in, and each
+line carries the bound ``chip_smoke.bound`` gives it. CUDA-event means over
+20 launches after 3 warm-ups, seeded inputs. At the decode shapes (M <=
+256), where a loop of launches is bound by the host, the loop is timed
+three times and two more numbers are printed: the device time per call (the
+kernels of 20 calls in a ``torch.profiler`` window) and the host time per
+call (the host clock around 200 calls enqueued without waiting). The
+backward at B64 T306 is split into its two kernels by a profiler window.
 """
 
 import importlib.util
@@ -29,6 +41,7 @@ _spec = importlib.util.spec_from_file_location(
 _cases = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(_cases)
 GEMMS = _cases.GEMM_FWD_CASES  # (case, M, N, K, activation, residual, fp32 pre-activation)
+KERNELS = ("gemm_bias_act", "attention_bwd", "gemm_dgrad", "gemm_i8", "attention_fwd")
 ATTENTION = [  # (B, T, C, H, bias)
     (64, 306, 768, 12, "none"), (4, 306, 768, 12, "none"), (64, 77, 512, 8, "causal"),
     (16, 200, 768, 12, "pack"), (1, 308, 512, 8, "causal_pack"),
@@ -37,6 +50,7 @@ ATTENTION = [  # (B, T, C, H, bias)
 
 def main() -> None:
     root, label = os.path.abspath(sys.argv[1]), sys.argv[2]
+    which = sys.argv[3].split(",") if len(sys.argv) > 3 else KERNELS
     sys.path.insert(0, root)
     os.chdir(root)
     import torch
@@ -89,7 +103,11 @@ def main() -> None:
         torch.cuda.synchronize()
         return (t1 - t0) / calls * 1e6
 
-    for case, M, N, K, act, res, pre in GEMMS:
+    def bound(reads, out, ops, kind):
+        t, by = _cases.bound(_cases._nbytes(reads) + _cases._nbytes([out]), [(ops, kind)])
+        return f"bound {t:.4f} ({by[:5]})"
+
+    for case, M, N, K, act, res, pre in GEMMS if "gemm_bias_act" in which else ():
         x, w, b = rn(M, K).bfloat16(), rn(N, K, std=K ** -0.5).bfloat16(), rn(N, std=0.1)
         r, bb = (rn(M, N).bfloat16() if res else None), b.bfloat16()
         call = lambda: kernels.gemm_bias_act(x, w, b, act, r, pre)
@@ -112,7 +130,7 @@ def main() -> None:
             bias = bias + pack_tokens(torch.zeros(4, T // 4, 1, device="cuda"), 4)[1]
         return bias
 
-    for B, T, C, H, kind in ATTENTION:
+    for B, T, C, H, kind in ATTENTION if "attention_bwd" in which else ():
         qkv, do = rn(B, T, 3 * C).bfloat16(), rn(B, T, C).bfloat16()
         cb = fused_attn.canon_bias(bias_of(kind, T))
         _, st = kernels.attention_fwd(qkv, cb, H, 0.125, stats=True)
@@ -136,6 +154,40 @@ def main() -> None:
                                      for k, v in found.items() if "attention_bwd" in k and v)
         print(f"{label} attention_bwd B{B} T{T} H{H} {kind}: {t:.4f} ms; SDPA backward {lib:.4f}; "
               f"x{t / lib:.2f}{parts}")
+
+    for case, M, N, K, act, rounded in _cases.GEMM_DGRAD_CASES if "gemm_dgrad" in which else ():
+        dy, w = rn(M, K).bfloat16(), rn(K, N, std=K ** -0.5).bfloat16()
+        a = None if act == "none" else rn(M, N)
+        y = kernels.gemm_dgrad(dy, w, rounded, act, a)
+        call = lambda: kernels.gemm_dgrad(dy, w, rounded, act, a)
+        t, lib = ms(call), ms(lambda: torch.matmul(dy, w))
+        print(f"{label} gemm_dgrad {case} [{M}x{N}x{K}]: {t:.4f} ms ({2 * M * N * K / t / 1e9:.0f} TFLOP/s); "
+              f"torch.matmul {lib:.4f}; x{t / lib:.2f}; {bound((dy, w, a), y, 2 * M * N * K, 'bf16')}; "
+              f"device {device_us(call):.2f} us a call")
+        del dy, w, a, y
+
+    f32 = torch.float32
+    for case, M, N, K, act, res, out_f32, col_first in _cases.GEMM_I8_CASES if "gemm_i8" in which else ():
+        (xq, rs), (wq, cs) = kernels.rowquant(rn(M, K)), kernels.rowquant(rn(N, K, std=K ** -0.5))
+        b, r = rn(N, std=0.02), (rn(M, N).bfloat16() if res else None)
+        kw = dict(act=act, residual=r, out_dtype=f32 if out_f32 else torch.bfloat16, col_first=col_first)
+        y = kernels.gemm_i8(xq, rs, wq, cs, b, **kw)
+        call = lambda: kernels.gemm_i8(xq, rs, wq, cs, b, **kw)
+        t, lib = ms(call), ms(lambda: torch._int_mm(xq, wq.t()))
+        print(f"{label} gemm_i8 {case} [{M}x{N}x{K}]: {t:.4f} ms ({2 * M * N * K / t / 1e9:.0f} TOP/s); "
+              f"torch._int_mm {lib:.4f}; x{t / lib:.2f}; {bound((xq, rs, wq, cs, b, r), y, 2 * M * N * K, 'int8')}; "
+              f"device {device_us(call):.2f} us a call")
+        del xq, wq, r, y
+
+    for T in _cases.ATTENTION_STREAMING_T if "attention_fwd" in which else ():
+        B, C, H = 16, 768, 12
+        qkv = rn(B, T, 3 * C).bfloat16()
+        q, k, v = qkv.view(B, T, 3, H, 64).permute(2, 0, 3, 1, 4)
+        o = kernels.attention_fwd(qkv, None, H, 0.125)
+        t = ms(lambda: kernels.attention_fwd(qkv, None, H, 0.125))
+        lib = ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125))
+        print(f"{label} attention_fwd B{B} T{T} H{H} streaming: {t:.4f} ms; SDPA {lib:.4f}; x{t / lib:.2f}; "
+              f"{bound((qkv,), o, 4 * B * H * T * T * 64, 'bf16')}")
 
 
 if __name__ == "__main__":

@@ -14,8 +14,8 @@ so an older checkout is timed with its own kernels. Steps: CUDA-event means
 over 8 steps after 3 warm-ups (forward + backward: 5 after 2); ``embed_audio``:
 host clock around 8 batches ending in a synchronize; ``caption``: host clock
 around 3 batches, and per decode step the KV-cached greedy decoder alone over
-its 32 steps; device busy time from a ``torch.profiler`` window of 3 steps
-(or batches).
+its 32 steps; device busy time of every path from a ``torch.profiler`` window
+of 3 steps (or batches).
 """
 
 import os
@@ -58,7 +58,9 @@ def main() -> None:
     fbank = np.random.default_rng(0).standard_normal((B, 1000, 128)).astype(np.float32)
     for quantize in ("", "int8") if "embed_audio" in paths else ():
         eng = cs._engine(torch, B, quantize)
-        out[f"embed_audio {quantize or 'bf16'}"] = f"{cs._timed_ms(torch, lambda: eng.embed_audio(fbank), 8):.2f} ms"
+        wall = cs._timed_ms(torch, lambda: eng.embed_audio(fbank), 8)
+        busy, _, _ = cs._profile(torch, lambda: eng.embed_audio(fbank))
+        out[f"embed_audio {quantize or 'bf16'}"] = f"{wall:.2f} ms, device busy {busy:.2f}"
         del eng
     if "caption" in paths:
         eng = cs._caption_engine(torch, B)

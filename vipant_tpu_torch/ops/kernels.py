@@ -9,7 +9,7 @@ their backward chains:
 - :func:`gemm_bias_act` (``csrc/gemm_fwd.cu``): ``epilogue(x . w^T + b)``
   with an optional QuickGELU / exact GELU, an optional residual and an
   optional fp32 copy of the pre-activation;
-- :func:`gemm_dgrad` (``csrc/gemm.cu``): ``dy . w`` with ``w`` read as
+- :func:`gemm_dgrad` (``csrc/gemm_dgrad.cu``): ``dy . w`` with ``w`` read as
   stored, an optional activation-grad epilogue, fp32 or rounded out;
 - :func:`gemm_wgrad` (``csrc/gemm_wgrad.cu``): ``a^T . b`` reduced over all
   rows, fp32 out, the rows split into the chunks :func:`wgrad_split` plans;
