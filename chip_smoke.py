@@ -9,7 +9,12 @@
 3. Kernel phase: each forward kernel and each fused sub-block, at the
    serving path's shapes and at the audio tower's batch of 64, against its
    plain PyTorch version on the card from the same seeded bf16 inputs, with
-   CUDA-event times of both; ``gemm_bias_act`` alone at every product shape
+   CUDA-event times of both; ``layernorm_fwd`` alone at every (rows, C) the
+   paths give it (``LAYERNORM_CASES``: the towers at batch 4, 16 and 64, the
+   packed text and image rows, the captioning decoder and its KV-cached
+   decode at T = 1), with its device µs per call beside ``F.layer_norm``'s
+   (a profiler window; the loops of the small shapes are bound by the host);
+   ``gemm_bias_act`` alone at every product shape
    the paths give it (``GEMM_FWD_CASES``: the towers at batch 4 and 64, the
    MLP's proj + residual, the recomputed fc with its fp32 pre-activation, the
    VA step's image tower, the captioning decoder's four products at
@@ -26,7 +31,12 @@
    exact GELU; ``gemm_wgrad`` also at the captioning decoder's four
    products (M = 64 x 77 rows, width 512), each weight grad named with its
    row split (S chunks, blocks launched) and held bitwise equal over two
-   runs; ``gemm_dgrad`` alone at every product shape the training paths
+   runs; ``colsum`` alone at every bias grad of the trained towers
+   (``COLSUM_CASES``: dbout and dbproj, dbqkv in fp32, dbfc, at audio batch
+   64 and 4 and the decoder's M = 64 x 77), named with its row split, held
+   bitwise equal over two runs and to ``colsum_ordered`` (the plain sum in
+   the kernel's order), with device µs per call beside ``torch.sum``'s;
+   ``gemm_dgrad`` alone at every product shape the training paths
    give it (``GEMM_DGRAD_CASES``: the audio tower at batch 4 and 64 and the
    caption decoder's M = 64 x 77, with each activation grad), each held
    bitwise equal over two runs; ``attention_bwd`` also at the decoder's B64 T77 (causal) and at
@@ -65,8 +75,9 @@
    kernels by device time; (v) an Adam descent smoke (lr 1e-3, 4 fixed
    batches of 32, 60 steps) whose first 10 losses agree with the plain ops.
 
-7. Int8 kernel phase: ``rowquant``, ``layernorm_rowquant``, the
-   fp32-context attention and both int8 sub-blocks against their plain
+7. Int8 kernel phase: ``layernorm_rowquant`` at every case of
+   ``LAYERNORM_CASES``, bitwise ``rowquant(layernorm_fwd(x))``; ``rowquant``,
+   the fp32-context attention and both int8 sub-blocks against their plain
    versions from seeded inputs (one all-zero token), at audio B4 and B64
    T306 C768 H12, text B1 and B16 T308 C512 H8 (causal + packing), image
    B16 T200 C768 H12 (block-diagonal); QuickGELU and exact GELU; with the
@@ -99,7 +110,8 @@
    bitwise equal across two runs; ``F.scaled_dot_product_attention`` and its
    autograd backward timed beside them.
 11. Probe phase: ``dot_variant`` in its four orientations against the fp32
-   product; ``probe_fused_fwd`` at B64 T306 C768 against its plain version
+   product, with its device µs per call beside ``torch.matmul``'s (its loop
+   is bound by the host); ``probe_fused_fwd`` at B64 T306 C768 against its plain version
    and against ``fused_attention_block``; then the probe path (the port's
    probe entry and the public ``flash_attention`` op with a trainable bias),
    whose launches are counted.
@@ -283,6 +295,33 @@ GEMM_I8_CASES = [
                                               ("fc+gelu fp32", 4 * C, C, "gelu", False, True, False),
                                               ("proj+res", C, 4 * C, "none", True, False, False))
 ]
+# every (rows, C) the seven paths give layernorm_fwd, and the int8 paths layernorm_rowquant: (case,
+# rows, C). The forward kernel phase holds layernorm_fwd, the int8 kernel phase layernorm_rowquant
+# (bitwise rowquant(layernorm_fwd(x))) to its plain version at each; experiments/kernel_times.py
+# times each.
+LAYERNORM_CASES = [
+    ("audio B4 T306", 4 * 306, 768),                          # serving batch, captioning's audio tower
+    ("text B1 T308", 308, 512),                               # 4 captions packed
+    ("image B1 T200", 200, 768),                              # 4 images packed
+    ("audio B64 T306", 64 * 306, 768),                        # the timed training steps, serving batch 64
+    ("audio B16 T306", 16 * 306, 768),                        # the counted training steps
+    ("image B64 (16 x T200)", 16 * 200, 768),                 # the VA step's frozen tower
+    ("image B16 (4 x T200)", 4 * 200, 768),
+    ("text B16 T308 = caption decoder B64 T77", 64 * 77, 512),  # M = 4,928 both
+    ("caption decoder B16 T77", 16 * 77, 512),
+    *[(f"caption decode T=1 M={M}", M, 512) for M in (4, 16, 64, 256)],  # KV-cached decode, the MLP
+]
+# every (rows, N, dtype) of the trained towers' four bias grads: dbout and dbproj (the output grad,
+# [M, C] bf16), dbqkv (the fp32 dqkv, [M, 3C]), dbfc (the rounded da, [M, 4C] bf16), for the audio
+# tower at batch 64 and 4 and the caption decoder at B64 T77. The backward kernel phase holds colsum
+# to its plain version at each, bitwise across two runs and to colsum_ordered;
+# experiments/kernel_times.py times each.
+COLSUM_CASES = [
+    (f"{tower} {p}", M, N, dtype)
+    for tower, M, C in (("audio B64 T306", 64 * 306, 768), ("audio B4 T306", 4 * 306, 768),
+                        ("caption decoder B64 T77", 64 * 77, 512))
+    for p, N, dtype in (("dbout, dbproj", C, "bf16"), ("dbqkv fp32", 3 * C, "fp32"), ("dbfc", 4 * C, "bf16"))
+]
 ATTENTION_STREAMING_T = (705, 971)  # attention_fwd past the 704 keys it keeps resident
 DECODE_TOL = 0.1  # bf16 per-step logits, KV-cached against re-forward decoding
 # H100 SXM data sheet, dense rates: the bounds are stated against these
@@ -364,14 +403,29 @@ def check_codes(torch, got, want, what):
     return err, f"codes: {share:.1e} off by one; dequantized {err:.2e}"
 
 
+def device_us(torch, fn, calls=20, tries=3):
+    """Device time per call in µs: the device busy time of ``calls`` calls in
+    a profiler window. Where a loop of calls is bound by the host, this is
+    the number to compare. A window may come back without the device's events
+    (seen once in a few dozen); it is tried again, and None means not
+    measured."""
+    for _ in range(tries):
+        try:
+            return _profile(torch, fn, calls)[0] * 1e3
+        except AssertionError:
+            continue
+    return None
+
+
 def compare(torch, results, name, case, fn, plain, reads=(), ops=(), library=None, check=None,
-            also=None, iters=20):
+            also=None, iters=20, device=False):
     """Hold ``fn()`` (kernels) to ``plain()`` (``check``, by default output
     by output), time both (CUDA events, order plain, kernel, kernel, plain)
     and record the result under ``name``, beside the bound from ``reads``
     (the input tensors; the outputs are taken from the run) and ``ops``, the
-    time of ``library()`` if given, and of each callable in ``also``. Raises
-    on any disagreement."""
+    time of ``library()`` if given, and of each callable in ``also``; with
+    ``device``, also the device µs per call of the kernel and the library
+    call (``device_us``). Raises on any disagreement."""
     got, want = _outputs(fn()), _outputs(plain())
     torch.cuda.synchronize()
     case_err, errs = (check or check_default)(torch, got, want, f"{name} {case}")
@@ -388,9 +442,13 @@ def compare(torch, results, name, case, fn, plain, reads=(), ops=(), library=Non
         except RuntimeError as e:  # a yardstick outside the port: report, do not fail the port
             print(f"  library call for {name} {case} refused: {str(e).splitlines()[0]}")
     extra = {k: cuda_ms(torch, f, iters) for k, f in (also or {}).items()}
-    lib = "-" if library_ms is None else f"{library_ms:.4f}"
+    if device:
+        extra["device_us"] = device_us(torch, fn)
+        if library_ms is not None:
+            extra["library_device_us"] = device_us(torch, library)
+    num = lambda v: "-" if v is None else f"{v:.4f}"
     print(f"  {name:30s} {case:44s} ms={ms:.4f} plain={plain_ms:.4f} bound={bound_ms:.4f}({bound_by[:5]}) "
-          f"library={lib}" + "".join(f" {k}={v:.4f}" for k, v in extra.items()) + f" max|d|={errs}")
+          f"library={num(library_ms)}" + "".join(f" {k}={num(v)}" for k, v in extra.items()) + f" max|d|={errs}")
     r = results.setdefault(name, {"max_abs_err": 0.0, "cases": [], "launches": {}})
     r["max_abs_err"] = max(r["max_abs_err"], case_err)
     r["cases"].append({"case": case, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -477,6 +535,15 @@ def kernel_phase(torch, results):
     F = torch.nn.functional
     rn = _seeded(torch)
     pack_bias, text_bias = _biases(torch)
+    # layernorm_fwd at every (rows, C) the paths give it
+    for case, M, C in LAYERNORM_CASES:
+        x = rn(M, C)
+        lns, lnb = 1 + rn(C, std=0.1, dtype=torch.float32), rn(C, std=0.1, dtype=torch.float32)
+        lns_b, lnb_b = lns.bfloat16(), lnb.bfloat16()
+        compare(torch, results, "layernorm_fwd", f"{case} [{M}x{C}]", lambda: kernels.layernorm_fwd(x, lns, lnb),
+                lambda: kernels.layernorm_plain(x, lns, lnb), reads=(x, lns, lnb), ops=[(8 * M * C, "fp32")],
+                library=lambda: F.layer_norm(x, (C,), lns_b, lnb_b), iters=10 if M > 5000 else 20, device=True)
+
     attn_cases = [  # (case, B, T, C, H, bias): audio, packed text, packed image, audio at batch 64
         ("audio B4 T306 C768 H12", BATCH, 306, 768, 12, None),
         ("text B1 T308 C512 H8 causal+pack", 1, 308, 512, 8, text_bias),
@@ -495,10 +562,6 @@ def kernel_phase(torch, results):
         qkv = kernels.gemm_bias_act_plain(h, wqkv, bqkv)
         o = kernels.attention_plain(qkv, cb, H, 0.125)
         args = (x, lns, lnb, wqkv, bqkv, wout, bout, bias, H)
-        lns_b, lnb_b = lns.bfloat16(), lnb.bfloat16()
-        cmp("layernorm_fwd", case, lambda: kernels.layernorm_fwd(x, lns, lnb),
-            lambda: kernels.layernorm_plain(x, lns, lnb), reads=(x, lns, lnb),
-            ops=[(8 * M * C, "fp32")], library=lambda: F.layer_norm(x, (C,), lns_b, lnb_b))
         cmp("attention_fwd", case, lambda: kernels.attention_fwd(qkv, cb, H, 0.125),
             lambda: kernels.attention_plain(qkv, cb, H, 0.125), reads=(qkv, cb),
             ops=attn_ops(B, T, H), library=_sdpa(torch, qkv, cb, H, 0.125))
@@ -602,7 +665,23 @@ def backward_kernel_phase(torch, results):
 
     rn = _seeded(torch)
     _, text_bias = _biases(torch)
-    colsum_lib = lambda t: (lambda: t.reshape(-1, t.shape[-1]).sum(0, dtype=torch.float32))
+
+    # colsum at every bias grad of the trained towers, bitwise across two runs and equal to
+    # colsum_ordered (the plain sum in the kernel's order); the case names the row split
+    for case, M, N, dtype in COLSUM_CASES:
+        x = rn(M, N, dtype=torch.float32 if dtype == "fp32" else torch.bfloat16)
+        S, rows = kernels.colsum_split(M, N, x.element_size())
+        blocks = S * -(-N * x.element_size() // kernels.COLSUM_STRIP)
+        if M >= 64 * 77 and blocks < kernels.SM_COUNT:  # a training step's bias grad must fill the card
+            raise AssertionError(f"colsum {case}: {blocks} blocks for {kernels.SM_COUNT} SMs")
+        compare(torch, results, "colsum", f"{case} [{M}x{N} {dtype}: S={S} chunks of {rows} rows, {blocks} blocks]",
+                lambda: kernels.colsum(x), lambda: kernels.colsum_plain(x), reads=(x,), ops=[(M * N, "fp32")],
+                library=lambda: x.sum(0, dtype=torch.float32), iters=10 if M > 5000 else 20, device=True)
+        got = kernels.colsum(x)
+        if not (torch.equal(got, kernels.colsum(x)) and torch.equal(got, kernels.colsum_ordered(x))):
+            raise AssertionError(f"colsum {case}: two runs differ, or the sum is not in colsum_ordered's order")
+        del x
+    print("  colsum: two runs bitwise equal, and equal to colsum_ordered, at every case")
 
     def wgrad(cmp, case, a, b):
         """``gemm_wgrad(a, b)`` beside ``torch.matmul`` of a^T . b; the case names the row split."""
@@ -634,15 +713,10 @@ def backward_kernel_phase(torch, results):
         do = kernels.gemm_dgrad_plain(g, wout, True)
         dqkv, dqkv_b = kernels.attention_bwd_plain(qkv, do, cb, H, scale)
         dh = kernels.gemm_dgrad_plain(dqkv_b, wqkv, False)
-        cmp("colsum", case + " dbout", lambda: kernels.colsum(g), lambda: kernels.colsum_plain(g),
-            reads=(g,), ops=[(M * C, "fp32")], library=colsum_lib(g))
         wgrad(cmp, case + " dWout", g, o)
         cmp("attention_bwd", case, lambda: kernels.attention_bwd(qkv, do, cb, H, scale, stats),
             lambda: kernels.attention_bwd_plain(qkv, do, cb, H, scale), reads=(qkv, do, cb, stats),
             ops=attn_ops(B, T, H, products=5), library=_sdpa_bwd(torch, qkv, cb, H, scale, do))
-        cmp("colsum", case + " dbqkv fp32", lambda: kernels.colsum(dqkv),
-            lambda: kernels.colsum_plain(dqkv), reads=(dqkv,), ops=[(3 * M * C, "fp32")],
-            library=colsum_lib(dqkv))
         wgrad(cmp, case + " dWqkv", dqkv_b, h)
         cmp("layernorm_bwd", case, lambda: kernels.layernorm_bwd(x, lns, dh, residual=g),
             lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=g), reads=(x, lns, dh, g),
@@ -691,11 +765,7 @@ def backward_kernel_phase(torch, results):
                 lambda: kernels.gemm_bias_act_plain(h, wfc, bfc, act, preact=True),
                 reads=(h, wfc, bfc), ops=gemm_ops(M, E, C),
                 library=lambda: torch.nn.functional.linear(h, wfc, bfc_b))
-            cmp("colsum", c + " dbproj", lambda: kernels.colsum(gy), lambda: kernels.colsum_plain(gy),
-                reads=(gy,), ops=[(M * C, "fp32")], library=colsum_lib(gy))
             wgrad(cmp, c + " dWproj", gy, ga)
-            cmp("colsum", c + " dbfc", lambda: kernels.colsum(da), lambda: kernels.colsum_plain(da),
-                reads=(da,), ops=[(M * E, "fp32")], library=colsum_lib(da))
             wgrad(cmp, c + " dWfc", da, h)
             cmp("layernorm_bwd", c, lambda: kernels.layernorm_bwd(x, lns, dh, residual=gy),
                 lambda: kernels.layernorm_bwd_plain(x, lns, dh, residual=gy), reads=(x, lns, dh, gy),
@@ -864,6 +934,18 @@ def int8_kernel_phase(torch, results):
         x2 = xq.reshape(-1, xq.shape[-1])
         return lambda: torch._int_mm(x2, wq.t())
 
+    # layernorm_rowquant at every (rows, C) of LAYERNORM_CASES (one all-zero token): its statistics
+    # are layernorm_fwd's, so it is held bitwise to the chain at every width and row count
+    for case, M, C in LAYERNORM_CASES:
+        x = rn(M, C)
+        x[min(1, M - 1)] = 0
+        lns, lnb = 1 + rn(C, std=0.1, dtype=f32), rn(C, std=0.1, dtype=f32)
+        compare(torch, results, "layernorm_rowquant", f"{case} [{M}x{C}]",
+                lambda: kernels.layernorm_rowquant(x, lns, lnb),
+                lambda: kernels.layernorm_rowquant_plain(x, lns, lnb), reads=(x, lns, lnb),
+                ops=[(12 * M * C, "fp32")], check=ln_codes(x, lns, lnb), iters=10 if M > 5000 else 20,
+                device=True)
+
     attn_cases = [  # audio, packed text, packed image; serving and batch shapes
         ("audio B4 T306 C768 H12", BATCH, 306, 768, 12, None),
         ("audio B64 T306 C768 H12", 64, 306, 768, 12, None),
@@ -888,9 +970,6 @@ def int8_kernel_phase(torch, results):
         args = (x, lns, lnb, wqkv, bqkv, wout, bout, bias, H)
         cmp("rowquant", case + " Wqkv bf16", lambda: kernels.rowquant(wq_b),
             lambda: kernels.rowquant_plain(wq_b), reads=(wq_b,), ops=quant_ops(wq_b), check=codes)
-        cmp("layernorm_rowquant", case, lambda: kernels.layernorm_rowquant(x, lns, lnb),
-            lambda: kernels.layernorm_rowquant_plain(x, lns, lnb), reads=(x, lns, lnb),
-            ops=[(12 * M * C, "fp32")], check=ln_codes(x, lns, lnb))
         cmp("attention_fwd_f32", case, lambda: kernels.attention_fwd(qkv, cb, H, 0.125, fp32_out=True),
             lambda: kernels.attention_plain(qkv, cb, H, 0.125, fp32_out=True), reads=(qkv, cb),
             ops=attn_ops(B, T, H), library=_sdpa(torch, qkv, cb, H, 0.125))
@@ -1481,7 +1560,7 @@ def probe_phase(torch, results):
         lib = lambda a=a, b=b, ta=ta, tb=tb: torch.matmul(a.t() if ta else a, b.t() if tb else b)
         compare(torch, results, "dot_variant", f"{name} M{M} K{K} N{N}",
                 lambda: kernels.dot_variant(a, b, name), lambda: kernels.dot_variant_plain(a, b, name),
-                reads=(a, b), ops=gemm_ops(M, N, K), library=lib)
+                reads=(a, b), ops=gemm_ops(M, N, K), library=lib, device=True)
     args = probe.make_inputs(device="cuda")
     B, T, C = args[0].shape
     x, wqkv, bqkv, wout, bout = args

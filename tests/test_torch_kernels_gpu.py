@@ -13,7 +13,9 @@ of at most 1e-3 off by exactly one, scales to 1e-6 relative; the int32 sum
 of gemm_i8 is exact (compared bitwise at unit scales). The flash-attention
 kernels give the same bits for every layout of q, k, v, and their bias grad
 the same bits in every run; so do gemm_bias_act, gemm_dgrad, gemm_wgrad,
-gemm_i8 and attention_bwd, whose recomputed p is bitwise the forward's."""
+gemm_i8, attention_bwd, whose recomputed p is bitwise the forward's, and
+colsum, whose sum is also bitwise kernels.colsum_ordered (the plain sum in
+the kernel's order)."""
 
 from unittest import mock
 
@@ -109,6 +111,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="multiple of 8"):
         kernels.gemm_bias_act(_rn(gen, 4, 12).bfloat16(), torch.ones(8, 12, device="cuda").bfloat16(),
                               torch.zeros(8, device="cuda"))
+    # the LayerNorm kernels hold a row as 16-byte vectors in one warp: C % 8 == 0, C <= 2048
+    for C in (12, 4096):
+        x, w, b = _rn(gen, 3, C).bfloat16(), torch.ones(C, device="cuda"), torch.zeros(C, device="cuda")
+        for call in (lambda: kernels.layernorm_fwd(x, w, b), lambda: kernels.layernorm_rowquant(x, w, b),
+                     lambda: kernels.layernorm_bwd(x, w, _rn(gen, 3, C))):
+            with pytest.raises(ValueError, match="multiple of 8 and at most 2048"):
+                call()
+    # colsum reads rows of whole 16-byte vectors
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.colsum(_rn(gen, 5, 12).bfloat16())
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernels.colsum(_rn(gen, 5, 6))
 
 
 def test_engine_runs_every_sub_block_through_the_kernels(gen):
@@ -132,6 +146,34 @@ def test_engine_runs_every_sub_block_through_the_kernels(gen):
         assert np.isfinite(got).all()
         cos = (got * want).sum(-1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(want, axis=-1)
         assert cos.min() >= 0.999
+
+
+@pytest.mark.parametrize("B,T,C", [(4, 306, 768), (64, 306, 768), (1, 308, 512), (64, 77, 512), (3, 37, 64)])
+def test_layernorm_fwd_kernel_matches_plain(gen, B, T, C):
+    x, w, b = _rn(gen, B, T, C).bfloat16(), 1 + _rn(gen, C, std=0.1), _rn(gen, C, std=0.1)
+    reset_launches()
+    got = kernels.layernorm_fwd(x, w, b)
+    assert LAUNCHES == {"layernorm_fwd": 1}
+    _close(got, kernels.layernorm_plain(x, w, b), "y")
+    assert torch.equal(got, kernels.layernorm_fwd(x, w, b))
+
+
+@pytest.mark.parametrize("rows,N,dtype", [
+    (19584, 768, torch.bfloat16), (19584, 2304, torch.float32), (19584, 3072, torch.bfloat16),  # audio, B = 64
+    (4928, 512, torch.bfloat16), (4928, 1536, torch.float32), (4928, 2048, torch.bfloat16),     # caption decoder
+    (1224, 768, torch.bfloat16),                                                                 # audio, B = 4
+    (0, 8, torch.bfloat16), (1, 8, torch.bfloat16), (111, 24, torch.float32),                    # ragged
+    (111, 2304, torch.float32), (111, 3072, torch.bfloat16),
+])
+def test_colsum_kernel_matches_plain_and_repeats(gen, rows, N, dtype):
+    x = _rn(gen, rows, N).to(dtype)
+    got = kernels.colsum(x)
+    _close(got, kernels.colsum_plain(x), "colsum")
+    assert torch.equal(got, kernels.colsum(x))  # no atomics: the same bits in every run
+    assert torch.equal(got, kernels.colsum_ordered(x))  # the fp32 additions in the planned order
+    # small integers sum exactly in fp32 whatever the order: any misplaced element shows
+    ix = torch.randint(-3, 4, (rows, N), generator=gen, device="cuda").to(dtype)
+    assert torch.equal(kernels.colsum(ix), kernels.colsum_plain(ix))
 
 
 @pytest.mark.parametrize("B,T,C", [(4, 306, 768), (64, 306, 768), (1, 308, 512), (3, 37, 64)])

@@ -28,10 +28,15 @@
 // Design: one block of 256 threads per row. Pass 1 takes the row's maximum
 // magnitude, pass 2 divides (IEEE division, as the Pallas kernel divides:
 // multiplying by a reciprocal flips codes), rounds half to even (`rintf`)
-// and clips. layernorm_rowquant computes the statistics and the affine
-// result exactly as layernorm_fwd does (rows.cuh), rounds it to bf16, keeps
-// the row in shared memory as fp32 and quantizes from there, so the
-// normalised row makes no trip through device memory.
+// and clips. layernorm_rowquant takes the LayerNorm statistics from
+// rows.cuh's `warp_row_stats`, which every warp of the block computes on its
+// own from the row (16-byte loads, shuffles only; the row comes from L1
+// after the first warp's loads) with the same bits as layernorm_fwd's warp,
+// forms the affine result with the same `ln_affine`, rounds it to bf16,
+// keeps the row in shared memory as fp32 and quantizes from there, so the
+// normalised row makes no trip through device memory and is bitwise
+// rowquant(layernorm_fwd(x)). Its wrapper takes layernorm_fwd's contract
+// (C % 8 == 0, C <= 2048, x 16-byte aligned).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,10 +85,10 @@ layernorm_rowquant_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
   const size_t row = blockIdx.x;
   const __nv_bfloat16* xr = x + row * C;
   signed char* qr = q + row * C;
-  const float2 st = rows::row_stats(xr, C, eps, red);
+  const float2 st = rows::warp_row_stats(xr, C, eps);
   float amax = 0.f;
   for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float h = __bfloat162float(rows::ln_affine(xr[c], st, w[c], b[c]));
+    const float h = __bfloat162float(rows::ln_affine(__bfloat162float(xr[c]), st, w[c], b[c]));
     hrow[c] = h;  // read back below by the same thread only
     amax = fmaxf(amax, fabsf(h));
   }
@@ -115,6 +120,7 @@ extern "C" int vt_layernorm_rowquant(const void* x, const void* w, const void* b
                                      void* scale, long long rows_n, int C, float eps,
                                      void* stream) {
   if (rows_n <= 0 || C <= 0) return 0;
+  if (C % 8 != 0 || C > rows::kMaxC) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = C * static_cast<int>(sizeof(float));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -1,10 +1,19 @@
-// Row-wise helpers shared by layernorm.cu and quant.cu: block reductions and
-// the fp32 LayerNorm statistics of one row. A block of `kThreads` threads
-// owns one row at a time and strides over its columns.
+// Row-wise helpers shared by layernorm.cu and quant.cu: the fp32 LayerNorm
+// statistics of one row, computed by one warp, the normalised value of one
+// element, and block reductions.
 //
-// Both files normalise a row with the same `row_stats` and `ln_affine`, so
-// the LayerNorm fused into the int8 quantization (quant.cu) is bitwise the
-// stand-alone layernorm_fwd.
+// A row of C bf16 values (C % 8 == 0, C <= kMaxC, its start 16-byte aligned)
+// is read as C / 8 vectors of 16 bytes: lane l of a warp takes vectors l,
+// l + 32, l + 64, ... `warp_row_stats` sums each lane's values in that order
+// (vector by vector, element by element), from registers (layernorm_fwd) or
+// from memory (the others), then combines the lanes with an xor-shuffle
+// butterfly. Each step of the butterfly adds the same two values on both
+// lanes of a pair (a + b == b + a in IEEE arithmetic), so all 32 lanes end
+// with the same bits, and so does every warp of every kernel that calls it
+// on the same row, by either route: layernorm_fwd, layernorm_bwd (whose xhat
+// must be the forward's) and layernorm_rowquant (bitwise
+// rowquant(layernorm_fwd(x))). The arithmetic is written with the `__f*_rn`
+// intrinsics so no inlining context can contract it differently.
 
 #pragma once
 
@@ -14,7 +23,8 @@
 
 namespace rows {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the block of layernorm_bwd, rowquant and layernorm_rowquant
+constexpr int kMaxC = 2048;    // the widest row: 8 vectors of 16 bytes a lane of a warp
 
 // Sum (kMax = false) or maximum (kMax = true) of `v` over the block; `red`
 // is 32 floats of shared memory, free again when the call returns.
@@ -49,26 +59,114 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return block_reduce<true>(v, red);
 }
 
-// mean and rstd of one row, fp32, two-pass
-__device__ __forceinline__ float2 row_stats(const __nv_bfloat16* xr, int C, float eps, float* red) {
-  float s = 0.f;
-  for (int c = threadIdx.x; c < C; c += kThreads) s += __bfloat162float(xr[c]);
-  const float mu = block_sum(s, red) / static_cast<float>(C);
-  float v = 0.f;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float d = __bfloat162float(xr[c]) - mu;
-    v += d * d;
+// the 8 bf16 values of a 16-byte vector as fp32 (exact), in memory order
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(u[k] << 16);
+    f[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
   }
-  const float var = block_sum(v, red) / static_cast<float>(C);
-  return make_float2(mu, rsqrtf(var + eps));
 }
 
-// the normalised value of one element: xhat, and xhat * w + b rounded to bf16
-__device__ __forceinline__ float ln_xhat(__nv_bfloat16 x, float2 st) {
-  return __fmul_rn(__bfloat162float(x) - st.x, st.y);
+// two bf16 as the 32 bits that hold them in memory, `lo` first
+__device__ __forceinline__ unsigned pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-__device__ __forceinline__ __nv_bfloat16 ln_affine(__nv_bfloat16 x, float2 st, float w, float b) {
+// this lane's share of the row `xr`: vectors lane + 32 i, i < kVecs; those
+// past the row (or all, if `valid` is false) are zero and never read
+template <int kVecs>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ xr, int C, int lane,
+                                         bool valid, uint4 (&v)[kVecs]) {
+  const uint4* p = reinterpret_cast<const uint4*>(xr);
+  const int nv = C >> 3;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int j = lane + 32 * i;
+    v[i] = valid && j < nv ? p[j] : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// s plus the 8 values of the vector v, in order
+__device__ __forceinline__ float add_vec(float s, const uint4& v) {
+  float f[8];
+  unpack8(v, f);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s = __fadd_rn(s, f[k]);
+  return s;
+}
+
+// q plus the squared deviations from mu of the 8 values of v, in order
+__device__ __forceinline__ float add_sqdev(float q, const uint4& v, float mu) {
+  float f[8];
+  unpack8(v, f);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float d = __fsub_rn(f[k], mu);
+    q = __fmaf_rn(d, d, q);
+  }
+  return q;
+}
+
+// the mean of a row from the lanes' sums; rstd from the lanes' sums of squared deviations
+__device__ __forceinline__ float row_mean(float s, int C) {
+  return __fdiv_rn(warp_sum(s), static_cast<float>(C));
+}
+
+__device__ __forceinline__ float row_rstd(float q, int C, float eps) {
+  return rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q), static_cast<float>(C)), eps));
+}
+
+// (mean, rstd) of the row this warp holds in `v` (load_row), fp32 and
+// two-pass: the mean, then the mean of squared deviations; eps is added
+// before rsqrt (the order of the Pallas kernels' `_ln_fwd`). The same bits
+// in every lane, for every kVecs that holds the row.
+template <int kVecs>
+__device__ __forceinline__ float2 warp_row_stats(const uint4 (&v)[kVecs], int C, int lane, float eps) {
+  const int nv = C >> 3;
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i)
+    if (lane + 32 * i < nv) s = add_vec(s, v[i]);
+  const float mu = row_mean(s, C);
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i)
+    if (lane + 32 * i < nv) q = add_sqdev(q, v[i], mu);
+  return make_float2(mu, row_rstd(q, C, eps));
+}
+
+// the same bits, reading the row from memory a vector at a time (twice; the
+// second pass from L1) where a kernel keeps no registers for it: every warp
+// of a block that owns one row calls it
+__device__ __forceinline__ float2 warp_row_stats(const __nv_bfloat16* __restrict__ xr, int C, float eps) {
+  const uint4* p = reinterpret_cast<const uint4*>(xr);
+  const int lane = threadIdx.x & 31, nv = C >> 3;
+  float s = 0.f;
+#pragma unroll 4
+  for (int j = lane; j < nv; j += 32) s = add_vec(s, p[j]);
+  const float mu = row_mean(s, C);
+  float q = 0.f;
+#pragma unroll 4
+  for (int j = lane; j < nv; j += 32) q = add_sqdev(q, p[j], mu);
+  return make_float2(mu, row_rstd(q, C, eps));
+}
+
+// the normalised value of one element x (a bf16 value as fp32): xhat, and
+// xhat * w + b rounded to bf16
+__device__ __forceinline__ float ln_xhat(float x, float2 st) {
+  return __fmul_rn(__fsub_rn(x, st.x), st.y);
+}
+
+__device__ __forceinline__ __nv_bfloat16 ln_affine(float x, float2 st, float w, float b) {
   return __float2bfloat16(__fadd_rn(__fmul_rn(ln_xhat(x, st), w), b));
 }
 

@@ -3,30 +3,39 @@ paths launch them, beside the one PyTorch call of the same function, which
 is timed here and used nowhere in the port: ``gemm_bias_act`` (``F.linear``),
 ``attention_bwd`` (autograd through ``scaled_dot_product_attention``),
 ``gemm_dgrad`` (``torch.matmul``), ``gemm_i8`` (``torch._int_mm``, the
-integer product alone) and ``attention_fwd``'s streaming form at T > 704
-(``scaled_dot_product_attention``). ``gemm_dgrad`` and ``gemm_i8`` also
-print their device time per call (the kernels of 20 calls in a
-``torch.profiler`` window), which at the small shapes (B4, the text tower)
-is the number to compare: their timing loops there are bound by the host. To compare two checkouts on one card,
-run it for each in turns (A, B, B, A)::
+integer product alone), ``attention_fwd``'s streaming form at T > 704
+(``scaled_dot_product_attention``), ``layernorm_fwd`` (``F.layer_norm``),
+``colsum`` (``torch.sum(..., dtype=torch.float32)``), and, at the audio
+tower's batch of 64, ``layernorm_bwd`` (autograd through ``F.layer_norm``)
+and ``layernorm_rowquant`` (no library call), which share
+``layernorm_fwd``'s row statistics. ``gemm_dgrad``, ``gemm_i8``,
+``layernorm_fwd``, ``colsum``, ``layernorm_bwd`` and ``layernorm_rowquant``
+also print their device time per call (``chip_smoke.device_us``: the device
+busy time of 20 calls in a ``torch.profiler`` window), and so does the
+library call beside the last four: at the small shapes (B4, the text tower,
+the decode) that is the number to compare, since their timing loops there
+are bound by the host. To compare two checkouts on one card, run it for each
+in turns (A, B, B, A)::
 
     python vipant_tpu_torch/experiments/kernel_times.py <checkout root> <label> [kernels]
 
 ``kernels``, if given, picks some of ``gemm_bias_act``, ``attention_bwd``,
-``gemm_dgrad``, ``gemm_i8`` and ``attention_fwd``, separated by commas; by
-default all of them are timed.
+``gemm_dgrad``, ``gemm_i8``, ``attention_fwd``, ``layernorm_fwd``,
+``colsum``, ``layernorm_bwd`` and ``layernorm_rowquant``, separated by
+commas; by default all of them are timed.
 
 It imports the package from the given root, so an older checkout is timed
 with its own kernels; the shapes are ``GEMM_FWD_CASES``,
-``GEMM_DGRAD_CASES``, ``GEMM_I8_CASES`` and ``ATTENTION_STREAMING_T`` of the
-``chip_smoke.py`` at the root of the checkout this script is in, and each
-line carries the bound ``chip_smoke.bound`` gives it. CUDA-event means over
-20 launches after 3 warm-ups, seeded inputs. At the decode shapes (M <=
+``GEMM_DGRAD_CASES``, ``GEMM_I8_CASES``, ``ATTENTION_STREAMING_T``,
+``LAYERNORM_CASES`` and ``COLSUM_CASES`` of the ``chip_smoke.py`` at the
+root of the checkout this script is in, and each line carries the bound
+``chip_smoke.bound`` gives it. CUDA-event means over 20 launches after 3
+warm-ups, seeded inputs. At the decode shapes of ``gemm_bias_act`` (M <=
 256), where a loop of launches is bound by the host, the loop is timed
-three times and two more numbers are printed: the device time per call (the
-kernels of 20 calls in a ``torch.profiler`` window) and the host time per
-call (the host clock around 200 calls enqueued without waiting). The
-backward at B64 T306 is split into its two kernels by a profiler window.
+three times and two more numbers are printed: the device time per call and
+the host time per call (the host clock around 200 calls enqueued without
+waiting). The backward at B64 T306 is split into its two kernels by a
+profiler window.
 """
 
 import importlib.util
@@ -41,7 +50,8 @@ _spec = importlib.util.spec_from_file_location(
 _cases = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(_cases)
 GEMMS = _cases.GEMM_FWD_CASES  # (case, M, N, K, activation, residual, fp32 pre-activation)
-KERNELS = ("gemm_bias_act", "attention_bwd", "gemm_dgrad", "gemm_i8", "attention_fwd")
+KERNELS = ("gemm_bias_act", "attention_bwd", "gemm_dgrad", "gemm_i8", "attention_fwd", "layernorm_fwd", "colsum",
+           "layernorm_bwd", "layernorm_rowquant")
 ATTENTION = [  # (B, T, C, H, bias)
     (64, 306, 768, 12, "none"), (4, 306, 768, 12, "none"), (64, 77, 512, 8, "causal"),
     (16, 200, 768, 12, "pack"), (1, 308, 512, 8, "causal_pack"),
@@ -79,18 +89,9 @@ def main() -> None:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
 
-    def device_us(fn, calls=20):
-        """device time per call: the CUDA kernels of ``calls`` calls in a profiler window"""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        kinds = {"DeviceType.CUDA", "CUDA"}
-        return sum(e.time_range.elapsed_us() for e in prof.events() if str(e.device_type) in kinds) / calls
+    def device_us(fn):
+        us = _cases.device_us(torch, fn)
+        return float("nan") if us is None else us  # nan: the profiler gave no device events
 
     def host_us(fn, calls=200):
         """host time per call: the host clock around ``calls`` calls that do not wait for the card"""
@@ -188,6 +189,39 @@ def main() -> None:
         lib = ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125))
         print(f"{label} attention_fwd B{B} T{T} H{H} streaming: {t:.4f} ms; SDPA {lib:.4f}; x{t / lib:.2f}; "
               f"{bound((qkv,), o, 4 * B * H * T * T * 64, 'bf16')}")
+
+    def with_library(name, case, call, lib, reads, out, ops, lib_name):
+        t, tl = ms(call), ms(lib)
+        print(f"{label} {name} {case}: {t:.4f} ms; {lib_name} {tl:.4f}; x{t / tl:.2f}; {bound(reads, out, ops, 'fp32')}; "
+              f"device {device_us(call):.2f} us a call, {lib_name} {device_us(lib):.2f}")
+
+    for case, M, C in _cases.LAYERNORM_CASES if "layernorm_fwd" in which else ():
+        x, w, b = rn(M, C).bfloat16(), 1 + rn(C, std=0.1), rn(C, std=0.1)
+        wb, bb = w.bfloat16(), b.bfloat16()
+        with_library("layernorm_fwd", f"{case} [{M}x{C}]", lambda: kernels.layernorm_fwd(x, w, b),
+                     lambda: F.layer_norm(x, (C,), wb, bb), (x, w, b), x, 8 * M * C, "F.layer_norm")
+
+    for case, M, N, dtype in _cases.COLSUM_CASES if "colsum" in which else ():
+        x = rn(M, N).to(torch.float32 if dtype == "fp32" else torch.bfloat16)
+        with_library("colsum", f"{case} [{M}x{N} {dtype}]", lambda: kernels.colsum(x),
+                     lambda: x.sum(0, dtype=torch.float32), (x,), kernels.colsum_plain(x), M * N, "torch.sum")
+        del x
+
+    M, C = 64 * 306, 768  # the audio tower at batch 64
+    x, w, b = rn(M, C).bfloat16(), 1 + rn(C, std=0.1), rn(C, std=0.1)
+    if "layernorm_bwd" in which:
+        dh, res = rn(M, C), rn(M, C).bfloat16()
+        leaves = [x.detach().clone().requires_grad_(), w.bfloat16().requires_grad_(),
+                  torch.zeros(C, dtype=torch.bfloat16, device="cuda", requires_grad=True)]
+        y, gy = F.layer_norm(leaves[0], (C,), leaves[1], leaves[2]), dh.bfloat16()
+        with_library("layernorm_bwd", f"audio B64 T306 [{M}x{C}]", lambda: kernels.layernorm_bwd(x, w, dh, res),
+                     lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True), (x, w, dh, res),
+                     x, 20 * M * C, "F.layer_norm autograd")
+    if "layernorm_rowquant" in which:
+        call = lambda: kernels.layernorm_rowquant(x, w, b)
+        q, s = call()
+        print(f"{label} layernorm_rowquant audio B64 T306 [{M}x{C}]: {ms(call):.4f} ms; "
+              f"{bound((x, w, b, s), q, 12 * M * C, 'fp32')}; device {device_us(call):.2f} us a call")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ their backward chains:
   stored, an optional activation-grad epilogue, fp32 or rounded out;
 - :func:`gemm_wgrad` (``csrc/gemm_wgrad.cu``): ``a^T . b`` reduced over all
   rows, fp32 out, the rows split into the chunks :func:`wgrad_split` plans;
-- :func:`colsum` (``csrc/reduce.cu``): fp32 column sums (the bias grads);
+- :func:`colsum` (``csrc/reduce.cu``): fp32 column sums (the bias grads),
+  the rows split into the chunks :func:`colsum_split` plans;
 - :func:`attention_fwd` / :func:`attention_bwd` (``csrc/attention.cu``,
   ``csrc/attention_bwd.cu``): exact two-pass softmax attention over the
   packed ``[B, T, 3C]`` projection, and its backward; with ``fp32_out``
@@ -59,7 +60,10 @@ from .quant import quantize_rows
 LN_EPS = 1e-5
 HEAD_DIM = 64  # the attention kernels' head dim
 LN_BWD_ROWS = 32  # rows per block of layernorm_bwd; one partial weight-grad row each
-COLSUM_ROWS = 256  # rows per block of colsum; one partial row each
+LN_MAX_C = 2048  # the widest row the LayerNorm kernels take: 8 vectors of 16 bytes a lane of a warp
+COLSUM_WARPS = 8  # warps a block of colsum; warp w sums rows w, w + 8, ... of the block's chunk
+COLSUM_STRIP = 512  # bytes of a row one colsum block reads: 16 a lane of a warp
+COLSUM_MIN_ROWS = 64  # the fewest rows a colsum chunk is given
 DBIAS_CHUNKS = 16  # partial sums of flash_attention_dbias over (items x heads)
 WGRAD_TILE = 128  # gemm_wgrad's output tile, both ways
 WGRAD_STEP = 64  # rows of the reduction per pipeline stage of gemm_wgrad
@@ -164,6 +168,32 @@ def gemm_wgrad_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def colsum_plain(x: torch.Tensor) -> torch.Tensor:
     return acc(x).reshape(-1, x.shape[-1]).sum(0)
+
+
+def colsum_ordered(x: torch.Tensor) -> torch.Tensor:
+    """:func:`colsum_plain` with the fp32 additions in the order of the
+    kernel, one by one: in each chunk of :func:`colsum_split`, group w of
+    ``COLSUM_WARPS`` adds rows w, w + 8, ... in turn, then the groups are
+    added in order into the chunk's partial row; the partial rows are summed
+    the same way, as one chunk. The kernel's result equals it bitwise."""
+    N = x.shape[-1]
+    x2 = acc(x).reshape(-1, N)
+    W = COLSUM_WARPS
+
+    def chunk_sums(t, chunks, per):  # [rows, N] -> [chunks, N]
+        t = torch.nn.functional.pad(t, (0, 0, 0, chunks * per - t.shape[0])).view(chunks, per // W, W, N)
+        s = torch.zeros((chunks, W, N), dtype=t.dtype, device=t.device)
+        for k in range(per // W):
+            s = s + t[:, k]
+        out = s[:, 0]
+        for w in range(1, W):
+            out = out + s[:, w]
+        return out
+
+    if x2.shape[0] == 0:
+        return x2.sum(0)
+    S, per = colsum_split(x2.shape[0], N, x.element_size())
+    return chunk_sums(chunk_sums(x2, S, per), 1, -(-S // W) * W)[0]
 
 
 def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -330,9 +360,12 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _launch(name: str, device: torch.device, *args) -> None:
     lib = _build.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"vt_{name}")(*args, stream)
+    call = getattr(lib, f"vt_{name}")
+    if device.index == torch.cuda.current_device():  # no device guard: it costs ~3 us a call
+        err = call(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = call(*args, torch._C._cuda_getCurrentRawStream(device.index))
     _build.check(lib, err, name)
     LAUNCHES[name] += 1
 
@@ -342,12 +375,20 @@ def _param_vector(t: torch.Tensor, name: str, n: int, device: torch.device) -> N
     _require(t.shape == (n,), f"{name} must be [{n}], got {tuple(t.shape)}")
 
 
+def _ln_width(C: int) -> None:
+    _require(0 < C <= LN_MAX_C and C % 8 == 0,
+             f"C={C} must be a positive multiple of 8 and at most {LN_MAX_C} (a warp holds the row "
+             f"in 16-byte vectors)")
+
+
 def layernorm_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """LayerNorm over the last dim with fp32 statistics (eps 1e-5); the
-    affine result is rounded once to ``x.dtype``. w, b: [C] fp32."""
+    affine result is rounded once to ``x.dtype``. w, b: [C] fp32. On CUDA
+    C % 8 == 0, C <= 2048 and x, w, b 16-byte aligned."""
     if not x.is_cuda:
         return layernorm_plain(x, w, b)
     C = x.shape[-1]
+    _ln_width(C)
     _cuda_operand(x, "x", torch.bfloat16, x.device)
     _param_vector(w, "w", C, x.device)
     _param_vector(b, "b", C, x.device)
@@ -365,6 +406,7 @@ def layernorm_bwd(x: torch.Tensor, w: torch.Tensor, dh: torch.Tensor,
     if not x.is_cuda:
         return layernorm_bwd_plain(x, w, dh, residual)
     C = x.shape[-1]
+    _ln_width(C)
     rows = x.numel() // C
     _cuda_operand(x, "x", torch.bfloat16, x.device)
     _param_vector(w, "w", C, x.device)
@@ -490,19 +532,45 @@ def gemm_wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@functools.lru_cache(maxsize=1024)
+def colsum_split(rows: int, N: int, itemsize: int) -> Tuple[int, int]:
+    """``(S, rows_per_chunk)``: how :func:`colsum` cuts its ``rows`` (>= 1)
+    of N elements of ``itemsize`` bytes. The kernel launches one block per
+    (strip of 512 bytes of a row, row chunk), so the card gets strips * S
+    blocks; S aims at two blocks an SM (the strips alone are 2 to 18 blocks
+    at the paths' widths), with no chunk under ``COLSUM_MIN_ROWS`` rows.
+    Chunks are multiples of ``COLSUM_WARPS`` rows, none is empty, and the
+    last may be short: ``(S - 1) * rows_per_chunk < rows <= S *
+    rows_per_chunk``. A function of the shapes and the constants above only,
+    so the same shapes always sum in the same order."""
+    strips = -(-N * itemsize // COLSUM_STRIP)
+    S = max(1, min(-(-2 * SM_COUNT // strips), -(-rows // COLSUM_MIN_ROWS)))
+    per = -(-rows // S)
+    per = -(-per // COLSUM_WARPS) * COLSUM_WARPS
+    return -(-rows // per), per
+
+
 def colsum(x: torch.Tensor) -> torch.Tensor:
-    """fp32 sums over all rows of x [..., N] (bf16 or fp32) -> [N]."""
+    """fp32 sums over all rows of x [..., N] (bf16 or fp32) -> [N]. On CUDA a
+    row is a whole number of 16-byte vectors (N % 8 == 0 for bf16, N % 4 ==
+    0 for fp32) and x is 16-byte aligned. The rows are summed in the chunks
+    of :func:`colsum_split`, in the fixed order of :func:`colsum_ordered`:
+    two runs give the same bits."""
     if not x.is_cuda:
         return colsum_plain(x)
-    N = x.shape[-1]
-    rows = x.numel() // N
     _require(x.dtype in (torch.bfloat16, torch.float32), f"x must be bf16 or fp32, got {x.dtype}")
     _cuda_operand(x, "x", x.dtype, x.device)
-    partial = torch.empty((-(-rows // COLSUM_ROWS), N), dtype=torch.float32, device=x.device)
-    y = torch.empty(N, dtype=torch.float32, device=x.device)
-    _launch("colsum", x.device, x.data_ptr(), int(x.dtype == torch.float32), partial.data_ptr(),
-            y.data_ptr(), rows, N, COLSUM_ROWS)
-    return y
+    N, per_vec = x.shape[-1], 16 // x.element_size()
+    _require(N > 0 and N % per_vec == 0,
+             f"N={N} must be a positive multiple of {per_vec} for {x.dtype} (16-byte row vectors)")
+    rows = x.numel() // N
+    if rows == 0:  # an empty sum, as the plain version gives it
+        return torch.zeros(N, dtype=torch.float32, device=x.device)
+    S, rows_per_chunk = colsum_split(rows, N, x.element_size())
+    buf = torch.empty((S + 1) * N, dtype=torch.float32, device=x.device)  # the sums, then S partial rows
+    _launch("colsum", x.device, x.data_ptr(), int(x.dtype == torch.float32), buf.data_ptr() + 4 * N,
+            buf.data_ptr(), rows, N, S, rows_per_chunk)
+    return buf[:N]
 
 
 def _attention_operands(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int):
@@ -592,6 +660,7 @@ def layernorm_rowquant(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     if not x.is_cuda:
         return layernorm_rowquant_plain(x, w, b)
     C = x.shape[-1]
+    _ln_width(C)
     _cuda_operand(x, "x", torch.bfloat16, x.device)
     _param_vector(w, "w", C, x.device)
     _param_vector(b, "b", C, x.device)
