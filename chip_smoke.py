@@ -36,6 +36,12 @@
    64 and 4 and the decoder's M = 64 x 77), named with its row split, held
    bitwise equal over two runs and to ``colsum_ordered`` (the plain sum in
    the kernel's order), with device µs per call beside ``torch.sum``'s;
+   ``layernorm_bwd`` alone at every (rows, C) the training paths give it
+   (``LAYERNORM_BWD_CASES``: the audio tower at batch 64, 4 and 16, the
+   caption decoder at B64 and B16 T77, the packed text rows), named with its
+   grid plan, dw and db held bitwise equal over two runs and db bitwise to
+   ``layernorm_bwd_ordered`` (the plain sums in the kernel's order), with
+   device µs per call beside autograd through ``F.layer_norm``;
    ``gemm_dgrad`` alone at every product shape the training paths
    give it (``GEMM_DGRAD_CASES``: the audio tower at batch 4 and 64 and the
    caption decoder's M = 64 x 77, with each activation grad), each held
@@ -101,14 +107,16 @@
    the Adam descent smoke under ``int8_frozen``.
 
 10. Flash kernel phase: ``flash_attention_fwd``, ``_bwd`` and ``_dbias``
-   against their plain versions at the captioning decoder's cross-attention
-   (B64 and B4, Tq 77 against Tk 61; the re-forward decode's Tq 32), at equal
-   lengths (B16 T971 H12 without bias, T77 causal, B16 T200 H12 with the
-   block-diagonal packing bias and its grad), with q, k, v read as contiguous
-   tensors, as sections of a packed [B, T, 3C] tensor and as transposed
-   [B, H, T, D] views (outputs bitwise equal across the three), the bias grad
-   bitwise equal across two runs; ``F.scaled_dot_product_attention`` and its
-   autograd backward timed beside them.
+   against their plain versions at ``FLASH_CASES``: the captioning decoder's
+   cross-attention (B64 and B4, Tq 77 against Tk 61; the re-forward decode's
+   Tq 32), equal lengths (B16 T971 H12 without bias, T77 causal, B16 T200
+   H12 with the block-diagonal packing bias and its grad), with q, k, v read
+   as contiguous tensors, as sections of a packed [B, T, 3C] tensor and as
+   transposed [B, H, T, D] views (outputs bitwise equal across the three),
+   the forward and the bias grad bitwise equal across two runs, a query row
+   masked everywhere uniform; ``F.scaled_dot_product_attention`` and its
+   autograd backward timed beside them, the forward also in device µs per
+   call beside SDPA's.
 11. Probe phase: ``dot_variant`` in its four orientations against the fp32
    product, with its device µs per call beside ``torch.matmul``'s (its loop
    is bound by the host); ``probe_fused_fwd`` at B64 T306 C768 against its plain version
@@ -311,6 +319,30 @@ LAYERNORM_CASES = [
     ("caption decoder B16 T77", 16 * 77, 512),
     *[(f"caption decode T=1 M={M}", M, 512) for M in (4, 16, 64, 256)],  # KV-cached decode, the MLP
 ]
+# every (rows, C) the training paths give layernorm_bwd (two launches a layer of a trained tower: the
+# attention and the MLP sub-block): (case, rows, C). The backward kernel phase holds it to its plain
+# version at each, dw and db bitwise across two runs and db bitwise to layernorm_bwd_ordered, with
+# device us per call beside autograd through F.layer_norm; experiments/kernel_times.py times each.
+LAYERNORM_BWD_CASES = [
+    ("audio B64 T306", 64 * 306, 768),             # the timed VA and captioning steps
+    ("audio B4 T306", 4 * 306, 768),
+    ("audio B16 T306", 16 * 306, 768),             # the counted training steps
+    ("caption decoder B64 T77", 64 * 77, 512),     # the timed captioning step, M = 4,928
+    ("caption decoder B16 T77", 16 * 77, 512),     # the counted captioning step
+    ("text B1 T308", 308, 512),                    # 4 captions packed
+]
+# the flash kernel phase's shapes: (case, B, Tq, Tk, H, bias: None, "pack" (4 items of T / 4
+# tokens, block-diagonal) or "causal"); the first is the captioning step's cross-attention.
+# experiments/kernel_times.py times flash_attention_fwd at each.
+FLASH_CASES = [
+    ("cross B64 Tq77 Tk61 H8", 64, 77, 61, 8, None),
+    ("cross B4 Tq77 Tk61 H8", 4, 77, 61, 8, None),
+    ("re-forward decode B64 Tq32 Tk61 H8", 64, 32, 61, 8, None),
+    ("re-forward decode B4 Tq32 Tk61 H8", 4, 32, 61, 8, None),
+    ("self B16 T971 H12 (patch 32, stride 10x10)", 16, 971, 971, 12, None),
+    ("self B16 T200 H12 pack, bias grad", 16, 200, 200, 12, "pack"),
+    ("self B64 T77 H8 causal", 64, 77, 77, 8, "causal"),
+]
 # every (rows, N, dtype) of the trained towers' four bias grads: dbout and dbproj (the output grad,
 # [M, C] bf16), dbqkv (the fp32 dqkv, [M, 3C]), dbfc (the rounded da, [M, 4C] bf16), for the audio
 # tower at batch 64 and 4 and the caption decoder at B64 T77. The backward kernel phase holds colsum
@@ -404,16 +436,27 @@ def check_codes(torch, got, want, what):
 
 
 def device_us(torch, fn, calls=20, tries=3):
-    """Device time per call in µs: the device busy time of ``calls`` calls in
-    a profiler window. Where a loop of calls is bound by the host, this is
-    the number to compare. A window may come back without the device's events
-    (seen once in a few dozen); it is tried again, and None means not
+    """Device time per call in µs, from a profiler window of ``calls``
+    calls: each kernel's mean duration times the launches a call makes of
+    it. Where a loop of calls is bound by the host, this is the number to
+    compare. A window can lose device events (windows taken after the
+    training phases see 14 to 19 of 20 launches; earlier, one window in a
+    few dozen saw a few, and its busy time read far too low), so a call's
+    launches of a kernel are its count in the window over ``calls``,
+    rounded, and a kernel seen fewer than ``calls / 2`` times is not the
+    calls' own. A window with none is tried again; None means not
     measured."""
+    seen = {}
     for _ in range(tries):
         try:
-            return _profile(torch, fn, calls)[0] * 1e3
+            _, _, seen = _profile(torch, fn, calls)
         except AssertionError:
             continue
+        per_call = [(round(n / calls), ms / n) for n, ms in seen.values()]
+        if any(k for k, _ in per_call):
+            return sum(k * mean for k, mean in per_call) * 1e3
+    print(f"  device_us: no window saw the calls' kernels in {tries}; the last: "
+          + ", ".join(f"{k[:40]} x{n}" for k, (n, _) in seen.items()))
     return None
 
 
@@ -485,6 +528,18 @@ def _biases(torch):
 
     pack_bias = lambda T, k: pack_tokens(torch.zeros(k, T, 1, device="cuda"), k)[1]
     return pack_bias, causal_mask(4 * 77, device="cuda") + pack_bias(77, 4)
+
+
+def flash_bias(torch, kind, T):
+    """The [T, T] fp32 bias of a ``FLASH_CASES`` kind, finite (the causal
+    mask clamped at -1e30), or None."""
+    from vipant_tpu_torch.nn.layers import causal_mask
+
+    if kind is None:
+        return None
+    if kind == "causal":
+        return torch.clamp(causal_mask(T, device="cuda"), min=-1e30).contiguous()
+    return _biases(torch)[0](T // 4, 4)
 
 
 def gemm_ops(M, N, K, kind="bf16"):
@@ -682,6 +737,28 @@ def backward_kernel_phase(torch, results):
             raise AssertionError(f"colsum {case}: two runs differ, or the sum is not in colsum_ordered's order")
         del x
     print("  colsum: two runs bitwise equal, and equal to colsum_ordered, at every case")
+
+    # layernorm_bwd at every (rows, C) the training paths give it, with the residual grad; dw and db
+    # bitwise across two runs, db bitwise layernorm_bwd_ordered (the plain sum in the kernel's order)
+    for case, M, C in LAYERNORM_BWD_CASES:
+        x, dh, res = rn(M, C), rn(M, C, dtype=torch.float32), rn(M, C)
+        w = 1 + rn(C, std=0.1, dtype=torch.float32)
+        warps, rows = kernels.layernorm_bwd_split(M, C)
+        if M >= 64 * 77 and warps < kernels.SM_COUNT * kernels.LN_BWD_WARPS:  # a training step fills the card
+            raise AssertionError(f"layernorm_bwd {case}: {warps} warps for {kernels.SM_COUNT} SMs")
+        call = lambda: kernels.layernorm_bwd(x, w, dh, res)
+        compare(torch, results, "layernorm_bwd", f"{case} [{M}x{C}: {warps} warps of {rows} rows]", call,
+                lambda: kernels.layernorm_bwd_plain(x, w, dh, res), reads=(x, w, dh, res),
+                ops=[(20 * M * C, "fp32")], library=_layer_norm_bwd(torch, x, w, dh),
+                iters=10 if M > 5000 else 20, device=True)
+        (_, dw, db), (_, dw2, db2) = call(), call()
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            raise AssertionError(f"layernorm_bwd {case}: two runs differ")
+        if not torch.equal(db, kernels.layernorm_bwd_ordered(x, w, dh, res)[2]):
+            raise AssertionError(f"layernorm_bwd {case}: db is not summed in layernorm_bwd_ordered's order")
+        del x, dh, res
+    print("  layernorm_bwd: dw and db bitwise equal across two runs, db equal to layernorm_bwd_ordered's, "
+          "at every case")
 
     def wgrad(cmp, case, a, b):
         """``gemm_wgrad(a, b)`` beside ``torch.matmul`` of a^T . b; the case names the row split."""
@@ -1473,29 +1550,21 @@ def flash_kernel_phase(torch, results):
     """The three flash-attention kernels against their plain versions, at
     the captioning decoder's cross-attention shapes and at the equal-length
     shapes the JAX package runs its kernel at; layouts; determinism."""
-    from vipant_tpu_torch.nn.layers import causal_mask
     from vipant_tpu_torch.ops import attention as attention_mod, kernels
 
     rn = _seeded(torch)
     pack_bias, _ = _biases(torch)
-    clamp = lambda b: torch.clamp(b.float(), min=-1e30).contiguous()
-    cases = [  # (case, B, Tq, Tk, H, bias): the first is the captioning step's
-        ("cross B64 Tq77 Tk61 H8", 64, 77, 61, 8, None),
-        ("cross B4 Tq77 Tk61 H8", BATCH, 77, 61, 8, None),
-        ("re-forward decode B64 Tq32 Tk61 H8", 64, 32, 61, 8, None),
-        ("re-forward decode B4 Tq32 Tk61 H8", BATCH, 32, 61, 8, None),
-        ("self B16 T971 H12 (patch 32, stride 10x10)", 16, 971, 971, 12, None),
-        ("self B16 T200 H12 pack, bias grad", 16, 200, 200, 12, pack_bias(50, 4)),
-        ("self B64 T77 H8 causal", 64, 77, 77, 8, clamp(causal_mask(77, device="cuda"))),
-    ]
-    for case, B, Tq, Tk, H, bias in cases:
+    for case, B, Tq, Tk, H, kind in FLASH_CASES:
         cmp = lambda *a, **k: compare(torch, results, *a, iters=10, **k)
         q, k, v, do = rn(B, Tq, H, 64), rn(B, Tk, H, 64), rn(B, Tk, H, 64), rn(B, Tq, H, 64)
+        bias = flash_bias(torch, kind, Tq)
         o, lse = kernels.flash_attention_fwd_plain(q, k, v, bias, 0.125)
         lib_fwd, lib_bwd, lib_dbias = _sdpa4(torch, q, k, v, bias)
-        cmp("flash_attention_fwd", case, lambda: kernels.flash_attention_fwd(q, k, v, bias, 0.125),
-            lambda: kernels.flash_attention_fwd_plain(q, k, v, bias, 0.125), reads=(q, k, v, bias),
-            ops=flash_ops(B, Tq, Tk, H), library=lib_fwd)
+        fwd = lambda: kernels.flash_attention_fwd(q, k, v, bias, 0.125)
+        cmp("flash_attention_fwd", case, fwd, lambda: kernels.flash_attention_fwd_plain(q, k, v, bias, 0.125),
+            reads=(q, k, v, bias), ops=flash_ops(B, Tq, Tk, H), library=lib_fwd, device=True)
+        if not all(torch.equal(a, b) for a, b in zip(fwd(), fwd())):
+            raise AssertionError(f"flash_attention_fwd {case}: two runs differ")
         cmp("flash_attention_bwd", case,
             lambda: kernels.flash_attention_bwd(q, k, v, bias, o, lse, do, 0.125),
             lambda: kernels.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, 0.125),
@@ -1539,6 +1608,19 @@ def flash_kernel_phase(torch, results):
         if not all(torch.equal(a, b) for a, b in zip(got, ref)):
             raise AssertionError(f"flash kernels: layout {name!r} differs from contiguous inputs")
     print(f"  layouts {list(layouts)}: o, lse, dq, dk, dv, delta, dbias bitwise equal")
+    # a query row masked everywhere (bias -1e30 across it) is the uniform row, not NaN
+    q, k, v = rn(4, 77, 8, 64), rn(4, 61, 8, 64), rn(4, 61, 8, 64)
+    bias = torch.zeros(77, 61, device="cuda")
+    bias[40] = -1e30
+    o, lse = kernels.flash_attention_fwd(q, k, v, bias, 0.125)
+    o0, lse0 = kernels.flash_attention_fwd_plain(q, k, v, bias, 0.125)
+    keep = torch.arange(77, device="cuda") != 40  # the masked row's lse is -1e30 in both
+    check_default(torch, [o, lse[..., keep]], [o0, lse0[..., keep]], "flash_attention_fwd, a row masked everywhere")
+    if not bool((lse[..., 40] == lse0[..., 40]).all()):
+        raise AssertionError("flash_attention_fwd: the masked row's lse differs from the plain version's")
+    if not torch.allclose(o[:, 40].float(), v.float().mean(dim=1), atol=ATOL, rtol=RTOL):
+        raise AssertionError("flash_attention_fwd: a row masked everywhere is not the uniform row")
+    print("  flash_attention_fwd: a row masked everywhere is the uniform row")
     for bad, why in (((sections[0].float(), *sections[1:]), "fp32"),
                      ((rn(B, T, H, 32), rn(B, T, H, 32), rn(B, T, H, 32)), "D = 32")):
         try:

@@ -17,6 +17,8 @@ gemm_i8, attention_bwd, whose recomputed p is bitwise the forward's, and
 colsum, whose sum is also bitwise kernels.colsum_ordered (the plain sum in
 the kernel's order)."""
 
+import os
+import sys
 from unittest import mock
 
 import numpy as np
@@ -26,6 +28,9 @@ import torch
 from vipant_tpu_torch.nn.layers import causal_mask, pack_tokens
 from vipant_tpu_torch.ops import LAUNCHES, fused_attn, fused_mlp, kernels, reset_launches
 from vipant_tpu_torch.serve import InferenceEngine
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import LAYERNORM_BWD_CASES  # noqa: E402  (the repo root's smoke script)
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=2e-2, rtol=2e-2)
@@ -176,15 +181,40 @@ def test_colsum_kernel_matches_plain_and_repeats(gen, rows, N, dtype):
     assert torch.equal(kernels.colsum(ix), kernels.colsum_plain(ix))
 
 
-@pytest.mark.parametrize("B,T,C", [(4, 306, 768), (64, 306, 768), (1, 308, 512), (3, 37, 64)])
+@pytest.mark.parametrize("B,T,C", [(4, 306, 768), (64, 306, 768), (1, 308, 512), (3, 37, 64),
+                                   (2, 45, 1024), (1, 33, 2048), (5, 7, 8)])  # every schedule of layernorm.cu
 def test_layernorm_bwd_kernel_matches_plain(gen, B, T, C):
     x, w = _rn(gen, B, T, C).bfloat16(), 1 + _rn(gen, C, std=0.1)
     dh, res = _rn(gen, B, T, C), _rn(gen, B, T, C).bfloat16()
     for r in (res, None):
+        reset_launches()
         got = kernels.layernorm_bwd(x, w, dh, r)
+        assert LAUNCHES == {"layernorm_bwd": 1}
         want = kernels.layernorm_bwd_plain(x, w, dh, r)
         for name, g, wt in zip(("dx", "dw", "db"), got, want):
             _close(g, wt, name)
+        again = kernels.layernorm_bwd(x, w, dh, r)
+        assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])  # no atomics
+        assert torch.equal(got[2], kernels.layernorm_bwd_ordered(x, w, dh, r)[2])  # the planned order
+
+
+@pytest.mark.parametrize("case,M,C", LAYERNORM_BWD_CASES, ids=[c[0] for c in LAYERNORM_BWD_CASES])
+def test_layernorm_bwd_kernel_at_every_training_case(gen, case, M, C):
+    """Every (rows, C) the training paths give it: within tolerance, dw and db
+    the same bits in two runs, db bitwise the ordered mirror, dw within fp32
+    rounding of it; small integers for dh make db exact in any order."""
+    x, w = _rn(gen, M, C).bfloat16(), 1 + _rn(gen, C, std=0.1)
+    dh, res = _rn(gen, M, C), _rn(gen, M, C).bfloat16()
+    got = kernels.layernorm_bwd(x, w, dh, res)
+    for name, g, wt in zip(("dx", "dw", "db"), got, kernels.layernorm_bwd_plain(x, w, dh, res)):
+        _close(g, wt, name)
+    _, dw2, db2 = kernels.layernorm_bwd(x, w, dh, res)
+    assert torch.equal(got[1], dw2) and torch.equal(got[2], db2)
+    _, dw_o, db_o = kernels.layernorm_bwd_ordered(x, w, dh, res)
+    assert torch.equal(got[2], db_o)
+    _close(got[1], dw_o, "dw against the ordered mirror")
+    idh = torch.randint(-3, 4, (M, C), generator=gen, device="cuda").float()
+    assert torch.equal(kernels.layernorm_bwd(x, w, idh, res)[2], kernels.layernorm_bwd_plain(x, w, idh, res)[2])
 
 
 @pytest.mark.parametrize("M,N,K", [
@@ -744,17 +774,37 @@ def test_flash_attention_kernels_match_plain(gen, B, Tq, Tk, H, kind):
     o0, lse0 = kernels.flash_attention_fwd_plain(q, k, v, bias, 0.125)
     _close(o, o0, "o")
     _close(lse, lse0, "lse")
+    o2, lse2 = kernels.flash_attention_fwd(q, k, v, bias, 0.125)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)  # the same bits in every run
+    tiles, rows = kernels.flash_fwd_plan(Tq, Tk)
+    assert (tiles - 1) * rows < Tq <= tiles * rows and rows % 16 == 0
     got = kernels.flash_attention_bwd(q, k, v, bias, o0, lse0, do, 0.125)
     want = kernels.flash_attention_bwd_plain(q, k, v, bias, o0, lse0, do, 0.125)
     for name, g, w in zip(("dq", "dk", "dv", "delta"), got, want):
         _close(g, w, name)
-    assert LAUNCHES == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+    assert LAUNCHES == {"flash_attention_fwd": 2, "flash_attention_bwd": 1}
     if bias is not None:
         dbias = kernels.flash_attention_dbias(q, k, v, bias, lse0, want[3], do, 0.125)
         _close(dbias, kernels.flash_attention_dbias_plain(q, k, v, bias, lse0, want[3], do, 0.125), "dbias")
         again = kernels.flash_attention_dbias(q, k, v, bias, lse0, want[3], do, 0.125)
         assert torch.equal(dbias, again), "the bias grad must be bitwise repeatable"
         assert LAUNCHES["flash_attention_dbias"] == 2
+
+
+@pytest.mark.parametrize("Tq,Tk", [(77, 61), (200, 200), (971, 971), (5, 130)])
+def test_flash_attention_fwd_row_masked_everywhere_is_uniform(gen, Tq, Tk):
+    """A bias of -1e30 across a whole row gives the uniform row (m = -1e30),
+    not NaN, and leaves the other rows as the plain version has them."""
+    q, k, v = _rn(gen, 2, Tq, 2, 64).bfloat16(), _rn(gen, 2, Tk, 2, 64).bfloat16(), _rn(gen, 2, Tk, 2, 64).bfloat16()
+    bias = torch.zeros(Tq, Tk, device="cuda")
+    bias[Tq // 2] = -1e30
+    o, lse = kernels.flash_attention_fwd(q, k, v, bias, 0.125)
+    o0, lse0 = kernels.flash_attention_fwd_plain(q, k, v, bias, 0.125)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    _close(o, o0, "o")
+    _close(lse, lse0, "lse")
+    mean_v = v.float().mean(dim=1).bfloat16()  # [B, H, 64]
+    torch.testing.assert_close(o[:, Tq // 2].float(), mean_v.float(), **TOL)
 
 
 @pytest.mark.parametrize("kind", ["none", "pack"])

@@ -66,59 +66,6 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// The state of one warp: 16 query rows, of which a lane holds two (lane / 4
-// and lane / 4 + 8) and, of every 8 keys, the two at 2 (lane % 4).
-struct Rows {
-  int i[2];    // global query index of the lane's two rows
-  float m[2];  // running row max
-  float l[2];  // running row sum of exp(s - m); its reciprocal in pass 2
-};
-
-// pass 1 on one tile of 64 keys starting at k0: fold its scores into m and l.
-// kTail: the tile may hold keys past T (only the last tile does).
-template <bool kTail>
-__device__ __forceinline__ void fold_stats(Rows& rw, float (&s)[8][4], int k0, int lane, int T,
-                                           const float* bias, float scale) {
-  float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
-      s[j][e] = !kTail || col < T ? scaled(s[j][e], scale, bias, rw.i[e >> 1], col, T) : -INFINITY;
-      tmax[e >> 1] = fmaxf(tmax[e >> 1], s[j][e]);
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float mnew = fmaxf(rw.m[h], quad_max(tmax[h]));  // finite: key k0 < T is in every tile
-    float tsum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      tsum += exp_fast(s[j][2 * h] - mnew) + exp_fast(s[j][2 * h + 1] - mnew);
-    rw.l[h] = rw.l[h] * exp_fast(rw.m[h] - mnew) + quad_sum(tsum);  // first tile: exp(-inf) = 0
-    rw.m[h] = mnew;
-  }
-}
-
-// pass 2 on one tile: the normalised probabilities, rounded to bf16 in the A
-// fragments of p.v, times the tile's V rows, added to o (16 x 64 fp32);
-// rw.l holds 1 / l
-template <bool kTail>
-__device__ __forceinline__ void add_pv(float (&o)[8][4], const Rows& rw, float (&s)[8][4], int k0,
-                                       int lane, int T, const float* bias, float scale,
-                                       const __nv_bfloat16* Vs) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1), h = e >> 1;
-      s[j][e] = !kTail || col < T
-                    ? prob(scaled(s[j][e], scale, bias, rw.i[h], col, T), rw.m[h], rw.l[h])
-                    : 0.f;
-    }
-  pv_product(o, s, Vs, lane);
-}
-
 // kResident: K and V of the whole head are in shared memory, tile t in slot
 // t. Otherwise two slots: tile t sits in slot t & 1 while tile t + 1 loads.
 template <typename OutT, bool kResident>
@@ -141,15 +88,15 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
   const __nv_bfloat16* vbase = item + 2 * C + h * D;
   const bool active = q0 + warp * 16 < T;  // else: every row of this warp is past T
 
-  stage_rows<kFwdThreads>(Qs, item + h * D, q0, kFwdQ, T, C3);
+  stage_rows(Qs, item + h * D, q0, kFwdQ, T, C3, kFwdThreads);
   if constexpr (kResident) {
-    stage_rows<kFwdThreads>(Ks, kbase, 0, nkt * BKV, T, C3);
+    stage_rows(Ks, kbase, 0, nkt * BKV, T, C3, kFwdThreads);
     cp_async_commit();
-    stage_rows<kFwdThreads>(Vs, vbase, 0, nkt * BKV, T, C3);
+    stage_rows(Vs, vbase, 0, nkt * BKV, T, C3, kFwdThreads);
     cp_async_commit();
     cp_async_wait<1>();  // Q and K have landed; V follows during pass 1
   } else {
-    stage_rows<kFwdThreads>(Ks, kbase, 0, BKV, T, C3);
+    stage_rows(Ks, kbase, 0, BKV, T, C3, kFwdThreads);
     cp_async_commit();
     cp_async_wait<0>();
   }
@@ -174,7 +121,7 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
   for (int t = 0; t < nkt; ++t) {
     if constexpr (!kResident) {
       // slot (t + 1) & 1 was last read at tile t - 1, before that tile's closing barrier
-      if (t + 1 < nkt) stage_rows<kFwdThreads>(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3);
+      if (t + 1 < nkt) stage_rows(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3, kFwdThreads);
       cp_async_commit();   // possibly empty: "all but the newest group" is tile t
       cp_async_wait<1>();
       __syncthreads();
@@ -182,9 +129,9 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
     if (active) {
       scores(s, qf, Ks + (kResident ? t : t & 1) * BKV * LDH, lane);
       if (t + 1 < nkt)
-        fold_stats<false>(rw, s, t * BKV, lane, T, bias, scale);
+        fold_stats<false>(rw, s, t * BKV, lane, T, T, bias, scale);
       else
-        fold_stats<true>(rw, s, t * BKV, lane, T, bias, scale);
+        fold_stats<true>(rw, s, t * BKV, lane, T, T, bias, scale);
     }
     if constexpr (!kResident) __syncthreads();
   }
@@ -205,8 +152,8 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
     cp_async_wait<0>();
     __syncthreads();  // every thread's share of V has landed
   } else {
-    stage_rows<kFwdThreads>(Ks, kbase, 0, BKV, T, C3);
-    stage_rows<kFwdThreads>(Vs, vbase, 0, BKV, T, C3);
+    stage_rows(Ks, kbase, 0, BKV, T, C3, kFwdThreads);
+    stage_rows(Vs, vbase, 0, BKV, T, C3, kFwdThreads);
     cp_async_commit();
   }
   float o[8][4];
@@ -216,8 +163,8 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
     const int slot = kResident ? t : t & 1;
     if constexpr (!kResident) {
       if (t + 1 < nkt) {
-        stage_rows<kFwdThreads>(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3);
-        stage_rows<kFwdThreads>(Vs + ((t + 1) & 1) * BKV * LDH, vbase, (t + 1) * BKV, BKV, T, C3);
+        stage_rows(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3, kFwdThreads);
+        stage_rows(Vs + ((t + 1) & 1) * BKV * LDH, vbase, (t + 1) * BKV, BKV, T, C3, kFwdThreads);
       }
       cp_async_commit();
       cp_async_wait<1>();
@@ -226,9 +173,9 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
     if (active) {
       scores(s, qf, Ks + slot * BKV * LDH, lane);
       if (t + 1 < nkt)
-        add_pv<false>(o, rw, s, t * BKV, lane, T, bias, scale, Vs + slot * BKV * LDH);
+        add_pv<false>(o, rw, s, t * BKV, lane, T, T, bias, scale, Vs + slot * BKV * LDH);
       else
-        add_pv<true>(o, rw, s, t * BKV, lane, T, bias, scale, Vs + slot * BKV * LDH);
+        add_pv<true>(o, rw, s, t * BKV, lane, T, T, bias, scale, Vs + slot * BKV * LDH);
     }
     if constexpr (!kResident) __syncthreads();
   }

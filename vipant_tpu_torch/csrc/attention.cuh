@@ -18,9 +18,11 @@
 // and chip_smoke.py hold p read out of the forward (v one-hot) against p
 // read out of the backward's dv (do one-hot).
 //
-// flash_attention.cu's blocks own 64 query rows (or 64 keys), 4 warps of 16
-// rows each, and stream the other side through shared memory in tiles of
-// 64, its scores passing through an fp32 tile in shared memory
+// flash_attention.cu's forward is built from the same register-level
+// pieces (`scores`, `fold_stats`, `add_pv`, with separate query and key
+// lengths). Its backward kernels' blocks own 64 query rows (or 64 keys), 4
+// warps of 16 rows each, and stream the other side through shared memory in
+// tiles of 64, their scores passing through an fp32 tile in shared memory
 // (`score_tile`, `nvcuda::wmma`).
 
 #pragma once
@@ -114,7 +116,7 @@ __device__ __forceinline__ float prob(float s, float m, float inv_l) {
 }
 
 // ---------------------------------------------------------------------------
-// register-level tiles: attention.cu, attention_bwd.cu
+// register-level tiles: attention.cu, attention_bwd.cu, flash_attention.cu's forward
 // ---------------------------------------------------------------------------
 
 // four 8x8 bf16 matrices, row addresses from lanes 8i .. 8i + 7 for matrix i
@@ -159,12 +161,11 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // rows [r0, r0 + nrows) of one head's 64 columns (row stride `ld`) into a
-// tile of pitch LDH, asynchronously, by the block's kNThreads threads; rows
+// tile of pitch LDH, asynchronously, by the block's `threads` threads; rows
 // past T are zero
-template <int kNThreads>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* base, int r0,
-                                           int nrows, int T, int ld) {
-  for (int c = threadIdx.x; c < nrows * (D / 8); c += kNThreads) {
+                                           int nrows, int T, int ld, int threads) {
+  for (int c = threadIdx.x; c < nrows * (D / 8); c += threads) {
     const int r = c >> 3, k = (c & 7) * 8;
     const bool in = r0 + r < T;
     async_copy::cp_async16(dst + r * LDH + k, in ? base + static_cast<size_t>(r0 + r) * ld + k : base,
@@ -234,6 +235,64 @@ __device__ __forceinline__ void pv_product(float (&o)[8][4], const float (&p)[kB
       mma_16816(o[2 * n + 1], pa, vb[2], vb[3]);
     }
   }
+}
+
+// The softmax state of one warp of a forward kernel: 16 query rows, of which
+// a lane holds two (lane / 4 and lane / 4 + 8) and, of every 8 keys, the two
+// at 2 (lane % 4).
+struct Rows {
+  int i[2];    // global query index of the lane's two rows
+  float m[2];  // running row max
+  float l[2];  // running row sum of exp(s - m); its reciprocal in pass 2
+};
+
+// pass 1 on one tile of 64 keys starting at k0: scale and bias the raw
+// scores `s` in place (keys past Tk: -inf) and fold them into m and l. kTail:
+// the tile may hold keys past Tk (only the last tile does). Tq, Tk: the query
+// and key lengths, the bias [Tq, Tk] (self-attention: both T).
+template <bool kTail>
+__device__ __forceinline__ void fold_stats(Rows& rw, float (&s)[8][4], int k0, int lane, int Tq,
+                                           int Tk, const float* bias, float scale) {
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+      s[j][e] = !kTail || col < Tk ? scaled(s[j][e], scale, bias, rw.i[e >> 1], col, Tq, Tk) : -INFINITY;
+      tmax[e >> 1] = fmaxf(tmax[e >> 1], s[j][e]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mnew = fmaxf(rw.m[h], quad_max(tmax[h]));  // finite: key k0 < Tk is in every tile
+    float tsum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      tsum += exp_fast(s[j][2 * h] - mnew) + exp_fast(s[j][2 * h + 1] - mnew);
+    rw.l[h] = rw.l[h] * exp_fast(rw.m[h] - mnew) + quad_sum(tsum);  // first tile: exp(-inf) = 0
+    rw.m[h] = mnew;
+  }
+}
+
+// pass 2 on one tile: the normalised probabilities, rounded to bf16 in the A
+// fragments of p.v, times the tile's V rows, added to o (16 x 64 fp32);
+// rw.l holds 1 / l. `s` holds the tile's raw scores, or with kScaled the
+// scores fold_stats left (the same bits `scaled` gives the raw ones).
+template <bool kTail, bool kScaled = false>
+__device__ __forceinline__ void add_pv(float (&o)[8][4], const Rows& rw, float (&s)[8][4], int k0,
+                                       int lane, int Tq, int Tk, const float* bias, float scale,
+                                       const __nv_bfloat16* Vs) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1), h = e >> 1;
+      s[j][e] = !kTail || col < Tk
+                    ? prob(kScaled ? s[j][e] : scaled(s[j][e], scale, bias, rw.i[h], col, Tq, Tk),
+                           rw.m[h], rw.l[h])
+                    : 0.f;
+    }
+  pv_product(o, s, Vs, lane);
 }
 
 }  // namespace attn

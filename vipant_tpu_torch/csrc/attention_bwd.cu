@@ -123,8 +123,8 @@ __global__ void __launch_bounds__(kDqThreads, 2) attention_bwd_dq_kernel(Args a)
   const bool active = q0 + warp * 16 < T;  // else: every row of this warp is past T
 
   const int kv_rows = kResident ? nkt * BKV : BKV;
-  stage_rows<kDqThreads>(Ks, kbase, 0, kv_rows, T, C3);
-  stage_rows<kDqThreads>(Vs, vbase, 0, kv_rows, T, C3);
+  stage_rows(Ks, kbase, 0, kv_rows, T, C3, kDqThreads);
+  stage_rows(Vs, vbase, 0, kv_rows, T, C3, kDqThreads);
   cp_async_commit();
 
   // while K and V land: this warp's q and do rows, and their statistics
@@ -152,8 +152,8 @@ __global__ void __launch_bounds__(kDqThreads, 2) attention_bwd_dq_kernel(Args a)
     if constexpr (!kResident) {
       // slot (t + 1) & 1 was last read at tile t - 1, before that tile's closing barrier
       if (t + 1 < nkt) {
-        stage_rows<kDqThreads>(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3);
-        stage_rows<kDqThreads>(Vs + ((t + 1) & 1) * BKV * LDH, vbase, (t + 1) * BKV, BKV, T, C3);
+        stage_rows(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3, kDqThreads);
+        stage_rows(Vs + ((t + 1) & 1) * BKV * LDH, vbase, (t + 1) * BKV, BKV, T, C3, kDqThreads);
       }
       cp_async_commit();  // possibly empty: "all but the newest group" is tile t
       cp_async_wait<1>();
@@ -190,8 +190,8 @@ __global__ void __launch_bounds__(kDqThreads, 2) attention_bwd_dq_kernel(Args a)
 
   // pass 2: ds, and dq = ds . k accumulated in fp32
   if constexpr (!kResident) {
-    stage_rows<kDqThreads>(Ks, kbase, 0, BKV, T, C3);
-    stage_rows<kDqThreads>(Vs, vbase, 0, BKV, T, C3);
+    stage_rows(Ks, kbase, 0, BKV, T, C3, kDqThreads);
+    stage_rows(Vs, vbase, 0, BKV, T, C3, kDqThreads);
     cp_async_commit();
   }
   float dq[8][4];
@@ -200,8 +200,8 @@ __global__ void __launch_bounds__(kDqThreads, 2) attention_bwd_dq_kernel(Args a)
   for (int t = 0; t < nkt; ++t) {
     if constexpr (!kResident) {
       if (t + 1 < nkt) {
-        stage_rows<kDqThreads>(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3);
-        stage_rows<kDqThreads>(Vs + ((t + 1) & 1) * BKV * LDH, vbase, (t + 1) * BKV, BKV, T, C3);
+        stage_rows(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, T, C3, kDqThreads);
+        stage_rows(Vs + ((t + 1) & 1) * BKV * LDH, vbase, (t + 1) * BKV, BKV, T, C3, kDqThreads);
       }
       cp_async_commit();
       cp_async_wait<1>();
@@ -239,8 +239,8 @@ __device__ __forceinline__ void stage_query_tile(const Args& a, unsigned char* s
                                                  int q0) {
   const int T = a.T, C = a.H * D, C3 = 3 * C;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(slot);
-  stage_rows<kDkvThreads>(Qs, a.qkv + static_cast<size_t>(b) * T * C3 + h * D, q0, BQ, T, C3);
-  stage_rows<kDkvThreads>(Qs + BQ * LDH, a.dout + static_cast<size_t>(b) * T * C + h * D, q0, BQ, T, C);
+  stage_rows(Qs, a.qkv + static_cast<size_t>(b) * T * C3 + h * D, q0, BQ, T, C3, kDkvThreads);
+  stage_rows(Qs + BQ * LDH, a.dout + static_cast<size_t>(b) * T * C + h * D, q0, BQ, T, C, kDkvThreads);
   float* st = reinterpret_cast<float*>(slot + 2 * kTileBytes);
   const size_t stat0 = (static_cast<size_t>(b) * a.H + h) * T, bht = static_cast<size_t>(a.B) * a.H * T;
   for (int e = threadIdx.x; e < 3 * BQ; e += kDkvThreads) {

@@ -12,10 +12,28 @@
 //     the same two on [B, T, H, D] blocks, which the strides here cover.
 // On the TPU one grid step held several heads' [T, T] scores in VMEM, took
 // q, k, v as [B*H, T, D] after a relayout copy (or transposed in VMEM), and
-// needed Tq = Tk for its blocks. A Hopper block owns 64 query rows (or 64
-// keys) of one head and streams the other side through shared memory in
-// tiles of 64 (attention.cuh); no [T, T] array exists anywhere, no copy is
-// made of q, k or v, and the two lengths are separate.
+// needed Tq = Tk for its blocks. Here no [T, T] array exists anywhere, no
+// copy is made of q, k or v, and the two lengths are separate.
+//
+// Forward: attention.cu's register design on the strided views. One block
+// per (query tile, head, item), its rows sized to Tq in warps of 16
+// (kernels.flash_fwd_plan: one block of 5 warps per head at the decoder's
+// Tq = 77, blocks of 128 rows at T = 971). Each warp issues
+// `mma.sync.m16n8k16` itself (attention.cuh's `scores`, `fold_stats`,
+// `add_pv`), so scores and probabilities stay in registers; fragments come
+// from shared memory through `ldmatrix` over the 144-byte pitch. K and V of
+// the head stay resident in shared memory up to 704 keys, fetched once with
+// cp.async from the views, V behind K while pass 1 runs; longer keys stream
+// through a two-slot ring, the next tile in flight. Where every key fits in
+// one tile (the decoder's Tk = 61) the scaled scores of pass 1 stay in
+// registers for pass 2 and are not recomputed, and blocks of at most 5
+// warps are compiled for 4 an SM, so the captioning step's 512 blocks run
+// in one wave (on an H100, 14.7 us at 3 an SM against 11.0: the schedules are
+// in experiments/flash_fwd_variants.py). o goes out from the accumulators
+// in bf16 pairs. The backward kernels below keep their first
+// design: a block owns 64 query rows (or 64 keys) and streams the other side
+// through shared memory in tiles of 64, its scores passing through an fp32
+// tile (attention.cuh's `score_tile`).
 //
 // Rounding order, as in the Pallas kernels. Forward: fp32 scores of the bf16
 // q and k, times `scale`, plus the fp32 bias (each one fp32 rounding); exact
@@ -39,9 +57,12 @@
 //                    order. On the TPU the grid ran in sequence and summed
 //                    in place.
 //
-// Bound: at Tq = 77, Tk = 61 (the captioning decoder's cross-attention) a
-// head is two tiles' worth of work: the kernels are bound by launch latency
-// and shared-memory traffic, not by the tensor cores or the memory rate.
+// Bound: at Tq = 77, Tk = 61, B = 64, H = 8 (the captioning decoder's
+// cross-attention) the forward moves 18 MB (q, k and v read once, o and lse
+// written once): 5.4 us at 3.35 TB/s, against 0.3 GFLOP of products; the
+// work per head is one 64-key tile, so the forward is bound by the latency
+// of its loads and by how many heads are in flight, not by the tensor cores.
+// The backward's 5 products are bound the same way at that shape.
 //
 // Masking: keys past Tk get p = 0 against zero-filled rows; query rows past
 // Tq are computed on zero-filled rows and never stored. A bias of -1e30
@@ -52,6 +73,7 @@
 namespace {
 
 using namespace attn;
+using namespace async_copy;
 
 // a [B, T, H, 64] view: element strides of item, token and head (the last
 // dim is contiguous)
@@ -92,7 +114,13 @@ struct DbiasArgs {
   float scale;
 };
 
-constexpr int kFwdSmem = 4 * kTileBytes + kScoreBytes;
+constexpr int kFwdMaxRows = 128;  // query rows a forward block holds at most (kernels.FLASH_MAX_Q)
+// ... where every key fits one tile (kernels.FLASH_ONE_TILE_Q): 5 warps, so that 4 blocks an SM
+// fit in the register file with their scores kept from pass 1 to pass 2
+constexpr int kOneTileMaxRows = 80;
+constexpr int kMaxSmem = 232448;                      // what a block can be given on this card
+// tiles of 64 keys whose K and V stay resident beside the largest Q tile: 11, 704 keys
+constexpr int kResidentTiles = (kMaxSmem - kFwdMaxRows * LDH * 2) / (2 * kTileBytes);
 constexpr int kDqSmem = 5 * kTileBytes + 2 * kScoreBytes;
 constexpr int kDkvSmem = 6 * kTileBytes + 2 * kScoreBytes + 2 * BQ * 4;
 constexpr int kDbiasSmem = 4 * kTileBytes + 2 * kScoreBytes;
@@ -114,93 +142,141 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, FragC (&f)[D / 16
   }
 }
 
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * LDH;
-  __nv_bfloat16* Vs = Ks + BKV * LDH;
-  __nv_bfloat16* Ps = Vs + BKV * LDH;
-  float* Ss = reinterpret_cast<float*>(Ps + BQ * LDH);
+// How a forward block holds the keys and values of its head: every key in
+// one 64-key tile, the scores kept in registers from pass 1 to pass 2
+// (kOneTile); all tiles resident in shared memory, tile t in slot t
+// (kResident); or tiles streaming through two slots, tile t in slot t & 1
+// while tile t + 1 loads (kStreaming, past kResidentTiles).
+enum FwdMode { kOneTile, kResident, kStreaming };
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int Tq = a.Tq, Tk = a.Tk;
+// The forward: one block of `blockDim.x / 32` warps of 16 query rows per
+// (query tile of rows_per_block rows, head, item). Resident K and V are
+// fetched once, V behind K, landing while pass 1 runs. The bounds: kOneTile
+// blocks of at most 5 warps, 4 an SM (at most 102 registers); the others up
+// to 8 warps at whatever the registers allow, so that nothing spills.
+template <FwdMode kMode>
+__global__ void __launch_bounds__((kMode == kOneTile ? kOneTileMaxRows : kFwdMaxRows) * 2,
+                                  kMode == kOneTile ? 4 : 1)
+flash_fwd_kernel(FwdArgs a) {
+  constexpr bool kAll = kMode != kStreaming;  // every key tile resident
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int threads = blockDim.x, rows = threads / 2;  // 16 query rows a warp
+  const int Tq = a.Tq, Tk = a.Tk, nkt = kMode == kOneTile ? 1 : (Tk + BKV - 1) / BKV;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = Qs + rows * LDH;
+  __nv_bfloat16* Vs = Ks + (kAll ? nkt : 2) * BKV * LDH;
+
+  const int q0 = blockIdx.x * rows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const __nv_bfloat16* kbase = a.k.head(b, h);
   const __nv_bfloat16* vbase = a.v.head(b, h);
   const int kst = static_cast<int>(a.k.st), vst = static_cast<int>(a.v.st);
+  const bool active = q0 + warp * 16 < Tq;  // else: every row of this warp is past Tq
 
-  // each lane owns half of one of the warp's 16 rows
-  const int r = lane >> 1, half = lane & 1;
-  const int i = q0 + warp * 16 + r;  // global query index
-  float* srow = Ss + (warp * 16 + r) * LDS + half * 32;
-  __nv_bfloat16* prow = Ps + (warp * 16 + r) * LDH + half * 32;
+  stage_rows(Qs, a.q.head(b, h), q0, rows, Tq, static_cast<int>(a.q.st), threads);
+  stage_rows(Ks, kbase, 0, (kAll ? nkt : 1) * BKV, Tk, kst, threads);
+  cp_async_commit();
+  if constexpr (kAll) {
+    stage_rows(Vs, vbase, 0, nkt * BKV, Tk, vst, threads);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and K have landed; V follows during pass 1
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
 
-  load_rows(Qs, a.q.head(b, h), q0, Tq, static_cast<int>(a.q.st));
-  const int nkt = (Tk + BKV - 1) / BKV;
+  uint32_t qf[4][4];
+  {
+    // matrix i of a load: rows + 8 (i & 1), head dims + 8 (i >> 1)
+    const __nv_bfloat16* qrow = Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(qf[kk], qrow + kk * 16);
+  }
+
+  Rows rw;
+  rw.i[0] = q0 + warp * 16 + (lane >> 2);
+  rw.i[1] = rw.i[0] + 8;
+  rw.m[0] = rw.m[1] = -INFINITY;
+  rw.l[0] = rw.l[1] = 0.f;
+  float s[8][4];
 
   // pass 1: row max and row sum over all keys
-  float m = -INFINITY, l = 0.f;
   for (int t = 0; t < nkt; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();  // previous tile's readers are done with Ks
-    load_rows(Ks, kbase, k0, Tk, kst);
-    __syncthreads();
-    score_tile(Qs, Ks, Ss, warp);
-    float tmax = -INFINITY;
-    for (int c = 0; c < 32; ++c) {
-      const int j = k0 + half * 32 + c;
-      if (j < Tk) {
-        const float s = scaled(srow[c], a.scale, a.bias, i, j, Tq, Tk);
-        srow[c] = s;
-        tmax = fmaxf(tmax, s);
-      }
+    if constexpr (!kAll) {
+      // slot (t + 1) & 1 was last read at tile t - 1, before that tile's closing barrier
+      if (t + 1 < nkt) stage_rows(Ks + ((t + 1) & 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, Tk, kst, threads);
+      cp_async_commit();  // possibly empty: "all but the newest group" is tile t
+      cp_async_wait<1>();
+      __syncthreads();
     }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float mnew = fmaxf(m, tmax);
-    float tsum = 0.f;
-    for (int c = 0; c < 32; ++c) {
-      const int j = k0 + half * 32 + c;
-      if (j < Tk) tsum += expf(srow[c] - mnew);
+    if (active) {
+      scores(s, qf, Ks + (kAll ? t : t & 1) * BKV * LDH, lane);
+      if (t + 1 < nkt)
+        fold_stats<false>(rw, s, t * BKV, lane, Tq, Tk, a.bias, a.scale);
+      else
+        fold_stats<true>(rw, s, t * BKV, lane, Tq, Tk, a.bias, a.scale);
     }
-    tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
-    l = l * expf(m - mnew) + tsum;  // m = -inf on the first tile: exp(-inf) = 0
-    m = mnew;
-    __syncwarp();
+    if constexpr (!kAll) __syncthreads();
   }
-  if (i < Tq && half == 0) a.lse[(static_cast<size_t>(b) * a.H + h) * Tq + i] = m + logf(l);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (rw.i[hh] < Tq) a.lse[(static_cast<size_t>(b) * a.H + h) * Tq + rw.i[hh]] = rw.m[hh] + logf(rw.l[hh]);
+  }
+  rw.l[0] = 1.f / rw.l[0];
+  rw.l[1] = 1.f / rw.l[1];
 
   // pass 2: normalised bf16 p, then p.v accumulated in fp32
-  const float inv_l = 1.f / l;
-  FragC o[D / 16];
+  float o[8][4];
 #pragma unroll
-  for (int dj = 0; dj < D / 16; ++dj) wmma::fill_fragment(o[dj], 0.f);
-  for (int t = 0; t < nkt; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();
-    load_rows(Ks, kbase, k0, Tk, kst);
-    load_rows(Vs, vbase, k0, Tk, vst);
-    __syncthreads();
-    score_tile(Qs, Ks, Ss, warp);
-    for (int c = 0; c < 32; ++c) {
-      const int j = k0 + half * 32 + c;
-      float p = 0.f;
-      if (j < Tk) p = prob(scaled(srow[c], a.scale, a.bias, i, j, Tq, Tk), m, inv_l);
-      prow[c] = __float2bfloat16(p);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < BKV; kk += 16) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, Ps + warp * 16 * LDH + kk, LDH);
-#pragma unroll
-      for (int dj = 0; dj < D / 16; ++dj) {
-        FragBr vb;
-        wmma::load_matrix_sync(vb, Vs + kk * LDH + dj * 16, LDH);
-        wmma::mma_sync(o[dj], pa, vb, o[dj]);
+  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  if constexpr (kAll) {
+    cp_async_wait<0>();
+    __syncthreads();  // every thread's share of V has landed
+    if constexpr (kMode == kOneTile) {
+      if (active) add_pv<true, true>(o, rw, s, 0, lane, Tq, Tk, a.bias, a.scale, Vs);  // s: pass 1's
+    } else {
+      for (int t = 0; active && t < nkt; ++t) {
+        scores(s, qf, Ks + t * BKV * LDH, lane);
+        if (t + 1 < nkt)
+          add_pv<false>(o, rw, s, t * BKV, lane, Tq, Tk, a.bias, a.scale, Vs + t * BKV * LDH);
+        else
+          add_pv<true>(o, rw, s, t * BKV, lane, Tq, Tk, a.bias, a.scale, Vs + t * BKV * LDH);
       }
     }
+  } else {
+    stage_rows(Ks, kbase, 0, BKV, Tk, kst, threads);
+    stage_rows(Vs, vbase, 0, BKV, Tk, vst, threads);
+    cp_async_commit();
+    for (int t = 0; t < nkt; ++t) {
+      const int slot = t & 1;
+      if (t + 1 < nkt) {
+        stage_rows(Ks + (slot ^ 1) * BKV * LDH, kbase, (t + 1) * BKV, BKV, Tk, kst, threads);
+        stage_rows(Vs + (slot ^ 1) * BKV * LDH, vbase, (t + 1) * BKV, BKV, Tk, vst, threads);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      if (active) {
+        scores(s, qf, Ks + slot * BKV * LDH, lane);
+        if (t + 1 < nkt)
+          add_pv<false>(o, rw, s, t * BKV, lane, Tq, Tk, a.bias, a.scale, Vs + slot * BKV * LDH);
+        else
+          add_pv<true>(o, rw, s, t * BKV, lane, Tq, Tk, a.bias, a.scale, Vs + slot * BKV * LDH);
+      }
+      __syncthreads();
+    }
   }
-  store_rows(a.out, o, Ss, warp, lane, b, h, q0, Tq, a.H);
+
+  // one bf16 rounding of o, in pairs; rows past Tq are not stored
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    if (rw.i[hh] < Tq) {
+      __nv_bfloat16* orow = a.out + ((static_cast<size_t>(b) * Tq + rw.i[hh]) * a.H + h) * D + (lane & 3) * 2;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(o[n][2 * hh], o[n][2 * hh + 1]);
+    }
 }
 
 // p = exp(s - lse) and ds_raw = p * (dp - delta) for one score
@@ -450,24 +526,39 @@ cudaError_t opt_in(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+template <FwdMode kMode>
+cudaError_t launch_fwd(const FwdArgs& a, int B, int rows_per_block, int slots, cudaStream_t s) {
+  const int smem = (rows_per_block + 2 * slots * BKV) * LDH * 2;
+  cudaError_t err = opt_in(flash_fwd_kernel<kMode>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tq + rows_per_block - 1) / rows_per_block, a.H, B);
+  flash_fwd_kernel<kMode><<<grid, rows_per_block * 2, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v: [B, T, H, 64] views, `strides` their 9 element strides (item,
 // token, head of q, then of k, then of v); out [B, Tq, H, 64] bf16 and lse
-// [B, H, Tq] fp32, both contiguous
+// [B, H, Tq] fp32, both contiguous; rows_per_block (kernels.flash_fwd_plan):
+// the query rows of a block, a multiple of 16 up to 128, or up to 80 where
+// Tk <= 64
 extern "C" int vt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                       const long long* strides, const void* bias, void* out,
                                       void* lse, int B, int Tq, int Tk, int H, float scale,
-                                      void* stream) {
+                                      int rows_per_block, void* stream) {
   if (B <= 0 || Tq <= 0) return 0;
-  cudaError_t err = opt_in(flash_fwd_kernel, kFwdSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int max_rows = Tk <= BKV ? kOneTileMaxRows : kFwdMaxRows;
+  if (Tk <= 0 || rows_per_block <= 0 || rows_per_block % 16 != 0 || rows_per_block > max_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
   FwdArgs a{view(q, strides), view(k, strides + 3), view(v, strides + 6),
             static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out),
             static_cast<float*>(lse), Tq, Tk, H, scale};
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<<<grid, kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nkt = (Tk + BKV - 1) / BKV;
+  return static_cast<int>(nkt == 1                ? launch_fwd<kOneTile>(a, B, rows_per_block, 1, s)
+                          : nkt <= kResidentTiles ? launch_fwd<kResident>(a, B, rows_per_block, nkt, s)
+                                                  : launch_fwd<kStreaming>(a, B, rows_per_block, 2, s));
 }
 
 // o, dout: contiguous [B, Tq, H, 64]; delta: [B, H, Tq] fp32, written here;

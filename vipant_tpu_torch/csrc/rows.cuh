@@ -5,10 +5,10 @@
 // A row of C bf16 values (C % 8 == 0, C <= kMaxC, its start 16-byte aligned)
 // is read as C / 8 vectors of 16 bytes: lane l of a warp takes vectors l,
 // l + 32, l + 64, ... `warp_row_stats` sums each lane's values in that order
-// (vector by vector, element by element), from registers (layernorm_fwd) or
-// from memory (the others), then combines the lanes with an xor-shuffle
-// butterfly. Each step of the butterfly adds the same two values on both
-// lanes of a pair (a + b == b + a in IEEE arithmetic), so all 32 lanes end
+// (vector by vector, element by element), from registers (layernorm_fwd,
+// layernorm_bwd) or from memory (layernorm_rowquant), then combines the
+// lanes with an xor-shuffle butterfly. Each step of the butterfly adds the
+// same two values on both lanes of a pair (a + b == b + a in IEEE arithmetic), so all 32 lanes end
 // with the same bits, and so does every warp of every kernel that calls it
 // on the same row, by either route: layernorm_fwd, layernorm_bwd (whose xhat
 // must be the forward's) and layernorm_rowquant (bitwise
@@ -23,7 +23,7 @@
 
 namespace rows {
 
-constexpr int kThreads = 256;  // the block of layernorm_bwd, rowquant and layernorm_rowquant
+constexpr int kThreads = 256;  // the block of rowquant and layernorm_rowquant
 constexpr int kMaxC = 2048;    // the widest row: 8 vectors of 16 bytes a lane of a warp
 
 // Sum (kMax = false) or maximum (kMax = true) of `v` over the block; `red`
@@ -146,7 +146,7 @@ __device__ __forceinline__ float2 warp_row_stats(const uint4 (&v)[kVecs], int C,
 
 // the same bits, reading the row from memory a vector at a time (twice; the
 // second pass from L1) where a kernel keeps no registers for it: every warp
-// of a block that owns one row calls it
+// of a layernorm_rowquant block, which owns one row, calls it
 __device__ __forceinline__ float2 warp_row_stats(const __nv_bfloat16* __restrict__ xr, int C, float eps) {
   const uint4* p = reinterpret_cast<const uint4*>(xr);
   const int lane = threadIdx.x & 31, nv = C >> 3;

@@ -5,29 +5,35 @@ is timed here and used nowhere in the port: ``gemm_bias_act`` (``F.linear``),
 ``gemm_dgrad`` (``torch.matmul``), ``gemm_i8`` (``torch._int_mm``, the
 integer product alone), ``attention_fwd``'s streaming form at T > 704
 (``scaled_dot_product_attention``), ``layernorm_fwd`` (``F.layer_norm``),
-``colsum`` (``torch.sum(..., dtype=torch.float32)``), and, at the audio
-tower's batch of 64, ``layernorm_bwd`` (autograd through ``F.layer_norm``)
-and ``layernorm_rowquant`` (no library call), which share
-``layernorm_fwd``'s row statistics. ``gemm_dgrad``, ``gemm_i8``,
-``layernorm_fwd``, ``colsum``, ``layernorm_bwd`` and ``layernorm_rowquant``
-also print their device time per call (``chip_smoke.device_us``: the device
-busy time of 20 calls in a ``torch.profiler`` window), and so does the
-library call beside the last four: at the small shapes (B4, the text tower,
-the decode) that is the number to compare, since their timing loops there
-are bound by the host. To compare two checkouts on one card, run it for each
-in turns (A, B, B, A)::
+``colsum`` (``torch.sum(..., dtype=torch.float32)``), ``layernorm_bwd``
+(autograd through ``F.layer_norm``), ``flash_attention_fwd``
+(``scaled_dot_product_attention`` on the [B, H, T, 64] views), and, at the
+audio tower's batch of 64, ``layernorm_rowquant`` (no library call), which
+shares ``layernorm_fwd``'s row statistics. ``gemm_dgrad``, ``gemm_i8``,
+``layernorm_fwd``, ``colsum``, ``layernorm_bwd``, ``flash_attention_fwd``
+and ``layernorm_rowquant`` also print their device time per call
+(``chip_smoke.device_us``: the device busy time of 20 calls in a
+``torch.profiler`` window), and so does the library call beside the first
+six of those: at the small shapes (B4, the text tower, the decode, the
+cross-attention) that is the number to compare, since their timing loops
+there are bound by the host. To compare two checkouts on one card, run it
+for each in turns (A, B, B, A)::
 
     python vipant_tpu_torch/experiments/kernel_times.py <checkout root> <label> [kernels]
 
 ``kernels``, if given, picks some of ``gemm_bias_act``, ``attention_bwd``,
 ``gemm_dgrad``, ``gemm_i8``, ``attention_fwd``, ``layernorm_fwd``,
-``colsum``, ``layernorm_bwd`` and ``layernorm_rowquant``, separated by
-commas; by default all of them are timed.
+``colsum``, ``layernorm_bwd``, ``flash_attention_fwd``,
+``layernorm_rowquant`` and ``probe_fused_fwd`` (the probe's P2 chain,
+whose attention is ``flash_attention_fwd``, beside
+``F.multi_head_attention_forward``), separated by commas; by default all
+of them are timed.
 
 It imports the package from the given root, so an older checkout is timed
 with its own kernels; the shapes are ``GEMM_FWD_CASES``,
 ``GEMM_DGRAD_CASES``, ``GEMM_I8_CASES``, ``ATTENTION_STREAMING_T``,
-``LAYERNORM_CASES`` and ``COLSUM_CASES`` of the ``chip_smoke.py`` at the
+``LAYERNORM_CASES``, ``COLSUM_CASES``, ``LAYERNORM_BWD_CASES`` and
+``FLASH_CASES`` of the ``chip_smoke.py`` at the
 root of the checkout this script is in, and each line carries the bound
 ``chip_smoke.bound`` gives it. CUDA-event means over 20 launches after 3
 warm-ups, seeded inputs. At the decode shapes of ``gemm_bias_act`` (M <=
@@ -51,7 +57,7 @@ _cases = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(_cases)
 GEMMS = _cases.GEMM_FWD_CASES  # (case, M, N, K, activation, residual, fp32 pre-activation)
 KERNELS = ("gemm_bias_act", "attention_bwd", "gemm_dgrad", "gemm_i8", "attention_fwd", "layernorm_fwd", "colsum",
-           "layernorm_bwd", "layernorm_rowquant")
+           "layernorm_bwd", "flash_attention_fwd", "layernorm_rowquant", "probe_fused_fwd")
 ATTENTION = [  # (B, T, C, H, bias)
     (64, 306, 768, 12, "none"), (4, 306, 768, 12, "none"), (64, 77, 512, 8, "causal"),
     (16, 200, 768, 12, "pack"), (1, 308, 512, 8, "causal_pack"),
@@ -190,9 +196,9 @@ def main() -> None:
         print(f"{label} attention_fwd B{B} T{T} H{H} streaming: {t:.4f} ms; SDPA {lib:.4f}; x{t / lib:.2f}; "
               f"{bound((qkv,), o, 4 * B * H * T * T * 64, 'bf16')}")
 
-    def with_library(name, case, call, lib, reads, out, ops, lib_name):
+    def with_library(name, case, call, lib, reads, out, ops, lib_name, kind="fp32"):
         t, tl = ms(call), ms(lib)
-        print(f"{label} {name} {case}: {t:.4f} ms; {lib_name} {tl:.4f}; x{t / tl:.2f}; {bound(reads, out, ops, 'fp32')}; "
+        print(f"{label} {name} {case}: {t:.4f} ms; {lib_name} {tl:.4f}; x{t / tl:.2f}; {bound(reads, out, ops, kind)}; "
               f"device {device_us(call):.2f} us a call, {lib_name} {device_us(lib):.2f}")
 
     for case, M, C in _cases.LAYERNORM_CASES if "layernorm_fwd" in which else ():
@@ -207,21 +213,49 @@ def main() -> None:
                      lambda: x.sum(0, dtype=torch.float32), (x,), kernels.colsum_plain(x), M * N, "torch.sum")
         del x
 
-    M, C = 64 * 306, 768  # the audio tower at batch 64
-    x, w, b = rn(M, C).bfloat16(), 1 + rn(C, std=0.1), rn(C, std=0.1)
-    if "layernorm_bwd" in which:
-        dh, res = rn(M, C), rn(M, C).bfloat16()
+    for case, M, C in _cases.LAYERNORM_BWD_CASES if "layernorm_bwd" in which else ():
+        x, w, dh, res = rn(M, C).bfloat16(), 1 + rn(C, std=0.1), rn(M, C), rn(M, C).bfloat16()
         leaves = [x.detach().clone().requires_grad_(), w.bfloat16().requires_grad_(),
                   torch.zeros(C, dtype=torch.bfloat16, device="cuda", requires_grad=True)]
         y, gy = F.layer_norm(leaves[0], (C,), leaves[1], leaves[2]), dh.bfloat16()
-        with_library("layernorm_bwd", f"audio B64 T306 [{M}x{C}]", lambda: kernels.layernorm_bwd(x, w, dh, res),
+        with_library("layernorm_bwd", f"{case} [{M}x{C}]", lambda: kernels.layernorm_bwd(x, w, dh, res),
                      lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True), (x, w, dh, res),
                      x, 20 * M * C, "F.layer_norm autograd")
+        del x, dh, res, leaves, y, gy
+
+    for case, B, Tq, Tk, H, kind in _cases.FLASH_CASES if "flash_attention_fwd" in which else ():
+        q, k, v = rn(B, Tq, H, 64).bfloat16(), rn(B, Tk, H, 64).bfloat16(), rn(B, Tk, H, 64).bfloat16()
+        bias = _cases.flash_bias(torch, kind, Tq)
+        mask = None if bias is None else bias.to(q.dtype)
+        o, lse = kernels.flash_attention_fwd(q, k, v, bias, 0.125)
+        with_library("flash_attention_fwd", case, lambda: kernels.flash_attention_fwd(q, k, v, bias, 0.125),
+                     lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                            attn_mask=mask, scale=0.125),
+                     (q, k, v, bias, lse), o, 4 * B * H * Tq * Tk * 64, "SDPA", "bf16")
+        del q, k, v, o, lse
+
+    M, C = 64 * 306, 768  # the audio tower at batch 64
+    x, w, b = rn(M, C).bfloat16(), 1 + rn(C, std=0.1), rn(C, std=0.1)
     if "layernorm_rowquant" in which:
         call = lambda: kernels.layernorm_rowquant(x, w, b)
         q, s = call()
         print(f"{label} layernorm_rowquant audio B64 T306 [{M}x{C}]: {ms(call):.4f} ms; "
               f"{bound((x, w, b, s), q, 12 * M * C, 'fp32')}; device {device_us(call):.2f} us a call")
+    del x
+
+    if "probe_fused_fwd" in which:
+        from vipant_tpu_torch.experiments import fused_block_probe as probe
+
+        args = probe.make_inputs(device="cuda")
+        x, wqkv, bqkv, wout, bout = args
+        B, T, C = x.shape
+        xt = x.transpose(0, 1)
+        mha = lambda: F.multi_head_attention_forward(xt, xt, xt, C, probe.H, wqkv, bqkv.to(x.dtype), None, None,
+                                                     False, 0.0, wout, bout.to(x.dtype), need_weights=False)
+        call = lambda: probe.probe_fused_fwd(*args)
+        t, tl = ms(call, 10), ms(mha, 10)
+        print(f"{label} probe_fused_fwd B{B} T{T} C{C} H{probe.H}: {t:.4f} ms; F.multi_head_attention_forward "
+              f"{tl:.4f}; x{t / tl:.2f}; device {device_us(call):.2f} us a call, library {device_us(mha):.2f}")
 
 
 if __name__ == "__main__":

@@ -1,22 +1,31 @@
-"""Schedules of ``layernorm_fwd`` and ``colsum`` tried against each other on
-one card, and where the host time of a wrapper call goes::
+"""Schedules of ``layernorm_fwd``, ``colsum`` and ``layernorm_bwd`` tried
+against each other on one card, and where the host time of a wrapper call
+goes::
 
-    python vipant_tpu_torch/experiments/rowcol_variants.py
+    python vipant_tpu_torch/experiments/rowcol_variants.py [families]
+
+``families``, if given, picks some of ``ln``, ``cs``, ``lnb`` and ``host``,
+separated by commas; by default all of them run.
 
 Each variant is the kernel's source (``csrc/layernorm.cu`` or
-``csrc/reduce.cu``) with a few lines replaced (``LN``, ``CS`` below), built
-alone with ``nvcc`` into ``build/rowcol_variants/`` and called through its C
-entry point on preallocated tensors, so the host cost of the Python wrapper
-is left out. ``layernorm_fwd``: the persistent grid with the next row in
-flight (as kept), one row per warp (a grid of every row), the persistent
-grid without the prefetch, and 8 warps a block; ``colsum``: 2, 4 or 8 rows
-in flight a lane, each at a row split aiming at 1, 2 (as kept) or 4 blocks
-an SM. Printed per shape: the device time per call (``chip_smoke.device_us``)
-of each variant and of the library call, and the host time per call of the
-wrapper and of the library call (host clock around 300 calls that do not
-wait for the card). Last, the host µs of each step of a wrapper call.
-Every variant is held to the plain version (bitwise to ``colsum_ordered``
-at the kept split) before it is timed.
+``csrc/reduce.cu``) with a few lines replaced (``LN``, ``CS``, ``LNB``
+below), built with ``nvcc`` (``layernorm.cu`` beside ``reduce.cu``, whose
+``colsum`` its backward calls) into ``build/rowcol_variants/`` and called
+through its C entry point on preallocated tensors, so the host cost of the
+Python wrapper is left out. ``layernorm_fwd``: the persistent grid with the
+next row in flight (as kept), one row per warp (a grid of every row), the
+persistent grid without the prefetch, and 8 warps a block; ``colsum``: 2, 4
+or 8 rows in flight a lane, each at a row split aiming at 1, 2 (as kept) or
+4 blocks an SM; ``layernorm_bwd``: a warp per row with the next row in
+flight and w in shared memory (as kept), without the prefetch at the same
+or at a higher residency, with 2 warps a block, and with w read through L1
+instead of shared memory, each on its own grid plan. Printed per shape: the
+device time per call (``chip_smoke.device_us``) of each variant and of the
+library call, and the host time per call of the wrapper and of the library
+call (host clock around 300 calls that do not wait for the card). Last, the
+host µs of each step of a wrapper call. Every variant is held to the plain
+version (bitwise to ``colsum_ordered``, or for ``layernorm_bwd``'s db to
+``layernorm_bwd_ordered``, at the kept plan) before it is timed.
 """
 import ctypes
 import importlib.util
@@ -51,6 +60,20 @@ CS = {
     "cs_u4": [("constexpr int kUnroll = 8;", "constexpr int kUnroll = 4;")],
     "cs_u2": [("constexpr int kUnroll = 8;", "constexpr int kUnroll = 2;")],
 }
+_PREFETCH = "static constexpr bool kPrefetch = kVecs <= 3;"
+_PER_SM = "static constexpr int kBlocksPerSM = kVecs <= 2 ? 4 : kVecs <= 4 ? 3 : 2;"
+_WARPS = "constexpr int kBwdWarps = 4;"
+# layernorm_bwd: (substitutions, warps a block, blocks an SM at C <= 512 and at C = 768) for the grid plan
+LNB = {
+    "lnb_kept": ([], 4, 4, 3),
+    "lnb_noprefetch": ([(_PREFETCH, "static constexpr bool kPrefetch = false;")], 4, 4, 3),
+    "lnb_noprefetch_4blocks": ([(_PREFETCH, "static constexpr bool kPrefetch = false;"),
+                                (_PER_SM, "static constexpr int kBlocksPerSM = kVecs <= 4 ? 4 : 2;")], 4, 4, 4),
+    "lnb_2warps": ([(_WARPS, "constexpr int kBwdWarps = 2;"),
+                    (_PER_SM, "static constexpr int kBlocksPerSM = kVecs <= 2 ? 8 : kVecs <= 4 ? 6 : 4;")], 2, 8, 6),
+    "lnb_w_from_l1": ([("const float4* w4 = reinterpret_cast<const float4*>(smem);",
+                        "const float4* w4 = reinterpret_cast<const float4*>(w);")], 4, 4, 3),
+}
 
 
 def build(name, src, subs):
@@ -61,7 +84,8 @@ def build(name, src, subs):
     cu = OUT / f"{name}.cu"
     cu.write_text(text)
     so = OUT / f"{name}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{CSRC.resolve()}", "-shared", "-o", str(so), str(cu)]
+    extra = [str(CSRC / "reduce.cu")] if src == "layernorm.cu" else []
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{CSRC.resolve()}", "-shared", "-o", str(so), str(cu), *extra]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -84,15 +108,22 @@ def host_us(fn, calls=300):
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("rowcol_variants: needs a CUDA device")
+    families = sys.argv[1].split(",") if len(sys.argv) > 1 else ["ln", "cs", "lnb", "host"]
     OUT.mkdir(parents=True, exist_ok=True)
-    jobs = {n: build(n, "layernorm.cu", s) for n, s in LN.items()}
-    jobs.update({n: build(n, "reduce.cu", s) for n, s in CS.items()})
+    jobs = {n: build(n, "layernorm.cu", s) for n, s in LN.items() if "ln" in families}
+    jobs.update({n: build(n, "reduce.cu", s) for n, s in CS.items() if "cs" in families})
+    jobs.update({n: build(n, "layernorm.cu", v[0]) for n, v in LNB.items() if "lnb" in families})
     libs = {}
     for n, (so, p) in jobs.items():
         out, _ = p.communicate()
         if p.returncode:
             print(n, out[-3000:])
             raise SystemExit(1)
+        if n.startswith("lnb"):  # the register report of the backward at the paths' widths (2, 3 vectors a lane)
+            lines = out.splitlines()
+            print(n, "; ".join(f"{v} vectors: " + " ".join(x.split(":")[-1].strip() for x in lines[i + 2:i + 4])
+                               for i, line in enumerate(lines) for v in (2, 3)
+                               if "Compiling entry" in line and f"layernorm_bwd_kernelILi{v}E" in line))
         libs[n] = ctypes.CDLL(str(so))
     _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -100,7 +131,7 @@ def main() -> None:
     stream = torch.cuda.current_stream().cuda_stream
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     F = torch.nn.functional
-    for rows, C in [(19584, 768), (1224, 768), (3200, 768), (4928, 512), (308, 512), (64, 512), (4, 512)]:
+    for rows, C in [(19584, 768), (1224, 768), (3200, 768), (4928, 512), (308, 512), (64, 512), (4, 512)] * ("ln" in families):
         x, w, b = rn(rows, C).bfloat16(), 1 + rn(C, std=0.1), rn(C, std=0.1)
         y = torch.empty_like(x)
         ref = k.layernorm_plain(x, w, b)
@@ -118,7 +149,8 @@ def main() -> None:
         row.append(f"| wrapper host {host_us(lambda: k.layernorm_fwd(x, w, b)):.1f} us, F.layer_norm host {host_us(lambda: F.layer_norm(x, (C,), wb, bb)):.1f}")
         print(" ".join(row), flush=True)
     for rows, N, dt in [(19584, 768, torch.bfloat16), (19584, 3072, torch.bfloat16), (19584, 2304, torch.float32),
-                        (4928, 512, torch.bfloat16), (4928, 2048, torch.bfloat16), (4928, 1536, torch.float32), (1224, 768, torch.bfloat16)]:
+                        (4928, 512, torch.bfloat16), (4928, 2048, torch.bfloat16), (4928, 1536, torch.float32),
+                        (1224, 768, torch.bfloat16)] * ("cs" in families):
         x = rn(rows, N).to(dt)
         ref = k.colsum_ordered(x)
         row = [f"colsum {rows}x{N} {str(dt)[6:]}:"]
@@ -142,6 +174,42 @@ def main() -> None:
         row.append(f"torch.sum {device_us(lambda: x.sum(0, dtype=torch.float32)):.2f}")
         row.append(f"| wrapper host {host_us(lambda: k.colsum(x)):.1f} us, torch.sum host {host_us(lambda: x.sum(0, dtype=torch.float32)):.1f}")
         print(" ".join(row), flush=True)
+
+    for _, rows, C in _cs.LAYERNORM_BWD_CASES * ("lnb" in families):
+        x, w, dh, res = rn(rows, C).bfloat16(), 1 + rn(C, std=0.1), rn(rows, C), rn(rows, C).bfloat16()
+        dx = torch.empty_like(x)
+        want = k.layernorm_bwd_plain(x, w, dh, res)
+        db_ordered = k.layernorm_bwd_ordered(x, w, dh, res)[2]
+        row = [f"LNB {rows}x{C}:"]
+        for n, (_, warps, sm_narrow, sm_768) in LNB.items():
+            fn = libs[n].vt_layernorm_bwd
+            fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _P]
+            per = -(-rows // (k.SM_COUNT * (sm_narrow if C <= 512 else sm_768) * warps))
+            blocks = -(-(-(-rows // per)) // warps)
+            S, cs_rows = k.colsum_split(blocks, 2 * C, 4)
+            buf = torch.empty((1 + blocks + S) * 2 * C, device="cuda")
+            p = buf.data_ptr()
+            call = lambda: fn(x.data_ptr(), w.data_ptr(), dh.data_ptr(), res.data_ptr(), dx.data_ptr(), p + 8 * C,
+                              p + 8 * C * (1 + blocks), p, rows, C, per, blocks, S, cs_rows, 1e-5, stream)
+            assert call() == 0
+            torch.cuda.synchronize()
+            assert torch.allclose(dx.float(), want[0].float(), atol=2e-2, rtol=2e-2), n
+            for got, ref in ((buf[:C], want[1]), (buf[C:2 * C], want[2])):
+                assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item(), n
+            if n == "lnb_kept":
+                assert torch.equal(buf[C:2 * C], db_ordered), n
+            row.append(f"{n}(R{per}) {device_us(call):.2f}")
+        leaves = [x.detach().clone().requires_grad_(), w.bfloat16().requires_grad_(),
+                  torch.zeros(C, dtype=torch.bfloat16, device="cuda", requires_grad=True)]
+        y = F.layer_norm(leaves[0], (C,), leaves[1], leaves[2])
+        gy = dh.bfloat16()
+        lib = lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True)
+        row.append(f"F.layer_norm autograd {device_us(lib):.2f}")
+        row.append(f"| wrapper host {host_us(lambda: k.layernorm_bwd(x, w, dh, res)):.1f} us, autograd host {host_us(lib):.1f}")
+        print(" ".join(row), flush=True)
+        del x, dh, res, dx, buf, leaves, y, gy
+    if "host" not in families:
+        return
 
     # where the wrapper's host time goes
     x, w, b = rn(1224, 768).bfloat16(), 1 + rn(768, std=0.1), rn(768, std=0.1)

@@ -38,7 +38,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points: name -> argtypes; each returns a cudaError_t as int
 _SIGNATURES = {
     "vt_layernorm_fwd": [_P, _P, _P, _P, _L, _I, _F, _P],
-    "vt_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _P],
+    "vt_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _P],
     "vt_gemm_bias_act": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vt_gemm_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vt_gemm_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -49,7 +49,7 @@ _SIGNATURES = {
     "vt_rowquant": [_P, _I, _P, _P, _L, _I, _P],
     "vt_layernorm_rowquant": [_P, _P, _P, _P, _P, _L, _I, _F, _P],
     "vt_gemm_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "vt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "vt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _F, _P],
     "vt_flash_attention_dbias": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -5,7 +5,9 @@ their backward chains:
 
 - :func:`layernorm_fwd` / :func:`layernorm_bwd` (``csrc/layernorm.cu``):
   fp32-statistics LayerNorm, and its backward with the residual grad and
-  the per-column weight and bias grads;
+  the per-column weight and bias grads, its rows walked as
+  :func:`layernorm_bwd_split` plans and its sums added in the order of
+  :func:`layernorm_bwd_ordered`;
 - :func:`gemm_bias_act` (``csrc/gemm_fwd.cu``): ``epilogue(x . w^T + b)``
   with an optional QuickGELU / exact GELU, an optional residual and an
   optional fp32 copy of the pre-activation;
@@ -26,8 +28,9 @@ their backward chains:
 - :func:`flash_attention_fwd` / :func:`flash_attention_bwd` /
   :func:`flash_attention_dbias` (``csrc/flash_attention.cu``): attention on
   separate q, k, v ``[B, T, H, 64]`` views of any strides, queries and keys
-  of different lengths, with the logsumexp; its backward from the
-  logsumexp; and the bias grad summed over items and heads;
+  of different lengths, with the logsumexp (in the blocks of
+  :func:`flash_fwd_plan`); its backward from the logsumexp; and the bias
+  grad summed over items and heads;
 - :func:`dot_variant` (``csrc/dot_variants.cu``): one product in the four
   operand orientations (the probe of ``experiments/fused_block_probe.py``).
 
@@ -59,8 +62,10 @@ from .quant import quantize_rows
 
 LN_EPS = 1e-5
 HEAD_DIM = 64  # the attention kernels' head dim
-LN_BWD_ROWS = 32  # rows per block of layernorm_bwd; one partial weight-grad row each
 LN_MAX_C = 2048  # the widest row the LayerNorm kernels take: 8 vectors of 16 bytes a lane of a warp
+LN_BWD_WARPS = 4  # warps a block of layernorm_bwd, each walking its own rows; one partial row a block
+FLASH_MAX_Q = 128  # query rows a block of flash_attention_fwd holds at most: 8 warps of 16
+FLASH_ONE_TILE_Q = 80  # ... where every key fits one 64-key tile: 5 warps, 4 blocks an SM
 COLSUM_WARPS = 8  # warps a block of colsum; warp w sums rows w, w + 8, ... of the block's chunk
 COLSUM_STRIP = 512  # bytes of a row one colsum block reads: 16 a lane of a warp
 COLSUM_MIN_ROWS = 64  # the fewest rows a colsum chunk is given
@@ -119,6 +124,39 @@ def layernorm_bwd_plain(x: torch.Tensor, w: torch.Tensor, dh: torch.Tensor,
     if residual is not None:
         dx = dx + acc(residual)
     return dx.to(x.dtype), dw, db
+
+
+def layernorm_bwd_ordered(x: torch.Tensor, w: torch.Tensor, dh: torch.Tensor,
+                          residual: Optional[torch.Tensor] = None):
+    """:func:`layernorm_bwd_plain` with the weight and bias grads summed in
+    the order of the kernel, one fp32 addition at a time: warp g of the plan
+    of :func:`layernorm_bwd_split` adds ``dh * xhat`` and ``dh`` over its
+    rows in order, the ``LN_BWD_WARPS`` warps of a block are added in order
+    into its partial row, and the partial rows are summed as
+    :func:`colsum_ordered` sums an fp32 matrix. The kernel's db equals it
+    bitwise (its dw only within fp32 rounding: its xhat takes a hardware
+    rsqrt)."""
+    C = x.shape[-1]
+    dx, _, _ = layernorm_bwd_plain(x, w, dh, residual)
+    xhat, _ = _ln_stats(x)
+    g = acc(dh).reshape(-1, C)
+    terms = torch.cat((g * xhat.reshape(-1, C), g), dim=1)  # [rows, 2C]
+    rows = terms.shape[0]
+    if rows == 0:
+        sums = terms.sum(0)
+    else:
+        warps, per = layernorm_bwd_split(rows, C)
+        blocks = -(-warps // LN_BWD_WARPS)
+        terms = torch.nn.functional.pad(terms, (0, 0, 0, blocks * LN_BWD_WARPS * per - rows))
+        terms = terms.view(blocks, LN_BWD_WARPS, per, 2 * C)
+        s = torch.zeros((blocks, LN_BWD_WARPS, 2 * C), dtype=terms.dtype, device=terms.device)
+        for r in range(per):
+            s = s + terms[:, :, r]
+        part = s[:, 0]
+        for v in range(1, LN_BWD_WARPS):
+            part = part + s[:, v]
+        sums = colsum_ordered(part)
+    return dx, sums[:C], sums[C:]
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -398,11 +436,32 @@ def layernorm_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     return y
 
 
+@functools.lru_cache(maxsize=1024)
+def layernorm_bwd_split(rows: int, C: int) -> Tuple[int, int]:
+    """``(warps, rows_per_warp)``: how :func:`layernorm_bwd` walks its
+    ``rows`` (>= 1) of width C. Warp g of the grid takes rows ``g * R`` to
+    ``g * R + R - 1`` in order (R = rows_per_warp), ``LN_BWD_WARPS`` warps a
+    block, each block writing one partial weight-grad row. The grid is
+    persistent: at most as many blocks as the card holds at once, which
+    ``layernorm.cu``'s ``BwdSchedule`` gives per width (4 an SM up to C =
+    512, 3 up to 1024, then 2: the registers of a lane's rows and sums), so
+    a training shape puts several warps on every SM. Every row falls in one
+    warp and no warp is empty: ``(warps - 1) * R < rows <= warps * R``. A
+    function of the shapes and the constants above only, so the same shapes
+    always sum in the same order."""
+    vecs = -(-C // 256)  # 16-byte vectors a lane holds
+    per_sm = 4 if vecs <= 2 else 3 if vecs <= 4 else 2
+    per = -(-rows // (SM_COUNT * per_sm * LN_BWD_WARPS))
+    return -(-rows // per), per
+
+
 def layernorm_bwd(x: torch.Tensor, w: torch.Tensor, dh: torch.Tensor,
                   residual: Optional[torch.Tensor] = None):
     """Backward of :func:`layernorm_fwd` (statistics recomputed from ``x``)
     for the fp32 output grad ``dh``: ``(dx, dw, db)``, dx rounded once to
-    ``x.dtype`` after adding ``residual``; dw, db [C] fp32 column sums."""
+    ``x.dtype`` after adding ``residual``; dw, db [C] fp32 column sums, in
+    the fixed order of :func:`layernorm_bwd_ordered`: two runs give the same
+    bits."""
     if not x.is_cuda:
         return layernorm_bwd_plain(x, w, dh, residual)
     C = x.shape[-1]
@@ -416,12 +475,18 @@ def layernorm_bwd(x: torch.Tensor, w: torch.Tensor, dh: torch.Tensor,
         _cuda_operand(residual, "residual", torch.bfloat16, x.device)
         _require(residual.shape == x.shape, f"residual must be {tuple(x.shape)}")
     dx = torch.empty_like(x)
-    partial = torch.empty((-(-rows // LN_BWD_ROWS), 2 * C), dtype=torch.float32, device=x.device)
-    dwb = torch.empty(2 * C, dtype=torch.float32, device=x.device)
-    _launch("layernorm_bwd", x.device, x.data_ptr(), w.data_ptr(), dh.data_ptr(),
-            _ptr(residual), dx.data_ptr(), partial.data_ptr(), dwb.data_ptr(), rows, C, LN_BWD_ROWS,
+    if rows == 0:  # an empty sum, as the plain version gives it
+        zeros = torch.zeros(C, dtype=torch.float32, device=x.device)
+        return dx, zeros, zeros.clone()
+    warps, per = layernorm_bwd_split(rows, C)
+    blocks = -(-warps // LN_BWD_WARPS)
+    S, cs_rows = colsum_split(blocks, 2 * C, 4)
+    buf = torch.empty((1 + blocks + S) * 2 * C, dtype=torch.float32, device=x.device)  # dw|db, partials
+    p = buf.data_ptr()
+    _launch("layernorm_bwd", x.device, x.data_ptr(), w.data_ptr(), dh.data_ptr(), _ptr(residual),
+            dx.data_ptr(), p + 8 * C, p + 8 * C * (1 + blocks), p, rows, C, per, blocks, S, cs_rows,
             LN_EPS)
-    return dx, dwb[:C], dwb[C:]
+    return dx, buf[:C], buf[C:2 * C]
 
 
 def gemm_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = "none",
@@ -745,19 +810,36 @@ def _flash_dense(t: Optional[torch.Tensor], name: str, shape, dtype, device) -> 
     _require(tuple(t.shape) == tuple(shape), f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
 
 
+@functools.lru_cache(maxsize=1024)
+def flash_fwd_plan(Tq: int, Tk: int) -> Tuple[int, int]:
+    """``(tiles, rows_per_block)``: how :func:`flash_attention_fwd` cuts Tq
+    (>= 1) query rows of a head into blocks of whole 16-row warps against Tk
+    keys: as few blocks as hold at most ``FLASH_MAX_Q`` rows each, or
+    ``FLASH_ONE_TILE_Q`` where every key fits one 64-key tile (the kernel
+    then keeps the scores in registers and runs 4 blocks an SM), sized alike
+    (one block of 80 rows at the decoder's Tq = 77, Tk = 61; eight of 128 at
+    T = 971). Every row falls in one block: ``(tiles - 1) * rows_per_block <
+    Tq <= tiles * rows_per_block``."""
+    tiles = -(-Tq // (FLASH_ONE_TILE_Q if Tk <= 64 else FLASH_MAX_Q))
+    per = -(-Tq // tiles)
+    return tiles, -(-per // 16) * 16
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor], scale: float):
     """softmax(q . k^T * scale + bias) . v per head. q: [B, Tq, H, 64]; k, v:
     [B, Tk, H, 64]; any strides with a contiguous last dim (sections of a
     packed projection, transposed views); bias: optional [Tq, Tk] fp32,
-    finite. Returns ``(o [B, Tq, H, 64], lse [B, H, Tq] fp32)``, contiguous."""
+    finite. Returns ``(o [B, Tq, H, 64], lse [B, H, Tq] fp32)``, contiguous.
+    The kernel launches ``flash_fwd_plan(Tq, Tk)`` blocks per (item, head)."""
     if not q.is_cuda:
         return flash_attention_fwd_plain(q, k, v, bias, scale)
     strides, B, Tq, Tk, H = _flash_operands(q, k, v, bias)
     o = torch.empty((B, Tq, H, HEAD_DIM), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    rows = flash_fwd_plan(Tq, Tk)[1] if Tq > 0 else 16
     _launch("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
-            _ptr(bias), o.data_ptr(), lse.data_ptr(), B, Tq, Tk, H, scale)
+            _ptr(bias), o.data_ptr(), lse.data_ptr(), B, Tq, Tk, H, scale, rows)
     return o, lse
 
 
