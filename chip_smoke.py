@@ -82,7 +82,11 @@
    batches of 32, 60 steps) whose first 10 losses agree with the plain ops.
 
 7. Int8 kernel phase: ``layernorm_rowquant`` at every case of
-   ``LAYERNORM_CASES``, bitwise ``rowquant(layernorm_fwd(x))``; ``rowquant``,
+   ``LAYERNORM_CASES``, bitwise ``rowquant(layernorm_fwd(x))`` and across two
+   runs; ``rowquant`` at every case of ``ROWQUANT_CASES`` (the four weights
+   of each tower width, the fp32 context and act(a) of every int8 tower and
+   batch), codes and scales bitwise its plain version and across two runs,
+   both with device µs per call; ``rowquant`` on the chain's own inputs,
    the fp32-context attention and both int8 sub-blocks against their plain
    versions from seeded inputs (one all-zero token), at audio B4 and B64
    T306 C768 H12, text B1 and B16 T308 C512 H8 (causal + packing), image
@@ -353,6 +357,26 @@ COLSUM_CASES = [
     for tower, M, C in (("audio B64 T306", 64 * 306, 768), ("audio B4 T306", 4 * 306, 768),
                         ("caption decoder B64 T77", 64 * 77, 512))
     for p, N, dtype in (("dbout, dbproj", C, "bf16"), ("dbqkv fp32", 3 * C, "fp32"), ("dbfc", 4 * C, "bf16"))
+]
+# the towers the int8 paths run, by rows a call: (case, rows, C). Serving: audio at batch 4, 16 and
+# 64, text (4 captions packed to T = 308) at batch 4 and 64; the VA step's frozen int8 image tower
+# (4 images packed to T = 200) at B = 64 and 16.
+INT8_TOWERS = [
+    ("audio B4 T306", 4 * 306, 768), ("audio B16 T306", 16 * 306, 768), ("audio B64 T306", 64 * 306, 768),
+    ("text B1 T308", 308, 512), ("text B16 T308", 16 * 308, 512),
+    ("image B64 (16 x T200)", 16 * 200, 768), ("image B16 (4 x T200)", 4 * 200, 768),
+]
+# every (rows, K, dtype) the int8 paths give rowquant: (case, rows, K, dtype). Per tower width the
+# four weights, quantized per output column (a row of the torch [out, in] layout): Wqkv and Wout cast
+# to bf16, Wfc and Wproj fp32; per tower and batch the fp32 attention context [M, C] and the fp32
+# act(a) [M, 4C]. The int8 kernel phase holds rowquant to its plain version at each, bitwise;
+# experiments/kernel_times.py times each.
+ROWQUANT_CASES = [
+    *[(f"C{C} {p}", N, K, dtype) for C in (768, 512)
+      for p, N, K, dtype in (("Wqkv bf16", 3 * C, C, "bf16"), ("Wout bf16", C, C, "bf16"),
+                             ("Wfc fp32", 4 * C, C, "fp32"), ("Wproj fp32", C, 4 * C, "fp32"))],
+    *[(f"{tower} {p}", M, K, "fp32") for tower, M, C in INT8_TOWERS
+      for p, K in (("context", C), ("act(a)", 4 * C))],
 ]
 ATTENTION_STREAMING_T = (705, 971)  # attention_fwd past the 704 keys it keeps resident
 DECODE_TOL = 0.1  # bf16 per-step logits, KV-cached against re-forward decoding
@@ -986,8 +1010,21 @@ def int8_kernel_phase(torch, results):
     rn = _seeded(torch)
     pack_bias, text_bias = _biases(torch)
     f32 = torch.float32
-    codes = check_codes
     quant_ops = lambda t: [(4 * t.numel(), "fp32")]
+
+    def codes(x):
+        """rowquant: within check_codes of the plain version, then bitwise it
+        (the same IEEE division, rounding and clip) and the same bits in a
+        second run."""
+        def check(_, got, want, what):
+            err, desc = check_codes(torch, got, want, what)
+            again = kernels.rowquant(x)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{what}: {desc}, not bitwise the plain version")
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"{what}: two runs differ")
+            return err, "codes and scales bitwise plain, and across two runs"
+        return check
 
     def ln_codes(x, lns, lnb):
         """layernorm_rowquant: bitwise the chain layernorm_fwd -> rowquant (the
@@ -998,13 +1035,17 @@ def int8_kernel_phase(torch, results):
             q, s = kernels.rowquant(kernels.layernorm_fwd(x, lns, lnb))
             if not (torch.equal(got[0], q) and torch.equal(got[1], s)):
                 raise AssertionError(f"{what}: differs from layernorm_fwd -> rowquant")
+            q, s = kernels.layernorm_rowquant(x, lns, lnb)
+            if not (torch.equal(got[0], q) and torch.equal(got[1], s)):
+                raise AssertionError(f"{what}: two runs differ")
             d = (got[0].int() - want[0].int()).abs()
             off, share = d.max().item(), (d != 0).float().mean().item()
             if off > 1 or share > 1e-2 or not torch.allclose(got[1], want[1], rtol=2 ** -7, atol=0):
                 raise AssertionError(f"{what}: codes off by up to {off} (share {share:.2e}) or scales "
                                      f"beyond one bf16 ulp of the plain LayerNorm's")
             err = (got[0].float() * got[1] - want[0].float() * want[1]).abs().max().item()
-            return err, f"= layernorm_fwd->rowquant bitwise; vs plain LN {share:.1e} codes off by one"
+            return err, (f"= layernorm_fwd->rowquant bitwise, and across two runs; vs plain LN {share:.1e} "
+                         f"codes off by one")
         return check
 
     def int_mm(xq, wq):
@@ -1022,6 +1063,16 @@ def int8_kernel_phase(torch, results):
                 lambda: kernels.layernorm_rowquant_plain(x, lns, lnb), reads=(x, lns, lnb),
                 ops=[(12 * M * C, "fp32")], check=ln_codes(x, lns, lnb), iters=10 if M > 5000 else 20,
                 device=True)
+
+    # rowquant at every (rows, K, dtype) of ROWQUANT_CASES (one all-zero row), bitwise its plain
+    # version and across two runs
+    for case, M, K, dtype in ROWQUANT_CASES:
+        x = rn(M, K, std=3.0, dtype=f32 if dtype == "fp32" else torch.bfloat16)
+        x[1] = 0
+        compare(torch, results, "rowquant", f"{case} [{M}x{K} {dtype}]", lambda: kernels.rowquant(x),
+                lambda: kernels.rowquant_plain(x), reads=(x,), ops=quant_ops(x), check=codes(x),
+                iters=10 if M * K > 2 ** 24 else 20, device=True)
+        del x
 
     attn_cases = [  # audio, packed text, packed image; serving and batch shapes
         ("audio B4 T306 C768 H12", BATCH, 306, 768, 12, None),
@@ -1046,12 +1097,12 @@ def int8_kernel_phase(torch, results):
         o = kernels.attention_plain(qkv, cb, H, 0.125, fp32_out=True)
         args = (x, lns, lnb, wqkv, bqkv, wout, bout, bias, H)
         cmp("rowquant", case + " Wqkv bf16", lambda: kernels.rowquant(wq_b),
-            lambda: kernels.rowquant_plain(wq_b), reads=(wq_b,), ops=quant_ops(wq_b), check=codes)
+            lambda: kernels.rowquant_plain(wq_b), reads=(wq_b,), ops=quant_ops(wq_b), check=codes(wq_b))
         cmp("attention_fwd_f32", case, lambda: kernels.attention_fwd(qkv, cb, H, 0.125, fp32_out=True),
             lambda: kernels.attention_plain(qkv, cb, H, 0.125, fp32_out=True), reads=(qkv, cb),
             ops=attn_ops(B, T, H), library=_sdpa(torch, qkv, cb, H, 0.125))
         cmp("rowquant", case + " context fp32", lambda: kernels.rowquant(o),
-            lambda: kernels.rowquant_plain(o), reads=(o,), ops=quant_ops(o), check=codes)
+            lambda: kernels.rowquant_plain(o), reads=(o,), ops=quant_ops(o), check=codes(o))
         del qkv, o, h8
         cmp("fused_ln_attention_block_int8", case,
             lambda: fused_attn.fused_ln_attention_block_int8(*args),
@@ -1075,13 +1126,13 @@ def int8_kernel_phase(torch, results):
         wf8, sfc = kernels.rowquant_plain(wfc)
         h8, hs = kernels.layernorm_rowquant_plain(x, lns, lnb)
         cmp("rowquant", case + " Wfc fp32", lambda: kernels.rowquant(wfc),
-            lambda: kernels.rowquant_plain(wfc), reads=(wfc,), ops=quant_ops(wfc), check=codes)
+            lambda: kernels.rowquant_plain(wfc), reads=(wfc,), ops=quant_ops(wfc), check=codes(wfc))
         for act in ("quick_gelu", "gelu"):
             c = f"{case} {act}"
             g = kernels.gemm_i8_plain(h8, hs, wf8, sfc, bfc, act=act, out_dtype=f32)
             args = (x, lns, lnb, wfc, bfc, wproj, bproj, act)
             cmp("rowquant", c + " act(a) fp32", lambda: kernels.rowquant(g),
-                lambda: kernels.rowquant_plain(g), reads=(g,), ops=quant_ops(g), check=codes)
+                lambda: kernels.rowquant_plain(g), reads=(g,), ops=quant_ops(g), check=codes(g))
             del g
             cmp("fused_ln_mlp_block_int8", c, lambda: fused_mlp.fused_ln_mlp_block_int8(*args),
                 lambda: fused_mlp.fused_ln_mlp_block_int8_plain(*args), reads=args[:7],

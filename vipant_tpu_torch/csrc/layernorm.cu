@@ -73,19 +73,7 @@ layernorm_fwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
                      int C, float eps) {
   const int lane = threadIdx.x & 31, nv = C >> 3;
   float wl[kVecs][8], bl[kVecs][8];  // w and b of this lane's columns
-#pragma unroll
-  for (int i = 0; i < kVecs; ++i) {
-    const int j = lane + 32 * i;
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4* w4 = reinterpret_cast<const float4*>(w) + 2 * j;
-    const float4* b4 = reinterpret_cast<const float4*>(b) + 2 * j;
-    const float4 w0 = j < nv ? w4[0] : z, w1 = j < nv ? w4[1] : z;
-    const float4 b0 = j < nv ? b4[0] : z, b1 = j < nv ? b4[1] : z;
-    const float wa[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-    const float ba[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int k = 0; k < 8; ++k) wl[i][k] = wa[k], bl[i][k] = ba[k];
-  }
+  rows::load_affine(w, b, C, lane, wl, bl);
   const long long stride = static_cast<long long>(gridDim.x) * kFwdWarps;
   long long row = static_cast<long long>(blockIdx.x) * kFwdWarps + (threadIdx.x >> 5);
   uint4 v[kVecs];
@@ -113,29 +101,11 @@ layernorm_fwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
   }
 }
 
-// blocks of `kernel` (`threads` a block, no dynamic shared memory) that the
-// current device holds at once: its SMs times the blocks an SM takes; cached
-// per device in `slots`, -1 on failure
-template <typename Kernel>
-inline int resident_blocks(int (&slots)[64], Kernel kernel, int threads) {
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return -1;
-  if (slots[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) != cudaSuccess ||
-        per_sm <= 0)
-      return -1;
-    slots[dev] = sms * per_sm;
-  }
-  return slots[dev];
-}
-
 template <int kVecs>
 cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* y, long long n_rows, int C,
                        float eps, cudaStream_t s) {
   static int slots[64];
-  const int cap = resident_blocks(slots, layernorm_fwd_kernel<kVecs>, kFwdWarps * 32);
+  const int cap = rows::resident_blocks(slots, layernorm_fwd_kernel<kVecs>, kFwdWarps * 32);
   if (cap < 0) return cudaErrorInvalidDevice;
   const long long need = (n_rows + kFwdWarps - 1) / kFwdWarps;
   const unsigned grid = static_cast<unsigned>(need < cap ? need : cap);

@@ -1,18 +1,19 @@
-// Row-wise helpers shared by layernorm.cu and quant.cu: the fp32 LayerNorm
-// statistics of one row, computed by one warp, the normalised value of one
-// element, and block reductions.
+// Row-wise helpers shared by layernorm.cu and quant.cu, whose kernels give
+// each row one warp that holds it in registers: the fp32 LayerNorm
+// statistics of the row, the normalised value of one element, the row's
+// maximum magnitude, and the grid a persistent kernel launches.
 //
 // A row of C bf16 values (C % 8 == 0, C <= kMaxC, its start 16-byte aligned)
 // is read as C / 8 vectors of 16 bytes: lane l of a warp takes vectors l,
-// l + 32, l + 64, ... `warp_row_stats` sums each lane's values in that order
-// (vector by vector, element by element), from registers (layernorm_fwd,
-// layernorm_bwd) or from memory (layernorm_rowquant), then combines the
-// lanes with an xor-shuffle butterfly. Each step of the butterfly adds the
-// same two values on both lanes of a pair (a + b == b + a in IEEE arithmetic), so all 32 lanes end
-// with the same bits, and so does every warp of every kernel that calls it
-// on the same row, by either route: layernorm_fwd, layernorm_bwd (whose xhat
-// must be the forward's) and layernorm_rowquant (bitwise
-// rowquant(layernorm_fwd(x))). The arithmetic is written with the `__f*_rn`
+// l + 32, l + 64, ... (`load_row`). `warp_row_stats` sums each lane's values
+// in that order (vector by vector, element by element), from the registers
+// of every caller (layernorm_fwd, layernorm_bwd, layernorm_rowquant), then
+// combines the lanes with an xor-shuffle butterfly. Each step of the
+// butterfly adds the same two values on both lanes of a pair (a + b == b + a
+// in IEEE arithmetic), so all 32 lanes end with the same bits, and so does
+// every warp of every kernel that calls it on the same row: layernorm_bwd's
+// xhat is the forward's, and layernorm_rowquant is bitwise
+// rowquant(layernorm_fwd(x)). The arithmetic is written with the `__f*_rn`
 // intrinsics so no inlining context can contract it differently.
 
 #pragma once
@@ -23,41 +24,7 @@
 
 namespace rows {
 
-constexpr int kThreads = 256;  // the block of rowquant and layernorm_rowquant
 constexpr int kMaxC = 2048;    // the widest row: 8 vectors of 16 bytes a lane of a warp
-
-// Sum (kMax = false) or maximum (kMax = true) of `v` over the block; `red`
-// is 32 floats of shared memory, free again when the call returns.
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = kMax ? fmaxf(v, u) : v + u;
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < (kThreads >> 5) ? red[lane] : (kMax ? -INFINITY : 0.f);
-    for (int o = 16; o > 0; o >>= 1) {
-      const float u = __shfl_xor_sync(0xffffffffu, t, o);
-      t = kMax ? fmaxf(t, u) : t + u;
-    }
-    if (lane == 0) red[0] = t;
-  }
-  __syncthreads();
-  const float total = red[0];
-  __syncthreads();  // `red` is reused by the next reduction
-  return total;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  return block_reduce<false>(v, red);
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  return block_reduce<true>(v, red);
-}
 
 // the 8 bf16 values of a 16-byte vector as fp32 (exact), in memory order
 __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
@@ -87,6 +54,35 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ xr, i
     const int j = lane + 32 * i;
     v[i] = valid && j < nv ? p[j] : make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// w and b of this lane's columns 8 j + k, j = lane + 32 i (zero past the
+// row), read as float4 once per warp and kept across the rows it walks
+template <int kVecs>
+__device__ __forceinline__ void load_affine(const float* __restrict__ w, const float* __restrict__ b,
+                                            int C, int lane, float (&wl)[kVecs][8],
+                                            float (&bl)[kVecs][8]) {
+  const int nv = C >> 3;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int j = lane + 32 * i;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4* w4 = reinterpret_cast<const float4*>(w) + 2 * j;
+    const float4* b4 = reinterpret_cast<const float4*>(b) + 2 * j;
+    const float4 w0 = j < nv ? w4[0] : z, w1 = j < nv ? w4[1] : z;
+    const float4 b0 = j < nv ? b4[0] : z, b1 = j < nv ? b4[1] : z;
+    const float wa[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const float ba[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) wl[i][k] = wa[k], bl[i][k] = ba[k];
+  }
+}
+
+// the largest of the warp's 32 values, in every lane (exact in any order)
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -144,30 +140,36 @@ __device__ __forceinline__ float2 warp_row_stats(const uint4 (&v)[kVecs], int C,
   return make_float2(mu, row_rstd(q, C, eps));
 }
 
-// the same bits, reading the row from memory a vector at a time (twice; the
-// second pass from L1) where a kernel keeps no registers for it: every warp
-// of a layernorm_rowquant block, which owns one row, calls it
-__device__ __forceinline__ float2 warp_row_stats(const __nv_bfloat16* __restrict__ xr, int C, float eps) {
-  const uint4* p = reinterpret_cast<const uint4*>(xr);
-  const int lane = threadIdx.x & 31, nv = C >> 3;
-  float s = 0.f;
-#pragma unroll 4
-  for (int j = lane; j < nv; j += 32) s = add_vec(s, p[j]);
-  const float mu = row_mean(s, C);
-  float q = 0.f;
-#pragma unroll 4
-  for (int j = lane; j < nv; j += 32) q = add_sqdev(q, p[j], mu);
-  return make_float2(mu, row_rstd(q, C, eps));
-}
-
 // the normalised value of one element x (a bf16 value as fp32): xhat, and
 // xhat * w + b rounded to bf16
 __device__ __forceinline__ float ln_xhat(float x, float2 st) {
   return __fmul_rn(__fsub_rn(x, st.x), st.y);
 }
 
+__device__ __forceinline__ float ln_affine_f32(float x, float2 st, float w, float b) {
+  return __fadd_rn(__fmul_rn(ln_xhat(x, st), w), b);
+}
+
 __device__ __forceinline__ __nv_bfloat16 ln_affine(float x, float2 st, float w, float b) {
-  return __float2bfloat16(__fadd_rn(__fmul_rn(ln_xhat(x, st), w), b));
+  return __float2bfloat16(ln_affine_f32(x, st, w, b));
+}
+
+// blocks of `kernel` (`threads` a block, no dynamic shared memory) that the
+// current device holds at once: its SMs times the blocks an SM takes; cached
+// per device in `slots`, -1 on failure
+template <typename Kernel>
+inline int resident_blocks(int (&slots)[64], Kernel kernel, int threads) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return -1;
+  if (slots[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) != cudaSuccess ||
+        per_sm <= 0)
+      return -1;
+    slots[dev] = sms * per_sm;
+  }
+  return slots[dev];
 }
 
 }  // namespace rows

@@ -7,11 +7,14 @@ integer product alone), ``attention_fwd``'s streaming form at T > 704
 (``scaled_dot_product_attention``), ``layernorm_fwd`` (``F.layer_norm``),
 ``colsum`` (``torch.sum(..., dtype=torch.float32)``), ``layernorm_bwd``
 (autograd through ``F.layer_norm``), ``flash_attention_fwd``
-(``scaled_dot_product_attention`` on the [B, H, T, 64] views), and, at the
-audio tower's batch of 64, ``layernorm_rowquant`` (no library call), which
-shares ``layernorm_fwd``'s row statistics. ``gemm_dgrad``, ``gemm_i8``,
-``layernorm_fwd``, ``colsum``, ``layernorm_bwd``, ``flash_attention_fwd``
-and ``layernorm_rowquant`` also print their device time per call
+(``scaled_dot_product_attention`` on the [B, H, T, 64] views), and, with
+no library call, ``layernorm_rowquant`` at every ``LAYERNORM_CASES`` case
+whose rows an int8 tower runs (``INT8_TOWERS``), ``rowquant`` at every
+``ROWQUANT_CASES`` case, and the two int8 sub-blocks at audio B64
+(``int8_blocks``) beside the bf16 kernel chains of the same sub-blocks.
+``gemm_dgrad``, ``gemm_i8``, ``layernorm_fwd``, ``colsum``,
+``layernorm_bwd``, ``flash_attention_fwd``, ``layernorm_rowquant``,
+``rowquant`` and ``int8_blocks`` also print their device time per call
 (``chip_smoke.device_us``: the device busy time of 20 calls in a
 ``torch.profiler`` window), and so does the library call beside the first
 six of those: at the small shapes (B4, the text tower, the decode, the
@@ -24,7 +27,8 @@ for each in turns (A, B, B, A)::
 ``kernels``, if given, picks some of ``gemm_bias_act``, ``attention_bwd``,
 ``gemm_dgrad``, ``gemm_i8``, ``attention_fwd``, ``layernorm_fwd``,
 ``colsum``, ``layernorm_bwd``, ``flash_attention_fwd``,
-``layernorm_rowquant`` and ``probe_fused_fwd`` (the probe's P2 chain,
+``layernorm_rowquant``, ``rowquant``, ``int8_blocks`` and
+``probe_fused_fwd`` (the probe's P2 chain,
 whose attention is ``flash_attention_fwd``, beside
 ``F.multi_head_attention_forward``), separated by commas; by default all
 of them are timed.
@@ -32,8 +36,9 @@ of them are timed.
 It imports the package from the given root, so an older checkout is timed
 with its own kernels; the shapes are ``GEMM_FWD_CASES``,
 ``GEMM_DGRAD_CASES``, ``GEMM_I8_CASES``, ``ATTENTION_STREAMING_T``,
-``LAYERNORM_CASES``, ``COLSUM_CASES``, ``LAYERNORM_BWD_CASES`` and
-``FLASH_CASES`` of the ``chip_smoke.py`` at the
+``LAYERNORM_CASES``, ``COLSUM_CASES``, ``LAYERNORM_BWD_CASES``,
+``FLASH_CASES``, ``INT8_TOWERS`` and ``ROWQUANT_CASES`` of the
+``chip_smoke.py`` at the
 root of the checkout this script is in, and each line carries the bound
 ``chip_smoke.bound`` gives it. CUDA-event means over 20 launches after 3
 warm-ups, seeded inputs. At the decode shapes of ``gemm_bias_act`` (M <=
@@ -57,7 +62,7 @@ _cases = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(_cases)
 GEMMS = _cases.GEMM_FWD_CASES  # (case, M, N, K, activation, residual, fp32 pre-activation)
 KERNELS = ("gemm_bias_act", "attention_bwd", "gemm_dgrad", "gemm_i8", "attention_fwd", "layernorm_fwd", "colsum",
-           "layernorm_bwd", "flash_attention_fwd", "layernorm_rowquant", "probe_fused_fwd")
+           "layernorm_bwd", "flash_attention_fwd", "layernorm_rowquant", "rowquant", "int8_blocks", "probe_fused_fwd")
 ATTENTION = [  # (B, T, C, H, bias)
     (64, 306, 768, 12, "none"), (4, 306, 768, 12, "none"), (64, 77, 512, 8, "causal"),
     (16, 200, 768, 12, "pack"), (1, 308, 512, 8, "causal_pack"),
@@ -72,7 +77,7 @@ def main() -> None:
     import torch
 
     from vipant_tpu_torch.nn.layers import causal_mask, pack_tokens
-    from vipant_tpu_torch.ops import _build, fused_attn, kernels
+    from vipant_tpu_torch.ops import _build, fused_attn, fused_mlp, kernels
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
@@ -111,7 +116,7 @@ def main() -> None:
         return (t1 - t0) / calls * 1e6
 
     def bound(reads, out, ops, kind):
-        t, by = _cases.bound(_cases._nbytes(reads) + _cases._nbytes([out]), [(ops, kind)])
+        t, by = _cases.bound(_cases._nbytes(reads) + _cases._nbytes(_cases._outputs(out)), [(ops, kind)])
         return f"bound {t:.4f} ({by[:5]})"
 
     for case, M, N, K, act, res, pre in GEMMS if "gemm_bias_act" in which else ():
@@ -234,14 +239,40 @@ def main() -> None:
                      (q, k, v, bias, lse), o, 4 * B * H * Tq * Tk * 64, "SDPA", "bf16")
         del q, k, v, o, lse
 
-    M, C = 64 * 306, 768  # the audio tower at batch 64
-    x, w, b = rn(M, C).bfloat16(), 1 + rn(C, std=0.1), rn(C, std=0.1)
-    if "layernorm_rowquant" in which:
+    int8_rows = {(M, C) for _, M, C in _cases.INT8_TOWERS}
+    for case, M, C in _cases.LAYERNORM_CASES if "layernorm_rowquant" in which else ():
+        if (M, C) not in int8_rows:
+            continue
+        x, w, b = rn(M, C).bfloat16(), 1 + rn(C, std=0.1), rn(C, std=0.1)
         call = lambda: kernels.layernorm_rowquant(x, w, b)
         q, s = call()
-        print(f"{label} layernorm_rowquant audio B64 T306 [{M}x{C}]: {ms(call):.4f} ms; "
-              f"{bound((x, w, b, s), q, 12 * M * C, 'fp32')}; device {device_us(call):.2f} us a call")
-    del x
+        print(f"{label} layernorm_rowquant {case} [{M}x{C}]: {ms(call):.4f} ms; "
+              f"{bound((x, w, b), (q, s), 12 * M * C, 'fp32')}; device {device_us(call):.2f} us a call")
+        del x, q
+
+    for case, M, K, dtype in _cases.ROWQUANT_CASES if "rowquant" in which else ():
+        x = (rn(M, K) * 3).to(torch.float32 if dtype == "fp32" else torch.bfloat16)
+        call = lambda: kernels.rowquant(x)
+        q, s = call()
+        print(f"{label} rowquant {case} [{M}x{K} {dtype}]: {ms(call):.4f} ms; "
+              f"{bound((x,), (q, s), 4 * M * K, 'fp32')}; device {device_us(call):.2f} us a call")
+        del x, q
+
+    for case, B, T, C in (("audio B64 T306 C768", 64, 306, 768),) if "int8_blocks" in which else ():
+        x, lns, lnb = rn(B, T, C).bfloat16(), 1 + rn(C, std=0.1), rn(C, std=0.1)
+        wqkv, bqkv = rn(3 * C, C, std=C ** -0.5), rn(3 * C, std=0.02)
+        wout, bout = rn(C, C, std=C ** -0.5), rn(C, std=0.02)
+        wfc, bfc = rn(4 * C, C, std=C ** -0.5), rn(4 * C, std=0.02)
+        wproj, bproj = rn(C, 4 * C, std=(4 * C) ** -0.5), rn(C, std=0.02)
+        a_args = (x, lns, lnb, wqkv, bqkv, wout, bout, None, C // 64)
+        m_args = (x, lns, lnb, wfc, bfc, wproj, bproj, "quick_gelu")
+        for name, int8, bf16 in (("fused_ln_attention_block_int8", lambda: fused_attn.fused_ln_attention_block_int8(*a_args),
+                                  lambda: fused_attn.fused_ln_attention_block(*a_args)),
+                                 ("fused_ln_mlp_block_int8", lambda: fused_mlp.fused_ln_mlp_block_int8(*m_args),
+                                  lambda: fused_mlp.fused_ln_mlp_block(*m_args))):
+            print(f"{label} {name} {case}: {ms(int8, 10):.4f} ms; bf16 chain {ms(bf16, 10):.4f}; "
+                  f"device {device_us(int8):.2f} us a call, bf16 chain {device_us(bf16):.2f}")
+        del x
 
     if "probe_fused_fwd" in which:
         from vipant_tpu_torch.experiments import fused_block_probe as probe

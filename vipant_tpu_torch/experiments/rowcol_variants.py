@@ -1,15 +1,15 @@
-"""Schedules of ``layernorm_fwd``, ``colsum`` and ``layernorm_bwd`` tried
-against each other on one card, and where the host time of a wrapper call
-goes::
+"""Schedules of ``layernorm_fwd``, ``colsum``, ``layernorm_bwd``,
+``rowquant`` and ``layernorm_rowquant`` tried against each other on one
+card, and where the host time of a wrapper call goes::
 
     python vipant_tpu_torch/experiments/rowcol_variants.py [families]
 
-``families``, if given, picks some of ``ln``, ``cs``, ``lnb`` and ``host``,
-separated by commas; by default all of them run.
+``families``, if given, picks some of ``ln``, ``cs``, ``lnb``, ``rq`` and
+``host``, separated by commas; by default all of them run.
 
-Each variant is the kernel's source (``csrc/layernorm.cu`` or
-``csrc/reduce.cu``) with a few lines replaced (``LN``, ``CS``, ``LNB``
-below), built with ``nvcc`` (``layernorm.cu`` beside ``reduce.cu``, whose
+Each variant is the kernel's source (``csrc/layernorm.cu``,
+``csrc/reduce.cu`` or ``csrc/quant.cu``) with a few lines replaced (``LN``,
+``CS``, ``LNB``, ``RQ``, ``LNQ`` below), built with ``nvcc`` (``layernorm.cu`` beside ``reduce.cu``, whose
 ``colsum`` its backward calls) into ``build/rowcol_variants/`` and called
 through its C entry point on preallocated tensors, so the host cost of the
 Python wrapper is left out. ``layernorm_fwd``: the persistent grid with the
@@ -19,13 +19,23 @@ or 8 rows in flight a lane, each at a row split aiming at 1, 2 (as kept) or
 4 blocks an SM; ``layernorm_bwd``: a warp per row with the next row in
 flight and w in shared memory (as kept), without the prefetch at the same
 or at a higher residency, with 2 warps a block, and with w read through L1
-instead of shared memory, each on its own grid plan. Printed per shape: the
+instead of shared memory, each on its own grid plan; ``rowquant``: as
+kept (``kernels.rowquant_plan``), without the next row in flight, a whole
+row in one warp (up to 24 vectors a lane), a row of one warp's instance
+over two warps, 8 or 4 blocks an SM, every code by the division, and a
+division branch for each value instead of each load (``RQ``);
+``layernorm_rowquant``: as kept, w and b read through L1 for each row (as
+compiled, or asking for 6 or 8 blocks an SM), every code by the division, a branch for each
+value, and without the next row in flight (``LNQ``); the register report
+of every ``rowquant`` instance. Printed per shape: the
 device time per call (``chip_smoke.device_us``) of each variant and of the
 library call, and the host time per call of the wrapper and of the library
 call (host clock around 300 calls that do not wait for the card). Last, the
 host µs of each step of a wrapper call. Every variant is held to the plain
 version (bitwise to ``colsum_ordered``, or for ``layernorm_bwd``'s db to
-``layernorm_bwd_ordered``, at the kept plan) before it is timed.
+``layernorm_bwd_ordered``, at the kept plan; the int8 codes and scales
+bitwise, to ``rowquant_plain`` or to ``rowquant(layernorm_fwd(x))``)
+before it is timed.
 """
 import ctypes
 import importlib.util
@@ -76,6 +86,60 @@ LNB = {
 }
 
 
+_RQ_PREFETCH = "static constexpr bool kPrefetch = kVecs > 0 && kVecs <= 8;"
+_RQ_PER_SM = "static constexpr int kBlocksPerSM = kVecs <= 2 ? 8 : kVecs <= 4 ? 6 : 4;"
+_RQ_SHAPES = "{2, 8}, {4, 6}, {4, 0}};"
+_RQ_ONE_WARP = (1, 2, 3, 4, 6, 8, 12, 16, 24)  # loads a lane, one warp a row
+_RQ_PRODUCT = "      for (int k = 0; k < L::kN; ++k) c[k] = code_by_product(f[k], r, proven);\n      if (!proven) {"
+_RQ_DIVIDE_ALL = [(_RQ_PRODUCT, "      if (true) {")]  # every code by the division
+_RQ_BRANCH_PER_VALUE = [(_RQ_PRODUCT, "      for (int k = 0; k < L::kN; ++k) {\n"
+                                      "        bool ok = true;\n"
+                                      "        c[k] = code_by_product(f[k], r, ok);\n"
+                                      "        if (!ok) c[k] = code_by_division(f[k], s);\n"
+                                      "      }\n      if (false) {")]  # a division branch for each value
+# rowquant: (substitutions, warps a row or None for the kept plan's, blocks an SM or None for the kept)
+RQ = {
+    "rq_kept": ([], None, None),
+    "rq_noprefetch": ([(_RQ_PREFETCH, "static constexpr bool kPrefetch = false;")], None, None),
+    "rq_one_warp": ([(_RQ_SHAPES, "{2, 8}, {4, 6}, {4, 0}, {1, 1}, {1, 8}, {1, 12}, {1, 16}, {1, 24}};")], 1, None),
+    "rq_more_warps": ([(_RQ_SHAPES, "{2, 8}, {4, 6}, {4, 0}, {2, 2}, {2, 3}, {2, 4}, {2, 6}};")], 2, None),
+    "rq_8_blocks": ([(_RQ_PER_SM, "static constexpr int kBlocksPerSM = 8;")], None, 8),
+    "rq_divide_all": (_RQ_DIVIDE_ALL, None, None),
+    "rq_branch_per_value": (_RQ_BRANCH_PER_VALUE, None, None),
+    "rq_4_blocks": ([(_RQ_PER_SM, "static constexpr int kBlocksPerSM = 4;")], None, 4),
+}
+_LNQ_W_L1 = [  # w and b read through L1 for each row, not held in registers
+    ("  float wl[kVecs][8], bl[kVecs][8];  // w and b of this lane's columns\n  rows::load_affine(w, b, C, lane, wl, bl);\n",
+     ""),
+    ("        rows::unpack8(v[i], f);\n        unsigned u[4];",
+     "        rows::unpack8(v[i], f);\n        float wl[1][8], bl[1][8];\n"
+     "        { const float4* w4 = reinterpret_cast<const float4*>(w) + 2 * (lane + 32 * i);\n"
+     "          const float4* b4 = reinterpret_cast<const float4*>(b) + 2 * (lane + 32 * i);\n"
+     "          const float4 w0 = __ldg(w4), w1 = __ldg(w4 + 1), b0 = __ldg(b4), b1 = __ldg(b4 + 1);\n"
+     "          const float wa[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};\n"
+     "          const float ba[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};\n"
+     "          for (int k = 0; k < 8; ++k) wl[0][k] = wa[k], bl[0][k] = ba[k]; }\n        unsigned u[4];"),
+    ("wl[i][2 * k]", "wl[0][2 * k]"), ("bl[i][2 * k]", "bl[0][2 * k]"),
+    ("wl[i][2 * k + 1]", "wl[0][2 * k + 1]"), ("bl[i][2 * k + 1]", "bl[0][2 * k + 1]"),
+]
+_LNQ_BOUNDS = "__launch_bounds__(kBlockWarps * 32)\nlayernorm_rowquant_kernel"
+# layernorm_rowquant: the kept kernel, without the next row in flight, dividing every value, w and b
+# through L1 (at the register budget of 5, 6 or 8 blocks an SM)
+LNQ = {
+    "lnq_kept": [],
+    "lnq_w_l1": _LNQ_W_L1,
+    "lnq_w_l1_6_blocks": _LNQ_W_L1 + [(_LNQ_BOUNDS, "__launch_bounds__(kBlockWarps * 32, 6)\nlayernorm_rowquant_kernel")],
+    "lnq_w_l1_8_blocks": _LNQ_W_L1 + [(_LNQ_BOUNDS, "__launch_bounds__(kBlockWarps * 32, 8)\nlayernorm_rowquant_kernel")],
+    "lnq_divide_all": _RQ_DIVIDE_ALL,
+    "lnq_branch_per_value": _RQ_BRANCH_PER_VALUE,
+    "lnq_noprefetch": [("rows::load_row(x + (row + stride) * C, C, lane, row + stride < n_rows, next);",
+                        "rows::load_row(x + (row + stride) * C, C, lane, false, next);"),
+                       ("    const float2 st = rows::warp_row_stats(v, C, lane, eps);\n    float m = 0.f;",
+                        "    rows::load_row(x + row * C, C, lane, true, v);\n"
+                        "    const float2 st = rows::warp_row_stats(v, C, lane, eps);\n    float m = 0.f;")],
+}
+
+
 def build(name, src, subs):
     text = (CSRC / src).read_text()
     for a, b in subs:
@@ -108,17 +172,24 @@ def host_us(fn, calls=300):
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("rowcol_variants: needs a CUDA device")
-    families = sys.argv[1].split(",") if len(sys.argv) > 1 else ["ln", "cs", "lnb", "host"]
+    families = sys.argv[1].split(",") if len(sys.argv) > 1 else ["ln", "cs", "lnb", "rq", "host"]
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {n: build(n, "layernorm.cu", s) for n, s in LN.items() if "ln" in families}
     jobs.update({n: build(n, "reduce.cu", s) for n, s in CS.items() if "cs" in families})
     jobs.update({n: build(n, "layernorm.cu", v[0]) for n, v in LNB.items() if "lnb" in families})
+    jobs.update({n: build(n, "quant.cu", v[0]) for n, v in RQ.items() if "rq" in families})
+    jobs.update({n: build(n, "quant.cu", v) for n, v in LNQ.items() if "rq" in families})
     libs = {}
     for n, (so, p) in jobs.items():
         out, _ = p.communicate()
         if p.returncode:
             print(n, out[-3000:])
             raise SystemExit(1)
+        if n.startswith("rq"):  # the register report of every rowquant instance
+            lines = out.splitlines()
+            print(n, "; ".join(line.split("Compiling entry function '")[1].split("'")[0][-40:] + ": "
+                               + " ".join(x.split(":")[-1].strip() for x in lines[i + 2:i + 4])
+                               for i, line in enumerate(lines) if "Compiling entry" in line and "rowquant" in line))
         if n.startswith("lnb"):  # the register report of the backward at the paths' widths (2, 3 vectors a lane)
             lines = out.splitlines()
             print(n, "; ".join(f"{v} vectors: " + " ".join(x.split(":")[-1].strip() for x in lines[i + 2:i + 4])
@@ -208,6 +279,50 @@ def main() -> None:
         row.append(f"| wrapper host {host_us(lambda: k.layernorm_bwd(x, w, dh, res)):.1f} us, autograd host {host_us(lib):.1f}")
         print(" ".join(row), flush=True)
         del x, dh, res, dx, buf, leaves, y, gy
+    for rows, K, dt in [(19584, 3072, torch.float32), (19584, 768, torch.float32), (4928, 2048, torch.float32),
+                        (1224, 3072, torch.float32), (3072, 768, torch.float32), (768, 3072, torch.float32),
+                        (2304, 768, torch.bfloat16), (19584, 768, torch.bfloat16)] * ("rq" in families):
+        x = (rn(rows, K) * 3).to(dt)
+        q, sc = torch.empty(rows, K, dtype=torch.int8, device="cuda"), torch.empty(rows, device="cuda")
+        want = k.rowquant_plain(x)
+        plan = k.rowquant_plan(rows, K, x.element_size())
+        row = [f"rowquant {rows}x{K} {str(dt)[6:]}:"]
+        for n, (_, warps, per_sm) in RQ.items():
+            fn = libs[n].vt_rowquant
+            fn.argtypes = [_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P]
+            w, v = plan.warps, plan.vecs
+            if warps == 1:
+                w, v = 1, next(u for u in _RQ_ONE_WARP if 32 * u * plan.per_load >= K)
+            elif warps == 2 and plan.warps == 1:  # a row of one warp's instance over two warps
+                w, v = 2, next(u for u in (2, 3, 4, 6, 8) if 64 * u * plan.per_load >= K)
+            per_sm = per_sm or k.rowquant_blocks_per_sm(v)
+            blocks = min(-(-rows // (k.ROWQUANT_BLOCK_WARPS // w)), k.SM_COUNT * per_sm)
+            call = lambda: fn(x.data_ptr(), int(dt == torch.float32), q.data_ptr(), sc.data_ptr(), rows, K,
+                              plan.per_load, w, v, blocks, stream)
+            assert call() == 0
+            torch.cuda.synchronize()
+            assert torch.equal(q, want[0]) and torch.equal(sc, want[1].view(-1)), n
+            row.append(f"{n}({w}x{v}, {blocks} blocks) {device_us(call):.2f}")
+        row.append(f"| wrapper host {host_us(lambda: k.rowquant(x)):.1f} us")
+        print(" ".join(row), flush=True)
+        del x, q
+    for rows, C in [(19584, 768), (4928, 512), (1224, 768), (308, 512)] * ("rq" in families):
+        x, w, b = rn(rows, C).bfloat16(), 1 + rn(C, std=0.1), rn(C, std=0.1)
+        q, sc = torch.empty(rows, C, dtype=torch.int8, device="cuda"), torch.empty(rows, device="cuda")
+        want = k.rowquant(k.layernorm_fwd(x, w, b))
+        row = [f"layernorm_rowquant {rows}x{C}:"]
+        for n in LNQ:
+            fn = libs[n].vt_layernorm_rowquant
+            fn.argtypes = [_P, _P, _P, _P, _P, _L, _I, _F, _P]
+            call = lambda: fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), q.data_ptr(), sc.data_ptr(), rows, C, 1e-5,
+                              stream)
+            assert call() == 0
+            torch.cuda.synchronize()
+            assert torch.equal(q, want[0]) and torch.equal(sc, want[1].view(-1)), n
+            row.append(f"{n} {device_us(call):.2f}")
+        row.append(f"| wrapper host {host_us(lambda: k.layernorm_rowquant(x, w, b)):.1f} us")
+        print(" ".join(row), flush=True)
+        del x, q
     if "host" not in families:
         return
 

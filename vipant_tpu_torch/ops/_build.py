@@ -46,7 +46,7 @@ _SIGNATURES = {
     "vt_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "vt_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "vt_attention_fwd_f32": [_P, _P, _P, _I, _I, _I, _F, _P],
-    "vt_rowquant": [_P, _I, _P, _P, _L, _I, _P],
+    "vt_rowquant": [_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     "vt_layernorm_rowquant": [_P, _P, _P, _P, _P, _L, _I, _F, _P],
     "vt_gemm_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],

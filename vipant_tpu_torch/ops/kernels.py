@@ -22,7 +22,8 @@ their backward chains:
   packed ``[B, T, 3C]`` projection, and its backward; with ``fp32_out``
   the forward leaves the context unrounded in fp32, for the int8 sub-block;
 - :func:`rowquant` / :func:`layernorm_rowquant` (``csrc/quant.cu``): per-row
-  symmetric int8 codes and fp32 scales, of a tensor or of LayerNorm(x);
+  symmetric int8 codes and fp32 scales, of a tensor (a warp or a few per
+  row, as :func:`rowquant_plan` picks) or of LayerNorm(x);
 - :func:`gemm_i8` (``csrc/gemm_i8.cu``): int8 x int8 -> int32 product with
   the dequantizing epilogue (scales, bias, activation, residual);
 - :func:`flash_attention_fwd` / :func:`flash_attention_bwd` /
@@ -74,6 +75,10 @@ WGRAD_TILE = 128  # gemm_wgrad's output tile, both ways
 WGRAD_STEP = 64  # rows of the reduction per pipeline stage of gemm_wgrad
 WGRAD_CHUNK_COST = 40  # a row chunk's fixed cost (ring fill, partial tile out and in), in steps; fitted on the H100
 SM_COUNT = 132  # streaming multiprocessors of the H100 the split is planned for
+ROWQUANT_BLOCK_WARPS = 4  # warps a block of rowquant and layernorm_rowquant
+# rowquant's (warps a row, loads a lane) instances, smallest first (quant.cu's kShapes, whose last,
+# (4, 0), reads a row twice)
+ROWQUANT_SHAPES = ((1, 2), (1, 3), (1, 4), (1, 6), (2, 8), (4, 6))
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
 ORIENTATIONS = {"NN": (0, 0), "NT": (0, 1), "TN": (1, 0), "TT": (1, 1)}  # (a, b) transposed
 
@@ -704,24 +709,62 @@ def _codes_and_scale(x: torch.Tensor):
     return q, scale
 
 
+class RowquantPlan(NamedTuple):
+    warps: int  # warps that hold a row
+    vecs: int  # loads a lane holds (0: the row is read twice from memory)
+    blocks: int  # blocks of ROWQUANT_BLOCK_WARPS warps, the persistent grid
+    per_load: int  # values a load: 16 // itemsize (16-byte vectors) or 1 (scalar loads)
+
+
+def rowquant_blocks_per_sm(vecs: int) -> int:
+    """Blocks of :func:`rowquant` an SM holds at once, by the loads a lane
+    holds: ``quant.cu``'s ``RowSchedule::kBlocksPerSM`` (the register budget
+    its ``__launch_bounds__`` asks of the compiler)."""
+    return 8 if vecs <= 2 else 6 if vecs <= 4 else 4
+
+
+@functools.lru_cache(maxsize=1024)
+def rowquant_plan(rows: int, K: int, itemsize: int) -> RowquantPlan:
+    """How :func:`rowquant` launches on ``rows`` rows of K values of
+    ``itemsize`` bytes. A row whose bytes are a whole number of 16-byte
+    vectors is read as vectors (``per_load = 16 // itemsize``), any other
+    with scalar loads. ``(warps, vecs)`` is the first of
+    ``ROWQUANT_SHAPES`` (``quant.cu``'s ``kShapes``) whose ``32 * warps *
+    vecs`` loads hold the row, or else ``(4, 0)``: the row is read twice.
+    The grid is persistent: a block holds ``ROWQUANT_BLOCK_WARPS // warps``
+    rows at a time, and there are as many blocks as the rows need or as the
+    card holds at once (:func:`rowquant_blocks_per_sm` on ``SM_COUNT``
+    SMs), whichever is fewer."""
+    per_load = 16 // itemsize if K * itemsize % 16 == 0 else 1
+    loads = -(-K // per_load)
+    warps, vecs = next(((w, v) for w, v in ROWQUANT_SHAPES if 32 * w * v >= loads), (4, 0))
+    need = -(-rows // (ROWQUANT_BLOCK_WARPS // warps))
+    return RowquantPlan(warps, vecs, min(need, SM_COUNT * rowquant_blocks_per_sm(vecs)), per_load)
+
+
 def rowquant(x: torch.Tensor):
     """Per-row symmetric int8 of x [..., K] (bf16 or fp32): ``(codes int8
-    [..., K], scale fp32 [..., 1])``; see :func:`rowquant_plain`."""
+    [..., K], scale fp32 [..., 1])``; see :func:`rowquant_plain`. On CUDA x
+    is 16-byte aligned; the kernel's instance and grid are
+    :func:`rowquant_plan`'s."""
     if not x.is_cuda:
         return rowquant_plain(x)
     _require(x.dtype in (torch.bfloat16, torch.float32), f"x must be bf16 or fp32, got {x.dtype}")
     _cuda_operand(x, "x", x.dtype, x.device)
     K = x.shape[-1]
     q, scale = _codes_and_scale(x)
+    rows = x.numel() // K if K else 0
+    plan = rowquant_plan(rows, K, x.element_size())
     _launch("rowquant", x.device, x.data_ptr(), int(x.dtype == torch.float32), q.data_ptr(),
-            scale.data_ptr(), x.numel() // K, K)
+            scale.data_ptr(), rows, K, plan.per_load, plan.warps, plan.vecs, plan.blocks)
     return q, scale
 
 
 def layernorm_rowquant(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
-    """:func:`rowquant` of ``layernorm_fwd(x, w, b)`` in one kernel: the
-    normalised row is rounded to bf16 and quantized without leaving the
-    block. w, b: [C] fp32."""
+    """:func:`rowquant` of ``layernorm_fwd(x, w, b)`` in one kernel, bitwise:
+    the normalised row is rounded to bf16 and quantized without leaving the
+    registers of its warp. w, b: [C] fp32; on CUDA layernorm_fwd's contract
+    (C % 8 == 0, C <= 2048, 16-byte aligned)."""
     if not x.is_cuda:
         return layernorm_rowquant_plain(x, w, b)
     C = x.shape[-1]
