@@ -117,10 +117,12 @@
    H12 with the block-diagonal packing bias and its grad), with q, k, v read
    as contiguous tensors, as sections of a packed [B, T, 3C] tensor and as
    transposed [B, H, T, D] views (outputs bitwise equal across the three),
-   the forward and the bias grad bitwise equal across two runs, a query row
-   masked everywhere uniform; ``F.scaled_dot_product_attention`` and its
-   autograd backward timed beside them, the forward also in device µs per
-   call beside SDPA's.
+   the forward, dq, dk, dv and the bias grad bitwise equal across two runs,
+   the bias grad on small-integer inputs (exact products) bitwise
+   ``kernels.flash_attention_dbias_ordered``, a query row masked everywhere
+   uniform; ``F.scaled_dot_product_attention``, its autograd backward and
+   that backward for a float mask timed beside them, each also in device µs
+   per call beside the kernels'.
 11. Probe phase: ``dot_variant`` in its four orientations against the fp32
    product, with its device µs per call beside ``torch.matmul``'s (its loop
    is bound by the host); ``probe_fused_fwd`` at B64 T306 C768 against its plain version
@@ -337,7 +339,7 @@ LAYERNORM_BWD_CASES = [
 ]
 # the flash kernel phase's shapes: (case, B, Tq, Tk, H, bias: None, "pack" (4 items of T / 4
 # tokens, block-diagonal) or "causal"); the first is the captioning step's cross-attention.
-# experiments/kernel_times.py times flash_attention_fwd at each.
+# experiments/kernel_times.py times flash_attention_fwd and _bwd at each, _dbias at each with a bias.
 FLASH_CASES = [
     ("cross B64 Tq77 Tk61 H8", 64, 77, 61, 8, None),
     ("cross B4 Tq77 Tk61 H8", 4, 77, 61, 8, None),
@@ -1616,10 +1618,13 @@ def flash_kernel_phase(torch, results):
             reads=(q, k, v, bias), ops=flash_ops(B, Tq, Tk, H), library=lib_fwd, device=True)
         if not all(torch.equal(a, b) for a, b in zip(fwd(), fwd())):
             raise AssertionError(f"flash_attention_fwd {case}: two runs differ")
-        cmp("flash_attention_bwd", case,
-            lambda: kernels.flash_attention_bwd(q, k, v, bias, o, lse, do, 0.125),
+        bwd = lambda: kernels.flash_attention_bwd(q, k, v, bias, o, lse, do, 0.125)
+        cmp("flash_attention_bwd", case, bwd,
             lambda: kernels.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, 0.125),
-            reads=(q, k, v, bias, o, lse, do), ops=flash_ops(B, Tq, Tk, H, 5), library=lib_bwd(do))
+            reads=(q, k, v, bias, o, lse, do), ops=flash_ops(B, Tq, Tk, H, 5), library=lib_bwd(do),
+            device=True)
+        if not all(torch.equal(a, b) for a, b in zip(bwd(), bwd())):
+            raise AssertionError(f"flash_attention_bwd {case}: two runs differ")
         if bias is None:
             if "causal" in case:
                 raise AssertionError("the causal case lost its bias")
@@ -1629,14 +1634,26 @@ def flash_kernel_phase(torch, results):
         # the first of these cases is the probe path's shape: the packing bias with its grad
         cmp("flash_attention_dbias", case, dbias,
             lambda: kernels.flash_attention_dbias_plain(q, k, v, bias, lse, delta, do, 0.125),
-            reads=(q, k, v, bias, lse, delta, do), ops=flash_ops(B, Tq, Tk, H), library=lib_dbias(do))
+            reads=(q, k, v, bias, lse, delta, do), ops=flash_ops(B, Tq, Tk, H), library=lib_dbias(do),
+            device=True)
         if not torch.equal(dbias(), dbias()):
             raise AssertionError(f"flash_attention_dbias {case}: two runs differ")
+        # on small integers every product is exact, so the kernel's ds_raw is the plain version's
+        # bit for bit and its sum must be the plain sum in the kernel's order
+        gi = torch.Generator(device="cuda").manual_seed(1)
+        qi, ki, vi, doi = (torch.randint(-2, 3, t.shape, generator=gi, device="cuda").to(t.dtype)
+                           for t in (q, k, v, do))
+        oi, lsei = kernels.flash_attention_fwd_plain(qi, ki, vi, bias, 0.125)
+        deltai = kernels.flash_attention_bwd_plain(qi, ki, vi, bias, oi, lsei, doi, 0.125)[3]
+        if not torch.equal(kernels.flash_attention_dbias(qi, ki, vi, bias, lsei, deltai, doi, 0.125),
+                           kernels.flash_attention_dbias_ordered(qi, ki, vi, bias, lsei, deltai, doi, 0.125)):
+            raise AssertionError(f"flash_attention_dbias {case}: differs from flash_attention_dbias_ordered")
         # causal=True through the public op is the same bias folded on the host
         if "causal" in case and not torch.equal(attention_mod.flash_attention(q, k, v, causal=True),
                                                 kernels.flash_attention_fwd(q, k, v, bias, 0.125)[0]):
             raise AssertionError("flash_attention(causal=True) differs from the causal bias")
-    print("  bias grad: two runs bitwise equal at T77 causal and T200 pack")
+    print("  dq, dk, dv: two runs bitwise equal at every case; bias grad: two runs bitwise equal and "
+          "bitwise flash_attention_dbias_ordered on small integers at T77 causal and T200 pack")
 
     # the same values as contiguous tensors, sections of a packed [B, T, 3C] and [B, H, T, D] views
     B, T, H = 16, 200, 12

@@ -14,8 +14,10 @@ layernorm_rowquant's bitwise rowquant(layernorm_fwd(x)); against the plain
 LayerNorm, and in the sub-blocks, equal except a share of at most 1e-3 off
 by exactly one (chip_smoke.py), scales to 1e-6 relative; the int32 sum
 of gemm_i8 is exact (compared bitwise at unit scales). The flash-attention
-kernels give the same bits for every layout of q, k, v, and their bias grad
-the same bits in every run; so do gemm_bias_act, gemm_dgrad, gemm_wgrad,
+kernels give the same bits for every layout of q, k, v, their grads and
+bias grad the same bits in every run, and the bias grad on small-integer
+inputs (exact products) the bits of kernels.flash_attention_dbias_ordered
+(the plain sum in the kernel's order); so do gemm_bias_act, gemm_dgrad, gemm_wgrad,
 gemm_i8, attention_bwd, whose recomputed p is bitwise the forward's, and
 colsum, whose sum is also bitwise kernels.colsum_ordered (the plain sum in
 the kernel's order)."""
@@ -769,6 +771,16 @@ FLASH_CASES = [  # (B, Tq, Tk, H, bias): the flash kernel phase of chip_smoke.py
     (16, 200, 200, 12, "pack"),
     (3, 130, 70, 2, "random"),    # ragged on both axes, some entries masked
     (2, 1, 9, 2, "none"),
+    # ragged tails of the backward's tiles: Tq 1, 17, 65, 130 against Tk 1, 63, 65, 705 (dq keeps K
+    # and V resident up to 768 keys) and 971 (dq streams them)
+    (2, 1, 63, 2, "random"),
+    (2, 1, 705, 2, "none"),
+    (2, 17, 1, 2, "none"),
+    (2, 17, 705, 2, "random"),
+    (2, 65, 65, 2, "random"),
+    (2, 65, 971, 2, "random"),
+    (2, 130, 63, 2, "random"),
+    (2, 130, 971, 2, "none"),
 ]
 
 
@@ -795,17 +807,29 @@ def test_flash_attention_kernels_match_plain(gen, B, Tq, Tk, H, kind):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)  # the same bits in every run
     tiles, rows = kernels.flash_fwd_plan(Tq, Tk)
     assert (tiles - 1) * rows < Tq <= tiles * rows and rows % 16 == 0
+    plan = kernels.flash_bwd_plan(Tq, Tk)
+    assert (plan.k_tiles - 1) * plan.k_rows < Tk <= plan.k_tiles * plan.k_rows and plan.k_rows % 16 == 0
     got = kernels.flash_attention_bwd(q, k, v, bias, o0, lse0, do, 0.125)
     want = kernels.flash_attention_bwd_plain(q, k, v, bias, o0, lse0, do, 0.125)
     for name, g, w in zip(("dq", "dk", "dv", "delta"), got, want):
         _close(g, w, name)
-    assert LAUNCHES == {"flash_attention_fwd": 2, "flash_attention_bwd": 1}
+    again = kernels.flash_attention_bwd(q, k, v, bias, o0, lse0, do, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "dq, dk, dv must be bitwise repeatable"
+    assert LAUNCHES == {"flash_attention_fwd": 2, "flash_attention_bwd": 2}
     if bias is not None:
         dbias = kernels.flash_attention_dbias(q, k, v, bias, lse0, want[3], do, 0.125)
         _close(dbias, kernels.flash_attention_dbias_plain(q, k, v, bias, lse0, want[3], do, 0.125), "dbias")
         again = kernels.flash_attention_dbias(q, k, v, bias, lse0, want[3], do, 0.125)
         assert torch.equal(dbias, again), "the bias grad must be bitwise repeatable"
-        assert LAUNCHES["flash_attention_dbias"] == 2
+        # small integers make every product exact, so the kernel's ds_raw is the plain version's bit
+        # for bit and its sum must be the plain sum in the kernel's order
+        qi, ki, vi, doi = (torch.randint(-2, 3, t.shape, generator=gen, device="cuda").to(t.dtype)
+                           for t in (q, k, v, do))
+        oi, lsei = kernels.flash_attention_fwd_plain(qi, ki, vi, bias, 0.125)
+        deltai = kernels.flash_attention_bwd_plain(qi, ki, vi, bias, oi, lsei, doi, 0.125)[3]
+        assert torch.equal(kernels.flash_attention_dbias(qi, ki, vi, bias, lsei, deltai, doi, 0.125),
+                           kernels.flash_attention_dbias_ordered(qi, ki, vi, bias, lsei, deltai, doi, 0.125))
+        assert LAUNCHES["flash_attention_dbias"] == 3
 
 
 @pytest.mark.parametrize("Tq,Tk", [(77, 61), (200, 200), (971, 971), (5, 130)])

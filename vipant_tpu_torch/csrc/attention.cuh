@@ -18,84 +18,38 @@
 // and chip_smoke.py hold p read out of the forward (v one-hot) against p
 // read out of the backward's dv (do one-hot).
 //
-// flash_attention.cu's forward is built from the same register-level
-// pieces (`scores`, `fold_stats`, `add_pv`, with separate query and key
-// lengths). Its backward kernels' blocks own 64 query rows (or 64 keys), 4
-// warps of 16 rows each, and stream the other side through shared memory in
-// tiles of 64, their scores passing through an fp32 tile in shared memory
-// (`score_tile`, `nvcuda::wmma`).
+// flash_attention.cu is built from the same register-level pieces
+// (`scores`, `fold_stats`, `add_pv` in the forward; `scores` and
+// `pv_product` in the backward and the bias grad), with separate query and
+// key lengths.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "async_copy.cuh"
 
 namespace attn {
 
-using namespace nvcuda;
-
 constexpr int D = 64;         // head dim (checked by the wrappers)
-constexpr int BQ = 64;        // query rows per tile: 4 warps x 16
+constexpr int BQ = 64;        // query rows per tile
 constexpr int BKV = 64;       // keys per tile
 constexpr int LDH = D + 8;    // bf16 tile row: 144 bytes
-constexpr int LDS = BKV + 4;  // fp32 score row: 272 bytes
-constexpr int kThreads = 128;
 constexpr int kTileBytes = BQ * LDH * 2;  // one bf16 64 x 72 tile
-constexpr int kScoreBytes = BQ * LDS * 4;  // one fp32 64 x 68 tile
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// rows [r0, r0 + 64) of one head's 64 columns (row stride `ld`) into a
-// 64 x LDH tile; rows past T are zero
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* base, int r0,
-                                          int T, int ld) {
-  for (int c = threadIdx.x; c < 64 * (D / 8); c += kThreads) {
-    const int r = c >> 3, k = (c & 7) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T) v = *reinterpret_cast<const uint4*>(base + static_cast<size_t>(r0 + r) * ld + k);
-    *reinterpret_cast<uint4*>(dst + r * LDH + k) = v;
-  }
+// the Pallas order: (q.k) * scale, then + bias, each rounded in fp32
+__device__ __forceinline__ float scaled(float raw, float scale, float bv) {
+  return __fadd_rn(__fmul_rn(raw, scale), bv);
 }
 
-// fp32 A . B^T for this warp's 16 rows of the 64 x 64 tile A against the 64
-// rows of B, stored to the warp's rows of S (q.k^T for scores, do.v^T for dp)
-__device__ __forceinline__ void score_tile(const __nv_bfloat16* As, const __nv_bfloat16* Bs,
-                                           float* Ss, int warp) {
-  FragC s[BKV / 16];
-#pragma unroll
-  for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(s[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, As + warp * 16 * LDH + kk, LDH);
-#pragma unroll
-    for (int j = 0; j < BKV / 16; ++j) {
-      FragBc b;
-      wmma::load_matrix_sync(b, Bs + j * 16 * LDH + kk, LDH);
-      wmma::mma_sync(s[j], a, b, s[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BKV / 16; ++j)
-    wmma::store_matrix_sync(Ss + warp * 16 * LDS + j * 16, s[j], LDS, wmma::mem_row_major);
-  __syncwarp();
-}
-
-// the Pallas order: (q.k) * scale, then + bias, each rounded in fp32; the
-// bias is [Tq, Tk] (flash_attention.cu: queries and keys of different length)
+// the same with the bias read from [Tq, Tk] (flash_attention.cu: queries and
+// keys of different length)
 __device__ __forceinline__ float scaled(float raw, float scale, const float* bias, int i, int j,
                                         int Tq, int Tk) {
-  const float bv = (bias != nullptr && i < Tq) ? bias[static_cast<size_t>(i) * Tk + j] : 0.f;
-  return __fadd_rn(__fmul_rn(raw, scale), bv);
+  return scaled(raw, scale, (bias != nullptr && i < Tq) ? bias[static_cast<size_t>(i) * Tk + j] : 0.f);
 }
 
 // the same for self-attention's [T, T] bias
@@ -116,7 +70,7 @@ __device__ __forceinline__ float prob(float s, float m, float inv_l) {
 }
 
 // ---------------------------------------------------------------------------
-// register-level tiles: attention.cu, attention_bwd.cu, flash_attention.cu's forward
+// register-level tiles: attention.cu, attention_bwd.cu, flash_attention.cu
 // ---------------------------------------------------------------------------
 
 // four 8x8 bf16 matrices, row addresses from lanes 8i .. 8i + 7 for matrix i
@@ -190,6 +144,16 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[4][4], const __nv_bfl
       f[kk][2 + h] = in ? p[kk * 8 + 4] : 0u;
     }
   }
+}
+
+// The same A fragments of rows [r0, r0 + 16) of a tile staged in shared
+// memory (pitch LDH), through `ldmatrix`
+__device__ __forceinline__ void tile_a_frags(uint32_t (&f)[4][4], const __nv_bfloat16* tile, int r0,
+                                             int lane) {
+  // matrix i of a load: rows + 8 (i & 1), head dims + 8 (i >> 1)
+  const __nv_bfloat16* row = tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(f[kk], row + kk * 16);
 }
 
 // raw fp32 scores of a warp's 16 rows (A fragments af, one per 16 of the 64

@@ -59,7 +59,7 @@ def registers(out):
     lines, found = out.splitlines(), []
     for i, line in enumerate(lines):
         if "Compiling entry" in line and "flash_fwd_kernel" in line:
-            mode = line.split("FwdModeE")[1][0]
+            mode = line.split("KvModeE")[1][0]
             spill = lines[i + 2].split(",")[1].strip()
             found.append(f"mode {mode}: {lines[i + 3].split(':')[-1].split(',')[0].strip()}, {spill}")
     return "; ".join(sorted(found))

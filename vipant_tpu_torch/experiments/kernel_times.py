@@ -7,18 +7,21 @@ integer product alone), ``attention_fwd``'s streaming form at T > 704
 (``scaled_dot_product_attention``), ``layernorm_fwd`` (``F.layer_norm``),
 ``colsum`` (``torch.sum(..., dtype=torch.float32)``), ``layernorm_bwd``
 (autograd through ``F.layer_norm``), ``flash_attention_fwd``
-(``scaled_dot_product_attention`` on the [B, H, T, 64] views), and, with
-no library call, ``layernorm_rowquant`` at every ``LAYERNORM_CASES`` case
+(``scaled_dot_product_attention`` on the [B, H, T, 64] views),
+``flash_attention_bwd`` (the autograd backward of that call, as
+``chip_smoke._sdpa4`` builds it), ``flash_attention_dbias`` (that backward
+taken for a float mask alone), and, with no library call, ``layernorm_rowquant`` at every ``LAYERNORM_CASES`` case
 whose rows an int8 tower runs (``INT8_TOWERS``), ``rowquant`` at every
 ``ROWQUANT_CASES`` case, and the two int8 sub-blocks at audio B64
 (``int8_blocks``) beside the bf16 kernel chains of the same sub-blocks.
 ``gemm_dgrad``, ``gemm_i8``, ``layernorm_fwd``, ``colsum``,
-``layernorm_bwd``, ``flash_attention_fwd``, ``layernorm_rowquant``,
-``rowquant`` and ``int8_blocks`` also print their device time per call
+``layernorm_bwd``, ``flash_attention_fwd``, ``flash_attention_bwd``,
+``flash_attention_dbias``, ``layernorm_rowquant``, ``rowquant`` and
+``int8_blocks`` also print their device time per call
 (``chip_smoke.device_us``: the device busy time of 20 calls in a
 ``torch.profiler`` window), and so does the library call beside the first
-six of those: at the small shapes (B4, the text tower, the decode, the
-cross-attention) that is the number to compare, since their timing loops
+eight of those (the two flash backward ops also split by kernel): at the
+small shapes (B4, the text tower, the decode, the cross-attention) that is the number to compare, since their timing loops
 there are bound by the host. To compare two checkouts on one card, run it
 for each in turns (A, B, B, A)::
 
@@ -27,11 +30,11 @@ for each in turns (A, B, B, A)::
 ``kernels``, if given, picks some of ``gemm_bias_act``, ``attention_bwd``,
 ``gemm_dgrad``, ``gemm_i8``, ``attention_fwd``, ``layernorm_fwd``,
 ``colsum``, ``layernorm_bwd``, ``flash_attention_fwd``,
-``layernorm_rowquant``, ``rowquant``, ``int8_blocks`` and
-``probe_fused_fwd`` (the probe's P2 chain,
-whose attention is ``flash_attention_fwd``, beside
-``F.multi_head_attention_forward``), separated by commas; by default all
-of them are timed.
+``flash_attention_bwd``, ``flash_attention_dbias`` (at the cases with a
+bias), ``layernorm_rowquant``, ``rowquant``, ``int8_blocks`` and
+``probe_fused_fwd`` (the probe's P2 chain, whose attention is
+``flash_attention_fwd``, beside ``F.multi_head_attention_forward``),
+separated by commas; by default all of them are timed.
 
 It imports the package from the given root, so an older checkout is timed
 with its own kernels; the shapes are ``GEMM_FWD_CASES``,
@@ -51,6 +54,7 @@ profiler window.
 
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 import time
@@ -62,7 +66,7 @@ _cases = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(_cases)
 GEMMS = _cases.GEMM_FWD_CASES  # (case, M, N, K, activation, residual, fp32 pre-activation)
 KERNELS = ("gemm_bias_act", "attention_bwd", "gemm_dgrad", "gemm_i8", "attention_fwd", "layernorm_fwd", "colsum",
-           "layernorm_bwd", "flash_attention_fwd", "layernorm_rowquant", "rowquant", "int8_blocks", "probe_fused_fwd")
+           "layernorm_bwd", "flash_attention_fwd", "flash_attention_bwd", "flash_attention_dbias", "layernorm_rowquant", "rowquant", "int8_blocks", "probe_fused_fwd")
 ATTENTION = [  # (B, T, C, H, bias)
     (64, 306, 768, 12, "none"), (4, 306, 768, 12, "none"), (64, 77, 512, 8, "causal"),
     (16, 200, 768, 12, "pack"), (1, 308, 512, 8, "causal_pack"),
@@ -238,6 +242,36 @@ def main() -> None:
                                                             attn_mask=mask, scale=0.125),
                      (q, k, v, bias, lse), o, 4 * B * H * Tq * Tk * 64, "SDPA", "bf16")
         del q, k, v, o, lse
+
+    def by_kernel(fn, calls=20):
+        """device µs a call of each kernel ``fn`` launches, from one profiler window"""
+        try:
+            _, _, seen = _cases._profile(torch, fn, calls)
+        except AssertionError:
+            return "no device events"
+        name = lambda k: (re.findall(r"\w+_kernel", k) or [k[:28]])[0]
+        return ", ".join(f"{name(k)} {ms * 1e3 / calls:.2f}" for k, (n, ms) in seen.items())
+
+    flash_bwd, flash_dbias = "flash_attention_bwd" in which, "flash_attention_dbias" in which
+    for case, B, Tq, Tk, H, kind in _cases.FLASH_CASES if flash_bwd or flash_dbias else ():
+        q, k, v, do = (rn(B, T, H, 64).bfloat16() for T in (Tq, Tk, Tk, Tq))
+        bias = _cases.flash_bias(torch, kind, Tq)
+        o, lse = kernels.flash_attention_fwd(q, k, v, bias, 0.125)
+        _, lib_bwd, lib_dbias = _cases._sdpa4(torch, q, k, v, bias)
+        bwd = lambda: kernels.flash_attention_bwd(q, k, v, bias, o, lse, do, 0.125)
+        grads = bwd()
+        if flash_bwd:
+            with_library("flash_attention_bwd", case, bwd, lib_bwd(do), (q, k, v, bias, o, lse, do), grads,
+                         _cases.flash_ops(B, Tq, Tk, H, 5)[0][0], "SDPA autograd bwd", "bf16")
+            print(f"{label} flash_attention_bwd {case}: by kernel, device us a call: {by_kernel(bwd)}")
+        if flash_dbias and bias is not None:
+            dbias = lambda: kernels.flash_attention_dbias(q, k, v, bias, lse, grads[3], do, 0.125)
+            lib = lib_dbias(do)
+            with_library("flash_attention_dbias", case, dbias, lib if lib is not None else dbias,
+                         (q, k, v, bias, lse, grads[3], do), dbias(), _cases.flash_ops(B, Tq, Tk, H)[0][0],
+                         "SDPA bias bwd" if lib is not None else "(no library call: the kernel again)", "bf16")
+            print(f"{label} flash_attention_dbias {case}: by kernel, device us a call: {by_kernel(dbias)}")
+        del q, k, v, do, o, lse, grads
 
     int8_rows = {(M, C) for _, M, C in _cases.INT8_TOWERS}
     for case, M, C in _cases.LAYERNORM_CASES if "layernorm_rowquant" in which else ():

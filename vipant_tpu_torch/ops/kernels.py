@@ -30,8 +30,10 @@ their backward chains:
   :func:`flash_attention_dbias` (``csrc/flash_attention.cu``): attention on
   separate q, k, v ``[B, T, H, 64]`` views of any strides, queries and keys
   of different lengths, with the logsumexp (in the blocks of
-  :func:`flash_fwd_plan`); its backward from the logsumexp; and the bias
-  grad summed over items and heads;
+  :func:`flash_fwd_plan`); its backward from the logsumexp (in the blocks
+  of :func:`flash_bwd_plan`); and the bias grad summed over items and
+  heads in the chunks of :func:`dbias_split`, in the fixed order of
+  :func:`flash_attention_dbias_ordered`;
 - :func:`dot_variant` (``csrc/dot_variants.cu``): one product in the four
   operand orientations (the probe of ``experiments/fused_block_probe.py``).
 
@@ -70,7 +72,9 @@ FLASH_ONE_TILE_Q = 80  # ... where every key fits one 64-key tile: 5 warps, 4 bl
 COLSUM_WARPS = 8  # warps a block of colsum; warp w sums rows w, w + 8, ... of the block's chunk
 COLSUM_STRIP = 512  # bytes of a row one colsum block reads: 16 a lane of a warp
 COLSUM_MIN_ROWS = 64  # the fewest rows a colsum chunk is given
-DBIAS_CHUNKS = 16  # partial sums of flash_attention_dbias over (items x heads)
+FLASH_BWD_MAX_K = 64  # keys a block of flash_attention_bwd's dk, dv kernel holds at most: 4 warps of 16
+FLASH_TILE = 64  # query rows and keys of a block of flash_attention_dbias (and of a tile the kernels stage)
+DBIAS_BLOCKS_PER_SM = 2  # flash_attention_dbias's blocks an SM that dbias_split aims at
 WGRAD_TILE = 128  # gemm_wgrad's output tile, both ways
 WGRAD_STEP = 64  # rows of the reduction per pipeline stage of gemm_wgrad
 WGRAD_CHUNK_COST = 40  # a row chunk's fixed cost (ring fill, partial tile out and in), in steps; fitted on the H100
@@ -341,6 +345,31 @@ def flash_attention_dbias_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                                 delta: torch.Tensor, do: torch.Tensor, scale: float) -> torch.Tensor:
     """[Tq, Tk] sum over items and heads of the unscaled ``ds_raw``."""
     return _flash_ds_raw(q, k, v, bias, lse, delta, do, scale)[1].sum(dim=(0, 1))
+
+
+def flash_attention_dbias_ordered(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  bias: Optional[torch.Tensor], lse: torch.Tensor,
+                                  delta: torch.Tensor, do: torch.Tensor, scale: float) -> torch.Tensor:
+    """:func:`flash_attention_dbias_plain` with the fp32 additions in the
+    order of the kernel, one by one: the (item, head) pairs ``b * H + h`` cut
+    into the chunks of :func:`dbias_split`, each chunk's ``ds_raw`` added in
+    turn from zero, then the chunks' partial sums added in order from zero.
+    The kernel's result equals it bitwise wherever its ``ds_raw`` does,
+    which is where the products are exact (small-integer inputs: the
+    tensor cores sum a product in another order than ``torch.matmul``)."""
+    B, Tq, H, _ = q.shape
+    Tk = k.shape[1]
+    ds = _flash_ds_raw(q, k, v, bias, lse, delta, do, scale)[1].reshape(B * H, Tq, Tk)
+    total = torch.zeros((Tq, Tk), dtype=ds.dtype, device=ds.device)
+    if B * H == 0 or Tq == 0:  # an empty sum
+        return total
+    chunks, per = dbias_split(B * H, Tq, Tk)
+    for c in range(chunks):
+        part = torch.zeros_like(total)
+        for bh in range(c * per, min(c * per + per, B * H)):
+            part = part + ds[bh]
+        total = total + part
+    return total
 
 
 def dot_variant_plain(a: torch.Tensor, b: torch.Tensor, orientation: str) -> torch.Tensor:
@@ -868,6 +897,49 @@ def flash_fwd_plan(Tq: int, Tk: int) -> Tuple[int, int]:
     return tiles, -(-per // 16) * 16
 
 
+class FlashBwdPlan(NamedTuple):
+    """The blocks of :func:`flash_attention_bwd`'s two kernels per (item,
+    head): ``q_tiles`` blocks of ``q_rows`` query rows (dq) and ``k_tiles``
+    blocks of ``k_rows`` keys (dk, dv)."""
+
+    q_tiles: int
+    q_rows: int
+    k_tiles: int
+    k_rows: int
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_bwd_plan(Tq: int, Tk: int) -> FlashBwdPlan:
+    """How :func:`flash_attention_bwd` cuts a head of Tq (>= 1) query rows
+    and Tk (>= 1) keys into blocks of whole 16-row warps. Its dq kernel takes
+    the query rows as :func:`flash_fwd_plan` does (one block of 5 warps per
+    head at the decoder's Tq = 77, Tk = 61; eight of 128 rows at T = 971);
+    its dk, dv kernel takes the keys in as few blocks of at most
+    ``FLASH_BWD_MAX_K`` as hold them, sized alike (one of 64 at Tk = 61, two
+    of 48 at 77, sixteen of 64 at 971). Every query row and every key falls
+    in one block: ``(tiles - 1) * rows < T <= tiles * rows``."""
+    q_tiles, q_rows = flash_fwd_plan(Tq, Tk)
+    k_tiles = -(-Tk // FLASH_BWD_MAX_K)
+    per = -(-Tk // k_tiles)
+    return FlashBwdPlan(q_tiles, q_rows, k_tiles, -(-per // 16) * 16)
+
+
+@functools.lru_cache(maxsize=1024)
+def dbias_split(BH: int, Tq: int, Tk: int) -> Tuple[int, int]:
+    """``(chunks, per_chunk)``: how :func:`flash_attention_dbias` cuts its
+    ``BH`` (>= 1) (item, head) pairs. Its kernel launches one block per
+    (``FLASH_TILE`` query rows, ``FLASH_TILE`` keys, chunk), so the chunks
+    aim at ``DBIAS_BLOCKS_PER_SM`` blocks an SM (256 blocks at B16 T200 H12
+    and at B64 T77 H8). Chunk c takes the pairs ``c * per_chunk`` to ``c *
+    per_chunk + per_chunk - 1`` in order, none is empty: ``(chunks - 1) *
+    per_chunk < BH <= chunks * per_chunk``. A function of the shapes and the
+    constants above only, so the same shapes always sum in the same order."""
+    tiles = -(-Tq // FLASH_TILE) * -(-Tk // FLASH_TILE)
+    want = max(1, min(BH, -(-DBIAS_BLOCKS_PER_SM * SM_COUNT // tiles)))
+    per = -(-BH // want)
+    return -(-BH // per), per
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor], scale: float):
     """softmax(q . k^T * scale + bias) . v per head. q: [B, Tq, H, 64]; k, v:
@@ -893,7 +965,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the output grad ``do`` (both contiguous [B, Tq, H, 64]): ``(dq, dk, dv,
     delta)``, the grads contiguous bf16 in the shapes of q, k, v, and
     ``delta = rowsum(do * o)`` [B, H, Tq] fp32, which
-    :func:`flash_attention_dbias` reads."""
+    :func:`flash_attention_dbias` reads. The kernels launch the blocks of
+    ``flash_bwd_plan(Tq, Tk)`` per (item, head); the grads are the same bits
+    in every run."""
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, bias, o, lse, do, scale)
     strides, B, Tq, Tk, H = _flash_operands(q, k, v, bias)
@@ -904,9 +978,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((B, Tq, H, HEAD_DIM), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Tk, H, HEAD_DIM), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    plan = flash_bwd_plan(max(Tq, 1), Tk)
     _launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
             _ptr(bias), o.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, scale)
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, scale, plan.q_rows, plan.k_rows)
     return dq, dk, dv, delta
 
 
@@ -914,22 +989,24 @@ def flash_attention_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor], lse: torch.Tensor, delta: torch.Tensor,
                           do: torch.Tensor, scale: float) -> torch.Tensor:
     """The bias grad [Tq, Tk] fp32 of :func:`flash_attention_fwd`: the
-    unscaled ``p * (dp - delta)`` summed over all items and heads in a fixed
-    order (two runs agree bitwise), from the forward's ``lse`` and the
-    backward's ``delta``."""
+    unscaled ``p * (dp - delta)`` summed over all items and heads in the
+    chunks of :func:`dbias_split`, in the fixed order of
+    :func:`flash_attention_dbias_ordered` (two runs agree bitwise), from the
+    forward's ``lse`` and the backward's ``delta``."""
     if not q.is_cuda:
         return flash_attention_dbias_plain(q, k, v, bias, lse, delta, do, scale)
     strides, B, Tq, Tk, H = _flash_operands(q, k, v, bias)
     _flash_dense(do, "do", (B, Tq, H, HEAD_DIM), torch.bfloat16, q.device)
     _flash_dense(lse, "lse", (B, H, Tq), torch.float32, q.device)
     _flash_dense(delta, "delta", (B, H, Tq), torch.float32, q.device)
-    per = -(-(B * H) // DBIAS_CHUNKS)
-    chunks = -(-(B * H) // per)
+    if B * H == 0 or Tq == 0:  # an empty sum, as the plain version gives it
+        return torch.zeros((Tq, Tk), dtype=torch.float32, device=q.device)
+    chunks, per = dbias_split(B * H, Tq, Tk)
     partial = torch.empty((chunks, Tq, Tk), dtype=torch.float32, device=q.device)
     dbias = torch.empty((Tq, Tk), dtype=torch.float32, device=q.device)
     _launch("flash_attention_dbias", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
             _ptr(bias), lse.data_ptr(), delta.data_ptr(), do.data_ptr(), partial.data_ptr(),
-            dbias.data_ptr(), B, Tq, Tk, H, scale, chunks)
+            dbias.data_ptr(), B, Tq, Tk, H, scale, chunks, per)
     return dbias
 
 
