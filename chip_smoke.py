@@ -147,6 +147,31 @@
    printed); ``beam=1`` gives the greedy ids; teacher-forced logits on the
    kernels against the plain ops (cosine >= 0.999 per row); the same engine
    with ``quantize="int8"`` decodes on the int8 sub-blocks.
+14. VA epoch loop (full width): a seeded synthetic index written to a temp
+   dir (``write_synthetic_va``: 256 train and 64 eval clips of 10 s 16 kHz
+   wav, a 256 x 256 JPEG frame each, or none when PIL is missing; an npz
+   twin of the train split with 1000 x 128 fbanks); ``Trainer.learn`` at the
+   flagship config, B = 64, two epochs of 4 steps, ``loader_backend=process``
+   with ``min(8, cpu_count)`` workers, SpecAugment on: (a) run A, 8 steps with
+   a save and an eval at 6 (``save_rate=6``), its launches counted (path
+   ``va_loop``), then a save at 8;
+   (c) finite losses, the audio tower moved by step 2; (d) the retrieval
+   report of the 64 eval clips, finite; (e) ``InferenceEngine`` on A's step 8
+   (``model.npz``, the image tower from ``state.pt``): ``embed_audio`` of
+   those clips at cosine >= 0.999 to the trainer's eval features; (b) run B,
+   a fresh trainer resumed from A's step 6, bitwise A at step 8 (every
+   trainable param and LARS buffer); (g) the pinned copy against its races:
+   loader batches put with each side-stream copy held back, read on the
+   compute stream at once after ``wait`` and again after the batch's
+   tensors were dropped and the next copy ran, bytewise their host batches;
+   a put without ``wait_event`` and one without ``record_stream`` must each
+   be caught; (f) ms per step of the loop, clips/s and the share of the
+   window spent waiting for the loader, timed from an epoch's first batch's
+   arrival to its last's (3 steps of the wav train split, 15 of the npz
+   split read 4 times), beside the step alone on a loader batch and phase
+   6's step at B = 64, with the card's name and power limit; and a
+   ``torch.profiler`` window of 3 steady npz steps (``profile.alive``): the
+   card's idle share and each host thread's time inside torch ops.
 
 Every kernel's time stands beside its bound, the least time the card could
 take for the same work: the larger of the bytes it must move (each input
@@ -171,7 +196,7 @@ max |plain|, since they sum over thousands of rows in another order.
 
 Prints a JSON line of per-kernel results (``launches`` is the sum of the
 counts read on each main path (``serve``, ``train``, ``serve_int8``,
-``train_int8_frozen``, ``probe``, ``caption_train``, ``caption_serve``), which ``launches_by_path`` gives apart; ``ms``,
+``train_int8_frozen``, ``probe``, ``caption_train``, ``caption_serve``, ``va_loop``), which ``launches_by_path`` gives apart; ``ms``,
 ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` are those of the
 kernel's first case, its main-path shape; ``cases`` holds each shape's), then, as the last line, ``{"ok": true, "device": {...}}``.
 Any failure raises (non-zero exit).
@@ -180,6 +205,7 @@ Any failure raises (non-zero exit).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -252,7 +278,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                         "experiments/fused_block_probe.py:85"),
 }
 PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
-         "caption_serve")
+         "caption_serve", "va_loop")
 # every product shape the paths give gemm_bias_act: (case, M, N, K, activation, residual, fp32
 # pre-activation). The kernel phase holds each to its plain version; experiments/kernel_times.py
 # times each, parent against change.
@@ -1427,6 +1453,7 @@ def train_phase(torch, results):
             timing[label] = {"fwd": cuda_ms(torch, fwd, 5, 2),
                              "fwd_bwd": cuda_ms(torch, lambda: loss_and_grads(tr.state, *batch), 5, 2),
                              "step": cuda_ms(torch, lambda: tr.train_step(*batch), 5, 2)}
+    results["_va_step_ms"] = timing["kernels"]["step"]  # phase 14 prints it beside the loop's
     torch.cuda.reset_peak_memory_stats()
     tr.train_step(*batch)
     torch.cuda.synchronize()
@@ -2007,6 +2034,371 @@ def caption_serve_phase(torch, results):
           + "; ".join(f"{d / 3:.2f} ms {n // 3}x {k[:50]}" for k, (n, d) in top))
 
 
+# phase 14: the VA epoch loop on a synthetic index
+LOOP_TRAIN, LOOP_EVAL, LOOP_B, LOOP_SECONDS, LOOP_FRAME = 256, 64, 64, 10.0, 256
+# the timed indexes: the wav train split twice (8 steps), the npz split 6 times (24 steps)
+LOOP_WAV_REPEAT, LOOP_NPZ_REPEAT = 2, 6
+# (g): the side stream sleeps before each copy, the compute stream between a batch's two reads;
+# the next copy lands RACE_COPY_MS after the last, well before the second read
+RACE_COPY_MS, RACE_READ_MS, RACE_BATCHES = 100, 250, 3
+
+
+def write_synthetic_va(root, name, n, seconds=LOOP_SECONDS, frame_size=LOOP_FRAME, seed=0,
+                       frames=True, npz_name=None, mel=128, frames_npz=1000):
+    """A seeded synthetic VA index in the layout of the JAX package's test
+    fabrication (``tests/data_synth.py:make_synth_va_index``):
+    ``{root}/aclip/{id}.wav`` (16 kHz mono, a tone per clip plus noise),
+    ``{root}/frame/{id}.0.jpg`` (``frame_size`` square, seeded noise; left out
+    with ``frames=False``) and ``{root}/{name}.jsonl``. With ``npz_name``, an
+    npz twin ``{root}/{npz_name}.jsonl`` whose records point at
+    ``{root}/aclip/{id}.npz``: a precomputed ``frames_npz`` x ``mel`` fbank
+    under ``feat`` (seeded normal values, as the JAX tests' npz index)."""
+    import os
+
+    from vipant_tpu_torch.data import write_wav
+
+    sr = 16000
+    os.makedirs(os.path.join(root, "aclip"), exist_ok=True)
+    if frames:
+        from PIL import Image
+
+        os.makedirs(os.path.join(root, "frame"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    records, twins = [], []
+    for i in range(n):
+        cid = f"{name}{i}"
+        wav = 0.4 * np.sin(2 * np.pi * (200 + 7 * i) * t) + 0.01 * rng.standard_normal(len(t))
+        write_wav(os.path.join(root, "aclip", f"{cid}.wav"), wav.astype(np.float32), sr)
+        rec = {"id": cid, "dir": "", "aclip": ["wav"]}
+        if frames:
+            img = (rng.random((frame_size, frame_size, 3)) * 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(root, "frame", f"{cid}.0.jpg"))
+            rec["frame"] = ["0.jpg"]
+        records.append(rec)
+        if npz_name:
+            np.savez(os.path.join(root, "aclip", f"{cid}.npz"),
+                     feat=rng.standard_normal((frames_npz, mel)).astype(np.float32))
+            twins.append({**rec, "aclip": ["npz"]})
+    for index, recs in ((name, records), (npz_name, twins)):
+        if index:
+            with open(os.path.join(root, f"{index}.jsonl"), "w") as f:
+                f.write("".join(json.dumps(r) + "\n" for r in recs))
+    return records
+
+
+def _loop_trainer(torch, root, run_dir, *extra):
+    import os
+
+    from vipant_tpu_torch.train import Trainer
+
+    torch.cuda.empty_cache()
+    return Trainer(FLAGSHIP + [
+        f"running.data_root={root}", "running.data_name=train", "running.eval_name=val",
+        f"running.batch_size={LOOP_B}", "running.epochs=2", "loader_backend=process",
+        f"num_proc={min(8, os.cpu_count() or 1)}", "running.peep_rate=1", "running.save_rate=6",
+        "running.save_epoch=True", f"alias_root={run_dir}", f"model_root={run_dir}",
+        "model_name=loop", "eval=False", "metrics_jsonl=True", "keep_last_ckpts=2", *extra])
+
+
+def _loop_losses(tr):
+    import os
+
+    with open(os.path.join(tr.out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line)["loss"] for line in f if line.strip()]
+
+
+def _timed_epoch(torch, tr, ie, tail=0):
+    """Epoch ``ie`` from idle workers, timed in its steady state: from its
+    first batch's arrival to the arrival of the batch ``tail`` before its
+    last. The wait for a whole batch after idle workers stays out, and with
+    ``tail``, the last steps of a loader that runs ahead of the trainer: it
+    holds ``2 * prefetch + 2`` batches ready once it has no items left to
+    submit, and the steps after that run with its workers idle. Returns (ms
+    per step, clips/s, the window's share spent waiting for the loader,
+    steps in the window, each step's (wait, step call) ms)."""
+    from vipant_tpu_torch.utils import PhaseTimer
+
+    log = []  # (phase, when it stopped, seconds)
+
+    class Logged(PhaseTimer):
+        def stop(self, phase):
+            dt = super().stop(phase)
+            log.append((phase, time.perf_counter(), dt))
+            return dt
+
+    tr.timer = Logged()
+    tr.loader.set_epoch(ie)
+    tr.epoch(ie)
+    torch.cuda.synchronize()
+    arrivals = [(t, dt) for phase, t, dt in log if phase == "data"][:-1]  # the last: no batch
+    calls = [dt for phase, _, dt in log if phase == "model"]
+    end = len(arrivals) - 1 - tail
+    window = arrivals[end][0] - arrivals[0][0]
+    wait = sum(dt for _, dt in arrivals[1:end + 1])
+    series = [(round(1e3 * w), round(1e3 * c)) for (_, w), c in zip(arrivals, calls)]
+    return window / end * 1e3, end * LOOP_B / window, wait / window, end, series
+
+
+def _trace_window(path):
+    """A ``torch.profiler`` Chrome trace: (span ms, device busy ms (kernels,
+    copies and fills merged on the timeline), per host thread the ms inside
+    its torch ops (merged), most first)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+
+    def merged(spans):
+        spans, total, cur = sorted(spans), 0.0, None
+        for s, t in spans:
+            if cur is None or s > cur[1]:
+                total += 0 if cur is None else cur[1] - cur[0]
+                cur = [s, t]
+            else:
+                cur[1] = max(cur[1], t)
+        return (total + (cur[1] - cur[0] if cur else 0)) / 1e3
+
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    host: dict = {}
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            host.setdefault(e["tid"], []).append((e["ts"], e["ts"] + e["dur"]))
+    if not device:
+        raise AssertionError("the loop's profiler window saw no device activity")
+    span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
+    by_thread = sorted(((merged(v), len(v)) for v in host.values()), reverse=True)
+    return span, merged(device), by_thread
+
+
+def _race_check(torch, PinnedDevicePut, batches):
+    """The pinned copy against the races it guards: each copy waits
+    ``RACE_COPY_MS`` on the side stream before it runs (several times the
+    host's write of a batch into its pinned buffers), and each batch is read
+    twice on the compute stream with no host sync between: at once after
+    ``wait`` (a missing ``wait_event`` reads the copy's destination before it
+    lands) and again after ``RACE_READ_MS`` of sleep queued there, when the
+    batch's tensors have been dropped and the next batch's copy has run (a
+    missing ``record_stream`` lets the allocator give that copy the same
+    memory).
+    Returns, for the real put and for two puts that each leave one of the
+    two out, the batches whose early and late reads differ from the host's."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    end.synchronize()
+    per_ms = 10 ** 7 / start.elapsed_time(end)
+    copy_delay, read_delay = int(RACE_COPY_MS * per_ms), int(RACE_READ_MS * per_ms)
+    keys = ("image", "audio")
+
+    class Delayed(PinnedDevicePut):
+        def __call__(self, batch):
+            with torch.cuda.stream(self.stream):
+                torch.cuda._sleep(copy_delay)
+            return super().__call__(batch)
+
+    class NoWaitEvent(Delayed):
+        def wait(self, batch):
+            batch.pop("_copied")
+            out = tuple(batch[k] for k in self.keys)
+            for t in out:
+                t.record_stream(torch.cuda.current_stream())
+            return out
+
+    class NoRecordStream(Delayed):
+        def wait(self, batch):
+            torch.cuda.current_stream().wait_event(batch.pop("_copied"))
+            return tuple(batch[k] for k in self.keys)
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    found = {}
+    for put_cls in (Delayed, NoWaitEvent, NoRecordStream):
+        put, early, late = put_cls(keys), [], []
+        with ThreadPoolExecutor(max_workers=1) as xfer:  # as the loader's transfer thread
+            for hb in batches:
+                placed = xfer.submit(put, {k: hb[k] for k in keys}).result()
+                tensors = put.wait(placed)
+                early.append([t.clone() for t in tensors])
+                torch.cuda._sleep(read_delay)
+                late.append([t.clone() for t in tensors])
+                del placed, tensors  # while the compute stream still has to read them
+        torch.cuda.synchronize()
+        differ = lambda reads: sum(any(not np.array_equal(t.cpu().numpy(), hb[k])
+                                       for t, k in zip(r, keys)) for r, hb in zip(reads, batches))
+        found[put_cls.__name__] = (differ(early), differ(late))
+        del put, early, late
+    return found
+
+
+def loop_phase(torch, results):
+    import os
+    import shutil
+    import tempfile
+
+    from vipant_tpu_torch.data import build_image_audio_dataloader
+    from vipant_tpu_torch.data.device_put import PinnedDevicePut
+    from vipant_tpu_torch.eval.metrics import format_retrieval_report, symmetric_retrieval
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.serve import InferenceEngine
+    from vipant_tpu_torch.train import eval_step
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    try:
+        import PIL  # noqa: F401
+        frames = True
+    except ImportError:
+        frames = False
+        print("PIL is not installed: the records have no frame, and the frozen image tower "
+              "encodes the zero image of the dataset's frame=None branch")
+    root = tempfile.mkdtemp(prefix="vipant_loop_")
+    workers = min(8, os.cpu_count() or 1)
+    try:
+        t0 = time.perf_counter()
+        write_synthetic_va(root, "train", LOOP_TRAIN, frames=frames, npz_name="npz_train", seed=0)
+        write_synthetic_va(root, "val", LOOP_EVAL, frames=frames, seed=1)
+        print(f"synthetic index: {LOOP_TRAIN} train + {LOOP_EVAL} eval clips of {LOOP_SECONDS:.0f} s "
+              f"16 kHz wav, {'a ' + str(LOOP_FRAME) + 'x' + str(LOOP_FRAME) + ' JPEG each' if frames else 'no frames'}, "
+              f"an npz twin of the train split (1000x128 fbanks), written in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # (a) run A: 8 steps uninterrupted, a mid-epoch save and eval at step 6; the loop's launches
+        run = os.path.join(root, "run")
+        a = _loop_trainer(torch, root, run, "running.save_epoch=False")
+        init = {k: p.detach().clone() for k, p in a.trainable.items() if k.startswith("audio.")}
+        moved = {}
+        apply = a.state.optimizer.apply
+
+        def apply_and_look(grads):
+            out = apply(grads)
+            if a.state.optimizer.count == 2:
+                moved.update({k: not torch.equal(a.trainable[k], p) for k, p in init.items()})
+            return out
+
+        a.state.optimizer.apply = apply_and_look
+        t0 = time.perf_counter()
+        reset_launches()
+        a.learn()
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        a.save()  # step 8, for the engine below
+        print(f"(a) run A: {a.global_step} steps (2 epochs of {a.steps_per_epoch}), a save and an eval "
+              f"at step 6, in {time.perf_counter() - t0:.1f} s, then a save at 8; launches "
+              f"{json.dumps(counts, sort_keys=True)}")
+        record_launches(results, "va_loop", counts)
+        del init
+        # (c) finite losses, the audio tower moved by step 2
+        losses = _loop_losses(a)
+        print(f"(c) losses {[round(v, 5) for v in losses]}; {sum(moved.values())} of {len(moved)} "
+              f"audio params moved by step 2")
+        if len(losses) != 8 or not np.isfinite(losses).all() or not any(moved.values()):
+            raise AssertionError("run A: non-finite loss, missing steps, or the audio tower did not move")
+
+        # (d) the retrieval report on the eval clips, and (e) the port's engine on A's step 8
+        batch = next(iter(a.evalloader))
+        a.close()
+        x1, x2 = (v.float().cpu().numpy() for v in eval_step(
+            a.model, *a.make_batch(batch["image"], batch["audio"])))
+        sym = symmetric_retrieval(x1, x2)
+        print(f"(d) {format_retrieval_report(sym, len(x1))}; I->A {sym['12']}")
+        if not all(np.isfinite(v) for d in sym.values() for v in d.values()):
+            raise AssertionError(f"retrieval report is not finite: {sym}")
+        want = {k: p.detach().clone() for k, p in a.trainable.items()}
+        want_opt = a.state.optimizer.state_dict()["inner"]["state"]
+        del a
+        torch.cuda.empty_cache()
+        eng = InferenceEngine(FLAGSHIP + [f"model_root={run}", "model_name=loop",
+                                          "model_file=00000008"], batch_size=LOOP_B)
+        got = eng.embed_audio(batch["audio"][:, 0])
+        cos = _row_cos(got, x2)
+        print(f"(e) InferenceEngine on step 8's model.npz (+ state.pt for the image tower): "
+              f"embed_audio against the trainer's eval features, min cosine {cos.min():.6f}")
+        if got.shape != x2.shape or cos.min() < COS_MIN:
+            raise AssertionError(f"engine embeddings disagree with the trainer's: {cos.min()}")
+        del eng
+
+        # (b) run B: resumed from A's step 6, bitwise A at step 8
+        b = _loop_trainer(torch, root, run, "model_file=00000006", "running.save_epoch=False",
+                          "running.eval_name=")
+        if b.global_step != 6:
+            raise AssertionError(f"run B resumed at step {b.global_step}, not 6")
+        b.learn()
+        got_opt = b.state.optimizer.state_dict()["inner"]["state"]
+        diff = {k: (p.detach() - want[k]).abs().max().item() for k, p in b.trainable.items()
+                if not torch.equal(p.detach(), want[k])}
+        diff.update({f"optimizer state {i}/{n}": (v - want_opt[i][n]).abs().max().item()
+                     for i, st in got_opt.items() for n, v in st.items()
+                     if torch.is_tensor(v) and not torch.equal(v, want_opt[i][n])})
+        print(f"(b) run B (resumed from step 6) against run A at step 8: {len(b.trainable)} params "
+              f"and {len(got_opt)} optimizer buffers, {len(diff)} not bitwise equal")
+        if diff or b.global_step != 8:
+            worst = sorted(diff.items(), key=lambda kv: -kv[1])[:5]
+            raise AssertionError(f"resume is not bitwise: largest differences {worst}")
+        del b, want, want_opt
+
+        # (g) the pinned copy on the side stream against the races it guards
+        from vipant_tpu_torch.config import compose
+
+        cfg = compose(FLAGSHIP + [f"running.data_root={root}", f"running.batch_size={LOOP_B}",
+                                  "loader_backend=thread", f"num_proc={workers}"])
+        batches = [{k: b[k] for k in ("image", "audio")} for b in itertools.islice(
+            build_image_audio_dataloader(cfg, "npz_train", True), RACE_BATCHES)]
+        found = _race_check(torch, PinnedDevicePut, batches)
+        print(f"(g) {len(batches)} loader batches through pinned memory, each copy held back "
+              f"{RACE_COPY_MS} ms on the side stream, each read on the compute stream at once and after "
+              f"{RACE_READ_MS} ms, its tensors dropped before the next copy; batches whose (early, late) "
+              f"reads differ from the host's, for the put and for one without wait_event, one without "
+              f"record_stream: " + ", ".join(f"{k} {v}" for k, v in found.items()))
+        if (found["Delayed"] != (0, 0) or found["NoWaitEvent"][0] == 0
+                or found["NoRecordStream"][1] == 0):
+            raise AssertionError("the pinned copy races on the card, or the check cannot see a "
+                                 f"missing wait_event or record_stream: {found}")
+        del batches
+
+        # (f) the loop's time in its steady state: wav and npz sources, beside the step alone
+        print(f"(f) {smi}; host cpu_count {os.cpu_count()}, {workers} loader workers, batch {LOOP_B}, "
+              f"SpecAugment on, the loss read every step")
+        for index, repeat in (("train", LOOP_WAV_REPEAT), ("npz_train", LOOP_NPZ_REPEAT)):
+            with open(os.path.join(root, f"{index}.jsonl")) as f, \
+                    open(os.path.join(root, f"{index}_long.jsonl"), "w") as g:
+                g.writelines(f.readlines() * repeat)
+        prof_dir, n_npz = os.path.join(root, "prof"), LOOP_TRAIN * LOOP_NPZ_REPEAT // LOOP_B
+        for source, label in (("train_long", "wav"), ("npz_train_long", "npz")):
+            # the npz run's second epoch, cut to its last 12 steps, holds a profiler window
+            # of its steps 3 to 5, while the workers still have items to make
+            tr = _loop_trainer(torch, root, os.path.join(root, source), f"running.data_name={source}",
+                               "running.eval_name=", "running.save_epoch=False",
+                               "running.save_rate=1000000000", "profile.alive=True",
+                               f"profile.dir={prof_dir}", f"profile.start_step={n_npz + 3}",
+                               "profile.num_steps=2")
+            tail = 2 * tr.loader.prefetch + 2 if label == "npz" else 0  # wav: the loader is behind
+            ms, clips, share, steps, series = _timed_epoch(torch, tr, 0, tail)
+            print(f"(f) {label} source, each step's (wait for the batch, train_step call) ms: {series}")
+            if label == "npz":
+                tr.loader.set_epoch(1, start_batch=n_npz - 12)
+                tr.epoch(1)
+                span, busy, threads = _trace_window(
+                    os.path.join(prof_dir, f"trace_{n_npz + 5:08d}.json"))
+                print(f"(f) npz source, a torch.profiler window of its steps {n_npz + 3} to "
+                      f"{n_npz + 5}: span {span:.2f} ms, the card busy {busy:.2f} ms (idle "
+                      f"{100 * (1 - busy / span):.1f} %); host threads' time inside torch ops "
+                      f"(merged): " + "; ".join(f"{t:.2f} ms in {n} ops" for t, n in threads[:4]))
+            args = tr.device_put.wait(next(iter(tr.loader)))
+            tr.close()
+            alone = cuda_ms(torch, lambda: tr.train_step(*args), 5, 2)
+            step6 = results.get("_va_step_ms")
+            print(f"(f) {label} source, a window of {steps} steps (arrivals 1 to {steps + 1} of "
+                  f"{len(series)}): {ms:.2f} ms per step of the loop, {clips:.1f} clips/s, data-wait "
+                  f"share {100 * share:.1f} %; the step alone on a loader batch {alone:.2f} ms "
+                  f"({LOOP_B / alone * 1e3:.1f} clips/s); phase 6's step alone at B=64 "
+                  f"{'%.2f ms' % step6 if step6 else 'not run'}; {smi}")
+            del tr, args
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2043,7 +2435,8 @@ def main() -> int:
                          ("flash kernel phase (vs plain PyTorch on the card)", flash_kernel_phase),
                          ("probe phase (dot variants, fused forward probe)", probe_phase),
                          ("captioning training slice (full width, 12 + 12 layers)", caption_train_phase),
-                         ("captioning serving slice (InferenceEngine.caption)", caption_serve_phase)):
+                         ("captioning serving slice (InferenceEngine.caption)", caption_serve_phase),
+                         ("VA epoch loop (full width)", loop_phase)):
         t0 = time.perf_counter()
         print(title + ":")
         phase(torch, results)

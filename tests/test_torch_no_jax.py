@@ -1,8 +1,10 @@
 """The port runs without JAX and without the JAX package: a fresh
 interpreter imports vipant_tpu_torch, runs the tiny serving slice, the tiny
 int8 serving slice, one tiny training step (with an int8 frozen image
-tower too), or a tiny captioning step and ``caption`` call (bf16 and int8),
-on the CPU, and never imports jax, jaxlib, flax, optax or any
+tower too), a tiny captioning step and ``caption`` call (bf16 and int8),
+or ``Trainer.learn`` over two epochs of a synthetic JSONL index (written by
+``chip_smoke.write_synthetic_va``) with its checkpoints and a bitwise
+resume, on the CPU, and never imports jax, jaxlib, flax, optax or any
 module of ``vipant_tpu``. A scan of the sources holds the same: no import of
 ``vipant_tpu`` under ``vipant_tpu_torch/`` or in ``chip_smoke.py``."""
 
@@ -101,6 +103,42 @@ print("ok")
 """
 
 
+LEARN_SCRIPT = """
+import os, sys, tempfile
+import torch
+import chip_smoke
+from vipant_tpu_torch.train import Trainer
+
+root = tempfile.mkdtemp()
+chip_smoke.write_synthetic_va(root, "train", 8, seconds=1.05, frame_size=64)
+chip_smoke.write_synthetic_va(root, "val", 3, seconds=1.05, frame_size=64, seed=1)
+cfg = [
+    "+running=bimodal", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=dummy",
+    "+model/loss=ce", "+optimizer=standard", "+running/audio=default",
+    "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=100", "worker=CVAP",
+    "model.image.width=64", "model.image.embed_dim=32", "model.image.encoder.layers=2",
+    "model.image.heads=4", "model.image.token_pack=4", "optimizer.warmup_epoch=0",
+    f"running.data_root={root}", "running.data_name=train", "running.eval_name=val",
+    "running.batch_size=4", "running.epochs=2", "running.save_rate=3", "eval=False",
+    "loader_backend=process", "num_proc=2", f"alias_root={root}/run", f"model_root={root}/run",
+    "model_name=m",
+]
+a = Trainer(cfg, device="cpu")
+a.learn()
+step = os.path.join(root, "run", "m", "00000003")
+assert a.global_step == 4 and sorted(os.listdir(step)) == [
+    "COMMITTED", "config.json", "model.npz", "state.pt"], os.listdir(step)
+b = Trainer(cfg + ["model_file=00000003"], device="cpu")
+assert b.global_step == 3
+b.learn()
+assert all(torch.equal(p, b.trainable[k]) for k, p in a.trainable.items())
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -111,6 +149,10 @@ def _run(script):
 
 def test_port_never_imports_jax():
     _run(SCRIPT)
+
+
+def test_port_learns_from_an_index_and_resumes_without_jax():
+    _run(LEARN_SCRIPT)
 
 
 def test_port_serves_int8_without_jax():

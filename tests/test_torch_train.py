@@ -196,12 +196,17 @@ def test_cvap_overfits_eight_pairs_with_adam():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    for extra in (["model_file=ckpt"], ["running.grad_cache.alive=True"], ["mesh.zero=True"],
-                  ["mesh.model=2"]):
+    for extra in (["model_file=x.pth"], ["async_ckpt=True"], ["export_pth=True"],
+                  ["running.multi_view=True"], ["running.audio.ship_bf16=True"],
+                  ["running.image_uint8=True"], ["running.grad_cache.alive=True"],
+                  ["mesh.zero=True"], ["mesh.model=2"]):
         with pytest.raises(NotImplementedError):
             Trainer(_cfg("float32", *extra), device="cpu")
-    with pytest.raises(NotImplementedError, match="loader"):
-        Trainer(_cfg("float32"), device="cpu").learn()
+    with pytest.raises(FileNotFoundError):  # a configured checkpoint that is not there
+        Trainer(_cfg("float32", "model_file=ckpt"), device="cpu")
+    with pytest.raises(ValueError, match="data_name"):
+        Trainer(_cfg("float32", "eval=False", "running.data_name=", "running.eval_name="),
+                device="cpu").learn()
 
 
 def test_state_dict_round_trips_through_torch_save(tmp_path):

@@ -11,10 +11,13 @@ BPE tokenizer (:mod:`.tokenizer`) and the registry (:mod:`.utils`).
 
 Ported so far: the serving path (``serve.InferenceEngine``: audio, text and
 image embeddings, zero-shot) of the CVAP and CLAP models, in bf16 and with
-``quantize="int8"`` on forward-only int8 kernels; and the VA training step
+``quantize="int8"`` on forward-only int8 kernels; the VA training step
 (``train.Trainer``: trainable/frozen split, LARS or Adam with clipping,
-forward and backward through the kernels) on device arrays, optionally with
-the frozen image tower on the int8 kernels (``model.image.int8_frozen``).
+forward and backward through the kernels), optionally with the frozen image
+tower on the int8 kernels (``model.image.int8_frozen``), and its epoch loop
+(``Trainer.learn``: the host data layer of :mod:`.data`, pinned
+host-to-device copies, retrieval eval, ``torch.save`` checkpoints, exact
+resume); and audio captioning.
 
 Both entry points take ``device="cuda"`` by default and raise when there is
 no CUDA device; ``device="cpu"`` runs the kernels' plain PyTorch versions::

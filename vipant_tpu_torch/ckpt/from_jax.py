@@ -33,6 +33,10 @@ trainable subtree of a train state, its grads or its optimizer moments
 (same shapes as the params), or a bool mask (``convert=False`` keeps the
 leaves as they are and only renames them).
 
+:func:`to_jax_params` goes the other way for the towers and loss heads:
+the port's checkpoints write their ``model.npz`` under the JAX package's
+names and layouts, so the JAX engine and the port's both serve it.
+
 Re-written here because ``vipant_tpu.ckpt`` imports JAX.
 """
 
@@ -55,10 +59,31 @@ def _t(a: np.ndarray) -> np.ndarray:
     return a.T
 
 
+def _qkv_kernel(a: np.ndarray) -> np.ndarray:  # [C, 3, C] -> [3C, C]
+    return a.reshape(a.shape[0], -1).T
+
+
+def _qkv_bias(a: np.ndarray) -> np.ndarray:  # [3, C] -> [3C]
+    return a.reshape(-1)
+
+
+def _oihw(a: np.ndarray) -> np.ndarray:  # HWIO -> OIHW
+    return np.transpose(a, (3, 2, 0, 1))
+
+
+# each layout change -> its inverse (the port's layout back to the JAX one)
+_INVERSE: Dict[Callable, Callable] = {
+    _t: _t,
+    _qkv_kernel: lambda a: a.T.reshape(a.shape[1], 3, -1),
+    _qkv_bias: lambda a: a.reshape(3, -1),
+    _oihw: lambda a: np.transpose(a, (2, 3, 1, 0)),
+}
+
+
 # leaf path inside a trunk block -> (port name, layout change)
 _BLOCK_LEAVES: Dict[str, Tuple[str, Optional[Callable]]] = {
-    "attn/qkv/kernel": ("attn.in_proj_weight", lambda a: a.reshape(a.shape[0], -1).T),
-    "attn/qkv/bias": ("attn.in_proj_bias", lambda a: a.reshape(-1)),
+    "attn/qkv/kernel": ("attn.in_proj_weight", _qkv_kernel),
+    "attn/qkv/bias": ("attn.in_proj_bias", _qkv_bias),
     "attn/out/kernel": ("attn.out_proj.weight", _t),
     "attn/out/bias": ("attn.out_proj.bias", None),
     "ln_1/scale": ("ln_1.weight", None),
@@ -74,7 +99,7 @@ _BLOCK_LEAVES: Dict[str, Tuple[str, Optional[Callable]]] = {
 _TOWER_LEAVES: Dict[str, Tuple[str, Optional[Callable]]] = {
     "misc/positional_embedding": ("misc.positional_embedding", None),
     "misc/class_embedding": ("misc.class_embedding", None),
-    "pre/kernel": ("pre_encoder.conv1.weight", lambda a: np.transpose(a, (3, 2, 0, 1))),
+    "pre/kernel": ("pre_encoder.conv1.weight", _oihw),
     "pre/ln/scale": ("pre_encoder.ln.weight", None),
     "pre/ln/bias": ("pre_encoder.ln.bias", None),
     "pre/token_embedding": ("pre_encoder.token_embedding.weight", None),
@@ -82,6 +107,9 @@ _TOWER_LEAVES: Dict[str, Tuple[str, Optional[Callable]]] = {
     "post/ln/bias": ("post_encoder.ln.bias", None),
     "post/proj": ("post_encoder.proj", None),
 }
+# the tower tables read backwards, before the decoder's leaves join _BLOCK_LEAVES
+_PORT_BLOCK = {name: (path, fn) for path, (name, fn) in _BLOCK_LEAVES.items()}
+_PORT_TOWER = {name: (path, fn) for path, (name, fn) in _TOWER_LEAVES.items()}
 _BLOCK_LEAVES.update({
     "ln_c/scale": ("ln_c.weight", None),
     "ln_c/bias": ("ln_c.bias", None),
@@ -104,6 +132,7 @@ _DECODER_LEAVES: Dict[str, Tuple[str, Optional[Callable]]] = {
 _BLOCK = re.compile(r"encoder/transformer/block_(\d+)/(.+)")
 _DECODER_BLOCK = re.compile(r"transformer/block_(\d+)/(.+)")
 _CROSS_QKV = re.compile(r"cross_attn/([qkv])/(kernel|bias)")
+_PORT_BLOCK_NAME = re.compile(r"encoder\.resblocks\.(\d+)\.(.+)")
 
 
 def _flat(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -196,6 +225,42 @@ def model_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
             raise KeyError(f"unknown tower {tower!r} in the JAX params")
         out.update({f"{tower}.{k}": v for k, v in conv.items()})
     return out
+
+
+def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`model_state_dict` for the ViT and text towers
+    and the loss heads: the port's names (``audio.encoder.resblocks.0...``)
+    and layouts -> the JAX package's nested params, as numpy arrays. This is
+    what a checkpoint's ``model.npz`` holds, flattened with dots."""
+    out: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        tower, name = key.split(".", 1)
+        a = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+        if tower in ("loss", "lm_loss") and name == "logit_scale":
+            path, fn = name, None
+        elif tower in ("image", "audio", "text"):
+            m = _PORT_BLOCK_NAME.fullmatch(name)
+            if m is not None and m.group(2) in _PORT_BLOCK:
+                leaf, fn = _PORT_BLOCK[m.group(2)]
+                path = f"encoder/transformer/block_{int(m.group(1))}/{leaf}"
+            elif name in _PORT_TOWER:
+                path, fn = _PORT_TOWER[name]
+            else:
+                raise KeyError(f"the port's parameter {key!r} has no JAX name")
+        else:
+            raise KeyError(f"the port's parameter {key!r} has no JAX name (towers and loss heads only)")
+        node = out.setdefault(tower, {})
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = a if fn is None else np.ascontiguousarray(_INVERSE[fn](a))
+    return out
+
+
+def flatten(tree: Tree) -> Dict[str, Any]:
+    """Nested dict -> flat dotted keys (the layout of ``model.npz``); the
+    inverse of :func:`unflatten`."""
+    return {k.replace("/", "."): v for k, v in _flat(tree)}
 
 
 def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:

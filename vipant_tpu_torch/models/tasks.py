@@ -47,6 +47,9 @@ class CVAP(nn.Module):
     def encode_audio(self, audios, train: bool = False):
         return _encode(self.audio, audios, train)
 
+    def features(self, images, audios, train: bool = False):
+        return self.encode_image(images, train), self.encode_audio(audios, train)
+
     def forward(self, images, audios, train: bool = True):
         v = self.encode_image(images, train)
         a = self.encode_audio(audios, train)

@@ -48,7 +48,7 @@ from .config import Config
 from .models import build_main_model, init_weights
 from .nn.heads import normalize
 from .ops.quant import int8_fwd_context
-from .utils import as_config, require_device
+from .utils import as_config, require_device, run_root
 
 
 class InferenceEngine:
@@ -60,7 +60,8 @@ class InferenceEngine:
     attention call in the image and text towers (exact; applied only when
     it divides ``batch_size``). Weights come from ``model.npz`` under
     ``model_root/model_name/model_file`` when ``model_file`` names a
-    directory, else from a random init seeded with ``seed``.
+    directory (the towers it leaves out from the port trainer's
+    ``state.pt`` there), else from a random init seeded with ``seed``.
     """
 
     def __init__(
@@ -115,7 +116,7 @@ class InferenceEngine:
         if model_file.endswith(".pth"):
             raise NotImplementedError("reference .pth loading is not ported yet")
         ckpt_path = os.path.join(
-            str(cfg.get("model_root", "") or ""), str(cfg.get("model_name", "") or ""), model_file
+            run_root(cfg.get("model_root", "") or ""), str(cfg.get("model_name", "") or ""), model_file
         )
         npz = os.path.join(ckpt_path, "model.npz")
         if not os.path.exists(npz):
@@ -126,12 +127,30 @@ class InferenceEngine:
                   if getattr(self.model, t, None) is not None]
         uncovered = [t for t in towers if t not in params]
         if uncovered:
-            raise ValueError(
-                f"{npz} covers only {sorted(params)} but the model has tower(s) "
-                f"{uncovered}; seeding them from CLIP weights is not ported yet"
-            )
+            self._load_from_train_state(ckpt_path, npz, sorted(params), uncovered)
         load_params(self.model, params)
         self.echo.info(f"loaded weight export {npz}")
+
+    def _load_from_train_state(self, ckpt_path: str, npz: str, covered: List[str],
+                               towers: List[str]) -> None:
+        """Towers a weight export leaves out (the VA trainer exports the audio
+        tower and the loss head; the JAX engine seeds the rest from CLIP
+        weights) come from the port trainer's ``state.pt`` in the same step
+        directory, which holds every tower as it trained: the frozen ones
+        too."""
+        state = os.path.join(ckpt_path, "state.pt")
+        if not os.path.exists(state):
+            raise ValueError(
+                f"{npz} covers only {covered} but the model has tower(s) {towers}, and "
+                f"{ckpt_path} holds no state.pt; seeding them from CLIP weights is not ported yet")
+        sd = torch.load(state, map_location="cpu", weights_only=True)
+        saved = {**sd["frozen_params"], **sd["params"]}
+        take = {k: v for k, v in saved.items() if k.split(".", 1)[0] in towers}
+        want = {k for k, _ in self.model.named_parameters() if k.split(".", 1)[0] in towers}
+        if set(take) != want:
+            raise ValueError(f"{state} and the model disagree on {sorted(set(take) ^ want)}")
+        self.model.load_state_dict(take, strict=False)
+        self.echo.info(f"tower(s) {towers} not in {npz}: loaded from {state}")
 
     # --------------------------------------------------------------- encode
     def _embed_dim(self) -> int:

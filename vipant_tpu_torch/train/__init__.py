@@ -1,7 +1,9 @@
-"""Training: the train state, the step and the one-device trainer."""
+"""Training: the train state, the training and eval steps, checkpoints and
+the one-device trainer with its epoch loop."""
 
 from .state import TrainState
-from .step import apply_gradients, loss_and_grads, train_step
-from .trainer import Trainer
+from .step import apply_gradients, eval_step, loss_and_grads, train_step
+from .trainer import Trainer, build_monitor
 
-__all__ = ["TrainState", "Trainer", "apply_gradients", "loss_and_grads", "train_step"]
+__all__ = ["TrainState", "Trainer", "apply_gradients", "build_monitor", "eval_step",
+           "loss_and_grads", "train_step"]

@@ -1,4 +1,4 @@
-"""The training step on one device.
+"""The training and eval steps on one device.
 
 Counterpart of ``vipant_tpu/train/step.py:make_train_step``: the loss of the
 task model on a batch, its grads with respect to the trainable params only,
@@ -8,6 +8,11 @@ grad and the optimizer's update rule all the same, as in the JAX step. Frozen pa
 ``requires_grad=False`` and their towers run under ``torch.no_grad()``, so
 no backward is built for them (the JAX step keeps them outside the
 differentiated function).
+
+:func:`eval_step` is the counterpart of ``make_eval_step``
+(``vipant_tpu/train/step.py:175-189``): the model's ``features`` (each
+tower's normalised embedding) under ``torch.no_grad()``, on the same
+forward kernels as serving.
 """
 
 from __future__ import annotations
@@ -43,3 +48,10 @@ def train_step(state: TrainState, *batch) -> Dict[str, object]:
     device tensors (reading them syncs the host)."""
     loss, grads = loss_and_grads(state, *batch)
     return {"loss": loss, **apply_gradients(state, grads)}
+
+
+@torch.no_grad()
+def eval_step(model: torch.nn.Module, *batch):
+    """Each tower's normalised embedding of a batch, without autograd:
+    ``(image, audio)`` for CVAP."""
+    return model.features(*batch, train=False)
