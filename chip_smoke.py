@@ -123,12 +123,16 @@
    uniform; ``F.scaled_dot_product_attention``, its autograd backward and
    that backward for a float mask timed beside them, each also in device µs
    per call beside the kernels'.
-11. Probe phase: ``dot_variant`` in its four orientations against the fp32
-   product, with its device µs per call beside ``torch.matmul``'s (its loop
-   is bound by the host); ``probe_fused_fwd`` at B64 T306 C768 against its plain version
-   and against ``fused_attention_block``; then the probe path (the port's
-   probe entry and the public ``flash_attention`` op with a trainable bias),
-   whose launches are counted.
+11. Probe phase: ``dot_variant`` at every ``DOT_CASES`` case (the probe's
+   256 x 128 x 384, multiples of 16 but not of 64, and K = 1024) in its four
+   orientations, one seeded logical product stored four ways, against the
+   fp32 product (max |d| <= 1e-3), with its device µs per call beside
+   ``torch.matmul``'s (its loop is bound by the host), the four orientations
+   and two runs bitwise equal, zeros at K = 0, its launch (``vt_dot_plan``)
+   equal to ``kernels.dot_plan``; ``probe_fused_fwd`` at B64 T306 C768
+   against its plain version and against ``fused_attention_block``; then the
+   probe path (the port's probe entry and the public ``flash_attention`` op
+   with a trainable bias), whose launches are counted.
 12. Captioning training: CLAP with the ``SeqGenerationHead`` decoder (width
    512, 12 layers, 8 heads, ctx 77, vocabulary 49,408) cross-attending into
    the trainable ViT-B/32 audio tower's 61 x 5 feature grid, ``LMLossHead``,
@@ -406,8 +410,18 @@ ROWQUANT_CASES = [
     *[(f"{tower} {p}", M, K, "fp32") for tower, M, C in INT8_TOWERS
       for p, K in (("context", C), ("act(a)", 4 * C))],
 ]
+# dot_variant's shapes: (case, M, K, N). The probe's product (fused_block_probe.DOT_MKN, the only
+# shape a path launches), one of multiples of 16 that are not of 64, and one whose K takes more than
+# one stage of the kernel's ring. The probe phase holds each orientation to its plain version at
+# each; experiments/kernel_times.py times each.
+DOT_CASES = [
+    ("probe M256 K128 N384", 256, 128, 384),
+    ("ragged M80 K32 N48", 80, 32, 48),
+    ("deep M256 K1024 N384", 256, 1024, 384),
+]
 ATTENTION_STREAMING_T = (705, 971)  # attention_fwd past the 704 keys it keeps resident
 DECODE_TOL = 0.1  # bf16 per-step logits, KV-cached against re-forward decoding
+DOT_TOL = 1e-3  # dot_variant: fp32 sums of up to 1024 bf16 products, in another order than the plain one
 # H100 SXM data sheet, dense rates: the bounds are stated against these
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -1725,19 +1739,60 @@ def flash_kernel_phase(torch, results):
         raise AssertionError(f"flash_attention_fwd took {why} inputs on the card")
 
 
+def check_dot(torch, got, want, what):
+    """dot_variant's fp32 product: max |d| <= DOT_TOL beside the default gate."""
+    err, errs = check_default(torch, got, want, what)
+    if err > DOT_TOL:
+        raise AssertionError(f"{what}: max|d| {err:.3e} > {DOT_TOL}")
+    return err, errs
+
+
+def dot_variant_cases(torch, results):
+    """``dot_variant`` at every ``DOT_CASES`` case and orientation: the
+    launch ``vt_dot_plan`` reports equal to ``kernels.dot_plan``; one seeded
+    logical product stored four ways, each held to its plain version, with
+    device µs beside ``torch.matmul``'s on the same stored operands; two
+    runs bitwise equal, and the four orientations bitwise equal to each
+    other; at K = 0, zeros."""
+    import ctypes
+
+    from vipant_tpu_torch.ops import _build, kernels
+
+    rn = _seeded(torch)
+    for case, M, K, N in DOT_CASES:
+        plan = (ctypes.c_int * 3)()
+        _build.library().vt_dot_plan(M, N, K, plan)
+        if tuple(plan) != tuple(kernels.dot_plan(M, N, K)):
+            raise AssertionError(f"dot_variant {case}: launch {tuple(plan)} != {kernels.dot_plan(M, N, K)}")
+        A, B = rn(M, K), rn(K, N)
+        outs = {}
+        for name, (ta, tb) in kernels.ORIENTATIONS.items():
+            a, b = (A.t().contiguous() if ta else A), (B.t().contiguous() if tb else B)
+            lib = lambda a=a, b=b, ta=ta, tb=tb: torch.matmul(a.t() if ta else a, b.t() if tb else b)
+            call = lambda a=a, b=b, name=name: kernels.dot_variant(a, b, name)
+            compare(torch, results, "dot_variant", f"{name} {case}", call,
+                    lambda a=a, b=b, name=name: kernels.dot_variant_plain(a, b, name),
+                    reads=(a, b), ops=gemm_ops(M, N, K), library=lib, check=check_dot, device=True)
+            outs[name] = call()
+            if not torch.equal(outs[name], call()):
+                raise AssertionError(f"dot_variant {name} {case}: two runs differ")
+            zero = kernels.dot_variant(a[:0] if ta else a[:, :0], b[:, :0] if tb else b[:0], name)
+            if zero.shape != (M, N) or bool(zero.any()):
+                raise AssertionError(f"dot_variant {name} {case} at K = 0: not an [M, N] of zeros")
+        worst = max((o - outs["NN"]).abs().max().item() for o in outs.values())
+        if worst != 0.0:
+            raise AssertionError(f"dot_variant {case}: the four orientations differ by up to {worst:.3e}")
+        print(f"  dot_variant {case}: launch {tuple(plan)} (tile, stages, blocks) as kernels.dot_plan; "
+              f"NN, NT, TN, TT bitwise equal, each bitwise across two runs; K = 0 gives zeros")
+
+
 def probe_phase(torch, results):
     """The two probe kernels, then the probe path with its launches counted."""
     from vipant_tpu_torch.experiments import fused_block_probe as probe
     from vipant_tpu_torch.nn.layers import pack_tokens
-    from vipant_tpu_torch.ops import LAUNCHES, attention as attention_mod, fused_attn, kernels, reset_launches
+    from vipant_tpu_torch.ops import LAUNCHES, attention as attention_mod, fused_attn, reset_launches
 
-    M, K, N = probe.DOT_MKN
-    for name, (ta, tb) in kernels.ORIENTATIONS.items():
-        a, b = probe.dot_variant_inputs(name, device="cuda")
-        lib = lambda a=a, b=b, ta=ta, tb=tb: torch.matmul(a.t() if ta else a, b.t() if tb else b)
-        compare(torch, results, "dot_variant", f"{name} M{M} K{K} N{N}",
-                lambda: kernels.dot_variant(a, b, name), lambda: kernels.dot_variant_plain(a, b, name),
-                reads=(a, b), ops=gemm_ops(M, N, K), library=lib, device=True)
+    dot_variant_cases(torch, results)
     args = probe.make_inputs(device="cuda")
     B, T, C = args[0].shape
     x, wqkv, bqkv, wout, bout = args

@@ -20,7 +20,9 @@ inputs (exact products) the bits of kernels.flash_attention_dbias_ordered
 (the plain sum in the kernel's order); so do gemm_bias_act, gemm_dgrad, gemm_wgrad,
 gemm_i8, attention_bwd, whose recomputed p is bitwise the forward's, and
 colsum, whose sum is also bitwise kernels.colsum_ordered (the plain sum in
-the kernel's order)."""
+the kernel's order). dot_variant gives the same bits in every run and for
+every storage of one logical product (NN, NT, TN, TT), max |d| <= 1e-3
+from its fp32 plain version at every chip_smoke.DOT_CASES case."""
 
 import os
 import sys
@@ -35,7 +37,7 @@ from vipant_tpu_torch.ops import LAUNCHES, fused_attn, fused_mlp, kernels, reset
 from vipant_tpu_torch.serve import InferenceEngine
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import LAYERNORM_BWD_CASES  # noqa: E402  (the repo root's smoke script)
+from chip_smoke import DOT_CASES, LAYERNORM_BWD_CASES  # noqa: E402  (the repo root's smoke script)
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=2e-2, rtol=2e-2)
@@ -910,19 +912,50 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(gen):
         kernels.flash_attention_bwd(q, k, v, None, o, lse, o[:, :8], 0.125)
 
 
-@pytest.mark.parametrize("orientation", ["NN", "NT", "TN", "TT"])
-def test_dot_variant_kernel_matches_the_fp32_product(gen, orientation):
-    from vipant_tpu_torch.experiments import fused_block_probe as probe
+def _dot_operands(gen, M, K, N):
+    """one seeded logical product a [M, K] . b [K, N], stored in each orientation"""
+    A, B = _rn(gen, M, K).bfloat16(), _rn(gen, K, N).bfloat16()
+    return {name: (A.t().contiguous() if ta else A, B.t().contiguous() if tb else B)
+            for name, (ta, tb) in kernels.ORIENTATIONS.items()}
 
-    a, b = probe.dot_variant_inputs(orientation, device="cuda")
+
+@pytest.mark.parametrize("orientation", ["NN", "NT", "TN", "TT"])
+@pytest.mark.parametrize("case,M,K,N", DOT_CASES, ids=[c[0] for c in DOT_CASES])
+def test_dot_variant_kernel_matches_the_fp32_product(gen, case, M, K, N, orientation):
+    a, b = _dot_operands(gen, M, K, N)[orientation]
     reset_launches()
     got = kernels.dot_variant(a, b, orientation)
     assert LAUNCHES == {"dot_variant": 1}
-    _close(got, kernels.dot_variant_plain(a, b, orientation), orientation)
+    want = kernels.dot_variant_plain(a, b, orientation)
+    _close(got, want, orientation)
+    assert (got - want).abs().max().item() <= 1e-3, case  # fp32 sums of up to 1024 bf16 products
+    assert torch.equal(got, kernels.dot_variant(a, b, orientation)), "two runs differ"
     with pytest.raises(ValueError, match="multiples of 16"):
         kernels.dot_variant(a[:24, :24].contiguous(), b[:24, :24].contiguous(), orientation)
     with pytest.raises(ValueError, match="bfloat16"):
         kernels.dot_variant(a.float(), b, orientation)
+
+
+@pytest.mark.parametrize("case,M,K,N", DOT_CASES, ids=[c[0] for c in DOT_CASES])
+def test_dot_variant_orientations_agree_bitwise(gen, case, M, K, N):
+    """The four storages of one logical product give the same bits (wgmma
+    sums k in one order whatever the operands' major-ness); the launch is
+    kernels.dot_plan's; K = 0 gives zeros."""
+    import ctypes
+
+    from vipant_tpu_torch.ops import _build
+
+    plan = (ctypes.c_int * 3)()
+    assert _build.library().vt_dot_plan(M, N, K, plan) == 0
+    assert tuple(plan) == tuple(kernels.dot_plan(M, N, K))
+    outs = {name: kernels.dot_variant(a, b, name) for name, (a, b) in _dot_operands(gen, M, K, N).items()}
+    for name, out in outs.items():
+        assert torch.equal(out, outs["NN"]), name
+        ta, tb = kernels.ORIENTATIONS[name]
+        a = torch.empty((0, M) if ta else (M, 0), dtype=torch.bfloat16, device="cuda")
+        b = torch.empty((N, 0) if tb else (0, N), dtype=torch.bfloat16, device="cuda")
+        zero = kernels.dot_variant(a, b, name)
+        assert zero.shape == (M, N) and not zero.any(), name
 
 
 def test_probe_fused_fwd_matches_plain_and_the_fused_block(gen):

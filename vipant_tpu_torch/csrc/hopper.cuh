@@ -1,9 +1,9 @@
 // Hopper building blocks shared by the TMA + `wgmma` kernels (gemm_fwd.cu,
-// gemm_dgrad.cu, gemm_wgrad.cu, gemm_i8.cu): mbarriers, TMA loads from
+// gemm_dgrad.cu, gemm_wgrad.cu, gemm_i8.cu, dot_variants.cu): mbarriers, TMA loads from
 // tensor maps encoded on the host per call, shared-memory matrix
 // descriptors under the 128-byte swizzle and `wgmma.mma_async` m64n128k16
-// (bf16 in, fp32 accumulators in registers) and m64n128k32 (int8 in, int32
-// accumulators).
+// and m64n64k16 (bf16 in, fp32 accumulators in registers) and m64n128k32
+// (int8 in, int32 accumulators).
 //
 // `cuTensorMapEncodeTiled` lives in libcuda, not in the runtime: it is looked
 // up through the runtime (`cudaGetDriverEntryPoint`), so nothing is linked.
@@ -138,9 +138,35 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
+// d[64 x 64] += A[64 x 16] . B[16 x 64]: wgmma_m64n128k16 at half the
+// width (dot_variants.cu), the transpose bits as there. Accumulator i of lane
+// l in warp w of the warpgroup: row 16 w + l / 4 (+ 8 for i % 4 >= 2), column
+// 8 (i / 4) + 2 (l % 4) + i % 2, as in the n128 form with i < 32.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"  // scale-d: accumulate onto d
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,  %1,  %2,  %3,  %4,  %5,  %6,  %7,  "
+      " %8,  %9,  %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
 // d[64 x 128] += A[64 x 32] . B[32 x 128], int8 codes in, exact int32
 // accumulators; both operands K-major, the only form 8-bit `wgmma` takes
-// (it has no transpose bits). The accumulators are laid out as above.
+// (it has no transpose bits). The accumulators are laid out as
+// wgmma_m64n128k16's.
 __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"

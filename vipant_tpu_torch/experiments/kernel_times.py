@@ -33,14 +33,17 @@ for each in turns (A, B, B, A)::
 ``flash_attention_bwd``, ``flash_attention_dbias`` (at the cases with a
 bias), ``layernorm_rowquant``, ``rowquant``, ``int8_blocks`` and
 ``probe_fused_fwd`` (the probe's P2 chain, whose attention is
-``flash_attention_fwd``, beside ``F.multi_head_attention_forward``),
-separated by commas; by default all of them are timed.
+``flash_attention_fwd``, beside ``F.multi_head_attention_forward``) and
+``dot_variant`` (the probe's P1 product at every ``DOT_CASES`` case in
+its four orientations, beside ``torch.matmul`` on the same stored
+operands, both also in device µs a call), separated by commas; by
+default all of them are timed.
 
 It imports the package from the given root, so an older checkout is timed
 with its own kernels; the shapes are ``GEMM_FWD_CASES``,
 ``GEMM_DGRAD_CASES``, ``GEMM_I8_CASES``, ``ATTENTION_STREAMING_T``,
 ``LAYERNORM_CASES``, ``COLSUM_CASES``, ``LAYERNORM_BWD_CASES``,
-``FLASH_CASES``, ``INT8_TOWERS`` and ``ROWQUANT_CASES`` of the
+``FLASH_CASES``, ``INT8_TOWERS``, ``ROWQUANT_CASES`` and ``DOT_CASES`` of the
 ``chip_smoke.py`` at the
 root of the checkout this script is in, and each line carries the bound
 ``chip_smoke.bound`` gives it. CUDA-event means over 20 launches after 3
@@ -66,7 +69,8 @@ _cases = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(_cases)
 GEMMS = _cases.GEMM_FWD_CASES  # (case, M, N, K, activation, residual, fp32 pre-activation)
 KERNELS = ("gemm_bias_act", "attention_bwd", "gemm_dgrad", "gemm_i8", "attention_fwd", "layernorm_fwd", "colsum",
-           "layernorm_bwd", "flash_attention_fwd", "flash_attention_bwd", "flash_attention_dbias", "layernorm_rowquant", "rowquant", "int8_blocks", "probe_fused_fwd")
+           "layernorm_bwd", "flash_attention_fwd", "flash_attention_bwd", "flash_attention_dbias", "layernorm_rowquant", "rowquant", "int8_blocks", "probe_fused_fwd",
+           "dot_variant")
 ATTENTION = [  # (B, T, C, H, bias)
     (64, 306, 768, 12, "none"), (4, 306, 768, 12, "none"), (64, 77, 512, 8, "causal"),
     (16, 200, 768, 12, "pack"), (1, 308, 512, 8, "causal_pack"),
@@ -307,6 +311,18 @@ def main() -> None:
             print(f"{label} {name} {case}: {ms(int8, 10):.4f} ms; bf16 chain {ms(bf16, 10):.4f}; "
                   f"device {device_us(int8):.2f} us a call, bf16 chain {device_us(bf16):.2f}")
         del x
+
+    for case, M, K, N in _cases.DOT_CASES if "dot_variant" in which else ():
+        for name, (ta, tb) in kernels.ORIENTATIONS.items():
+            a, b = rn(*((K, M) if ta else (M, K))).bfloat16(), rn(*((N, K) if tb else (K, N))).bfloat16()
+            call = lambda: kernels.dot_variant(a, b, name)
+            lib = lambda: torch.matmul(a.t() if ta else a, b.t() if tb else b)
+            t, tl = ms(call), ms(lib)
+            tb_ms, by = _cases.bound(_cases._nbytes((a, b, call())), _cases.gemm_ops(M, N, K))
+            print(f"{label} dot_variant {name} {case}: {t:.4f} ms; torch.matmul {tl:.4f}; "
+                  f"bound {tb_ms * 1e3:.3f} us ({by[:5]}); "
+                  f"device {device_us(call):.2f} us a call, torch.matmul {device_us(lib):.2f}")
+        del a, b
 
     if "probe_fused_fwd" in which:
         from vipant_tpu_torch.experiments import fused_block_probe as probe

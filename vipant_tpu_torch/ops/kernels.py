@@ -35,7 +35,8 @@ their backward chains:
   heads in the chunks of :func:`dbias_split`, in the fixed order of
   :func:`flash_attention_dbias_ordered`;
 - :func:`dot_variant` (``csrc/dot_variants.cu``): one product in the four
-  operand orientations (the probe of ``experiments/fused_block_probe.py``).
+  operand orientations (the probe of ``experiments/fused_block_probe.py``),
+  in the blocks of :func:`dot_plan`.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor, after checking device, dtype (bf16
@@ -83,6 +84,9 @@ ROWQUANT_BLOCK_WARPS = 4  # warps a block of rowquant and layernorm_rowquant
 # rowquant's (warps a row, loads a lane) instances, smallest first (quant.cu's kShapes, whose last,
 # (4, 0), reads a row twice)
 ROWQUANT_SHAPES = ((1, 2), (1, 3), (1, 4), (1, 6), (2, 8), (4, 6))
+DOT_TILE = 64  # output rows and columns of a dot_variant block (rows: one warpgroup's wgmma)
+DOT_STEP = 128  # k per stage of dot_variant
+DOT_MAX_STAGES = 4  # stages dot_variant holds in shared memory at once: K <= 512 in one round trip
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
 ORIENTATIONS = {"NN": (0, 0), "NT": (0, 1), "TN": (1, 0), "TT": (1, 1)}  # (a, b) transposed
 
@@ -1008,6 +1012,27 @@ def flash_attention_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _ptr(bias), lse.data_ptr(), delta.data_ptr(), do.data_ptr(), partial.data_ptr(),
             dbias.data_ptr(), B, Tq, Tk, H, scale, chunks, per)
     return dbias
+
+
+class DotPlan(NamedTuple):
+    """The launch of :func:`dot_variant`: output tiles of 64 x ``bn``, one
+    block each, ``blocks`` of them, and ``stages`` stages of ``DOT_STEP`` k
+    in shared memory at once."""
+
+    bn: int
+    stages: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=1024)
+def dot_plan(M: int, N: int, K: int) -> DotPlan:
+    """How :func:`dot_variant` cuts the product [M, K] . [K, N] (M, N >= 1):
+    one block per 64 x 64 output tile (24 at the probe's 256 x 384), every
+    stage of ``DOT_STEP`` k in shared memory at once where K <= 512, else a
+    ring of ``DOT_MAX_STAGES``; no stage at K = 0 (the kernel stores zeros).
+    ``csrc/dot_variants.cu`` launches the same (``vt_dot_plan``)."""
+    blocks = -(-M // DOT_TILE) * -(-N // DOT_TILE)
+    return DotPlan(DOT_TILE, min(-(-K // DOT_STEP), DOT_MAX_STAGES), blocks)
 
 
 def dot_variant(a: torch.Tensor, b: torch.Tensor, orientation: str) -> torch.Tensor:
