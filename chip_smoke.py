@@ -12,13 +12,15 @@
    CUDA-event times of both; ``layernorm_fwd`` alone at every (rows, C) the
    paths give it (``LAYERNORM_CASES``: the towers at batch 4, 16 and 64, the
    packed text and image rows, the captioning decoder and its KV-cached
-   decode at T = 1), with its device µs per call beside ``F.layer_norm``'s
+   decode at T = 1, the AT step's audio tower at B50 and text tower at B50
+   and B250), with its device µs per call beside ``F.layer_norm``'s
    (a profiler window; the loops of the small shapes are bound by the host);
    ``gemm_bias_act`` alone at every product shape
    the paths give it (``GEMM_FWD_CASES``: the towers at batch 4 and 64, the
    MLP's proj + residual, the recomputed fc with its fp32 pre-activation, the
    VA step's image tower, the captioning decoder's four products at
-   M = 64 x 77 and its KV-cached decode at T = 1, M = 4, 16, 64, 256), each
+   M = 64 x 77 and its KV-cached decode at T = 1, M = 4, 16, 64, 256, the AT
+   step's audio tower at M = 50 x 306 and text tower at 50 and 250 x 77), each
    held bitwise equal over two runs; ``attention_fwd``'s streaming form
    (T > 704) at B16 T705 and T971 beside SDPA.
 4. Backward kernel phase: each backward kernel, and each sub-block's
@@ -29,21 +31,22 @@
    packing) and the training step's B64 T306 C768 H12 (M = 19,584 rows),
    MLP at the same three shapes (E3072, E2048, E3072) for QuickGELU and
    exact GELU; ``gemm_wgrad`` also at the captioning decoder's four
-   products (M = 64 x 77 rows, width 512), each weight grad named with its
+   products (M = 64 x 77 rows, width 512) and the AT step's audio tower's
+   (M = 50 x 306 = 15,300, no multiple of 128), each weight grad named with its
    row split (S chunks, blocks launched) and held bitwise equal over two
    runs; ``colsum`` alone at every bias grad of the trained towers
    (``COLSUM_CASES``: dbout and dbproj, dbqkv in fp32, dbfc, at audio batch
-   64 and 4 and the decoder's M = 64 x 77), named with its row split, held
+   64, 4 and 50 and the decoder's M = 64 x 77), named with its row split, held
    bitwise equal over two runs and to ``colsum_ordered`` (the plain sum in
    the kernel's order), with device µs per call beside ``torch.sum``'s;
    ``layernorm_bwd`` alone at every (rows, C) the training paths give it
-   (``LAYERNORM_BWD_CASES``: the audio tower at batch 64, 4 and 16, the
+   (``LAYERNORM_BWD_CASES``: the audio tower at batch 64, 4, 16 and 50, the
    caption decoder at B64 and B16 T77, the packed text rows), named with its
    grid plan, dw and db held bitwise equal over two runs and db bitwise to
    ``layernorm_bwd_ordered`` (the plain sums in the kernel's order), with
    device µs per call beside autograd through ``F.layer_norm``;
    ``gemm_dgrad`` alone at every product shape the training paths
-   give it (``GEMM_DGRAD_CASES``: the audio tower at batch 4 and 64 and the
+   give it (``GEMM_DGRAD_CASES``: the audio tower at batch 4, 64 and 50 and the
    caption decoder's M = 64 x 77, with each activation grad), each held
    bitwise equal over two runs; ``attention_bwd`` also at the decoder's B64 T77 (causal) and at
    B16 T200 with the packing bias, bitwise equal over two runs, and its
@@ -171,11 +174,43 @@
    a put without ``wait_event`` and one without ``record_stream`` must each
    be caught; (f) ms per step of the loop, clips/s and the share of the
    window spent waiting for the loader, timed from an epoch's first batch's
-   arrival to its last's (3 steps of the wav train split, 15 of the npz
-   split read 4 times), beside the step alone on a loader batch and phase
+   arrival to its last's (3 steps of the wav train split, 5 of the npz
+   split read 3 times), beside the step alone on a loader batch and phase
    6's step at B = 64, with the card's name and power limit; and a
    ``torch.profiler`` window of 3 steady npz steps (``profile.alive``): the
    card's idle share and each host thread's time inside torch ops.
+15. AT fine-tuning (``LAMonitor``, full width): ``LA_FULL`` (``CLAP_FULL``
+   with ``monitor=LAMonitor``: the trainable ViT-B/32 audio tower at T = 306,
+   the frozen 12-layer width-512 text tower at ctx 77, ``CELossHead``) at
+   ``running/clotho.yaml``'s batch of 50: (a) one step's loss and every
+   audio-tower grad from the kernels against the plain ops and against fp32
+   by phase 6 (i)'s criterion; the launches of one step (12 + 12 sub-block
+   calls forward, 12 backward, none from the text tower); ms per step with
+   the forward / forward+backward / optimizer split and peak memory. On a
+   seeded synthetic Clotho index written to a temp dir
+   (``write_synthetic_clotho``: 200 train, 50 eval and 50 test clips of 20 s
+   16 kHz wav, 5 distinct captions each), ``build_monitor(...).learn()`` for
+   2 epochs of 4 steps with ``loader_backend=process`` and ``min(8,
+   cpu_count)`` workers: (b) run A at the default CE bound, ``save_rate=6``:
+   the save-time eval at step 6 skipped and logged exactly when that step's
+   loss is >= 5, a ``TEST`` report at the end; run B with
+   ``running.eval_loss_bound=inf`` and ``save_epoch``: saves and evals at 4,
+   6 and 8, each 1-vs-5 report on the 50 eval clips finite, its launches
+   counted (path ``la_loop``); (f) ``encode_text`` writes one npz per eval
+   clip, each at cosine >= 0.999 to the plain ops' embeddings of the same
+   captions; (c) ``model_file=train_0.out`` with ``eval=True``: one report per
+   step directory run B's log names, step 8's string for string the one run B
+   logged; (d) a fresh ``LATrainer`` resumed from run B's step 6 ends bitwise
+   where run B ends (params, optimizer buffers; the caption picks' per-item
+   seeds); (e) the captioning variant (``CAPTION_FULL`` with
+   ``monitor=LAMonitor``) takes 2 steps of ``learn()``, then
+   ``caption_report`` of the 50 eval clips (greedy, 32 decode steps): every
+   score finite; (g) the loop's steady window: one epoch of the train split
+   read 3 times (12 steps), timed from the arrival of the first batch made
+   after the loader's first ``prefetch + 1`` to the last: ms per step,
+   clips/s and data-wait share beside (a)'s step alone, with the card's
+   name and power limit; (h) the pinned copy's race check of phase 14 (g) on
+   host batches from (g)'s workers (fp32 fbanks and int32 token ids).
 
 Every kernel's time stands beside its bound, the least time the card could
 take for the same work: the larger of the bytes it must move (each input
@@ -200,7 +235,8 @@ max |plain|, since they sum over thousands of rows in another order.
 
 Prints a JSON line of per-kernel results (``launches`` is the sum of the
 counts read on each main path (``serve``, ``train``, ``serve_int8``,
-``train_int8_frozen``, ``probe``, ``caption_train``, ``caption_serve``, ``va_loop``), which ``launches_by_path`` gives apart; ``ms``,
+``train_int8_frozen``, ``probe``, ``caption_train``, ``caption_serve``, ``va_loop``,
+``la_loop``), which ``launches_by_path`` gives apart; ``ms``,
 ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` are those of the
 kernel's first case, its main-path shape; ``cases`` holds each shape's), then, as the last line, ``{"ok": true, "device": {...}}``.
 Any failure raises (non-zero exit).
@@ -211,6 +247,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -237,6 +274,8 @@ FLAGSHIP = [  # bench.py's VA pre-training step
     "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=1000",
     "model.image.token_pack=4", "worker=CVAP", "model_file=",
 ]
+LA_FULL = CLAP_FULL + ["monitor=LAMonitor"]  # AT fine-tuning: running/clotho.yaml's batch of 50
+LA_B = 50
 CAPTION_FULL = [  # _clap_cfg() with the text tower swapped for the captioning decoder
     "+running=clotho", "+model/image=vit_val", "+model/audio=vit_val",
     "+model/text=transformer_decoder", "+model/loss=ce_lm", "+optimizer=standard",
@@ -282,7 +321,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                         "experiments/fused_block_probe.py:85"),
 }
 PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
-         "caption_serve", "va_loop")
+         "caption_serve", "va_loop", "la_loop")
 # every product shape the paths give gemm_bias_act: (case, M, N, K, activation, residual, fp32
 # pre-activation). The kernel phase holds each to its plain version; experiments/kernel_times.py
 # times each, parent against change.
@@ -307,16 +346,25 @@ GEMM_FWD_CASES = [
       for M in (4, 16, 64, 256)
       for p, N, K, act, res in (("fc+quick_gelu", 2048, 512, "quick_gelu", False),
                                 ("proj+res", 512, 2048, "none", True))],
+    # the AT step at B = 50: the audio tower (M = 15,300, no multiple of 128), the frozen text tower
+    # and its eval batch of 5 captions a clip
+    *[(f"{tower} {p}", M, N, K, act, res, False)
+      for tower, M, C in (("audio B50 T306", LA_B * 306, 768), ("text B50 T77", LA_B * 77, 512),
+                          ("text B250 T77 (eval)", 5 * LA_B * 77, 512))
+      for p, N, K, act, res in (("qkv", 3 * C, C, "none", False), ("out+res", C, C, "none", True),
+                                ("fc+quick_gelu", 4 * C, C, "quick_gelu", False),
+                                ("proj+res", C, 4 * C, "none", True))],
+    ("audio B50 T306 fc recompute, fp32 preact", LA_B * 306, 3072, 768, "quick_gelu", False, True),
 ]
 # every product shape the training paths give gemm_dgrad: (case, M, N, K, activation whose grad
 # multiplies the product, rounded to bf16). dy [M, K] . w [K, N]: the attention's do = g.Wout and
 # dh = dqkv.Wqkv, the MLP's da = (gy.Wproj) * act'(a) and dh = da.Wfc, for the audio tower at
-# batch 4 and 64 and the caption decoder at B64 T77. The backward kernel phase holds each to its
-# plain version; experiments/kernel_times.py times each.
+# batch 4, 64 and 50 (the AT step) and the caption decoder at B64 T77. The backward kernel phase
+# holds each to its plain version; experiments/kernel_times.py times each.
 GEMM_DGRAD_CASES = [
     (f"{tower} {p}", M, N, K, act, rounded)
     for tower, M, C in (("audio B4 T306", 4 * 306, 768), ("audio B64 T306", 64 * 306, 768),
-                        ("caption decoder B64 T77", 64 * 77, 512))
+                        ("caption decoder B64 T77", 64 * 77, 512), ("audio B50 T306", LA_B * 306, 768))
     for p, N, K, act, rounded in (("do=g.Wout", C, C, "none", True),
                                   ("dh=dqkv.Wqkv fp32", C, 3 * C, "none", False),
                                   ("da=(gy.Wproj)*quick_gelu'(a)", 4 * C, C, "quick_gelu", True),
@@ -354,6 +402,9 @@ LAYERNORM_CASES = [
     ("text B16 T308 = caption decoder B64 T77", 64 * 77, 512),  # M = 4,928 both
     ("caption decoder B16 T77", 16 * 77, 512),
     *[(f"caption decode T=1 M={M}", M, 512) for M in (4, 16, 64, 256)],  # KV-cached decode, the MLP
+    ("audio B50 T306", LA_B * 306, 768),                      # the AT step and its eval
+    ("text B50 T77", LA_B * 77, 512),                         # the AT step's frozen text tower
+    ("text B250 T77 (AT eval, 5 captions a clip)", 5 * LA_B * 77, 512),
 ]
 # every (rows, C) the training paths give layernorm_bwd (two launches a layer of a trained tower: the
 # attention and the MLP sub-block): (case, rows, C). The backward kernel phase holds it to its plain
@@ -366,6 +417,7 @@ LAYERNORM_BWD_CASES = [
     ("caption decoder B64 T77", 64 * 77, 512),     # the timed captioning step, M = 4,928
     ("caption decoder B16 T77", 16 * 77, 512),     # the counted captioning step
     ("text B1 T308", 308, 512),                    # 4 captions packed
+    ("audio B50 T306", LA_B * 306, 768),           # the AT step, M = 15,300
 ]
 # the flash kernel phase's shapes: (case, B, Tq, Tk, H, bias: None, "pack" (4 items of T / 4
 # tokens, block-diagonal) or "causal"); the first is the captioning step's cross-attention.
@@ -381,13 +433,13 @@ FLASH_CASES = [
 ]
 # every (rows, N, dtype) of the trained towers' four bias grads: dbout and dbproj (the output grad,
 # [M, C] bf16), dbqkv (the fp32 dqkv, [M, 3C]), dbfc (the rounded da, [M, 4C] bf16), for the audio
-# tower at batch 64 and 4 and the caption decoder at B64 T77. The backward kernel phase holds colsum
-# to its plain version at each, bitwise across two runs and to colsum_ordered;
+# tower at batch 64, 4 and 50 (the AT step) and the caption decoder at B64 T77. The backward kernel
+# phase holds colsum to its plain version at each, bitwise across two runs and to colsum_ordered;
 # experiments/kernel_times.py times each.
 COLSUM_CASES = [
     (f"{tower} {p}", M, N, dtype)
     for tower, M, C in (("audio B64 T306", 64 * 306, 768), ("audio B4 T306", 4 * 306, 768),
-                        ("caption decoder B64 T77", 64 * 77, 512))
+                        ("caption decoder B64 T77", 64 * 77, 512), ("audio B50 T306", LA_B * 306, 768))
     for p, N, dtype in (("dbout, dbproj", C, "bf16"), ("dbqkv fp32", 3 * C, "fp32"), ("dbfc", 4 * C, "bf16"))
 ]
 # the towers the int8 paths run, by rows a call: (case, rows, C). Serving: audio at batch 4, 16 and
@@ -926,6 +978,11 @@ def backward_kernel_phase(torch, results):
     C = 512
     for name, N1, N2 in (("dWout", C, C), ("dWqkv", 3 * C, C), ("dWproj", C, 4 * C), ("dWfc", 4 * C, C)):
         wgrad(cmp, f"caption decoder B64 T77 C512 {name}", rn(64, 77, N1), rn(64, 77, N2))
+    # the AT step's audio tower: M = 50 x 306 rows at width 768, its four weight grads
+    C = 768
+    for name, N1, N2 in (("dWout", C, C), ("dWqkv", 3 * C, C), ("dWproj", C, 4 * C), ("dWfc", 4 * C, C)):
+        wgrad(cmp, f"audio B50 T306 C768 {name}", rn(LA_B, 306, N1), rn(LA_B, 306, N2))
+        torch.cuda.empty_cache()
 
     # gemm_dgrad alone at every shape the paths give it, bitwise equal over two runs
     for case, M, N, K, act, rounded in GEMM_DGRAD_CASES:
@@ -1070,9 +1127,10 @@ def int8_kernel_phase(torch, results):
 
     def ln_codes(x, lns, lnb):
         """layernorm_rowquant: bitwise the chain layernorm_fwd -> rowquant (the
-        LayerNorm code is shared). Against the plain LayerNorm a normalised
-        value may round to the neighbouring bf16: its code then moves by
-        one, and where it is the row's largest, the scale by a bf16 ulp."""
+        LayerNorm code is shared). Against the plain LayerNorm (whose
+        statistics are the kernels', both in float64) a normalised value
+        that rounded to the neighbouring bf16 would move its code by one,
+        and where it is the row's largest, the scale by a bf16 ulp."""
         def check(_, got, want, what):
             q, s = kernels.rowquant(kernels.layernorm_fwd(x, lns, lnb))
             if not (torch.equal(got[0], q) and torch.equal(got[1], s)):
@@ -1275,6 +1333,12 @@ def int8_serve_phase(torch, results):
     del eng8, eng
     torch.cuda.empty_cache()
     ms_per_batch(_engine(torch, 64, "int8"), _engine(torch, 64), 64)
+
+
+def _smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def _cos(torch, a, b):
@@ -2091,8 +2155,8 @@ def caption_serve_phase(torch, results):
 
 # phase 14: the VA epoch loop on a synthetic index
 LOOP_TRAIN, LOOP_EVAL, LOOP_B, LOOP_SECONDS, LOOP_FRAME = 256, 64, 64, 10.0, 256
-# the timed indexes: the wav train split twice (8 steps), the npz split 6 times (24 steps)
-LOOP_WAV_REPEAT, LOOP_NPZ_REPEAT = 2, 6
+# the timed indexes: the wav train split once (4 steps), the npz split 3 times (12 steps)
+LOOP_WAV_REPEAT, LOOP_NPZ_REPEAT = 1, 3
 # (g): the side stream sleeps before each copy, the compute stream between a batch's two reads;
 # the next copy lands RACE_COPY_MS after the last, well before the second read
 RACE_COPY_MS, RACE_READ_MS, RACE_BATCHES = 100, 250, 3
@@ -2163,15 +2227,18 @@ def _loop_losses(tr):
         return [json.loads(line)["loss"] for line in f if line.strip()]
 
 
-def _timed_epoch(torch, tr, ie, tail=0):
-    """Epoch ``ie`` from idle workers, timed in its steady state: from its
-    first batch's arrival to the arrival of the batch ``tail`` before its
-    last. The wait for a whole batch after idle workers stays out, and with
-    ``tail``, the last steps of a loader that runs ahead of the trainer: it
-    holds ``2 * prefetch + 2`` batches ready once it has no items left to
-    submit, and the steps after that run with its workers idle. Returns (ms
-    per step, clips/s, the window's share spent waiting for the loader,
-    steps in the window, each step's (wait, step call) ms)."""
+def _timed_epoch(torch, tr, ie, tail=0, head=0):
+    """Epoch ``ie`` from idle workers, timed in its steady state: from the
+    arrival of its batch ``head`` (0: its first) to the arrival of the batch
+    ``tail`` before its last. The wait for a whole batch after idle workers
+    stays out; with ``head``, the batches a loader that is behind the
+    trainer made alongside the first (it has ``prefetch + 1`` batches in
+    flight from the start) do too; with ``tail``, the last steps of a
+    loader that runs ahead of the trainer: it holds ``2 * prefetch + 2``
+    batches ready once it has no items left to submit, and the steps after
+    that run with its workers idle. Returns (ms per step, clips/s, the
+    window's share spent waiting for the loader, steps in the window, each
+    step's (wait, step call) ms)."""
     from vipant_tpu_torch.utils import PhaseTimer
 
     log = []  # (phase, when it stopped, seconds)
@@ -2189,10 +2256,10 @@ def _timed_epoch(torch, tr, ie, tail=0):
     arrivals = [(t, dt) for phase, t, dt in log if phase == "data"][:-1]  # the last: no batch
     calls = [dt for phase, _, dt in log if phase == "model"]
     end = len(arrivals) - 1 - tail
-    window = arrivals[end][0] - arrivals[0][0]
-    wait = sum(dt for _, dt in arrivals[1:end + 1])
+    steps, window = end - head, arrivals[end][0] - arrivals[head][0]
+    wait = sum(dt for _, dt in arrivals[head + 1:end + 1])
     series = [(round(1e3 * w), round(1e3 * c)) for (_, w), c in zip(arrivals, calls)]
-    return window / end * 1e3, end * LOOP_B / window, wait / window, end, series
+    return window / steps * 1e3, steps * tr.loader.batch_size / window, wait / window, steps, series
 
 
 def _trace_window(path):
@@ -2235,6 +2302,7 @@ def _race_check(torch, PinnedDevicePut, batches):
     batch's tensors have been dropped and the next batch's copy has run (a
     missing ``record_stream`` lets the allocator give that copy the same
     memory).
+    The keys are the batches' own (token ids keep their int32 dtype).
     Returns, for the real put and for two puts that each leave one of the
     two out, the batches whose early and late reads differ from the host's."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2244,7 +2312,7 @@ def _race_check(torch, PinnedDevicePut, batches):
     end.synchronize()
     per_ms = 10 ** 7 / start.elapsed_time(end)
     copy_delay, read_delay = int(RACE_COPY_MS * per_ms), int(RACE_READ_MS * per_ms)
-    keys = ("image", "audio")
+    keys = tuple(batches[0])
 
     class Delayed(PinnedDevicePut):
         def __call__(self, batch):
@@ -2279,7 +2347,8 @@ def _race_check(torch, PinnedDevicePut, batches):
                 late.append([t.clone() for t in tensors])
                 del placed, tensors  # while the compute stream still has to read them
         torch.cuda.synchronize()
-        differ = lambda reads: sum(any(not np.array_equal(t.cpu().numpy(), hb[k])
+        differ = lambda reads: sum(any(t.dtype != torch.from_numpy(hb[k]).dtype
+                                       or not np.array_equal(t.cpu().numpy(), hb[k])
                                        for t, k in zip(r, keys)) for r, hb in zip(reads, batches))
         found[put_cls.__name__] = (differ(early), differ(late))
         del put, early, late
@@ -2298,8 +2367,7 @@ def loop_phase(torch, results):
     from vipant_tpu_torch.serve import InferenceEngine
     from vipant_tpu_torch.train import eval_step
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = _smi()
     try:
         import PIL  # noqa: F401
         frames = True
@@ -2420,8 +2488,8 @@ def loop_phase(torch, results):
                 g.writelines(f.readlines() * repeat)
         prof_dir, n_npz = os.path.join(root, "prof"), LOOP_TRAIN * LOOP_NPZ_REPEAT // LOOP_B
         for source, label in (("train_long", "wav"), ("npz_train_long", "npz")):
-            # the npz run's second epoch, cut to its last 12 steps, holds a profiler window
-            # of its steps 3 to 5, while the workers still have items to make
+            # the npz run's second epoch (its last 12 steps) holds a profiler window of its
+            # steps 3 to 5, while the workers still have items to make
             tr = _loop_trainer(torch, root, os.path.join(root, source), f"running.data_name={source}",
                                "running.eval_name=", "running.save_epoch=False",
                                "running.save_rate=1000000000", "profile.alive=True",
@@ -2454,6 +2522,307 @@ def loop_phase(torch, results):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 15: AT fine-tuning (LAMonitor) on a synthetic Clotho index
+LA_TRAIN, LA_EVAL, LA_TEST, LA_SECONDS = 200, 50, 50, 20.0
+LA_LONG_REPEAT = 3  # (g)'s index: the train split read 3 times, 12 steps of 50
+LA_WORDS = ("a dog barks loudly while rain falls on the metal roof and a car passes by slowly near "
+            "birds singing in trees people talk in a crowded room footsteps on gravel wind blows "
+            "through leaves water drips into a bucket an engine starts door creaks open").split()
+REPORT_NUMBER = re.compile(r"= (\S+)|R@\d+ (\S+)|MED (\S+)|AVG (\S+)")
+
+
+def write_synthetic_clotho(root, name, n, seconds=LA_SECONDS, seed=0, captions=5):
+    """A seeded synthetic Clotho split in the layout of the JAX package's test
+    fabrication (``tests/data_synth.py:make_synth_clotho``):
+    ``{root}/{name}/aclip/{id}.wav`` (16 kHz mono, a tone per clip plus noise)
+    and ``{root}/{name}.csv`` (``file_name, caption_1..caption_5``) with
+    ``captions`` distinct captions of 6 to 14 seeded words a clip."""
+    import os
+
+    from vipant_tpu_torch.data import write_wav
+
+    sr = 16000
+    os.makedirs(os.path.join(root, name, "aclip"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    rows = ["file_name," + ",".join(f"caption_{i}" for i in range(1, captions + 1))]
+    for i in range(n):
+        wav = 0.4 * np.sin(2 * np.pi * (180 + 9 * i) * t) + 0.01 * rng.standard_normal(len(t))
+        write_wav(os.path.join(root, name, "aclip", f"{name}{i}.wav"), wav.astype(np.float32), sr)
+        caps = set()
+        while len(caps) < captions:
+            caps.add(" ".join(rng.choice(LA_WORDS, int(rng.integers(6, 15)))))
+        rows.append(f"{name}{i}.wav," + ",".join(sorted(caps)))
+    with open(os.path.join(root, f"{name}.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def _la_monitor(torch, *extra, **kw):
+    from vipant_tpu_torch.train import build_monitor
+
+    torch.cuda.empty_cache()
+    return build_monitor(LA_FULL + [f"running.batch_size={LA_B}", *extra], **kw)  # on the card
+
+
+def _la_batch(tr, rng, B):
+    """(fbank, int32 token ids laid out as the tokenizer lays them out)."""
+    fbank, ids = _caption_batch(tr, rng, B)
+    return fbank, ids.int()
+
+
+def _logged_reports(out_dir):
+    """Each save's path and the report the run logged just after it."""
+    import os
+
+    with open(os.path.join(out_dir, "train_0.out")) as f:
+        lines = [line.rstrip("\n").split(": ", 1)[-1] for line in f]
+    return [(m.group(1), lines[i + 1]) for i, line in enumerate(lines)
+            if (m := re.match(r"saving the checkpoint to (\S+)$", line)) and i + 1 < len(lines)]
+
+
+def _report_finite(report):
+    """Every number of a 1-vs-k or caption report, which must all be finite."""
+    nums = [float(next(g for g in m.groups() if g is not None)) for m in REPORT_NUMBER.finditer(report)]
+    if len(nums) < 6 or not np.isfinite(nums).all():
+        raise AssertionError(f"report is not finite: {report}")
+    return nums
+
+
+def la_phase(torch, results):
+    import os
+    import shutil
+    import tempfile
+
+    from vipant_tpu_torch.data.device_put import PinnedDevicePut
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.train import LATrainer, loss_and_grads
+
+    smi = _smi()
+    # (a) one init and batch at B = 50: kernels against the plain ops and against fp32
+    tr = _la_monitor(torch, steps_per_epoch=STEPS_PER_EPOCH)
+    audio_layers, text_layers = len(tr.model.audio.encoder.resblocks), len(tr.model.text.encoder.resblocks)
+    print(f"AT step: {type(tr).__name__}, audio tower {audio_layers} layers trainable, text tower "
+          f"{text_layers} layers frozen; {sum(p.numel() for p in tr.trainable.values()):,} trainable / "
+          f"{sum(p.numel() for p in tr.frozen.values()):,} frozen params")
+    if not isinstance(tr, LATrainer) or any(k.startswith("text.") for k in tr.trainable):
+        raise AssertionError("LAMonitor did not build an LATrainer with a frozen text tower")
+    batch = _la_batch(tr, np.random.default_rng(0), LA_B)
+    k_run = loss_and_grads(tr.state, *batch)
+    with plain_ops():
+        p_run = loss_and_grads(tr.state, *batch)
+        ref = _la_monitor(torch, "compute_dtype=float32", steps_per_epoch=STEPS_PER_EPOCH)
+        f_run = loss_and_grads(ref.state, *batch)
+    del ref
+    hold_grads_to_fp32(torch, f"(a) B={LA_B}", "AT", k_run, p_run, f_run)
+    del k_run, p_run, f_run
+    reset_launches()
+    tr.train_step(*batch)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    fwd_blocks, bwd_blocks = audio_layers + text_layers, audio_layers  # no backward in the text tower
+    want = {
+        "fused_ln_attention_block": fwd_blocks, "fused_ln_mlp_block": fwd_blocks,
+        "fused_ln_attention_block_bwd": bwd_blocks, "fused_ln_mlp_block_bwd": bwd_blocks,
+        "layernorm_fwd": 2 * fwd_blocks + 2 * bwd_blocks, "gemm_bias_act": 4 * fwd_blocks + bwd_blocks,
+        "attention_fwd": fwd_blocks, "attention_bwd": bwd_blocks, "layernorm_bwd": 2 * bwd_blocks,
+        "colsum": 4 * bwd_blocks, "gemm_dgrad": 4 * bwd_blocks, "gemm_wgrad": 4 * bwd_blocks,
+    }
+    print(f"(a) launches in one AT step: {json.dumps(counts, sort_keys=True)}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+
+    def fwd():
+        with torch.no_grad():
+            return tr.model(*batch, train=True)
+
+    t = {"fwd": cuda_ms(torch, fwd, 5, 2),
+         "fwd_bwd": cuda_ms(torch, lambda: loss_and_grads(tr.state, *batch), 5, 2),
+         "step": cuda_ms(torch, lambda: tr.train_step(*batch), 5, 2)}
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_step(*batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"(a) B={LA_B} kernels: {t['step']:.2f} ms/step ({LA_B / t['step'] * 1e3:.1f} clips/s): fwd "
+          f"{t['fwd']:.2f}, fwd+bwd {t['fwd_bwd']:.2f}, optimizer and the rest "
+          f"{t['step'] - t['fwd_bwd']:.2f} ms; peak device memory {peak:.2f} GiB; {smi}")
+    del tr, batch
+
+    root = tempfile.mkdtemp(prefix="vipant_la_")
+    workers = min(8, os.cpu_count() or 1)
+    try:
+        t0 = time.perf_counter()
+        for name, n, seed in (("clotho_train", LA_TRAIN, 0), ("clotho_val", LA_EVAL, 1),
+                              ("clotho_test", LA_TEST, 2)):
+            write_synthetic_clotho(root, name, n, seed=seed)
+        print(f"synthetic Clotho index: {LA_TRAIN} train, {LA_EVAL} eval, {LA_TEST} test clips of "
+              f"{LA_SECONDS:.0f} s 16 kHz wav, 5 distinct captions each, written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        run = os.path.join(root, "run")
+
+        def loop(name, *extra):
+            return _la_monitor(torch, f"running.data_root={root}", "running.data_name=clotho_train",
+                               "running.eval_name=clotho_val", "running.test_name=clotho_test",
+                               "running.epochs=2", "loader_backend=process", f"num_proc={workers}",
+                               "running.peep_rate=1", "running.save_rate=6", f"alias_root={run}",
+                               f"model_root={run}", f"model_name={name}", "eval=False",
+                               "metrics_jsonl=True", *extra)
+
+        # (b) run A at the default CE bound: the save at step 6 is gated on its loss
+        a = loop("gate", "running.save_epoch=False")
+        t0 = time.perf_counter()
+        a.learn()
+        torch.cuda.synchronize()
+        loss6 = _loop_losses(a)[5]
+        with open(os.path.join(a.out_dir, "train_0.out")) as f:
+            text = f.read()
+        skipped = text.count("save-time eval skipped: loss")
+        evals = sum(1 for line in text.splitlines() if ": A->T:" in line)
+        print(f"(b) run A (running.eval_loss_bound 5): {a.global_step} steps in "
+              f"{time.perf_counter() - t0:.1f} s, losses {[round(v, 4) for v in _loop_losses(a)]}; at step 6 "
+              f"loss {loss6:.4f}: {skipped} save-time eval skipped and logged, {evals} evaluated; "
+              f"{text.count('TEST A->T')} TEST report")
+        if not (skipped == int(loss6 >= 5) and evals == int(loss6 < 5) and "TEST A->T" in text):
+            raise AssertionError("the CE gate did not skip exactly when the loss was >= 5, or no TEST")
+        del a
+
+        # (b) run B: running.eval_loss_bound=inf, saves and evals at 4, 6 and 8; its launches counted
+        b = loop("la", "running.eval_loss_bound=inf", "running.save_epoch=True")
+        t0 = time.perf_counter()
+        reset_launches()
+        b.learn()
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        record_launches(results, "la_loop", counts)
+        logged = _logged_reports(b.out_dir)
+        with open(os.path.join(b.out_dir, "train_0.out")) as f:
+            tests = [line.split("TEST ", 1)[1].strip() for line in f if "TEST A->T" in line]
+        print(f"(b) run B (bound inf): {b.global_step} steps, 3 saves with an eval and a TEST each and "
+              f"a TEST at the end, in {time.perf_counter() - t0:.1f} s; launches {json.dumps(counts, sort_keys=True)}")
+        for path, report in logged:
+            print(f"    {os.path.basename(path)}: {report}")
+        print(f"    TEST at the end: {tests[-1]}")
+        if [os.path.basename(p) for p, _ in logged] != ["00000004", "00000006", "00000008"] or len(tests) != 4:
+            raise AssertionError(f"run B: saves {logged}, {len(tests)} TEST reports")
+        for _, report in logged:
+            if not report.startswith("A->T:") or f"@ {LA_EVAL} |" not in report:
+                raise AssertionError(f"run B's report is not one of {LA_EVAL} eval clips: {report}")
+            _report_finite(report)
+        _report_finite(tests[-1])
+
+        # (f) each eval clip's caption embeddings against the plain ops' of the same captions
+        emb_root = b.encode_text(out_root=os.path.join(root, "emb"))
+        files = sorted(os.listdir(emb_root))
+        worst, ds = 1.0, b.evalloader.dataset
+        with plain_ops(), torch.no_grad():
+            for rec in ds.records:  # each clip's caption ids as the eval items carry them
+                ids = np.stack([ds._pad(c) for c in rec["captions_bpe"]])
+                want = b.model.encode_text(b.make_batch(ids)[0]).float().cpu().numpy()
+                got = np.load(os.path.join(emb_root, f"{rec['id']}.npz"))["v"]
+                if got.shape != want.shape:
+                    raise AssertionError(f"{rec['id']}.npz holds {got.shape}, not {want.shape}")
+                worst = min(worst, float(_row_cos(got, want).min()))
+        print(f"(f) encode_text: {len(files)} files of 5 caption embeddings; min cosine to the plain "
+              f"ops' {worst:.6f}")
+        if len(files) != LA_EVAL or worst < COS_MIN:
+            raise AssertionError(f"encode_text: {len(files)} files, min cosine {worst}")
+        want_params = {k: p.detach().clone() for k, p in b.trainable.items()}
+        want_opt = b.state.optimizer.state_dict()["inner"]["state"]
+        b.close()
+        del b
+
+        # (c) repeated eval of the step directories run B's log names
+        t0 = time.perf_counter()
+        reports = loop("la", "eval=True", "model_file=train_0.out").learn()
+        same = [r == f"{p}: {want}" for r, (p, want) in zip(reports, logged)]
+        print(f"(c) repeated eval over run B's train_0.out: {len(reports)} reports in "
+              f"{time.perf_counter() - t0:.1f} s; equal to the run's, string for string: {same}")
+        if len(reports) != 3 or not same[-1]:
+            raise AssertionError(f"repeated eval: {reports} against {logged}")
+
+        # (d) a fresh LATrainer resumed from run B's step 6, bitwise run B at step 8
+        c = loop("la", "model_file=00000006", "running.eval_name=", "running.test_name=",
+                 "running.save_epoch=False", "running.save_rate=1000000000")
+        if c.global_step != 6:
+            raise AssertionError(f"resumed at step {c.global_step}, not 6")
+        c.learn()
+        got_opt = c.state.optimizer.state_dict()["inner"]["state"]
+        diff = {k: (p.detach() - want_params[k]).abs().max().item() for k, p in c.trainable.items()
+                if not torch.equal(p.detach(), want_params[k])}
+        diff.update({f"optimizer state {i}/{n}": (v - want_opt[i][n]).abs().max().item()
+                     for i, st in got_opt.items() for n, v in st.items()
+                     if torch.is_tensor(v) and not torch.equal(v, want_opt[i][n])})
+        print(f"(d) resumed from step 6 against run B at step 8: {len(c.trainable)} params and "
+              f"{len(got_opt)} optimizer buffers, {len(diff)} not bitwise equal")
+        if diff or c.global_step != 8:
+            raise AssertionError(f"AT resume is not bitwise: {sorted(diff.items(), key=lambda kv: -kv[1])[:5]}")
+        del c, want_params, want_opt
+
+        # (e) the captioning variant: 2 steps of learn(), then caption_report on the eval clips
+        os.symlink(os.path.join(root, "clotho_train"), os.path.join(root, "clotho_cap"))
+        with open(os.path.join(root, "clotho_train.csv")) as f:
+            head = f.readlines()[:1 + 2 * LA_B]
+        with open(os.path.join(root, "clotho_cap.csv"), "w") as f:
+            f.writelines(head)
+        torch.cuda.empty_cache()
+        from vipant_tpu_torch.train import build_monitor
+
+        cap = build_monitor(CAPTION_FULL + [
+            "monitor=LAMonitor", f"running.batch_size={LA_B}", f"running.data_root={root}",
+            "running.data_name=clotho_cap", "running.eval_name=clotho_val", "running.test_name=",
+            "running.epochs=1", "loader_backend=process", f"num_proc={workers}", "running.peep_rate=1",
+            "running.save_rate=1000000000", f"alias_root={run}", f"model_root={run}", "model_name=cap",
+            "eval=False", "metrics_jsonl=True"])
+        t0 = time.perf_counter()
+        cap.learn()
+        losses = _loop_losses(cap)
+        t1 = time.perf_counter()
+        report = cap.caption_report(cap.evalloader)
+        cap.close()
+        print(f"(e) captioning LATrainer: LM losses {[round(v, 4) for v in losses]} in {t1 - t0:.1f} s; "
+              f"caption_report (greedy, {cap.model.decoder.max_len_dec} decode steps) in "
+              f"{time.perf_counter() - t1:.1f} s: {report[:400]}")
+        if len(losses) != 2 or not np.isfinite(losses).all() or f"@ {LA_EVAL} |" not in report:
+            raise AssertionError(f"captioning: losses {losses}, report {report}")
+        _report_finite(report.split(" | ")[0])
+        del cap
+
+        # (g) the loop's steady window: one epoch of the train split read LA_LONG_REPEAT times
+        os.symlink(os.path.join(root, "clotho_train"), os.path.join(root, "clotho_train_long"))
+        with open(os.path.join(root, "clotho_train.csv")) as f:
+            header, *rows = f.readlines()
+        with open(os.path.join(root, "clotho_train_long.csv"), "w") as f:
+            f.writelines([header] + rows * LA_LONG_REPEAT)
+        w = loop("window", "running.data_name=clotho_train_long", "running.eval_name=",
+                 "running.test_name=", "running.epochs=1", "running.save_epoch=False",
+                 "running.save_rate=1000000000")
+        head = w.loader.prefetch + 1  # batches in flight from the start, made alongside the first
+        ms, clips, share, steps, series = _timed_epoch(torch, w, 0, head=head)
+        print(f"(g) {smi}; host cpu_count {os.cpu_count()}, {workers} loader workers, batch {LA_B}, "
+              f"SpecAugment on, the loss read every step; the train split read {LA_LONG_REPEAT} times, "
+              f"one epoch, each step's (wait for the batch, train_step call) ms: {series}; its window "
+              f"from arrival {head + 1} to {head + steps + 1} of {len(series)} ({steps} steps, the "
+              f"{head} batches made alongside the first left out): {ms:.2f} ms per step of the loop, "
+              f"{clips:.1f} clips/s, data-wait share {100 * share:.1f} %; (a)'s step alone "
+              f"{t['step']:.2f} ms ({LA_B / t['step'] * 1e3:.1f} clips/s)")
+
+        # (h) the pinned copy of int32 token ids against the races it guards, on host batches
+        # from the window's workers
+        w.loader.device_put_fn = None
+        batches = [{k: b[k] for k in ("audio", "text")} for b in itertools.islice(w.loader, RACE_BATCHES)]
+        w.close()
+        del w
+        found = _race_check(torch, PinnedDevicePut, batches)
+        print(f"(h) {len(batches)} AT loader batches (fbank fp32, token ids {batches[0]['text'].dtype}) "
+              f"through pinned memory, held back and read twice as in phase 14 (g): (early, late) reads "
+              f"differing, the put, without wait_event, without record_stream: "
+              + ", ".join(f"{k} {v}" for k, v in found.items()))
+        if (found["Delayed"] != (0, 0) or found["NoWaitEvent"][0] == 0
+                or found["NoRecordStream"][1] == 0):
+            raise AssertionError(f"the pinned copy of the AT batches races, or the check is blind: {found}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2461,11 +2830,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
     from vipant_tpu_torch.ops import _build  # fails outside a checkout of the repo
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(_smi())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2491,7 +2856,8 @@ def main() -> int:
                          ("probe phase (dot variants, fused forward probe)", probe_phase),
                          ("captioning training slice (full width, 12 + 12 layers)", caption_train_phase),
                          ("captioning serving slice (InferenceEngine.caption)", caption_serve_phase),
-                         ("VA epoch loop (full width)", loop_phase)):
+                         ("VA epoch loop (full width)", loop_phase),
+                         ("AT fine-tuning (LAMonitor, full width)", la_phase)):
         t0 = time.perf_counter()
         print(title + ":")
         phase(torch, results)

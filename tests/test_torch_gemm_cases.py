@@ -58,6 +58,27 @@ def test_cases_cover_every_tower_of_the_smoke_configs(name, towers):
         assert not missing, f"{name} {tower} width {C}: no case for (N, K) in {sorted(missing)}"
 
 
+def _at_rows():
+    """Rows of the AT step (``chip_smoke.LA_FULL`` at its config's own batch):
+    the audio tower, the frozen text tower, the text tower at eval (k
+    captions a clip)."""
+    cfg = compose(chip_smoke.LA_FULL)
+    B = int(cfg.running.batch_size)
+    assert B == chip_smoke.LA_B == 50
+    return B * 306, B * int(cfg.model.text.ctx_len), 5 * B * int(cfg.model.text.ctx_len)
+
+
+def test_cases_hold_the_at_step_at_its_own_rows():
+    audio, text, text_eval = _at_rows()
+    have = {(M, N, K, pre) for _, M, N, K, _, _, pre in CASES}
+    for M, C in ((audio, 768), (text, 512), (text_eval, 512)):
+        assert {(M, N, K, False) for N, K in _products(C)} <= have, M
+    assert (audio, 3072, 768, True) in have  # the MLP backward's recomputed fc
+    dgrad = {(M, N, K, act) for _, M, N, K, act, _ in DGRAD_CASES}
+    assert {(audio, N, K) for N, K in _dgrad_products(768)} <= {c[:3] for c in dgrad}
+    assert {act for M, N, K, act in dgrad if (M, N, K) == (audio, 3072, 768)} == {"quick_gelu", "gelu"}
+
+
 def test_the_decode_runs_the_decoder_mlp_at_every_batch():
     C = int(compose(chip_smoke.CAPTION_FULL).model.text.width)
     decode = {(M, N, K) for case, M, N, K, *_ in CASES if "decode T=1" in case}

@@ -200,6 +200,12 @@ def test_layernorm_bwd_cases_cover_every_trained_tower(name, tower, T):
         assert (B * T, C) in have, f"{name} {tower}: no layernorm_bwd case at B{B} [{B * T} x {C}]"
 
 
+def test_layernorm_bwd_cases_hold_the_at_step():
+    """The AT step trains the audio tower at its config's batch of 50."""
+    B = int(compose(chip_smoke.LA_FULL).running.batch_size)
+    assert (B * 306, _width("LA_FULL", "audio")) in {(rows, C) for _, rows, C in LNB_CASES}
+
+
 @pytest.mark.parametrize("case,rows,C", LNB_CASES, ids=[c[0] for c in LNB_CASES])
 def test_layernorm_bwd_wrapper_takes_the_plain_version_on_the_cpu(case, rows, C):
     x, w, dh, res = _ln_inputs(3 + rows % 29, C // 32, rows)

@@ -5,7 +5,9 @@ tower too), a tiny captioning step and ``caption`` call (bf16 and int8),
 or ``Trainer.learn`` over two epochs of a synthetic JSONL index (written by
 ``chip_smoke.write_synthetic_va``) with its checkpoints and a bitwise
 resume, on the CPU, and never imports jax, jaxlib, flax, optax or any
-module of ``vipant_tpu``. A scan of the sources holds the same: no import of
+module of ``vipant_tpu``; the command line ``python -m vipant_tpu_torch
+platform=cpu`` takes an ``LAMonitor`` step where importing any of them
+raises. A scan of the sources holds the same: no import of
 ``vipant_tpu`` under ``vipant_tpu_torch/`` or in ``chip_smoke.py``."""
 
 import os
@@ -176,13 +178,55 @@ def test_port_serves_int8_captioning_without_jax():
     _run(CAPTION_SCRIPT.replace(" QUANTIZE", ', quantize="int8"'))
 
 
+CLI_ARGS = [
+    "+running=clotho", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=transformer_val",
+    "+model/loss=ce", "+optimizer=standard", "+running/audio=default", "worker=CLAP",
+    "monitor=LAMonitor", "platform=cpu", "model.image.width=64", "model.image.embed_dim=32",
+    "model.image.encoder.layers=2", "model.image.heads=4", "model.audio.width=64",
+    "model.audio.encoder.layers=2", "model.audio.heads=4", "model.audio.pre_encoder.stride=[16,24]",
+    "model.text.width=64", "model.text.encoder.layers=2", "model.text.heads=4",
+    "running.audio.max_len=100", "running.data_name=clotho_train", "running.eval_name=clotho_val",
+    "running.test_name=", "running.batch_size=2", "running.epochs=1", "running.save_epoch=True",
+    "running.peep_rate=1", "eval=False", "loader_backend=thread", "num_proc=1", "model_name=cli",
+]
+
+
+def test_cli_trains_an_la_monitor_step_without_jax(tmp_path):
+    """``python -m vipant_tpu_torch platform=cpu ...``: one LAMonitor step on
+    a synthetic Clotho index (``chip_smoke.write_synthetic_clotho``), its
+    save and its eval, in an interpreter where importing jax, jaxlib, flax,
+    optax or vipant_tpu raises."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    data, blocked = tmp_path / "data", tmp_path / "blocked"
+    chip_smoke.write_synthetic_clotho(str(data), "clotho_train", 2, seconds=1.05)
+    chip_smoke.write_synthetic_clotho(str(data), "clotho_val", 2, seconds=1.05, seed=1)
+    for name in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"):
+        (blocked / name).mkdir(parents=True)
+        (blocked / name / "__init__.py").write_text(f"raise ImportError('{name} must not be imported')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(blocked), ROOT]))
+    proc = subprocess.run([sys.executable, "-m", "vipant_tpu_torch", *CLI_ARGS,
+                           f"running.data_root={data}", f"alias_root={tmp_path}/run",
+                           f"model_root={tmp_path}/run"],
+                          cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    run = tmp_path / "run" / "cli"
+    assert sorted(os.listdir(run / "00000001")) == ["COMMITTED", "config.json", "model.npz", "state.pt"]
+    log = (run / "train_0.out").read_text()
+    assert "on cpu" in proc.stdout
+    assert "epoch 0 step 1 loss" in log and "A->T: t1 = " in log, log[-2000:]
+
+
 def test_entry_points_default_to_the_card_and_raise_without_one():
     _run("""
 import torch
 from vipant_tpu_torch.serve import InferenceEngine
 from vipant_tpu_torch.train import Trainer
 assert not torch.cuda.is_available()
-for make in (lambda: InferenceEngine(["worker=CLAP"]), lambda: Trainer(["worker=CVAP"])):
+from vipant_tpu_torch.train import build_monitor
+for make in (lambda: InferenceEngine(["worker=CLAP"]), lambda: Trainer(["worker=CVAP"]),
+             lambda: build_monitor(["+running=clotho", "worker=CLAP", "monitor=LAMonitor"])):
     try:
         make()
     except RuntimeError as e:

@@ -60,6 +60,16 @@ def test_layernorm_cases_cover_every_tower_of_the_smoke_configs(name, towers):
         assert _width(name, tower) in have, f"{name} {tower}: no LayerNorm case at its width"
 
 
+def test_cases_hold_the_at_step_at_its_own_rows():
+    """The AT step (``chip_smoke.LA_FULL`` at its batch of 50): the audio tower
+    at 15,300 rows, the frozen text tower at 50 x 77 and at eval 250 x 77
+    (5 captions a clip); the audio tower's bias grads."""
+    B = int(compose(chip_smoke.LA_FULL).running.batch_size)
+    assert {(B * 306, 768), (B * 77, 512), (5 * B * 77, 512)} <= {(r, C) for _, r, C in LN_CASES}
+    assert {(B * 306, 768, "bf16"), (B * 306, 2304, "fp32"), (B * 306, 3072, "bf16")} <= {
+        c[1:] for c in CS_CASES}
+
+
 def test_the_decode_runs_layernorm_at_every_batch():
     C = _width("CAPTION_FULL", "text")
     decode = {(rows, C_) for case, rows, C_ in LN_CASES if "decode T=1" in case}
@@ -152,3 +162,24 @@ def test_colsum_wrapper_takes_the_plain_version_on_the_cpu(case, rows, N, dtype)
     assert got.shape == (n,) and got.dtype == torch.float32
     assert torch.equal(got, kernels.colsum_plain(x))
     assert not kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("C", sorted({c for _, _, c in LN_CASES}))
+def test_layernorm_statistics_do_not_depend_on_the_summation_order(C):
+    """The plain LayerNorm takes its statistics in float64, as the kernels
+    do (``rows.cuh``), each in its own order: with the row's columns (and w,
+    b) permuted, its bf16 output and int8 codes are the same values, bit for
+    bit, at rows of the paths' widths with a spread of magnitudes."""
+    r = np.random.default_rng(C)
+    x = r.standard_normal((256, C)) * np.exp(r.uniform(-4, 4, (256, 1)))  # rows of 1e-2 to 1e2
+    x[:, 0] *= 50  # a row's largest value, whose rounding sets the int8 scale
+    x[1] = 0
+    x = torch.from_numpy(x.astype(np.float32)).bfloat16()
+    w = torch.from_numpy(1 + 0.1 * r.standard_normal(C).astype(np.float32))
+    b = torch.from_numpy(0.1 * r.standard_normal(C).astype(np.float32))
+    perm = torch.from_numpy(r.permutation(C))
+    assert torch.equal(kernels.layernorm_plain(x, w, b)[:, perm],
+                       kernels.layernorm_plain(x[:, perm], w[perm], b[perm]))
+    q, s = kernels.layernorm_rowquant_plain(x, w, b)
+    qp, sp = kernels.layernorm_rowquant_plain(x[:, perm], w[perm], b[perm])
+    assert torch.equal(q[:, perm], qp) and torch.equal(s, sp)

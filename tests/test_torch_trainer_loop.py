@@ -34,7 +34,8 @@ index of tests/data_synth.py, on the CPU:
   start and the eval on the same pairs finds every image's audio (I->A R@1
   100);
 - the loop's options: ``eval=True``, ``eval_norms``, ``metrics_jsonl``,
-  ``keep_last_ckpts``, ``halt_on_nan``, ``build_monitor``, the run files
+  ``keep_last_ckpts``, ``halt_on_nan``, ``build_monitor`` (``LAMonitor`` builds
+  an ``LATrainer``), the run files
   under ``TMPDIR`` by default, the pinned put built for a training loader
   only.
 """
@@ -56,7 +57,7 @@ from vipant_tpu.train import build_monitor as jax_build_monitor
 from vipant_tpu_torch.ckpt import from_jax
 from vipant_tpu_torch.config import compose
 from vipant_tpu_torch.serve import InferenceEngine
-from vipant_tpu_torch.train import Trainer, build_monitor
+from vipant_tpu_torch.train import LATrainer, Trainer, build_monitor
 import vipant_tpu_torch.train.trainer as trainer_module
 
 from data_synth import make_synth_va_index, make_synth_va_npz_index
@@ -359,9 +360,13 @@ def test_keep_last_and_halt_on_nan(data, tmp_path):
 
 
 def test_monitor_registry_names_what_is_not_ported(data, tmp_path):
-    assert isinstance(build_monitor(compose(_cfg(data, str(tmp_path), "eval=True")), device="cpu"),
-                      Trainer)
-    for name, item in (("LAMonitor", "A10"), ("ASMonitor", "A11"), ("ESCMonitor", "A11"),
+    assert type(build_monitor(compose(_cfg(data, str(tmp_path), "eval=True")), device="cpu")) is Trainer
+    la = build_monitor(compose(_cfg(data, str(tmp_path), "eval=True", "monitor=LAMonitor",
+                                    "worker=CLAP", "+model/text=transformer_val",
+                                    "model.text.width=32", "model.text.heads=4",
+                                    "model.text.encoder.layers=2", "running.eval_name=")), device="cpu")
+    assert isinstance(la, LATrainer)
+    for name, item in (("ASMonitor", "A11"), ("ESCMonitor", "A11"),
                        ("VALMonitor", "A12"), ("VASMonitor", "A12")):
         with pytest.raises(NotImplementedError, match=item):
             build_monitor(compose(_cfg(data, str(tmp_path), f"monitor={name}")), device="cpu")

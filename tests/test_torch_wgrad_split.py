@@ -1,5 +1,5 @@
 """The row split of the port's weight-grad kernel (``gemm_wgrad``), on the
-CPU: the plan ``wgrad_split`` for every product shape of the three training
+CPU: the plan ``wgrad_split`` for every product shape of the four training
 paths, and a plain emulation of "one partial product per row chunk, added in
 order" against the one-product plain version.
 
@@ -21,6 +21,7 @@ STEP_SHAPES = (
     + [(64 * 77, n1, n2) for n1, n2 in DECODER]      # captioning step: the decoder, B = 64, ctx 77
     + [(16 * 306, n1, n2) for n1, n2 in AUDIO]       # the B = 16 grad checks
     + [(16 * 77, n1, n2) for n1, n2 in DECODER]
+    + [(50 * 306, n1, n2) for n1, n2 in AUDIO]       # AT step: audio tower, B = 50 (no multiple of 128)
 )
 
 

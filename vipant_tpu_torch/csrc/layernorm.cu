@@ -25,10 +25,11 @@
 // stays in registers), all issued before any arithmetic, and the warp's next
 // row is loaded while this one is reduced and written. The statistics come
 // from the registers through rows.cuh's `warp_row_stats`, shuffles only: no
-// shared memory, no barrier. Rounding order as `_ln_fwd`: fp32 two-pass
-// statistics, eps before rsqrt, the affine result rounded to bf16 once; only
-// the summation order of the two means differs from a serial sum, and it is
-// fixed (each lane in order, then an xor butterfly). w and b are read as
+// shared memory, no barrier. Rounding order as `_ln_fwd`: two-pass
+// statistics, eps before the square root, the affine result rounded to bf16
+// once; the statistics are summed in float64 in a fixed order (each lane in
+// order, then an xor butterfly) and rounded to fp32 once, so they are the
+// plain version's (rows.cuh says when they could differ). w and b are read as
 // float4 once per warp and kept in registers across the rows it walks. The
 // grid is persistent: as many 4-warp blocks as the card holds at once (or
 // fewer, for fewer rows), each warp walking rows with the grid's stride. The

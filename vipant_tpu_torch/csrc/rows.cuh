@@ -1,7 +1,8 @@
 // Row-wise helpers shared by layernorm.cu and quant.cu, whose kernels give
-// each row one warp that holds it in registers: the fp32 LayerNorm
-// statistics of the row, the normalised value of one element, the row's
-// maximum magnitude, and the grid a persistent kernel launches.
+// each row one warp that holds it in registers: the LayerNorm statistics of
+// the row (taken in float64, rounded once to fp32), the normalised value of
+// one element, the row's maximum magnitude, and the grid a persistent kernel
+// launches.
 //
 // A row of C bf16 values (C % 8 == 0, C <= kMaxC, its start 16-byte aligned)
 // is read as C / 8 vectors of 16 bytes: lane l of a warp takes vectors l,
@@ -13,8 +14,16 @@
 // in IEEE arithmetic), so all 32 lanes end with the same bits, and so does
 // every warp of every kernel that calls it on the same row: layernorm_bwd's
 // xhat is the forward's, and layernorm_rowquant is bitwise
-// rowquant(layernorm_fwd(x)). The arithmetic is written with the `__f*_rn`
-// intrinsics so no inlining context can contract it differently.
+// rowquant(layernorm_fwd(x)). The sums run in float64: the sum of a row of
+// bf16 values is then exact in any order (while its values span less than
+// 2^34 in magnitude), so the fp32 mean is the plain version's
+// (kernels._ln_stats) bit for bit, and the sums of squares of two orders
+// differ by float64 ulps, which the rounding of rstd to fp32 hides unless
+// they straddle one of its boundaries. Without that, a one-ulp difference of
+// an fp32 statistic can round a normalised value to the neighbouring bf16,
+// and where that value is its row's largest, move the row's int8 scale and
+// most of its codes. The arithmetic is written with the `__f*_rn` and
+// `__d*_rn` intrinsics so no inlining context can contract it differently.
 
 #pragma once
 
@@ -91,52 +100,62 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// s plus the 8 values of the vector v, in order
-__device__ __forceinline__ float add_vec(float s, const uint4& v) {
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __dadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// s plus the 8 values of the vector v, in order, in float64
+__device__ __forceinline__ double add_vec(double s, const uint4& v) {
   float f[8];
   unpack8(v, f);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) s = __fadd_rn(s, f[k]);
+  for (int k = 0; k < 8; ++k) s = __dadd_rn(s, static_cast<double>(f[k]));
   return s;
 }
 
-// q plus the squared deviations from mu of the 8 values of v, in order
-__device__ __forceinline__ float add_sqdev(float q, const uint4& v, float mu) {
+// q plus the squared deviations from mu of the 8 values of v, in order, in float64
+// (each square rounded, then added: the plain version's (d * d).sum())
+__device__ __forceinline__ double add_sqdev(double q, const uint4& v, double mu) {
   float f[8];
   unpack8(v, f);
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const float d = __fsub_rn(f[k], mu);
-    q = __fmaf_rn(d, d, q);
+    const double d = __dsub_rn(static_cast<double>(f[k]), mu);
+    q = __dadd_rn(q, __dmul_rn(d, d));
   }
   return q;
 }
 
-// the mean of a row from the lanes' sums; rstd from the lanes' sums of squared deviations
-__device__ __forceinline__ float row_mean(float s, int C) {
-  return __fdiv_rn(warp_sum(s), static_cast<float>(C));
+// the fp32 mean of a row from the lanes' float64 sums; rstd = 1 / sqrt(var + eps), correctly
+// rounded in float64 and then to fp32, from the lanes' sums of squared deviations
+__device__ __forceinline__ float row_mean(double s, int C) {
+  return __double2float_rn(__ddiv_rn(warp_sum(s), static_cast<double>(C)));
 }
 
-__device__ __forceinline__ float row_rstd(float q, int C, float eps) {
-  return rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q), static_cast<float>(C)), eps));
+__device__ __forceinline__ float row_rstd(double q, int C, float eps) {
+  const double var = __ddiv_rn(warp_sum(q), static_cast<double>(C));
+  return __double2float_rn(__drcp_rn(__dsqrt_rn(__dadd_rn(var, static_cast<double>(eps)))));
 }
 
-// (mean, rstd) of the row this warp holds in `v` (load_row), fp32 and
-// two-pass: the mean, then the mean of squared deviations; eps is added
-// before rsqrt (the order of the Pallas kernels' `_ln_fwd`). The same bits
-// in every lane, for every kVecs that holds the row.
+// (mean, rstd) of the row this warp holds in `v` (load_row), two-pass: the
+// mean, then the mean of squared deviations from the fp32 mean; eps is
+// added before the square root (the order of the Pallas kernels' `_ln_fwd`,
+// whose sums are fp32). The same bits in every lane, for every kVecs that
+// holds the row.
 template <int kVecs>
 __device__ __forceinline__ float2 warp_row_stats(const uint4 (&v)[kVecs], int C, int lane, float eps) {
   const int nv = C >> 3;
-  float s = 0.f;
+  double s = 0.0;
 #pragma unroll
   for (int i = 0; i < kVecs; ++i)
     if (lane + 32 * i < nv) s = add_vec(s, v[i]);
   const float mu = row_mean(s, C);
-  float q = 0.f;
+  double q = 0.0;
 #pragma unroll
   for (int i = 0; i < kVecs; ++i)
-    if (lane + 32 * i < nv) q = add_sqdev(q, v[i], mu);
+    if (lane + 32 * i < nv) q = add_sqdev(q, v[i], static_cast<double>(mu));
   return make_float2(mu, row_rstd(q, C, eps));
 }
 

@@ -75,6 +75,9 @@ class CLAP(nn.Module):
     def encode_text(self, text, train: bool = False):
         return _encode(self.text, text, train)
 
+    def features(self, audios, text, train: bool = False):
+        return self.encode_audio(audios, train), self.encode_text(text, train)
+
     def forward_retrieval(self, audios, text, train: bool = True):
         a = self.encode_audio(audios, train)
         t = self.encode_text(text, train)

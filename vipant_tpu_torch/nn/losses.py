@@ -80,7 +80,8 @@ class LMLossHead(nn.Module):
         logits = logits.float()
         if self.logit_scale is not None:
             logits = torch.exp(self.logit_scale.float()) * logits
-        nll = F.cross_entropy(logits.flatten(0, -2), targets.flatten(), reduction="none")
+        # token ids come as int32 from the loader; the loss takes int64 class indices
+        nll = F.cross_entropy(logits.flatten(0, -2), targets.flatten().long(), reduction="none")
         mask = (targets.flatten() != 0).float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 

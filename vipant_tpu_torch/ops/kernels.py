@@ -108,11 +108,22 @@ def acc(t: torch.Tensor) -> torch.Tensor:
 
 
 def _ln_stats(x: torch.Tensor, eps: float = LN_EPS):
-    """(xhat, rstd) of the fp32-island LayerNorm, in the accumulation dtype."""
-    x32 = acc(x)
-    xc = x32 - x32.mean(dim=-1, keepdim=True)
-    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
-    return xc * rstd, rstd
+    """(xhat, rstd) of the fp32-island LayerNorm, in the accumulation dtype.
+    The statistics are taken in float64 and rounded once to that dtype, as
+    the kernels' ``rows.cuh`` takes them: the mean is the row's float64 sum
+    over C, which for bf16 values is exact in any order (while the row's
+    values span less than 2^34 in magnitude), the variance is about that
+    rounded mean, and rstd = 1 / sqrt(var + eps) with eps as an fp32 value.
+    The sums of squares of two orders differ by float64 ulps, so a kernel's
+    mean and rstd are this version's unless its float64 rstd lies within
+    those ulps of a rounding boundary of the dtype."""
+    x32, x64, C = acc(x), x.double(), x.shape[-1]
+    mu = (x64.sum(dim=-1, keepdim=True) / C).to(x32.dtype)
+    d = x64 - mu.double()
+    var = (d * d).sum(dim=-1, keepdim=True) / C
+    eps32 = torch.tensor(eps, dtype=torch.float32).item()
+    rstd = (1.0 / torch.sqrt(var + eps32)).to(x32.dtype)
+    return (x32 - mu) * rstd, rstd
 
 
 def layernorm_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -147,8 +158,7 @@ def layernorm_bwd_ordered(x: torch.Tensor, w: torch.Tensor, dh: torch.Tensor,
     rows in order, the ``LN_BWD_WARPS`` warps of a block are added in order
     into its partial row, and the partial rows are summed as
     :func:`colsum_ordered` sums an fp32 matrix. The kernel's db equals it
-    bitwise (its dw only within fp32 rounding: its xhat takes a hardware
-    rsqrt)."""
+    bitwise (its dw only within fp32 rounding)."""
     C = x.shape[-1]
     dx, _, _ = layernorm_bwd_plain(x, w, dh, residual)
     xhat, _ = _ln_stats(x)
@@ -458,8 +468,9 @@ def _ln_width(C: int) -> None:
 
 
 def layernorm_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """LayerNorm over the last dim with fp32 statistics (eps 1e-5); the
-    affine result is rounded once to ``x.dtype``. w, b: [C] fp32. On CUDA
+    """LayerNorm over the last dim with fp32 statistics, taken in float64
+    as :func:`layernorm_plain` takes them (eps 1e-5); the affine result is
+    rounded once to ``x.dtype``. w, b: [C] fp32. On CUDA
     C % 8 == 0, C <= 2048 and x, w, b 16-byte aligned."""
     if not x.is_cuda:
         return layernorm_plain(x, w, b)

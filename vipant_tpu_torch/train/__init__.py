@@ -1,9 +1,11 @@
-"""Training: the train state, the training and eval steps, checkpoints and
-the one-device trainer with its epoch loop."""
+"""Training: the train state, the training and eval steps, checkpoints, the
+one-device trainer with its epoch loop and the monitors built on it
+(``build_monitor`` picks one by ``cfg.monitor``)."""
 
+from .monitors import LATrainer
 from .state import TrainState
 from .step import apply_gradients, eval_step, loss_and_grads, train_step
-from .trainer import Trainer, build_monitor
+from .trainer import MONITORS, Trainer, build_monitor, register_monitor
 
-__all__ = ["TrainState", "Trainer", "apply_gradients", "build_monitor", "eval_step",
-           "loss_and_grads", "train_step"]
+__all__ = ["LATrainer", "MONITORS", "TrainState", "Trainer", "apply_gradients", "build_monitor",
+           "eval_step", "loss_and_grads", "register_monitor", "train_step"]

@@ -15,6 +15,7 @@ Counterpart of ``vipant_tpu/ckpt/orbax_io.py:68-160,327-377``. A save writes
   did not finish, never loaded and pruned at the next save.
 
 :func:`load_checkpoint` restores every tensor bitwise, the step and the RNG.
+:func:`extract_model_files` reads the step directories a training log names.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import json
 import os
 import re
 import shutil
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -100,3 +101,12 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
     state.step = int(sd["step"])
     return state
 
+
+def extract_model_files(log_path: str) -> List[str]:
+    """The step directories a training log names, in its order: the lines
+    ``saving the checkpoint to <path>`` that :meth:`..trainer.Trainer.save`
+    logs (the reference's repeated eval reads the log as a manifest,
+    `reference/cvap/model/helper.py:65-77`)."""
+    pat = re.compile(r"saving the checkpoint to (\S+)")
+    with open(log_path) as f:
+        return [m.group(1) for m in map(pat.search, f) if m]

@@ -1,6 +1,8 @@
 """The trainer on one device: VA pre-training (CVAP) from a JSONL index
 with its epoch loop, save-time eval and checkpoints; and the training step
-alone for VA, audio-text retrieval and audio captioning (CLAP).
+alone for VA, audio-text retrieval and audio captioning (CLAP). It is the
+base of the other monitors (:mod:`.monitors`: ``LAMonitor``), which
+:func:`build_monitor` picks by ``cfg.monitor``.
 
 Counterpart of ``vipant_tpu/train/trainer.py:Trainer`` (the ``VAMonitor``):
 config -> data loaders (:mod:`..data`: host workers decode the wav and the
@@ -12,12 +14,13 @@ model with seeded random weights -> trainable/frozen split
 the loss peeped every ``peep_rate`` steps (``halt_on_nan``,
 ``metrics_jsonl``), a save and a retrieval eval every ``save_rate`` steps,
 at the end of warmup and at the schedule's milestones (non-LARS) and at
-each epoch's end (``save_epoch``), and a ``torch.profiler`` window
-(``profile``). Checkpoints are ``torch.save`` step directories
-(:mod:`.checkpoint`); ``model_file=<step dir>`` resumes from one exactly,
-mid-epoch too: the restored step fast-forwards the deterministic epoch order
-to its batch. ``eval=True`` runs the retrieval eval alone,
-``running.audio.eval_norms`` the fbank-statistics job.
+each epoch's end (``save_epoch``), each gated on the step's loss by
+:meth:`Trainer.mid_train_eval_ok` (always open here), and a
+``torch.profiler`` window (``profile``). Checkpoints are ``torch.save``
+step directories (:mod:`.checkpoint`); ``model_file=<step dir>`` resumes
+from one exactly, mid-epoch too: the restored step fast-forwards the
+deterministic epoch order to its batch. ``eval=True`` runs the retrieval
+eval alone, ``running.audio.eval_norms`` the fbank-statistics job.
 
 A trainer built with an explicit ``steps_per_epoch`` reads no data: its
 caller drives :meth:`Trainer.train_step` on batches it provides, as
@@ -32,15 +35,16 @@ the frozen image tower on the forward-only int8 kernels.
 
 Not ported yet, and refused when asked for (ROADMAP.md's queue A names the
 item that ports each): CLIP and reference ``.pth`` weights, ``export_pth``
-and ``async_ckpt`` (A7); the on-device frontend (A8); CLAP's epoch loop and
-the other monitors (A10, A11, A12); the gradient cache, ZeRO and every mesh
-axis beyond one device (A15).
+and ``async_ckpt`` (A7); the on-device frontend (A8); the monitors other
+than ``VAMonitor`` and ``LAMonitor`` (A11, A12); the gradient cache, ZeRO
+and every mesh axis beyond one device (A15).
 
 Usage::
 
     from vipant_tpu_torch.train import Trainer
     Trainer([...overrides..., "worker=CVAP", "eval=False",
              "running.data_root=/data/va", "running.data_name=train"]).learn()  # on the card
+    build_monitor([...overrides..., "monitor=LAMonitor", "platform=cpu"]).learn()  # on the CPU
     tr = Trainer([...overrides...], steps_per_epoch=1000)   # no data: the step alone
     metrics = tr.train_step(*tr.make_batch(images_np, audios_np))   # {"loss", "grad_norm", "lr"}
 """
@@ -68,22 +72,34 @@ from .checkpoint import load_checkpoint, save_checkpoint
 from .state import TrainState
 from .step import eval_step, train_step
 
+MONITORS: Dict[str, type] = {}
 # the JAX package's other monitors -> the ROADMAP.md queue-A item that ports them
-_UNPORTED_MONITORS = {"LAMonitor": "A10", "ASMonitor": "A11", "ESCMonitor": "A11",
-                      "VALMonitor": "A12", "VASMonitor": "A12"}
+_UNPORTED_MONITORS = {"ASMonitor": "A11", "ESCMonitor": "A11", "VALMonitor": "A12",
+                      "VASMonitor": "A12"}
 _LOGGER = "vipant_tpu_torch"
 
 
+def register_monitor(*names):
+    def deco(cls):
+        for n in names:
+            MONITORS[n] = cls
+        return cls
+    return deco
+
+
 def build_monitor(cfg, **kw):
-    """``cfg.monitor`` -> its trainer: ``VAMonitor`` is :class:`Trainer`;
-    the others raise, naming the queue item that ports them."""
+    """``cfg.monitor`` -> its trainer (:data:`MONITORS`), on the card unless
+    ``device`` or ``platform=cpu`` asks for the CPU; a monitor not ported
+    yet raises, naming the queue item that ports it."""
     cfg = as_config(cfg)
     name = str(cfg.monitor)
-    if name != "VAMonitor":
+    if name not in MONITORS:
         item = _UNPORTED_MONITORS.get(name)
         raise NotImplementedError(f"monitor {name!r} is not ported yet"
                                   + (f" (ROADMAP.md queue A, {item})" if item else ""))
-    return Trainer(cfg, **kw)
+    if str(cfg.get("platform") or "") == "cpu":
+        kw.setdefault("device", "cpu")
+    return MONITORS[name](cfg, **kw)
 
 
 def _refuse_unported(cfg) -> None:
@@ -92,10 +108,6 @@ def _refuse_unported(cfg) -> None:
         raise NotImplementedError(
             f"model_file {model_file!r}: reference .pth checkpoints are not ported yet "
             "(ROADMAP.md queue A, A7)")
-    if model_file.endswith(".out"):
-        raise NotImplementedError(
-            f"model_file {model_file!r}: evaluating the checkpoints a log names is not ported "
-            "yet (ROADMAP.md queue A, A10)")
     for key in ("async_ckpt", "export_pth"):
         if bool(cfg.get(key, False)):
             raise NotImplementedError(f"{key} is not ported yet (ROADMAP.md queue A, A7)")
@@ -121,6 +133,7 @@ class Trainer:
     epoch length; else the training loader's length sets it."""
 
     batch_keys: Tuple[str, ...] = ("image", "audio")
+    reads_worker: Optional[str] = "CVAP"  # the worker whose data this monitor reads; None: any
 
     def __init__(self, cfg: Union[Config, Sequence[str]], device: Union[str, torch.device] = "cuda",
                  steps_per_epoch: Optional[int] = None):
@@ -133,6 +146,8 @@ class Trainer:
         self.timer = PhaseTimer()
         self.eval_mode = bool(self.cfg.get("eval", False))
         self.global_step = 0
+        self.testloader = None  # monitors with a test split set it in build_data (LATrainer)
+        self._last_metrics = None  # the last step's, for the gate of the epoch-end eval
         self._profiler = None  # the ``profile`` window, open across epochs
         self.run_id = f"{int(time.time())}-{os.getpid()}"  # metrics.jsonl rows
 
@@ -147,26 +162,30 @@ class Trainer:
 
     # ------------------------------------------------------------------ data
     def build_data(self, steps_per_epoch: Optional[int] = None) -> None:
-        """The training loader (a training run of CVAP: ``eval=False`` and
+        """The training loader (a training run: ``eval=False`` and
         ``running.data_name``), placing batches through pinned memory; the
         eval loader (``running.eval_name``), built here for a training run
-        and at first use otherwise. None of either with ``steps_per_epoch``."""
+        and at first use otherwise. None of either with ``steps_per_epoch``,
+        nor for a worker whose data this monitor does not read (the VA
+        trainer reads CVAP's)."""
         run = self.cfg.get("running", Config({}))
-        self._reads_data = steps_per_epoch is None and self.cfg.worker == "CVAP"
+        self._reads_data = steps_per_epoch is None and self.reads_worker in (None, self.cfg.worker)
         self.loader = self._evalloader = self.device_put = None
         if self._reads_data and not self.eval_mode and run.get("data_name"):
             self.device_put = PinnedDevicePut(self.batch_keys, self.device)
-            self.loader = build_image_audio_dataloader(
-                self.cfg, str(run.data_name), True, device_put_fn=self.device_put)
+            self.loader = self.build_loader(str(run.data_name), True, device_put_fn=self.device_put)
             self._evalloader = self._build_evalloader()  # fails here, not at the first save
         self.steps_per_epoch = len(self.loader) if self.loader is not None else max(
             int(steps_per_epoch or 1), 1)
+
+    def build_loader(self, data_name: str, train: bool, device_put_fn=None):
+        return build_image_audio_dataloader(self.cfg, data_name, train, device_put_fn=device_put_fn)
 
     def _build_evalloader(self):
         run = self.cfg.get("running", Config({}))
         if not (self._reads_data and run.get("eval_name")):
             return None
-        return build_image_audio_dataloader(self.cfg, str(run.eval_name), False)
+        return self.build_loader(str(run.eval_name), False)
 
     @property
     def evalloader(self):
@@ -176,7 +195,7 @@ class Trainer:
 
     def close(self) -> None:
         """Stop the loaders' worker processes (they start again when needed)."""
-        for loader in (self.loader, self._evalloader):
+        for loader in (self.loader, self._evalloader, self.testloader):
             if loader is not None:
                 loader.shutdown()
 
@@ -200,7 +219,7 @@ class Trainer:
         ``model_root/model_name``, or None; a configured but missing one
         raises rather than train from random weights."""
         model_file = str(self.cfg.get("model_file", "") or "")
-        if not model_file:
+        if not model_file or model_file.endswith(".out"):  # a log names checkpoints (LAMonitor)
             return None
         path = os.path.join(run_root(self.cfg.model_root), str(self.cfg.model_name), model_file)
         if not os.path.isdir(path):
@@ -235,45 +254,49 @@ class Trainer:
 
     # ---------------------------------------------------------------- learn
     def learn(self):
-        """The job the config asks for: the fbank-statistics job
-        (``running.audio.eval_norms``), the retrieval eval (``eval=True``),
-        or training over ``running.epochs`` from the training loader."""
-        run = self.cfg.running
-        if self.cfg.worker != "CVAP":
-            raise NotImplementedError(f"the epoch loop of worker {self.cfg.worker!r} is not ported "
-                                      "yet (ROADMAP.md queue A, A10)")
+        """Run :meth:`job` with the log written to ``{out_dir}/train_0.out``,
+        then stop the loaders' workers."""
         self.echo = setup_logger(self.out_dir, verbose=bool(self.cfg.get("verbose", False)),
                                  name=_LOGGER)
         try:
-            if "audio" in run and bool(run.audio.get("eval_norms", False)):
-                # (parity: `reference/cvap/monitor/cvap.py:43-65`)
-                return self.eval_norms(self.evalloader or self.loader)
-            if self.eval_mode:
-                if self.evalloader is None:
-                    raise ValueError("eval=True evaluates running.eval_name, which is unset")
-                report = self.infer(self.evalloader, samples=self._samples_cap("eval_samples"))
-                self.echo.info(report)
-                return report
-            if self.loader is None:
-                raise ValueError(
-                    "learn() trains from running.data_name (with eval=False and no "
-                    "steps_per_epoch given); this trainer has no training loader")
-            epochs = int(run.epochs)
-            # mid-epoch exact resume: the restored global_step fast-forwards to
-            # the right epoch and batch offset of the deterministic epoch order
-            start_epoch, skip = divmod(self.global_step, self.steps_per_epoch)
-            if skip and start_epoch < epochs:
-                self.echo.info(f"resuming mid-epoch: epoch {start_epoch}, skipping {skip} batches")
-            for ie in range(start_epoch, epochs):
-                self.loader.set_epoch(ie, start_batch=skip if ie == start_epoch else 0)
-                self.epoch(ie)
-                if bool(run.get("save_epoch", False)):
-                    self.save()
-                    self.mid_train_evals()
+            return self.job()
         finally:
             if self._profiler is not None:  # the window outlasted the run
                 self._end_profile()
             self.close()
+
+    def job(self):
+        """The job the config asks for: the fbank-statistics job
+        (``running.audio.eval_norms``), the retrieval eval (``eval=True``),
+        or training over ``running.epochs`` from the training loader."""
+        run = self.cfg.running
+        if "audio" in run and bool(run.audio.get("eval_norms", False)):
+            # (parity: `reference/cvap/monitor/cvap.py:43-65`)
+            return self.eval_norms(self.evalloader or self.loader)
+        if self.eval_mode:
+            if self.evalloader is None:
+                raise ValueError("eval=True evaluates running.eval_name, which is unset")
+            report = self.infer(self.evalloader, samples=self._samples_cap("eval_samples"))
+            self.echo.info(report)
+            return report
+        if self.loader is None:
+            raise ValueError(
+                "learn() trains from running.data_name (with eval=False and no "
+                "steps_per_epoch given); this trainer has no training loader")
+        epochs = int(run.epochs)
+        # mid-epoch exact resume: the restored global_step fast-forwards to
+        # the right epoch and batch offset of the deterministic epoch order
+        start_epoch, skip = divmod(self.global_step, self.steps_per_epoch)
+        if skip and start_epoch < epochs:
+            self.echo.info(f"resuming mid-epoch: epoch {start_epoch}, skipping {skip} batches")
+        for ie in range(start_epoch, epochs):
+            self.loader.set_epoch(ie, start_batch=skip if ie == start_epoch else 0)
+            self.epoch(ie)
+            if bool(run.get("save_epoch", False)):
+                self.save()
+                # gated on the epoch's last loss, as the save inside the loop
+                last = self._last_metrics
+                self.mid_train_evals(float(last["loss"]) if last is not None else float("-inf"))
 
     def epoch(self, ie: int) -> None:
         run = self.cfg.running
@@ -307,7 +330,7 @@ class Trainer:
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 self._profiler = torch.profiler.profile(activities=activities)
                 self._profiler.start()
-            metrics = train_step(self.state, *args)
+            metrics = self._last_metrics = train_step(self.state, *args)
             self.global_step += 1
             if self._profiler is not None and self.global_step == int(
                     prof.get("start_step", 10)) + int(prof.get("num_steps", 5)):
@@ -341,8 +364,9 @@ class Trainer:
                         }) + "\n")
             force_eval = self.global_step == warmup_done_step or self.global_step in milestone_steps
             if force_eval or (save_rate > 0 and self.global_step % save_rate == 0):
+                loss = float(metrics["loss"])  # the gate's, whether or not peeped this step
                 self.save()
-                self.mid_train_evals()
+                self.mid_train_evals(loss)
             self.timer.start("data")
         self.timer.stop("data")
         self.echo.info(f"epoch {ie} done: {nsample} samples in {time.time() - t_epoch:.1f}s")
@@ -370,12 +394,23 @@ class Trainer:
         v = float(v)
         return v if np.isfinite(v) and v > 0 else None
 
-    def mid_train_evals(self) -> None:
-        """Save-time eval of the eval loader under its sample budget
-        (parity: `reference/cvap/monitor/cvap.py:246-272`); the VA trainer
-        evaluates at every save, whatever the loss."""
+    def mid_train_evals(self, loss: float) -> bool:
+        """Save-time eval of the eval loader under its sample budget when
+        :meth:`mid_train_eval_ok` lets ``loss`` through; a skipped eval is
+        logged. Returns whether it ran (parity:
+        `reference/cvap/monitor/cvap.py:246-272`)."""
+        if not self.mid_train_eval_ok(loss):
+            self.echo.info(f"save-time eval skipped: loss {loss:.3f} above the eval "
+                           "gate (running.eval_loss_bound, see mid_train_eval_ok)")
+            return False
         if self.evalloader is not None:
             self.echo.info(self.infer(self.evalloader, samples=self._samples_cap("eval_samples")))
+        return True
+
+    def mid_train_eval_ok(self, loss: float) -> bool:
+        """Whether the save-time eval runs at this loss: always, for the VA
+        trainer."""
+        return True
 
     def collect_features(self, loader, samples: Optional[float] = None) -> Dict[str, object]:
         """Encode the loader's items (``x1`` image, ``x2`` audio, fp32
@@ -479,3 +514,5 @@ class Trainer:
         self.echo.info(f"fbank norms: mean {mean:.8f} std {std:.8f}")
         return mean, std
 
+
+register_monitor("VAMonitor")(Trainer)
