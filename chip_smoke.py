@@ -211,6 +211,33 @@
    clips/s and data-wait share beside (a)'s step alone, with the card's
    name and power limit; (h) the pinned copy's race check of phase 14 (g) on
    host batches from (g)'s workers (fp32 fbanks and int32 token ids).
+16. The device frontend and serving from files (full width): (a) the port's
+   fbank (``ops/fbank.py``) on a B64 batch of 10.05 s clips against the NumPy
+   Kaldi fbank, the rFFT route within 2e-3 and the DFT route within 5e-3
+   (the JAX tests' bounds), under this process's TF32 setting (off), with
+   device µs of each; (b) SpecAugment on the card bitwise the CPU's for the
+   same uniforms; on a synthetic index as phase 14's, (c)
+   ``Trainer.learn`` with ``running.audio.on_device``, ``wav_int16`` and
+   ``running.image_uint8`` (int16 waveforms and uint8 frames ship; the
+   fbank, SpecAugment and the CLIP normalisation run on the card): 2 epochs
+   of 4 steps and an eval at step 6, finite losses, the audio tower moved by
+   step 2, its launches counted (path ``va_loop_dev``); its steady window
+   over the train split read 4 times (ms per step, clips/s, data-wait
+   share, the card's idle share in a profiled window, bytes shipped per
+   batch) beside phase 14's wav-source window; the audio frontend's own
+   device µs; (d) the npz split shipping ``ship_bf16`` and ``ship_int16``
+   fbanks through the pinned copy: on the card, bf16 bitwise the fp32 batch
+   rounded, int16 within 0.5/256 of it; one training step each; (e)
+   ``embed_audio_files``, ``embed_image_files``, ``zero_shot`` from the files'
+   fbanks and ``caption_files`` (greedy) at batch 4 on the card, then the
+   serving command line (``serve.main``, ``--task embed_audio``) on the same
+   files in bf16 (bitwise the engine's) and ``--quantize int8`` (row cosine
+   >= 0.99 to bf16), their launches counted (path ``serve_files``); against
+   a CPU engine (plain ops, fp32) with the same weights: embeddings and the
+   decoder's first-step logits at row cosine >= 0.999, zero-shot scores
+   within 0.09 (what 0.999 on both factors allows); (f) ``make_server`` over
+   the card's engines: one request per route, each equal to the engine's
+   own call.
 
 Every kernel's time stands beside its bound, the least time the card could
 take for the same work: the larger of the bytes it must move (each input
@@ -236,7 +263,7 @@ max |plain|, since they sum over thousands of rows in another order.
 Prints a JSON line of per-kernel results (``launches`` is the sum of the
 counts read on each main path (``serve``, ``train``, ``serve_int8``,
 ``train_int8_frozen``, ``probe``, ``caption_train``, ``caption_serve``, ``va_loop``,
-``la_loop``), which ``launches_by_path`` gives apart; ``ms``,
+``la_loop``, ``va_loop_dev``, ``serve_files``), which ``launches_by_path`` gives apart; ``ms``,
 ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` are those of the
 kernel's first case, its main-path shape; ``cases`` holds each shape's), then, as the last line, ``{"ok": true, "device": {...}}``.
 Any failure raises (non-zero exit).
@@ -321,7 +348,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                         "experiments/fused_block_probe.py:85"),
 }
 PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
-         "caption_serve", "va_loop", "la_loop")
+         "caption_serve", "va_loop", "la_loop", "va_loop_dev", "serve_files")
 # every product shape the paths give gemm_bias_act: (case, M, N, K, activation, residual, fp32
 # pre-activation). The kernel phase holds each to its plain version; experiments/kernel_times.py
 # times each, parent against change.
@@ -2511,6 +2538,7 @@ def loop_phase(torch, results):
             tr.close()
             alone = cuda_ms(torch, lambda: tr.train_step(*args), 5, 2)
             step6 = results.get("_va_step_ms")
+            results.setdefault("_loop_windows", {})[label] = (ms, clips, share)
             print(f"(f) {label} source, a window of {steps} steps (arrivals 1 to {steps + 1} of "
                   f"{len(series)}): {ms:.2f} ms per step of the loop, {clips:.1f} clips/s, data-wait "
                   f"share {100 * share:.1f} %; the step alone on a loader batch {alone:.2f} ms "
@@ -2823,6 +2851,306 @@ def la_phase(torch, results):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 16: the device frontend (fbank, SpecAugment, shipping formats) and serving from files
+DEV_SHIP = ["running.audio.on_device=True", "running.audio.wav_int16=True", "running.image_uint8=True"]
+LOOP_DEV_REPEAT = 4  # (c)'s timed index: the train split read 4 times, 16 steps
+FBANK_TOL = {"rfft": 2e-3, "dft": 5e-3}  # max |d| of the log-mel against fbank_np (the JAX tests' bounds)
+SCORE_TOL = 0.09  # zero-shot scores: |a.t - a'.t'| <= |a - a'| + |t - t'|, each <= sqrt(2 (1 - COS_MIN))
+SERVE_FILES = 6
+
+
+def _clip_batch(B, seconds, seed=0):
+    """B seeded tone-plus-noise clips [B, N] fp32, as write_synthetic_va's."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(round(seconds * 16000))) / 16000
+    return np.stack([(0.4 * np.sin(2 * np.pi * (200 + 7 * i) * t)
+                      + 0.01 * rng.standard_normal(len(t))).astype(np.float32) for i in range(B)])
+
+
+def _post_json(url, data, ctype="application/json"):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read())
+
+
+def frontend_phase(torch, results):
+    import base64
+    import glob
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from vipant_tpu_torch.config import compose
+    from vipant_tpu_torch.data import build_image_audio_dataloader
+    from vipant_tpu_torch.data.device_put import PinnedDevicePut
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.ops.fbank import fbank
+    from vipant_tpu_torch.ops.fbank_np import FbankParams, fbank as fbank_np
+    from vipant_tpu_torch.ops.specaugment import axis_uniforms, freq_mask, time_mask
+    from vipant_tpu_torch.serve import InferenceEngine, main as serve_main, make_server
+
+    smi = _smi()
+    # (a) the fbank on the card: a B64 batch of 10.05 s clips against the NumPy Kaldi fbank
+    wav = _clip_batch(LOOP_B, 10.05)
+    host = np.stack([fbank_np(w) for w in wav])
+    wav_d = torch.from_numpy(wav).cuda()
+    print(f"(a) TF32 in this process: matmul {torch.backends.cuda.matmul.allow_tf32}, float32 matmul "
+          f"precision {torch.get_float32_matmul_precision()!r}; a batch of {LOOP_B} x {wav.shape[1]} "
+          f"samples, {host.shape[1]} frames")
+    for route in ("rfft", "dft"):
+        fn = lambda: fbank(wav_d, FbankParams(), use_dft=route == "dft")
+        got = fn()
+        torch.cuda.synchronize()
+        err = float(np.abs(got.cpu().numpy() - host).max())
+        us = device_us(torch, fn)
+        print(f"(a) fbank {route}: max |d| against fbank_np {err:.3e} (bound {FBANK_TOL[route]}); "
+              f"device_us {'not measured' if us is None else '%.1f' % us}; loop {cuda_ms(torch, fn, 10, 2):.3f} ms")
+        if got.shape != host.shape or not err < FBANK_TOL[route]:
+            raise AssertionError(f"the device fbank ({route}) disagrees with fbank_np: {err}")
+    del got, wav_d
+
+    # (b) SpecAugment on the card: bitwise the CPU's for the same uniforms
+    feats = torch.from_numpy(host[:, :1000]).contiguous()
+    u = [axis_uniforms(torch.Generator().manual_seed(s), LOOP_B) for s in (1, 2)]
+    on_cpu = time_mask(freq_mask(feats, 32, u[0]), 200, u[1])
+    on_card = time_mask(freq_mask(feats.cuda(), 32, tuple(x.cuda() for x in u[0])), 200,
+                        tuple(x.cuda() for x in u[1]))
+    masked = float((on_cpu != feats).float().mean())
+    print(f"(b) SpecAugment (32, 200) on [{LOOP_B}, 1000, 128]: card bitwise the CPU "
+          f"{torch.equal(on_card.cpu(), on_cpu)}, {100 * masked:.1f} % of the values masked")
+    if not torch.equal(on_card.cpu(), on_cpu) or masked == 0:
+        raise AssertionError("SpecAugment on the card differs from the CPU's, or masks nothing")
+    del feats, on_cpu, on_card
+
+    root = tempfile.mkdtemp(prefix="vipant_frontend_")
+    workers = min(8, os.cpu_count() or 1)
+    try:
+        t0 = time.perf_counter()
+        write_synthetic_va(root, "train", LOOP_TRAIN, npz_name="npz_train", seed=0)
+        write_synthetic_va(root, "val", LOOP_EVAL, seed=1)
+        print(f"synthetic index ({LOOP_TRAIN} + {LOOP_EVAL} clips of {LOOP_SECONDS:.0f} s, JPEG frames, "
+              f"the npz twin) written in {time.perf_counter() - t0:.1f} s")
+
+        # (c) the VA loop on the device frontend: int16 waveforms and uint8 frames ship
+        run = os.path.join(root, "run")
+        a = _loop_trainer(torch, root, run, *DEV_SHIP, "running.save_epoch=False")
+        if not (a.on_device_audio and a.image_uint8):
+            raise AssertionError("the trainer did not take the device frontend")
+        init = {k: p.detach().clone() for k, p in a.trainable.items() if k.startswith("audio.")}
+        moved, apply = {}, a.state.optimizer.apply
+
+        def apply_and_look(grads):
+            out = apply(grads)
+            if a.state.optimizer.count == 2:
+                moved.update({k: not torch.equal(a.trainable[k], p) for k, p in init.items()})
+            return out
+
+        a.state.optimizer.apply = apply_and_look
+        t0 = time.perf_counter()
+        reset_launches()
+        a.learn()
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        record_launches(results, "va_loop_dev", counts)
+        losses = _loop_losses(a)
+        print(f"(c) {a.global_step} steps (2 epochs of {a.steps_per_epoch}) and an eval at step 6 on the "
+              f"device frontend in {time.perf_counter() - t0:.1f} s; losses {[round(v, 5) for v in losses]}; "
+              f"{sum(moved.values())} of {len(moved)} audio params moved by step 2; launches "
+              f"{json.dumps(counts, sort_keys=True)}")
+        if len(losses) != 8 or not np.isfinite(losses).all() or not any(moved.values()):
+            raise AssertionError("the device-frontend loop: non-finite loss, missing steps, or the "
+                                 "audio tower did not move")
+        del a, init
+        torch.cuda.empty_cache()
+
+        # (c) its steady window over the train split read LOOP_DEV_REPEAT times, a profiled epoch after
+        with open(os.path.join(root, "train.jsonl")) as f, \
+                open(os.path.join(root, "train_long.jsonl"), "w") as g:
+            g.writelines(f.readlines() * LOOP_DEV_REPEAT)
+        n = LOOP_TRAIN * LOOP_DEV_REPEAT // LOOP_B
+        prof_dir = os.path.join(root, "prof")
+        tr = _loop_trainer(torch, root, os.path.join(root, "long"), *DEV_SHIP,
+                           "running.data_name=train_long", "running.eval_name=",
+                           "running.save_epoch=False", "running.save_rate=1000000000",
+                           "profile.alive=True", f"profile.dir={prof_dir}",
+                           f"profile.start_step={n + 3}", "profile.num_steps=2")
+        tail = 2 * tr.loader.prefetch + 2
+        ms, clips, share, steps, series = _timed_epoch(torch, tr, 0, tail)
+        print(f"(c) each step's (wait for the batch, train_step call) ms: {series}")
+        tr.loader.set_epoch(1)
+        tr.epoch(1)
+        span, busy, threads = _trace_window(os.path.join(prof_dir, f"trace_{n + 5:08d}.json"))
+        batch = next(iter(tr.loader))
+        shipped = sum(batch[k].numel() * batch[k].element_size() for k in ("image", "audio"))
+        alen = batch["audio_len"]
+        args = tr.device_put.wait(batch)
+        tr.close()
+        alone = cuda_ms(torch, lambda: tr.train_step(*args, audio_len=alen), 5, 2)
+        fp32_bytes = LOOP_B * (3 * 224 * 224 + 1000 * 128) * 4
+        wav_window = results.get("_loop_windows", {}).get("wav")
+        step6 = results.get("_va_step_ms")
+        print(f"(c) device frontend, a window of {steps} steps: {ms:.2f} ms per step of the loop, "
+              f"{clips:.1f} clips/s, data-wait share {100 * share:.1f} %; the card idle "
+              f"{100 * (1 - busy / span):.1f} % of a profiled window of steps {n + 3} to {n + 5} "
+              f"(span {span:.2f} ms, busy {busy:.2f} ms); bytes shipped per batch {shipped / 1e6:.2f} MB "
+              f"(int16 waveforms + uint8 frames; fp32 fbanks + fp32 frames: {fp32_bytes / 1e6:.2f} MB); "
+              f"the step alone with its frontend {alone:.2f} ms; phase 14's wav-source window "
+              + ("%.2f ms per step, %.1f clips/s, data-wait %.1f %%" % (wav_window[0], wav_window[1],
+                                                                       100 * wav_window[2])
+                 if wav_window else "not run")
+              + f"; phase 6's step alone {'%.2f ms' % step6 if step6 else 'not run'}; {smi}")
+        # the frontend's own device time on this batch: waveform -> normalised fbank + SpecAugment
+        wav16 = args[1]
+        fe_us = device_us(torch, lambda: tr._frontend_audio(wav16, True, alen))
+        print(f"(c) the audio frontend alone on a B{LOOP_B} int16 batch (rescale, fbank, pad, "
+              f"SpecAugment): device_us {'not measured' if fe_us is None else '%.1f' % fe_us}")
+        del tr, args, batch
+        torch.cuda.empty_cache()
+
+        # (d) the npz split shipping bf16 and int16 fbanks: the device batch against the fp32 one
+        def device_batch(*extra):
+            cfg = compose(FLAGSHIP + [f"running.data_root={root}", f"running.batch_size={LOOP_B}",
+                                      "loader_backend=thread", f"num_proc={workers}", *extra])
+            put = PinnedDevicePut(("image", "audio"))
+            loader = build_image_audio_dataloader(cfg, "npz_train", False, device_put_fn=put)
+            batch = next(iter(loader))
+            return put.wait(batch)
+
+        ref = device_batch()
+        for fmt in ("ship_bf16", "ship_int16"):
+            flags = [f"running.audio.{fmt}=True"]
+            args = device_batch(*flags)
+            tr = _trainer(torch, LOOP_B, *flags)
+            got = tr._frontend_audio(args[1], False)
+            if fmt == "ship_bf16":
+                ok = args[1].dtype == torch.uint16 and torch.equal(got, ref[1].to(torch.bfloat16).float())
+                err = float((got - ref[1]).abs().max())
+            else:
+                err = float((got - ref[1]).abs().max())
+                ok = args[1].dtype == torch.int16 and err <= 0.5 / 256
+            loss = float(tr.train_step(*args)["loss"])
+            print(f"(d) npz {fmt}: ships {args[1].dtype} {tuple(args[1].shape)} "
+                  f"({args[1].numel() * args[1].element_size() / 1e6:.2f} MB against "
+                  f"{ref[1].numel() * 4 / 1e6:.2f} MB fp32); on the card against the fp32 batch max |d| "
+                  f"{err:.3e} ({'bitwise its bf16 rounding' if fmt == 'ship_bf16' else 'bound 0.5/256'}): "
+                  f"{ok}; one training step, loss {loss:.5f}")
+            if not ok or not np.isfinite(loss):
+                raise AssertionError(f"npz {fmt}: the device batch disagrees, or the step failed")
+            del tr, args, got
+            torch.cuda.empty_cache()
+        del ref
+
+        # (e) the engine from files on the card against a CPU engine (plain ops, fp32), same weights
+        wavs = sorted(glob.glob(os.path.join(root, "aclip", "val*.wav")))[:SERVE_FILES]
+        jpgs = sorted(glob.glob(os.path.join(root, "frame", "val*.jpg")))[:SERVE_FILES]
+        engines = {}
+        for kind, cfg in (("clap", CLAP_FULL), ("caption", CAPTION_FULL), ("image", FLAGSHIP)):
+            card = InferenceEngine(cfg, batch_size=BATCH, seed=0)
+            cpu = InferenceEngine(cfg + ["compute_dtype=float32"], batch_size=BATCH, device="cpu")
+            cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+            engines[kind] = (card, cpu)
+        classes = {c: [f"the sound of {c}"] for c in CLASSES}
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = {"audio": engines["clap"][0].embed_audio_files(wavs),
+               "image": engines["image"][0].embed_image_files(jpgs),
+               "zero_shot": engines["clap"][0].zero_shot(engines["clap"][0].fbank_files(wavs), classes),
+               "captions": engines["caption"][0].caption_files(wavs)}
+        # the serving command line on the same files, bf16 and int8: its engine is seeded as the one above
+        clips = os.path.join(root, "clips")
+        os.makedirs(clips)
+        for w in wavs:
+            os.link(w, os.path.join(clips, os.path.basename(w)))
+        cli = {}
+        for quantize in ("", "int8"):
+            npz = os.path.join(root, f"cli{quantize}.npz")
+            serve_main(["--task", "embed_audio", "--inputs", os.path.join(clips, "*.wav"), "--output", npz,
+                        "--batch_size", str(BATCH), "--quantize", quantize, "--", *CLAP_FULL])
+            cli[quantize or "bf16"] = np.load(npz)["embeddings"]
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        record_launches(results, "serve_files", counts)
+        print(f"(e) on the card: embed_audio_files, embed_image_files, zero_shot and caption_files "
+              f"(greedy) of {len(wavs)} files at batch {BATCH}, then `python -m vipant_tpu_torch.serve "
+              f"--task embed_audio` on them in bf16 and int8, in {time.perf_counter() - t0:.2f} s; "
+              f"launches {json.dumps(counts, sort_keys=True)}")
+        cli_cos = float(_row_cos(cli["int8"], cli["bf16"]).min())
+        print(f"(e) the command line: bf16 embeddings bitwise the engine's "
+              f"{np.array_equal(cli['bf16'], out['audio'])}; int8 against bf16 min row cosine {cli_cos:.6f}")
+        if not np.array_equal(cli["bf16"], out["audio"]) or cli_cos < 0.99:
+            raise AssertionError(f"the serving command line disagrees with the engine: int8 cosine {cli_cos}")
+        want = {"audio": engines["clap"][1].embed_audio_files(wavs),
+                "image": engines["image"][1].embed_image_files(jpgs),
+                "zero_shot": engines["clap"][1].zero_shot(engines["clap"][1].fbank_files(wavs), classes),
+                "captions": engines["caption"][1].caption_files(wavs)}
+        fb = engines["caption"][0].fbank_files(wavs[:BATCH])
+        with torch.inference_mode():
+            first = [e.model.decode(torch.from_numpy(fb[:, None]).to(e.device))[1][:, 0].float().cpu().numpy()
+                     for e in engines["caption"]]
+        cos = {k: float(_row_cos(out[k], want[k]).min()) for k in ("audio", "image")}
+        cos["caption first-step logits"] = float(_row_cos(*first).min())
+        score_err = float(np.abs(out["zero_shot"]["scores"] - want["zero_shot"]["scores"]).max())
+        same_pred = sum(a == b for a, b in zip(out["zero_shot"]["prediction"], want["zero_shot"]["prediction"]))
+        same_caps = sum(a == b for a, b in zip(out["captions"], want["captions"]))
+        print(f"(e) against the CPU engine (plain ops, fp32): min row cosine {cos}; zero-shot scores max "
+              f"|d| {score_err:.3e} (bound {SCORE_TOL}), {same_pred} of {len(wavs)} predictions equal; "
+              f"{same_caps} of {len(wavs)} greedy captions string-equal; e.g. {out['captions'][0]!r}")
+        if min(cos.values()) < COS_MIN or score_err > SCORE_TOL or len(out["captions"]) != len(wavs):
+            raise AssertionError(f"serving from files on the card disagrees with the CPU engine: {cos}, "
+                                 f"{score_err}")
+
+        # (f) the HTTP server on the card: one request per route, equal to the engine's own calls
+        checks = {}
+        for kind in ("clap", "caption", "image"):
+            eng = engines[kind][0]
+            srv = make_server(eng, port=0)
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{srv.server_address[1]}"
+            try:
+                if kind == "clap":
+                    with urllib.request.urlopen(url + "/health", timeout=60) as r:
+                        checks["/health"] = json.loads(r.read()) == {"ok": True}
+                    _, o = _post_json(url + "/embed_text", json.dumps({"texts": PROMPTS[:2]}).encode())
+                    checks["/embed_text"] = np.allclose(o["embeddings"], eng.embed_texts(PROMPTS[:2]),
+                                                        atol=1e-6)
+                    with open(wavs[0], "rb") as f:
+                        _, o = _post_json(url + "/embed_audio", f.read(), "audio/wav")
+                    checks["/embed_audio"] = np.allclose(o["embeddings"], out["audio"][:1], atol=1e-6)
+                    with open(wavs[1], "rb") as f:
+                        b64 = base64.b64encode(f.read()).decode()
+                    _, o = _post_json(url + "/zero_shot", json.dumps(
+                        {"labels": list(CLASSES), "wav_b64": b64}).encode())
+                    zs = eng.zero_shot(eng.fbank_files(wavs[1:2]), classes)
+                    checks["/zero_shot"] = (o["prediction"] == zs["prediction"]
+                                            and np.allclose(o["scores"], zs["scores"], atol=1e-6))
+                elif kind == "caption":
+                    with open(wavs[0], "rb") as f:
+                        _, o = _post_json(url + "/caption", f.read(), "audio/wav")
+                    checks["/caption"] = o["captions"] == out["captions"][:1]
+                else:
+                    with open(jpgs[0], "rb") as f:
+                        b64 = base64.b64encode(f.read()).decode()
+                    _, o = _post_json(url + "/embed_image", json.dumps({"images_b64": [b64]}).encode())
+                    checks["/embed_image"] = np.allclose(o["embeddings"], out["image"][:1], atol=1e-6)
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(60)
+        print(f"(f) the server on the card, each route against the engine's own call: {checks}")
+        if not all(checks.values()) or len(checks) != 6:
+            raise AssertionError(f"server routes disagree with the engine: {checks}")
+        del engines
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2857,7 +3185,8 @@ def main() -> int:
                          ("captioning training slice (full width, 12 + 12 layers)", caption_train_phase),
                          ("captioning serving slice (InferenceEngine.caption)", caption_serve_phase),
                          ("VA epoch loop (full width)", loop_phase),
-                         ("AT fine-tuning (LAMonitor, full width)", la_phase)):
+                         ("AT fine-tuning (LAMonitor, full width)", la_phase),
+                         ("the device frontend and serving from files (full width)", frontend_phase)):
         t0 = time.perf_counter()
         print(title + ":")
         phase(torch, results)

@@ -201,14 +201,28 @@ def test_workers_hide_the_gpus(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["running.multi_view=True"], "A12"), (["running.audio.ship_bf16=True"], "A8"),
-    (["running.audio.ship_int16=True"], "A8"), (["running.image_uint8=True"], "A8"),
-    (["running.audio.on_device=True"], "A8"), ([], "A11"),
+    (["running.multi_view=True"], "A12"),
+    (["running.audio.on_device=True", "running.audio.dither=1.0"], "dither"),
+    (["running.audio.on_device=True", "running.audio.use_energy=True"], "use_energy"),
+    ([], "A11"),
 ])
 def test_unported_data_options_are_refused(root, extra, item):
     name = "pak_train" if not extra else "train"
     with pytest.raises(NotImplementedError, match=item):
         build_image_audio_dataloader(compose(_overrides(root, *extra)), name, True)
+
+
+@pytest.mark.parametrize("extra,name,flag", [
+    (["running.audio.on_device=True"], "train", "on_device"),
+    (["running.image_uint8=True"], "train", "image_uint8"),
+    (["running.audio.ship_int16=True"], "npz_train", None),
+    (["running.audio.ship_bf16=True"], "npz_train", None),
+])
+def test_the_shipping_formats_are_accepted(root, extra, name, flag):
+    """The device frontend's formats (ported after A8; their parity tests:
+    tests/test_torch_frontend.py)."""
+    loader = build_image_audio_dataloader(compose(_overrides(root, *extra)), name, True)
+    assert flag is None or getattr(loader.dataset, flag)
 
 
 # ------------------------------------------------------------ the two fixes

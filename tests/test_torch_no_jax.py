@@ -2,13 +2,17 @@
 interpreter imports vipant_tpu_torch, runs the tiny serving slice, the tiny
 int8 serving slice, one tiny training step (with an int8 frozen image
 tower too), a tiny captioning step and ``caption`` call (bf16 and int8),
-or ``Trainer.learn`` over two epochs of a synthetic JSONL index (written by
+``Trainer.learn`` over two epochs of a synthetic JSONL index (written by
 ``chip_smoke.write_synthetic_va``) with its checkpoints and a bitwise
-resume, on the CPU, and never imports jax, jaxlib, flax, optax or any
-module of ``vipant_tpu``; the command line ``python -m vipant_tpu_torch
-platform=cpu`` takes an ``LAMonitor`` step where importing any of them
-raises. A scan of the sources holds the same: no import of
-``vipant_tpu`` under ``vipant_tpu_torch/`` or in ``chip_smoke.py``."""
+resume, or an epoch with the device frontend (int16 waveforms, uint8
+frames) followed by the file entry points and a request to the HTTP server,
+on the CPU, and never imports jax, jaxlib, flax, optax or any module of
+``vipant_tpu``; the command lines ``python -m vipant_tpu_torch
+platform=cpu`` (an ``LAMonitor`` step) and ``python -m
+vipant_tpu_torch.serve`` run where importing any of them raises. A scan of
+the sources holds the same: no import of ``vipant_tpu`` under
+``vipant_tpu_torch/`` or in ``chip_smoke.py``. The data layer imports no
+torch (its spawned workers start without it)."""
 
 import os
 import re
@@ -141,6 +145,53 @@ print("ok")
 """
 
 
+FRONTEND_SCRIPT = """
+import glob, json, os, sys, tempfile, threading, urllib.request
+import numpy as np
+import chip_smoke
+from vipant_tpu_torch.serve import InferenceEngine, make_server
+from vipant_tpu_torch.train import Trainer
+
+root = tempfile.mkdtemp()
+chip_smoke.write_synthetic_va(root, "train", 8, seconds=0.8, frame_size=64)
+model = [
+    "+running=bimodal", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=dummy",
+    "+model/loss=ce", "+optimizer=standard", "+running/audio=default",
+    "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=100", "worker=CVAP",
+    "model.image.width=64", "model.image.embed_dim=32", "model.image.encoder.layers=2",
+    "model.image.heads=4",
+]
+tr = Trainer(model + [
+    "optimizer.warmup_epoch=0", f"running.data_root={root}", "running.data_name=train",
+    "running.eval_name=train", "running.batch_size=4", "running.epochs=1", "eval=False",
+    "loader_backend=process", "num_proc=2", f"alias_root={root}/run", f"model_root={root}/run",
+    "model_name=m", "running.audio.on_device=True", "running.audio.wav_int16=True",
+    "running.image_uint8=True"], device="cpu")
+tr.learn()
+assert tr.global_step == 2 and "I->A" in tr.infer(tr.evalloader)
+tr.close()
+eng = InferenceEngine(model, batch_size=4, device="cpu")
+wavs = sorted(glob.glob(os.path.join(root, "aclip", "*.wav")))
+emb = eng.embed_audio_files(wavs)
+assert emb.shape == (8, 32) and eng.embed_image_files(
+    sorted(glob.glob(os.path.join(root, "frame", "*.jpg")))).shape == (8, 32)
+srv = make_server(eng, port=0)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+try:
+    with open(wavs[0], "rb") as f:
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/embed_audio",
+                                     data=f.read(), headers={"Content-Type": "audio/wav"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert np.allclose(json.loads(r.read())["embeddings"], emb[:1], atol=1e-6)
+finally:
+    srv.shutdown()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -155,6 +206,44 @@ def test_port_never_imports_jax():
 
 def test_port_learns_from_an_index_and_resumes_without_jax():
     _run(LEARN_SCRIPT)
+
+
+def test_port_runs_the_device_frontend_and_serves_files_without_jax():
+    _run(FRONTEND_SCRIPT)
+
+
+def test_the_data_layer_imports_no_torch():
+    _run("""
+import sys
+import vipant_tpu_torch.data
+from vipant_tpu_torch.data import audio_text, image_audio, transforms_audio, transforms_image
+from vipant_tpu_torch.ops import fbank_np, mel
+assert "torch" not in sys.modules, "the data layer imported torch"
+print("ok")
+""")
+
+
+def test_serving_cli_runs_without_jax(tmp_path):
+    """``python -m vipant_tpu_torch.serve --task embed_audio ... platform=cpu``
+    where importing jax, jaxlib, flax, optax or vipant_tpu raises."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import numpy as np
+
+    chip_smoke.write_synthetic_va(str(tmp_path / "d"), "train", 3, seconds=0.8, frames=False)
+    blocked = tmp_path / "blocked"
+    for name in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"):
+        (blocked / name).mkdir(parents=True)
+        (blocked / name / "__init__.py").write_text(f"raise ImportError('{name} must not be imported')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(blocked), ROOT]))
+    out = tmp_path / "e.npz"
+    proc = subprocess.run(
+        [sys.executable, "-m", "vipant_tpu_torch.serve", "--task", "embed_audio",
+         "--inputs", str(tmp_path / "d" / "aclip" / "*.wav"), "--output", str(out),
+         "--batch_size", "2", "--", *CLI_ARGS[:21], "running.audio.max_len=100"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert np.load(out)["embeddings"].shape == (3, 32) and "wrote" in proc.stdout
 
 
 def test_port_serves_int8_without_jax():
@@ -250,6 +339,8 @@ def test_no_source_of_the_port_imports_the_jax_package():
     assert len(sources) > 35
     assert any(p.endswith(os.path.join("experiments", "fused_block_probe.py")) for p in sources)
     assert any(p.endswith(os.path.join("nn", "seqgen.py")) for p in sources)
+    for new in (("ops", "fbank.py"), ("ops", "specaugment.py"), ("ops", "frontend.py")):
+        assert any(p.endswith(os.path.join(*new)) for p in sources), new
     for path in sources:
         with open(path) as fh:
             text = fh.read()

@@ -197,9 +197,10 @@ def test_cvap_overfits_eight_pairs_with_adam():
 
 def test_trainer_refuses_what_is_not_ported():
     for extra in (["model_file=x.pth"], ["async_ckpt=True"], ["export_pth=True"],
-                  ["running.multi_view=True"], ["running.audio.ship_bf16=True"],
-                  ["running.image_uint8=True"], ["running.grad_cache.alive=True"],
-                  ["mesh.zero=True"], ["mesh.model=2"]):
+                  ["running.multi_view=True"],
+                  ["running.audio.on_device=True", "running.audio.dither=1.0"],
+                  ["running.audio.on_device=True", "running.audio.use_energy=True"],
+                  ["running.grad_cache.alive=True"], ["mesh.zero=True"], ["mesh.model=2"]):
         with pytest.raises(NotImplementedError):
             Trainer(_cfg("float32", *extra), device="cpu")
     with pytest.raises(FileNotFoundError):  # a configured checkpoint that is not there

@@ -17,7 +17,12 @@ forward and backward through the kernels), optionally with the frozen image
 tower on the int8 kernels (``model.image.int8_frozen``), and its epoch loop
 (``Trainer.learn``: the host data layer of :mod:`.data`, pinned
 host-to-device copies, retrieval eval, ``torch.save`` checkpoints, exact
-resume); and audio captioning.
+resume), with the device frontend (the fbank and SpecAugment on the card
+from shipped int16 waveforms, uint8 frames, int16 / bf16 fbanks); AT
+fine-tuning (``LAMonitor``, ``python -m vipant_tpu_torch``); audio
+captioning; serving from wav and image files, the HTTP server
+(``serve.make_server``) and the serving command line (``python -m
+vipant_tpu_torch.serve``).
 
 Both entry points take ``device="cuda"`` by default and raise when there is
 no CUDA device; ``device="cpu"`` runs the kernels' plain PyTorch versions::

@@ -10,17 +10,27 @@ frame embeddings, the random-frame-at-train / middle-frame-at-eval policy,
 a zero image for a record without a frame, and graceful degradation to a
 random image on corrupt files.
 
+Shipping formats for the device frontend (the trainer's
+``device_frontend``): ``running.audio.on_device`` stops the audio item at a
+fixed-length cropped waveform (fp32, or int16 PCM with
+``running.audio.wav_int16``), which the card turns into the fbank
+(:mod:`vipant_tpu_torch.ops.fbank`); ``running.image_uint8`` ships the
+resized and cropped frame as uint8, normalised on the card; the npz
+dataset's ``running.audio.ship_int16`` and ``ship_bf16`` ship the
+normalised fbank as int16 codes (:data:`FBANK_INT16_SCALE`) or as bf16 (its
+bits as uint16: this package does not need ``ml_dtypes``).
+
 Refused by :func:`refuse_unported` (ROADMAP.md's queue A names the item
-that ports each): the on-device frontend and its int16 / bf16 / uint8
-shipping (A8), the two-view siamese dataset (``running.multi_view``, A12)
-and the packed ``pak*`` datasets (A11).
+that ports each): the two-view siamese dataset (``running.multi_view``,
+A12) and the packed ``pak*`` datasets (A11); and ``on_device`` with
+``dither`` or ``use_energy``, which the device fbank does not compute.
 """
 
 from __future__ import annotations
 
 import os
 import warnings
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -28,22 +38,24 @@ from ..ops.fbank_np import FbankParams
 from .indexfile import eval_sample_limit, load_jsonl, shard_for_host
 from .loader import DataLoader
 from .transforms_audio import extract_fbank_features, make_transform
-from .transforms_image import clip_preprocess
+from .transforms_image import clip_preprocess, clip_preprocess_uint8
 
 
 def refuse_unported(run, data_name: str = "") -> None:
     """Raise ``NotImplementedError`` for a ``running`` config (and dataset
-    name) that asks for what the port's VA data layer does not do yet."""
+    name) that asks for what the port's VA data layer does not do yet, or
+    for what the device fbank would compute otherwise than the host one."""
     audio = run.get("audio", None) or {}
-    for key in ("on_device", "ship_int16", "ship_bf16"):
-        if bool(audio.get(key, False)):
+    if bool(audio.get("on_device", False)):
+        if float(audio.get("dither", 0.0)) != 0.0:
             raise NotImplementedError(
-                f"running.audio.{key}: the on-device frontend and its shipping formats are not "
-                "ported yet (ROADMAP.md queue A, A8)")
-    if bool(run.get("image_uint8", False)):
-        raise NotImplementedError(
-            "running.image_uint8: uint8 images normalised on the device are not ported yet "
-            "(ROADMAP.md queue A, A8)")
+                f"running.audio.on_device with running.audio.dither={audio.get('dither')}: the "
+                "device fbank applies no dither while the host fbank does (the JAX package's "
+                "device fbank ignores it silently); set dither=0 or on_device=False")
+        if bool(audio.get("use_energy", False)):
+            raise NotImplementedError(
+                "running.audio.on_device with running.audio.use_energy: the device fbank "
+                "computes no energy term")
     if bool(run.get("multi_view", False)):
         raise NotImplementedError(
             "running.multi_view: the siamese two-view dataset is not ported yet "
@@ -92,6 +104,10 @@ class ImageAudioDatasetSrc:
         self.norms = tuple(acfg.get("norms", []) or []) or None
         self.transform_audio, self.transform_fbank = make_transform(acfg)
         self.acfg = acfg
+        # the featurisation runs on the card: the item stops at a cropped waveform
+        self.on_device = bool(acfg.get("on_device", False))
+        # ship uint8 frames; the CLIP normalisation runs on the card
+        self.image_uint8 = bool(cfg.get("image_uint8", False))
 
     def __len__(self) -> int:
         return len(self.records)
@@ -147,8 +163,9 @@ class ImageAudioDatasetSrc:
     def _image(self, fname: Optional[str]) -> np.ndarray:
         res = int(self.cfg.get("resolution", 224))
         if fname is None:
-            return np.zeros((3, res, res), np.float32)
-        return clip_preprocess(self._open_image(fname), res)
+            return np.zeros((3, res, res), np.uint8 if self.image_uint8 else np.float32)
+        pre = clip_preprocess_uint8 if self.image_uint8 else clip_preprocess
+        return pre(self._open_image(fname), res)
 
     def _image_emb(self, fname: str) -> np.ndarray:
         try:
@@ -170,6 +187,45 @@ class ImageAudioDatasetSrc:
             transform_fbank=self.transform_fbank if self.train else None,
         )
 
+    def _audio_waveform(self, fname: str) -> Tuple[np.ndarray, int]:
+        """Decode, tile (``audio.tile_audio``), augment, crop and zero-mean
+        as the host path does, then zero-pad to ``int((max_audio_len / 100 +
+        0.05) * sr)`` samples: (the waveform, its true length). The fbank
+        runs on the card, which zeroes the frames past the true length as
+        the host path's padding does.
+
+        With ``audio.wav_int16`` (and no waveform augmentation run) the
+        clip is zero-meaned over its true length before the padding and the
+        quantisation, and ships as int16 PCM (half the bytes); the card
+        rescales it and removes the sub-LSB DC the rounding leaves. An
+        augmented clip may leave [-1, 1] and ships as fp32, since the
+        quantisation would clip it."""
+        from .transforms_audio import random_crop
+        from .wav import read_wav
+
+        wav, sr = read_wav(fname)
+        wav = wav[:1]
+        max_len = float(self.cfg.max_audio_len)
+        tile_to = int((max_len / 100) * sr)
+        if bool(self.acfg.get("tile_audio", False)) and tile_to > wav.shape[-1]:
+            wav = np.tile(wav, (1, int(np.ceil(tile_to / wav.shape[-1]))))[:, :tile_to]
+        if self.train:
+            for t in self.transform_audio or []:
+                wav = t(wav)
+        desired = int((max_len / 100 + 0.05) * sr)
+        wav = random_crop(wav, desired, train=self.train)
+        if bool(self.acfg.get("zero_mean_wf", True)):
+            wav = wav - wav.mean()  # over the true length: a mean over the padding would scale it
+        n = min(desired, wav.shape[-1])
+        augmented = self.train and bool(self.transform_audio)
+        if bool(self.acfg.get("wav_int16", False)) and not augmented:
+            out = np.zeros((desired,), np.int16)
+            out[:n] = np.clip(np.round(wav[0, :n] * 32767.0), -32768, 32767).astype(np.int16)
+        else:
+            out = np.zeros((desired,), np.float32)
+            out[:n] = wav[0, :n]
+        return out, n
+
     def __getitem__(self, index: int) -> Dict[str, Any]:
         name, aclip_file, frame_file, frame_emb_file = self._paths(index)
         image = (
@@ -177,14 +233,51 @@ class ImageAudioDatasetSrc:
             if frame_emb_file is not None
             else self._image(frame_file)
         )
-        audio = self._audio(aclip_file)
-        return {"image": image, "audio": audio, "name": name}
+        item = {"image": image, "name": name}
+        if self.on_device:
+            item["audio"], item["audio_len"] = self._audio_waveform(aclip_file)
+        else:
+            item["audio"] = self._audio(aclip_file)
+        return item
+
+
+# int16 scale of the normalised fbanks the npz dataset ships with
+# ``ship_int16`` (~N(0, 1) after mean/std): a step of 1/256 ~ 0.004 sigma,
+# a range of +-128 sigma; the card multiplies the codes by 1/256
+FBANK_INT16_SCALE = 256.0
+
+# what ships to the card as it is and is converted there (uint8 frames,
+# int16 waveforms or fbank codes, bf16 fbanks as their uint16 bits)
+_SHIP_DTYPES = (np.dtype(np.uint8), np.dtype(np.int16), np.dtype(np.uint16))
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """fp32 -> the bits of its bf16 rounding (to nearest, ties to even) as
+    uint16; a NaN becomes the quiet NaN of its sign. The card views them as
+    ``torch.bfloat16``."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    bits = ((u + (((u >> 16) & 1) + np.uint32(0x7FFF))) >> 16).astype(np.uint16)
+    nan = np.isnan(x)
+    if nan.any():
+        bits[nan] = (((u[nan] >> 16) & 0x8000) | 0x7FC0).astype(np.uint16)
+    return bits
 
 
 class ImageAudioDatasetNpz(ImageAudioDatasetSrc):
     """Precomputed-fbank npz dataset (the reference's throughput path,
     `reference/cvap/data/image_audio.py:27-88`): each record's audio
-    npz holds the log-mel matrix under "flag"/"feat" keys."""
+    npz holds the log-mel matrix under "flag"/"feat" keys.
+
+    ``running.audio.ship_bf16``: the normalised fbank ships as bf16 (half
+    the bytes; the towers compute in bf16, so nothing is lost there), as its
+    uint16 bits. ``running.audio.ship_int16``: as int16 codes of scale
+    :data:`FBANK_INT16_SCALE` (half the bytes, a step of 1/256). The card
+    converts either to fp32. With ``on_device`` the fbank ships as it is
+    (the device frontend passes it), as in the JAX package."""
+
+    def __init__(self, cfg, data_name: str, train: bool):
+        super().__init__(cfg, data_name, train)
+        self.on_device = False  # the items are precomputed fbanks
 
     def _audio(self, fname: str) -> np.ndarray:
         stem = fname.rsplit(".", 1)[0]
@@ -206,22 +299,34 @@ class ImageAudioDatasetNpz(ImageAudioDatasetSrc):
         if self.train and self.transform_fbank:
             for t in self.transform_fbank:
                 feats = t(feats)
+        if bool(self.acfg.get("ship_bf16", False)):
+            return bf16_bits(feats)
+        if bool(self.acfg.get("ship_int16", False)):
+            np.multiply(feats, np.float32(FBANK_INT16_SCALE), out=feats)
+            np.rint(feats, out=feats)
+            np.clip(feats, -32768, 32767, out=feats)
+            return feats.astype(np.int16)
         return feats.astype(np.float32, copy=False)
 
 
 class ImageAudioCollator:
-    """Stack to [B, ...] fp32 with the channel axis the towers expect
-    (parity: `reference/cvap/data/image_audio.py:307-331`)."""
+    """Stack to [B, ...] with the channel axis the towers expect, fp32 but
+    for the shipping formats (:data:`_SHIP_DTYPES`), which the card
+    converts (parity: `reference/cvap/data/image_audio.py:307-331`)."""
 
     def __call__(self, items: List[Dict]) -> Dict[str, np.ndarray]:
         out: Dict[str, Any] = {"name": [it["name"] for it in items]}
         for key in ("image", "audio"):
-            # copy=False — a second full-batch copy costs a full pass over
-            # the batch on the (serial) collate thread
-            arr = np.stack([it[key] for it in items]).astype(np.float32, copy=False)
+            arr = np.stack([it[key] for it in items])
+            if arr.dtype not in _SHIP_DTYPES:
+                # copy=False — a second full-batch copy costs a full pass over
+                # the batch on the (serial) collate thread
+                arr = arr.astype(np.float32, copy=False)
             if key == "audio" and arr.ndim == 3:
                 arr = arr[:, None]  # [B, 1, T, M]
             out[key] = arr
+        if "audio_len" in items[0]:  # waveforms: each clip's true length
+            out["audio_len"] = np.asarray([it["audio_len"] for it in items], np.int64)
         return out
 
 

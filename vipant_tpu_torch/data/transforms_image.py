@@ -4,10 +4,11 @@ The port's own copy of the CLIP eval pipeline of
 ``vipant_tpu/data/transforms_image.py`` (bicubic resize → center crop →
 CLIP mean/std, `reference/cvap/data/image/transform.py:11-18`), the item
 path of the VA datasets. Outputs are CHW float32 — checkpoint-parity-critical
-for the CLIP towers. Not here: the uint8 path and its on-device
-normalisation (A8 of ROADMAP.md's queue A) and the siamese multi-view
-augmentations (A12). PIL is imported where an image is decoded, so the
-package imports without it.
+for the CLIP towers — or, from :func:`clip_preprocess_uint8`, CHW uint8
+whose normalisation runs on the card
+(:func:`vipant_tpu_torch.ops.frontend.device_normalize_image`). Not here:
+the siamese multi-view augmentations (A12 of ROADMAP.md's queue A). PIL is
+imported where an image is decoded, so the package imports without it.
 """
 
 from __future__ import annotations
@@ -27,9 +28,8 @@ def _to_chw(img: "Image.Image") -> np.ndarray:
     return np.ascontiguousarray(arr.transpose(2, 0, 1))
 
 
-def clip_preprocess(img: "Image.Image", size: int = 224) -> np.ndarray:
-    """CLIP eval preprocessing: bicubic resize of the short side + center
-    crop + normalize (parity: `reference/cvap/data/image/transform.py:11-18`)."""
+def _resize_crop(img: "Image.Image", size: int) -> "Image.Image":
+    """Bicubic resize of the short side to ``size``, then the center crop."""
     from PIL import Image
 
     w, h = img.size
@@ -37,5 +37,18 @@ def clip_preprocess(img: "Image.Image", size: int = 224) -> np.ndarray:
     img = img.resize((round(w * scale), round(h * scale)), Image.BICUBIC)
     w, h = img.size
     left, top = (w - size) // 2, (h - size) // 2
-    img = img.crop((left, top, left + size, top + size))
-    return _to_chw(img)
+    return img.crop((left, top, left + size, top + size))
+
+
+def clip_preprocess(img: "Image.Image", size: int = 224) -> np.ndarray:
+    """CLIP eval preprocessing: bicubic resize of the short side + center
+    crop + normalize (parity: `reference/cvap/data/image/transform.py:11-18`)."""
+    return _to_chw(_resize_crop(img, size))
+
+
+def clip_preprocess_uint8(img: "Image.Image", size: int = 224) -> np.ndarray:
+    """The resize and crop of :func:`clip_preprocess` only, CHW uint8: the
+    normalisation runs on the card (a quarter of the bytes to copy)."""
+    # contiguous here, not in the collator: see _to_chw
+    return np.ascontiguousarray(
+        np.asarray(_resize_crop(img, size).convert("RGB"), np.uint8).transpose(2, 0, 1))

@@ -3,8 +3,9 @@
 (:mod:`.fused_attn`, :mod:`.fused_mlp`), bf16 and forward-only int8,
 attention on separate q, k, v with its dispatcher (:mod:`.attention`), the
 int8 scope and plain quantizers (:mod:`.quant`), plain-PyTorch helpers
-(:mod:`.patches`, :mod:`.interp`), and the host Kaldi fbank of the data
-loader (:mod:`.fbank_np`, :mod:`.mel`: NumPy only).
+(:mod:`.patches`, :mod:`.interp`), the device frontend's plain-PyTorch ops
+(:mod:`.fbank`, :mod:`.specaugment`, :mod:`.frontend`), and the host Kaldi
+fbank of the data loader (:mod:`.fbank_np`, :mod:`.mel`: NumPy only).
 
 Importing builds nothing: the kernels are compiled at their first launch
 (:mod:`._build`). The names below are imported at first use, so that the

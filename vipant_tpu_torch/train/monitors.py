@@ -189,11 +189,18 @@ class LATrainer(Trainer):
 
     @torch.no_grad()
     def _decode(self, audio) -> np.ndarray:
-        """Token ids [B, max_len_dec + 1] of a batch's fbanks: greedy, or a
-        beam search of ``running.beam`` > 1 hypotheses."""
+        """Token ids [B, max_len_dec + 1] of a batch's fbanks (a host array,
+        or the audio tower's input that :meth:`_eval_audio` made): greedy,
+        or a beam search of ``running.beam`` > 1 hypotheses."""
         beam = int(self.cfg.running.get("beam", 0) or 0)
-        ids, _ = self.model.decode(self.make_batch(audio)[0], beam=beam)
+        if not torch.is_tensor(audio):
+            audio = self.make_batch(audio)[0]
+        ids, _ = self.model.decode(audio, beam=beam)
         return ids.cpu().numpy()
+
+    def _eval_audio(self, batch) -> torch.Tensor:
+        """A batch's audio through the device frontend (``eval_frontend_args``)."""
+        return self.eval_frontend_args(batch)[self.batch_keys.index("audio")]
 
     def decode_captions(self, loader, max_batches: int = 10) -> List[str]:
         """The decoded captions of the first ``max_batches`` batches."""
@@ -202,7 +209,7 @@ class LATrainer(Trainer):
             if bi >= max_batches:
                 break
             n = int(batch.get("_count", len(batch["name"])))
-            out.extend(detokenize_ids(row[1:]) for row in self._decode(batch["audio"])[:n])
+            out.extend(detokenize_ids(row[1:]) for row in self._decode(self._eval_audio(batch))[:n])
         return out
 
     def caption_report(self, loader, samples=None) -> str:
@@ -217,7 +224,7 @@ class LATrainer(Trainer):
             n = int(batch.get("_count", B))
             text = np.asarray(batch["text"])
             k = text.shape[0] // B
-            for i, row in enumerate(self._decode(batch["audio"])[:n]):
+            for i, row in enumerate(self._decode(self._eval_audio(batch))[:n]):
                 cands.append(detokenize_ids(row[1:]))
                 refs.append([detokenize_ids(text[i * k + j]) for j in range(k)])
         scores = corpus_bleu(cands, refs)

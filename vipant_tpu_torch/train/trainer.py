@@ -33,11 +33,21 @@ contrastive loss and the model has a text tower: the rule of the JAX
 package's ``LAMonitor.loss_adapter``. ``model.image.int8_frozen=True`` runs
 the frozen image tower on the forward-only int8 kernels.
 
+The device frontend (:meth:`Trainer.device_frontend`, before every training
+step and, through :meth:`Trainer.eval_frontend_args`, every eval) turns
+what the data layer ships into the towers' inputs on the card:
+``running.audio.on_device`` waveforms (fp32, or int16 PCM with
+``running.audio.wav_int16``) into the normalised fbank
+(:mod:`..ops.fbank`) with SpecAugment at train time (:mod:`..ops.specaugment`,
+drawn from the train state's generator), ``running.audio.ship_int16`` /
+``ship_bf16`` fbanks into fp32, and ``running.image_uint8`` frames into
+CLIP-normalised fp32 (:mod:`..ops.frontend`).
+
 Not ported yet, and refused when asked for (ROADMAP.md's queue A names the
 item that ports each): CLIP and reference ``.pth`` weights, ``export_pth``
-and ``async_ckpt`` (A7); the on-device frontend (A8); the monitors other
-than ``VAMonitor`` and ``LAMonitor`` (A11, A12); the gradient cache, ZeRO
-and every mesh axis beyond one device (A15).
+and ``async_ckpt`` (A7); the monitors other than ``VAMonitor`` and
+``LAMonitor`` (A11, A12); the gradient cache, ZeRO and every mesh axis
+beyond one device (A15).
 
 Usage::
 
@@ -62,9 +72,13 @@ import torch
 from ..config import Config
 from ..data import build_image_audio_dataloader
 from ..data.device_put import PinnedDevicePut
+from ..data.image_audio import FBANK_INT16_SCALE, fbank_params_from_cfg
 from ..data.image_audio import refuse_unported as refuse_unported_data
 from ..eval.metrics import format_retrieval_report, grouped_pnr, symmetric_retrieval
 from ..models import build_main_model, init_weights, tunable_mask
+from ..ops.fbank import fbank_fixed_len
+from ..ops.frontend import device_normalize_image
+from ..ops.specaugment import spec_augment
 from ..optim import build_optimizer, partition_params
 from ..utils import (AverageMeter, PhaseTimer, as_config, numel, require_device, run_root,
                      seed_all_rng, setup_logger)
@@ -241,16 +255,126 @@ class Trainer:
 
     # ---------------------------------------------------------------- batch
     def make_batch(self, *arrays: np.ndarray):
-        """Host arrays -> fp32 tensors on the device (integer arrays keep
-        their dtype: token ids)."""
+        """Host arrays (or tensors) -> tensors on the device: floating ones as fp32,
+        integer arrays in their own dtype (token ids; and what the device
+        frontend converts: int16 waveforms and fbank codes, uint8 frames,
+        bf16 fbanks as their uint16 bits)."""
         out = []
         for a in arrays:
-            t = torch.as_tensor(np.ascontiguousarray(a))
+            t = a if torch.is_tensor(a) else torch.as_tensor(np.ascontiguousarray(a))
             out.append(t.to(self.device, torch.float32 if t.is_floating_point() else t.dtype))
         return tuple(out)
 
-    def train_step(self, *batch: torch.Tensor) -> Dict[str, object]:
+    def train_step(self, *batch: torch.Tensor, audio_len=None) -> Dict[str, object]:
+        """One training step on a batch placed on the device, through the
+        device frontend when the config ships waveforms or compact formats
+        (``audio_len``: the waveforms' true lengths, the loader's
+        ``batch["audio_len"]``)."""
+        if self.needs_device_frontend:
+            batch = self.device_frontend(batch, train=True, audio_len=audio_len)
         return train_step(self.state, *batch)
+
+    # ------------------------------------------------------- device frontend
+    def _audio_flag(self, key: str) -> bool:
+        run = self.cfg.get("running")
+        return (run is not None and "audio" in run and bool(run.audio.get(key, False))
+                and any(k.startswith("audio") for k in self.batch_keys))
+
+    @property
+    def on_device_audio(self) -> bool:
+        """Waveforms ship, and the fbank runs on the card."""
+        return self._audio_flag("on_device")
+
+    @property
+    def image_uint8(self) -> bool:
+        run = self.cfg.get("running")
+        return (run is not None and bool(run.get("image_uint8", False))
+                and any(k.startswith("image") for k in self.batch_keys))
+
+    @property
+    def audio_int16_fbank(self) -> bool:
+        """Precomputed fbanks ship as int16 codes (the npz dataset)."""
+        return self._audio_flag("ship_int16")
+
+    @property
+    def audio_bf16_fbank(self) -> bool:
+        """Precomputed fbanks ship as bf16 bits (the npz dataset)."""
+        return self._audio_flag("ship_bf16")
+
+    @property
+    def needs_device_frontend(self) -> bool:
+        return (self.on_device_audio or self.image_uint8 or self.audio_int16_fbank
+                or self.audio_bf16_fbank)
+
+    def _frontend_settings(self):
+        """(fbank params, max frames, norms or None, SpecAugment's frequency
+        and time params; 0 when ``transform_fbank`` is off)."""
+        acfg = self.cfg.running.audio
+        norms = tuple(acfg.get("norms", []) or []) or None
+        freq_p = time_p = 0
+        if bool(acfg.get("transform_fbank", False)):
+            for entry in acfg.get("fbank_transforms", []) or []:
+                if entry[0] == "FrequencyMasking":
+                    freq_p = int(entry[1][0])
+                elif entry[0] == "TimeMasking":
+                    time_p = int(entry[1][0])
+        return fbank_params_from_cfg(acfg), int(self.cfg.running.max_audio_len), norms, freq_p, time_p
+
+    def device_frontend(self, args: Sequence[torch.Tensor], train: bool = True,
+                        audio_len=None) -> Tuple:
+        """The model's args with every image-kind key's uint8 frames
+        normalised and every audio-kind key through :meth:`_frontend_audio`
+        (counterpart of ``vipant_tpu/train/trainer.py:device_frontend``);
+        ``audio_len`` goes with the ``audio`` key."""
+        out = list(args)
+        for i, key in enumerate(self.batch_keys):
+            x = out[i]
+            if not torch.is_tensor(x):
+                continue
+            if key.startswith("image") and x.dtype == torch.uint8:
+                out[i] = device_normalize_image(x)
+            elif key.startswith("audio"):
+                out[i] = self._frontend_audio(x, train, audio_len if key == "audio" else None)
+        return tuple(out)
+
+    def _frontend_audio(self, wav: torch.Tensor, train: bool, audio_len=None) -> torch.Tensor:
+        """One audio stream: int16 fbank codes [B, 1, T, M] times 1/256;
+        bf16 bits [B, 1, T, M] to fp32; a waveform [B, N] (int16 PCM times
+        1/32767, then its mean over the padded length removed: the host
+        zero-meaned the clip over its true length, so this takes only the
+        rounding's DC) to the normalised fbank [B, 1, T, M], the frames past
+        each clip's true length (``audio_len`` [B], when given) zeroed as the
+        host path pads, with SpecAugment at train time, each call drawing
+        its own masks from the train state's generator; anything else
+        passes."""
+        if wav.dim() == 4 and wav.dtype == torch.int16:
+            return wav.float() * (1.0 / FBANK_INT16_SCALE)
+        if wav.dim() == 4 and wav.dtype == torch.uint16:
+            return wav.view(torch.bfloat16).float()
+        if wav.dim() != 2:  # featurised already
+            return wav
+        params, max_len, norms, freq_p, time_p = self._frontend_settings()
+        if wav.dtype == torch.int16:
+            wav = wav.float() * (1.0 / 32767.0)
+            if bool(self.cfg.running.audio.get("zero_mean_wf", True)):
+                wav = wav - wav.mean(dim=-1, keepdim=True)
+        if audio_len is not None:
+            audio_len = torch.as_tensor(np.asarray(audio_len)).to(wav.device)
+        feats = fbank_fixed_len(wav, params, max_len, norms=norms, num_samples=audio_len)
+        if train and (freq_p or time_p):
+            feats = spec_augment(feats, self.state.generator, freq_p, time_p)
+        return feats[:, None]
+
+    def eval_frontend_args(self, batch) -> Tuple[torch.Tensor, ...]:
+        """A batch dict -> the model's args on the device, through the device
+        frontend when the config ships waveforms or compact formats. Every
+        eval path takes its args here: a raw waveform [B, N] handed to
+        ``encode_audio`` would be read as a precomputed embedding."""
+        args = self.make_batch(*(batch[k] for k in self.batch_keys))
+        if self.needs_device_frontend:
+            with torch.no_grad():
+                args = self.device_frontend(args, train=False, audio_len=batch.get("audio_len"))
+        return args
 
     # ---------------------------------------------------------------- learn
     def learn(self):
@@ -330,7 +454,7 @@ class Trainer:
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 self._profiler = torch.profiler.profile(activities=activities)
                 self._profiler.start()
-            metrics = self._last_metrics = train_step(self.state, *args)
+            metrics = self._last_metrics = self.train_step(*args, audio_len=batch.get("audio_len"))
             self.global_step += 1
             if self._profiler is not None and self.global_step == int(
                     prof.get("start_step", 10)) + int(prof.get("num_steps", 5)):
@@ -413,8 +537,9 @@ class Trainer:
         return True
 
     def collect_features(self, loader, samples: Optional[float] = None) -> Dict[str, object]:
-        """Encode the loader's items (``x1`` image, ``x2`` audio, fp32
-        numpy; ``names``); pad rows of a ``pad_last`` batch are dropped.
+        """Encode the loader's items through the device frontend (``x1``
+        image, ``x2`` audio, fp32 numpy; ``names``); pad rows of a
+        ``pad_last`` batch are dropped.
         ``samples`` caps the items, overshooting by at most one batch
         (`reference/cvap/monitor/cvap.py:252-254`)."""
         feats: Dict[str, List[np.ndarray]] = {}
@@ -422,7 +547,7 @@ class Trainer:
         for batch in loader:
             if samples is not None and len(names) >= samples:
                 break
-            out = eval_step(self.model, *self.make_batch(*(batch[k] for k in self.batch_keys)))
+            out = eval_step(self.model, *self.eval_frontend_args(batch))
             n_items = len(batch["name"])
             n_true = int(batch.get("_count", n_items))
             for key, val in zip(("x1", "x2", "x3"), out):
@@ -495,13 +620,14 @@ class Trainer:
         return path
 
     def eval_norms(self, loader) -> Tuple[float, float]:
-        """Dataset fbank statistics job
+        """Dataset fbank statistics job, on the fbanks the towers would read
+        (through the device frontend when waveforms ship)
         (parity: `reference/cvap/monitor/cvap.py:43-65`)."""
         total, total_sq, count = 0.0, 0.0, 0
         for batch in loader:
-            a = batch["audio"]
-            if torch.is_tensor(a):  # a training batch, placed by the loader
-                a = self.device_put.wait(batch)[self.batch_keys.index("audio")].cpu().numpy()
+            if "_copied" in batch:  # a training batch, placed by the loader
+                self.device_put.wait(batch)
+            a = self.eval_frontend_args(batch)[self.batch_keys.index("audio")].cpu().numpy()
             # pad_last eval loaders repeat the final item to the fixed
             # batch shape; statistics must not count the padding rows
             n_true = int(batch.get("_count", a.shape[0]))
