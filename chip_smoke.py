@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``vipant_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py ckpt_phase      # some phases, by name (PHASES), in their order
 
 1. Prints the card's name and power limit (nvidia-smi); fails without CUDA.
 2. Builds the CUDA kernels from ``vipant_tpu_torch/csrc`` and prints the
@@ -237,7 +238,26 @@
    decoder's first-step logits at row cosine >= 0.999, zero-shot scores
    within 0.09 (what 0.999 on both factors allows); (f) ``make_server`` over
    the card's engines: one request per route, each equal to the engine's
-   own call.
+   own call; (g) a fresh trainer on the device frontend resumed from (c)'s
+   step 6 ends bitwise where (c) ended at step 8 (params, LARS buffers and
+   the generator SpecAugment draws from).
+17. Checkpoint loading and export (full width): (a) a seeded CLIP ViT-B/32
+   state dict (``synthetic_clip_state_dict``: visual width 768, 12 layers,
+   50 positions; text width 512, 12 layers, vocabulary 49,408, context 77;
+   ~600 MB fp32) written under a name the zoo does not know; (b) the
+   ``CLAP_FULL`` engine on the card with ``running.clip_model_root`` /
+   ``clip_model_name`` naming it: every text and audio tensor bitwise the
+   file's but the audio position grid, re-gridded 7 x 7 -> 61 x 5 within
+   1e-5 of a CPU retarget and of one on the card; ``embed_audio`` at batch
+   64 and ``embed_texts``, their launches counted (path ``ckpt``), at row
+   cosine >= 0.999 to the same engine on the CPU (plain ops, fp32, which
+   loads the same file); (c) the flagship VA trainer seeded from the file:
+   its frozen image tower bitwise the file's, three steps with finite
+   losses, a save with ``export_pth=True`` writing a 2-tuple ``.pth`` whose
+   audio tower is the trainer's, and an engine with ``model_file=<that
+   .pth>`` at row cosine >= 0.9999 to the trainer's own audio tower in eval
+   mode; (d) ``LAMonitor`` with ``model_file=<that .pth>``: its audio tower
+   bitwise the file's, one step at B = 50.
 
 Every kernel's time stands beside its bound, the least time the card could
 take for the same work: the larger of the bytes it must move (each input
@@ -263,11 +283,13 @@ max |plain|, since they sum over thousands of rows in another order.
 Prints a JSON line of per-kernel results (``launches`` is the sum of the
 counts read on each main path (``serve``, ``train``, ``serve_int8``,
 ``train_int8_frozen``, ``probe``, ``caption_train``, ``caption_serve``, ``va_loop``,
-``la_loop``, ``va_loop_dev``, ``serve_files``), which ``launches_by_path`` gives apart; ``ms``,
+``la_loop``, ``va_loop_dev``, ``serve_files``, ``ckpt``), which ``launches_by_path`` gives apart; ``ms``,
 ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` are those of the
 kernel's first case, its main-path shape; ``cases`` holds each shape's), then, as the last line, ``{"ok": true, "device": {...}}``.
-Any failure raises (non-zero exit).
-"""
+With phase names, the kernels line also names the phases that ran
+(``"phases"``), holds only the kernels they reached (``ms`` and the rest
+null where no kernel phase ran) and asserts no launch on every kernel.
+Any failure raises (non-zero exit)."""
 
 from __future__ import annotations
 
@@ -348,7 +370,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                         "experiments/fused_block_probe.py:85"),
 }
 PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
-         "caption_serve", "va_loop", "la_loop", "va_loop_dev", "serve_files")
+         "caption_serve", "va_loop", "la_loop", "va_loop_dev", "serve_files", "ckpt")
 # every product shape the paths give gemm_bias_act: (case, M, N, K, activation, residual, fp32
 # pre-activation). The kernel phase holds each to its plain version; experiments/kernel_times.py
 # times each, parent against change.
@@ -2382,6 +2404,27 @@ def _race_check(torch, PinnedDevicePut, batches):
     return found
 
 
+def _snapshot(tr):
+    """A trainer's trainable params, LARS buffers and RNG state, copied."""
+    return ({k: p.detach().clone() for k, p in tr.trainable.items()},
+            tr.state.optimizer.state_dict()["inner"]["state"], tr.state.generator.get_state())
+
+
+def _resume_diff(torch, tr, snap):
+    """Name -> max |d| of each param, optimizer buffer and the RNG state of
+    ``tr`` that is not bitwise ``snap``'s; and the counts compared."""
+    params, opt, rng = snap
+    got_opt = tr.state.optimizer.state_dict()["inner"]["state"]
+    diff = {k: (p.detach() - params[k]).abs().max().item() for k, p in tr.trainable.items()
+            if not torch.equal(p.detach(), params[k])}
+    diff.update({f"optimizer state {i}/{n}": (v - opt[i][n]).abs().max().item()
+                 for i, st in got_opt.items() for n, v in st.items()
+                 if torch.is_tensor(v) and not torch.equal(v, opt[i][n])})
+    if not torch.equal(tr.state.generator.get_state(), rng):
+        diff["rng state"] = float("inf")
+    return diff, f"{len(tr.trainable)} params, {len(got_opt)} optimizer buffers and the RNG"
+
+
 def loop_phase(torch, results):
     import os
     import shutil
@@ -2454,8 +2497,7 @@ def loop_phase(torch, results):
         print(f"(d) {format_retrieval_report(sym, len(x1))}; I->A {sym['12']}")
         if not all(np.isfinite(v) for d in sym.values() for v in d.values()):
             raise AssertionError(f"retrieval report is not finite: {sym}")
-        want = {k: p.detach().clone() for k, p in a.trainable.items()}
-        want_opt = a.state.optimizer.state_dict()["inner"]["state"]
+        want = _snapshot(a)
         del a
         torch.cuda.empty_cache()
         eng = InferenceEngine(FLAGSHIP + [f"model_root={run}", "model_name=loop",
@@ -2474,18 +2516,13 @@ def loop_phase(torch, results):
         if b.global_step != 6:
             raise AssertionError(f"run B resumed at step {b.global_step}, not 6")
         b.learn()
-        got_opt = b.state.optimizer.state_dict()["inner"]["state"]
-        diff = {k: (p.detach() - want[k]).abs().max().item() for k, p in b.trainable.items()
-                if not torch.equal(p.detach(), want[k])}
-        diff.update({f"optimizer state {i}/{n}": (v - want_opt[i][n]).abs().max().item()
-                     for i, st in got_opt.items() for n, v in st.items()
-                     if torch.is_tensor(v) and not torch.equal(v, want_opt[i][n])})
-        print(f"(b) run B (resumed from step 6) against run A at step 8: {len(b.trainable)} params "
-              f"and {len(got_opt)} optimizer buffers, {len(diff)} not bitwise equal")
+        diff, what = _resume_diff(torch, b, want)
+        print(f"(b) run B (resumed from step 6) against run A at step 8: {what}, {len(diff)} not "
+              f"bitwise equal")
         if diff or b.global_step != 8:
             worst = sorted(diff.items(), key=lambda kv: -kv[1])[:5]
             raise AssertionError(f"resume is not bitwise: largest differences {worst}")
-        del b, want, want_opt
+        del b, want
 
         # (g) the pinned copy on the side stream against the races it guards
         from vipant_tpu_torch.config import compose
@@ -2753,8 +2790,7 @@ def la_phase(torch, results):
               f"ops' {worst:.6f}")
         if len(files) != LA_EVAL or worst < COS_MIN:
             raise AssertionError(f"encode_text: {len(files)} files, min cosine {worst}")
-        want_params = {k: p.detach().clone() for k, p in b.trainable.items()}
-        want_opt = b.state.optimizer.state_dict()["inner"]["state"]
+        want = _snapshot(b)
         b.close()
         del b
 
@@ -2773,17 +2809,11 @@ def la_phase(torch, results):
         if c.global_step != 6:
             raise AssertionError(f"resumed at step {c.global_step}, not 6")
         c.learn()
-        got_opt = c.state.optimizer.state_dict()["inner"]["state"]
-        diff = {k: (p.detach() - want_params[k]).abs().max().item() for k, p in c.trainable.items()
-                if not torch.equal(p.detach(), want_params[k])}
-        diff.update({f"optimizer state {i}/{n}": (v - want_opt[i][n]).abs().max().item()
-                     for i, st in got_opt.items() for n, v in st.items()
-                     if torch.is_tensor(v) and not torch.equal(v, want_opt[i][n])})
-        print(f"(d) resumed from step 6 against run B at step 8: {len(c.trainable)} params and "
-              f"{len(got_opt)} optimizer buffers, {len(diff)} not bitwise equal")
+        diff, what = _resume_diff(torch, c, want)
+        print(f"(d) resumed from step 6 against run B at step 8: {what}, {len(diff)} not bitwise equal")
         if diff or c.global_step != 8:
             raise AssertionError(f"AT resume is not bitwise: {sorted(diff.items(), key=lambda kv: -kv[1])[:5]}")
-        del c, want_params, want_opt
+        del c, want
 
         # (e) the captioning variant: 2 steps of learn(), then caption_report on the eval clips
         os.symlink(os.path.join(root, "clotho_train"), os.path.join(root, "clotho_cap"))
@@ -2964,7 +2994,24 @@ def frontend_phase(torch, results):
         if len(losses) != 8 or not np.isfinite(losses).all() or not any(moved.values()):
             raise AssertionError("the device-frontend loop: non-finite loss, missing steps, or the "
                                  "audio tower did not move")
+        want = _snapshot(a)
         del a, init
+        torch.cuda.empty_cache()
+
+        # (g) resumed from step 6 on the device frontend (SpecAugment draws from the train state's
+        # generator): bitwise the run at step 8
+        b = _loop_trainer(torch, root, run, *DEV_SHIP, "model_file=00000006", "running.save_epoch=False",
+                          "running.eval_name=")
+        if b.global_step != 6:
+            raise AssertionError(f"the device-frontend run resumed at step {b.global_step}, not 6")
+        b.learn()
+        diff, what = _resume_diff(torch, b, want)
+        print(f"(g) resumed from step 6 on the device frontend against the run at step 8: {what}, "
+              f"{len(diff)} not bitwise equal")
+        if diff or b.global_step != 8:
+            raise AssertionError("the device-frontend resume is not bitwise: "
+                                 f"{sorted(diff.items(), key=lambda kv: -kv[1])[:5]}")
+        del b, want
         torch.cuda.empty_cache()
 
         # (c) its steady window over the train split read LOOP_DEV_REPEAT times, a profiled epoch after
@@ -3151,7 +3198,233 @@ def frontend_phase(torch, results):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def main() -> int:
+# phase 17: checkpoint loading and export
+CLIP_NAME = "synthetic-ViT-B32"  # not a zoo name: loaded by the {root}/{name}.pt convention
+CKPT_B, CKPT_STEPS = 64, 3
+REGRID_TOL = 1e-5  # a re-gridded position grid, one device's bilinear resize against another's
+COS_CKPT = 0.9999  # the engine on the trainer's .pth against the trainer's own audio tower
+# the port's tower names -> CLIP's (visual and text), written out independently of ckpt/clip_port.py
+_CLIP_NAMES = {
+    "visual": (("misc.positional_embedding", "positional_embedding"),
+               ("misc.class_embedding", "class_embedding"),
+               ("pre_encoder.conv1.weight", "conv1.weight"), ("pre_encoder.ln.", "ln_pre."),
+               ("encoder.resblocks.", "transformer.resblocks."), ("post_encoder.ln.", "ln_post."),
+               ("post_encoder.proj", "proj")),
+    "text": (("misc.positional_embedding", "positional_embedding"),
+             ("pre_encoder.token_embedding.weight", "token_embedding.weight"),
+             ("encoder.resblocks.", "transformer.resblocks."), ("post_encoder.ln.", "ln_final."),
+             ("post_encoder.proj", "text_projection")),
+}
+
+
+def _clip_name(name, kind):
+    for port, clip in _CLIP_NAMES[kind]:
+        if name.startswith(port):
+            return ("visual." if kind == "visual" else "") + clip + name[len(port):]
+    raise KeyError(name)
+
+
+def synthetic_clip_state_dict(torch, seed=0, vw=768, tw=512, emb=512, layers=12):
+    """A CLIP ViT-B/32 state dict drawn from ``seed`` at CLIP's init
+    scales, at full width by default: visual width 768, 12 layers, patch
+    32, 50 positions; text width 512, 12 layers, vocabulary 49,408, context
+    77; embedding width 512; ``logit_scale`` log(1 / 0.07). fp32, about
+    600 MB."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def normal(name, shape, std, mean=0.0):
+        sd[name] = torch.randn(shape, generator=g) * std + mean
+
+    def trunk(prefix, width, layers):
+        out_std = width ** -0.5 * (2 * layers) ** -0.5
+        for i in range(layers):
+            b = f"{prefix}transformer.resblocks.{i}."
+            normal(b + "attn.in_proj_weight", (3 * width, width), width ** -0.5)
+            normal(b + "attn.in_proj_bias", (3 * width,), 0.02)
+            normal(b + "attn.out_proj.weight", (width, width), out_std)
+            normal(b + "attn.out_proj.bias", (width,), 0.02)
+            for ln in ("ln_1", "ln_2"):
+                normal(b + ln + ".weight", (width,), 0.02, 1.0)
+                normal(b + ln + ".bias", (width,), 0.02)
+            normal(b + "mlp.c_fc.weight", (4 * width, width), (2 * width) ** -0.5)
+            normal(b + "mlp.c_fc.bias", (4 * width,), 0.02)
+            normal(b + "mlp.c_proj.weight", (width, 4 * width), out_std)
+            normal(b + "mlp.c_proj.bias", (width,), 0.02)
+
+    normal("visual.class_embedding", (vw,), vw ** -0.5)
+    normal("visual.positional_embedding", (50, vw), vw ** -0.5)
+    normal("visual.conv1.weight", (vw, 3, 32, 32), (3 * 32 * 32) ** -0.5)
+    for ln in ("ln_pre", "ln_post"):
+        normal(f"visual.{ln}.weight", (vw,), 0.02, 1.0)
+        normal(f"visual.{ln}.bias", (vw,), 0.02)
+    trunk("visual.", vw, layers)
+    normal("visual.proj", (vw, emb), vw ** -0.5)
+    normal("token_embedding.weight", (49408, tw), 0.02)
+    normal("positional_embedding", (77, tw), 0.01)
+    trunk("", tw, layers)
+    normal("ln_final.weight", (tw,), 0.02, 1.0)
+    normal("ln_final.bias", (tw,), 0.02)
+    normal("text_projection", (tw, emb), tw ** -0.5)
+    sd["logit_scale"] = torch.tensor(float(np.log(1 / 0.07)))
+    return sd
+
+
+def _tower_vs_file(torch, tower, sd, kind, skip=()):
+    """Names of ``tower``'s params that are not bitwise the file's tensor."""
+    return [k for k, p in tower.named_parameters()
+            if k not in skip and not torch.equal(p.detach().cpu(), sd[_clip_name(k, kind)])]
+
+
+def ckpt_phase(torch, results):
+    import os
+    import shutil
+    import tempfile
+
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.ops.interp import interp_pos_grid
+    from vipant_tpu_torch.serve import InferenceEngine
+    from vipant_tpu_torch.train import Trainer
+
+    root = tempfile.mkdtemp(prefix="vipant_ckpt_")
+    try:
+        # (a) the synthetic full-width CLIP file
+        t0 = time.perf_counter()
+        sd = synthetic_clip_state_dict(torch)
+        clip_root = os.path.join(root, "clip")
+        os.makedirs(clip_root)
+        path = os.path.join(clip_root, CLIP_NAME + ".pt")
+        torch.save(sd, path)
+        n = sum(v.numel() for v in sd.values())
+        print(f"(a) a seeded CLIP ViT-B/32 state dict, {len(sd)} tensors, {n / 1e6:.1f} M params, "
+              f"written as {os.path.getsize(path) / 1e6:.1f} MB in {time.perf_counter() - t0:.1f} s")
+        with_clip = [f"running.clip_model_root={clip_root}", f"running.clip_model_name={CLIP_NAME}"]
+
+        # (b) the CLAP engine seeded from it, on the card and on the CPU
+        t0 = time.perf_counter()
+        eng = InferenceEngine(CLAP_FULL + with_clip, batch_size=CKPT_B)  # on the card
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        pos = "misc.positional_embedding"
+        off = {"text": _tower_vs_file(torch, eng.model.text, sd, "text"),
+               "audio": _tower_vs_file(torch, eng.model.audio, sd, "visual", skip=(pos,))}
+        grid = eng.model.audio.grid
+        cpu_pos = interp_pos_grid(sd["visual.positional_embedding"], (7, 7), grid)
+        card_pos = interp_pos_grid(sd["visual.positional_embedding"].cuda(), (7, 7), grid).cpu()
+        got_pos = eng.model.audio.misc.positional_embedding.detach().cpu()
+        pos_err = (float((got_pos - cpu_pos).abs().max()), float((got_pos - card_pos).abs().max()))
+        scale_ok = eng.model.loss.logit_scale.item() == sd["logit_scale"].item()
+        print(f"(b) the CLAP engine seeded from the file in {built:.1f} s: tensors not bitwise the "
+              f"file's {off}; the audio position grid 7x7 -> {grid[0]}x{grid[1]} against a CPU "
+              f"retarget max |d| {pos_err[0]:.2e}, against one on the card {pos_err[1]:.2e} "
+              f"(bound {REGRID_TOL}); logit_scale the file's: {scale_ok}")
+        if any(off.values()) or max(pos_err) > REGRID_TOL or not scale_ok:
+            raise AssertionError(f"the engine's towers are not the file's: {off}, {pos_err}, {scale_ok}")
+        fb = np.random.default_rng(17).standard_normal((CKPT_B, 1000, 128)).astype(np.float32)
+        torch.cuda.synchronize()
+        reset_launches()
+        a, t = eng.embed_audio(fb), eng.embed_texts(PROMPTS)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        blocks = len(eng.model.audio.encoder.resblocks) + len(eng.model.text.encoder.resblocks)
+        want = {"fused_ln_attention_block": blocks, "fused_ln_mlp_block": blocks,
+                "layernorm_fwd": 2 * blocks, "gemm_bias_act": 4 * blocks, "attention_fwd": blocks}
+        print(f"(b) launches of embed_audio (batch {CKPT_B}) and embed_texts: "
+              f"{json.dumps(counts, sort_keys=True)}")
+        if counts != want:
+            raise AssertionError(f"launch counts {counts} != expected {want}")
+        record_launches(results, "ckpt", counts)
+        t0 = time.perf_counter()
+        cpu = InferenceEngine(CLAP_FULL + with_clip + ["compute_dtype=float32"], batch_size=CKPT_B,
+                              device="cpu")
+        same = all(torch.equal(p, dict(eng.model.named_parameters())[k].detach().cpu())
+                   for k, p in cpu.model.named_parameters())
+        ca, ct = cpu.embed_audio(fb), cpu.embed_texts(PROMPTS)
+        cos = {"audio": float(_row_cos(a, ca).min()), "text": float(_row_cos(t, ct).min())}
+        print(f"(b) against the same engine on the CPU (plain ops, fp32; its weights bitwise the card's: "
+              f"{same}; {time.perf_counter() - t0:.1f} s): min row cosine {cos}")
+        if not same or min(cos.values()) < COS_MIN or not np.isfinite(a).all():
+            raise AssertionError(f"the CLIP-seeded engine on the card disagrees with the CPU's: {cos}")
+        del eng, cpu
+        torch.cuda.empty_cache()
+
+        # (c) the flagship VA trainer seeded from the same file: three steps, a save with export_pth
+        run = os.path.join(root, "run")
+        tr = Trainer(FLAGSHIP + with_clip + [f"running.batch_size={CKPT_B // 4}", "export_pth=True",
+                                            f"alias_root={run}", "model_name=va"],
+                     steps_per_epoch=STEPS_PER_EPOCH)  # on the card
+        off = _tower_vs_file(torch, tr.model.image, sd, "visual")
+        rng = np.random.default_rng(18)
+        losses = [float(tr.train_step(*_va_batch(tr, rng, CKPT_B // 4))["loss"]) for _ in range(CKPT_STEPS)]
+        tr.global_step = CKPT_STEPS
+        step = tr.save()
+        pth = os.path.join(step, f"{CKPT_STEPS:08d}.pth")
+        ckpt = torch.load(pth, weights_only=False)
+        audio = ckpt["model"][0]
+        own = {k[len("audio."):]: p for k, p in tr.trainable.items() if k.startswith("audio.")}
+        exported = sorted(audio) == sorted(own) and all(torch.equal(v, own[k].cpu()) for k, v in audio.items())
+        print(f"(c) the VA trainer (the frozen image tower's {len(tr.frozen)} tensors, not bitwise the "
+              f"file's: {off}): losses {[round(v, 5) for v in losses]}; {os.path.basename(pth)}: a "
+              f"{len(ckpt['model'])}-tuple, its audio tower the trainer's: {exported}")
+        if off or not np.isfinite(losses).all() or len(ckpt["model"]) != 2 or not exported:
+            raise AssertionError("the CLIP-seeded VA trainer or its .pth export failed")
+        with torch.no_grad():
+            own_feats = tr.model.encode_audio(torch.from_numpy(fb[:, None]).cuda(), train=False)
+        own_feats = own_feats.float().cpu().numpy()
+        del tr
+        torch.cuda.empty_cache()
+        eng = InferenceEngine(FLAGSHIP + [f"model_file={pth}"], batch_size=CKPT_B)
+        cos = float(_row_cos(eng.embed_audio(fb), own_feats).min())
+        print(f"(c) an engine on that .pth: embed_audio against the trainer's audio tower in eval mode, "
+              f"min row cosine {cos:.6f} (bound {COS_CKPT})")
+        if cos < COS_CKPT:
+            raise AssertionError(f"the engine on the exported .pth disagrees with the trainer: {cos}")
+        del eng
+        torch.cuda.empty_cache()
+
+        # (d) the AT start: LAMonitor from the VA .pth
+        mon = _la_monitor(torch, f"model_file={pth}", steps_per_epoch=STEPS_PER_EPOCH)
+        loaded = all(torch.equal(mon.trainable["audio." + k].cpu(), v) for k, v in audio.items())
+        loss = float(mon.train_step(*_la_batch(mon, rng, LA_B))["loss"])
+        print(f"(d) LAMonitor from the VA .pth: its audio tower bitwise the file's {loaded}; one step "
+              f"at B = {LA_B}, loss {loss:.5f}")
+        if not loaded or not np.isfinite(loss):
+            raise AssertionError("LAMonitor did not load the VA .pth, or its step failed")
+        del mon
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# (name, title, function) of every phase, in the order a whole run takes them
+PHASES = (
+    ("kernel_phase", "kernel phase (forward kernels vs plain PyTorch on the card)", kernel_phase),
+    ("backward_kernel_phase", "backward kernel phase (vs plain PyTorch on the card)",
+     backward_kernel_phase),
+    ("slice_phase", "serving slice (full-size CLAP engine)", slice_phase),
+    ("train_phase", "training slice (flagship VA step, full width)", train_phase),
+    ("int8_kernel_phase", "int8 kernel phase (vs plain PyTorch on the card)", int8_kernel_phase),
+    ("int8_serve_phase", "int8 serving slice (full-size CLAP engine, quantize=int8)", int8_serve_phase),
+    ("train_int8_phase", "training slice with the int8 frozen image tower", train_int8_phase),
+    ("flash_kernel_phase", "flash kernel phase (vs plain PyTorch on the card)", flash_kernel_phase),
+    ("probe_phase", "probe phase (dot variants, fused forward probe)", probe_phase),
+    ("caption_train_phase", "captioning training slice (full width, 12 + 12 layers)", caption_train_phase),
+    ("caption_serve_phase", "captioning serving slice (InferenceEngine.caption)", caption_serve_phase),
+    ("loop_phase", "VA epoch loop (full width)", loop_phase),
+    ("la_phase", "AT fine-tuning (LAMonitor, full width)", la_phase),
+    ("frontend_phase", "the device frontend and serving from files (full width)", frontend_phase),
+    ("ckpt_phase", "checkpoint loading and export (a full-width synthetic CLIP file)", ckpt_phase),
+)
+
+
+def main(argv=None) -> int:
+    """``python3 chip_smoke.py [phase ...]``: the named phases of
+    :data:`PHASES` in their order, or all of them."""
+    names = sys.argv[1:] if argv is None else list(argv)
+    known = [name for name, _, _ in PHASES]
+    unknown = [n for n in names if n not in known]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phase(s) {unknown}; the phases: {' '.join(known)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -3173,38 +3446,31 @@ def main() -> int:
                 print("  " + line.strip())
 
     results: dict = {}
-    for title, phase in (("kernel phase (forward kernels vs plain PyTorch on the card)", kernel_phase),
-                         ("backward kernel phase (vs plain PyTorch on the card)", backward_kernel_phase),
-                         ("serving slice (full-size CLAP engine)", slice_phase),
-                         ("training slice (flagship VA step, full width)", train_phase),
-                         ("int8 kernel phase (vs plain PyTorch on the card)", int8_kernel_phase),
-                         ("int8 serving slice (full-size CLAP engine, quantize=int8)", int8_serve_phase),
-                         ("training slice with the int8 frozen image tower", train_int8_phase),
-                         ("flash kernel phase (vs plain PyTorch on the card)", flash_kernel_phase),
-                         ("probe phase (dot variants, fused forward probe)", probe_phase),
-                         ("captioning training slice (full width, 12 + 12 layers)", caption_train_phase),
-                         ("captioning serving slice (InferenceEngine.caption)", caption_serve_phase),
-                         ("VA epoch loop (full width)", loop_phase),
-                         ("AT fine-tuning (LAMonitor, full width)", la_phase),
-                         ("the device frontend and serving from files (full width)", frontend_phase)):
+    ran = [name for name in known if not names or name in names]
+    for name, title, phase in PHASES:
+        if name not in ran:
+            continue
         t0 = time.perf_counter()
         print(title + ":")
         phase(torch, results)
         print(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    line = {"kernels": []}
+    whole = len(ran) == len(PHASES)
+    line = {"kernels": []} if whole else {"phases": ran, "kernels": []}
     for name, (source, replaces) in KERNELS.items():
-        r = results[name]
-        main_case = r["cases"][0]
-        if not any(r["launches"].values()):
+        r = results.get(name)
+        if r is None and not whole:  # a kernel the selected phases do not reach
+            continue
+        if whole and (r is None or not any(r["launches"].values())):
             raise AssertionError(f"{name} was launched on no main path")
+        main_case = r["cases"][0] if r["cases"] else {}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(r["launches"].values()),
             "launches_by_path": {path: r["launches"].get(path, 0) for path in PATHS},
-            "max_abs_err": r["max_abs_err"], "ms": main_case["ms"],
-            "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
-            "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
+            "max_abs_err": r["max_abs_err"], "ms": main_case.get("ms"),
+            "plain_ms": main_case.get("plain_ms"), "bound_ms": main_case.get("bound_ms"),
+            "bound_by": main_case.get("bound_by"), "library_ms": main_case.get("library_ms"),
             "cases": r["cases"],
         })
     print(json.dumps(line))

@@ -18,7 +18,12 @@ the synthetic wav index of tests/data_synth.py:
 - the npz source with ``ship_bf16`` and ``ship_int16``: one step each from
   one init, against the JAX trainer;
 - ``LAMonitor`` runs unchanged with ``on_device``: its dataset ships
-  fbanks, which pass through the frontend.
+  fbanks, which pass through the frontend;
+- exact resume on the device frontend (int16 waveforms, SpecAugment drawing
+  from the train state's generator): a run saved mid-epoch and resumed by
+  a fresh trainer ends bitwise where the uninterrupted run ends (params,
+  optimizer, step, RNG), as tests/test_torch_trainer_loop.py holds for the
+  host frontend.
 """
 
 import itertools
@@ -40,7 +45,8 @@ from vipant_tpu_torch.train import Trainer, build_monitor
 import vipant_tpu_torch.train.trainer as trainer_module
 
 from data_synth import make_synth_clotho, make_synth_va_index, make_synth_va_npz_index
-from test_torch_trainer_loop import LARS, _cfg, _losses, _recording
+from test_torch_trainer_loop import (LARS, _assert_bitwise, _cfg, _losses, _recording, _resume_cfg,
+                                     _state)
 
 SHIP = ["running.audio.on_device=True", "running.audio.wav_int16=True", "running.image_uint8=True"]
 ONE_EPOCH = ["running.epochs=1"] + LARS  # 8 clips at B = 4: two steps, an eval at the end
@@ -235,3 +241,21 @@ def test_la_monitor_runs_unchanged_with_on_device(tmp_path):
         losses.append(float(mon.train_step(*args)["loss"]))
         mon.close()
     assert losses[0] == losses[1]
+
+
+def test_an_on_device_resume_is_bitwise_the_uninterrupted_run(data, tmp_path):
+    """Two epochs of 2 steps with the device frontend and SpecAugment on:
+    saved at step 3 (mid-epoch) and resumed by a fresh trainer, the run ends
+    bitwise the uninterrupted one, the masks drawn alike."""
+    a = Trainer(_resume_cfg(data, str(tmp_path / "a"), 10 ** 9, *SHIP), device="cpu")
+    fresh_rng = a.state.generator.get_state()
+    a.learn()
+    assert a.on_device_audio and a.global_step == 4
+    assert not torch.equal(a.state.generator.get_state(), fresh_rng)  # SpecAugment drew
+    run = str(tmp_path / "b")
+    Trainer(_resume_cfg(data, run, 3, *SHIP), device="cpu").learn()
+    b = Trainer(_resume_cfg(data, run, 10 ** 9, *SHIP, "model_file=00000003"), device="cpu")
+    assert b.global_step == b.state.step == 3
+    b.learn()
+    assert b.global_step == 4
+    _assert_bitwise(_state(b), _state(a))

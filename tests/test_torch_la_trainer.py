@@ -27,7 +27,7 @@ tests/data_synth.py, on the CPU:
   its EOT, the cyclic pad of a clip with fewer captions, the warning for a
   clip with none, ``np_rnd`` under one seed);
 - the refusals: ``running.dataloader=lv`` (A12), a ``pak*`` dataset (A11),
-  the gradient cache (A15) and a ``.pth`` model file (A7).
+  the gradient cache (A15) and ``async_ckpt`` (A7's remainder).
 """
 
 import json
@@ -390,7 +390,7 @@ def test_a_short_clip_pads_its_captions_cyclically(data):
     (["running.dataloader=lv"], "A12"),
     (["running.data_name=pak_clotho"], "A11"),
     (["running.grad_cache.alive=True"], "A15"),
-    (["model_file=model.pth"], "A7"),
+    (["async_ckpt=True"], "A7"),
 ])
 def test_what_is_not_ported_is_refused_by_name(data, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):

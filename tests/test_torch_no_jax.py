@@ -6,8 +6,10 @@ tower too), a tiny captioning step and ``caption`` call (bf16 and int8),
 ``chip_smoke.write_synthetic_va``) with its checkpoints and a bitwise
 resume, or an epoch with the device frontend (int16 waveforms, uint8
 frames) followed by the file entry points and a request to the HTTP server,
-on the CPU, and never imports jax, jaxlib, flax, optax or any module of
-``vipant_tpu``; the command lines ``python -m vipant_tpu_torch
+on the CPU, or an engine seeded from a CLIP file with a training step
+whose save writes a reference ``.pth`` that a second engine serves, and
+never imports jax, jaxlib, flax, optax or any module of ``vipant_tpu``; the
+command lines ``python -m vipant_tpu_torch
 platform=cpu`` (an ``LAMonitor`` step) and ``python -m
 vipant_tpu_torch.serve`` run where importing any of them raises. A scan of
 the sources holds the same: no import of ``vipant_tpu`` under
@@ -192,6 +194,45 @@ print("ok")
 """
 
 
+CKPT_SCRIPT = """
+import os, sys
+import numpy as np
+import torch
+from vipant_tpu_torch.serve import InferenceEngine
+from vipant_tpu_torch.train import Trainer
+
+root, clip = ROOT_DIR, CLIP_FILE
+model = [
+    "+running=bimodal", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=dummy",
+    "+model/loss=ce", "+optimizer=standard", "+running/audio=default",
+    "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=100", "worker=CVAP",
+    "model.image.width=64", "model.image.embed_dim=32", "model.image.encoder.layers=2",
+    "model.image.heads=4", f"running.clip_model_root={os.path.dirname(clip)}",
+    "running.clip_model_name=tinyclip",
+]
+sd = torch.load(clip)
+eng = InferenceEngine(model, batch_size=4, device="cpu")
+assert torch.equal(eng.model.image.pre_encoder.conv1.weight, sd["visual.conv1.weight"])
+tr = Trainer(model + ["running.batch_size=2", "optimizer.warmup_epoch=0", "export_pth=True",
+                      f"alias_root={root}", "model_name=m"], device="cpu")
+assert torch.equal(tr.frozen["image.misc.class_embedding"], sd["visual.class_embedding"])
+r = np.random.default_rng(0)
+tr.train_step(*tr.make_batch(r.standard_normal((2, 3, 224, 224)).astype(np.float32),
+                             r.standard_normal((2, 1, 100, 128)).astype(np.float32)))
+step = tr.save()
+eng2 = InferenceEngine(model + [f"model_file={os.path.join(step, '00000000.pth')}"], batch_size=4,
+                       device="cpu")
+fb = r.standard_normal((3, 100, 128)).astype(np.float32)
+with torch.no_grad():
+    want = tr.model.encode_audio(torch.from_numpy(fb[:, None]), train=False).float().numpy()
+assert np.abs(eng2.embed_audio(fb) - want).max() < 1e-5
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -210,6 +251,21 @@ def test_port_learns_from_an_index_and_resumes_without_jax():
 
 def test_port_runs_the_device_frontend_and_serves_files_without_jax():
     _run(FRONTEND_SCRIPT)
+
+
+def test_port_loads_clip_and_writes_a_pth_without_jax(tmp_path):
+    """An engine and a trainer seeded from a CLIP file (tests/torch_oracle.py's
+    state dict), a step whose save writes the reference ``.pth``, and an
+    engine serving that file."""
+    import torch
+    from torch_oracle import TorchText, TorchVisual, clip_state_dict
+
+    torch.manual_seed(0)
+    torch.save(clip_state_dict(TorchVisual(width=64, layers=2, heads=4, embed_dim=32),
+                               TorchText(width=64, layers=2, heads=4, embed_dim=32)),
+               tmp_path / "tinyclip.pt")
+    _run(CKPT_SCRIPT.replace("ROOT_DIR", repr(str(tmp_path))).replace(
+        "CLIP_FILE", repr(str(tmp_path / "tinyclip.pt"))))
 
 
 def test_the_data_layer_imports_no_torch():
@@ -339,7 +395,9 @@ def test_no_source_of_the_port_imports_the_jax_package():
     assert len(sources) > 35
     assert any(p.endswith(os.path.join("experiments", "fused_block_probe.py")) for p in sources)
     assert any(p.endswith(os.path.join("nn", "seqgen.py")) for p in sources)
-    for new in (("ops", "fbank.py"), ("ops", "specaugment.py"), ("ops", "frontend.py")):
+    for new in (("ops", "fbank.py"), ("ops", "specaugment.py"), ("ops", "frontend.py"),
+                ("ckpt", "clip_port.py"), ("ckpt", "reference_port.py"),
+                ("ckpt", "reference_export.py"), ("ckpt", "loading.py"), ("ckpt", "zoo.py")):
         assert any(p.endswith(os.path.join(*new)) for p in sources), new
     for path in sources:
         with open(path) as fh:

@@ -196,15 +196,15 @@ def test_cvap_overfits_eight_pairs_with_adam():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    for extra in (["model_file=x.pth"], ["async_ckpt=True"], ["export_pth=True"],
-                  ["running.multi_view=True"],
+    for extra in (["async_ckpt=True"], ["running.multi_view=True"],
                   ["running.audio.on_device=True", "running.audio.dither=1.0"],
                   ["running.audio.on_device=True", "running.audio.use_energy=True"],
                   ["running.grad_cache.alive=True"], ["mesh.zero=True"], ["mesh.model=2"]):
         with pytest.raises(NotImplementedError):
             Trainer(_cfg("float32", *extra), device="cpu")
-    with pytest.raises(FileNotFoundError):  # a configured checkpoint that is not there
-        Trainer(_cfg("float32", "model_file=ckpt"), device="cpu")
+    for missing in ("model_file=ckpt", "model_file=x.pth"):  # a configured checkpoint that is not there
+        with pytest.raises(FileNotFoundError):
+            Trainer(_cfg("float32", missing), device="cpu")
     with pytest.raises(ValueError, match="data_name"):
         Trainer(_cfg("float32", "eval=False", "running.data_name=", "running.eval_name="),
                 device="cpu").learn()

@@ -1,19 +1,21 @@
-"""Model assembly: config -> ``nn.Module``, seeded random init, and the
-trainable-parameter mask.
+"""Model assembly: config -> ``nn.Module``, seeded random init, CLIP
+weights, and the trainable-parameter mask.
 
-Counterpart of ``vipant_tpu/models/build.py:26-115`` and ``:205-250`` for
-the CVAP and CLAP workers (CLAP with a text tower, or with the captioning
-decoder). Parameters are fp32 (``param_dtype``);
+Counterpart of ``vipant_tpu/models/build.py:26-115``, ``:205-250`` and
+``:279-338`` for the CVAP and CLAP workers (CLAP with a text tower, or with
+the captioning decoder). Parameters are fp32 (``param_dtype``);
 activations run in ``compute_dtype`` (bfloat16 in the default config).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, List, Mapping
 
 import torch
 from torch import nn
 
+from ..ckpt.clip_port import port_clip_text, port_clip_visual, split_clip_state_dict
+from ..ckpt.loading import copy_logit_scales, load_tower
 from ..nn.heads import build_audio_head, build_image_head, build_text_head
 from ..nn.losses import build_loss_head
 from ..nn.seqgen import SeqGenerationHead
@@ -62,6 +64,31 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if hasattr(module, "init_weights"):
                 module.init_weights(generator)
     return model
+
+
+def port_model_from_clip(model: nn.Module, clip_sd: Mapping[str, Any]) -> List[str]:
+    """Initialise ``model``'s towers from a CLIP state dict, in place
+    (``vipant_tpu/models/build.py:279-338``; the reference's init,
+    `reference/cvap/model/cvap.py:100-128`, `clap.py:80-157`): the image
+    tower as it is, the audio tower from the visual tower with the square
+    grid re-gridded bilinearly to the audio grid (no slice), the text tower
+    with its positional embedding cut to its context, and CLIP's
+    ``logit_scale`` into every loss head's. Returns the towers loaded."""
+    visual_sd, text_sd = split_clip_state_dict(clip_sd)
+    loaded = []
+    for name in ("image", "audio"):
+        tower = getattr(model, name, None)
+        if tower is not None and hasattr(tower, "grid"):  # a ViT tower (not a DummyHead)
+            load_tower(tower, port_clip_visual(visual_sd, tower, use_slice=name == "image"),
+                       f"CLIP visual -> {name}")
+            loaded.append(name)
+    text = getattr(model, "text", None)
+    if text is not None and hasattr(text, "ctx_len"):
+        load_tower(text, port_clip_text(text_sd, text), "CLIP text -> text")
+        loaded.append("text")
+    if "logit_scale" in text_sd:
+        copy_logit_scales(model, text_sd["logit_scale"])
+    return loaded
 
 
 # excl_modules names (the reference's stage names, or the JAX package's

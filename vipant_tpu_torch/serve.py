@@ -29,8 +29,11 @@ KV-cached greedy decoding, or beam search, to strings. Under
 ``quantize="int8"`` the audio tower and the decoder's self-attention and MLP
 sub-blocks run int8; the cross-attention has no int8 form and stays bf16.
 
-Not ported yet: ``.pth`` / CLIP weight loading (A7 of ROADMAP.md's queue
-A) and multi-device serving (A15).
+Weights (:meth:`InferenceEngine._load`): a reference ``.pth``
+(``model_file=x.pth``), a step directory's ``model.npz``, CLIP weights
+(``running.clip_model_root`` / ``clip_model_name``, e.g. ``ViT-B-32.pt``),
+or the seeded random init. Not ported yet: multi-device serving (A15 of
+ROADMAP.md's queue A).
 
 Usage::
 
@@ -60,8 +63,10 @@ import numpy as np
 import torch
 
 from .ckpt.from_jax import load_params, read_npz
+from .ckpt.loading import apply_reference_ckpt, clip_weights_path, model_towers, report_sources
+from .ckpt.reference_port import load_torch_file
 from .config import Config
-from .models import build_main_model, init_weights
+from .models import build_main_model, init_weights, port_model_from_clip
 from .nn.heads import normalize
 from .ops.quant import int8_fwd_context
 from .utils import as_config, require_device, run_root
@@ -77,10 +82,9 @@ class InferenceEngine:
     override strings. ``device`` defaults to the card. ``quantize`` is ``""``
     or ``"int8"``. ``token_pack`` packs k items per
     attention call in the image and text towers (exact; applied only when
-    it divides ``batch_size``). Weights come from ``model.npz`` under
-    ``model_root/model_name/model_file`` when ``model_file`` names a
-    directory (the towers it leaves out from the port trainer's
-    ``state.pt`` there), else from a random init seeded with ``seed``.
+    it divides ``batch_size``). Weights come from ``model_file`` (a
+    reference ``.pth``, or a step directory under ``model_root/model_name``),
+    CLIP weights, or a random init seeded with ``seed`` (:meth:`_load`).
     """
 
     def __init__(
@@ -129,41 +133,69 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- loading
     def _load(self) -> None:
+        """The weights, by the JAX engine's priority
+        (``vipant_tpu/serve.py:238-361``): a reference ``.pth``
+        ``model_file``; a step directory's ``model.npz``, the towers it
+        leaves out from CLIP weights (``running.clip_model_root`` /
+        ``clip_model_name``), else from the port trainer's ``state.pt``
+        there; no ``model_file``: CLIP weights when they resolve, else the
+        seeded random init. Each tower's source is logged."""
         cfg = self.cfg
         model_file = str(cfg.get("model_file", "") or "")
-        if not model_file:
-            self.echo.info("no model_file: serving seeded random weights")
-            return
-        if model_file.endswith(".pth"):
-            raise NotImplementedError("reference .pth loading is not ported yet")
         ckpt_path = os.path.join(
             run_root(cfg.get("model_root", "") or ""), str(cfg.get("model_name", "") or ""), model_file
         )
+        if model_file.endswith(".pth"):
+            path = next((p for p in (ckpt_path, model_file) if os.path.exists(p)), None)
+            if path is None:
+                # random weights give plausible unit-norm embeddings: fail loudly
+                raise FileNotFoundError(
+                    f"model_file {model_file!r} not found at {ckpt_path!r} or as a direct path")
+            loaded = apply_reference_ckpt(self.model, path, echo=self.echo)
+            report_sources(self.echo, self.model, {t: f"reference checkpoint {path}" for t in loaded})
+            return
+        if not model_file:
+            clip_path = clip_weights_path(cfg)
+            if clip_path is None:
+                report_sources(self.echo, self.model, {})
+                return
+            loaded = port_model_from_clip(self.model, load_torch_file(clip_path)[1])
+            report_sources(self.echo, self.model, {t: f"CLIP weights {clip_path}" for t in loaded})
+            return
         npz = os.path.join(ckpt_path, "model.npz")
         if not os.path.exists(npz):
             # random weights give plausible unit-norm embeddings: fail loudly
             raise FileNotFoundError(f"model_file {model_file!r}: no model.npz at {npz}")
         params = read_npz(npz)
-        towers = [t for t in ("image", "audio", "text", "decoder")
-                  if getattr(self.model, t, None) is not None]
+        towers = model_towers(self.model)
+        sources = {t: f"weight export {npz}" for t in towers if t in params}
         uncovered = [t for t in towers if t not in params]
         if uncovered:
+            clip_path = clip_weights_path(cfg)
+            if clip_path is not None:
+                # the whole model from CLIP, then the export over the towers it covers
+                loaded = port_model_from_clip(self.model, load_torch_file(clip_path)[1])
+                sources.update({t: f"CLIP weights {clip_path}" for t in uncovered if t in loaded})
+                uncovered = [t for t in uncovered if t not in loaded]
+        if uncovered:
             self._load_from_train_state(ckpt_path, npz, sorted(params), uncovered)
+            sources.update({t: f"train state {ckpt_path}/state.pt" for t in uncovered})
         load_params(self.model, params)
-        self.echo.info(f"loaded weight export {npz}")
+        report_sources(self.echo, self.model, sources)
 
     def _load_from_train_state(self, ckpt_path: str, npz: str, covered: List[str],
                                towers: List[str]) -> None:
-        """Towers a weight export leaves out (the VA trainer exports the audio
-        tower and the loss head; the JAX engine seeds the rest from CLIP
-        weights) come from the port trainer's ``state.pt`` in the same step
-        directory, which holds every tower as it trained: the frozen ones
-        too."""
+        """Towers that neither a weight export nor CLIP weights give (the
+        VA trainer exports the audio tower and the loss head) come from the
+        port trainer's ``state.pt`` in the same step directory, which holds
+        every tower as it trained: the frozen ones too."""
         state = os.path.join(ckpt_path, "state.pt")
         if not os.path.exists(state):
             raise ValueError(
-                f"{npz} covers only {covered} but the model has tower(s) {towers}, and "
-                f"{ckpt_path} holds no state.pt; seeding them from CLIP weights is not ported yet")
+                f"{npz} covers only {covered} but the model has tower(s) {towers}, no CLIP "
+                f"weights resolve from running.clip_model_root / clip_model_name, and "
+                f"{ckpt_path} holds no state.pt; serving them at random init would give "
+                "plausible-looking garbage")
         sd = torch.load(state, map_location="cpu", weights_only=True)
         saved = {**sd["frozen_params"], **sd["params"]}
         take = {k: v for k, v in saved.items() if k.split(".", 1)[0] in towers}
@@ -171,7 +203,6 @@ class InferenceEngine:
         if set(take) != want:
             raise ValueError(f"{state} and the model disagree on {sorted(set(take) ^ want)}")
         self.model.load_state_dict(take, strict=False)
-        self.echo.info(f"tower(s) {towers} not in {npz}: loaded from {state}")
 
     # --------------------------------------------------------------- encode
     def _embed_dim(self) -> int:

@@ -11,6 +11,10 @@ Counterpart of ``vipant_tpu/ckpt/orbax_io.py:68-160,327-377``. A save writes
 - ``model.npz`` (optional): a weight export under the JAX package's flat
   dotted names and layouts (:func:`..ckpt.from_jax.to_jax_params`), which
   both packages' ``InferenceEngine(model_file=<step dir>)`` serve;
+- ``{step:08d}.pth`` (with ``export_pth``): the same export as a
+  reference-format checkpoint (:func:`..ckpt.reference_export.export_reference_pth`),
+  which the reference, both packages' engines and trainers
+  (``model_file=<it>``) read;
 - ``COMMITTED``, written last: a step directory without it is a save that
   did not finish, never loaded and pruned at the next save.
 
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ckpt.from_jax import flatten, to_jax_params
+from ..ckpt.reference_export import export_reference_pth, split_by_tower
 from .state import TrainState
 
 COMMIT_MARKER = "COMMITTED"
@@ -42,12 +47,13 @@ def is_committed(step_dir: str) -> bool:
 
 def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, cfg=None,
                     model_only: Optional[Mapping[str, torch.Tensor]] = None,
-                    keep_last: int = 0) -> str:
+                    keep_last: int = 0, export_pth: bool = False) -> str:
     """Write ``{ckpt_dir}/{step:08d}/`` (see the module docstring) and
     return its path. ``model_only``: the port's name -> tensor of the
-    params to export as ``model.npz``. ``keep_last`` > 0 keeps the newest N
-    committed step directories (never the one just written) and removes
-    uncommitted ones."""
+    params to export as ``model.npz`` (and with ``export_pth`` as
+    ``{step:08d}.pth``). ``keep_last`` > 0 keeps the newest N committed
+    step directories (never the one just written) and removes uncommitted
+    ones."""
     root = os.path.abspath(ckpt_dir)
     name = f"{step:08d}"
     path = os.path.join(root, name)
@@ -60,6 +66,8 @@ def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, cfg=None,
             json.dump(cfg.to_dict(resolve=False), f)
     if model_only is not None:
         np.savez(os.path.join(path, "model.npz"), **flatten(to_jax_params(model_only)))
+        if export_pth:
+            export_reference_pth(os.path.join(path, f"{name}.pth"), split_by_tower(model_only), cfg=cfg)
     with open(os.path.join(path, COMMIT_MARKER), "w") as f:
         f.write(f"{step}\n")
     if keep_last > 0:

@@ -16,9 +16,12 @@ never skips); a ``TEST`` pass over ``running.test_name`` follows training.
 (:meth:`LATrainer.repeated_retrieval`); :meth:`LATrainer.encode_text` writes
 each clip's caption embeddings.
 
+The AT recipe starts from a VA checkpoint: ``model_file=<step>.pth`` (a
+reference ``.pth``, e.g. one a VA run wrote with ``export_pth``) loads its
+audio tower (:meth:`.trainer.Trainer.load_pretrained`).
+
 Not ported yet, and refused (ROADMAP.md's queue A): the image-text loader
-``running.dataloader=lv`` (A12); the packed ``pak*`` datasets (A11);
-initialising from a VA checkpoint or CLIP weights (A7).
+``running.dataloader=lv`` (A12); the packed ``pak*`` datasets (A11).
 """
 
 from __future__ import annotations

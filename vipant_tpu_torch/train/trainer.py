@@ -43,11 +43,17 @@ drawn from the train state's generator), ``running.audio.ship_int16`` /
 ``ship_bf16`` fbanks into fp32, and ``running.image_uint8`` frames into
 CLIP-normalised fp32 (:mod:`..ops.frontend`).
 
+Weights (:meth:`Trainer.load_pretrained`, before the optimizer takes the
+parameters): a reference ``.pth`` ``model_file`` (a VA checkpoint's audio
+tower for AT fine-tuning), CLIP weights (``running.clip_model_root`` /
+``clip_model_name``) when there is no ``model_file``, else the seeded random
+init; ``export_pth`` writes each save's weight export as a reference
+``.pth`` too.
+
 Not ported yet, and refused when asked for (ROADMAP.md's queue A names the
-item that ports each): CLIP and reference ``.pth`` weights, ``export_pth``
-and ``async_ckpt`` (A7); the monitors other than ``VAMonitor`` and
-``LAMonitor`` (A11, A12); the gradient cache, ZeRO and every mesh axis
-beyond one device (A15).
+item that ports each): ``async_ckpt`` (A7-rest); the monitors other than
+``VAMonitor`` and ``LAMonitor`` (A11, A12); the gradient cache, ZeRO and
+every mesh axis beyond one device (A15).
 
 Usage::
 
@@ -69,13 +75,15 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..ckpt.loading import apply_reference_ckpt, clip_weights_path, model_towers, report_sources
+from ..ckpt.reference_port import load_torch_file
 from ..config import Config
 from ..data import build_image_audio_dataloader
 from ..data.device_put import PinnedDevicePut
 from ..data.image_audio import FBANK_INT16_SCALE, fbank_params_from_cfg
 from ..data.image_audio import refuse_unported as refuse_unported_data
 from ..eval.metrics import format_retrieval_report, grouped_pnr, symmetric_retrieval
-from ..models import build_main_model, init_weights, tunable_mask
+from ..models import build_main_model, init_weights, port_model_from_clip, tunable_mask
 from ..ops.fbank import fbank_fixed_len
 from ..ops.frontend import device_normalize_image
 from ..ops.specaugment import spec_augment
@@ -117,14 +125,8 @@ def build_monitor(cfg, **kw):
 
 
 def _refuse_unported(cfg) -> None:
-    model_file = str(cfg.get("model_file", "") or "")
-    if model_file.endswith(".pth"):
-        raise NotImplementedError(
-            f"model_file {model_file!r}: reference .pth checkpoints are not ported yet "
-            "(ROADMAP.md queue A, A7)")
-    for key in ("async_ckpt", "export_pth"):
-        if bool(cfg.get(key, False)):
-            raise NotImplementedError(f"{key} is not ported yet (ROADMAP.md queue A, A7)")
+    if bool(cfg.get("async_ckpt", False)):
+        raise NotImplementedError("async_ckpt is not ported yet (ROADMAP.md queue A, A7-rest)")
     run = cfg.get("running", Config({}))
     refuse_unported_data(run)
     gc = run.get("grad_cache", None)
@@ -220,6 +222,7 @@ class Trainer:
         seed = int(cfg.seed)
         self.model = build_main_model(cfg, device=self.device)
         init_weights(self.model, torch.Generator(device=self.device).manual_seed(seed))
+        self.load_pretrained()
         self.trainable, self.frozen = partition_params(self.model, tunable_mask(cfg, self.model))
         self.loss_kwargs = {}
         if hasattr(self.model, "decoder"):  # CLAP: retrieval needs a text tower
@@ -228,17 +231,47 @@ class Trainer:
             self.loss_kwargs["retrieval"] = self.model.decoder is None or bool(
                 run.get("retrieval", has_text))
 
+    def _model_file_path(self) -> Tuple[str, str]:
+        model_file = str(self.cfg.get("model_file", "") or "")
+        return model_file, os.path.join(run_root(self.cfg.model_root), str(self.cfg.model_name),
+                                        model_file)
+
     def _checkpoint_path(self) -> Optional[str]:
         """The step directory ``model_file`` names under
-        ``model_root/model_name``, or None; a configured but missing one
-        raises rather than train from random weights."""
-        model_file = str(self.cfg.get("model_file", "") or "")
-        if not model_file or model_file.endswith(".out"):  # a log names checkpoints (LAMonitor)
+        ``model_root/model_name``, or None (no ``model_file``, a log for
+        repeated eval, or a reference ``.pth``: :meth:`load_pretrained`); a
+        configured but missing one raises rather than train from random
+        weights."""
+        model_file, path = self._model_file_path()
+        if not model_file or model_file.endswith((".out", ".pth")):  # a log names checkpoints
             return None
-        path = os.path.join(run_root(self.cfg.model_root), str(self.cfg.model_name), model_file)
         if not os.path.isdir(path):
             raise FileNotFoundError(f"model_file {model_file!r} not found at {path!r}")
         return path
+
+    def load_pretrained(self) -> None:
+        """Weights before the optimizer takes the parameters, by the JAX
+        trainer's priority (``vipant_tpu/train/trainer.py:205-236``): a
+        reference ``.pth`` ``model_file`` into the towers it holds (a missing
+        one raises); a step directory resumes in :meth:`build_optimizer`;
+        CLIP weights (``running.clip_model_root`` / ``clip_model_name``) only
+        when ``model_file`` is empty; else the seeded random init. Each
+        tower's source is logged."""
+        model_file, path = self._model_file_path()
+        sources: Dict[str, str] = {}
+        if model_file.endswith(".pth"):
+            if not os.path.exists(path):
+                raise FileNotFoundError(f"model_file {model_file!r} not found at {path!r}")
+            loaded = apply_reference_ckpt(self.model, path, echo=self.echo)
+            sources = {t: f"reference checkpoint {path}" for t in loaded}
+        elif self.resume_from is not None:
+            sources = {t: f"train state {self.resume_from}" for t in model_towers(self.model)}
+        elif not model_file:
+            clip_path = clip_weights_path(self.cfg)
+            if clip_path is not None:
+                loaded = port_model_from_clip(self.model, load_torch_file(clip_path)[1])
+                sources = {t: f"CLIP weights {clip_path}" for t in loaded}
+        report_sources(self.echo, self.model, sources)
 
     # ------------------------------------------------------------- optimizer
     def build_optimizer(self) -> None:
@@ -611,11 +644,14 @@ class Trainer:
                 if k.split(".", 1)[0] in ("audio", "loss")}
 
     def save(self) -> str:
-        """Write ``{alias_root}/{model_name}/{step:08d}/`` (:mod:`.checkpoint`)."""
+        """Write ``{alias_root}/{model_name}/{step:08d}/`` (:mod:`.checkpoint`),
+        with ``export_pth`` also the weight export as a reference-format
+        ``{step:08d}.pth`` there (``vipant_tpu/train/trainer.py:986-1000``)."""
+        export = self.collect_model_export()
         path = save_checkpoint(
-            self.out_dir, self.global_step, self.state, cfg=self.cfg,
-            model_only=self.collect_model_export(),
-            keep_last=int(self.cfg.get("keep_last_ckpts", 0) or 0))
+            self.out_dir, self.global_step, self.state, cfg=self.cfg, model_only=export,
+            keep_last=int(self.cfg.get("keep_last_ckpts", 0) or 0),
+            export_pth=bool(self.cfg.get("export_pth", False)))
         self.echo.info(f"saving the checkpoint to {path}")
         return path
 

@@ -34,15 +34,16 @@ __all__ = [
 ]
 
 
-# the values of alias_root, model_root and profile.dir in config/defaults/default.yaml
-SHIPPED_PATHS = ("/tmp/vipant", "/tmp/vipant_profile")
+# the values of alias_root, model_root and profile.dir in config/defaults/default.yaml, and of
+# running.clip_model_root in config/defaults/running/*.yaml
+SHIPPED_PATHS = ("/tmp/vipant", "/tmp/vipant_profile", "/tmp/clip")
 
 
 def run_root(path) -> str:
-    """The directory a config's ``alias_root``, ``model_root`` or
-    ``profile.dir`` names: a shipped default moves under the process's temp
-    directory (``TMPDIR``), so runs with their own ``TMPDIR`` never share
-    files; any other path as given."""
+    """The directory a config's ``alias_root``, ``model_root``,
+    ``profile.dir`` or ``running.clip_model_root`` names: a shipped default
+    moves under the process's temp directory (``TMPDIR``), so runs with
+    their own ``TMPDIR`` never share files; any other path as given."""
     path = str(path)
     if path in SHIPPED_PATHS:
         return os.path.join(tempfile.gettempdir(), os.path.basename(path))
