@@ -258,6 +258,29 @@
    .pth>`` at row cosine >= 0.9999 to the trainer's own audio tower in eval
    mode; (d) ``LAMonitor`` with ``model_file=<that .pth>``: its audio tower
    bitwise the file's, one step at B = 50.
+18. Classification (full width; ``clf_phase``): (a) the native host fbank
+   built from ``vipant_tpu_torch/native/fbank.cc`` on the card's host into
+   the phase's directory (its seconds; the library loaded must be that
+   build, not one the checkout already held), within 2e-3 of ``fbank_np`` on a 10.05 s clip, ms per clip of
+   both routes beside the host's CPU and the card's name and power limit;
+   on a seeded ESC-50 tree (``write_synthetic_esc50``: ESC-50's 50 classes,
+   5 folds, one 5 s clip a class a fold) and phase 17's CLIP file, (b)
+   ``ESCMonitor`` zero-shot (``running.zero_shot``, ``eval=True``): the 50
+   prompt embeddings and a B50 batch of audio embeddings at row cosine >=
+   0.999 to the plain ops, the pooled P@1 in [0, 100], every host
+   featurisation on the native route; (c) the supervised x-fold at B = 50,
+   one epoch a fold (5 folds of 4 steps, a fresh model each): fold 1's step
+   grads held to fp32 by phase 6 (i)'s criterion, every loss finite, the
+   ``summary_report`` mean, the step's ms; (d) ``ASMonitor`` on a seeded
+   AudioSet (``write_synthetic_audioset``: 527 labels, 128 train and 64 eval
+   clips of 10 s with JPEG frames) with the imagine branch, mixup 0.5 and
+   weighted sampling: 4 steps at B = 64 on 8 process workers, the loss and
+   its ``bce`` / ``ce`` parts finite, then ``infer`` (the multilabel report)
+   and ``zero_shot`` (527 prompts), every number in [0, 100]; (e) the engine
+   with ``worker=ESClassifier``: ``zero_shot`` of 6 wav files against 5
+   labels at row cosine >= 0.999 (embeddings) and scores within 0.09 of a
+   CPU engine (plain ops, fp32); every launch of (b) to (e) counted on the
+   path ``clf``.
 
 Every kernel's time stands beside its bound, the least time the card could
 take for the same work: the larger of the bytes it must move (each input
@@ -283,7 +306,7 @@ max |plain|, since they sum over thousands of rows in another order.
 Prints a JSON line of per-kernel results (``launches`` is the sum of the
 counts read on each main path (``serve``, ``train``, ``serve_int8``,
 ``train_int8_frozen``, ``probe``, ``caption_train``, ``caption_serve``, ``va_loop``,
-``la_loop``, ``va_loop_dev``, ``serve_files``, ``ckpt``), which ``launches_by_path`` gives apart; ``ms``,
+``la_loop``, ``va_loop_dev``, ``serve_files``, ``ckpt``, ``clf``), which ``launches_by_path`` gives apart; ``ms``,
 ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` are those of the
 kernel's first case, its main-path shape; ``cases`` holds each shape's), then, as the last line, ``{"ok": true, "device": {...}}``.
 With phase names, the kernels line also names the phases that ran
@@ -370,7 +393,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                         "experiments/fused_block_probe.py:85"),
 }
 PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
-         "caption_serve", "va_loop", "la_loop", "va_loop_dev", "serve_files", "ckpt")
+         "caption_serve", "va_loop", "la_loop", "va_loop_dev", "serve_files", "ckpt", "clf")
 # every product shape the paths give gemm_bias_act: (case, M, N, K, activation, residual, fp32
 # pre-activation). The kernel phase holds each to its plain version; experiments/kernel_times.py
 # times each, parent against change.
@@ -3396,6 +3419,332 @@ def ckpt_phase(torch, results):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 18: classification (ESC-50 x-fold and zero-shot, AudioSet multi-label, the classifier engine)
+CLF_TOWERS = [  # the towers of CLAP_FULL: ViT-B/32 audio at T = 306, the 12-layer width-512 text tower
+    "+model/image=vit_val", "+model/audio=vit_val", "+model/text=transformer_val",
+    "+optimizer=standard", "+running/audio=default", "model.audio.pre_encoder.stride=[16,24]",
+    "running.audio.max_len=1000", "model_file=",
+]
+ESC_FULL = ["+running=esc50", *CLF_TOWERS, "+model/loss=ce_cls", "worker=ESClassifier",
+            "monitor=ESCMonitor"]
+AS_FULL = ["+running=audioset", *CLF_TOWERS, "+model/loss=imagine_and_classify", "worker=ASClassifier",
+           "monitor=ASMonitor", "running.mixup_rate=0.5", "running.weighted_sampling=True"]
+ESC_CLASSES = (  # ESC-50's categories, in the order of its targets
+    "dog rooster pig cow frog cat hen insects sheep crow rain sea_waves crackling_fire crickets "
+    "chirping_birds water_drops wind pouring_water toilet_flush thunderstorm crying_baby sneezing "
+    "clapping breathing coughing footsteps laughing brushing_teeth snoring drinking_sipping "
+    "door_wood_knock mouse_click keyboard_typing door_wood_creaks can_opening washing_machine "
+    "vacuum_cleaner clock_alarm clock_tick glass_breaking helicopter chainsaw siren car_horn engine "
+    "train church_bells airplane fireworks hand_saw").split()
+ESC_FOLDS, ESC_SECONDS, ESC_B = 5, 5.0, 50  # ESC-50: 5 folds of 5 s clips; running/esc50.yaml's batch
+AS_LABELS, AS_TRAIN, AS_EVAL, AS_B = 527, 128, 64, 64  # AudioSet's label count; running/audioset.yaml's batch
+NATIVE_TOL = 2e-3  # the native fbank against fbank_np (float FFT against float64 rfft; ~4e-4 measured)
+ENGINE_LABELS = ("dog", "rain", "siren", "church bells", "keyboard typing")
+
+
+def write_synthetic_esc50(root, per_fold=1, folds=ESC_FOLDS, seconds=ESC_SECONDS, classes=ESC_CLASSES,
+                          seed=0):
+    """A seeded synthetic ESC-50 tree in the real layout: ``{root}/esc50.csv``
+    (``filename, fold, target, category``) and ``{root}/audio/{fold}-{id}-A-{target}.wav``
+    (16 kHz mono, a tone per class plus noise), ``per_fold`` clips of each
+    class in each of ``folds`` folds."""
+    import os
+
+    from vipant_tpu_torch.data import write_wav
+
+    sr = 16000
+    os.makedirs(os.path.join(root, "audio"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    rows = ["filename,fold,target,category"]
+    for fold in range(1, folds + 1):
+        for target, cat in enumerate(classes):
+            for j in range(per_fold):
+                name = f"{fold}-{100 * target + j}-A-{target}.wav"
+                wav = 0.4 * np.sin(2 * np.pi * (150 + 37 * target) * t) + 0.01 * rng.standard_normal(len(t))
+                write_wav(os.path.join(root, "audio", name), wav.astype(np.float32), sr)
+                rows.append(f"{name},{fold},{target},{cat}")
+    with open(os.path.join(root, "esc50.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def write_synthetic_audioset(root, train=AS_TRAIN, evals=AS_EVAL, labels=AS_LABELS, seconds=LOOP_SECONDS,
+                             seed=0):
+    """A seeded synthetic AudioSet in the layout the JAX package's tests
+    fabricate (``tests/data_synth.py:make_synth_audioset``): an
+    ``ontology.json`` of ``labels`` + 3 labels (those 3 absent from
+    ``eval_segments.csv``, which names all the others), and the ``as_train`` /
+    ``as_eval`` indexes of ``write_synthetic_va`` clips (10 s wav, a 256 x 256
+    JPEG frame) with 1 to 3 labels each, drawn with a skew so that the
+    weighted sampling has work to do."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    ids = [f"/m/vt{i:04d}" for i in range(labels + 3)]
+    names = [" ".join(rng.choice(LA_WORDS, 2)) for _ in ids]
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "ontology.json"), "w") as f:
+        json.dump([{"id": i, "name": n} for i, n in zip(ids, names)], f)
+    seg = ["# Segments csv", "# num_ytids=0", "# YTID, start_seconds, end_seconds, positive_labels"]
+    for i in range(labels):
+        seg.append(f'seg{i}, 0.000, 10.000, "{ids[i]},{ids[(i * 7 + 3) % labels]}"')
+    with open(os.path.join(root, "eval_segments.csv"), "w") as f:
+        f.write("\n".join(seg) + "\n")
+    p = 1.0 / np.arange(1, labels + 1)  # a Zipf skew over the labels
+    for name, n, s in (("as_train", train, seed), ("as_eval", evals, seed + 1)):
+        records = write_synthetic_va(root, name, n, seconds=seconds, seed=s)
+        for rec in records:
+            k = int(rng.integers(1, 4))
+            rec["labels"] = [ids[j] for j in rng.choice(labels, k, replace=False, p=p / p.sum())]
+        with open(os.path.join(root, f"{name}.jsonl"), "w") as f:
+            f.write("".join(json.dumps(r) + "\n" for r in records))
+
+
+def _host_cpu():
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next(line.split(":", 1)[1].strip() for line in f if line.startswith("model name"))
+    except (OSError, StopIteration):
+        return "unknown CPU"
+
+
+def _report_numbers(report):
+    nums = [float(v) for v in re.findall(r"= (\S+)", report)]
+    if not nums or not all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in nums):
+        raise AssertionError(f"report numbers not finite or outside [0, 100]: {report}")
+    return nums
+
+
+def clf_phase(torch, results):
+    """(a) the native host fbank; (b) ESC-50 zero-shot; (c) the ESC-50
+    supervised x-fold; (d) AudioSet multi-label with the imagine branch;
+    (e) the engine with ``worker=ESClassifier``. ``learn`` builds each
+    fold's model afresh, so the steps timed in (c) before it leave no trace.
+    The x-fold runs on the
+    thread loader: its ten loaders (a training and an eval loader a fold) on
+    spawned workers would spend 8-15 s each on a first batch (PERF.md §7).
+    AudioSet trains on the process loader with 8 workers."""
+    import collections
+    import glob
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from vipant_tpu_torch import native
+    from vipant_tpu_torch.data import transforms_audio
+    from vipant_tpu_torch.data.esc50 import AudioLabelCollator
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.ops.fbank_np import FbankParams, fbank as fbank_np
+    from vipant_tpu_torch.serve import InferenceEngine
+    from vipant_tpu_torch.train import ASTrainer, ESCTrainer, build_monitor, loss_and_grads
+
+    smi = _smi()
+    path_counts = collections.Counter()  # the launches of every run of the path, summed
+
+    def count_launches(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        path_counts.update(LAUNCHES)
+        return out
+
+    root = tempfile.mkdtemp(prefix="vipant_clf_")
+    workers = min(8, os.cpu_count() or 1)
+    try:
+        # (a) the native fbank, built from the checkout's source on the card's host into this
+        # phase's directory; the library this process loads (and featurises with in (b) to (e))
+        # must be that build
+        default_root, native.BUILD_ROOT = native.BUILD_ROOT, Path(root) / "native"
+        native._load.cache_clear()
+        try:
+            if not native.native_available():
+                raise AssertionError("the native host fbank did not build or load")
+            loaded = Path(native._load()._name)
+        finally:
+            native.BUILD_ROOT = default_root
+        if Path(root) not in loaded.parents:
+            raise AssertionError(f"the native fbank loaded {loaded}, not this phase's build")
+        built = float((loaded.parent / "build_seconds").read_text())
+        wav = _clip_batch(1, 10.05)[0]
+        got, want = native.fbank_native(wav, FbankParams()), fbank_np(wav)
+        err = float(np.abs(got - want).max())
+        ms = {}
+        for name, fn, reps in (("native", lambda: native.fbank_native(wav, FbankParams()), 20),
+                               ("numpy", lambda: fbank_np(wav), 5)):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            ms[name] = (time.perf_counter() - t0) / reps * 1e3
+        print(f"(a) native fbank built from {native.SOURCE.name} in {built:.2f} s ({loaded}); a 10.05 s clip "
+              f"({got.shape[0]} frames): max |d| against fbank_np {err:.3e} (bound {NATIVE_TOL}); "
+              f"ms per clip native {ms['native']:.3f}, NumPy {ms['numpy']:.3f} "
+              f"({ms['numpy'] / ms['native']:.1f}x) on the host's {_host_cpu()} ({os.cpu_count()} cores), "
+              f"beside {smi}")
+        if got.shape != want.shape or not err <= NATIVE_TOL:
+            raise AssertionError(f"the native fbank disagrees with fbank_np: {err}")
+
+        # the full-width synthetic CLIP file and the ESC-50 tree
+        t0 = time.perf_counter()
+        clip_root = os.path.join(root, "clip")
+        os.makedirs(clip_root)
+        torch.save(synthetic_clip_state_dict(torch), os.path.join(clip_root, CLIP_NAME + ".pt"))
+        with_clip = [f"running.clip_model_root={clip_root}", f"running.clip_model_name={CLIP_NAME}"]
+        esc_root = os.path.join(root, "esc50")
+        write_synthetic_esc50(esc_root)
+        n_esc = len(ESC_CLASSES) * ESC_FOLDS
+        print(f"a seeded CLIP ViT-B/32 file and a synthetic ESC-50 tree ({len(ESC_CLASSES)} classes, "
+              f"{ESC_FOLDS} folds, {n_esc} clips of {ESC_SECONDS:.0f} s) written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        esc = ESC_FULL + with_clip + [f"running.data_root={esc_root}", f"running.batch_size={ESC_B}",
+                                      "loader_backend=thread", f"num_proc={workers}",
+                                      f"alias_root={root}/run", f"model_root={root}/run"]
+
+        # (b) ESC-50 zero-shot at full width, the host featurisation counted by route
+        routes = collections.Counter()
+        lock = threading.Lock()
+
+        def counted(name, fn):
+            def wrapped(*a, **k):
+                with lock:
+                    routes[name] += 1
+                return fn(*a, **k)
+            return wrapped
+
+        zs = build_monitor(esc + ["running.zero_shot=True", "eval=True", "model_name=zs"])  # on the card
+        if not isinstance(zs, ESCTrainer) or zs.output_dim != len(ESC_CLASSES):
+            raise AssertionError("ESCMonitor did not build an ESCTrainer over the 50 classes")
+        te = zs.encode_label_texts()
+        batch = AudioLabelCollator()([zs.folds[0][1].dataset[i] for i in range(ESC_B)])
+        audio = zs.make_batch(batch["audio"])[0]
+        with torch.no_grad():
+            ae = zs.model.encode_audio(audio).float().cpu().numpy()
+        with plain_ops():
+            tp = zs.encode_label_texts()
+            with torch.no_grad():
+                ap = zs.model.encode_audio(audio).float().cpu().numpy()
+        cos = {"prompts": float(_row_cos(te, tp).min()), "audio": float(_row_cos(ae, ap).min())}
+        with mock.patch.object(native, "fbank_native", counted("native", native.fbank_native)), \
+                mock.patch.object(transforms_audio, "fbank_np", counted("numpy", transforms_audio.fbank_np)):
+            t0 = time.perf_counter()
+            p1 = count_launches(zs.learn)
+            dt = time.perf_counter() - t0
+        print(f"(b) ESC-50 zero-shot: {te.shape[0]} prompt embeddings and a B{ESC_B} batch of audio "
+              f"embeddings against the plain ops, min row cosine {cos} (bound {COS_MIN}); pooled P@1 "
+              f"{p1:.2f} over {n_esc} clips in {dt:.1f} s; host fbank calls by route {dict(routes)}")
+        if (min(cos.values()) < COS_MIN or te.shape[0] != len(ESC_CLASSES) or not 0.0 <= p1 <= 100.0
+                or routes["native"] < n_esc or routes["numpy"]):
+            raise AssertionError(f"ESC-50 zero-shot failed: {cos}, P@1 {p1}, routes {dict(routes)}")
+        del zs, audio
+        torch.cuda.empty_cache()
+
+        # (c) the supervised x-fold: a fresh model and optimizer a fold, 4 steps of B50 each
+        xf = esc + ["running.zero_shot=False", "eval=False", "running.epochs=1", "running.peep_rate=1",
+                    "metrics_jsonl=True", "model_name=xfold"]
+        tr = build_monitor(xf)  # on the card
+        items = [tr.folds[0][0].dataset[i] for i in range(ESC_B)]
+        batch = AudioLabelCollator()(items)
+        args = tr.make_batch(batch["audio"], batch["label"])
+        k_run = loss_and_grads(tr.state, *args)
+        with plain_ops():
+            p_run = loss_and_grads(tr.state, *args)
+            ref = build_monitor(xf + ["compute_dtype=float32", "model_name=xfold_f32"])
+            f_run = loss_and_grads(ref.state, *args)
+        del ref
+        hold_grads_to_fp32(torch, f"(c) fold 1 B={ESC_B}", "ESC", k_run, p_run, f_run)
+        del k_run, p_run, f_run
+        step_ms = cuda_ms(torch, lambda: tr.train_step(*args), 5, 2)
+        t0 = time.perf_counter()
+        mean = count_launches(tr.learn)
+        dt = time.perf_counter() - t0
+        losses = _loop_losses(tr)
+        print(f"(c) ESC-50 x-fold: {ESC_FOLDS} folds of {tr.steps_per_epoch} steps at B={ESC_B} in "
+              f"{dt:.1f} s, losses {[round(v, 4) for v in losses]}; summary_report mean P@1 {mean:.2f}; "
+              f"the step alone {step_ms:.2f} ms ({smi})")
+        if (len(losses) != ESC_FOLDS * tr.steps_per_epoch or not np.isfinite(losses).all()
+                or not 0.0 <= mean <= 100.0):
+            raise AssertionError(f"the ESC-50 x-fold failed: {losses}, mean {mean}")
+        del tr, args
+        torch.cuda.empty_cache()
+
+        # (d) AudioSet multi-label with the imagine branch, on the process loader
+        as_root = os.path.join(root, "audioset")
+        t0 = time.perf_counter()
+        write_synthetic_audioset(as_root)
+        print(f"synthetic AudioSet: {AS_LABELS} labels in the ontology and eval_segments.csv, "
+              f"{AS_TRAIN} train and {AS_EVAL} eval clips of {LOOP_SECONDS:.0f} s with JPEG frames, "
+              f"written in {time.perf_counter() - t0:.1f} s")
+        mon = build_monitor(AS_FULL + with_clip + [
+            f"running.data_root={as_root}", "running.data_name=as_train", "running.eval_name=as_eval",
+            "running.test_name=", f"running.batch_size={AS_B}", "running.epochs=2", "running.peep_rate=1",
+            "running.save_rate=1e9", "loader_backend=process", f"num_proc={workers}",
+            f"alias_root={root}/run", f"model_root={root}/run", "model_name=as", "eval=False"])
+        if not isinstance(mon, ASTrainer) or mon.output_dim != AS_LABELS or mon.loader.sample_weights is None:
+            raise AssertionError("ASMonitor did not build an ASTrainer over the 527 labels, weighted")
+        r = np.random.default_rng(3)
+        as_args = mon.make_batch(r.standard_normal((AS_B, 3, 224, 224)).astype(np.float32),
+                                 r.standard_normal((AS_B, 1, 1000, 128)).astype(np.float32),
+                                 (r.random((AS_B, AS_LABELS)) < 0.01).astype(np.float32))
+        as_ms = cuda_ms(torch, lambda: loss_and_grads(mon.state, *as_args), 5, 2)
+        del as_args
+        t0 = time.perf_counter()
+        count_launches(mon.learn)
+        dt = time.perf_counter() - t0
+        with open(os.path.join(mon.out_dir, "train_0.out")) as f:
+            parts = [tuple(float(v) for v in m.groups()) for m in
+                     re.finditer(r"step \d+ loss (\S+) \(avg \S+\) bce (\S+) ce (\S+) ", f.read())]
+        t0 = time.perf_counter()
+        report = count_launches(lambda: mon.infer(mon.evalloader))
+        zero = count_launches(lambda: mon.zero_shot(mon.evalloader))
+        de = time.perf_counter() - t0
+        print(f"(d) AudioSet: {mon.global_step} steps at B={AS_B} in {dt:.1f} s (the process loader's "
+              f"first batches included), (loss, bce, ce) {parts}; fwd+bwd alone {as_ms:.2f} ms; "
+              f"infer and zero-shot ({AS_LABELS} prompts) over {AS_EVAL} clips in {de:.1f} s: {report}; "
+              f"{zero}")
+        if len(parts) != 4 or not np.isfinite(parts).all():
+            raise AssertionError(f"AudioSet losses or their parts are not finite: {parts}")
+        _report_numbers(report)
+        _report_numbers(zero)
+        mon.close()
+        del mon
+        torch.cuda.empty_cache()
+
+        # (e) the engine with worker=ESClassifier: zero-shot of 6 wav files against 5 labels
+        files = sorted(glob.glob(os.path.join(esc_root, "audio", "*.wav")))[:SERVE_FILES]
+        over = ["+running=esc50", *CLF_TOWERS, "+model/loss=ce", "worker=ESClassifier"] + with_clip
+        classes = {c: [f"the sound of {c}"] for c in ENGINE_LABELS}
+        eng = InferenceEngine(over, batch_size=BATCH)  # on the card
+        fb = eng.fbank_files(files)
+        zs_card = count_launches(lambda: eng.zero_shot(fb, classes))
+        a, t = eng.embed_audio(fb), eng.embed_texts(list(ENGINE_LABELS), prompt="the sound of ")
+        cpu = InferenceEngine(over + ["compute_dtype=float32"], batch_size=BATCH, device="cpu")
+        ca, ct = cpu.embed_audio(fb), cpu.embed_texts(list(ENGINE_LABELS), prompt="the sound of ")
+        zs_cpu = cpu.zero_shot(fb, classes)
+        cos = {"audio": float(_row_cos(a, ca).min()), "text": float(_row_cos(t, ct).min())}
+        dscore = float(np.abs(zs_card["scores"] - zs_cpu["scores"]).max())
+        print(f"(e) ESClassifier engine: zero_shot of {len(files)} wav files against {len(classes)} labels, "
+              f"{zs_card['prediction']} (the CPU engine: {zs_cpu['prediction']}); against the CPU engine "
+              f"(plain ops, fp32) min row cosine {cos} (bound {COS_MIN}), scores max |d| {dscore:.4f} "
+              f"(bound {SCORE_TOL})")
+        if min(cos.values()) < COS_MIN or dscore > SCORE_TOL:
+            raise AssertionError(f"the ESClassifier engine disagrees with the CPU engine: {cos}, {dscore}")
+        del eng, cpu
+        torch.cuda.empty_cache()
+
+        counts = dict(path_counts)
+        print(f"launches on the classification path: {json.dumps(counts, sort_keys=True)}")
+        for name in ("fused_ln_attention_block", "fused_ln_mlp_block", "fused_ln_attention_block_bwd",
+                     "fused_ln_mlp_block_bwd"):
+            if not counts.get(name):
+                raise AssertionError(f"{name} was not launched on the classification path")
+        record_launches(results, "clf", counts)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # (name, title, function) of every phase, in the order a whole run takes them
 PHASES = (
     ("kernel_phase", "kernel phase (forward kernels vs plain PyTorch on the card)", kernel_phase),
@@ -3414,6 +3763,7 @@ PHASES = (
     ("la_phase", "AT fine-tuning (LAMonitor, full width)", la_phase),
     ("frontend_phase", "the device frontend and serving from files (full width)", frontend_phase),
     ("ckpt_phase", "checkpoint loading and export (a full-width synthetic CLIP file)", ckpt_phase),
+    ("clf_phase", "classification (ESC-50 x-fold, AudioSet, full width)", clf_phase),
 )
 
 

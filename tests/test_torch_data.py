@@ -11,10 +11,10 @@ behaviour is held equal on seeded inputs:
   index of ``tests/data_synth.py``: the wav source with SpecAugment on, on
   the ``process`` backend (per-item seeds) and on ``thread`` with one
   worker; the npz source; the eval loader with ``pad_last`` / ``_count``;
-  ``set_epoch(start_batch=)``. The JAX package's fbank goes through its C++
-  frontend when that is built, which agrees with the NumPy fbank to ~1e-4,
-  not bitwise: the JAX side runs on its NumPy fbank here (in its worker
-  processes too, through :class:`_NumpyFbankSrc`);
+  ``set_epoch(start_batch=)``. Each package's fbank goes through its C++
+  frontend when that is built, which agrees with the NumPy fbank to ~4e-4,
+  not bitwise: both sides run on their NumPy fbank here, in their worker
+  processes too (``tests/fbank_route.py``);
 - the two host-layer faults the copy fixes are the named differences, each
   tested on its own: ``eval_sample_limit`` raises on a value that is not a
   number, and ``shard_for_host`` pads training shards only;
@@ -53,6 +53,7 @@ from vipant_tpu_torch.ops import fbank_np, mel
 from vipant_tpu_torch.utils import hostmem
 
 from data_synth import make_synth_va_index, make_synth_va_npz_index
+from fbank_route import pin_numpy_fbank, pin_workers
 
 # the module: `vipant_tpu.ops` exports its function `fbank` under this name
 jax_fbank_np = importlib.import_module("vipant_tpu.ops.fbank_np")
@@ -63,20 +64,6 @@ BASE = [
     "model.image.width=64", "model.image.embed_dim=32", "model.image.encoder.layers=2",
     "model.image.heads=4", "running.audio.max_len=100", "running.batch_size=3", "seed=5",
 ]
-
-
-def _numpy_fbank() -> None:
-    """Point the JAX package's host fbank at its NumPy version in this process."""
-    jax_transforms_audio.host_fbank = jax_transforms_audio._fbank_np
-
-
-class _NumpyFbankSrc(jax_image_audio.ImageAudioDatasetSrc):
-    """The JAX package's wav dataset on its NumPy fbank, also in the loader's
-    spawned workers, which unpickle it (and so run ``__setstate__``)."""
-
-    def __setstate__(self, state):
-        self.__dict__.update(state)
-        _numpy_fbank()
 
 
 @pytest.fixture(scope="module")
@@ -113,20 +100,22 @@ def _same_batches(got, want):
             assert g[k].tobytes() == w[k].tobytes(), k
 
 
-def _loaders(root, data_name, train, *extra, jax_dataset=None):
+def _loaders(root, data_name, train, *extra, pin=False):
+    """The port's loader and the JAX package's; ``pin``: both on their NumPy
+    fbank in their worker processes too."""
     over = _overrides(root, *extra)
     got = build_image_audio_dataloader(compose(over), data_name, train)
     want = jax_build_loader(jax_compose(over), data_name, train)
-    if jax_dataset is not None:
-        want.dataset.__class__ = jax_dataset
+    if pin:
+        pin_workers(got, want)
     return got, want
 
 
 @pytest.mark.parametrize("backend,workers", [("process", 2), ("thread", 1)])
 def test_wav_loader_gives_the_jax_batches(root, backend, workers, monkeypatch):
-    monkeypatch.setattr(jax_transforms_audio, "host_fbank", jax_transforms_audio._fbank_np)
+    pin_numpy_fbank(monkeypatch)
     got, want = _loaders(root, "train", True, f"loader_backend={backend}", f"num_proc={workers}",
-                         jax_dataset=_NumpyFbankSrc)
+                         pin=True)
     assert got.dataset.transform_fbank and len(got) == 2  # SpecAugment on; 7 items, drop_last
     reseed = 11 if backend == "thread" else None  # the thread backend shares np.random
     g, w = _epochs(got, reseed=reseed), _epochs(want, reseed=reseed)
@@ -142,7 +131,7 @@ def test_npz_loader_gives_the_jax_batches(root):
 
 
 def test_eval_loader_pads_the_last_batch_as_the_jax_one(root, monkeypatch):
-    monkeypatch.setattr(jax_transforms_audio, "host_fbank", jax_transforms_audio._fbank_np)
+    pin_numpy_fbank(monkeypatch)
     got, want = _loaders(root, "val", False, "loader_backend=thread", "num_proc=2")
     g, w = _epochs(got, epochs=1), _epochs(want, epochs=1)
     _same_batches(g, w)
@@ -151,7 +140,7 @@ def test_eval_loader_pads_the_last_batch_as_the_jax_one(root, monkeypatch):
 
 def test_set_epoch_start_batch_resumes_the_jax_order(root):
     got, want = _loaders(root, "train", True, "loader_backend=process", "num_proc=2",
-                         "running.batch_size=2", jax_dataset=_NumpyFbankSrc)
+                         "running.batch_size=2", pin=True)
     g, w = _epochs(got, start_batch=2), _epochs(want, start_batch=2)
     _same_batches(g, w)
     full = _epochs(got)  # the skipped batches are skipped, the rest replayed exactly
@@ -204,7 +193,7 @@ def test_workers_hide_the_gpus(monkeypatch):
     (["running.multi_view=True"], "A12"),
     (["running.audio.on_device=True", "running.audio.dither=1.0"], "dither"),
     (["running.audio.on_device=True", "running.audio.use_energy=True"], "use_energy"),
-    ([], "A11"),
+    ([], "A11-rest"),
 ])
 def test_unported_data_options_are_refused(root, extra, item):
     name = "pak_train" if not extra else "train"
@@ -269,12 +258,22 @@ def _defs(module, names=None):
     return out if names is None else {k: out[k] for k in names}
 
 
+# what a copy writes anew on purpose; its behaviour is held to the original's
+# elsewhere: the metrics' multilabel report without scikit-learn, which the
+# card's machine lacks (tests/test_torch_classify.py)
+REWRITTEN = {metrics.__name__: ("multilabel_report", "_binary_clf_curve", "precision_recall_curve",
+                                "_binary_average_precision", "average_precision_score",
+                                "roc_auc_score")}
+
+
 @pytest.mark.parametrize("port,orig", [
     (mel, jax_mel), (fbank_np, jax_fbank_np), (wav, jax_wav), (hostmem, jax_hostmem),
     (metrics, jax_metrics), (port_eval, importlib.import_module("vipant_tpu.eval")),
 ], ids=["mel", "fbank_np", "wav", "hostmem", "metrics", "eval"])
 def test_verbatim_copies_are_the_same_code(port, orig):
-    got, want = _defs(port), _defs(orig)
+    rewritten = REWRITTEN.get(port.__name__, ())
+    got = {k: v for k, v in _defs(port).items() if k not in rewritten}
+    want = {k: v for k, v in _defs(orig).items() if k not in rewritten}
     assert got == want
     strip = lambda m: [ast.dump(n) for n in ast.parse(inspect.getsource(m)).body
                        if isinstance(n, (ast.Import, ast.ImportFrom))]

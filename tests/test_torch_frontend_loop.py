@@ -34,7 +34,6 @@ import numpy as np
 import pytest
 import torch
 
-import vipant_tpu.data.transforms_audio as jax_transforms_audio
 import vipant_tpu.train.trainer as jax_trainer_module
 from vipant_tpu.config import compose as jax_compose
 from vipant_tpu.ops import specaugment as jax_specaugment
@@ -45,6 +44,7 @@ from vipant_tpu_torch.train import Trainer, build_monitor
 import vipant_tpu_torch.train.trainer as trainer_module
 
 from data_synth import make_synth_clotho, make_synth_va_index, make_synth_va_npz_index
+from fbank_route import pin_numpy_fbank
 from test_torch_trainer_loop import (LARS, _assert_bitwise, _cfg, _losses, _recording, _resume_cfg,
                                      _state)
 
@@ -95,7 +95,7 @@ def _run_both(data, tmp_path_factory, *extra, inject=False):
     init: (JAX monitor, port trainer, JAX retrieval records, port's)."""
     mp = pytest.MonkeyPatch()
     try:
-        mp.setattr(jax_transforms_audio, "host_fbank", jax_transforms_audio._fbank_np)
+        pin_numpy_fbank(mp)
         sym_jax, sym_port = [], []
         mp.setattr(jax_trainer_module, "symmetric_retrieval",
                    _recording(jax_trainer_module.symmetric_retrieval, sym_jax))

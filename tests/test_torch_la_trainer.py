@@ -6,8 +6,8 @@ tests/data_synth.py, on the CPU:
 
 - the retrieval loop, with the text tower frozen and trained: both trainers
   from one init (the JAX params carried over by ``ckpt/from_jax.load_params``),
-  four steps over two epochs at B = 2 (the thread backend, one worker, the
-  JAX package on its NumPy fbank, np.random seeded alike before each
+  four steps over two epochs at B = 2 (the thread backend, one worker, both
+  packages on their NumPy fbank, np.random seeded alike before each
   ``learn``): each step's loss within rtol 1e-4, the final trainable params
   within atol 1e-5 under the Adam near-zero rule of
   tests/test_torch_trainer_loop.py (an element whose grad at some step is
@@ -41,7 +41,6 @@ import pytest
 import torch
 
 import vipant_tpu.data.audio_text as jax_audio_text
-import vipant_tpu.data.transforms_audio as jax_transforms_audio
 import vipant_tpu.train.monitors as jax_monitors
 from vipant_tpu.config import compose as jax_compose
 from vipant_tpu.train import build_monitor as jax_build_monitor
@@ -52,6 +51,7 @@ from vipant_tpu_torch.config import compose
 from vipant_tpu_torch.train import LATrainer, build_monitor
 
 from data_synth import _tone_wav, make_synth_clotho
+from fbank_route import pin_numpy_fbank
 from test_trainers import TINY_MODEL
 
 ADAM_NEAR_ZERO = 1e-3  # tests/test_torch_trainer_loop.py's rule
@@ -133,7 +133,7 @@ def _run_both(data, tmp_path_factory, *extra, record=True):
     port's grads at every step)."""
     mp = pytest.MonkeyPatch()
     try:
-        mp.setattr(jax_transforms_audio, "host_fbank", jax_transforms_audio._fbank_np)
+        pin_numpy_fbank(mp)
         rec_jax, rec_port = [], []
         if record:
             mp.setattr(jax_monitors, "one_vs_k_retrieval",
@@ -352,7 +352,7 @@ def _assert_same(got, want, path="item"):
 @pytest.mark.parametrize("train", [True, False])
 @pytest.mark.parametrize("np_rnd", [False, True])
 def test_datasets_match_the_jax_package_bitwise(data, monkeypatch, name, train, np_rnd):
-    monkeypatch.setattr(jax_transforms_audio, "host_fbank", jax_transforms_audio._fbank_np)
+    pin_numpy_fbank(monkeypatch)
     got, want, caught = _loaders(data, name, train, f"running.np_rnd={np_rnd}")
     assert sum("dropping 1 record(s) without any caption" in m for m in caught) == 2  # each package
     assert got.dataset.records == want.dataset.records and len(got.dataset) == 3

@@ -10,16 +10,19 @@ on the CPU, or an engine seeded from a CLIP file with a training step
 whose save writes a reference ``.pth`` that a second engine serves, and
 never imports jax, jaxlib, flax, optax or any module of ``vipant_tpu``; the
 command lines ``python -m vipant_tpu_torch
-platform=cpu`` (an ``LAMonitor`` step) and ``python -m
-vipant_tpu_torch.serve`` run where importing any of them raises. A scan of
-the sources holds the same: no import of ``vipant_tpu`` under
-``vipant_tpu_torch/`` or in ``chip_smoke.py``. The data layer imports no
-torch (its spawned workers start without it)."""
+platform=cpu`` (an ``LAMonitor`` step; docs/recipes.md's ESC-50 zero-shot
+and x-fold and AudioSet recipes) and ``python -m vipant_tpu_torch.serve``
+run where importing any of them raises. A scan of the sources holds the
+same: no import of ``vipant_tpu`` under ``vipant_tpu_torch/`` or in
+``chip_smoke.py``. The data layer, with the native fbank, imports no torch
+(its spawned workers start without it)."""
 
 import os
 import re
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -272,8 +275,11 @@ def test_the_data_layer_imports_no_torch():
     _run("""
 import sys
 import vipant_tpu_torch.data
-from vipant_tpu_torch.data import audio_text, image_audio, transforms_audio, transforms_image
+from vipant_tpu_torch import native
+from vipant_tpu_torch.data import (audio_text, audioset, esc50, image_audio, transforms_audio,
+                                   transforms_image)
 from vipant_tpu_torch.ops import fbank_np, mel
+assert native.native_available()
 assert "torch" not in sys.modules, "the data layer imported torch"
 print("ok")
 """)
@@ -363,6 +369,60 @@ def test_cli_trains_an_la_monitor_step_without_jax(tmp_path):
     assert "epoch 0 step 1 loss" in log and "A->T: t1 = " in log, log[-2000:]
 
 
+CLF_TINY = [
+    "+model/image=vit_val", "+model/audio=vit_val", "+model/text=transformer_val",
+    "+optimizer=standard", "+running/audio=default", "platform=cpu", "model.image.width=64",
+    "model.image.embed_dim=32", "model.image.encoder.layers=2", "model.image.heads=4",
+    "model.text.width=32", "model.text.heads=4", "model.text.encoder.layers=2",
+    "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=100", "running.batch_size=4",
+    "running.peep_rate=1", "loader_backend=thread", "num_proc=2",
+]
+# docs/recipes.md's classification recipes, at the tiny widths: (overrides, what the log must say)
+CLF_RECIPES = {
+    "esc50_zero_shot": (["+running=esc50", "+model/loss=ce_cls", "worker=ESClassifier",
+                         "monitor=ESCMonitor", "running.zero_shot=True", "eval=True"], "A->T: p1 = "),
+    "esc50_xfold": (["+running=esc50", "+model/loss=ce_cls", "worker=ESClassifier",
+                     "monitor=ESCMonitor", "running.zero_shot=False", "eval=False", "running.epochs=1"],
+                    "Best mean and std: "),
+    "audioset": (["+running=audioset", "+model/loss=imagine_and_classify", "worker=ASClassifier",
+                  "monitor=ASMonitor", "eval=False", "running.mixup_rate=0.5",
+                  "running.weighted_sampling=True", "running.data_name=as_train",
+                  "running.eval_name=as_eval", "running.test_name=as_eval", "running.epochs=1",
+                  "running.save_rate=2"], "TEST Mac-AP = "),
+}
+
+
+@pytest.mark.parametrize("recipe", sorted(CLF_RECIPES))
+def test_cli_runs_the_classification_recipes_without_jax(tmp_path, recipe):
+    """``python -m vipant_tpu_torch`` on docs/recipes.md's ESC-50 zero-shot and
+    x-fold and AudioSet recipes (tiny widths, on the CPU) over
+    ``chip_smoke.write_synthetic_esc50`` / ``write_synthetic_audioset`` data,
+    where importing jax, jaxlib, flax, optax or vipant_tpu raises."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    data, blocked = tmp_path / "data", tmp_path / "blocked"
+    if recipe.startswith("esc50"):
+        chip_smoke.write_synthetic_esc50(str(data), folds=2, seconds=1.05,
+                                         classes=chip_smoke.ESC_CLASSES[:4])
+    else:
+        chip_smoke.write_synthetic_audioset(str(data), train=8, evals=4, labels=12, seconds=1.05)
+    for name in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"):
+        (blocked / name).mkdir(parents=True)
+        (blocked / name / "__init__.py").write_text(f"raise ImportError('{name} must not be imported')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(blocked), ROOT]))
+    over, says = CLF_RECIPES[recipe]
+    proc = subprocess.run([sys.executable, "-m", "vipant_tpu_torch", *over, *CLF_TINY,
+                           f"running.data_root={data}", f"alias_root={tmp_path}/run",
+                           f"model_root={tmp_path}/run", "model_name=clf"],
+                          cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    log = (tmp_path / "run" / "clf" / "train_0.out").read_text()
+    assert says in log, log[-2000:]
+    if recipe == "audioset":
+        assert re.search(r"step 1 loss \S+ \(avg \S+\) bce \S+ ce \S+ ", log), log[-2000:]
+
+
 def test_entry_points_default_to_the_card_and_raise_without_one():
     _run("""
 import torch
@@ -397,7 +457,8 @@ def test_no_source_of_the_port_imports_the_jax_package():
     assert any(p.endswith(os.path.join("nn", "seqgen.py")) for p in sources)
     for new in (("ops", "fbank.py"), ("ops", "specaugment.py"), ("ops", "frontend.py"),
                 ("ckpt", "clip_port.py"), ("ckpt", "reference_port.py"),
-                ("ckpt", "reference_export.py"), ("ckpt", "loading.py"), ("ckpt", "zoo.py")):
+                ("ckpt", "reference_export.py"), ("ckpt", "loading.py"), ("ckpt", "zoo.py"),
+                ("native", "__init__.py"), ("data", "esc50.py"), ("data", "audioset.py")):
         assert any(p.endswith(os.path.join(*new)) for p in sources), new
     for path in sources:
         with open(path) as fh:

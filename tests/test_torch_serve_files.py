@@ -5,8 +5,9 @@ fp32, the port's engines carrying the JAX engines' weights
 (``ckpt/from_jax``):
 
 - ``fbank_files`` and ``preprocess_images`` (paths and file objects) are
-  bitwise the JAX engine's (its host fbank pointed at its NumPy version:
-  the C++ one agrees to ~1e-4 only); ``embed_audio_files``,
+  bitwise the JAX engine's (both host fbanks pointed at their NumPy
+  version, ``tests/fbank_route.py``: the C++ one agrees to ~4e-4 only);
+  ``embed_audio_files``,
   ``embed_image_files`` and ``export_frame_embeddings`` within 1e-4 of the
   JAX engine's (tests/test_torch_serve.py's fp32 bound), ``caption_files``
   string-equal;
@@ -36,12 +37,12 @@ import jax
 import numpy as np
 import pytest
 
-import vipant_tpu.data.transforms_audio as jax_transforms_audio
 from vipant_tpu.serve import InferenceEngine as JaxEngine
 from vipant_tpu_torch.ckpt import from_jax
 from vipant_tpu_torch.serve import InferenceEngine, main, make_server
 
 from data_synth import _tone_wav, make_synth_va_index
+from fbank_route import pin_numpy_fbank
 from test_torch_captioning import CAPTION_TINY
 from test_torch_serve import CVAP, TINY
 
@@ -54,7 +55,7 @@ TIMEOUT = 60  # seconds, every request
 @pytest.fixture(autouse=True, scope="module")
 def _numpy_fbank():
     mp = pytest.MonkeyPatch()
-    mp.setattr(jax_transforms_audio, "host_fbank", jax_transforms_audio._fbank_np)
+    pin_numpy_fbank(mp)
     yield
     mp.undo()
 

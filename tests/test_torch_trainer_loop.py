@@ -5,8 +5,8 @@ index of tests/data_synth.py, on the CPU:
 
 - loop parity: both trainers from one init (the JAX params carried over by
   ``ckpt/from_jax.load_params``), four steps over two epochs of the wav
-  index with SpecAugment on (the thread backend, one worker, the JAX
-  package on its NumPy fbank; np.random seeded alike before each ``learn``):
+  index with SpecAugment on (the thread backend, one worker, both packages
+  on their NumPy fbank; np.random seeded alike before each ``learn``):
   each step's loss within rtol 1e-4, the final trainable params within atol
   1e-5, the save-time evals' retrieval metrics within 1e-6; under the
   flagship's LARS (no warmup, rates raised so that four steps move the
@@ -49,7 +49,6 @@ import numpy as np
 import pytest
 import torch
 
-import vipant_tpu.data.transforms_audio as jax_transforms_audio
 import vipant_tpu.train.trainer as jax_trainer_module
 from vipant_tpu.config import compose as jax_compose
 from vipant_tpu.serve import InferenceEngine as JaxEngine
@@ -61,6 +60,7 @@ from vipant_tpu_torch.train import LATrainer, Trainer, build_monitor
 import vipant_tpu_torch.train.trainer as trainer_module
 
 from data_synth import make_synth_va_index, make_synth_va_npz_index
+from fbank_route import pin_numpy_fbank
 from test_trainers import TINY_MODEL
 from torch_oracle import TorchText, TorchVisual, clip_state_dict
 
@@ -130,7 +130,7 @@ def loops(request, data, tmp_path_factory):
     opt = OPTIMIZERS[request.param]
     mp = pytest.MonkeyPatch()
     try:
-        mp.setattr(jax_transforms_audio, "host_fbank", jax_transforms_audio._fbank_np)
+        pin_numpy_fbank(mp)
         sym_jax, sym_port = [], []
         mp.setattr(jax_trainer_module, "symmetric_retrieval",
                    _recording(jax_trainer_module.symmetric_retrieval, sym_jax))
@@ -366,8 +366,7 @@ def test_monitor_registry_names_what_is_not_ported(data, tmp_path):
                                     "model.text.width=32", "model.text.heads=4",
                                     "model.text.encoder.layers=2", "running.eval_name=")), device="cpu")
     assert isinstance(la, LATrainer)
-    for name, item in (("ASMonitor", "A11"), ("ESCMonitor", "A11"),
-                       ("VALMonitor", "A12"), ("VASMonitor", "A12")):
+    for name, item in (("VALMonitor", "A12"), ("VASMonitor", "A12")):
         with pytest.raises(NotImplementedError, match=item):
             build_monitor(compose(_cfg(data, str(tmp_path), f"monitor={name}")), device="cpu")
 

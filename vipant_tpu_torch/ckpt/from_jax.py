@@ -28,6 +28,13 @@ must be present (a bool mask must agree on the three).
 ``predictor/kernel`` [width, vocab] -> ``predictor.weight``
 [vocab, width].
 
+A loss head's leaves map by their last component (:func:`loss_state_dict`):
+``logit_scale`` keeps its name, a dense ``kernel`` [in, out] becomes
+``weight`` [out, in], a LayerNorm ``scale`` becomes ``weight``, a ``bias``
+stays; the modules on the way keep the JAX names (``ln``, ``linear``,
+``mlp/dense_0``, ``a2v/ln_0``, ``bce/mlp/...``, ``ce/logit_scale``), as the
+port's classifier heads name them.
+
 Elsewhere the mapping goes leaf by leaf, so a partial tree converts too: the
 trainable subtree of a train state, its grads or its optimizer moments
 (same shapes as the params), or a bool mask (``convert=False`` keeps the
@@ -206,17 +213,30 @@ def decoder_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
     return out
 
 
+def loss_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
+    """A loss head's tree -> its port names (see the module docstring)."""
+    out = {}
+    for path, leaf in _flat(params):
+        *mods, last = path.split("/")
+        if last not in ("logit_scale", "kernel", "scale", "bias"):
+            raise KeyError(f"JAX loss parameter {path!r} has no counterpart in the port")
+        name = ".".join([*mods, "weight" if last in ("kernel", "scale") else last])
+        if convert:
+            leaf = _a(leaf).T if last == "kernel" else _a(leaf)
+        out[name] = leaf
+    return out
+
+
 def model_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
     """Whole-model tree {"image"|"audio"|"text"|"decoder"|"loss"|"lm_loss":
     subtree}, or any part of one -> the port model's names, prefixed with
-    the tower name. A loss head's ``logit_scale`` (a scalar) is the only
-    loss leaf the ported ``CELossHead`` and ``LMLossHead`` hold."""
+    the tower name."""
     out: Dict[str, Any] = {}
     for tower, sub in params.items():
         if not sub:
             continue
         if tower in ("loss", "lm_loss"):
-            conv = {k: _a(v) if convert else v for k, v in sub.items() if k == "logit_scale"}
+            conv = loss_state_dict(sub, convert)
         elif tower in ("image", "audio", "text"):
             conv = tower_state_dict(sub, convert)
         elif tower == "decoder":
@@ -236,8 +256,14 @@ def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     for key, value in state_dict.items():
         tower, name = key.split(".", 1)
         a = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
-        if tower in ("loss", "lm_loss") and name == "logit_scale":
-            path, fn = name, None
+        if tower in ("loss", "lm_loss"):
+            *mods, last = name.split(".")
+            fn = _t if last == "weight" and a.ndim == 2 else None
+            if last == "weight":
+                last = "kernel" if a.ndim == 2 else "scale"
+            elif last not in ("logit_scale", "bias"):
+                raise KeyError(f"the port's parameter {key!r} has no JAX name")
+            path = "/".join([*mods, last])
         elif tower in ("image", "audio", "text"):
             m = _PORT_BLOCK_NAME.fullmatch(name)
             if m is not None and m.group(2) in _PORT_BLOCK:

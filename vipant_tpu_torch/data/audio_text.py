@@ -11,7 +11,7 @@ name's prefix (parity: `reference/cvap/data/audio_text.py`,
 to its longest caption (`:105-137`): every batch then has one shape.
 
 Refused (ROADMAP.md's queue A names the item that ports each): the packed
-``pak*`` datasets (A11), by :func:`.image_audio.refuse_unported`.
+``pak*`` datasets (A11-rest), by :func:`.image_audio.refuse_unported`.
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ bits as uint16: this package does not need ``ml_dtypes``).
 
 Refused by :func:`refuse_unported` (ROADMAP.md's queue A names the item
 that ports each): the two-view siamese dataset (``running.multi_view``,
-A12) and the packed ``pak*`` datasets (A11); and ``on_device`` with
+A12) and the packed ``pak*`` datasets (A11-rest); and ``on_device`` with
 ``dither`` or ``use_energy``, which the device fbank does not compute.
 """
 
@@ -63,7 +63,7 @@ def refuse_unported(run, data_name: str = "") -> None:
     if str(data_name).startswith("pak"):
         raise NotImplementedError(
             f"data_name {data_name!r}: the packed datasets (data/packed.py) are not ported yet "
-            "(ROADMAP.md queue A, A11)")
+            "(ROADMAP.md queue A, A11-rest)")
 
 
 def fbank_params_from_cfg(acfg, sample_rate: int = 16000) -> FbankParams:

@@ -1,9 +1,10 @@
 """Prefetching data loader with thread or process workers.
 
 The port's own copy of ``vipant_tpu/data/loader.py``, less what only the
-packed and AudioSet datasets use (``get_batch``, weighted sampling; not
-ported), and :func:`_worker_init` hides the GPUs instead of pinning JAX to
-the CPU.
+packed datasets use (``get_batch``; not ported), and :func:`_worker_init`
+hides the GPUs instead of pinning JAX to the CPU. ``sample_weights`` draws
+each epoch's order with replacement from ``default_rng(seed + epoch)`` (the
+AudioSet recipe's weighted sampling), the JAX loader's indices.
 
 The reference fed the GPU from ``torch.utils.data.DataLoader`` worker
 *processes* (`reference/cvap/data/image_audio.py:366-374`). Here the
@@ -88,6 +89,7 @@ class DataLoader:
         device_put_fn: Optional[Callable[[Any], Any]] = None,
         pad_last: bool = False,
         backend: str = "thread",
+        sample_weights: Optional[np.ndarray] = None,
     ):
         # raise glibc's malloc thresholds so the multi-MB batch buffers a
         # TRAINING loader churns through recycle warm (see hostmem.py). The
@@ -95,7 +97,9 @@ class DataLoader:
         # eval loader must not raise retained RSS for the whole process.
         # VIPANT_TUNE_MALLOC=1/0 overrides in either direction.
         tune_env = os.environ.get("VIPANT_TUNE_MALLOC")
-        if tune_env == "1" or (shuffle and tune_env != "0"):
+        # a training loader shuffles or samples by weight
+        is_training = shuffle or sample_weights is not None
+        if tune_env == "1" or (is_training and tune_env != "0"):
             from ..utils.hostmem import tune_host_allocator
 
             tune_host_allocator()
@@ -108,6 +112,7 @@ class DataLoader:
         self.prefetch = max(prefetch, 1)
         self.seed = seed
         self.device_put_fn = device_put_fn
+        self.sample_weights = sample_weights
         # pad the final partial batch (repeating its last item) so every
         # batch has a fixed shape — one jit compile instead of one per
         # remainder size; dict batches carry the true count under "_count"
@@ -133,6 +138,11 @@ class DataLoader:
 
     def _order(self) -> np.ndarray:
         n = len(self.dataset)
+        if self.sample_weights is not None:
+            # with replacement, the WeightedRandomSampler analogue
+            # (`reference/cvap/data/audioset_clf.py:154-194`)
+            rng = np.random.default_rng(self.seed + self.epoch)
+            return rng.choice(n, size=n, replace=True, p=self.sample_weights / self.sample_weights.sum())
         if self.shuffle:
             return epoch_permutation(n, self.epoch, self.seed)
         return np.arange(n)

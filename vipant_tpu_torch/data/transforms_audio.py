@@ -1,10 +1,11 @@
 """Host-side audio transforms (NumPy) and the per-clip frontend.
 
 The port's own copy of ``vipant_tpu/data/transforms_audio.py``, less the
-siamese two-view fbank (``FbankViews``; A12 of ROADMAP.md's queue A), with
-the fbank always the NumPy one (:mod:`vipant_tpu_torch.ops.fbank_np`; the
-JAX package dispatches to its C++ frontend when that is built, which agrees
-with the NumPy fbank to ~1e-4, not bitwise).
+siamese two-view fbank (``FbankViews``; A12 of ROADMAP.md's queue A). Every
+host featurisation goes through :func:`host_fbank`, which runs the C++
+fbank (:mod:`vipant_tpu_torch.native`) when it builds and the NumPy one
+(:mod:`vipant_tpu_torch.ops.fbank_np`) otherwise, as the JAX package's
+does; the two agree to ~4e-4, not bitwise.
 
 Capability parity with the reference's waveform/fbank transform stack
 (`reference/cvap/data/audio/transform.py`): variance-guarded
@@ -19,8 +20,21 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..ops.fbank_np import FbankParams, fbank as host_fbank
+from ..ops.fbank_np import FbankParams, fbank as fbank_np
 from .wav import read_wav
+
+
+def host_fbank(waveform: np.ndarray, params: FbankParams) -> np.ndarray:
+    """The native fbank when its library is built (built at first call; a
+    failed build warns once), else the NumPy one
+    (``vipant_tpu/data/transforms_audio.py:22-36``). Dithered configs stay
+    on the NumPy fbank: the C ABI takes no dither argument."""
+    if params.dither == 0.0:
+        from ..native import fbank_native, native_available
+
+        if native_available():
+            return fbank_native(waveform, params)
+    return fbank_np(waveform, params)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,11 @@
-"""Evaluation metric suite (host-side NumPy; sklearn for AP/AUC).
+"""Evaluation metric suite (host-side NumPy).
 
-The port's own copy of ``vipant_tpu/eval/metrics.py`` (the same code).
+The port's own copy of ``vipant_tpu/eval/metrics.py``: the same code but for
+:func:`multilabel_report`, whose AP, ROC AUC and precision-recall curve the
+JAX package takes from scikit-learn, which the card's machine does not have.
+They are written here in NumPy after scikit-learn 1.9's unweighted binary
+algorithms (:func:`average_precision_score`, :func:`roc_auc_score`,
+:func:`precision_recall_curve`).
 
 Semantics parity with the reference's loss-head ``report`` methods:
 
@@ -168,43 +173,92 @@ def grouped_pnr(
     }
 
 
+def _binary_clf_curve(y: np.ndarray, s: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(false positives, true positives) at each distinct score, the scores
+    taken in decreasing order (scikit-learn's ``confusion_matrix_at_thresholds``
+    without weights); ``y`` is 0 / 1, the positive label 1."""
+    order = np.argsort(s, kind="stable")[::-1]
+    s, y = s[order], (y[order] == 1).astype(np.float64)
+    idx = np.r_[np.nonzero(np.diff(s))[0], y.size - 1]
+    tps = np.cumsum(y)[idx]
+    return 1 + idx - tps, tps
+
+
+def precision_recall_curve(y: np.ndarray, s: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(precision, recall), recall decreasing, ending at (1, 0); a recall of
+    1 throughout when ``y`` holds no positive (scikit-learn's
+    ``precision_recall_curve``)."""
+    fps, tps = _binary_clf_curve(y, s)
+    ps = tps + fps
+    precision = np.divide(tps, ps, out=np.zeros_like(tps), where=ps != 0)
+    recall = np.ones_like(tps) if tps[-1] == 0 else tps / tps[-1]
+    return np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0]
+
+
+def _binary_average_precision(y: np.ndarray, s: np.ndarray) -> float:
+    precision, recall = precision_recall_curve(y, s)
+    return float(max(0.0, -np.sum(np.diff(recall) * precision[:-1])))
+
+
+def average_precision_score(labels: np.ndarray, scores: np.ndarray, average: str = "macro") -> float:
+    """Step-integrated AP (scikit-learn's ``average_precision_score``): of a
+    binary ``labels`` vector, or of an indicator matrix averaged ``macro``
+    (the classes' mean), ``micro`` (every element as one class) or
+    ``weighted`` (by each class's positives; 0 without any)."""
+    labels, scores = np.asarray(labels), np.asarray(scores)
+    if not np.isin(labels, (0, 1)).all():
+        raise ValueError("average_precision_score takes 0 / 1 labels")
+    if labels.ndim == 1:
+        return _binary_average_precision(labels, scores)
+    if average == "micro":
+        return _binary_average_precision(labels.ravel(), scores.ravel())
+    per_class = np.asarray([_binary_average_precision(labels[:, c], scores[:, c])
+                            for c in range(labels.shape[1])])
+    if average == "macro":
+        return float(np.average(per_class))
+    if average != "weighted":
+        raise ValueError(f"unknown average {average!r}")
+    weights = labels.sum(axis=0)
+    if np.isclose(weights.sum(), 0):
+        return 0.0
+    per_class[weights == 0] = 0
+    return float(np.average(per_class, weights=weights))
+
+
+def roc_auc_score(y: np.ndarray, s: np.ndarray) -> float:
+    """Binary ROC AUC by the trapezoid rule over scikit-learn's ``roc_curve``
+    points; nan when ``y`` holds one class only."""
+    if len(np.unique(y)) != 2:
+        return float("nan")
+    fps, tps = _binary_clf_curve(y, s)
+    if fps.shape[0] > 2:  # drop the collinear points, as roc_curve does
+        keep = np.where(np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True])[0]
+        fps, tps = fps[keep], tps[keep]
+    fpr, tpr = np.r_[0.0, fps] / fps[-1], np.r_[0.0, tps] / tps[-1]
+    return float((np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0).sum())
+
+
 def multilabel_report(scores: np.ndarray, labels: np.ndarray) -> Dict[str, float]:
     """Mac-AP/Mic-AP/wAP + per-class mAP/mAUC/mP/mR
-    (parity: `reference/cvap/module/decoder/loss_more.py:92-131`)."""
-    from sklearn import metrics as skm
-
+    (parity: `reference/cvap/module/decoder/loss_more.py:92-131`); a class
+    without positives scores an AP and an AUC of 0."""
     out: Dict[str, float] = {}
-    out["Mac-AP"] = float(skm.average_precision_score(labels, scores, average="macro"))
-    out["Mic-AP"] = float(skm.average_precision_score(labels, scores, average="micro"))
-    out["wAP"] = float(skm.average_precision_score(labels, scores, average="weighted"))
+    out["Mac-AP"] = average_precision_score(labels, scores, average="macro")
+    out["Mic-AP"] = average_precision_score(labels, scores, average="micro")
+    out["wAP"] = average_precision_score(labels, scores, average="weighted")
 
     nlabel = scores.shape[1]
     ap_list, auc_list, p_list, r_list = [], [], [], []
     for j in range(nlabel):
         y, s = labels[:, j], scores[:, j]
-        try:
-            ap = skm.average_precision_score(y, s)
-            ap = 0.0 if np.isnan(ap) else ap
-        except Exception:
-            ap = 0.0
-        try:
-            auc = skm.roc_auc_score(y, s)
-            # modern sklearn returns nan (no exception) for a class with
-            # no positives — e.g. rare AudioSet classes absent from a
-            # capped eval subset; nan would poison the mAUC mean
-            auc = 0.0 if np.isnan(auc) else auc
-        except Exception:
-            auc = 0.0
-        try:
-            p, r, _ = skm.precision_recall_curve(y, s)
-            mid = len(p) // 2
-            p_list.append(p[mid])
-            r_list.append(r[mid])
-        except Exception:
-            p_list.append(0.0)
-            r_list.append(0.0)
-        ap_list.append(ap)
-        auc_list.append(auc)
+        ap = average_precision_score(y, s)
+        auc = roc_auc_score(y, s)
+        p, r = precision_recall_curve(y, s)
+        mid = len(p) // 2
+        ap_list.append(0.0 if np.isnan(ap) else ap)
+        auc_list.append(0.0 if np.isnan(auc) else auc)
+        p_list.append(p[mid])
+        r_list.append(r[mid])
     out["mAP"] = float(np.mean(ap_list)) * 100.0
     out["mAUC"] = float(np.mean(auc_list)) * 100.0
     out["mP"] = float(np.mean(p_list)) * 100.0

@@ -3,7 +3,9 @@ weights, and the trainable-parameter mask.
 
 Counterpart of ``vipant_tpu/models/build.py:26-115``, ``:205-250`` and
 ``:279-338`` for the CVAP and CLAP workers (CLAP with a text tower, or with
-the captioning decoder). Parameters are fp32 (``param_dtype``);
+the captioning decoder) and the classifiers ``ASClassifier`` and
+``ESClassifier`` (their heads sized by ``output_dim``, the label count the
+monitor reads from its dataset). Parameters are fp32 (``param_dtype``);
 activations run in ``compute_dtype`` (bfloat16 in the default config).
 """
 
@@ -19,16 +21,17 @@ from ..ckpt.loading import copy_logit_scales, load_tower
 from ..nn.heads import build_audio_head, build_image_head, build_text_head
 from ..nn.losses import build_loss_head
 from ..nn.seqgen import SeqGenerationHead
-from .tasks import CLAP, CVAP
+from .tasks import ASClassifier, CLAP, CVAP, ESClassifier
 
 
 def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.get("compute_dtype", "float32") == "bfloat16" else torch.float32
 
 
-def build_main_model(cfg, device=None) -> nn.Module:
+def build_main_model(cfg, device=None, output_dim=None) -> nn.Module:
     """cfg.worker -> model on ``device``, parameters not yet initialised
-    (see :func:`init_weights`)."""
+    (see :func:`init_weights`). ``output_dim``: the classifiers' label
+    count; a classifier head without it raises."""
     m = cfg.model
     kw = dict(dtype=compute_dtype(cfg), device=device)
     if cfg.worker == "CVAP":
@@ -52,7 +55,18 @@ def build_main_model(cfg, device=None) -> nn.Module:
             text=build_text_head(m.text, **kw),
             loss=build_loss_head(m.loss, device=device),
         )
-    raise NotImplementedError(f"worker {cfg.worker!r} is not ported yet (CVAP, CLAP)")
+    if cfg.worker in ("ASClassifier", "ESClassifier"):
+        # the heads read the audio tower's raw embedding
+        loss = build_loss_head(m.loss, device=device, in_dim=int(m.audio.embed_dim),
+                               num_labels=output_dim)
+        text = build_text_head(m.text, **kw) if "text" in m else None
+        if cfg.worker == "ESClassifier":
+            return ESClassifier(audio=build_audio_head(m.audio, **kw), loss=loss, text=text)
+        return ASClassifier(audio=build_audio_head(m.audio, **kw), loss=loss, text=text,
+                            image=build_image_head(m.image, **kw) if "image" in m else None)
+    raise NotImplementedError(
+        f"worker {cfg.worker!r} is not ported yet (CVAP, CLAP, ASClassifier, ESClassifier; "
+        "CVALP, CVASP and CLVP: ROADMAP.md queue A, A12)")
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

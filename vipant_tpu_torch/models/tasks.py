@@ -1,8 +1,10 @@
 """Task models: compositions of encoder towers and a loss head.
 
-Counterpart of ``vipant_tpu/models/tasks.py`` for CVAP (image-audio) and
+Counterpart of ``vipant_tpu/models/tasks.py`` for CVAP (image-audio),
 CLAP (audio-text retrieval, or audio captioning with a
-``SeqGenerationHead`` decoder and its ``LMLossHead``).
+``SeqGenerationHead`` decoder and its ``LMLossHead``), and the classifiers
+``ASClassifier`` (AudioSet multi-label, with the imagination branch) and
+``ESClassifier`` (ESC-50 / US8K x-fold), whose text towers serve zero-shot.
 """
 
 from __future__ import annotations
@@ -20,17 +22,22 @@ from ..nn.heads import normalize
 MODELS = Registry("MODELS")
 
 
+def _run(tower: nn.Module, x: torch.Tensor, train: bool, **kw):
+    """The tower's forward; a tower whose params are all frozen runs
+    without autograd."""
+    frozen = not any(p.requires_grad for p in tower.parameters())
+    with torch.no_grad() if frozen else contextlib.nullcontext():
+        return tower(x, train=train, **kw)
+
+
 def _encode(tower: nn.Module, x: torch.Tensor, train: bool, require_feature: bool = False):
     """Float rank-2 inputs are precomputed embeddings and are only
-    (re-)normalised; token ids (integer rank-2) go through the tower. A
-    tower whose params are all frozen runs without autograd. With
+    (re-)normalised; token ids (integer rank-2) go through the tower. With
     ``require_feature`` the tower returns ``(embedding, feature grid)``."""
     if x.dim() == 2 and x.is_floating_point():
         return normalize(x)
-    frozen = not any(p.requires_grad for p in tower.parameters())
     kw = {"require_feature": True} if require_feature else {}
-    with torch.no_grad() if frozen else contextlib.nullcontext():
-        return tower(x, train=train, normalized=True, **kw)
+    return _run(tower, x, train, normalized=True, **kw)
 
 
 @MODELS.register()
@@ -105,3 +112,55 @@ class CLAP(nn.Module):
         if beam and beam > 1:
             return self.decoder.beam_decode_kv(feat, beam=beam)
         return self.decoder.greedy_decode_kv(feat)
+
+
+@MODELS.register()
+class ASClassifier(nn.Module):
+    """AudioSet multi-label classification, with the "imagination" CE
+    branch against the image embedding when the loss is an
+    ``ImagineAndClassifyLossHead`` and the model has an image tower. The
+    loss takes the audio tower's raw (unnormalised) embedding; the image
+    tower runs only on that branch; the text tower serves zero-shot."""
+
+    def __init__(self, audio: nn.Module, loss: nn.Module, text: Optional[nn.Module] = None,
+                 image: Optional[nn.Module] = None):
+        super().__init__()
+        self.audio, self.loss, self.text, self.image = audio, loss, text, image
+
+    def encode_audio(self, audios, train: bool = False):
+        return _encode(self.audio, audios, train)
+
+    def encode_text(self, text, train: bool = False):
+        return _encode(self.text, text, train)
+
+    def forward(self, images, audios, labels, train: bool = True):
+        from ..nn.losses import ImagineAndClassifyLossHead
+
+        a = _run(self.audio, audios, train)
+        if images is not None and self.image is not None and isinstance(
+                self.loss, ImagineAndClassifyLossHead):
+            return self.loss(a, labels, _encode(self.image, images, train), train=train)
+        return self.loss(a, labels, train=train)
+
+
+@MODELS.register()
+class ESClassifier(nn.Module):
+    """ESC-50 / US8K classification on the audio tower's raw embedding; the
+    text tower serves zero-shot. ``predictions`` is the argmax of the eval
+    logits."""
+
+    def __init__(self, audio: nn.Module, loss: nn.Module, text: Optional[nn.Module] = None):
+        super().__init__()
+        self.audio, self.loss, self.text = audio, loss, text
+
+    def encode_audio(self, audios, train: bool = False):
+        return _encode(self.audio, audios, train)
+
+    def encode_text(self, text, train: bool = False):
+        return _encode(self.text, text, train)
+
+    def forward(self, audios, labels, train: bool = True):
+        return self.loss(_run(self.audio, audios, train), labels, train=train)
+
+    def predictions(self, audios):
+        return torch.argmax(self.loss(_run(self.audio, audios, False), train=False), dim=-1)

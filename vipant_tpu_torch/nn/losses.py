@@ -2,21 +2,32 @@
 
 Counterpart of ``vipant_tpu/nn/losses.py``: the symmetric InfoNCE
 ``CELossHead`` (``:39-89``) with its learnable temperature ``logit_scale``
-(initialised at log 1/0.07, clamped at ``scale_max`` after the exp), and the
+(initialised at log 1/0.07, clamped at ``scale_max`` after the exp); the
 captioning ``LMLossHead`` (``:416-434``), cross-entropy over the decoder's
-logits with the same learnable scale, not clamped.
+logits with the same learnable scale, not clamped; and the classifier heads
+(``:92-188``, ``:345-416``): ``ClassificationHead`` (LayerNorm, linear,
+scaled CE), ``BCELossHead`` and ``BCHingeLossHead`` (an (LayerNorm, linear)
+chain, then BCE-with-logits or a pairwise hinge over the sigmoid scores) and
+``ImagineAndClassifyLossHead`` (the BCE head plus a CE between an a2v
+projection of the audio embedding and the image embedding). The heads'
+linear layers are plain products over [B, 512] in fp32, outside any kernel,
+as the JAX package leaves them to XLA. Their submodules carry the JAX
+package's names (``ln``, ``linear``, ``mlp.ln_0``, ``mlp.dense_0``,
+``a2v.dense_0``, ``bce.mlp...``), so :mod:`..ckpt.from_jax` only renames
+``kernel`` / ``scale`` to ``weight``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..utils import Registry
+from .layers import LayerNorm
 
 LOSS_HEADS = Registry("LOSS_HEADS")
 
@@ -86,15 +97,217 @@ class LMLossHead(nn.Module):
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def build_loss_head(cfg, device=None) -> nn.Module:
-    if cfg.name == "LMLossHead":
-        return LMLossHead(scaling=bool(cfg.get("scaling", True)), device=device)
-    if cfg.name != "CELossHead":
-        raise NotImplementedError(
-            f"loss head {cfg.name!r} is not ported yet (CELossHead, LMLossHead)")
+class _LogitScale(nn.Module):
+    """The learnable temperature of the classifier heads: ``exp(logit_scale)``
+    (initialised at log 1/0.07), clamped at ``scale_max`` when given; 1
+    without ``scaling`` (``vipant_tpu/nn/losses.py:_ScaleMixin``)."""
+
+    def __init__(self, scaling: bool, scale_max: Optional[float], device=None):
+        super().__init__()
+        self.scale_max = scale_max
+        self.logit_scale = (
+            nn.Parameter(torch.tensor(LOGIT_SCALE_INIT, device=device)) if scaling else None
+        )
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.logit_scale is not None:
+            nn.init.constant_(self.logit_scale, LOGIT_SCALE_INIT)
+
+    def scale(self) -> torch.Tensor:
+        s = torch.exp(self.logit_scale.float()) if self.logit_scale is not None else torch.ones(())
+        return s if self.scale_max is None else torch.clamp(s, max=self.scale_max)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` with fp32 params: the input is promoted to fp32
+    (a bf16 embedding meets fp32 weights as in the JAX package), the kernel
+    initialised lecun-normal (truncated at 2 std, variance 1 / fan_in), the
+    bias at zero."""
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        std = self.in_features ** -0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.float(), self.weight, self.bias)
+
+
+class _MLPChain(nn.Module):
+    """(LayerNorm -> Dense)* over ``sizes``, the last Dense with a bias only
+    when ``final_bias`` (``vipant_tpu/nn/losses.py:92-108``; submodules
+    ``ln_{i}``, ``dense_{i}``)."""
+
+    def __init__(self, in_dim: int, sizes: Sequence[int], final_bias: bool = True, device=None):
+        super().__init__()
+        self.n = len(sizes)
+        for i, size in enumerate(sizes):
+            self.add_module(f"ln_{i}", LayerNorm(in_dim, device=device))
+            self.add_module(f"dense_{i}", Dense(in_dim, int(size), bias=final_bias or i < self.n - 1,
+                                                device=device))
+            in_dim = int(size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n):
+            x = getattr(self, f"dense_{i}")(getattr(self, f"ln_{i}")(x))
+        return x
+
+
+@LOSS_HEADS.register()
+class ClassificationHead(_LogitScale):
+    """LayerNorm + linear classifier (``vipant_tpu/nn/losses.py:111-131``):
+    train, ``CE(exp(logit_scale) * logits, labels)`` in fp32; eval, the
+    logits."""
+
+    def __init__(self, in_dim: int, num_labels: int, scaling: bool = True,
+                 scale_max: Optional[float] = None, device=None):
+        super().__init__(scaling, scale_max, device=device)
+        self.ln = LayerNorm(in_dim, device=device)
+        self.linear = Dense(in_dim, num_labels, device=device)
+
+    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None, train: bool = True):
+        logits = self.linear(self.ln(x))
+        if not train:
+            return logits
+        # class ids come as int32 from the loader; the loss takes int64 indices
+        return F.cross_entropy(self.scale().to(x.device) * logits, labels.long())
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean over every element of ``max(l, 0) - l y + log1p(exp(-|l|))``, in
+    fp32: the JAX package's formula as it writes it."""
+    logits, labels = logits.float(), labels.float()
+    per = torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    return per.mean()
+
+
+@LOSS_HEADS.register()
+class BCELossHead(_LogitScale):
+    """Multi-label BCE over ``exp(logit_scale) * mlp(x)`` (``mlp``: the
+    ``layers`` then ``num_labels``; ``vipant_tpu/nn/losses.py:134-158``);
+    eval returns the sigmoid scores."""
+
+    def __init__(self, in_dim: int, num_labels: int, layers: Sequence[int] = (),
+                 scaling: bool = True, scale_max: Optional[float] = None, bias: bool = False,
+                 device=None):
+        super().__init__(scaling, scale_max, device=device)
+        self.mlp = _MLPChain(in_dim, [*layers, num_labels], final_bias=bias, device=device)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        return self.scale().to(x.device) * self.mlp(x)
+
+    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None, train: bool = True):
+        logits = self.logits(x)
+        if not train:
+            return torch.sigmoid(logits)
+        return bce_with_logits(logits, labels)
+
+
+@LOSS_HEADS.register()
+class BCHingeLossHead(BCELossHead):
+    """Multi-label margin loss (``vipant_tpu/nn/losses.py:161-188``) over
+    ``s = sigmoid(exp(logit_scale) * mlp(x))`` in fp32: per item, the sum
+    over (positive j, negative k) of ``max(0, 1 - (s_j - s_k))`` divided by
+    the label count; the mean over items. Eval returns ``s``."""
+
+    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None, train: bool = True):
+        scores = torch.sigmoid(self.logits(x)).float()
+        if not train:
+            return scores
+        pos = labels.bool()
+        hinge = torch.clamp(1.0 - (scores[:, :, None] - scores[:, None, :]), min=0.0)
+        mask = pos[:, :, None] & ~pos[:, None, :]
+        per_item = (hinge * mask).sum(dim=(1, 2)) / scores.shape[-1]
+        return per_item.mean()
+
+
+@LOSS_HEADS.register()
+class ImagineAndClassifyLossHead(nn.Module):
+    """BCE classification plus ``lambd_ce`` times the "imagination" CE
+    (``vipant_tpu/nn/losses.py:345-416``): ``ce`` is a ``CELossHead``
+    between ``a2v(audio)`` (an ``_MLPChain`` over ``a2v_layers``; the audio
+    embedding itself when there is none) and the image embedding, both
+    l2-normalised inside it; ``bce`` the nested ``BCELossHead`` on the raw
+    audio embedding. Train returns ``(total, {"ce", "bce"})`` (each term
+    whose branch is alive and has its input); eval the BCE head's sigmoid
+    scores, which need ``use_bce``."""
+
+    def __init__(self, in_dim: int, num_labels: int, lambd_ce: float = 1.0,
+                 a2v_layers: Sequence[int] = (), bias: bool = False, use_ce: bool = True,
+                 use_bce: bool = True, scaling: bool = True, scale_max: Optional[float] = None,
+                 bce_layers: Sequence[int] = (), bce_scaling: Optional[bool] = None,
+                 bce_scale_max: Optional[float] = None, device=None):
+        super().__init__()
+        self.lambd_ce = float(lambd_ce)
+        self.bce = (
+            BCELossHead(in_dim, num_labels, layers=bce_layers,
+                        scaling=scaling if bce_scaling is None else bce_scaling,
+                        scale_max=bce_scale_max, bias=bias, device=device)
+            if use_bce else None
+        )
+        self.a2v = (_MLPChain(in_dim, a2v_layers, final_bias=bias, device=device)
+                    if use_ce and len(a2v_layers) > 0 else None)
+        self.ce = CELossHead(scaling=scaling, scale_max=scale_max, device=device) if use_ce else None
+
+    def forward(self, audio: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                image: Optional[torch.Tensor] = None, train: bool = True
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+        if not train:
+            if self.bce is None:
+                raise ValueError(
+                    "ImagineAndClassifyLossHead eval needs bce.alive=True (multi-label scores); "
+                    "for the ce-only imagination branch use the retrieval/zero-shot eval paths")
+            return self.bce(audio, labels, train=False)
+        total = torch.zeros((), dtype=torch.float32, device=audio.device)
+        aux: Dict[str, torch.Tensor] = {}
+        if self.ce is not None and image is not None:
+            imagined = self.a2v(audio) if self.a2v is not None else audio
+            aux["ce"] = self.ce(imagined, image)
+            total = total + self.lambd_ce * aux["ce"]
+        if self.bce is not None:
+            aux["bce"] = self.bce(audio, labels, train=True)
+            total = total + aux["bce"]
+        return total, aux
+
+
+def build_loss_head(cfg, device=None, in_dim: Optional[int] = None,
+                    num_labels: Optional[int] = None) -> nn.Module:
+    """Config -> loss head (``vipant_tpu/nn/losses.py:437-523``). The
+    classifier heads take the audio embedding's width ``in_dim`` and the
+    label count ``num_labels`` (the JAX package's ``output_dim``)."""
+    name = cfg.name
     scale_max = cfg.get("scale_max")
-    return LOSS_HEADS.get(cfg.name)(
-        scaling=bool(cfg.get("scaling", True)),
-        scale_max=None if scale_max is None else float(scale_max),
-        device=device,
-    )
+    scale_max = None if scale_max is None else float(scale_max)
+    if name == "LMLossHead":
+        return LMLossHead(scaling=bool(cfg.get("scaling", True)), device=device)
+    if name == "CELossHead":
+        return CELossHead(scaling=bool(cfg.get("scaling", True)), scale_max=scale_max, device=device)
+    if name in ("ClassificationHead", "BCELossHead", "BCHingeLossHead", "ImagineAndClassifyLossHead"):
+        if num_labels is None:
+            raise ValueError(f"{name} needs the label count (num_labels): the monitor gives it from "
+                             "its dataset")
+        num_labels = int(num_labels)
+    if name == "ClassificationHead":
+        return ClassificationHead(in_dim, num_labels, scaling=bool(cfg.get("scaling", True)),
+                                  device=device)
+    if name in ("BCELossHead", "BCHingeLossHead"):
+        return LOSS_HEADS.get(name)(
+            in_dim, num_labels, layers=[int(v) for v in cfg.get("layers", []) or []],
+            scaling=bool(cfg.get("scaling", True)), bias=bool(cfg.get("bias", False)), device=device)
+    if name == "ImagineAndClassifyLossHead":
+        ce_max = cfg.ce.get("scale_max")
+        bce_max = cfg.bce.get("scale_max")
+        return ImagineAndClassifyLossHead(
+            in_dim, num_labels, lambd_ce=float(cfg.lambd_ce),
+            a2v_layers=[int(v) for v in cfg.get("layers", []) or []],
+            bias=bool(cfg.get("bias", False)), use_ce=bool(cfg.ce.get("alive", True)),
+            use_bce=bool(cfg.bce.get("alive", True)), scaling=bool(cfg.ce.get("scaling", True)),
+            scale_max=None if ce_max is None else float(ce_max),
+            bce_layers=[int(v) for v in cfg.bce.get("layers", []) or []],
+            bce_scaling=bool(cfg.bce.get("scaling", True)),
+            bce_scale_max=None if bce_max is None else float(bce_max), device=device)
+    raise NotImplementedError(
+        f"loss head {name!r} is not ported yet (CELossHead, LMLossHead, ClassificationHead, "
+        "BCELossHead, BCHingeLossHead, ImagineAndClassifyLossHead; the trimodal and siamese "
+        "heads: ROADMAP.md queue A, A12)")

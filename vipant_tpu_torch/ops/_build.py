@@ -14,6 +14,11 @@ keyed by a hash of the sources and the flags, so an edited kernel is
 rebuilt and an unchanged one is loaded from the previous build. The
 compiler's register and spill report (``-Xptxas -v``) is kept there as
 ``build.log``. A failed build raises; nothing falls back.
+
+:func:`once` and :func:`build_shared` are also the native host fbank's
+(``vipant_tpu_torch/native``): a process builds or loads each library once,
+its threads waiting for the first, and processes that build at once each
+write their own temp file and move it into place whole.
 """
 
 from __future__ import annotations
@@ -24,8 +29,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 import time
 from pathlib import Path
+from typing import Callable, Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vipant_tpu_torch"
@@ -85,13 +93,65 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _compile_and_link(out_dir: Path, lib_path: Path) -> None:
-    """One ``nvcc -c`` per source, run together, then the link; the whole
-    transcript goes to ``build.log``. Raises on the first failure."""
-    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+def once(fn):
+    """``fn()`` run once in a process and its result kept (an exception is
+    not kept: the next call runs ``fn`` again). Threads that call while it
+    runs wait for it, so a library is never built or loaded twice at once.
+    ``cache_clear()`` forgets the result."""
+    lock = threading.Lock()
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def call():
+        with lock:
+            return cached()
+
+    call.cache_clear = cached.cache_clear
+    return call
+
+
+def build_shared(lib_path: Path, compile_fn: Callable[[Path], Tuple[bool, str]],
+                 signatures: Dict[str, List]) -> ctypes.CDLL:
+    """Load the shared library at ``lib_path``, first built by
+    ``compile_fn(tmp)`` if it is not there yet, and give each C entry point
+    of ``signatures`` its argtypes (each returns an int). ``compile_fn``
+    writes the library to ``tmp`` and returns (whether it succeeded, its
+    transcript); the transcript goes to ``build.log`` beside the library and
+    the seconds to ``build_seconds``. ``tmp`` is unique to the call and is
+    moved into place whole, so a process never loads a half-written
+    library. Raises ``RuntimeError`` with the transcript on a failed build.
+    Call it from a function wrapped in :func:`once`."""
+    if not lib_path.exists():
+        out_dir = lib_path.parent
+        out_dir.mkdir(parents=True, exist_ok=True)
+        fd, name = tempfile.mkstemp(dir=out_dir, prefix=f"{lib_path.stem}.", suffix=".tmp.so")
+        os.close(fd)
+        tmp = Path(name)
+        t0 = time.perf_counter()
+        try:
+            ok, log = compile_fn(tmp)
+            (out_dir / "build.log").write_text(log)
+            if not ok:
+                raise RuntimeError(f"building {lib_path.name} failed:\n{log}")
+            os.replace(tmp, lib_path)
+        finally:
+            tmp.unlink(missing_ok=True)
+        (out_dir / "build_seconds").write_text(f"{time.perf_counter() - t0}\n")
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _compile_and_link(tmp: Path) -> Tuple[bool, str]:
+    """One ``nvcc -c`` per source, run together, then the link into
+    ``tmp``: (whether all succeeded, the whole transcript)."""
+    nvcc = _nvcc()
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
-        obj = out_dir / f"{src.stem}.{tag}.o"
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
@@ -100,7 +160,6 @@ def _compile_and_link(out_dir: Path, lib_path: Path) -> None:
         out, _ = proc.communicate()
         log.append(f"$ {' '.join(cmd)}\n{out}")
         failed = failed or proc.returncode != 0
-    tmp = out_dir / f"libvipant_kernels.{tag}.so"
     if not failed:
         cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -108,30 +167,14 @@ def _compile_and_link(out_dir: Path, lib_path: Path) -> None:
         failed = proc.returncode != 0
     for _, obj, _ in jobs:
         obj.unlink(missing_ok=True)
-    text = "\n".join(log)
-    (out_dir / "build.log").write_text(text)
-    if failed:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed:\n{text}")
-    os.replace(tmp, lib_path)
+    return not failed, "\n".join(log)
 
 
-@functools.lru_cache(maxsize=None)
+@once
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has no
-    build yet. Cached for the life of the process."""
-    out_dir = BUILD_ROOT / source_hash()
-    lib_path = out_dir / "libvipant_kernels.so"
-    if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        _compile_and_link(out_dir, lib_path)
-        (out_dir / "build_seconds").write_text(f"{time.perf_counter() - t0}\n")
-    lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    build yet. Kept for the life of the process."""
+    lib = build_shared(build_dir() / "libvipant_kernels.so", _compile_and_link, _SIGNATURES)
     lib.vt_error_string.argtypes = [ctypes.c_int]
     lib.vt_error_string.restype = ctypes.c_char_p
     return lib

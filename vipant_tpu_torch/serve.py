@@ -12,8 +12,9 @@ kernels (:mod:`vipant_tpu_torch.ops`); ``device="cpu"`` runs their plain
 versions.
 
 The file entry points featurise on the host, as the JAX engine does:
-``fbank_files`` (decode, the eval crop, the NumPy Kaldi fbank, the
-configured norms; :func:`..data.transforms_audio.extract_fbank_features`)
+``fbank_files`` (decode, the eval crop, the Kaldi fbank (native, else
+NumPy: :func:`..data.transforms_audio.host_fbank`), the configured norms;
+:func:`..data.transforms_audio.extract_fbank_features`)
 feeds ``embed_audio_files``, ``caption_files`` and the server's audio
 routes; ``preprocess_images`` (CLIP's resize, crop and normalisation)
 feeds ``embed_image_files`` and ``export_frame_embeddings``, which writes
@@ -23,6 +24,14 @@ the per-frame embeddings that ``running.frame_emb`` reads at train time.
 int8 kernels (qkv, out, fc and proj products int8 x int8 -> int32, weights
 per output channel, activations per token), scoped to this engine's encode
 calls: a bf16 engine beside it is not affected.
+
+The classifiers serve too: ``worker=ESClassifier`` (the audio and text
+towers) and ``worker=ASClassifier`` (with the image tower) give
+``embed_audio*``, ``embed_texts`` and ``zero_shot`` through their
+``encode_audio`` / ``encode_text``, as the JAX engine does. Their
+classifier heads need the label count, which the engine does not know: serve
+them with ``+model/loss=ce``, as the JAX package's recipe does
+(``docs/recipes.md``, "Serving / batch inference").
 
 A CLAP model with a captioning decoder also serves :meth:`caption`:
 KV-cached greedy decoding, or beam search, to strings. Under
@@ -46,6 +55,8 @@ Usage::
     cap = InferenceEngine([..., "+model/text=transformer_decoder", "+model/loss=ce_lm"])
     strings = cap.caption_files(["x.wav"], beam=4)
     make_server(eng, port=8080).serve_forever()
+    esc = InferenceEngine([..., "+running=esc50", "+model/loss=ce", "worker=ESClassifier"])
+    esc.zero_shot(esc.fbank_files(["x.wav"]), {"dog": ["the sound of dog"], "rain": ["the sound of rain"]})
 
 Command line (``platform=cpu`` among the overrides runs on the CPU)::
 

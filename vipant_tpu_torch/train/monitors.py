@@ -1,5 +1,7 @@
-"""The monitors beyond VA pre-training: ``LAMonitor``, audio-text
-fine-tuning, retrieval and captioning on one device.
+"""The monitors beyond VA pre-training on one device: ``LAMonitor``
+(audio-text fine-tuning, retrieval and captioning), ``ASMonitor`` (AudioSet
+multi-label classification and zero-shot) and ``ESCMonitor`` (ESC-50 / US8K
+x-fold classification and zero-shot; :class:`ESCTrainer`).
 
 Counterpart of ``vipant_tpu/train/monitors.py:33-257`` (``LATrainer``;
 parity: `reference/cvap/monitor/clap.py`). :class:`LATrainer` trains CLAP
@@ -21,21 +23,24 @@ reference ``.pth``, e.g. one a VA run wrote with ``export_pth``) loads its
 audio tower (:meth:`.trainer.Trainer.load_pretrained`).
 
 Not ported yet, and refused (ROADMAP.md's queue A): the image-text loader
-``running.dataloader=lv`` (A12); the packed ``pak*`` datasets (A11).
+``running.dataloader=lv`` (A12); the packed ``pak*`` datasets (A11-rest).
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..data import build_audio_text_dataloader
-from ..eval.metrics import cider_d, corpus_bleu, meteor, one_vs_k_retrieval, rouge_l
+from ..data import build_audio_text_dataloader, build_audioset_dataloader, build_audioset_label_map
+from ..data import build_xfold_dataloader_list
+from ..data.audioset import label_map_token_matrix
+from ..data.device_put import PinnedDevicePut
+from ..eval.metrics import (_normalize, cider_d, classification_p1, corpus_bleu, meteor,
+                            multilabel_report, one_vs_k_retrieval, rouge_l, zero_shot_classification)
 from ..tokenizer import detokenize_ids
-from ..utils import run_root
 from .checkpoint import extract_model_files, load_checkpoint
 from .trainer import Trainer, register_monitor
 
@@ -57,13 +62,7 @@ class LATrainer(Trainer):
                                       "ported yet (ROADMAP.md queue A, A12)")
         super().build_data(steps_per_epoch)
         if self._reads_data and run.get("test_name"):
-            # a test split that is not on disk is skipped, as the reference did
-            # (`reference/cvap/monitor/clap.py:105-111`); any other error raises
-            name = str(run.test_name)
-            try:
-                self.testloader = self.build_loader(name, False)
-            except (FileNotFoundError, OSError) as e:
-                self.echo.info(f"test split '{name}' unavailable, skipping: {e}")
+            self.testloader = self._build_testloader()
 
     def build_loader(self, data_name: str, train: bool, device_put_fn=None):
         return build_audio_text_dataloader(self.cfg, data_name, train, device_put_fn=device_put_fn)
@@ -81,15 +80,6 @@ class LATrainer(Trainer):
                                                 samples=self._samples_cap("test_samples")))
         return out
 
-    def mid_train_evals(self, loss: float) -> bool:
-        """The base's save-time eval, then the test split's under
-        ``running.test_samples`` (`reference/cvap/monitor/clap.py:245-262`)."""
-        ran = super().mid_train_evals(loss)
-        if ran and self.testloader is not None:
-            self.echo.info("TEST " + self.infer(self.testloader, samples=self._samples_cap("test_samples"),
-                                                gold_file=self.cfg.running.get("gold_file_test")))
-        return ran
-
     def mid_train_eval_ok(self, loss: float) -> bool:
         """No save-time eval while the CE is at or above
         ``running.eval_loss_bound`` (default 5; inf evaluates always)
@@ -106,18 +96,9 @@ class LATrainer(Trainer):
         sample), else the per-save ``eval_samples``."""
         if self.evalloader is None:
             raise ValueError("repeated eval evaluates running.eval_name, which is unset")
-        log_path = os.path.join(run_root(self.cfg.model_root), str(self.cfg.model_name),
-                                str(self.cfg.model_file))
-        if self.cfg.running.get("eval_all_samples") is not None:
-            cap = self._samples_cap("eval_all_samples")
-        else:
-            cap = self._samples_cap("eval_samples")
-            if cap is not None:
-                self.echo.info(f"eval-all pass capped at {int(cap)} samples per checkpoint "
-                               "(running.eval_samples; set running.eval_all_samples=inf "
-                               "for full-split reports)")
+        cap = self._eval_all_cap()
         reports = []
-        for ckpt in extract_model_files(log_path):
+        for ckpt in extract_model_files(self._model_file_path()[1]):
             load_checkpoint(ckpt, self.state)
             reports.append(f"{ckpt}: {self.infer(self.evalloader, samples=cap)}")
             self.echo.info(reports[-1])
@@ -129,9 +110,7 @@ class LATrainer(Trainer):
         (`reference/cvap/module/decoder/loss_head.py:135-169`); a model
         without a text tower reports its decoded captions instead. Neither
         has a gold report: a ``gold_file`` is said once to be ignored."""
-        if gold_file and not getattr(self, "_gold_warned", False):
-            self._gold_warned = True
-            self.echo.info(f"gold_file '{gold_file}' is not supported by {type(self).__name__}; ignored")
+        self.warn_gold_unused(gold_file)
         if self.model.text is None:
             return self.caption_report(loader, samples=samples)
         self.timer.start("report")
@@ -236,3 +215,253 @@ class LATrainer(Trainer):
         scores["CIDEr-D"] = cider_d(cands, refs)
         line = " ".join(f"{k_} = {v:2.2f}" for k_, v in scores.items())
         return f"{line} @ {len(cands)} | e.g.: {'; '.join(cands[:3])}"
+
+
+@register_monitor("ASMonitor")
+class ASTrainer(Trainer):
+    """AudioSet multi-label classification and zero-shot
+    (``vipant_tpu/train/monitors.py:453-609``; parity:
+    `reference/cvap/monitor/audioset_clf.py`): ``ASClassifier`` over
+    :func:`..data.build_audioset_dataloader` batches ``(image, audio,
+    multi-hot labels)``, the label map (ontology order, eval-present labels)
+    read before the model so its heads get the label count; the test split
+    evaluated at every save; the sigmoid multilabel report; label-prompt
+    zero-shot; an audio-embedding dump."""
+
+    batch_keys = ("image", "audio", "label")
+    reads_worker = None
+
+    def build_data(self, steps_per_epoch: Optional[int] = None) -> None:
+        run = self.cfg.running
+        self.label_map = build_audioset_label_map(run)
+        self.output_dim = len(self.label_map)
+        super().build_data(steps_per_epoch)
+        if self._reads_data and not self.eval_mode and run.get("test_name"):
+            self.testloader = self._build_testloader()
+
+    def build_loader(self, data_name: str, train: bool, device_put_fn=None):
+        return build_audioset_dataloader(self.cfg, data_name, train, label_map=self.label_map,
+                                         device_put_fn=device_put_fn)
+
+    @torch.no_grad()
+    def infer(self, loader, samples=None, gold_file=None) -> str:
+        """The multilabel report over the sigmoid scores
+        (`reference/cvap/module/decoder/loss_more.py:92-131`), the padded
+        last batch trimmed by its ``_count``."""
+        self.warn_gold_unused(gold_file)
+        scores, labels, n_got = [], [], 0
+        for batch in loader:
+            if samples is not None and n_got >= samples:
+                break
+            n = int(batch.get("_count", batch["label"].shape[0]))
+            n_got += n
+            s = self.model(*self.eval_frontend_args(batch), train=False)
+            scores.append(s.float().cpu().numpy()[:n])
+            labels.append(np.asarray(batch["label"])[:n])
+        m = multilabel_report(np.concatenate(scores), np.concatenate(labels))
+        return (
+            f"Mac-AP = {m['Mac-AP']:2.2f} Mic-AP = {m['Mic-AP']:2.2f} wAP = {m['wAP']:2.2f} "
+            f"mAP = {m['mAP']:2.2f} mAUC = {m['mAUC']:2.2f} mP = {m['mP']:2.2f} mR = {m['mR']:2.2f}"
+        )
+
+    @torch.no_grad()
+    def encode_label_texts(self) -> np.ndarray:
+        """The label prompts' embeddings [n_label, D], 128 prompts a call
+        (`reference/cvap/monitor/audioset_clf.py:362-375`)."""
+        ids = label_map_token_matrix(self.label_map)
+        embs = [self.model.encode_text(self.make_batch(ids[i:i + 128])[0]).float().cpu().numpy()
+                for i in range(0, len(ids), 128)]
+        return np.concatenate(embs)
+
+    @torch.no_grad()
+    def _audio_embeddings(self, batch) -> np.ndarray:
+        audio = self.eval_frontend_args(batch)[self.batch_keys.index("audio")]
+        return self.model.encode_audio(audio).float().cpu().numpy()
+
+    def zero_shot(self, loader, samples=None) -> str:
+        """Audio against label-prompt similarity -> the multilabel mAP and
+        mAUC (`reference/cvap/monitor/audioset_clf.py:377-404`)."""
+        text = _normalize(self.encode_label_texts())
+        scores, labels, n_got = [], [], 0
+        for batch in loader:
+            if samples is not None and n_got >= samples:
+                break
+            n = int(batch.get("_count", batch["label"].shape[0]))
+            n_got += n
+            scores.append(_normalize(self._audio_embeddings(batch)[:n]) @ text.T)
+            labels.append(np.asarray(batch["label"])[:n])
+        m = multilabel_report(np.concatenate(scores), np.concatenate(labels))
+        return f"zero-shot mAP = {m['mAP']:2.2f} mAUC = {m['mAUC']:2.2f}"
+
+    def repeated_zero_shot(self) -> List[str]:
+        """The zero-shot report of every step directory the log
+        ``model_file`` names (`reference/cvap/monitor/audioset_clf.py:406-418`)."""
+        cap = self._eval_all_cap()
+        reports = []
+        for ckpt in extract_model_files(self._model_file_path()[1]):
+            load_checkpoint(ckpt, self.state)
+            reports.append(f"{ckpt}: {self.zero_shot(self.evalloader, samples=cap)}")
+            self.echo.info(reports[-1])
+        return reports
+
+    def encode_audios_dump(self, loader, out_path: str) -> str:
+        """Every clip's audio embedding, ``v`` [N, D] with ``names``, to
+        ``out_path`` (npz; `reference/cvap/monitor/audioset_clf.py:70-98`)."""
+        embs, names = [], []
+        for batch in loader:
+            n = int(batch.get("_count", len(batch["name"])))
+            embs.append(self._audio_embeddings(batch)[:n])
+            names.extend(batch["name"][:n])
+        np.savez(out_path, v=np.concatenate(embs), names=np.asarray(names))
+        return out_path
+
+
+@register_monitor("ESCMonitor")
+class ESCTrainer(Trainer):
+    """ESC-50 / US8K / AudioSet-eval / VoxCeleb2 x-fold classification and
+    zero-shot (``vipant_tpu/train/monitors.py:612-785``; parity:
+    `reference/cvap/monitor/esc50_clf.py`): ``ESClassifier`` over
+    :func:`..data.build_xfold_dataloader_list`'s folds. Supervised, each
+    fold trains a fresh model and optimizer (:meth:`reinitialize`) for
+    ``running.epochs``, scores P@1 on its held-out fold after every epoch
+    and shuts its loaders down; :meth:`summary_report` gives the mean ± std
+    at the best common epoch. ``running.zero_shot`` or ``eval=True``: the
+    pooled zero-shot P@1 over every fold (:meth:`standard_zero_shot`), with
+    the multi-prompt collapse map; so do the eval-only sets.
+
+    The folds are read whether or not the trainer trains (the label count
+    sizes the head); ``steps_per_epoch`` only sets the schedule's epoch
+    length (else each fold's training loader's length does)."""
+
+    batch_keys = ("audio", "label")
+    reads_worker = None
+
+    def build_data(self, steps_per_epoch: Optional[int] = None) -> None:
+        run = self.cfg.running
+        training = not self.eval_mode and not bool(run.get("zero_shot", False))
+        self.device_put = PinnedDevicePut(self.batch_keys, self.device) if training else None
+        self.folds, self.classes, self.label_ids, extras = build_xfold_dataloader_list(
+            self.cfg, device_put_fn=self.device_put)
+        # the multi-prompt zero-shot collapse map (prompt row -> class id); the
+        # VoxCeleb2 speaker-id -> face-file map is carried as the JAX package does
+        self.zs_label_map = extras.get("label_map")
+        self.faces = extras.get("faces")
+        self.output_dim = len(self.classes)
+        self.loader, self._evalloader = self.folds[0]
+        self._fixed_steps = steps_per_epoch
+        self.steps_per_epoch = self._fold_steps()
+
+    def _fold_steps(self) -> int:
+        if self._fixed_steps is not None:
+            return max(int(self._fixed_steps), 1)
+        return max(len(self.loader), 1) if self.loader is not None else 1
+
+    def _build_evalloader(self):
+        return None  # each fold brings its own
+
+    def close(self) -> None:
+        for train_loader, eval_loader in self.folds:
+            for loader in (train_loader, eval_loader):
+                if loader is not None:
+                    loader.shutdown()
+
+    def reinitialize(self) -> None:
+        """A fresh model and optimizer for the current fold, the schedule
+        over its training loader's length; the step count restarts at 0."""
+        self.steps_per_epoch = self._fold_steps()
+        self.build_model()
+        self.build_optimizer()
+        self.global_step = 0
+
+    @torch.no_grad()
+    def encode_label_texts(self) -> np.ndarray:
+        return self.model.encode_text(self.make_batch(self.label_ids)[0]).float().cpu().numpy()
+
+    @torch.no_grad()
+    def _fold_apply(self, loader, method: str) -> Tuple[np.ndarray, np.ndarray]:
+        """``method`` of the model over an eval loader's audio, the padded
+        last batch trimmed by its ``_count``: (outputs, labels)."""
+        fn = getattr(self.model, method)
+        outs, labels = [], []
+        for batch in loader:
+            n = int(batch.get("_count", batch["audio"].shape[0]))
+            o = fn(self.eval_frontend_args(batch)[0])
+            outs.append((o.float() if o.is_floating_point() else o).cpu().numpy()[:n])
+            labels.append(np.asarray(batch["label"])[:n])
+        return np.concatenate(outs), np.concatenate(labels)
+
+    def _fold_predictions(self, loader) -> Tuple[np.ndarray, np.ndarray]:
+        return self._fold_apply(loader, "predictions")
+
+    def infer(self, loader, samples=None, gold_file=None) -> str:
+        """Supervised P@1 on a fold's eval loader (folds are small: the
+        sample budget is not applied)."""
+        self.warn_gold_unused(gold_file)
+        preds, labels = self._fold_predictions(loader)
+        p1 = 100.0 * float(np.mean(preds == labels)) if len(labels) else 0.0
+        return f"P@1 = {p1:2.2f} @ {len(labels)}"
+
+    def zero_shot(self, loader) -> float:
+        """One fold's zero-shot P@1 (`reference/cvap/monitor/esc50_clf.py:260-292`)."""
+        audio, labels = self._fold_apply(loader, "encode_audio")
+        return zero_shot_classification(audio, self.encode_label_texts(), labels,
+                                        label_map=self.zs_label_map)
+
+    def standard_zero_shot(self) -> float:
+        """Zero-shot P@1 pooled over every fold's eval clips
+        (`reference/cvap/monitor/esc50_clf.py:294-325`)."""
+        text = self.encode_label_texts()
+        audios, labels = zip(*(self._fold_apply(ev, "encode_audio") for _, ev in self.folds))
+        p1 = zero_shot_classification(np.concatenate(audios), text, np.concatenate(labels),
+                                      label_map=self.zs_label_map)
+        self.echo.info(f"A->T: p1 = {p1:2.2f} @ {sum(len(l) for l in labels)}")
+        return p1
+
+    def repeated_zero_shot(self) -> List[str]:
+        """The pooled zero-shot of every step directory the log
+        ``model_file`` names (`reference/cvap/monitor/esc50_clf.py:327-337`)."""
+        reports = []
+        for ckpt in extract_model_files(self._model_file_path()[1]):
+            load_checkpoint(ckpt, self.state)
+            reports.append(f"{ckpt}: p1 = {self.standard_zero_shot():2.2f}")
+        return reports
+
+    def job(self):
+        """Zero-shot (``running.zero_shot``, ``eval=True``, or an eval-only
+        set), else the supervised x-fold protocol
+        (`reference/cvap/monitor/esc50_clf.py:43-120`)."""
+        if bool(self.cfg.running.get("zero_shot", False)) or self.eval_mode:
+            return self.standard_zero_shot()
+        report_by_fold = []
+        for fi, (train_loader, eval_loader) in enumerate(self.folds):
+            if train_loader is None:  # eval-only sets (AudioSet, VoxCeleb2)
+                return self.standard_zero_shot()
+            self.loader, self._evalloader = train_loader, eval_loader
+            self.reinitialize()
+            report_by_epoch = []
+            for ie in range(int(self.cfg.running.epochs)):
+                self.loader.set_epoch(ie)
+                self.epoch(ie)
+                report_by_epoch.append(classification_p1(*self._fold_predictions(eval_loader)))
+            report_by_fold.append(report_by_epoch)
+            self.echo.info(f"fold {fi}: p1 = {report_by_epoch[-1]:2.2f} "
+                           f"(best {max(report_by_epoch):2.2f})")
+            train_loader.shutdown()
+            if eval_loader is not None:
+                eval_loader.shutdown()
+        return self.summary_report(np.asarray(report_by_fold))
+
+    def summary_report(self, report: np.ndarray) -> float:
+        """[folds, epochs] P@1 -> the mean (returned) ± std at the best
+        common epoch, and the mean ± std of each fold's best
+        (`reference/cvap/monitor/esc50_clf.py:104-120`)."""
+        nfold, nepoch = report.shape[:2]
+        self.echo.info(f"Total {nepoch} epochs for each of {nfold} folds.")
+        best_epoch = int(report.sum(0).argmax())
+        best = report[:, best_epoch]
+        mean, std = float(best.mean()), float(best.std())
+        self.echo.info(f"Best mean and std: {mean:2.2f} \\pm {std:2.2f} in the {best_epoch}th epoch.")
+        max_p, max_e = report.max(axis=1), report.argmax(axis=1)
+        self.echo.info(f"Max mean and std: {max_p.mean():2.2f} \\pm {max_p.std():2.2f} "
+                       f"in the {max_e.tolist()}th epoch.")
+        return mean

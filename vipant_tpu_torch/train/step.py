@@ -24,15 +24,26 @@ import torch
 from .state import TrainState
 
 
-def loss_and_grads(state: TrainState, *batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, name -> grad of each trainable param) at the current params;
-    nothing is updated."""
-    loss = state.model(*batch, train=True, **state.loss_kwargs)
+def loss_aux_and_grads(state: TrainState, *batch
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(loss, its named parts, name -> grad of each trainable param) at the
+    current params; nothing is updated. A loss head that returns
+    ``(loss, aux)`` (``ImagineAndClassifyLossHead``: ``ce``, ``bce``) gives
+    its parts, detached; the others none."""
+    out = state.model(*batch, train=True, **state.loss_kwargs)
+    loss, aux = out if isinstance(out, tuple) else (out, {})
     names = list(state.trainable)
     grads = torch.autograd.grad(loss, [state.trainable[n] for n in names], allow_unused=True)
     grads = {n: torch.zeros_like(state.trainable[n]) if g is None else g
              for n, g in zip(names, grads)}
-    return loss.detach(), grads
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+
+def loss_and_grads(state: TrainState, *batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, name -> grad of each trainable param) at the current params;
+    nothing is updated."""
+    loss, _, grads = loss_aux_and_grads(state, *batch)
+    return loss, grads
 
 
 def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor]) -> Dict[str, object]:
@@ -44,10 +55,11 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor]) -> Dict[s
 
 
 def train_step(state: TrainState, *batch) -> Dict[str, object]:
-    """One step: ``{"loss", "grad_norm", "lr"}``, loss and grad_norm as 0-d
-    device tensors (reading them syncs the host)."""
-    loss, grads = loss_and_grads(state, *batch)
-    return {"loss": loss, **apply_gradients(state, grads)}
+    """One step: ``{"loss", "grad_norm", "lr"}`` and ``loss_<part>`` for
+    each named part of the loss (the JAX step's metrics), loss, its parts
+    and grad_norm as 0-d device tensors (reading them syncs the host)."""
+    loss, aux, grads = loss_aux_and_grads(state, *batch)
+    return {"loss": loss, **{f"loss_{k}": v for k, v in aux.items()}, **apply_gradients(state, grads)}
 
 
 @torch.no_grad()

@@ -1,8 +1,9 @@
 """The trainer on one device: VA pre-training (CVAP) from a JSONL index
 with its epoch loop, save-time eval and checkpoints; and the training step
 alone for VA, audio-text retrieval and audio captioning (CLAP). It is the
-base of the other monitors (:mod:`.monitors`: ``LAMonitor``), which
-:func:`build_monitor` picks by ``cfg.monitor``.
+base of the other monitors (:mod:`.monitors`: ``LAMonitor``,
+``ASMonitor``, ``ESCMonitor``), which :func:`build_monitor` picks by
+``cfg.monitor``.
 
 Counterpart of ``vipant_tpu/train/trainer.py:Trainer`` (the ``VAMonitor``):
 config -> data loaders (:mod:`..data`: host workers decode the wav and the
@@ -51,8 +52,8 @@ init; ``export_pth`` writes each save's weight export as a reference
 ``.pth`` too.
 
 Not ported yet, and refused when asked for (ROADMAP.md's queue A names the
-item that ports each): ``async_ckpt`` (A7-rest); the monitors other than
-``VAMonitor`` and ``LAMonitor`` (A11, A12); the gradient cache, ZeRO and
+item that ports each): ``async_ckpt`` (A7-rest); the trimodal and siamese
+monitors ``VALMonitor`` and ``VASMonitor`` (A12); the gradient cache, ZeRO and
 every mesh axis beyond one device (A15).
 
 Usage::
@@ -96,8 +97,7 @@ from .step import eval_step, train_step
 
 MONITORS: Dict[str, type] = {}
 # the JAX package's other monitors -> the ROADMAP.md queue-A item that ports them
-_UNPORTED_MONITORS = {"ASMonitor": "A11", "ESCMonitor": "A11", "VALMonitor": "A12",
-                      "VASMonitor": "A12"}
+_UNPORTED_MONITORS = {"VALMonitor": "A12", "VASMonitor": "A12"}
 _LOGGER = "vipant_tpu_torch"
 
 
@@ -162,7 +162,8 @@ class Trainer:
         self.timer = PhaseTimer()
         self.eval_mode = bool(self.cfg.get("eval", False))
         self.global_step = 0
-        self.testloader = None  # monitors with a test split set it in build_data (LATrainer)
+        self.testloader = None  # monitors with a test split set it in build_data
+        self.output_dim = None  # the classifiers' label count, set in build_data
         self._last_metrics = None  # the last step's, for the gate of the epoch-end eval
         self._profiler = None  # the ``profile`` window, open across epochs
         self.run_id = f"{int(time.time())}-{os.getpid()}"  # metrics.jsonl rows
@@ -220,7 +221,7 @@ class Trainer:
         cfg = self.cfg
         self.resume_from = self._checkpoint_path()
         seed = int(cfg.seed)
-        self.model = build_main_model(cfg, device=self.device)
+        self.model = build_main_model(cfg, device=self.device, output_dim=self.output_dim)
         init_weights(self.model, torch.Generator(device=self.device).manual_seed(seed))
         self.load_pretrained()
         self.trainable, self.frozen = partition_params(self.model, tunable_mask(cfg, self.model))
@@ -474,6 +475,8 @@ class Trainer:
             if bool(opt.get("batch_sch", False)):
                 milestone_steps = {int(m) * self.steps_per_epoch for m in (opt.get("steps", []) or [])}
         meter = AverageMeter(window=peep_rate)
+        # a composite loss head's parts (``loss_ce``, ``loss_bce``), read at the peeps
+        comp_meters: Dict[str, AverageMeter] = {}
         nsample = 0
         t_epoch = time.time()
         self.timer.start("data")
@@ -502,11 +505,17 @@ class Trainer:
                     if halt_on_nan:
                         raise FloatingPointError(f"loss became {loss} at step {self.global_step}")
                 meter.update(loss)
+                comp = ""
+                for k in sorted(metrics):
+                    if k.startswith("loss_"):
+                        m = comp_meters.setdefault(k, AverageMeter(window=peep_rate))
+                        m.update(float(metrics[k]))
+                        comp += f"{k[5:]} {m.avg:.3f} "
                 lr = float(self.state.optimizer.schedule(self.global_step))
                 dt = time.time() - t_epoch
                 self.echo.info(
                     f"epoch {ie} step {self.global_step} loss {loss:.4f} (avg {meter.avg:.4f}) "
-                    f"lr {lr:.2e} {nsample / dt:.1f} samples/s ({self.timer.summary()})")
+                    f"{comp}lr {lr:.2e} {nsample / dt:.1f} samples/s ({self.timer.summary()})")
                 if bool(self.cfg.get("metrics_jsonl", False)):
                     # `run` tells rows re-logged after a crash-resume apart;
                     # non-finite values become null so every line stays JSON
@@ -552,22 +561,58 @@ class Trainer:
         return v if np.isfinite(v) and v > 0 else None
 
     def mid_train_evals(self, loss: float) -> bool:
-        """Save-time eval of the eval loader under its sample budget when
-        :meth:`mid_train_eval_ok` lets ``loss`` through; a skipped eval is
-        logged. Returns whether it ran (parity:
-        `reference/cvap/monitor/cvap.py:246-272`)."""
+        """Save-time eval of the eval loader, then of the test split's (a
+        ``TEST`` report, under ``running.test_samples``) when the monitor
+        has one, when :meth:`mid_train_eval_ok` lets ``loss`` through; a
+        skipped eval is logged. Returns whether it ran (parity:
+        `reference/cvap/monitor/cvap.py:246-272`, `clap.py:245-262`,
+        `audioset_clf.py:300-321`)."""
         if not self.mid_train_eval_ok(loss):
             self.echo.info(f"save-time eval skipped: loss {loss:.3f} above the eval "
                            "gate (running.eval_loss_bound, see mid_train_eval_ok)")
             return False
         if self.evalloader is not None:
             self.echo.info(self.infer(self.evalloader, samples=self._samples_cap("eval_samples")))
+        if self.testloader is not None:
+            self.echo.info("TEST " + self.infer(self.testloader, samples=self._samples_cap("test_samples"),
+                                                gold_file=self.cfg.running.get("gold_file_test")))
         return True
 
     def mid_train_eval_ok(self, loss: float) -> bool:
         """Whether the save-time eval runs at this loss: always, for the VA
         trainer."""
         return True
+
+    def _eval_all_cap(self) -> Optional[float]:
+        """The sample budget of an evaluate-every-checkpoint pass:
+        ``running.eval_all_samples`` if set (inf or 0: every sample), else
+        the per-save ``eval_samples`` (said once in the log)."""
+        if self.cfg.running.get("eval_all_samples") is not None:
+            return self._samples_cap("eval_all_samples")
+        cap = self._samples_cap("eval_samples")
+        if cap is not None:
+            self.echo.info(f"eval-all pass capped at {int(cap)} samples per checkpoint "
+                           "(running.eval_samples; set running.eval_all_samples=inf "
+                           "for full-split reports)")
+        return cap
+
+    def _build_testloader(self):
+        """The test split's loader (``running.test_name``); a split that is
+        not on disk is skipped with a line in the log, as the reference did
+        (`reference/cvap/monitor/clap.py:105-111`); any other error raises."""
+        name = str(self.cfg.running.test_name)
+        try:
+            return self.build_loader(name, False)
+        except (FileNotFoundError, OSError) as e:
+            self.echo.info(f"test split '{name}' unavailable, skipping: {e}")
+            return None
+
+    def warn_gold_unused(self, gold_file) -> None:
+        """A monitor without a gold report says once that it ignores a
+        configured ``gold_file``."""
+        if gold_file and not getattr(self, "_gold_warned", False):
+            self._gold_warned = True
+            self.echo.info(f"gold_file '{gold_file}' is not supported by {type(self).__name__}; ignored")
 
     def collect_features(self, loader, samples: Optional[float] = None) -> Dict[str, object]:
         """Encode the loader's items through the device frontend (``x1``
