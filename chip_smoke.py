@@ -393,7 +393,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                         "experiments/fused_block_probe.py:85"),
 }
 PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
-         "caption_serve", "va_loop", "la_loop", "va_loop_dev", "serve_files", "ckpt", "clf")
+         "caption_serve", "va_loop", "la_loop", "va_loop_dev", "serve_files", "ckpt", "clf", "pak", "val",
+         "vas", "barlow")
 # every product shape the paths give gemm_bias_act: (case, M, N, K, activation, residual, fp32
 # pre-activation). The kernel phase holds each to its plain version; experiments/kernel_times.py
 # times each, parent against change.
@@ -427,16 +428,23 @@ GEMM_FWD_CASES = [
                                 ("fc+quick_gelu", 4 * C, C, "quick_gelu", False),
                                 ("proj+res", C, 4 * C, "none", True))],
     ("audio B50 T306 fc recompute, fp32 preact", LA_B * 306, 3072, 768, "quick_gelu", False, True),
+    # the trimodal step's image tower with its encoder tied to the trained audio tower (phase 20):
+    # not packed, M = 64 x 50 = 3,200 (the packed frozen tower's qkv and fc above have these rows)
+    *[(f"image B64 T50 {p}", 64 * 50, N, K, act, res, False)
+      for p, N, K, act, res in (("out+res", 768, 768, "none", True), ("proj+res", 768, 3072, "none", True))],
+    ("image B64 T50 fc recompute, fp32 preact", 64 * 50, 3072, 768, "quick_gelu", False, True),
 ]
 # every product shape the training paths give gemm_dgrad: (case, M, N, K, activation whose grad
 # multiplies the product, rounded to bf16). dy [M, K] . w [K, N]: the attention's do = g.Wout and
 # dh = dqkv.Wqkv, the MLP's da = (gy.Wproj) * act'(a) and dh = da.Wfc, for the audio tower at
 # batch 4, 64 and 50 (the AT step) and the caption decoder at B64 T77. The backward kernel phase
-# holds each to its plain version; experiments/kernel_times.py times each.
+# holds each to its plain version; experiments/kernel_times.py times each. The trimodal step's tied
+# image tower (B64 T50) trains too.
 GEMM_DGRAD_CASES = [
     (f"{tower} {p}", M, N, K, act, rounded)
     for tower, M, C in (("audio B4 T306", 4 * 306, 768), ("audio B64 T306", 64 * 306, 768),
-                        ("caption decoder B64 T77", 64 * 77, 512), ("audio B50 T306", LA_B * 306, 768))
+                        ("caption decoder B64 T77", 64 * 77, 512), ("audio B50 T306", LA_B * 306, 768),
+                        ("image B64 T50", 64 * 50, 768))
     for p, N, K, act, rounded in (("do=g.Wout", C, C, "none", True),
                                   ("dh=dqkv.Wqkv fp32", C, 3 * C, "none", False),
                                   ("da=(gy.Wproj)*quick_gelu'(a)", 4 * C, C, "quick_gelu", True),
@@ -490,6 +498,7 @@ LAYERNORM_BWD_CASES = [
     ("caption decoder B16 T77", 16 * 77, 512),     # the counted captioning step
     ("text B1 T308", 308, 512),                    # 4 captions packed
     ("audio B50 T306", LA_B * 306, 768),           # the AT step, M = 15,300
+    ("image B64 T50", 64 * 50, 768),               # the trimodal step's tied image tower, M = 3,200
 ]
 # the flash kernel phase's shapes: (case, B, Tq, Tk, H, bias: None, "pack" (4 items of T / 4
 # tokens, block-diagonal) or "causal"); the first is the captioning step's cross-attention.
@@ -511,7 +520,8 @@ FLASH_CASES = [
 COLSUM_CASES = [
     (f"{tower} {p}", M, N, dtype)
     for tower, M, C in (("audio B64 T306", 64 * 306, 768), ("audio B4 T306", 4 * 306, 768),
-                        ("caption decoder B64 T77", 64 * 77, 512), ("audio B50 T306", LA_B * 306, 768))
+                        ("caption decoder B64 T77", 64 * 77, 512), ("audio B50 T306", LA_B * 306, 768),
+                        ("image B64 T50", 64 * 50, 768))
     for p, N, dtype in (("dbout, dbproj", C, "bf16"), ("dbqkv fp32", 3 * C, "fp32"), ("dbfc", 4 * C, "bf16"))
 ]
 # the towers the int8 paths run, by rows a call: (case, rows, C). Serving: audio at batch 4, 16 and
@@ -997,10 +1007,12 @@ def backward_kernel_phase(torch, results):
             ops=gemm_ops(M, C, C) * 2 + gemm_ops(M, 3 * C, C) * 2 + attn_ops(B, T, H, products=5))
         torch.cuda.empty_cache()
 
-    # attention_bwd at the captioning decoder's self-attention and at a packed batch of images
+    # attention_bwd at the captioning decoder's self-attention, at a packed batch of images and at the
+    # trimodal step's tied image tower
     pack_bias, _ = _biases(torch)
     for case, B, T, C, H, bias in (("decoder B64 T77 C512 H8 causal", 64, 77, 512, 8, causal_mask(77, device="cuda")),
-                                   ("image B16 T200 C768 H12 pack", 16, 200, 768, 12, pack_bias(50, 4))):
+                                   ("image B16 T200 C768 H12 pack", 16, 200, 768, 12, pack_bias(50, 4)),
+                                   ("image B64 T50 C768 H12 (trimodal tied)", 64, 50, 768, 12, None)):
         qkv, do, cb = rn(B, T, 3 * C), rn(B, T, C), fused_attn.canon_bias(bias)
         _, stats = kernels.attention_fwd(qkv, cb, H, 0.125, stats=True)
         bwd = lambda: kernels.attention_bwd(qkv, do, cb, H, 0.125, stats)
@@ -1050,11 +1062,13 @@ def backward_kernel_phase(torch, results):
     C = 512
     for name, N1, N2 in (("dWout", C, C), ("dWqkv", 3 * C, C), ("dWproj", C, 4 * C), ("dWfc", 4 * C, C)):
         wgrad(cmp, f"caption decoder B64 T77 C512 {name}", rn(64, 77, N1), rn(64, 77, N2))
-    # the AT step's audio tower: M = 50 x 306 rows at width 768, its four weight grads
+    # the AT step's audio tower: M = 50 x 306 rows at width 768, and the trimodal step's tied image
+    # tower: M = 64 x 50; their four weight grads
     C = 768
-    for name, N1, N2 in (("dWout", C, C), ("dWqkv", 3 * C, C), ("dWproj", C, 4 * C), ("dWfc", 4 * C, C)):
-        wgrad(cmp, f"audio B50 T306 C768 {name}", rn(LA_B, 306, N1), rn(LA_B, 306, N2))
-        torch.cuda.empty_cache()
+    for tower, B, T in (("audio B50 T306", LA_B, 306), ("image B64 T50", 64, 50)):
+        for name, N1, N2 in (("dWout", C, C), ("dWqkv", 3 * C, C), ("dWproj", C, 4 * C), ("dWfc", 4 * C, C)):
+            wgrad(cmp, f"{tower} C768 {name}", rn(B, T, N1), rn(B, T, N2))
+            torch.cuda.empty_cache()
 
     # gemm_dgrad alone at every shape the paths give it, bitwise equal over two runs
     for case, M, N, K, act, rounded in GEMM_DGRAD_CASES:
@@ -3535,21 +3549,13 @@ def clf_phase(torch, results):
     from vipant_tpu_torch import native
     from vipant_tpu_torch.data import transforms_audio
     from vipant_tpu_torch.data.esc50 import AudioLabelCollator
-    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
     from vipant_tpu_torch.ops.fbank_np import FbankParams, fbank as fbank_np
     from vipant_tpu_torch.serve import InferenceEngine
     from vipant_tpu_torch.train import ASTrainer, ESCTrainer, build_monitor, loss_and_grads
 
     smi = _smi()
     path_counts = collections.Counter()  # the launches of every run of the path, summed
-
-    def count_launches(fn):
-        torch.cuda.synchronize()
-        reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        path_counts.update(LAUNCHES)
-        return out
+    count_launches = _counting(torch, path_counts)
 
     root = tempfile.mkdtemp(prefix="vipant_clf_")
     workers = min(8, os.cpu_count() or 1)
@@ -3745,6 +3751,421 @@ def clf_phase(torch, results):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 19: the packed shards (pak VA, AT and AudioSet) with the loader's one-gather batch path
+PAK_LEN = 1030  # the pack's rows: longer than max_len, so the train crop has work to do
+PAK_AT_SECONDS = 10.5  # phase 15's Clotho clips cut from 20 s: the packed rows hold 10 s
+
+
+def _counting(torch, counts):
+    """``fn()`` with the kernel launches it makes added to ``counts``."""
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+
+    def run(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts.update(LAUNCHES)
+        return out
+    return run
+
+
+def _pack_cli(root, over, name, out, *extra):
+    """``python -m vipant_tpu_torch.data.packed`` in a subprocess: (pack dir,
+    seconds, bytes on disk)."""
+    import os
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-m", "vipant_tpu_torch.data.packed", *over,
+                           f"running.data_root={root}", f"running.data_name={name}",
+                           f"pack.out={out}", *extra], capture_output=True, text=True, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"the packing CLI failed: {proc.stderr[-2000:]}")
+    d = proc.stdout.strip().splitlines()[-1]
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    return d, time.perf_counter() - t0, nbytes
+
+
+def pak_phase(torch, results):
+    """(a) pack phase 14's synthetic VA index through the CLI and hold the
+    pack's eval batches bitwise to the npz dataset's ``ship_bf16`` batches;
+    (b) ``VAMonitor`` at the VA step's full width on the pack (thread loader,
+    a batch one gather): 2 epochs of 4 steps with a save and an eval at step
+    6, a resume from it bitwise, the loop's steady window over the split
+    read 3 times, and the host's ms to assemble a batch; (c) ``LAMonitor`` at
+    ``CLAP_FULL`` on a packed synthetic Clotho; (d) ``ASMonitor`` on a packed
+    synthetic AudioSet, weighted, then ``infer``."""
+    import collections
+    import os
+    import shutil
+    import tempfile
+
+    from vipant_tpu_torch.config import compose
+    from vipant_tpu_torch.data import build_audioset_label_map, build_image_audio_dataloader, packed
+    from vipant_tpu_torch.data.image_audio import ImageAudioCollator, ImageAudioDatasetNpz
+    from vipant_tpu_torch.train import ASTrainer, LATrainer, build_monitor
+
+    smi = _smi()
+    counts = collections.Counter()
+    count = _counting(torch, counts)
+    root = tempfile.mkdtemp(prefix="vipant_pak_")
+    workers = min(8, os.cpu_count() or 1)
+    ship = ["running.audio.ship_bf16=True", "running.image_uint8=True"]
+    try:
+        t0 = time.perf_counter()
+        write_synthetic_va(root, "train", LOOP_TRAIN, npz_name="npz_train", seed=0)
+        with open(os.path.join(root, "npz_train.jsonl")) as f, \
+                open(os.path.join(root, "npz_train_long.jsonl"), "w") as g:
+            g.writelines(f.readlines() * LOOP_NPZ_REPEAT)
+        print(f"synthetic index: {LOOP_TRAIN} clips of {LOOP_SECONDS:.0f} s with {LOOP_FRAME}x{LOOP_FRAME} "
+              f"JPEG frames and the npz twin (1000x128 fbanks), written in {time.perf_counter() - t0:.1f} s")
+
+        # (a) the CLI packs the npz twin; its eval batches are the npz dataset's ship_bf16 batches
+        over = FLAGSHIP + ship + [f"running.batch_size={LOOP_B}", f"num_proc={workers}"]
+        pak, sec, nbytes = _pack_cli(root, over, "npz_train", "pak_train", f"pack.len={PAK_LEN}")
+        _, sec_long, bytes_long = _pack_cli(root, over, "npz_train_long", "pak_long", f"pack.len={PAK_LEN}")
+        cfg = compose(over + [f"running.data_root={root}", "loader_backend=thread"])
+        got = list(build_image_audio_dataloader(cfg, "pak_train", False))
+        want = list(build_image_audio_dataloader(cfg, "npz_train", False))
+        same = [all(g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]) for k in ("audio", "image"))
+                and g["name"] == w["name"] for g, w in zip(got, want)]
+        print(f"(a) python -m vipant_tpu_torch.data.packed pack.len={PAK_LEN}: {LOOP_TRAIN} rows in "
+              f"{sec:.2f} s, {nbytes / 2 ** 20:.1f} MiB ({os.path.basename(pak)}); the split read "
+              f"{LOOP_NPZ_REPEAT} times: {sec_long:.2f} s, {bytes_long / 2 ** 20:.1f} MiB; eval batches "
+              f"bitwise the npz dataset's ship_bf16 batches: {sum(same)} of {len(want)}")
+        if len(got) != len(want) or not all(same) or got[0]["audio"].dtype != np.uint16:
+            raise AssertionError("the pack's eval batches are not the npz dataset's ship_bf16 batches")
+        del got, want
+
+        # (b) VAMonitor on the pack: run A, 8 steps with a save and an eval at step 6
+        run = os.path.join(root, "run")
+
+        def va(*extra):
+            torch.cuda.empty_cache()
+            return build_monitor(over + [
+                f"running.data_root={root}", "running.data_name=pak_train", "running.eval_name=pak_train",
+                "running.eval_samples=64", "running.epochs=2", "loader_backend=thread",
+                "running.peep_rate=1", "running.save_rate=6", "running.save_epoch=False",
+                f"alias_root={run}", f"model_root={run}", "model_name=pak", "eval=False",
+                "metrics_jsonl=True", *extra])
+
+        a = va()
+        if not isinstance(a.loader.dataset, packed.ImageAudioDatasetPak):
+            raise AssertionError("VAMonitor did not read the pack")
+        t0 = time.perf_counter()
+        count(a.learn)
+        want = _snapshot(a)
+        losses = _loop_losses(a)
+        print(f"(b) run A on the pack: {a.global_step} steps (2 epochs of {a.steps_per_epoch}), a save and an "
+              f"eval at step 6, in {time.perf_counter() - t0:.1f} s; losses {[round(v, 5) for v in losses]}")
+        if len(losses) != 8 or not np.isfinite(losses).all():
+            raise AssertionError(f"the pak VA run's losses: {losses}")
+        a.close()
+        del a
+        b = va("model_file=00000006", "running.eval_name=")
+        count(b.learn)
+        diff, what = _resume_diff(torch, b, want)
+        print(f"(b) run B (resumed from step 6, the thread loader) against run A at step 8: {what}, "
+              f"{len(diff)} not bitwise equal")
+        if diff or b.global_step != 8:
+            raise AssertionError(f"the pak resume is not bitwise: {sorted(diff.items())[:5]}")
+        del b, want
+
+        # (b) the loop's steady window on the split read 3 times, and one batch's host assembly
+        tr = va("running.data_name=pak_long", "running.eval_name=", "running.save_rate=1000000000")
+        tail = 2 * tr.loader.prefetch + 2
+        ms, clips, share, steps, series = count(lambda: _timed_epoch(torch, tr, 0, tail))
+        args = tr.device_put.wait(next(iter(tr.loader)))
+        tr.close()
+        alone = cuda_ms(torch, lambda: tr.train_step(*args), 5, 2)
+        del tr, args
+        ds = packed.ImageAudioDatasetPak(cfg.running, "pak_train", True)
+        npz = ImageAudioDatasetNpz(compose(over + [f"running.data_root={root}"]).running, "npz_train", True)
+        idxs = list(range(LOOP_B))
+        host = {"get_batch": _timed_ms(torch, lambda: ds.get_batch(idxs, 1), 5),
+                "npz items + collate": _timed_ms(
+                    torch, lambda: ImageAudioCollator()([npz[i] for i in idxs]), 3)}
+        npz_loop = results.get("_loop_windows", {}).get("npz")
+        print(f"(b) pak source, each step's (wait for the batch, train_step call) ms: {series}")
+        print(f"(b) pak source, a window of {steps} steps: {ms:.2f} ms per step of the loop, {clips:.1f} "
+              f"clips/s, data-wait share {100 * share:.1f} %; the step alone on a loader batch {alone:.2f} ms; "
+              f"phase 14's npz window "
+              f"{'%.2f ms, %.1f clips/s, %.1f %%' % (npz_loop[0], npz_loop[1], 100 * npz_loop[2]) if npz_loop else 'not run'}; "
+              f"one batch of {LOOP_B} on the host: "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in host.items()) + f"; {smi}")
+        results["_pak_window"] = (ms, clips, share)
+
+        # (c) LAMonitor at CLAP_FULL on a packed synthetic Clotho
+        t0 = time.perf_counter()
+        write_synthetic_clotho(root, "clotho_train", LA_TRAIN, seconds=PAK_AT_SECONDS)
+        write_synthetic_clotho(root, "clotho_val", LA_EVAL, seconds=PAK_AT_SECONDS, seed=1)
+        la_over = LA_FULL + ship + [f"running.batch_size={LA_B}", f"running.data_root={root}"]
+        la_cfg = compose(la_over)
+        for name in ("clotho_train", "clotho_val"):
+            packed.pack_audio_text(la_cfg.running, la_cfg.model, name)
+        print(f"(c) synthetic Clotho ({LA_TRAIN} + {LA_EVAL} clips of {PAK_AT_SECONDS:.1f} s) written and "
+              f"packed in {time.perf_counter() - t0:.1f} s")
+        la = _la_monitor(torch, *ship, f"running.data_root={root}", "running.data_name=pak_clotho_train",
+                         "running.eval_name=pak_clotho_val", "running.test_name=", "running.epochs=1",
+                         "running.peep_rate=1", "running.save_rate=1000000000", "running.save_epoch=True",
+                         "running.eval_loss_bound=inf", "loader_backend=thread", f"num_proc={workers}",
+                         f"alias_root={run}", f"model_root={run}", "model_name=pak_la", "eval=False")
+        if not isinstance(la, LATrainer) or not isinstance(la.loader.dataset, packed.AudioTextDatasetPak):
+            raise AssertionError("LAMonitor did not read the AT pack")
+        t0 = time.perf_counter()
+        count(la.learn)
+        reports = _logged_reports(la.out_dir)
+        print(f"(c) LAMonitor on the pack: {la.global_step} steps at B={LA_B} and an eval in "
+              f"{time.perf_counter() - t0:.1f} s; {reports[-1][1] if reports else 'no report'}")
+        if la.global_step != 4 or len(reports) != 1:
+            raise AssertionError(f"the AT pak run: {la.global_step} steps, reports {reports}")
+        _report_finite(reports[-1][1])
+        la.close()
+        del la
+
+        # (d) ASMonitor on a packed synthetic AudioSet: weighted sampling, no mixup, then infer
+        as_root = os.path.join(root, "audioset")
+        t0 = time.perf_counter()
+        write_synthetic_audioset(as_root)
+        as_over = AS_FULL + ship + [f"running.data_root={as_root}", "running.mixup_rate=0.0"]
+        as_cfg = compose(as_over)
+        label_map = build_audioset_label_map(as_cfg.running)
+        for name in ("as_train", "as_eval"):
+            packed.pack_audioset(as_cfg.running, name, label_map)
+        print(f"(d) synthetic AudioSet ({AS_TRAIN} + {AS_EVAL} clips, {AS_LABELS} labels) written and "
+              f"packed in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        mon = build_monitor(as_over + [
+            "running.data_name=pak_as_train", "running.eval_name=pak_as_eval", "running.test_name=",
+            f"running.batch_size={AS_B}", "running.epochs=2", "running.peep_rate=1",
+            "running.save_rate=1e9", "running.save_epoch=False", "loader_backend=thread",
+            f"num_proc={workers}", f"alias_root={run}", f"model_root={run}", "model_name=pak_as",
+            "eval=False"])
+        if (not isinstance(mon, ASTrainer) or mon.loader.sample_weights is None
+                or not isinstance(mon.loader.dataset, packed.AudiosetDatasetPak)):
+            raise AssertionError("ASMonitor did not read the AudioSet pack, weighted")
+        t0 = time.perf_counter()
+        count(mon.learn)
+        report = count(lambda: mon.infer(mon.evalloader))
+        print(f"(d) ASMonitor on the pack: {mon.global_step} steps at B={AS_B} in "
+              f"{time.perf_counter() - t0:.1f} s with infer: {report}")
+        if mon.global_step != 4:
+            raise AssertionError(f"the AudioSet pak run took {mon.global_step} steps")
+        _report_numbers(report)
+        mon.close()
+        del mon
+        torch.cuda.empty_cache()
+
+        counts = dict(counts)
+        print(f"launches on the pak path: {json.dumps(counts, sort_keys=True)}")
+        for name in ("fused_ln_attention_block", "fused_ln_mlp_block", "fused_ln_attention_block_bwd",
+                     "fused_ln_mlp_block_bwd"):
+            if not counts.get(name):
+                raise AssertionError(f"{name} was not launched on the pak path")
+        record_launches(results, "pak", counts)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 20: the trimodal (CVALP, with and without siamese ties), siamese (CVASP) and Barlow paths
+VAL_FULL = [  # the trimodal step: CLAP_FULL's towers and the ViT-B/32 image tower, running/trimodal.yaml
+    "+running=trimodal", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=transformer_val",
+    "+model/loss=ce_val", "+optimizer=standard", "+running/audio=default",
+    "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=1000", "model.loss.lv=True",
+    "worker=CVALP", "monitor=VALMonitor", "model_file=",
+]
+VAL_TIED = VAL_FULL + ["running.siamese.alive=True", "running.siamese.amodules=[encoder,misc]"]
+VAS_FULL = [  # running/siamese.yaml with the five views' loss
+    "+running=siamese", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=dummy",
+    "+model/loss=ce_va", "+optimizer=standard", "+running/audio=default",
+    "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=1000", "running.multi_view=True",
+    "model.loss.aa=True", "worker=CVASP", "monitor=VASMonitor", "model_file=",
+]
+BARLOW_FULL = [o for o in FLAGSHIP if o != "+model/loss=ce"] + ["+model/loss=barlow_ce"]
+VAS_TRAIN, BARLOW_TRAIN = 256, 192  # 4 steps, 3 steps at B = 64
+
+
+def trimodal_phase(torch, results):
+    """(a) ``VALMonitor`` / ``CVALP`` at full width on a synthetic AudioSet
+    (label texts as captions), the image and text towers frozen, the audio
+    tower trained, ``ce_val`` with ``va``, ``al`` and ``lv``: 4 steps,
+    ``infer``, ``zero_shot``; then again with the audio tower's encoder and
+    positional embedding tied to the image tower's, whose tied stages then
+    train. (b) ``VASMonitor`` / ``CVASP`` on phase 14's index with the four
+    views: 4 steps and ``infer``, and a resume from step 2 on 8 process
+    workers bitwise. (c) ``VAMonitor`` with ``barlow_ce``: 3 steps, the
+    BatchNorm statistics moved, an eval call that reads them unchanged, and a
+    resume bitwise, statistics included."""
+    import collections
+    import os
+    import shutil
+    import tempfile
+
+    from vipant_tpu_torch.config import compose
+    from vipant_tpu_torch.data import build_image_audio_dataloader
+    from vipant_tpu_torch.train import VALTrainer, VASTrainer, build_monitor
+
+    smi = _smi()
+    root = tempfile.mkdtemp(prefix="vipant_val_")
+    workers = min(8, os.cpu_count() or 1)
+    run = os.path.join(root, "run")
+    try:
+        t0 = time.perf_counter()
+        as_root = os.path.join(root, "audioset")
+        write_synthetic_audioset(as_root)
+        write_synthetic_va(root, "train", VAS_TRAIN, npz_name="npz_train", seed=0)
+        print(f"synthetic AudioSet ({AS_TRAIN} + {AS_EVAL} clips) and VA index ({VAS_TRAIN} clips with "
+              f"the npz twin) written in {time.perf_counter() - t0:.1f} s")
+
+        # (a) VALMonitor, untied then tied
+        val_counts = collections.Counter()
+        count = _counting(torch, val_counts)
+        for i, (label, over) in enumerate((("untied", VAL_FULL), ("tied encoder+misc", VAL_TIED))):
+            torch.cuda.empty_cache()
+            mon = build_monitor(over + [
+                f"running.data_root={as_root}", "running.data_name=as_train", "running.eval_name=as_eval",
+                "running.test_name=", f"running.batch_size={AS_B}", "running.epochs=2", "running.peep_rate=1",
+                "running.save_rate=1e9", "running.save_epoch=False", "running.zero_shot=True",
+                "loader_backend=thread",
+                f"num_proc={workers}", f"alias_root={run}", f"model_root={run}", f"model_name=val{i}",
+                "eval=False"])
+            if not isinstance(mon, VALTrainer):
+                raise AssertionError("VALMonitor did not build a VALTrainer")
+            image = dict(mon.model.image.named_parameters())
+            before = {k: p.detach().clone() for k, p in image.items()}
+            t0 = time.perf_counter()
+            count(mon.learn)
+            dt = time.perf_counter() - t0
+            with open(os.path.join(mon.out_dir, "train_0.out")) as f:
+                parts = [tuple(float(v) for v in m.groups()) for m in re.finditer(
+                    r"step \d+ loss (\S+) \(avg \S+\) al (\S+) lv (\S+) va (\S+) ", f.read())]
+            t0 = time.perf_counter()
+            report = count(lambda: mon.infer(mon.evalloader))
+            de = time.perf_counter() - t0
+            moved = {k for k, p in image.items() if not torch.equal(p.detach(), before[k])}
+            tied = [(d, s) for d, s in mon.ties]
+            shared = all(p is q for d, s in tied for p, q in zip(
+                mon.model.get_submodule(d.replace("/", ".")).parameters(),
+                mon.model.get_submodule(s.replace("/", ".")).parameters()))
+            print(f"(a) VALMonitor {label}: ties {tied}; {mon.global_step} steps at B={AS_B} in {dt:.1f} s, "
+                  f"(loss, al, lv, va) {parts}; {len(moved)} of {len(image)} image-tower params moved; "
+                  f"{sum(p.numel() for p in mon.trainable.values()):,} trainable params; infer with "
+                  f"zero-shot ({AS_LABELS} prompts) over {AS_EVAL} clips in {de:.1f} s: {report}")
+            if len(parts) != 4 or not np.isfinite(parts).all():
+                raise AssertionError(f"the VAL losses or their parts are not finite: {parts}")
+            nums = [float(t1 or p1) for t1, p1 in re.findall(r"t1 (\S+)|p1 = (\S+)", report)]
+            if len(nums) != 5 or not all(0.0 <= v <= 100.0 for v in nums):
+                raise AssertionError(f"the VAL report: {report}")
+            if tied:
+                stages = {k.split(".")[0] for k in moved}
+                if not shared or "encoder" not in stages or not stages <= {"encoder", "misc"}:
+                    raise AssertionError(f"the tied run: one storage {shared}, moved stages {stages}")
+            elif moved:
+                raise AssertionError(f"the frozen image tower moved in the untied run: {sorted(moved)[:3]}")
+            mon.close()
+            del mon, image, before
+        record_launches(results, "val", dict(val_counts))
+
+        # (b) VASMonitor on the four views, resumed from step 2 on 8 process workers
+        vas_counts = collections.Counter()
+        count = _counting(torch, vas_counts)
+
+        def vas(*extra):
+            torch.cuda.empty_cache()
+            return build_monitor(VAS_FULL + [
+                f"running.data_root={root}", "running.data_name=train", "running.eval_name=train",
+                "running.eval_samples=64", f"running.batch_size={LOOP_B}", "running.epochs=1",
+                "running.peep_rate=1", "running.save_rate=2", "running.save_epoch=False",
+                "loader_backend=process", f"num_proc={workers}", f"alias_root={run}", f"model_root={run}",
+                "model_name=vas", "eval=False", *extra])
+
+        a = vas("running.eval_name=")
+        if not isinstance(a, VASTrainer):
+            raise AssertionError("VASMonitor did not build a VASTrainer")
+        t0 = time.perf_counter()
+        count(a.learn)
+        want = _snapshot(a)
+        with open(os.path.join(a.out_dir, "train_0.out")) as f:
+            parts = [tuple(float(v) for v in m.groups()) for m in re.finditer(
+                r"step \d+ loss (\S+) \(avg \S+\) aa (\S+) va (\S+) vp (\S+) vv (\S+) ", f.read())]
+        print(f"(b) VASMonitor: {a.global_step} steps at B={LOOP_B} on {workers} process workers in "
+              f"{time.perf_counter() - t0:.1f} s, (loss, aa, va, vp, vv) {parts}")
+        if len(parts) != 4 or not np.isfinite(parts).all():
+            raise AssertionError(f"the VAS losses or their parts are not finite: {parts}")
+        a.close()
+        del a
+        b = vas("model_file=00000002", "running.eval_name=")
+        count(b.learn)
+        diff, what = _resume_diff(torch, b, want)
+        evalloader = build_image_audio_dataloader(compose(VAS_FULL + [
+            f"running.data_root={root}", "running.eval_samples=64", f"running.batch_size={LOOP_B}",
+            "loader_backend=thread", f"num_proc={workers}"]), "train", False)
+        report = count(lambda: b.infer(evalloader))
+        print(f"(b) resumed from step 2 on {workers} process workers against the uninterrupted run at step "
+              f"4: {what}, {len(diff)} not bitwise equal; infer: {report}")
+        if diff or b.global_step != 4:
+            raise AssertionError(f"the siamese resume is not bitwise: {sorted(diff.items())[:5]}")
+        if not re.fullmatch(r"I->A: t1 = \S+ A->I: t1 = \S+ @ \d+", report):
+            raise AssertionError(f"the VAS report: {report}")
+        b.close()
+        del b, want
+        record_launches(results, "vas", dict(vas_counts))
+
+        # (c) VAMonitor with barlow_ce: its BatchNorm statistics
+        barlow_counts = collections.Counter()
+        count = _counting(torch, barlow_counts)
+
+        def barlow(*extra):
+            torch.cuda.empty_cache()
+            return build_monitor(BARLOW_FULL + [
+                f"running.data_root={root}", "running.data_name=npz_barlow", "running.eval_name=",
+                f"running.batch_size={LOOP_B}", "running.epochs=1", "running.audio.transform_fbank=False",
+                "running.peep_rate=1", "running.save_rate=2", "running.save_epoch=False",
+                "loader_backend=thread", f"num_proc={workers}", f"alias_root={run}", f"model_root={run}",
+                "model_name=barlow", "eval=False", *extra])
+
+        with open(os.path.join(root, "npz_train.jsonl")) as f, \
+                open(os.path.join(root, "npz_barlow.jsonl"), "w") as g:
+            g.writelines(f.readlines()[:BARLOW_TRAIN])
+        a = barlow()
+        init = {k: v.clone() for k, v in a.state.buffers.items()}
+        count(a.learn)
+        stats = {k: v.clone() for k, v in a.state.buffers.items()}
+        moved = [k for k, v in stats.items() if not torch.equal(v, init[k])]
+        x = torch.nn.functional.normalize(torch.randn(LOOP_B, int(a.cfg.model.image.embed_dim), device=a.device), dim=-1)
+        with torch.no_grad():
+            out = count(lambda: a.model.loss(x, x.roll(1, 0), train=False))
+        unchanged = all(torch.equal(v, stats[k]) for k, v in a.state.buffers.items())
+        want = _snapshot(a)
+        a.close()
+        del a
+        b = barlow("model_file=00000002")
+        count(b.learn)
+        diff, what = _resume_diff(torch, b, want)
+        diff.update({k: float((v - stats[k]).abs().max()) for k, v in b.state.buffers.items()
+                     if not torch.equal(v, stats[k])})
+        print(f"(c) barlow_ce: 3 steps at B={LOOP_B}; {len(moved)} of {len(stats)} running statistics "
+              f"moved; an eval call of the head {float(out):.4f} left them unchanged: {unchanged}; resumed "
+              f"from step 2: {what} and {len(stats)} statistics, {len(diff)} not bitwise equal")
+        if len(moved) != len(stats) or not stats or not unchanged or not np.isfinite(float(out)) or diff:
+            raise AssertionError(f"Barlow's statistics: moved {moved}, unchanged {unchanged}, resume {diff}")
+        b.close()
+        del b, want
+        record_launches(results, "barlow", dict(barlow_counts))
+
+        for path, counts in (("val", val_counts), ("vas", vas_counts), ("barlow", barlow_counts)):
+            print(f"launches on the {path} path: {json.dumps(dict(counts), sort_keys=True)}")
+            for name in ("fused_ln_attention_block", "fused_ln_mlp_block", "fused_ln_attention_block_bwd",
+                         "fused_ln_mlp_block_bwd"):
+                if not counts.get(name):
+                    raise AssertionError(f"{name} was not launched on the {path} path")
+        print(f"  ({smi})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # (name, title, function) of every phase, in the order a whole run takes them
 PHASES = (
     ("kernel_phase", "kernel phase (forward kernels vs plain PyTorch on the card)", kernel_phase),
@@ -3764,6 +4185,8 @@ PHASES = (
     ("frontend_phase", "the device frontend and serving from files (full width)", frontend_phase),
     ("ckpt_phase", "checkpoint loading and export (a full-width synthetic CLIP file)", ckpt_phase),
     ("clf_phase", "classification (ESC-50 x-fold, AudioSet, full width)", clf_phase),
+    ("pak_phase", "packed shards (pak VA, AT and AudioSet; the one-gather batch path)", pak_phase),
+    ("trimodal_phase", "trimodal, siamese and Barlow training (full width)", trimodal_phase),
 )
 
 

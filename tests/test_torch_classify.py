@@ -37,7 +37,8 @@ small size (towers of width 64 / 32, 2 layers, 100 x 128 fbanks) in fp32:
 - ``InferenceEngine`` with ``worker=ESClassifier`` and ``ASClassifier``:
   ``embed_audio``, ``embed_texts`` and ``zero_shot`` within 1e-4 of the JAX
   engine's on the same weights (tests/test_torch_serve.py's fp32 bound);
-- the refusals: a ``pak*`` AudioSet dataset names A11-rest.
+- the refusals: a contrastive (``clf=False``) ``pak*`` AudioSet dataset is
+  refused as the JAX package refuses it.
 """
 
 import ast
@@ -504,9 +505,14 @@ def test_mixup_turns_on_device_off_with_a_warning(data):
 
 
 def test_a_packed_audioset_dataset_is_refused(data):
-    port_cfg, _ = _as_cfgs(data)
-    with pytest.raises(NotImplementedError, match="A11-rest"):
+    """Packed AudioSet shards are classification only (tests/test_torch_packed.py
+    holds the rest of the pak branch)."""
+    port_cfg, jax_cfg = _as_cfgs(data, "running.clf=False")
+    with pytest.raises(ValueError, match="clf=True only") as want:
+        jax_audioset.build_audioset_dataloader(jax_cfg, "pak_train", True)
+    with pytest.raises(ValueError) as got:
         audioset.build_audioset_dataloader(port_cfg, "pak_train", True)
+    assert str(got.value) == str(want.value)
 
 
 # ----------------------------------------------------------- the metrics

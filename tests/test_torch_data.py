@@ -189,14 +189,19 @@ def test_workers_hide_the_gpus(monkeypatch):
     assert os.environ["CUDA_VISIBLE_DEVICES"] == "" and port_loader._WORKER_DATASET == [1]
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["running.multi_view=True"], "A12"),
-    (["running.audio.on_device=True", "running.audio.dither=1.0"], "dither"),
-    (["running.audio.on_device=True", "running.audio.use_energy=True"], "use_energy"),
-    ([], "A11-rest"),
+@pytest.mark.parametrize("extra,item,name", [
+    # the siamese dataset (ported) refuses what the device fbank does not compute, as the others do
+    pytest.param(["running.multi_view=True", "running.audio.on_device=True",
+                  "running.audio.dither=1.0"], "dither", "train", id="extra0-A12"),
+    pytest.param(["running.audio.on_device=True", "running.audio.dither=1.0"], "dither", "train",
+                 id="extra1-dither"),
+    pytest.param(["running.audio.on_device=True", "running.audio.use_energy=True"], "use_energy",
+                 "train", id="extra2-use_energy"),
+    # so does a packed dataset (ported), before it opens its pack
+    pytest.param(["running.audio.on_device=True", "running.audio.use_energy=True"], "use_energy",
+                 "pak_train", id="extra3-A11-rest"),
 ])
-def test_unported_data_options_are_refused(root, extra, item):
-    name = "pak_train" if not extra else "train"
+def test_unported_data_options_are_refused(root, extra, item, name):
     with pytest.raises(NotImplementedError, match=item):
         build_image_audio_dataloader(compose(_overrides(root, *extra)), name, True)
 
@@ -289,10 +294,30 @@ def test_verbatim_copies_are_the_same_code(port, orig):
       "extract_fbank_features"]),
     (transforms_image, jax_transforms_image, ["CLIP_MEAN", "CLIP_STD"]),
     (image_audio, jax_image_audio, ["fbank_params_from_cfg"]),
-    (port_loader, jax_loader, ["_worker_getitem"]),
+    # the packed datasets' batch task; _worker_getitem also seeds ``random`` (below)
+    (port_loader, jax_loader, ["_worker_getbatch"]),
 ], ids=["utils", "indexfile", "transforms_audio", "transforms_image", "image_audio", "loader"])
 def test_copied_definitions_are_the_same_code(port, orig, names):
     assert _defs(port, names) == _defs(orig, names)
+
+
+def test_worker_getitem_seeds_numpy_as_the_jax_loader_and_random_too(monkeypatch):
+    """An item task seeds NumPy with its seed, as the JAX loader does, and
+    Python's ``random`` with it too (the siamese image views draw from it;
+    the JAX loader leaves it unseeded: ROADMAP.md C14)."""
+    import random
+
+    draw = lambda: (np.random.rand(), random.random())
+    for mod in (port_loader, jax_loader):
+        monkeypatch.setattr(mod, "_WORKER_DATASET", type("D", (), {"__getitem__": lambda self, i: draw()})())
+    random.seed(99)
+    got = port_loader._worker_getitem(3, 1234)
+    random.seed(99)
+    want = jax_loader._worker_getitem(3, 1234)
+    np.random.seed(1234)
+    random.seed(1234)
+    assert got == (np.random.rand(), random.random())
+    assert got[0] == want[0] and got[1] != want[1]
 
 
 def test_changed_definitions_behave_as_the_originals():

@@ -27,7 +27,8 @@ import chip_smoke  # noqa: E402  (the repo root's smoke script: its case list)
 CASES = chip_smoke.GEMM_FWD_CASES
 DGRAD_CASES = chip_smoke.GEMM_DGRAD_CASES
 I8_CASES = chip_smoke.GEMM_I8_CASES
-TRAINED = [("FLAGSHIP", ("audio",)), ("CAPTION_FULL", ("audio", "text"))]  # the towers with a backward
+TRAINED = [("FLAGSHIP", ("audio",)), ("CAPTION_FULL", ("audio", "text")),  # the towers with a backward
+           ("VAL_TIED", ("audio", "image"))]
 INT8 = [("CLAP_FULL", ("audio", "text")), ("FLAGSHIP", ("image",)), ("CAPTION_FULL", ("audio", "text"))]
 
 
@@ -77,6 +78,27 @@ def test_cases_hold_the_at_step_at_its_own_rows():
     dgrad = {(M, N, K, act) for _, M, N, K, act, _ in DGRAD_CASES}
     assert {(audio, N, K) for N, K in _dgrad_products(768)} <= {c[:3] for c in dgrad}
     assert {act for M, N, K, act in dgrad if (M, N, K) == (audio, 3072, 768)} == {"quick_gelu", "gelu"}
+
+
+def _tied_image_rows():
+    """Rows and width of the trimodal step's image tower (``chip_smoke.VAL_TIED``
+    at its config's batch): its encoder is tied to the trained audio tower,
+    so it runs a backward, unpacked, at T = 1 + grid."""
+    cfg = compose(chip_smoke.VAL_TIED)
+    assert "encoder" in list(cfg.running.siamese.amodules) and bool(cfg.running.siamese.alive)
+    im = cfg.model.image
+    T = 1 + (int(im.resolution) // int(im.pre_encoder.patch_size)) ** 2
+    return int(cfg.running.batch_size) * T, int(im.width)
+
+
+def test_cases_hold_the_tied_image_tower_at_its_own_rows():
+    M, C = _tied_image_rows()
+    assert (M, C) == (64 * 50, 768)
+    have = {(M_, N, K, pre) for _, M_, N, K, _, _, pre in CASES}
+    assert {(M, N, K, False) for N, K in _products(C)} <= have
+    assert (M, 4 * C, C, True) in have  # the MLP backward's recomputed fc
+    dgrad = {c[1:4] for c in DGRAD_CASES}
+    assert {(M, N, K) for N, K in _dgrad_products(C)} <= dgrad
 
 
 def test_the_decode_runs_the_decoder_mlp_at_every_batch():

@@ -26,7 +26,9 @@ tests/data_synth.py, on the CPU:
   batches bitwise the JAX ones (the prompt, a truncated caption that keeps
   its EOT, the cyclic pad of a clip with fewer captions, the warning for a
   clip with none, ``np_rnd`` under one seed);
-- the refusals: ``running.dataloader=lv`` (A12), a ``pak*`` dataset (A11),
+- the refusals: ``running.dataloader=lv`` and a ``pak*`` dataset are ported
+  (the monitor reaches their loaders: a missing index or pack raises
+  ``FileNotFoundError``),
   the gradient cache (A15) and ``async_ckpt`` (A7's remainder).
 """
 
@@ -386,12 +388,15 @@ def test_a_short_clip_pads_its_captions_cyclically(data):
 
 
 # ---------------------------------------------------------------- refusals
-@pytest.mark.parametrize("extra,item", [
-    (["running.dataloader=lv"], "A12"),
-    (["running.data_name=pak_clotho"], "A11"),
-    (["running.grad_cache.alive=True"], "A15"),
-    (["async_ckpt=True"], "A7"),
+@pytest.mark.parametrize("extra,error,item", [
+    # ported: the image-text loader and the packed AT dataset are reached (this root holds
+    # neither an image-text index nor a pack)
+    pytest.param(["running.dataloader=lv"], FileNotFoundError, "clotho_dev.jsonl", id="extra0-A12"),
+    pytest.param(["running.data_name=pak_clotho"], FileNotFoundError, "pak_clotho.pak",
+                 id="extra1-A11"),
+    pytest.param(["running.grad_cache.alive=True"], NotImplementedError, "A15", id="extra2-A15"),
+    pytest.param(["async_ckpt=True"], NotImplementedError, "A7", id="extra3-A7"),
 ])
-def test_what_is_not_ported_is_refused_by_name(data, tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_what_is_not_ported_is_refused_by_name(data, tmp_path, extra, error, item):
+    with pytest.raises(error, match=item):
         build_monitor(_cfg(data, str(tmp_path), *extra), device="cpu")

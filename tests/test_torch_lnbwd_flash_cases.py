@@ -206,6 +206,14 @@ def test_layernorm_bwd_cases_hold_the_at_step():
     assert (B * 306, _width("LA_FULL", "audio")) in {(rows, C) for _, rows, C in LNB_CASES}
 
 
+def test_layernorm_bwd_cases_hold_the_trimodal_tied_image_tower():
+    """The trimodal step trains the image tower's tied encoder at 64 x 50 rows."""
+    cfg = compose(chip_smoke.VAL_TIED)
+    im = cfg.model.image
+    T = 1 + (int(im.resolution) // int(im.pre_encoder.patch_size)) ** 2
+    assert (int(cfg.running.batch_size) * T, int(im.width)) in {(rows, C) for _, rows, C in LNB_CASES}
+
+
 @pytest.mark.parametrize("case,rows,C", LNB_CASES, ids=[c[0] for c in LNB_CASES])
 def test_layernorm_bwd_wrapper_takes_the_plain_version_on_the_cpu(case, rows, C):
     x, w, dh, res = _ln_inputs(3 + rows % 29, C // 32, rows)

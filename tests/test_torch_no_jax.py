@@ -4,7 +4,8 @@ int8 serving slice, one tiny training step (with an int8 frozen image
 tower too), a tiny captioning step and ``caption`` call (bf16 and int8),
 ``Trainer.learn`` over two epochs of a synthetic JSONL index (written by
 ``chip_smoke.write_synthetic_va``) with its checkpoints and a bitwise
-resume, or an epoch with the device frontend (int16 waveforms, uint8
+resume, a pak VA run (the packing CLI, then a training epoch on the pack)
+and a ``CVALP`` step with tied stages, or an epoch with the device frontend (int16 waveforms, uint8
 frames) followed by the file entry points and a request to the HTTP server,
 on the CPU, or an engine seeded from a CLIP file with a training step
 whose save writes a reference ``.pth`` that a second engine serves, and
@@ -150,6 +151,53 @@ print("ok")
 """
 
 
+PAK_SCRIPT = """
+import os, subprocess, sys, tempfile
+import numpy as np
+import chip_smoke
+from vipant_tpu_torch.train import Trainer, build_monitor
+
+root = tempfile.mkdtemp()
+chip_smoke.write_synthetic_va(root, "train", 8, seconds=1.05, frame_size=64, npz_name="npz_train",
+                              frames_npz=110)
+tiny = [
+    "+running=bimodal", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=dummy",
+    "+model/loss=ce", "+optimizer=standard", "+running/audio=default",
+    "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=100", "worker=CVAP",
+    "model.image.width=64", "model.image.embed_dim=32", "model.image.encoder.layers=2",
+    "model.image.heads=4", "optimizer.warmup_epoch=0", f"running.data_root={root}",
+    "running.audio.ship_bf16=True", "running.image_uint8=True", "running.batch_size=4",
+]
+subprocess.run([sys.executable, "-m", "vipant_tpu_torch.data.packed", *tiny,
+                "running.data_name=npz_train", "pack.len=110", "pack.out=pak_train"], check=True)
+tr = Trainer(tiny + ["running.data_name=pak_train", "running.eval_name=pak_train", "running.epochs=1",
+                     "eval=False", f"alias_root={root}/run", f"model_root={root}/run"], device="cpu")
+tr.learn()
+assert tr.global_step == 2 and "I->A" in tr.infer(tr.evalloader)
+val = build_monitor([
+    "+running=trimodal", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=transformer_val",
+    "+model/loss=ce_val", "+optimizer=standard", "+running/audio=default", "worker=CVALP",
+    "monitor=VALMonitor", "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=100",
+    "model.image.width=64", "model.image.embed_dim=32", "model.image.encoder.layers=2",
+    "model.image.heads=4", "model.text.width=32", "model.text.heads=4", "model.text.encoder.layers=2",
+    "running.label_map=", "running.siamese.alive=True", "running.siamese.amodules=[encoder,misc]",
+    f"alias_root={root}/run", f"model_root={root}/run", "model_file=",
+], device="cpu", steps_per_epoch=10)
+r = np.random.default_rng(0)
+ids = np.zeros((4, 77), np.int32)
+ids[:, 0], ids[:, 1:4], ids[:, 4] = 49406, r.integers(1, 49406, (4, 3)), 49407
+m = val.train_step(*val.make_batch(r.standard_normal((4, 3, 224, 224)).astype(np.float32),
+                                   r.standard_normal((4, 1, 100, 128)).astype(np.float32), ids))
+assert np.isfinite(float(m["loss"])) and sorted(k for k in m if k.startswith("loss_")) == [
+    "loss_al", "loss_va"], m
+assert val.model.audio.encoder.resblocks[0].ln_1.weight is val.model.image.encoder.resblocks[0].ln_1.weight
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
 FRONTEND_SCRIPT = """
 import glob, json, os, sys, tempfile, threading, urllib.request
 import numpy as np
@@ -252,6 +300,10 @@ def test_port_learns_from_an_index_and_resumes_without_jax():
     _run(LEARN_SCRIPT)
 
 
+def test_port_packs_trains_on_a_pack_and_steps_cvalp_without_jax():
+    _run(PAK_SCRIPT)
+
+
 def test_port_runs_the_device_frontend_and_serves_files_without_jax():
     _run(FRONTEND_SCRIPT)
 
@@ -276,8 +328,8 @@ def test_the_data_layer_imports_no_torch():
 import sys
 import vipant_tpu_torch.data
 from vipant_tpu_torch import native
-from vipant_tpu_torch.data import (audio_text, audioset, esc50, image_audio, transforms_audio,
-                                   transforms_image)
+from vipant_tpu_torch.data import (audio_text, audioset, esc50, image_audio, image_text, packed,
+                                   transforms_audio, transforms_image)
 from vipant_tpu_torch.ops import fbank_np, mel
 assert native.native_available()
 assert "torch" not in sys.modules, "the data layer imported torch"
@@ -458,7 +510,8 @@ def test_no_source_of_the_port_imports_the_jax_package():
     for new in (("ops", "fbank.py"), ("ops", "specaugment.py"), ("ops", "frontend.py"),
                 ("ckpt", "clip_port.py"), ("ckpt", "reference_port.py"),
                 ("ckpt", "reference_export.py"), ("ckpt", "loading.py"), ("ckpt", "zoo.py"),
-                ("native", "__init__.py"), ("data", "esc50.py"), ("data", "audioset.py")):
+                ("native", "__init__.py"), ("data", "esc50.py"), ("data", "audioset.py"),
+                ("data", "packed.py"), ("data", "image_text.py"), ("nn", "tying.py")):
         assert any(p.endswith(os.path.join(*new)) for p in sources), new
     for path in sources:
         with open(path) as fh:

@@ -70,6 +70,17 @@ def test_cases_hold_the_at_step_at_its_own_rows():
         c[1:] for c in CS_CASES}
 
 
+def test_cases_hold_the_tied_image_tower_of_the_trimodal_step():
+    """The trimodal step's image tower (``chip_smoke.VAL_TIED``), its encoder
+    tied to the trained audio tower: 64 x 50 rows, unpacked; its bias grads."""
+    cfg = compose(chip_smoke.VAL_TIED)
+    im = cfg.model.image
+    M = int(cfg.running.batch_size) * (1 + (int(im.resolution) // int(im.pre_encoder.patch_size)) ** 2)
+    C = int(im.width)
+    assert (M, C) in {(r, C_) for _, r, C_ in LN_CASES}
+    assert {(M, C, "bf16"), (M, 3 * C, "fp32"), (M, 4 * C, "bf16")} <= {c[1:] for c in CS_CASES}
+
+
 def test_the_decode_runs_layernorm_at_every_batch():
     C = _width("CAPTION_FULL", "text")
     decode = {(rows, C_) for case, rows, C_ in LN_CASES if "decode T=1" in case}

@@ -366,9 +366,11 @@ def test_monitor_registry_names_what_is_not_ported(data, tmp_path):
                                     "model.text.width=32", "model.text.heads=4",
                                     "model.text.encoder.layers=2", "running.eval_name=")), device="cpu")
     assert isinstance(la, LATrainer)
-    for name, item in (("VALMonitor", "A12"), ("VASMonitor", "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_monitor(compose(_cfg(data, str(tmp_path), f"monitor={name}")), device="cpu")
+    # the trimodal and siamese monitors are ported; an unknown name lists the known ones
+    assert trainer_module.MONITORS["VALMonitor"].__name__ == "VALTrainer"
+    assert trainer_module.MONITORS["VASMonitor"].__name__ == "VASTrainer"
+    with pytest.raises(ValueError, match="unknown monitor 'NoSuchMonitor'.*VALMonitor.*VASMonitor"):
+        build_monitor(compose(_cfg(data, str(tmp_path), "monitor=NoSuchMonitor")), device="cpu")
 
 
 def test_only_a_training_loader_gets_the_pinned_put(data, tmp_path):

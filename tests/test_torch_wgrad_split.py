@@ -1,5 +1,5 @@
 """The row split of the port's weight-grad kernel (``gemm_wgrad``), on the
-CPU: the plan ``wgrad_split`` for every product shape of the four training
+CPU: the plan ``wgrad_split`` for every product shape of the training
 paths, and a plain emulation of "one partial product per row chunk, added in
 order" against the one-product plain version.
 
@@ -22,6 +22,7 @@ STEP_SHAPES = (
     + [(16 * 306, n1, n2) for n1, n2 in AUDIO]       # the B = 16 grad checks
     + [(16 * 77, n1, n2) for n1, n2 in DECODER]
     + [(50 * 306, n1, n2) for n1, n2 in AUDIO]       # AT step: audio tower, B = 50 (no multiple of 128)
+    + [(64 * 50, n1, n2) for n1, n2 in AUDIO]        # trimodal step: the tied image tower, B = 64, T 50
 )
 
 

@@ -44,6 +44,17 @@ leaves as they are and only renames them).
 the port's checkpoints write their ``model.npz`` under the JAX package's
 names and layouts, so the JAX engine and the port's both serve it.
 
+The JAX ``batch_stats`` collection (Barlow's BatchNorm running ``mean`` and
+``var``) maps to the port's buffers of the same dotted names
+(:func:`batch_stats_state_dict`, :func:`to_jax_batch_stats`).
+
+Siamese ties: the JAX trainer prunes each tie's destination from its tree
+(``prune_tied``) and restores it from the source for every apply. The port's
+tied model holds one tensor under both names. :func:`load_params` takes a
+pruned tree (the destinations come with their sources) or a full one (a
+destination's own leaves are skipped: the source wins, as ``apply_ties``
+has it); :func:`jax_params_of` gives a model's full or pruned tree.
+
 Re-written here because ``vipant_tpu.ckpt`` imports JAX.
 """
 
@@ -54,6 +65,8 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..nn.tying import tied_names
 
 Tree = Mapping[str, Any]
 
@@ -158,7 +171,8 @@ def port_name(path: str) -> Tuple[str, Optional[Callable]]:
         name, fn = _BLOCK_LEAVES[m.group(2)]
         return f"encoder.resblocks.{int(m.group(1))}.{name}", fn
     if path.startswith("encoder/transformer/blocks/"):
-        raise NotImplementedError("pipeline-stacked trunks are not supported; unstack first")
+        raise NotImplementedError("pipeline-stacked trunks are not supported; unstack first "
+                                  "(ROADMAP.md queue A, A15)")
     if path not in _TOWER_LEAVES:
         raise KeyError(f"JAX parameter {path!r} has no counterpart in the port")
     return _TOWER_LEAVES[path]
@@ -228,7 +242,7 @@ def loss_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
 
 
 def model_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
-    """Whole-model tree {"image"|"audio"|"text"|"decoder"|"loss"|"lm_loss":
+    """Whole-model tree {"image"|"image_v"|"audio"|"text"|"decoder"|"loss"|"lm_loss":
     subtree}, or any part of one -> the port model's names, prefixed with
     the tower name."""
     out: Dict[str, Any] = {}
@@ -237,7 +251,7 @@ def model_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
             continue
         if tower in ("loss", "lm_loss"):
             conv = loss_state_dict(sub, convert)
-        elif tower in ("image", "audio", "text"):
+        elif tower in ("image", "image_v", "audio", "text"):
             conv = tower_state_dict(sub, convert)
         elif tower == "decoder":
             conv = decoder_state_dict(sub, convert)
@@ -264,7 +278,7 @@ def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
             elif last not in ("logit_scale", "bias"):
                 raise KeyError(f"the port's parameter {key!r} has no JAX name")
             path = "/".join([*mods, last])
-        elif tower in ("image", "audio", "text"):
+        elif tower in ("image", "image_v", "audio", "text"):
             m = _PORT_BLOCK_NAME.fullmatch(name)
             if m is not None and m.group(2) in _PORT_BLOCK:
                 leaf, fn = _PORT_BLOCK[m.group(2)]
@@ -306,10 +320,47 @@ def read_npz(path: str) -> Dict[str, Any]:
         return unflatten({k: data[k] for k in data.files})
 
 
+def batch_stats_state_dict(stats: Tree) -> Dict[str, np.ndarray]:
+    """The JAX ``batch_stats`` collection -> the port's buffer names (the
+    same path, dotted; no layout changes)."""
+    return {k.replace("/", "."): _a(v) for k, v in _flat(stats)}
+
+
+def to_jax_batch_stats(buffers: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`batch_stats_state_dict`: buffer name -> tensor
+    to the nested ``batch_stats`` collection of numpy arrays."""
+    return unflatten({k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+                      for k, v in buffers.items()})
+
+
+def load_batch_stats(model: torch.nn.Module, stats: Tree) -> None:
+    """Copy a JAX ``batch_stats`` collection into ``model``'s buffers; every
+    buffer must be there, with its shape."""
+    sd = batch_stats_state_dict(stats)
+    own = dict(model.named_buffers())
+    if set(sd) != set(own):
+        raise ValueError(f"batch_stats and the model's buffers differ on {sorted(set(sd) ^ set(own))}")
+    with torch.no_grad():
+        for k, v in sd.items():
+            if tuple(own[k].shape) != v.shape:
+                raise ValueError(f"{k}: model has shape {tuple(own[k].shape)}, batch_stats {v.shape}")
+            own[k].copy_(torch.as_tensor(v))
+
+
+def jax_params_of(model: torch.nn.Module, pruned: bool = False) -> Dict[str, Any]:
+    """``model``'s parameters as the JAX package's tree: every tower whole
+    (``pruned=False``, what ``restore_tied`` gives), or without the tied
+    destinations (``pruned=True``, the JAX trainer's state)."""
+    named = model.named_parameters(remove_duplicate=pruned)
+    return to_jax_params({k: p for k, p in named})
+
+
 def load_params(model: torch.nn.Module, params: Tree) -> None:
     """Copy JAX params into ``model`` (towers absent from ``params`` are left
-    as they are). Every key must exist in the model with the same shape."""
-    sd = model_state_dict(params)
+    as they are). Every key must exist in the model with the same shape. A
+    tied destination's leaves are skipped: its source's are loaded."""
+    dst = tied_names(model)
+    sd = {k: v for k, v in model_state_dict(params).items() if k not in dst}
     own = model.state_dict()
     for k, v in sd.items():
         if k not in own:

@@ -23,7 +23,7 @@ from .reference_port import (load_torch_file, port_reference_audio, port_referen
                              split_reference_checkpoint)
 from .zoo import _MODELS, resolve
 
-TOWERS = ("image", "audio", "text", "decoder")
+TOWERS = ("image", "image_v", "audio", "text", "decoder")
 _PATCH_KERNEL = "pre_encoder.conv1.weight"
 
 

@@ -8,10 +8,9 @@ train and all of a clip's captions at eval, and dispatch on the dataset
 name's prefix (parity: `reference/cvap/data/audio_text.py`,
 `reference/cvap/data/audiocaps.py`). Captions are padded to the fixed
 77-token context when an item is made, where the reference padded each batch
-to its longest caption (`:105-137`): every batch then has one shape.
-
-Refused (ROADMAP.md's queue A names the item that ports each): the packed
-``pak*`` datasets (A11-rest), by :func:`.image_audio.refuse_unported`.
+to its longest caption (`:105-137`): every batch then has one shape. A
+``pak*`` name reads the packed AT dataset (:mod:`.packed`), whose batches
+come from one gather each.
 """
 
 from __future__ import annotations
@@ -155,30 +154,42 @@ def build_audio_text_dataloader(
     cfg, data_name: str, train: bool, process_id: int = 0, num_processes: int = 1,
     device_put_fn=None,
 ):
-    """Dispatch on the name's prefix, Clotho or AudioCaps
+    """Dispatch on the name's prefix: ``pak`` (the packed AT dataset),
+    Clotho or AudioCaps
     (parity: `reference/cvap/data/audio_text.py:233-245`). The batches are
     host arrays unless ``device_put_fn`` places them
     (:class:`vipant_tpu_torch.data.device_put.PinnedDevicePut`)."""
     run = cfg.running
-    refuse_unported(run, data_name)
+    refuse_unported(run)
     ctx = int(cfg.model.text.get("ctx_len", 77)) if "text" in cfg.model else 77
-    prompt = str(run.get("prompt", "") or "")
-    if data_name.startswith("clotho"):
-        records = build_clotho_list(run, data_name, prompt)
+    if data_name.startswith("pak"):
+        # packed shards (data/packed.py): one-gather batch fast path
+        from .packed import AudioTextDatasetPak
+
+        ds = AudioTextDatasetPak(run, data_name, train)
+        assert ds.text.shape[-1] == ctx, (
+            f"pack ctx_len {ds.text.shape[-1]} != model.text.ctx_len {ctx} — repack"
+        )
+        ds.records = shard_for_host(ds.records, process_id, num_processes, train)
     else:
-        records = build_audiocaps_list(run, data_name, prompt)
-    if bool(run.get("np_rnd", False)):
-        # the random-caption baseline: captions permuted across clips
-        # (parity: `reference/cvap/data/audiocaps.py:64,105-110`)
-        perm = np.random.permutation(len(records))
-        caps = [(records[i]["captions"], records[i]["captions_bpe"]) for i in perm]
-        for rec, (c, cb) in zip(records, caps):
-            rec["captions"], rec["captions_bpe"] = c, cb
-    if not train:
-        records = records[: eval_sample_limit(run.get("eval_samples"))]
-    records = shard_for_host(records, process_id, num_processes, train)
+        prompt = str(run.get("prompt", "") or "")
+        if data_name.startswith("clotho"):
+            records = build_clotho_list(run, data_name, prompt)
+        else:
+            records = build_audiocaps_list(run, data_name, prompt)
+        if bool(run.get("np_rnd", False)):
+            # the random-caption baseline: captions permuted across clips
+            # (parity: `reference/cvap/data/audiocaps.py:64,105-110`)
+            perm = np.random.permutation(len(records))
+            caps = [(records[i]["captions"], records[i]["captions_bpe"]) for i in perm]
+            for rec, (c, cb) in zip(records, caps):
+                rec["captions"], rec["captions_bpe"] = c, cb
+        if not train:
+            records = records[: eval_sample_limit(run.get("eval_samples"))]
+        records = shard_for_host(records, process_id, num_processes, train)
+        ds = AudioTextDatasetSrc(run, records, train, ctx_len=ctx)
     return DataLoader(
-        AudioTextDatasetSrc(run, records, train, ctx_len=ctx),
+        ds,
         batch_size=int(run.batch_size) // max(num_processes, 1),
         collate_fn=AudioTextCollator(train),
         shuffle=train,

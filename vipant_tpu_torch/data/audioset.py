@@ -1,9 +1,10 @@
 """AudioSet datasets: label maps, filter sets, multi-label classification
 with waveform mixup, contrastive (labels-as-text) mode, weighted sampling.
 
-The port's own copy of ``vipant_tpu/data/audioset.py`` but for the packed
-``pak*`` datasets (``data/packed.py``), which :func:`build_audioset_dataloader`
-refuses (ROADMAP.md queue A, A11-rest). With ``running.audio.on_device`` an
+The port's own copy of ``vipant_tpu/data/audioset.py``; a ``pak*`` name
+reads the packed classification dataset (:mod:`.packed`, ``clf`` only), its
+filter set applied over every packed row before the eval cap and its
+sampling weights from the packed multi-hot matrix. With ``running.audio.on_device`` an
 item that takes no mixup ships its cropped waveform and its true length
 (``audio_len``), as the VA dataset does (the JAX package's item carries no
 length); a mixup rate above 0 turns ``on_device`` off, with a warning.
@@ -400,7 +401,44 @@ def build_audioset_dataloader(
     label_map = label_map or build_audioset_label_map(run)
     filter_set = build_filter_set(run.get("filter_set"), run.get("data_root"))
     clf = bool(run.get("clf", True))
-    refuse_unported(run, data_name)  # the packed pak* datasets: A11-rest
+    refuse_unported(run)
+    if data_name.startswith("pak"):
+        # packed clf shards (data/packed.py): one-gather batch fast path.
+        # Contrastive (clf=False) recipes need per-item label-text/caption
+        # picks — not packed; the trimodal path stays on npz/src.
+        if not clf:
+            raise ValueError("packed AudioSet shards support clf=True only")
+        from .packed import AudiosetDatasetPak
+
+        ds = AudiosetDatasetPak(run, data_name, train, label_map)
+        if filter_set:
+            # the ytid filter the src path applies in AudiosetSrc.__init__,
+            # over ALL packed rows, then the eval cap again: the src path
+            # filters at init and caps at iteration, so capping first would
+            # evaluate a smaller, different subset
+            kept = [r for r in range(ds.meta["n"]) if ds.names[r] in filter_set]
+            ds.records = kept[: ds.eval_limit]
+        ds.records = shard_for_host(ds.records, process_id, num_processes, train)
+        weights = None
+        if train and bool(run.get("weighted_sampling", False)):
+            # the 1000/(count+1) per-label weights of sampling_weights,
+            # from the packed multi-hot matrix
+            lab = np.asarray(ds.label[ds.records], np.float64)
+            per_label = 1000.0 / (lab.sum(0) + 1.0)
+            weights = np.maximum(lab @ per_label, 1e-8)
+        return DataLoader(
+            ds,
+            batch_size=int(run.batch_size) // max(num_processes, 1),
+            collate_fn=AudiosetCollator(clf),
+            shuffle=train and weights is None,
+            drop_last=train,
+            num_workers=int(cfg.get("num_proc", 4)),
+            backend=str(cfg.get("loader_backend", "thread")),
+            seed=int(cfg.get("seed", 0)),
+            device_put_fn=device_put_fn,
+            sample_weights=weights,
+            pad_last=not train,
+        )
     external_text = None
     if run.get("text_emb"):  # {data_root}/caption/{text_emb}.csv: id -> captions
         text_file = os.path.join(str(run.data_root), "caption", f"{run.text_emb}.csv")

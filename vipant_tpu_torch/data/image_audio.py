@@ -20,10 +20,15 @@ dataset's ``running.audio.ship_int16`` and ``ship_bf16`` ship the
 normalised fbank as int16 codes (:data:`FBANK_INT16_SCALE`) or as bf16 (its
 bits as uint16: this package does not need ``ml_dtypes``).
 
-Refused by :func:`refuse_unported` (ROADMAP.md's queue A names the item
-that ports each): the two-view siamese dataset (``running.multi_view``,
-A12) and the packed ``pak*`` datasets (A11-rest); and ``on_device`` with
-``dither`` or ``use_energy``, which the device fbank does not compute.
+The two-view siamese dataset (``running.multi_view``,
+:class:`ImageAudioDatasetSiameseSrc`) and the packed ``pak*`` datasets
+(:mod:`.packed`) are routed by :func:`build_image_audio_dataloader`. A
+siamese record without a frame gets a zero pivot and zero views, as the
+single-view path gives a zero image (the JAX package's siamese item opens
+``None`` there and falls back to a random image drawn from the global RNG).
+
+Refused by :func:`refuse_unported`: ``on_device`` with ``dither`` or
+``use_energy``, which the device fbank does not compute.
 """
 
 from __future__ import annotations
@@ -37,14 +42,15 @@ import numpy as np
 from ..ops.fbank_np import FbankParams
 from .indexfile import eval_sample_limit, load_jsonl, shard_for_host
 from .loader import DataLoader
-from .transforms_audio import extract_fbank_features, make_transform
-from .transforms_image import clip_preprocess, clip_preprocess_uint8
+from .transforms_audio import (AUDIOSET_FBANK_MEAN, AUDIOSET_FBANK_STD, VIEW_SENTINEL, FbankViews,
+                               extract_fbank_features, make_transform)
+from .transforms_image import (AuthenticImageViews, SharedImageTransform, clip_preprocess,
+                               clip_preprocess_uint8)
 
 
-def refuse_unported(run, data_name: str = "") -> None:
-    """Raise ``NotImplementedError`` for a ``running`` config (and dataset
-    name) that asks for what the port's VA data layer does not do yet, or
-    for what the device fbank would compute otherwise than the host one."""
+def refuse_unported(run) -> None:
+    """Raise ``NotImplementedError`` for a ``running`` config that asks for
+    what the device fbank would compute otherwise than the host one."""
     audio = run.get("audio", None) or {}
     if bool(audio.get("on_device", False)):
         if float(audio.get("dither", 0.0)) != 0.0:
@@ -56,14 +62,6 @@ def refuse_unported(run, data_name: str = "") -> None:
             raise NotImplementedError(
                 "running.audio.on_device with running.audio.use_energy: the device fbank "
                 "computes no energy term")
-    if bool(run.get("multi_view", False)):
-        raise NotImplementedError(
-            "running.multi_view: the siamese two-view dataset is not ported yet "
-            "(ROADMAP.md queue A, A12)")
-    if str(data_name).startswith("pak"):
-        raise NotImplementedError(
-            f"data_name {data_name!r}: the packed datasets (data/packed.py) are not ported yet "
-            "(ROADMAP.md queue A, A11-rest)")
 
 
 def fbank_params_from_cfg(acfg, sample_rate: int = 16000) -> FbankParams:
@@ -160,12 +158,14 @@ class ImageAudioDatasetSrc:
                 (np.random.rand(res, res, 3) * 256).astype(np.uint8)
             )
 
-    def _image(self, fname: Optional[str]) -> np.ndarray:
+    def _image(self, fname: Optional[str], img=None) -> np.ndarray:
+        """The frame ``fname`` (or the decoded ``img``) preprocessed; zeros
+        when there is neither."""
         res = int(self.cfg.get("resolution", 224))
-        if fname is None:
+        if fname is None and img is None:
             return np.zeros((3, res, res), np.uint8 if self.image_uint8 else np.float32)
         pre = clip_preprocess_uint8 if self.image_uint8 else clip_preprocess
-        return pre(self._open_image(fname), res)
+        return pre(self._open_image(fname) if img is None else img, res)
 
     def _image_emb(self, fname: str) -> np.ndarray:
         try:
@@ -309,20 +309,131 @@ class ImageAudioDatasetNpz(ImageAudioDatasetSrc):
         return feats.astype(np.float32, copy=False)
 
 
+class ImageAudioDatasetSiameseSrc(ImageAudioDatasetSrc):
+    """Two views of image and audio for siamese training
+    (``vipant_tpu/data/image_audio.py:271-366``; parity:
+    `reference/cvap/data/image_audio.py:224-305`): both audio views come
+    from ONE fbank extraction (same crop and waveform augmentations) through
+    :class:`.transforms_audio.FbankViews` (the hardcoded AudioSet
+    normalisation and asymmetric SpecAugment masks), and the second image /
+    audio view is made only when the ``vv`` / ``aa`` loss flag is on
+    (otherwise the [1, 1, 1] :data:`.transforms_audio.VIEW_SENTINEL` ships,
+    as in the reference). The image views draw from Python's ``random``,
+    which the loader's process workers seed per item beside NumPy.
+
+    A record without a frame gets a zero pivot (as :meth:`_image` gives)
+    and zero views; the JAX package opens ``None`` there and takes a random
+    image from the global RNG."""
+
+    def __init__(self, cfg, data_name: str, train: bool, loss_flags=None):
+        super().__init__(cfg, data_name, train)
+        # running.clip_tf selects the un-augmented CLIP two-view path, like
+        # the reference (`reference/cvap/data/image_audio.py:232-237`)
+        res = int(self.cfg.get("resolution", 224))
+        self.two_view_image = (
+            AuthenticImageViews(res)
+            if bool(self.cfg.get("clip_tf", False))
+            else SharedImageTransform(res)
+        )
+        self.fbank_views = FbankViews()
+        flags = loss_flags or {}
+        self.use_vv = bool(flags.get("vv", True))
+        self.use_aa = bool(flags.get("aa", False))
+        if self.on_device and self.norms is None:
+            # the host path's FbankViews hardcodes the reference's AudioSet
+            # norms; the device frontend normalizes only from cfg — unset
+            # norms would silently train the trunk on raw log-mels. The
+            # per-view mask asymmetry (32/200 vs 48/300) also collapses to
+            # the cfg-defined sizes under on_device.
+            warnings.warn(
+                "siamese on_device=True with running.audio.norms unset: the "
+                "host two-view path normalizes with the hardcoded AudioSet "
+                f"stats — set norms=[{AUDIOSET_FBANK_MEAN},{AUDIOSET_FBANK_STD}] "
+                "for parity",
+                UserWarning,
+            )
+
+    def _audio_views(self, fname: str):
+        """(view 1, view 2, the waveforms' true length or None)."""
+        if self.on_device:
+            # waveforms ship and the fbank runs on the card; two independent
+            # crops stand in for the host two-view path. The inactive second
+            # view ships the (rank-3) sentinel, which the device frontend
+            # passes untouched
+            a1, n = self._audio_waveform(fname)
+            a2 = self._audio_waveform(fname)[0] if (self.train and self.use_aa) else VIEW_SENTINEL
+            return a1, a2, n
+        fb = extract_fbank_features(
+            fname,
+            self.params,
+            max_audio_len=int(self.cfg.max_audio_len),
+            train=self.train,
+            zero_mean_wf=bool(self.acfg.get("zero_mean_wf", True)),
+            tile_audio=bool(self.acfg.get("tile_audio", False)),
+            transform_audio=self.transform_audio if self.train else None,
+            norms=None,  # FbankViews owns the (reference-hardcoded) norms
+            transform_fbank=None,  # masks are per-view, below
+        )
+        return (*self.fbank_views(fb, both=self.use_aa, train=self.train), None)
+
+    def _views(self, img):
+        """The two image views of the decoded frame ``img``; zeros (and the
+        sentinel where a view is off) when there is no frame."""
+        if img is not None:
+            return self.two_view_image(img, both=self.use_vv, train=self.train)
+        res = int(self.cfg.get("resolution", 224))
+        zeros = np.zeros((3, res, res), np.float32)
+        return zeros, (zeros.copy() if self.train and self.use_vv else VIEW_SENTINEL)
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        name, aclip_file, frame_file, frame_emb_file = self._paths(index)
+        # decode the frame jpeg ONCE for pivot and both views (a corrupt
+        # frame falls back to the SAME random image for all three)
+        img = self._open_image(frame_file) if frame_file is not None else None
+        pivot = (
+            self._image_emb(frame_emb_file)
+            if frame_emb_file is not None
+            else self._image(frame_file, img=img)
+        )
+        v1, v2 = self._views(img)
+        a1, a2, n = self._audio_views(aclip_file)
+        item = {
+            "image": pivot,
+            "image_v1": v1,
+            "image_v2": v2,
+            "audio_v1": a1,
+            "audio_v2": a2,
+            "name": name,
+        }
+        if n is not None:
+            item["audio_len"] = n
+        return item
+
+
 class ImageAudioCollator:
     """Stack to [B, ...] with the channel axis the towers expect, fp32 but
     for the shipping formats (:data:`_SHIP_DTYPES`), which the card
-    converts (parity: `reference/cvap/data/image_audio.py:307-331`)."""
+    converts (parity: `reference/cvap/data/image_audio.py:307-331`);
+    ``siamese``: the pivot and the view keys (a view that is off is the
+    stacked sentinel [B, 1, 1, 1])."""
+
+    def __init__(self, siamese: bool = False):
+        self.siamese = siamese
 
     def __call__(self, items: List[Dict]) -> Dict[str, np.ndarray]:
         out: Dict[str, Any] = {"name": [it["name"] for it in items]}
-        for key in ("image", "audio"):
+        keys = (
+            ("image", "image_v1", "image_v2", "audio_v1", "audio_v2")
+            if self.siamese
+            else ("image", "audio")
+        )
+        for key in keys:
             arr = np.stack([it[key] for it in items])
             if arr.dtype not in _SHIP_DTYPES:
                 # copy=False — a second full-batch copy costs a full pass over
                 # the batch on the (serial) collate thread
                 arr = arr.astype(np.float32, copy=False)
-            if key == "audio" and arr.ndim == 3:
+            if key.startswith("audio") and arr.ndim == 3:
                 arr = arr[:, None]  # [B, 1, T, M]
             out[key] = arr
         if "audio_len" in items[0]:  # waveforms: each clip's true length
@@ -334,13 +445,31 @@ def build_image_audio_dataloader(
     cfg, data_name: str, train: bool, process_id: int = 0, num_processes: int = 1,
     device_put_fn=None,
 ):
-    """Name-prefix dispatch src/npz + host-sharded loader
+    """``running.multi_view`` -> the siamese dataset, else the name's prefix:
+    ``pak`` (:mod:`.packed`), ``npz`` or src; then the host-sharded loader
     (parity: `reference/cvap/data/image_audio.py:333-375`). The batches
     are host arrays unless ``device_put_fn`` places them
     (:class:`vipant_tpu_torch.data.device_put.PinnedDevicePut`)."""
     run = cfg.running
-    refuse_unported(run, data_name)
-    if data_name.startswith("npz"):
+    refuse_unported(run)
+    siamese = bool(run.get("multi_view", False))
+    if siamese:
+        # view production follows the active loss flags (the reference
+        # dataset reads cfg.model.loss directly,
+        # `reference/cvap/data/image_audio.py:230`)
+        loss_cfg = cfg.get("model", None)
+        loss_cfg = loss_cfg.get("loss", None) if loss_cfg is not None else None
+        flags = (
+            {k: loss_cfg.get(k, None) for k in ("vv", "aa") if loss_cfg.get(k, None) is not None}
+            if loss_cfg is not None
+            else {}
+        )
+        ds = ImageAudioDatasetSiameseSrc(run, data_name, train, loss_flags=flags)
+    elif data_name.startswith("pak"):
+        from .packed import ImageAudioDatasetPak
+
+        ds = ImageAudioDatasetPak(run, data_name, train)
+    elif data_name.startswith("npz"):
         ds = ImageAudioDatasetNpz(run, data_name, train)
     else:
         ds = ImageAudioDatasetSrc(run, data_name, train)
@@ -348,7 +477,7 @@ def build_image_audio_dataloader(
     return DataLoader(
         ds,
         batch_size=int(run.batch_size) // max(num_processes, 1),
-        collate_fn=ImageAudioCollator(),
+        collate_fn=ImageAudioCollator(siamese=siamese),
         shuffle=train,
         drop_last=train,
         num_workers=int(cfg.get("num_proc", 4)),

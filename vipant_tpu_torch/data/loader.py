@@ -1,8 +1,10 @@
 """Prefetching data loader with thread or process workers.
 
-The port's own copy of ``vipant_tpu/data/loader.py``, less what only the
-packed datasets use (``get_batch``; not ported), and :func:`_worker_init`
-hides the GPUs instead of pinning JAX to the CPU. ``sample_weights`` draws
+The port's own copy of ``vipant_tpu/data/loader.py``. :func:`_worker_init`
+hides the GPUs instead of pinning JAX to the CPU, and :func:`_worker_getitem`
+seeds Python's ``random`` beside NumPy's with the item's seed (the siamese
+image views draw from ``random``; the JAX loader seeds NumPy only, so its
+views do not replay after a resume). ``sample_weights`` draws
 each epoch's order with replacement from ``default_rng(seed + epoch)`` (the
 AudioSet recipe's weighted sampling), the JAX loader's indices.
 
@@ -32,6 +34,7 @@ from __future__ import annotations
 import itertools
 import os
 import queue
+import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterator, List, Optional, Sequence
@@ -72,7 +75,12 @@ def _worker_getitem(idx, seed=None):
     # runs (the thread backend's shared stream never was)
     if seed is not None:
         np.random.seed(seed)
+        random.seed(seed)
     return _WORKER_DATASET[int(idx)]
+
+
+def _worker_getbatch(idxs, seed=None):
+    return _WORKER_DATASET.get_batch(idxs, seed)
 
 
 class DataLoader:
@@ -215,6 +223,10 @@ class DataLoader:
             from collections import deque
 
             pool = None
+            # batch fast path: packed datasets assemble a whole collated
+            # batch in one vectorized gather (data/packed.py) — one pool
+            # task per batch instead of B item futures + a collate pass
+            use_batch = hasattr(self.dataset, "get_batch")
             try:
                 pool, ephemeral = self._get_pool()
                 with ThreadPoolExecutor(max_workers=1) as xfer:
@@ -233,7 +245,21 @@ class DataLoader:
                             idxs = np.concatenate(
                                 [idxs, np.repeat(idxs[-1:], self.batch_size - true_count)]
                             )
-                        if ephemeral:  # thread pool: shared in-process RNG
+                        if use_batch:
+                            # one seed per batch: pak augmentations replay
+                            # exactly across restarts/resumes on EITHER
+                            # backend (get_batch uses a local Generator)
+                            seed = int(
+                                np.random.SeedSequence(
+                                    (self.seed % (2**31), self.epoch, pos)
+                                ).generate_state(1)[0]
+                            )
+                            fn = (
+                                self.dataset.get_batch if ephemeral else _worker_getbatch
+                            )
+                            futs = [pool.submit(fn, idxs, seed)]
+                            pos += len(idxs)
+                        elif ephemeral:  # thread pool: shared in-process RNG
                             futs = [
                                 pool.submit(self.dataset.__getitem__, int(i))
                                 for i in idxs
@@ -275,7 +301,7 @@ class DataLoader:
                         nxt = next(it, None)
                         if nxt is not None:
                             submit_batch(nxt)
-                        batch = self.collate_fn(items)
+                        batch = items[0] if use_batch else self.collate_fn(items)
                         if self.pad_last and isinstance(batch, dict):
                             batch["_count"] = true_count
                         if self.device_put_fn is not None:

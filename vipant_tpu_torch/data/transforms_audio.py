@@ -1,7 +1,6 @@
 """Host-side audio transforms (NumPy) and the per-clip frontend.
 
-The port's own copy of ``vipant_tpu/data/transforms_audio.py``, less the
-siamese two-view fbank (``FbankViews``; A12 of ROADMAP.md's queue A). Every
+The port's own copy of ``vipant_tpu/data/transforms_audio.py``. Every
 host featurisation goes through :func:`host_fbank`, which runs the C++
 fbank (:mod:`vipant_tpu_torch.native`) when it builds and the NumPy one
 (:mod:`vipant_tpu_torch.ops.fbank_np`) otherwise, as the JAX package's
@@ -198,6 +197,51 @@ class TimeMasking:
         feats = feats.copy()
         feats[lo:hi, :] = 0.0
         return feats
+
+
+# AudioSet log-mel statistics the reference hardcodes for the siamese
+# two-view fbank path (`reference/cvap/data/audio/transform.py:228-230`)
+AUDIOSET_FBANK_MEAN = -4.93839311
+AUDIOSET_FBANK_STD = 5.75751113
+
+# dummy view sentinel: the reference ships `np.array([[[1]]])` for a view a
+# loss flag turned off (`reference/cvap/data/audio/transform.py:255-258`)
+VIEW_SENTINEL = np.ones((1, 1, 1), np.float32)
+
+
+class FbankViews:
+    """Two differently-masked views of ONE normalized fbank for siamese
+    training (parity: `reference/cvap/data/audio/transform.py:223-258`
+    ``FbankTransform``): both views share the extraction (same crop, same
+    waveform augs) and the hardcoded AudioSet normalization; view 1 masks
+    (32 freq, 200 time), view 2 masks harder (48, 300) and exists only when
+    the ``aa`` loss is on; eval is normalize-only with a sentinel second
+    view."""
+
+    def __init__(
+        self,
+        mean: float = AUDIOSET_FBANK_MEAN,
+        std: float = AUDIOSET_FBANK_STD,
+    ):
+        self.mean, self.std = float(mean), float(std)
+        self.masks_v1 = [FrequencyMasking(32), TimeMasking(200)]
+        self.masks_v2 = [FrequencyMasking(48), TimeMasking(300)]
+
+    def __call__(
+        self, fbank: np.ndarray, both: bool, train: bool
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        x = (fbank.astype(np.float32) - self.mean) / self.std
+        if not train:
+            return x, VIEW_SENTINEL
+        y1 = x
+        for t in self.masks_v1:
+            y1 = t(y1)
+        if not both:
+            return y1, VIEW_SENTINEL
+        y2 = x
+        for t in self.masks_v2:
+            y2 = t(y2)
+        return y1, y2
 
 
 _TRANSFORMS = {

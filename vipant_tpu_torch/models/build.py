@@ -1,17 +1,20 @@
 """Model assembly: config -> ``nn.Module``, seeded random init, CLIP
 weights, and the trainable-parameter mask.
 
-Counterpart of ``vipant_tpu/models/build.py:26-115``, ``:205-250`` and
+Counterpart of ``vipant_tpu/models/build.py:26-115``, ``:205-270`` and
 ``:279-338`` for the CVAP and CLAP workers (CLAP with a text tower, or with
-the captioning decoder) and the classifiers ``ASClassifier`` and
+the captioning decoder), the classifiers ``ASClassifier`` and
 ``ESClassifier`` (their heads sized by ``output_dim``, the label count the
-monitor reads from its dataset). Parameters are fp32 (``param_dtype``);
-activations run in ``compute_dtype`` (bfloat16 in the default config).
+monitor reads from its dataset), the trimodal ``CVALP``, the siamese
+``CVASP`` and the image-text ``CLVP``; and the siamese ties
+(:func:`siamese_ties`, made by :func:`..nn.tying.tie_parameters`).
+Parameters are fp32 (``param_dtype``); activations run in ``compute_dtype``
+(bfloat16 in the default config).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -21,7 +24,8 @@ from ..ckpt.loading import copy_logit_scales, load_tower
 from ..nn.heads import build_audio_head, build_image_head, build_text_head
 from ..nn.losses import build_loss_head
 from ..nn.seqgen import SeqGenerationHead
-from .tasks import ASClassifier, CLAP, CVAP, ESClassifier
+from ..nn.tying import tie_parameters
+from .tasks import ASClassifier, CLAP, CLVP, CVALP, CVAP, CVASP, ESClassifier
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -64,9 +68,17 @@ def build_main_model(cfg, device=None, output_dim=None) -> nn.Module:
             return ESClassifier(audio=build_audio_head(m.audio, **kw), loss=loss, text=text)
         return ASClassifier(audio=build_audio_head(m.audio, **kw), loss=loss, text=text,
                             image=build_image_head(m.image, **kw) if "image" in m else None)
-    raise NotImplementedError(
-        f"worker {cfg.worker!r} is not ported yet (CVAP, CLAP, ASClassifier, ESClassifier; "
-        "CVALP, CVASP and CLVP: ROADMAP.md queue A, A12)")
+    if cfg.worker == "CVALP":
+        return CVALP(image=build_image_head(m.image, **kw), audio=build_audio_head(m.audio, **kw),
+                     text=build_text_head(m.text, **kw), loss=build_loss_head(m.loss, device=device))
+    if cfg.worker == "CVASP":
+        return CVASP(image=build_image_head(m.image, **kw), image_v=build_image_head(m.image, **kw),
+                     audio=build_audio_head(m.audio, **kw), loss=build_loss_head(m.loss, device=device))
+    if cfg.worker == "CLVP":
+        return CLVP(image=build_image_head(m.image, **kw), text=build_text_head(m.text, **kw),
+                    loss=build_loss_head(m.loss, device=device))
+    raise ValueError(f"unknown worker {cfg.worker!r} (CVAP, CLAP, CVALP, CVASP, ASClassifier, "
+                     "ESClassifier, CLVP)")
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -84,16 +96,17 @@ def port_model_from_clip(model: nn.Module, clip_sd: Mapping[str, Any]) -> List[s
     """Initialise ``model``'s towers from a CLIP state dict, in place
     (``vipant_tpu/models/build.py:279-338``; the reference's init,
     `reference/cvap/model/cvap.py:100-128`, `clap.py:80-157`): the image
-    tower as it is, the audio tower from the visual tower with the square
-    grid re-gridded bilinearly to the audio grid (no slice), the text tower
+    tower (and a siamese view tower) as it is, the audio tower from the
+    visual tower with the square grid re-gridded bilinearly to the audio
+    grid (no slice), the text tower
     with its positional embedding cut to its context, and CLIP's
     ``logit_scale`` into every loss head's. Returns the towers loaded."""
     visual_sd, text_sd = split_clip_state_dict(clip_sd)
     loaded = []
-    for name in ("image", "audio"):
+    for name in ("image", "image_v", "audio"):
         tower = getattr(model, name, None)
         if tower is not None and hasattr(tower, "grid"):  # a ViT tower (not a DummyHead)
-            load_tower(tower, port_clip_visual(visual_sd, tower, use_slice=name == "image"),
+            load_tower(tower, port_clip_visual(visual_sd, tower, use_slice=name != "audio"),
                        f"CLIP visual -> {name}")
             loaded.append(name)
     text = getattr(model, "text", None)
@@ -111,20 +124,49 @@ _STAGES = {"pre": "pre_encoder", "post": "post_encoder", "pre_addon": "pre_encod
            "post_addon": "post_encoder_addon"}
 
 
-def tunable_mask(cfg, model: nn.Module) -> Dict[str, bool]:
-    """Parameter name -> True if trainable: the JAX package's rule
-    (``vipant_tpu/models/build.py:tunable_mask``). A tower whose config sets
-    ``freeze`` is frozen, the stages listed in ``running.excl_modules``
-    (``vmodules`` image, ``amodules`` audio, ``lmodules`` text) are frozen,
-    and the loss heads are always trainable. The rule keys on the top-level
-    name: the captioning decoder's is ``decoder``, not ``text``, so
-    ``model.text.freeze`` does not freeze it (nor does the JAX package).
-    Siamese ties are not ported."""
+def siamese_ties(cfg) -> List[Tuple[str, str]]:
+    """``running.siamese.{amodules,lmodules}`` -> ``(dst, src)`` ties: the
+    audio / text tower's listed stages take the image tower's parameters
+    (``vipant_tpu/models/build.py:253-270``; parity:
+    `reference/cvap/model/cvalp.py:147-180`); ``CVASP`` also ties its view
+    tower ``image_v`` whole to the pivot tower ``image``."""
+    ties: List[Tuple[str, str]] = []
+    if cfg.get("worker") == "CVASP":
+        ties.append(("image_v", "image"))
     run = cfg.get("running", None)
-    if run is not None and "siamese" in run and bool(run.siamese.get("alive", False)):
-        raise NotImplementedError("siamese parameter ties are not ported yet")
+    if run is None or "siamese" not in run or not bool(run.siamese.get("alive", False)):
+        return ties
+    for key, tower in (("amodules", "audio"), ("lmodules", "text")):
+        for name in run.siamese.get(key, []) or []:
+            stage = _STAGES.get(name, name)
+            ties.append((f"{tower}/{stage}", f"image/{stage}"))
+    return ties
+
+
+def tie_model(cfg, model: nn.Module) -> List[Tuple[str, str]]:
+    """Make :func:`siamese_ties`'s ties on ``model`` (after its weights are
+    loaded: the destinations' own weights are dropped) and return them."""
+    ties = siamese_ties(cfg)
+    tie_parameters(model, ties)
+    return ties
+
+
+def tunable_mask(cfg, model: nn.Module, ties: Sequence[Tuple[str, str]] = ()) -> Dict[str, bool]:
+    """Parameter name -> True if trainable: the JAX package's rule
+    (``vipant_tpu/models/build.py:205-250``). A tower whose config sets
+    ``freeze`` is frozen (``image_v`` follows ``model.image``), the stages
+    listed in ``running.excl_modules`` (``vmodules`` image, ``amodules``
+    audio, ``lmodules`` text) are frozen, and the loss heads are always
+    trainable. The rule keys on the top-level name: the captioning decoder's
+    is ``decoder``, not ``text``, so ``model.text.freeze`` does not freeze it
+    (nor does the JAX package). A tied parameter is named once, under its
+    source (``named_parameters()``), and is trainable when its source's
+    tower or the tying tower is not frozen, whatever the rest says."""
+    run = cfg.get("running", None)
     m = cfg.model
     frozen = {t: bool(m[t].freeze) for t in ("image", "audio", "text") if t in m and "freeze" in m[t]}
+    if "image" in frozen:
+        frozen["image_v"] = frozen["image"]
     excl = {}
     if run is not None and "excl_modules" in run:
         for key, tower in (("vmodules", "image"), ("amodules", "audio"), ("lmodules", "text")):
@@ -133,4 +175,11 @@ def tunable_mask(cfg, model: nn.Module) -> Dict[str, bool]:
     for name, _ in model.named_parameters():
         tower, stage = name.split(".")[:2]
         mask[name] = not frozen.get(tower, False) and stage not in excl.get(tower, [])
+    for dst, src in ties:
+        dst_tower, src_tower = dst.split("/")[0], src.split("/")[0]
+        if not frozen.get(dst_tower, False) or not frozen.get(src_tower, False):
+            prefix = src.replace("/", ".") + "."
+            for name in mask:
+                if name.startswith(prefix):
+                    mask[name] = True
     return mask

@@ -4,7 +4,11 @@ Counterpart of ``vipant_tpu/models/tasks.py`` for CVAP (image-audio),
 CLAP (audio-text retrieval, or audio captioning with a
 ``SeqGenerationHead`` decoder and its ``LMLossHead``), and the classifiers
 ``ASClassifier`` (AudioSet multi-label, with the imagination branch) and
-``ESClassifier`` (ESC-50 / US8K x-fold), whose text towers serve zero-shot.
+``ESClassifier`` (ESC-50 / US8K x-fold), whose text towers serve zero-shot;
+the trimodal ``CVALP`` (image-audio-text), the multi-view siamese ``CVASP``
+(a pivot image tower, a view image tower, the audio tower) and the
+image-text ``CLVP``. Siamese parameter ties are made on the built model
+(:mod:`..nn.tying`), outside these modules.
 """
 
 from __future__ import annotations
@@ -164,3 +168,86 @@ class ESClassifier(nn.Module):
 
     def predictions(self, audios):
         return torch.argmax(self.loss(_run(self.audio, audios, False), train=False), dim=-1)
+
+
+@MODELS.register()
+class CVALP(nn.Module):
+    """Trimodal vision-audio-language training
+    (parity: `reference/cvap/model/cvalp.py`): each tower's normalised
+    embedding into ``VALCELossHead``."""
+
+    def __init__(self, image: nn.Module, audio: nn.Module, text: nn.Module, loss: nn.Module):
+        super().__init__()
+        self.image, self.audio, self.text, self.loss = image, audio, text, loss
+
+    def encode_image(self, x, train: bool = False):
+        return _encode(self.image, x, train)
+
+    def encode_audio(self, x, train: bool = False):
+        return _encode(self.audio, x, train)
+
+    def encode_text(self, x, train: bool = False):
+        return _encode(self.text, x, train)
+
+    def features(self, images, audios, text, train: bool = False):
+        return (self.encode_image(images, train), self.encode_audio(audios, train),
+                self.encode_text(text, train))
+
+    def forward(self, images, audios, text, train: bool = True):
+        v, a, l = self.features(images, audios, text, train)
+        return self.loss(v, a, l, normalized=True)
+
+
+@MODELS.register()
+class CVASP(nn.Module):
+    """Multi-view siamese VA training
+    (parity: `reference/cvap/model/siamese_va.py`): the pivot image through
+    ``image``, the augmented image views through ``image_v`` (tied whole to
+    ``image``), the audio views through ``audio``, into ``VACELossHead``; a
+    view that is off is None."""
+
+    def __init__(self, image: nn.Module, image_v: nn.Module, audio: nn.Module, loss: nn.Module):
+        super().__init__()
+        self.image, self.image_v, self.audio, self.loss = image, image_v, audio, loss
+
+    def encode_pivot_image(self, images, train: bool = False):
+        return _encode(self.image, images, train)
+
+    def encode_audio_view(self, audios, train: bool = False):
+        return _encode(self.audio, audios, train)
+
+    def features(self, images, images_v1, audios_v1, images_v2=None, audios_v2=None,
+                 train: bool = False):
+        """The pivot and audio-view embeddings, the eval's retrieval pair."""
+        return self.encode_pivot_image(images, train), self.encode_audio_view(audios_v1, train)
+
+    def forward(self, images, images_v1, audios_v1, images_v2=None, audios_v2=None,
+                train: bool = True):
+        vp = _encode(self.image, images, train)
+        v1 = _encode(self.image_v, images_v1, train)
+        a1 = _encode(self.audio, audios_v1, train)
+        v2 = _encode(self.image_v, images_v2, train) if images_v2 is not None else None
+        a2 = _encode(self.audio, audios_v2, train) if audios_v2 is not None else None
+        return self.loss(vp, v1, a1, v2, a2, normalized=True)
+
+
+@MODELS.register()
+class CLVP(nn.Module):
+    """Image <-> text retrieval (parity: `reference/cvap/model/clvp.py`)."""
+
+    def __init__(self, image: nn.Module, text: nn.Module, loss: nn.Module):
+        super().__init__()
+        self.image, self.text, self.loss = image, text, loss
+
+    def encode_image(self, images, train: bool = False):
+        return _encode(self.image, images, train)
+
+    def encode_text(self, text, train: bool = False):
+        return _encode(self.text, text, train)
+
+    def features(self, images, text, train: bool = False):
+        return self.encode_image(images, train), self.encode_text(text, train)
+
+    def forward(self, images, text, train: bool = True):
+        v, t = self.features(images, text, train)
+        return self.loss(v, t, normalized=True)

@@ -82,7 +82,7 @@ class VisionTower(nn.Module):
                 raise ValueError(
                     "patchout is incompatible with require_feature (captioning decoder memory "
                     "needs the full patch grid): set model.audio.patchout=0 for captioning configs")
-            raise NotImplementedError("patchout (training) is not ported yet")
+            raise NotImplementedError("patchout (training) is not ported yet (ROADMAP.md queue A, A3)")
         pos, cls = self.misc()
         h = self.pre_encoder_addon(self.pre_encoder(x, pos, cls))
         B, T, C = h.shape
@@ -143,9 +143,10 @@ def _vision_from_cfg(cfg, dtype=torch.float32, device=None) -> VisionTower:
     if cfg.encoder.name != "TransformerBackbone":
         if cfg.get("int8_frozen", False):
             raise ValueError("int8_frozen is not supported on the resnet backbone")
-        raise NotImplementedError(f"backbone {cfg.encoder.name!r} is not ported yet (ViT only)")
+        raise NotImplementedError(f"backbone {cfg.encoder.name!r} is not ported yet (ViT only; "
+                                  "ROADMAP.md queue A, A14)")
     if cfg.get("stacked", False):
-        raise NotImplementedError("the pipeline-stacked trunk is not ported")
+        raise NotImplementedError("the pipeline-stacked trunk is not ported (ROADMAP.md queue A, A15)")
     resolution = cfg.resolution
     if isinstance(resolution, list):
         resolution = tuple(int(v) for v in resolution)
@@ -180,7 +181,7 @@ def build_clip_audio_head(cfg, dtype=torch.float32, device=None):
 @TEXT_HEADS.register(name="CLIPTextHead")
 def build_clip_text_head(cfg, dtype=torch.float32, device=None):
     if cfg.get("stacked", False):
-        raise NotImplementedError("the pipeline-stacked trunk is not ported")
+        raise NotImplementedError("the pipeline-stacked trunk is not ported (ROADMAP.md queue A, A15)")
     return TextTower(
         width=int(cfg.width),
         embed_dim=int(cfg.embed_dim),

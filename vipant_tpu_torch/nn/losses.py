@@ -15,6 +15,22 @@ as the JAX package leaves them to XLA. Their submodules carry the JAX
 package's names (``ln``, ``linear``, ``mlp.ln_0``, ``mlp.dense_0``,
 ``a2v.dense_0``, ``bce.mlp...``), so :mod:`..ckpt.from_jax` only renames
 ``kernel`` / ``scale`` to ``weight``.
+
+The trimodal and siamese heads (``:189-343``): ``VALCELossHead`` and
+``VACELossHead`` sum a ``CELossHead`` of its own (``ce_va``, ``ce_lv``,
+``ce_al``; ``ce_vp``, ``ce_ap``, ``ce_va``, ``ce_vv``, ``ce_aa``), each with
+its own temperature, over each active pair whose inputs are present, and
+return ``(total, {pair: loss})``; ``BarlowLossHead`` is the Barlow Twins
+projector (bias-free denses, :class:`BatchNorm` and ReLU between them) and
+the identity-matching loss over the batch-standardised cross-correlation;
+``BarlowCELossHead`` is ``ce + lambd_barlow * barlow`` over its nested
+``ce`` and ``barlow`` heads. :class:`BatchNorm` is flax's ``nn.BatchNorm``
+(momentum 0.99, eps 1e-5, the variance E[x^2] - E[x]^2 clipped at 0 and
+biased, the running statistics updated from the batch's in train mode and
+read in eval), not ``torch.nn.BatchNorm1d`` (unbiased running variance,
+``momentum`` the other way round). Its running ``mean`` and ``var`` are
+buffers: the train state, its checkpoints and :mod:`..ckpt.from_jax` (the
+JAX ``batch_stats`` collection) carry them.
 """
 
 from __future__ import annotations
@@ -271,6 +287,158 @@ class ImagineAndClassifyLossHead(nn.Module):
         return total, aux
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis of [B, C] in fp32: train
+    mode normalises by the batch's mean and biased variance (E[x^2] -
+    E[x]^2, clipped at 0) and moves the running ``mean`` / ``var`` buffers
+    by ``momentum`` (``ra = momentum * ra + (1 - momentum) * batch``); eval
+    mode normalises by the running statistics and changes nothing. The
+    affine ``weight`` (flax's ``scale``) starts at 1, ``bias`` at 0; the
+    running mean at 0, the running variance at 1."""
+
+    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.momentum, self.eps = float(momentum), float(eps)
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        x = x.float()
+        if train:
+            mean = x.mean(0)
+            var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean.detach())
+                self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var.detach())
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+@LOSS_HEADS.register()
+class BarlowLossHead(nn.Module):
+    """Barlow Twins (``vipant_tpu/nn/losses.py:189-232``; parity:
+    `reference/cvap/module/decoder/loss_head.py:286-328`): the projector
+    ``dense_0 -> bn_0 -> relu -> ... -> dense_{n-1}`` (bias-free denses
+    over ``embed_dim`` then ``layers``) on both inputs, each output
+    standardised over the batch (``(z - mean) / (std + 1e-5)``, the biased
+    std), ``c = z1^T z2 / B``, and ``sum((diag(c) - 1)^2) + lambd_off *
+    (sum(c^2) - sum(diag(c)^2))``. ``normalized`` is accepted for the loss
+    heads' common call and ignored."""
+
+    def __init__(self, embed_dim: int, layers: Sequence[int] = (2048, 4096, 4096),
+                 lambd_off: float = 0.0051, device=None):
+        super().__init__()
+        sizes = [int(embed_dim), *[int(v) for v in layers]]
+        self.n, self.lambd_off = len(sizes) - 1, float(lambd_off)
+        for i in range(self.n):
+            self.add_module(f"dense_{i}", Dense(sizes[i], sizes[i + 1], bias=False, device=device))
+        for i in range(self.n - 1):
+            self.add_module(f"bn_{i}", BatchNorm(sizes[i + 1], device=device))
+
+    def project(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        for i in range(self.n - 1):
+            x = torch.relu(getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x), train=train))
+        return getattr(self, f"dense_{self.n - 1}")(x)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = True,
+                normalized: bool = False) -> torch.Tensor:
+        z1, z2 = self.project(x1, train), self.project(x2, train)
+
+        def std(z):  # jnp's z.std(0): sqrt(mean(|z - mean|^2)), the biased std
+            d = z - z.mean(0)
+            return d / (torch.sqrt((d * d).mean(0)) + 1e-5)
+
+        c = std(z1).t() @ std(z2) / z1.shape[0]
+        diag = torch.diagonal(c)
+        on_diag = ((diag - 1.0) ** 2).sum()
+        off_diag = (c ** 2).sum() - (diag ** 2).sum()
+        return on_diag + self.lambd_off * off_diag
+
+
+@LOSS_HEADS.register()
+class BarlowCELossHead(nn.Module):
+    """``ce + lambd_barlow * barlow`` (``vipant_tpu/nn/losses.py:235-258``;
+    parity: `reference/cvap/module/decoder/loss_head.py:600-622`): the
+    nested ``ce`` (:class:`CELossHead`) and ``barlow``
+    (:class:`BarlowLossHead`) heads on the same pair; a scalar, as the JAX
+    head returns."""
+
+    def __init__(self, embed_dim: int, lambd_barlow: float = 0.05,
+                 barlow_layers: Sequence[int] = (2048, 4096, 4096), lambd_off: float = 0.0051,
+                 scaling: bool = True, scale_max: Optional[float] = None, device=None):
+        super().__init__()
+        self.lambd_barlow = float(lambd_barlow)
+        self.ce = CELossHead(scaling=scaling, scale_max=scale_max, device=device)
+        self.barlow = BarlowLossHead(embed_dim, barlow_layers, lambd_off, device=device)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = True,
+                normalized: bool = False) -> torch.Tensor:
+        ce = self.ce(x1, x2, normalized=normalized)
+        return ce + self.lambd_barlow * self.barlow(x1, x2, train=train)
+
+
+class _PairwiseCE(nn.Module):
+    """Weighted sum of one :class:`CELossHead` a pair (``ce_<pair>``) over
+    the pairs that are on and whose inputs are present: ``(total, {pair:
+    loss})``."""
+
+    PAIRS: Tuple[str, ...] = ()
+
+    def __init__(self, alive: Dict[str, bool], weights: Dict[str, float], scaling: bool = True,
+                 scale_max: Optional[float] = None, device=None):
+        super().__init__()
+        self.alive = {k: bool(alive[k]) for k in self.PAIRS}
+        self.weights = {k: float(weights[k]) for k in self.PAIRS}
+        for k in self.PAIRS:
+            if self.alive[k]:
+                self.add_module(f"ce_{k}", CELossHead(scaling=scaling, scale_max=scale_max,
+                                                      device=device))
+
+    def _sum(self, pairs, normalized: bool):
+        total = torch.zeros((), dtype=torch.float32)
+        aux: Dict[str, torch.Tensor] = {}
+        for name, x, y in pairs:
+            if self.alive[name] and x is not None and y is not None:
+                aux[name] = getattr(self, f"ce_{name}")(x, y, normalized=normalized)
+                total = total.to(aux[name].device) + self.weights[name] * aux[name]
+        return total, aux
+
+
+@LOSS_HEADS.register()
+class VALCELossHead(_PairwiseCE):
+    """Trimodal V-A-L: ``va`` (image, audio), ``lv`` (image, text) and
+    ``al`` (audio, text) (``vipant_tpu/nn/losses.py:261-296``; parity:
+    `reference/cvap/module/decoder/loss_head.py:421-495`)."""
+
+    PAIRS = ("va", "lv", "al")
+
+    def forward(self, v, a, l, normalized: bool = False):
+        return self._sum([("va", v, a), ("lv", v, l), ("al", a, l)], normalized)
+
+
+@LOSS_HEADS.register()
+class VACELossHead(_PairwiseCE):
+    """Siamese multi-view VA: ``vp`` (view 1, pivot), ``ap`` (audio 1,
+    pivot), ``va`` (view 1, audio 1), ``vv`` (view 1, view 2) and ``aa``
+    (audio 1, audio 2) (``vipant_tpu/nn/losses.py:299-342``; parity:
+    `reference/cvap/module/decoder/loss_head.py:497-598`)."""
+
+    PAIRS = ("vp", "ap", "va", "vv", "aa")
+
+    def forward(self, v_pivot, v1, a1, v2=None, a2=None, normalized: bool = False):
+        return self._sum([("vp", v1, v_pivot), ("ap", a1, v_pivot), ("va", v1, a1),
+                          ("vv", v1, v2), ("aa", a1, a2)], normalized)
+
+
 def build_loss_head(cfg, device=None, in_dim: Optional[int] = None,
                     num_labels: Optional[int] = None) -> nn.Module:
     """Config -> loss head (``vipant_tpu/nn/losses.py:437-523``). The
@@ -307,7 +475,21 @@ def build_loss_head(cfg, device=None, in_dim: Optional[int] = None,
             bce_layers=[int(v) for v in cfg.bce.get("layers", []) or []],
             bce_scaling=bool(cfg.bce.get("scaling", True)),
             bce_scale_max=None if bce_max is None else float(bce_max), device=device)
-    raise NotImplementedError(
-        f"loss head {name!r} is not ported yet (CELossHead, LMLossHead, ClassificationHead, "
-        "BCELossHead, BCHingeLossHead, ImagineAndClassifyLossHead; the trimodal and siamese "
-        "heads: ROADMAP.md queue A, A12)")
+    if name == "BarlowLossHead":
+        return BarlowLossHead(int(cfg.embed_dim), [int(v) for v in cfg.layers],
+                              float(cfg.lambd_off), device=device)
+    if name == "BarlowCELossHead":
+        ce_max = cfg.ce.get("scale_max")
+        return BarlowCELossHead(
+            int(cfg.barlow.embed_dim), lambd_barlow=float(cfg.lambd_barlow),
+            barlow_layers=[int(v) for v in cfg.barlow.layers],
+            lambd_off=float(cfg.barlow.lambd_off), scaling=bool(cfg.ce.get("scaling", True)),
+            scale_max=None if ce_max is None else float(ce_max), device=device)
+    if name in ("VALCELossHead", "VACELossHead"):
+        cls = LOSS_HEADS.get(name)
+        # the JAX package's defaults of each flag
+        on = {"va": True, "lv": False, "al": True, "vp": True, "ap": False, "vv": True, "aa": False}
+        return cls({k: cfg.get(k, on[k]) for k in cls.PAIRS},
+                   {k: cfg.get(f"{k}_w", 1.0) for k in cls.PAIRS},
+                   scaling=bool(cfg.get("scaling", True)), scale_max=scale_max, device=device)
+    raise KeyError(f"unknown loss head {name!r}")

@@ -6,11 +6,14 @@ Counterpart of ``vipant_tpu/ckpt/orbax_io.py:68-160,327-377``. A save writes
 
 - ``state.pt``: :meth:`TrainState.state_dict` (trainable and frozen params,
   the optimizer's buffers and update count, which is the schedule's
-  position, the step and the RNG state);
+  position, the step, the RNG state and the model's running statistics);
 - ``config.json``: the config, unresolved;
 - ``model.npz`` (optional): a weight export under the JAX package's flat
   dotted names and layouts (:func:`..ckpt.from_jax.to_jax_params`), which
-  both packages' ``InferenceEngine(model_file=<step dir>)`` serve;
+  both packages' ``InferenceEngine(model_file=<step dir>)`` serve, and
+  ``batch_stats.npz`` beside it when the model has running statistics (the
+  JAX ``batch_stats`` collection under its flat dotted names; the JAX
+  engine refuses a ``model.npz`` key that is no parameter);
 - ``{step:08d}.pth`` (with ``export_pth``): the same export as a
   reference-format checkpoint (:func:`..ckpt.reference_export.export_reference_pth`),
   which the reference, both packages' engines and trainers
@@ -33,7 +36,7 @@ from typing import Any, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from ..ckpt.from_jax import flatten, to_jax_params
+from ..ckpt.from_jax import flatten, to_jax_batch_stats, to_jax_params
 from ..ckpt.reference_export import export_reference_pth, split_by_tower
 from .state import TrainState
 
@@ -66,6 +69,9 @@ def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, cfg=None,
             json.dump(cfg.to_dict(resolve=False), f)
     if model_only is not None:
         np.savez(os.path.join(path, "model.npz"), **flatten(to_jax_params(model_only)))
+        if state.buffers:
+            np.savez(os.path.join(path, "batch_stats.npz"),
+                     **flatten(to_jax_batch_stats(state.buffers)))
         if export_pth:
             export_reference_pth(os.path.join(path, f"{name}.pth"), split_by_tower(model_only), cfg=cfg)
     with open(os.path.join(path, COMMIT_MARKER), "w") as f:
@@ -95,7 +101,8 @@ def _restore(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor], w
 
 def load_checkpoint(path: str, state: TrainState) -> TrainState:
     """Restore ``state`` in place from a step directory written by
-    :func:`save_checkpoint`: params, optimizer, step and RNG, bitwise. The
+    :func:`save_checkpoint`: params, running statistics, optimizer, step and
+    RNG, bitwise. The
     names must be the model's exactly (a name matches whole, never as a
     part of another)."""
     if not is_committed(path):
@@ -104,6 +111,7 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
                                     weights_only=True)
     _restore(state.trainable, sd["params"], "trainable param")
     _restore(state.frozen, sd["frozen_params"], "frozen param")
+    _restore(state.buffers, sd.get("buffers", {}), "running statistic")
     state.optimizer.load_state_dict(sd["opt_state"])
     state.generator.set_state(sd["rng"])
     state.step = int(sd["step"])

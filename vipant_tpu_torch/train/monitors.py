@@ -1,5 +1,7 @@
 """The monitors beyond VA pre-training on one device: ``LAMonitor``
-(audio-text fine-tuning, retrieval and captioning), ``ASMonitor`` (AudioSet
+(audio-text fine-tuning, retrieval and captioning; image-text CLVP with
+``running.dataloader=lv``), ``VALMonitor`` (trimodal V-A-L on AudioSet),
+``VASMonitor`` (multi-view siamese VA), ``ASMonitor`` (AudioSet
 multi-label classification and zero-shot) and ``ESCMonitor`` (ESC-50 / US8K
 x-fold classification and zero-shot; :class:`ESCTrainer`).
 
@@ -22,8 +24,19 @@ The AT recipe starts from a VA checkpoint: ``model_file=<step>.pth`` (a
 reference ``.pth``, e.g. one a VA run wrote with ``export_pth``) loads its
 audio tower (:meth:`.trainer.Trainer.load_pretrained`).
 
-Not ported yet, and refused (ROADMAP.md's queue A): the image-text loader
-``running.dataloader=lv`` (A12); the packed ``pak*`` datasets (A11-rest).
+``running.dataloader=lv`` trains and evaluates an image-text model (CLVP)
+on :mod:`..data.image_text` batches ``(image, token ids)``, with the same
+reports (``vipant_tpu/train/monitors.py:39-83``).
+
+:class:`VALTrainer` (``vipant_tpu/train/monitors.py:259-370``; parity:
+`reference/cvap/monitor/cvalp.py`) trains ``CVALP`` on the AudioSet
+contrastive loader (label texts as captions) and reports VA and AL
+retrieval at every save, on the eval split and on the test split, with
+label-prompt zero-shot P@1 (``running.zero_shot``) over the retrieval
+pass's audio embeddings. :class:`VASTrainer` (``:373-451``; parity:
+`reference/cvap/monitor/siamese_va.py`) trains ``CVASP`` on the siamese
+two-view loader, the views the loss flags ``vv`` / ``aa`` turn off passed
+as None, and reports pivot-image <-> audio retrieval.
 """
 
 from __future__ import annotations
@@ -34,13 +47,16 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..data import build_audio_text_dataloader, build_audioset_dataloader, build_audioset_label_map
-from ..data import build_xfold_dataloader_list
+from ..data import (build_audio_text_dataloader, build_audioset_dataloader,
+                    build_audioset_label_map, build_image_audio_dataloader,
+                    build_image_text_dataloader, build_xfold_dataloader_list)
 from ..data.audioset import label_map_token_matrix
 from ..data.device_put import PinnedDevicePut
 from ..eval.metrics import (_normalize, cider_d, classification_p1, corpus_bleu, meteor,
-                            multilabel_report, one_vs_k_retrieval, rouge_l, zero_shot_classification)
+                            multilabel_report, one_vs_k_retrieval, rouge_l, symmetric_retrieval,
+                            zero_shot_classification)
 from ..tokenizer import detokenize_ids
+from ..utils import as_config
 from .checkpoint import extract_model_files, load_checkpoint
 from .trainer import Trainer, register_monitor
 
@@ -52,20 +68,25 @@ class LATrainer(Trainer):
     batch_keys = ("audio", "text")
     reads_worker = None
 
+    @property
+    def image_text(self) -> bool:
+        """``running.dataloader=lv``: image-text (CLVP) batches."""
+        return str(self.cfg.running.get("dataloader", "al")) == "lv"
+
     def build_data(self, steps_per_epoch: Optional[int] = None) -> None:
-        """The base's training and eval loaders over the audio-text
-        datasets, and the test split's loader when ``running.test_name``
-        names one that exists."""
+        """The base's training and eval loaders over the audio-text (or,
+        with ``running.dataloader=lv``, image-text) datasets, and the test
+        split's loader when ``running.test_name`` names one that exists."""
         run = self.cfg.running
-        if str(run.get("dataloader", "al")) == "lv":
-            raise NotImplementedError("running.dataloader=lv: the image-text loader is not "
-                                      "ported yet (ROADMAP.md queue A, A12)")
+        if self.image_text:
+            self.batch_keys = ("image", "text")
         super().build_data(steps_per_epoch)
         if self._reads_data and run.get("test_name"):
             self.testloader = self._build_testloader()
 
     def build_loader(self, data_name: str, train: bool, device_put_fn=None):
-        return build_audio_text_dataloader(self.cfg, data_name, train, device_put_fn=device_put_fn)
+        build = build_image_text_dataloader if self.image_text else build_audio_text_dataloader
+        return build(self.cfg, data_name, train, device_put_fn=device_put_fn)
 
     # ---------------------------------------------------------------- jobs
     def job(self):
@@ -215,6 +236,122 @@ class LATrainer(Trainer):
         scores["CIDEr-D"] = cider_d(cands, refs)
         line = " ".join(f"{k_} = {v:2.2f}" for k_, v in scores.items())
         return f"{line} @ {len(cands)} | e.g.: {'; '.join(cands[:3])}"
+
+
+@register_monitor("VALMonitor")
+class VALTrainer(Trainer):
+    """Trimodal V-A-L training on AudioSet (see the module docstring)."""
+
+    batch_keys = ("image", "audio", "text")
+    reads_worker = None
+    export_towers = ("image", "audio", "text", "loss")
+
+    def build_data(self, steps_per_epoch: Optional[int] = None) -> None:
+        run = self.cfg.running
+        self.label_map = build_audioset_label_map(run) if run.get("label_map") else None
+        super().build_data(steps_per_epoch)
+        # the test split, evaluated at every save (parity:
+        # `reference/cvap/monitor/cvalp.py:97-104,254-264`)
+        if self._reads_data and not self.eval_mode and run.get("test_name"):
+            self.testloader = self._build_testloader()
+
+    def build_loader(self, data_name: str, train: bool, device_put_fn=None):
+        return build_audioset_dataloader(self.cfg, data_name, train, label_map=self.label_map,
+                                         device_put_fn=device_put_fn)
+
+    def infer(self, loader, samples=None, gold_file=None) -> str:
+        """VA (image <-> audio) and AL (audio <-> text) retrieval, and the
+        zero-shot P@1 with ``running.zero_shot`` and a label map."""
+        self.warn_gold_unused(gold_file)
+        data = self.collect_features(loader, samples=samples)
+        parts = []
+        if "x1" in data and "x2" in data:
+            sym = symmetric_retrieval(data["x1"], data["x2"])
+            parts.append(f"VA: I->A t1 {sym['12']['t1']:2.2f} A->I t1 {sym['21']['t1']:2.2f}")
+        if "x2" in data and "x3" in data:
+            sym = symmetric_retrieval(data["x2"], data["x3"])
+            parts.append(f"AL: A->L t1 {sym['12']['t1']:2.2f} L->A t1 {sym['21']['t1']:2.2f}")
+        if self.label_map is not None and bool(self.cfg.running.get("zero_shot", False)):
+            # the retrieval pass's audio embeddings (x2), the same budget
+            parts.append(self.zero_shot(loader, samples=samples, audio_embs=data.get("x2")))
+        return " | ".join(parts) + f" @ {data['x1'].shape[0]}"
+
+    @torch.no_grad()
+    def zero_shot(self, loader, samples=None, audio_embs=None) -> str:
+        """Audio -> label-prompt P@1 over the label map
+        (`reference/cvap/monitor/cvalp.py:273-300`); ``audio_embs``, the
+        loader's audio embeddings in its order, spare the audio tower, and
+        the loader is walked for the labels only."""
+        ids = label_map_token_matrix(self.label_map)
+        text = self.model.encode_text(self.make_batch(ids)[0]).float().cpu().numpy()
+        embs, labels, n_got = [], [], 0
+        aidx = self.batch_keys.index("audio")
+        for batch in loader:
+            if audio_embs is not None:
+                if n_got >= audio_embs.shape[0]:
+                    break
+            elif samples is not None and n_got >= samples:
+                break
+            n = int(batch.get("_count", batch["audio"].shape[0]))
+            n_got += n
+            labels.append(np.asarray(batch["label"])[:n])
+            if audio_embs is None:
+                audio = self.eval_frontend_args(batch)[aidx]
+                embs.append(self.model.encode_audio(audio).float().cpu().numpy()[:n])
+        labels = np.concatenate(labels)
+        if audio_embs is not None:
+            m = min(audio_embs.shape[0], labels.shape[0])
+            audio, labels = np.asarray(audio_embs)[:m], labels[:m]
+        else:
+            audio = np.concatenate(embs)
+        keep = labels >= 0
+        p1 = zero_shot_classification(audio[keep], text, labels[keep])
+        return f"A->T: p1 = {p1:2.2f}"
+
+
+@register_monitor("VASMonitor")
+class VASTrainer(Trainer):
+    """Multi-view siamese VA training (see the module docstring)."""
+
+    batch_keys = ("image", "image_v1", "audio_v1", "image_v2", "audio_v2")
+    reads_worker = None
+
+    def __init__(self, cfg, *args, **kw):
+        cfg = as_config(cfg)
+        self.use_vv = bool(cfg.model.loss.get("vv", True))
+        self.use_aa = bool(cfg.model.loss.get("aa", False))
+        super().__init__(cfg, *args, **kw)
+
+    def build_loader(self, data_name: str, train: bool, device_put_fn=None):
+        return build_image_audio_dataloader(self.cfg, data_name, train, device_put_fn=device_put_fn)
+
+    def views(self, args: Tuple) -> Tuple:
+        """The model's args with a view that is off as None (`reference/
+        cvap/monitor/siamese_va.py:23-62`)."""
+        image, image_v1, audio_v1, image_v2, audio_v2 = args
+        return (image, image_v1, audio_v1, image_v2 if self.use_vv else None,
+                audio_v2 if self.use_aa else None)
+
+    def train_step(self, *batch, audio_len=None):
+        return super().train_step(*self.views(batch), audio_len=audio_len)
+
+    @torch.no_grad()
+    def infer(self, loader, samples=None, gold_file=None) -> str:
+        """Pivot-image <-> audio-view retrieval on the eval batches
+        (`reference/cvap/monitor/siamese_va.py:154-180`)."""
+        self.warn_gold_unused(gold_file)
+        vs, aas, n_got = [], [], 0
+        for batch in loader:
+            if samples is not None and n_got >= samples:
+                break
+            args = self.eval_frontend_args(batch)
+            n = int(batch.get("_count", len(batch["name"])))
+            vs.append(self.model.encode_pivot_image(args[0]).float().cpu().numpy()[:n])
+            aas.append(self.model.encode_audio_view(args[2]).float().cpu().numpy()[:n])
+            n_got += n
+        v, a = np.concatenate(vs), np.concatenate(aas)
+        sym = symmetric_retrieval(v, a)
+        return f"I->A: t1 = {sym['12']['t1']:2.2f} A->I: t1 = {sym['21']['t1']:2.2f} @ {v.shape[0]}"
 
 
 @register_monitor("ASMonitor")

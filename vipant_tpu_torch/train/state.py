@@ -3,7 +3,9 @@
 Counterpart of ``vipant_tpu/train/state.py``. The JAX state is an
 immutable pytree that each step returns anew; here the model's parameters
 and the optimizer's buffers are updated in place and the state holds
-references to them. ``state_dict()`` gathers everything a resume needs, for
+references to them. ``buffers`` are the model's running statistics (the JAX
+``batch_stats`` collection: Barlow's BatchNorm), which a training forward
+updates in place. ``state_dict()`` gathers everything a resume needs, for
 ``torch.save``.
 """
 
@@ -29,6 +31,7 @@ class TrainState:
     # keyword arguments of the model's loss call beside ``train=True``
     # (CLAP with a decoder: ``retrieval``)
     loss_kwargs: Dict[str, Any] = field(default_factory=dict)
+    buffers: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     def state_dict(self) -> Dict[str, Any]:
         return {
@@ -37,4 +40,5 @@ class TrainState:
             "frozen_params": {k: p.detach() for k, p in self.frozen.items()},
             "opt_state": self.optimizer.state_dict(),
             "rng": self.generator.get_state(),
+            "buffers": {k: b.detach() for k, b in self.buffers.items()},
         }

@@ -2,8 +2,8 @@
 with its epoch loop, save-time eval and checkpoints; and the training step
 alone for VA, audio-text retrieval and audio captioning (CLAP). It is the
 base of the other monitors (:mod:`.monitors`: ``LAMonitor``,
-``ASMonitor``, ``ESCMonitor``), which :func:`build_monitor` picks by
-``cfg.monitor``.
+``VALMonitor``, ``VASMonitor``, ``ASMonitor``, ``ESCMonitor``), which
+:func:`build_monitor` picks by ``cfg.monitor``.
 
 Counterpart of ``vipant_tpu/train/trainer.py:Trainer`` (the ``VAMonitor``):
 config -> data loaders (:mod:`..data`: host workers decode the wav and the
@@ -51,10 +51,17 @@ tower for AT fine-tuning), CLIP weights (``running.clip_model_root`` /
 init; ``export_pth`` writes each save's weight export as a reference
 ``.pth`` too.
 
+Siamese ties (``running.siamese``, and ``CVASP``'s view tower) share the
+image tower's ``Parameter`` objects with the tying stages after the weights
+load (:func:`..models.tie_model`); the mask and the optimizer see each
+shared tensor once, under the image tower's name, and the save's weight
+export writes it under every tower that holds it. A loss head's running
+statistics (Barlow's BatchNorm) are buffers of the model that the train
+state and its checkpoints carry.
+
 Not ported yet, and refused when asked for (ROADMAP.md's queue A names the
-item that ports each): ``async_ckpt`` (A7-rest); the trimodal and siamese
-monitors ``VALMonitor`` and ``VASMonitor`` (A12); the gradient cache, ZeRO and
-every mesh axis beyond one device (A15).
+item that ports each): ``async_ckpt`` (A7-rest); the gradient cache, ZeRO
+and every mesh axis beyond one device (A15).
 
 Usage::
 
@@ -84,7 +91,7 @@ from ..data.device_put import PinnedDevicePut
 from ..data.image_audio import FBANK_INT16_SCALE, fbank_params_from_cfg
 from ..data.image_audio import refuse_unported as refuse_unported_data
 from ..eval.metrics import format_retrieval_report, grouped_pnr, symmetric_retrieval
-from ..models import build_main_model, init_weights, port_model_from_clip, tunable_mask
+from ..models import build_main_model, init_weights, port_model_from_clip, tie_model, tunable_mask
 from ..ops.fbank import fbank_fixed_len
 from ..ops.frontend import device_normalize_image
 from ..ops.specaugment import spec_augment
@@ -96,8 +103,6 @@ from .state import TrainState
 from .step import eval_step, train_step
 
 MONITORS: Dict[str, type] = {}
-# the JAX package's other monitors -> the ROADMAP.md queue-A item that ports them
-_UNPORTED_MONITORS = {"VALMonitor": "A12", "VASMonitor": "A12"}
 _LOGGER = "vipant_tpu_torch"
 
 
@@ -111,14 +116,11 @@ def register_monitor(*names):
 
 def build_monitor(cfg, **kw):
     """``cfg.monitor`` -> its trainer (:data:`MONITORS`), on the card unless
-    ``device`` or ``platform=cpu`` asks for the CPU; a monitor not ported
-    yet raises, naming the queue item that ports it."""
+    ``device`` or ``platform=cpu`` asks for the CPU; an unknown name raises."""
     cfg = as_config(cfg)
     name = str(cfg.monitor)
     if name not in MONITORS:
-        item = _UNPORTED_MONITORS.get(name)
-        raise NotImplementedError(f"monitor {name!r} is not ported yet"
-                                  + (f" (ROADMAP.md queue A, {item})" if item else ""))
+        raise ValueError(f"unknown monitor {name!r} ({', '.join(sorted(MONITORS))})")
     if str(cfg.get("platform") or "") == "cpu":
         kw.setdefault("device", "cpu")
     return MONITORS[name](cfg, **kw)
@@ -224,7 +226,14 @@ class Trainer:
         self.model = build_main_model(cfg, device=self.device, output_dim=self.output_dim)
         init_weights(self.model, torch.Generator(device=self.device).manual_seed(seed))
         self.load_pretrained()
-        self.trainable, self.frozen = partition_params(self.model, tunable_mask(cfg, self.model))
+        self.ties = tie_model(cfg, self.model)
+        self.trainable, self.frozen = partition_params(
+            self.model, tunable_mask(cfg, self.model, self.ties))
+        for name, tower in self.model.named_children():
+            if getattr(tower, "int8_frozen", False) and any(p.requires_grad for p in tower.parameters()):
+                raise ValueError(f"model.{name}.int8_frozen: the tower holds trainable parameters "
+                                 "(a siamese tie trains its tied stages); the int8 trunk is "
+                                 "forward-only")
         self.loss_kwargs = {}
         if hasattr(self.model, "decoder"):  # CLAP: retrieval needs a text tower
             has_text = self.model.text is not None
@@ -280,7 +289,7 @@ class Trainer:
         self.state = TrainState(
             step=0, model=self.model, trainable=self.trainable, frozen=self.frozen,
             optimizer=opt, generator=torch.Generator(device=self.device).manual_seed(int(self.cfg.seed)),
-            loss_kwargs=self.loss_kwargs,
+            loss_kwargs=self.loss_kwargs, buffers=dict(self.model.named_buffers()),
         )
         if self.resume_from is not None:
             load_checkpoint(self.resume_from, self.state)
@@ -295,6 +304,9 @@ class Trainer:
         bf16 fbanks as their uint16 bits)."""
         out = []
         for a in arrays:
+            if a is None:  # a view that is off (the siamese monitor)
+                out.append(None)
+                continue
             t = a if torch.is_tensor(a) else torch.as_tensor(np.ascontiguousarray(a))
             out.append(t.to(self.device, torch.float32 if t.is_floating_point() else t.dtype))
         return tuple(out)
@@ -359,7 +371,8 @@ class Trainer:
         """The model's args with every image-kind key's uint8 frames
         normalised and every audio-kind key through :meth:`_frontend_audio`
         (counterpart of ``vipant_tpu/train/trainer.py:device_frontend``);
-        ``audio_len`` goes with the ``audio`` key."""
+        ``audio_len`` goes with every audio-kind key (the siamese views are
+        crops of one clip)."""
         out = list(args)
         for i, key in enumerate(self.batch_keys):
             x = out[i]
@@ -368,7 +381,7 @@ class Trainer:
             if key.startswith("image") and x.dtype == torch.uint8:
                 out[i] = device_normalize_image(x)
             elif key.startswith("audio"):
-                out[i] = self._frontend_audio(x, train, audio_len if key == "audio" else None)
+                out[i] = self._frontend_audio(x, train, audio_len)
         return tuple(out)
 
     def _frontend_audio(self, wav: torch.Tensor, train: bool, audio_len=None) -> torch.Tensor:
@@ -681,12 +694,16 @@ class Trainer:
         )
 
     # ----------------------------------------------------------------- save
+    export_towers: Tuple[str, ...] = ("audio", "loss")
+
     def collect_model_export(self) -> Dict[str, torch.Tensor]:
-        """Reference-compat weight export: the audio tower and the loss
-        head (`reference/cvap/model/cvap.py:42-46`), chosen by the exact
-        first component of each name."""
-        return {k: p for k, p in self.model.named_parameters()
-                if k.split(".", 1)[0] in ("audio", "loss")}
+        """Reference-compat weight export: the towers of
+        :attr:`export_towers`, the audio tower and the loss head here
+        (`reference/cvap/model/cvap.py:42-46`), chosen by the exact first
+        component of each name; a tied parameter under every tower that
+        holds it (the JAX package's ``restore_tied``)."""
+        return {k: p for k, p in self.model.named_parameters(remove_duplicate=False)
+                if k.split(".", 1)[0] in self.export_towers}
 
     def save(self) -> str:
         """Write ``{alias_root}/{model_name}/{step:08d}/`` (:mod:`.checkpoint`),
