@@ -282,6 +282,42 @@
    CPU engine (plain ops, fp32); every launch of (b) to (e) counted on the
    path ``clf``.
 
+The packed-shard and trimodal phases follow (``pak_phase``,
+``trimodal_phase``: their functions say what they hold), then
+
+21. The other backbones, patchout and asynchronous checkpoints (full width;
+   ``backbone_phase``): (a) DeiT (``DEIT_FULL``: both towers DeiT-B/16
+   distilled with exact GELU; the audio tower trained at T = 99 x 12 + 2 =
+   1,190, the image tower frozen at T = 198): ``attention_fwd`` and
+   ``attention_bwd`` in their streaming form and the GELU / GELU' epilogues
+   of ``gemm_bias_act`` / ``gemm_dgrad`` at the step's shapes against their
+   plain versions (the attention at B = 64 and 16, the plain backward at B =
+   64 keeping ≈ 20 GB of [B, 12, 1190, 1190] fp32 tensors); both towers seeded from a synthetic
+   full-width timm file through ``meme_path``, every tensor bitwise the CPU
+   porter's and, but the re-gridded positions, the heads' seeded init and
+   the audio kernel's channel mean, the file's; the step's grads at B = 16
+   held to fp32 by phase 6 (i)'s criterion (the audio embeddings' distance
+   to fp32 printed for the kernels and the plain ops); at B = 64 the launches of one
+   step (path ``deit``), the loss finite and falling over four Adam steps on
+   one batch, ms per step; ``embed_audio`` at batch 64 at row cosine >=
+   0.999 to the plain ops. (b) RN50 (``RN50_FULL``): both towers seeded from
+   a synthetic CLIP RN50 file, every tensor and BatchNorm statistic bitwise
+   the file's but the re-gridded pool grid of the audio tower (7 x 7 ->
+   31 x 4); a step at B = 64 that launches no hand-written kernel (path
+   ``rn50``: ResNet-50 runs none, as the JAX package runs it in XLA), every
+   running statistic moving, the frozen image tower's too, and within 1e-3
+   of a second run's on the plain ops; the engine at cosine >= 0.999 to the
+   plain ops. (c) Patchout (``PATCHOUT_FULL``: 228 of 305 patches kept,
+   T = 229): the step's grads at B = 16 held to fp32 by phase 6 (i)'s
+   criterion (the three runs draw one subset), a resume from a step-1
+   checkpoint bitwise the uninterrupted run over two more steps, the
+   launches of one step at B = 64 (path ``patchout``), its ms in turns beside
+   the step without patchout and the device busy time of both. (d) Asynchronous checkpoints: the VA loop (phase
+   14's config, 128 clips, B = 64, a save at the end of epoch 1) run with
+   ``async_ckpt`` and without, each resumed for epoch 2: the resumed runs'
+   params, LARS buffers and RNG bitwise equal, the save call's ms printed in
+   both modes (path ``async``: the first epoch's launches).
+
 Every kernel's time stands beside its bound, the least time the card could
 take for the same work: the larger of the bytes it must move (each input
 read once, each output written once, taken from the tensors of this run)
@@ -306,7 +342,8 @@ max |plain|, since they sum over thousands of rows in another order.
 Prints a JSON line of per-kernel results (``launches`` is the sum of the
 counts read on each main path (``serve``, ``train``, ``serve_int8``,
 ``train_int8_frozen``, ``probe``, ``caption_train``, ``caption_serve``, ``va_loop``,
-``la_loop``, ``va_loop_dev``, ``serve_files``, ``ckpt``, ``clf``), which ``launches_by_path`` gives apart; ``ms``,
+``la_loop``, ``va_loop_dev``, ``serve_files``, ``ckpt``, ``clf``, ``pak``, ``val``, ``vas``,
+``barlow``, ``deit``, ``rn50``, ``patchout``, ``async``), which ``launches_by_path`` gives apart; ``ms``,
 ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` are those of the
 kernel's first case, its main-path shape; ``cases`` holds each shape's), then, as the last line, ``{"ok": true, "device": {...}}``.
 With phase names, the kernels line also names the phases that ran
@@ -394,7 +431,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 }
 PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
          "caption_serve", "va_loop", "la_loop", "va_loop_dev", "serve_files", "ckpt", "clf", "pak", "val",
-         "vas", "barlow")
+         "vas", "barlow", "deit", "rn50", "patchout", "async")
+# the other backbones and patchout (backbone_phase): the DeiT VA step (the audio tower trainable at
+# T = 99 x 12 + 2 = 1,190, the image tower frozen at T = 14 x 14 + 2 = 198), the RN50 VA step, and
+# the flagship step with patchout 0.25 (305 patches, 228 kept, T = 229)
+DEIT_B, DEIT_T, DEIT_IMAGE_T, PATCHOUT_T = 64, 1190, 198, 229
 # every product shape the paths give gemm_bias_act: (case, M, N, K, activation, residual, fp32
 # pre-activation). The kernel phase holds each to its plain version; experiments/kernel_times.py
 # times each, parent against change.
@@ -433,6 +474,18 @@ GEMM_FWD_CASES = [
     *[(f"image B64 T50 {p}", 64 * 50, N, K, act, res, False)
       for p, N, K, act, res in (("out+res", 768, 768, "none", True), ("proj+res", 768, 3072, "none", True))],
     ("image B64 T50 fc recompute, fp32 preact", 64 * 50, 3072, 768, "quick_gelu", False, True),
+    # backbone_phase: the DeiT step's trained audio tower (exact GELU, M = 76,160) and frozen image
+    # tower (M = 12,672), the patchout step's audio tower (M = 64 x 229 = 14,656)
+    *[(f"{tower} {p}", M, N, K, act, res, pre)
+      for tower, M, mlp in ((f"DeiT audio B64 T{DEIT_T}", DEIT_B * DEIT_T, "gelu"),
+                            (f"DeiT image B64 T{DEIT_IMAGE_T}", DEIT_B * DEIT_IMAGE_T, "gelu"),
+                            (f"patchout audio B64 T{PATCHOUT_T}", 64 * PATCHOUT_T, "quick_gelu"))
+      for p, N, K, act, res, pre in (("qkv", 2304, 768, "none", False, False),
+                                     ("out+res", 768, 768, "none", True, False),
+                                     (f"fc+{mlp}", 3072, 768, mlp, False, False),
+                                     ("proj+res", 768, 3072, "none", True, False),
+                                     (f"fc recompute, fp32 preact ({mlp})", 3072, 768, mlp, False, True))
+      if not (pre and "image" in tower)],
 ]
 # every product shape the training paths give gemm_dgrad: (case, M, N, K, activation whose grad
 # multiplies the product, rounded to bf16). dy [M, K] . w [K, N]: the attention's do = g.Wout and
@@ -444,7 +497,8 @@ GEMM_DGRAD_CASES = [
     (f"{tower} {p}", M, N, K, act, rounded)
     for tower, M, C in (("audio B4 T306", 4 * 306, 768), ("audio B64 T306", 64 * 306, 768),
                         ("caption decoder B64 T77", 64 * 77, 512), ("audio B50 T306", LA_B * 306, 768),
-                        ("image B64 T50", 64 * 50, 768))
+                        ("image B64 T50", 64 * 50, 768), (f"DeiT audio B64 T{DEIT_T}", DEIT_B * DEIT_T, 768),
+                        (f"patchout audio B64 T{PATCHOUT_T}", 64 * PATCHOUT_T, 768))
     for p, N, K, act, rounded in (("do=g.Wout", C, C, "none", True),
                                   ("dh=dqkv.Wqkv fp32", C, 3 * C, "none", False),
                                   ("da=(gy.Wproj)*quick_gelu'(a)", 4 * C, C, "quick_gelu", True),
@@ -485,6 +539,11 @@ LAYERNORM_CASES = [
     ("audio B50 T306", LA_B * 306, 768),                      # the AT step and its eval
     ("text B50 T77", LA_B * 77, 512),                         # the AT step's frozen text tower
     ("text B250 T77 (AT eval, 5 captions a clip)", 5 * LA_B * 77, 512),
+    (f"DeiT audio B64 T{DEIT_T}", DEIT_B * DEIT_T, 768),           # backbone_phase: the DeiT step
+    (f"DeiT image B64 T{DEIT_IMAGE_T}", DEIT_B * DEIT_IMAGE_T, 768),
+    (f"DeiT audio B16 T{DEIT_T}", 16 * DEIT_T, 768),               # its grad check
+    (f"patchout audio B64 T{PATCHOUT_T}", 64 * PATCHOUT_T, 768),  # the patchout step
+    (f"patchout audio B16 T{PATCHOUT_T}", 16 * PATCHOUT_T, 768),
 ]
 # every (rows, C) the training paths give layernorm_bwd (two launches a layer of a trained tower: the
 # attention and the MLP sub-block): (case, rows, C). The backward kernel phase holds it to its plain
@@ -499,6 +558,8 @@ LAYERNORM_BWD_CASES = [
     ("text B1 T308", 308, 512),                    # 4 captions packed
     ("audio B50 T306", LA_B * 306, 768),           # the AT step, M = 15,300
     ("image B64 T50", 64 * 50, 768),               # the trimodal step's tied image tower, M = 3,200
+    (f"DeiT audio B64 T{DEIT_T}", DEIT_B * DEIT_T, 768),           # backbone_phase's trained towers
+    (f"patchout audio B64 T{PATCHOUT_T}", 64 * PATCHOUT_T, 768),
 ]
 # the flash kernel phase's shapes: (case, B, Tq, Tk, H, bias: None, "pack" (4 items of T / 4
 # tokens, block-diagonal) or "causal"); the first is the captioning step's cross-attention.
@@ -521,7 +582,8 @@ COLSUM_CASES = [
     (f"{tower} {p}", M, N, dtype)
     for tower, M, C in (("audio B64 T306", 64 * 306, 768), ("audio B4 T306", 4 * 306, 768),
                         ("caption decoder B64 T77", 64 * 77, 512), ("audio B50 T306", LA_B * 306, 768),
-                        ("image B64 T50", 64 * 50, 768))
+                        ("image B64 T50", 64 * 50, 768), (f"DeiT audio B64 T{DEIT_T}", DEIT_B * DEIT_T, 768),
+                        (f"patchout audio B64 T{PATCHOUT_T}", 64 * PATCHOUT_T, 768))
     for p, N, dtype in (("dbout, dbproj", C, "bf16"), ("dbqkv fp32", 3 * C, "fp32"), ("dbfc", 4 * C, "bf16"))
 ]
 # the towers the int8 paths run, by rows a call: (case, rows, C). Serving: audio at batch 4, 16 and
@@ -553,7 +615,7 @@ DOT_CASES = [
     ("ragged M80 K32 N48", 80, 32, 48),
     ("deep M256 K1024 N384", 256, 1024, 384),
 ]
-ATTENTION_STREAMING_T = (705, 971)  # attention_fwd past the 704 keys it keeps resident
+ATTENTION_STREAMING_T = (705, 971, DEIT_T)  # attention_fwd past the 704 keys it keeps resident
 DECODE_TOL = 0.1  # bf16 per-step logits, KV-cached against re-forward decoding
 DOT_TOL = 1e-3  # dot_variant: fp32 sums of up to 1024 bf16 products, in another order than the plain one
 # H100 SXM data sheet, dense rates: the bounds are stated against these
@@ -852,7 +914,7 @@ def kernel_phase(torch, results):
             raise AssertionError(f"gemm_bias_act {case}: two runs differ")
 
     # attention_fwd's streaming form (T > 704: keys and values pass through the block in tiles of
-    # 64), which no path launches yet (a longer audio input would): held and timed all the same
+    # 64), which the DeiT audio tower launches at T = 1,190 (backbone_phase)
     for T in ATTENTION_STREAMING_T:
         B, C, H = 16, 768, 12
         qkv = rn(B, T, 3 * C)
@@ -4167,6 +4229,464 @@ def trimodal_phase(torch, results):
 
 
 # (name, title, function) of every phase, in the order a whole run takes them
+DEIT_FULL = [  # the DeiT VA step: both towers DeiT-B/16 distilled, meme-seeded
+    "+running=bimodal", "+model/image=deit", "+model/audio=deit", "+model/text=dummy",
+    "+model/loss=ce", "+optimizer=standard", "+running/audio=default", "running.audio.max_len=1000",
+    "worker=CVAP", "model_file=",
+]
+RN50_FULL = [  # the RN50 VA step: CLIP's ModifiedResNet-50 image tower frozen, the audio tower from it
+    "+running=bimodal", "+model/image=rn50_val", "+model/audio=rn50_val", "+model/text=dummy",
+    "+model/loss=ce", "+optimizer=standard", "+running/audio=default", "running.audio.max_len=1000",
+    "worker=CVAP", "model_file=",
+]
+PATCHOUT_FULL = FLAGSHIP + ["model.audio.patchout=0.25"]
+RN50_NAME = "synthetic-RN50"  # not a zoo name: loaded by the {root}/{name}.pt convention
+# the DeiT grad check, phase 6 (i)'s batch: the plain fp32 attention keeps 1.1 GB of scores a layer. The last
+# layers' bias grads sum the cls and dist rows only (2 B of them), so at B = 8 the gate reads the bf16 forward's
+# rounding on 16 rows, on the plain ops as on the kernels (vipant_tpu_torch/experiments/deit_grad_gap.py)
+DEIT_GRAD_B = 16
+ASYNC_TRAIN, ASYNC_EVAL = 128, 16  # (d)'s index: two steps an epoch at B = 64
+
+
+def synthetic_deit_state_dict(torch, seed=0, width=768, layers=12, grid=196, classes=1000):
+    """A timm ``deit_base_distilled_patch16_224`` state dict drawn from
+    ``seed`` at full width by default (768, 12 layers, 14 x 14 patches of
+    16, 1000 classes): ViT-style scales, LayerNorm gains near 1. fp32,
+    about 350 MB."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def normal(name, shape, std, mean=0.0):
+        sd[name] = torch.randn(shape, generator=g) * std + mean
+
+    normal("pos_embed", (1, grid + 2, width), 0.02)
+    normal("cls_token", (1, 1, width), 0.02)
+    normal("dist_token", (1, 1, width), 0.02)
+    normal("patch_embed.proj.weight", (width, 3, 16, 16), (3 * 16 * 16) ** -0.5)
+    normal("patch_embed.proj.bias", (width,), 0.02)
+    for i in range(layers):
+        b = f"blocks.{i}."
+        for name, shape, std in (("attn.qkv", (3 * width, width), width ** -0.5),
+                                 ("attn.proj", (width, width), (2 * width * layers) ** -0.5),
+                                 ("mlp.fc1", (4 * width, width), width ** -0.5),
+                                 ("mlp.fc2", (width, 4 * width), (8 * width * layers) ** -0.5)):
+            normal(b + name + ".weight", shape, std)
+            normal(b + name + ".bias", shape[:1], 0.02)
+        for ln in ("norm1", "norm2"):
+            normal(b + ln + ".weight", (width,), 0.02, 1.0)
+            normal(b + ln + ".bias", (width,), 0.02)
+    normal("norm.weight", (width,), 0.02, 1.0)
+    normal("norm.bias", (width,), 0.02)
+    for head in ("head", "head_dist"):
+        normal(head + ".weight", (classes, width), width ** -0.5)
+        normal(head + ".bias", (classes,), 0.02)
+    return sd
+
+
+def synthetic_clip_rn50_state_dict(torch, seed=0, layers=(3, 4, 6, 3), width=64, emb=1024, grid=7):
+    """The visual half of a CLIP RN50 state dict (ModifiedResNet-50: stem
+    width 64, stages (3, 4, 6, 3), attention pool over a 7 x 7 grid at
+    width 2048, 32 heads, embedding 1024) plus ``logit_scale``, drawn from
+    ``seed``; BatchNorm statistics away from (0, 1). fp32, about 150 MB."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[f"visual.{name}.weight"] = torch.randn(cout, cin, k, k, generator=g) * (cin * k * k) ** -0.5
+
+    def bn(name, c):
+        sd[f"visual.{name}.weight"] = 1 + 0.1 * torch.randn(c, generator=g)
+        sd[f"visual.{name}.bias"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"visual.{name}.running_mean"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"visual.{name}.running_var"] = 0.5 + torch.rand(c, generator=g)
+        sd[f"visual.{name}.num_batches_tracked"] = torch.tensor(0)
+
+    for i, (cout, cin) in enumerate(((width // 2, 3), (width // 2, width // 2), (width, width // 2)), 1):
+        conv(f"conv{i}", cout, cin, 3)
+        bn(f"bn{i}", cout)
+    inplanes = width
+    for s, blocks in enumerate(layers):
+        planes = width * 2 ** s
+        for b in range(blocks):
+            p = f"layer{s + 1}.{b}"
+            conv(f"{p}.conv1", planes, inplanes, 1)
+            bn(f"{p}.bn1", planes)
+            conv(f"{p}.conv2", planes, planes, 3)
+            bn(f"{p}.bn2", planes)
+            conv(f"{p}.conv3", planes * 4, planes, 1)
+            bn(f"{p}.bn3", planes * 4)
+            if b == 0:
+                conv(f"{p}.downsample.0", planes * 4, inplanes, 1)
+                bn(f"{p}.downsample.1", planes * 4)
+            inplanes = planes * 4
+    C = width * 32
+    sd["visual.attnpool.positional_embedding"] = torch.randn(grid * grid + 1, C, generator=g) * C ** -0.5
+    for name, out in (("q_proj", C), ("k_proj", C), ("v_proj", C), ("c_proj", emb)):
+        sd[f"visual.attnpool.{name}.weight"] = torch.randn(out, C, generator=g) * C ** -0.5
+        sd[f"visual.attnpool.{name}.bias"] = 0.02 * torch.randn(out, generator=g)
+    sd["logit_scale"] = torch.tensor(float(np.log(1 / 0.07)))
+    return sd
+
+
+def _ported_vs_tower(torch, tower, ported, own_names):
+    """``(names not bitwise the CPU porter's tensor, names whose tensor is
+    not the file's)``: ``ported`` the porter's CPU state dict, ``own_names``
+    tower name -> the file's tensor for the tensors that are the file's
+    unchanged."""
+    sd = {**dict(tower.named_parameters()), **dict(tower.named_buffers())}
+    off_port = [k for k, t in sd.items() if not torch.equal(t.detach().cpu(), ported[k])]
+    off_file = [k for k, v in own_names.items() if not torch.equal(sd[k].detach().cpu(), v)]
+    return off_port, off_file
+
+
+def _step_launches(fwd_blocks, bwd_blocks):
+    """The launches of one training step whose towers run ``fwd_blocks``
+    sub-block pairs forward and ``bwd_blocks`` backward (train_phase's
+    count)."""
+    return {
+        "fused_ln_attention_block": fwd_blocks, "fused_ln_mlp_block": fwd_blocks,
+        "fused_ln_attention_block_bwd": bwd_blocks, "fused_ln_mlp_block_bwd": bwd_blocks,
+        "layernorm_fwd": 2 * fwd_blocks + 2 * bwd_blocks, "gemm_bias_act": 4 * fwd_blocks + bwd_blocks,
+        "attention_fwd": fwd_blocks, "attention_bwd": bwd_blocks, "layernorm_bwd": 2 * bwd_blocks,
+        "colsum": 4 * bwd_blocks, "gemm_dgrad": 4 * bwd_blocks, "gemm_wgrad": 4 * bwd_blocks,
+    }
+
+
+def _count_step(torch, tr, batch, want, path, results):
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+
+    reset_launches()
+    m = tr.train_step(*batch)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    if counts != want:
+        raise AssertionError(f"{path}: launch counts {counts} != expected {want}")
+    record_launches(results, path, counts)
+    return float(m["loss"])
+
+
+def _step_ms(torch, tr, batch, reps=3):
+    return cuda_ms(torch, lambda: tr.train_step(*batch), reps, 1)
+
+
+def _print_profile(torch, label, fn, top=8):
+    """The device busy time of ``fn`` (one training step) per call and its
+    top kernels by device time, from a ``torch.profiler`` trace."""
+    busy, span, by_name = _profile(torch, fn)
+    print(f"{label}: device busy {busy:.2f} ms / span {span:.2f} ms a step (idle "
+          f"{100 * (1 - busy / span):.1f} % of the traced span); top kernels by device time a step:")
+    for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"    {d / 3:9.3f} ms  {n // 3:5d}x  {name[:90]}")
+
+
+def backbone_phase(torch, results):
+    """(a) DeiT, (b) RN50, (c) patchout, (d) asynchronous checkpoints; see
+    the module docstring."""
+    import os
+    import shutil
+    import tempfile
+
+    from vipant_tpu_torch.ckpt.clip_port import port_clip_resnet, split_clip_state_dict
+    from vipant_tpu_torch.ckpt.deit_port import _BLOCK, port_deit
+    from vipant_tpu_torch.ops import LAUNCHES, kernels, reset_launches
+    from vipant_tpu_torch.serve import InferenceEngine
+    from vipant_tpu_torch.train import Trainer, loss_and_grads
+
+    smi = _smi()
+    root = tempfile.mkdtemp(prefix="vipant_backbones_")
+    try:
+        # (a) DeiT: the streaming attention and the GELU epilogues at the step's shapes
+        rn = _seeded(torch)
+        T, C, H = DEIT_T, 768, 12
+        for B in (DEIT_B, 16):  # the step's batch, and the grad check's
+            qkv, do = rn(B, T, 3 * C), rn(B, T, C)
+            o, stats = kernels.attention_fwd(qkv, None, H, 0.125, stats=True)
+            compare(torch, results, "attention_fwd", f"DeiT audio B{B} T{T} C{C} H{H}, streaming",
+                    lambda: kernels.attention_fwd(qkv, None, H, 0.125),
+                    lambda: kernels.attention_plain(qkv, None, H, 0.125), reads=(qkv,),
+                    ops=attn_ops(B, T, H), library=_sdpa(torch, qkv, None, H, 0.125), iters=3)
+            compare(torch, results, "attention_bwd", f"DeiT audio B{B} T{T} C{C} H{H}, streaming",
+                    lambda: kernels.attention_bwd(qkv, do, None, H, 0.125, stats),
+                    lambda: kernels.attention_bwd_plain(qkv, do, None, H, 0.125), reads=(qkv, do, stats),
+                    ops=attn_ops(B, T, H, products=5), library=_sdpa_bwd(torch, qkv, None, H, 0.125, do),
+                    iters=3)
+            if not torch.equal(kernels.attention_bwd(qkv, do, None, H, 0.125, stats)[0],
+                               kernels.attention_bwd(qkv, do, None, H, 0.125, stats)[0]):
+                raise AssertionError(f"attention_bwd at B{B} T{T}: two runs differ")
+            del qkv, do, o, stats
+            torch.cuda.empty_cache()
+        M = DEIT_B * DEIT_T
+        x, w, b = rn(M, C), rn(4 * C, C, std=C ** -0.5), rn(4 * C, std=0.02, dtype=torch.float32)
+        compare(torch, results, "gemm_bias_act", f"DeiT audio B64 T{T} fc+gelu [M={M}]",
+                lambda: kernels.gemm_bias_act(x, w, b, act="gelu"),
+                lambda: kernels.gemm_bias_act_plain(x, w, b, act="gelu"), reads=(x, w, b),
+                ops=gemm_ops(M, 4 * C, C), library=lambda: torch.nn.functional.gelu(
+                    torch.nn.functional.linear(x, w, b.to(x.dtype))), iters=5)
+        # the MLP backward's da = (gy . Wproj) * gelu'(a): gy [M, C], Wproj [C, 4C] as stored, a fp32
+        gy, wp, a = rn(M, C), rn(C, 4 * C, std=(4 * C) ** -0.5), rn(M, 4 * C, dtype=torch.float32)
+        compare(torch, results, "gemm_dgrad", f"DeiT audio B64 T{T} da=(gy.Wproj)*gelu'(a) [M={M}]",
+                lambda: kernels.gemm_dgrad(gy, wp, True, "gelu", a),
+                lambda: kernels.gemm_dgrad_plain(gy, wp, True, "gelu", a), reads=(gy, wp, a),
+                ops=gemm_ops(M, 4 * C, C), library=lambda: torch.matmul(gy, wp), iters=5)
+        del x, w, b, gy, wp, a
+        torch.cuda.empty_cache()
+
+        # the meme file, the trainer seeded from it, the step's towers against the porter
+        t0 = time.perf_counter()
+        meme = synthetic_deit_state_dict(torch)
+        meme_path = os.path.join(root, "deit_base_distilled_patch16_224.pth")
+        torch.save(meme, meme_path)
+        deit = DEIT_FULL + [f"model.image.meme_path={meme_path}", f"model.audio.meme_path={meme_path}",
+                            f"alias_root={root}", f"model_root={root}"]
+        print(f"(a) synthetic timm DeiT-B/16 distilled file: "
+              f"{os.path.getsize(meme_path) / 2 ** 20:.0f} MiB, written in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        tr = Trainer(deit + [f"running.batch_size={DEIT_GRAD_B}"], steps_per_epoch=STEPS_PER_EPOCH)
+        kept = {"cls_token": "cls_token", "dist_token": "dist_token", "norm.weight": "norm.weight",
+                "norm.bias": "norm.bias", "patch_embed.bias": "patch_embed.proj.bias",
+                **{f"blocks.resblocks.{i}.{port}": f"blocks.{i}.{timm}"
+                   for i in range(len(tr.model.audio.blocks.resblocks)) for timm, port in _BLOCK.items()}}
+        for name in ("image", "audio"):
+            tower = getattr(tr.model, name)
+            own = {k: meme[v].reshape(-1) if v.endswith("_token") else meme[v] for k, v in kept.items()}
+            if name == "image":
+                own["patch_embed.weight"] = meme["patch_embed.proj.weight"]
+            off_port, off_file = _ported_vs_tower(torch, tower, port_deit(meme, tower), own)
+            if off_port or off_file:
+                raise AssertionError(f"the meme-seeded {name} tower: not the porter's {off_port[:5]}, "
+                                     f"not the file's {off_file[:5]}")
+            print(f"(a) meme -> {name} tower (grid {tower.grid}, T = {tower.grid[0] * tower.grid[1] + 2}): "
+                  f"every tensor bitwise the CPU porter's; {len(own)} of "
+                  f"{len(list(tower.parameters()))} bitwise the file's (the rest: the re-gridded "
+                  f"positions, the heads' seeded init{', the channel mean of the kernel' if name == 'audio' else ''})")
+        g = torch.Generator().manual_seed(3)
+        batch = tr.make_batch(torch.randn(DEIT_GRAD_B, 3, 224, 224, generator=g).numpy(),
+                              torch.randn(DEIT_GRAD_B, 1, 1000, 128, generator=g).numpy())
+        loss_k, g_k = loss_and_grads(tr.state, *batch)
+        with torch.no_grad():
+            emb_k = tr.model.encode_audio(batch[1])
+            with plain_ops():
+                emb_p = tr.model.encode_audio(batch[1])
+        with plain_ops():
+            loss_p, g_p = loss_and_grads(tr.state, *batch)
+            ref = Trainer(deit + [f"running.batch_size={DEIT_GRAD_B}", "compute_dtype=float32"],
+                          steps_per_epoch=STEPS_PER_EPOCH)
+            loss_f, g_f = loss_and_grads(ref.state, *batch)
+            with torch.no_grad():
+                emb_f = ref.model.encode_audio(batch[1]).float()
+        del ref
+        err = {n: ((e.float() - emb_f).norm(dim=-1) / emb_f.norm(dim=-1)).max().item()
+               for n, e in (("kernels", emb_k), ("plain", emb_p))}
+        print(f"(a) DeiT audio embeddings at B={DEIT_GRAD_B}, eval: max relative distance to fp32 "
+              f"kernels {err['kernels']:.6f}, plain {err['plain']:.6f}")
+        hold_grads_to_fp32(torch, f"(a) DeiT B={DEIT_GRAD_B} T={DEIT_T}", "DeiT VA",
+                           (loss_k, g_k), (loss_p, g_p), (loss_f, g_f))
+        del g_k, g_p, g_f, tr, batch
+        torch.cuda.empty_cache()
+
+        tr = Trainer(deit + [f"running.batch_size={DEIT_B}", "optimizer.use_lars=False",
+                             "optimizer.warmup=False", "optimizer.lr=1.0e-4"], steps_per_epoch=STEPS_PER_EPOCH)
+        g = torch.Generator().manual_seed(4)
+        images = torch.randn(DEIT_B, 3, 224, 224, generator=g).numpy()
+        audios = torch.randn(DEIT_B, 1, 1000, 128, generator=g).numpy()
+        batch = tr.make_batch(images, audios)
+        losses = [_count_step(torch, tr, batch, _step_launches(24, 12), "deit", results)]
+        losses += [float(tr.train_step(*batch)["loss"]) for _ in range(3)]
+        ms = _step_ms(torch, tr, batch)
+        torch.cuda.reset_peak_memory_stats()
+        tr.train_step(*batch)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"(a) DeiT VA step B={DEIT_B} (audio T={DEIT_T} trained, image T={DEIT_IMAGE_T} frozen), "
+              f"Adam lr 1e-4 on one batch: losses {[round(v, 5) for v in losses]}; {ms:.2f} ms/step "
+              f"({DEIT_B / ms * 1e3:.1f} clips/s), peak {peak:.2f} GiB ({smi}); the plain ops are not "
+              f"timed at B={DEIT_B}: their fp32 scores take 4.35 GB a layer")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"DeiT step: the loss is not finite and falling: {losses}")
+        results["_deit_step_ms"] = ms
+        _print_profile(torch, f"(a) DeiT step B={DEIT_B}, profiler", lambda: tr.train_step(*batch))
+        del tr, batch
+        torch.cuda.empty_cache()
+        eng = InferenceEngine(deit, batch_size=DEIT_B, seed=0)
+        fb = audios[:, 0]
+        reset_launches()
+        got = eng.embed_audio(fb)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        with plain_ops():
+            want = eng.embed_audio(fb)
+        cos = _row_cos(got, want).min()
+        t_k = _timed_ms(torch, lambda: eng.embed_audio(fb), 3)
+        with plain_ops():
+            t_p = _timed_ms(torch, lambda: eng.embed_audio(fb), 3)
+        print(f"(a) DeiT engine embed_audio at batch {DEIT_B}: min cosine to the plain ops {cos:.6f}; "
+              f"{t_k:.2f} ms a batch, plain {t_p:.2f} ms ({smi}); launches {json.dumps(counts, sort_keys=True)}")
+        if not (np.isfinite(got).all() and cos >= COS_MIN):
+            raise AssertionError(f"DeiT engine: cosine {cos} to the plain ops")
+        for k, n in counts.items():
+            results.setdefault(k, {"max_abs_err": 0.0, "cases": [], "launches": {}})
+            results[k]["launches"]["deit"] = results[k]["launches"].get("deit", 0) + n
+        del eng
+        torch.cuda.empty_cache()
+
+        # (b) RN50: CLIP-seeded towers, a step with the statistics moving, an engine
+        clip = synthetic_clip_rn50_state_dict(torch)
+        torch.save(clip, os.path.join(root, RN50_NAME + ".pt"))
+        rn50 = RN50_FULL + [f"running.clip_model_root={root}", f"running.clip_model_name={RN50_NAME}",
+                            f"alias_root={root}", f"model_root={root}", f"running.batch_size=64"]
+        visual = split_clip_state_dict(clip)[0]
+        trs = {}
+        for label, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_ops)):
+            torch.cuda.empty_cache()
+            tr = Trainer(rn50, steps_per_epoch=STEPS_PER_EPOCH)
+            if label == "kernels":
+                for name in ("image", "audio"):
+                    tower = getattr(tr.model, name)
+                    ported = port_clip_resnet(visual, tower)
+                    from_file = {k: v for k, v in ported.items() if k != "post_encoder.positional_embedding"}
+                    off_port, off_file = _ported_vs_tower(torch, tower, ported, from_file)
+                    if off_port or off_file:
+                        raise AssertionError(f"CLIP RN50 -> {name}: not the porter's {off_port[:5]}, "
+                                             f"not the file's {off_file[:5]}")
+                    print(f"(b) CLIP RN50 -> {name} tower (grid {tower.grid}): every tensor and BatchNorm "
+                          f"statistic bitwise the file's but the pool's positional grid "
+                          f"({'7 x 7, kept' if tower.grid == (7, 7) else 're-gridded from 7 x 7'})")
+                g = torch.Generator().manual_seed(5)
+                batch = tr.make_batch(torch.randn(64, 3, 224, 224, generator=g).numpy(),
+                                      torch.randn(64, 1, 1000, 128, generator=g).numpy())
+                before = {k: b.clone() for k, b in tr.model.named_buffers()}
+            with ctx():
+                reset_launches()
+                m = tr.train_step(*batch)
+                torch.cuda.synchronize()
+                if label == "kernels":
+                    if LAUNCHES:
+                        raise AssertionError(f"the RN50 step launched hand-written kernels: {dict(LAUNCHES)}")
+                    record_launches(results, "rn50", {})
+            trs[label] = (tr, float(m["loss"]))
+        (tk, lk), (tp, lp) = trs["kernels"], trs["plain"]
+        moved = [k for k, b in tk.model.named_buffers() if not torch.equal(b, before[k])]
+        gap = max((b - dict(tp.model.named_buffers())[k]).abs().max().item()
+                  for k, b in tk.model.named_buffers())
+        del tp, trs
+        ms = _step_ms(torch, tk, batch)
+        print(f"(b) RN50 VA step B=64: loss {lk:.6f}, plain run {lp:.6f}; {len(moved)} of "
+              f"{len(before)} running statistics moved (the frozen image tower's too: "
+              f"{sum(k.startswith('image.') for k in moved)}), max |d| to the plain run's {gap:.3e}; "
+              f"{ms:.2f} ms/step ({64 / ms * 1e3:.1f} clips/s, {smi}); no hand-written kernel "
+              f"(convolutions, BatchNorm and the pool are PyTorch's)")
+        if not (np.isfinite(lk) and abs(lk - lp) <= REL * abs(lp) and len(moved) == len(before)
+                and gap <= 1e-3):
+            raise AssertionError("RN50 step: the loss or the statistics differ from the plain run's")
+        results["_rn50_step_ms"] = ms
+        _print_profile(torch, "(b) RN50 step B=64, profiler", lambda: tk.train_step(*batch))
+        del tk, tr, batch
+        torch.cuda.empty_cache()
+        eng = InferenceEngine(rn50, batch_size=64, seed=0)
+        got_a, got_i = eng.embed_audio(audios[:, 0]), eng.embed_images(images)
+        with plain_ops():
+            want_a, want_i = eng.embed_audio(audios[:, 0]), eng.embed_images(images)
+        cos = min(_row_cos(got_a, want_a).min(), _row_cos(got_i, want_i).min())
+        t_a = _timed_ms(torch, lambda: eng.embed_audio(audios[:, 0]), 3)
+        print(f"(b) RN50 engine at batch 64 (BatchNorm on the stored statistics): min cosine to the "
+              f"plain ops {cos:.6f}; embed_audio {t_a:.2f} ms a batch ({smi})")
+        if not (np.isfinite(got_a).all() and cos >= COS_MIN):
+            raise AssertionError(f"RN50 engine: cosine {cos}")
+        del eng
+        torch.cuda.empty_cache()
+
+        # (c) patchout: the flagship step at T = 229 against its plain version; a resume
+        tr = _trainer(torch, 16, "model.audio.patchout=0.25", f"alias_root={root}", f"model_root={root}",
+                      "model_name=patchout")
+        batch = _va_batch(tr, np.random.default_rng(6), 16)
+        rng_state = tr.state.generator.get_state()
+        loss_k, g_k = loss_and_grads(tr.state, *batch)
+        tr.state.generator.set_state(rng_state)  # the plain run draws the same patches
+        with plain_ops():
+            loss_p, g_p = loss_and_grads(tr.state, *batch)
+            ref = _trainer(torch, 16, "model.audio.patchout=0.25", "compute_dtype=float32")
+            loss_f, g_f = loss_and_grads(ref.state, *batch)
+        del ref
+        hold_grads_to_fp32(torch, f"(c) patchout B=16 T={PATCHOUT_T}", "patchout VA",
+                           (loss_k, g_k), (loss_p, g_p), (loss_f, g_f))
+        del g_k, g_p, g_f
+        tr.state.generator.set_state(rng_state)
+        tr.train_step(*batch)
+        tr.global_step = tr.state.step
+        tr.save()
+        after = [float(tr.train_step(*batch)["loss"]) for _ in range(2)]
+        snap = _snapshot(tr)
+        resumed = _trainer(torch, 16, "model.audio.patchout=0.25", f"alias_root={root}",
+                           f"model_root={root}", "model_name=patchout", "model_file=00000001")
+        again = [float(resumed.train_step(*batch)["loss"]) for _ in range(2)]
+        diff, what = _resume_diff(torch, resumed, snap)
+        print(f"(c) patchout resume from step 1: losses {after} uninterrupted, {again} resumed; "
+              f"{what} bitwise: {not diff}")
+        if diff or again != after:
+            raise AssertionError(f"patchout: the resumed run differs: {sorted(diff)[:5]}")
+        del tr, resumed, batch
+        torch.cuda.empty_cache()
+        tr = _trainer(torch, 64, "model.audio.patchout=0.25")
+        batch = _va_batch(tr, np.random.default_rng(7), 64)
+        _count_step(torch, tr, batch, _step_launches(24, 12), "patchout", results)
+        base = _trainer(torch, 64)
+        turns = [_step_ms(torch, t, batch, reps=10) for t in (tr, base, base, tr)]
+        busy = [_profile(torch, lambda t=t: t.train_step(*batch))[0] for t in (tr, base)]
+        ms = (turns[0] + turns[3]) / 2
+        print(f"(c) patchout step B=64 (audio T={PATCHOUT_T} of 306), turns: {turns[0]:.2f}, {turns[3]:.2f} "
+              f"ms/step ({64 / ms * 1e3:.1f} clips/s) beside {turns[1]:.2f}, {turns[2]:.2f} without "
+              f"patchout; device busy a step {busy[0]:.2f} against {busy[1]:.2f} ms ({smi})")
+        results["_patchout_step_ms"] = ms
+        del tr, base, batch
+        torch.cuda.empty_cache()
+
+        # (d) asynchronous checkpoints: a resume from an async save is the sync-saved run's
+        import vipant_tpu_torch.train.trainer as trainer_mod
+
+        data = os.path.join(root, "data")
+        write_synthetic_va(data, "train", ASYNC_TRAIN, seed=0)
+        write_synthetic_va(data, "val", ASYNC_EVAL, seed=1)
+        snaps, issue_ms = {}, {}
+        save = trainer_mod.save_checkpoint
+        for mode in ("sync", "async"):
+            run = os.path.join(root, f"run_{mode}")
+            times = []
+
+            def timed(*a, **kw):
+                t = time.perf_counter()
+                out = save(*a, **kw)
+                times.append((time.perf_counter() - t) * 1e3)
+                return out
+
+            trainer_mod.save_checkpoint = timed
+            try:
+                reset_launches()
+                a = _loop_trainer(torch, data, run, f"async_ckpt={mode == 'async'}", "running.epochs=1",
+                                  "running.eval_name=", "keep_last_ckpts=0")
+                a.learn()
+                torch.cuda.synchronize()
+                record_launches(results, "async", dict(LAUNCHES))
+                del a
+                b = _loop_trainer(torch, data, run, f"async_ckpt={mode == 'async'}", "running.eval_name=",
+                                  "keep_last_ckpts=0", f"model_file={ASYNC_TRAIN // LOOP_B:08d}")
+                b.learn()
+            finally:
+                trainer_mod.save_checkpoint = save
+            snaps[mode], issue_ms[mode] = _snapshot(b), times
+            del b
+            torch.cuda.empty_cache()
+        diff = {k: v for k, v in ((k, not torch.equal(p, snaps["sync"][0][k]))
+                                  for k, p in snaps["async"][0].items()) if v}
+        same_rng = torch.equal(snaps["sync"][2], snaps["async"][2])
+        print(f"(d) the VA loop, {ASYNC_TRAIN} clips at B={LOOP_B}, a save at each epoch's end: the save "
+              f"call took {[round(t, 1) for t in issue_ms['async']]} ms async (it returns once the state "
+              f"is in host memory), {[round(t, 1) for t in issue_ms['sync']]} ms sync ({smi}); the run "
+              f"resumed from the async save bitwise the sync-saved run's: {not diff and same_rng}")
+        if diff or not same_rng:
+            raise AssertionError(f"async checkpoints: the resumed runs differ on {sorted(diff)[:5]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = (
     ("kernel_phase", "kernel phase (forward kernels vs plain PyTorch on the card)", kernel_phase),
     ("backward_kernel_phase", "backward kernel phase (vs plain PyTorch on the card)",
@@ -4187,6 +4707,8 @@ PHASES = (
     ("clf_phase", "classification (ESC-50 x-fold, AudioSet, full width)", clf_phase),
     ("pak_phase", "packed shards (pak VA, AT and AudioSet; the one-gather batch path)", pak_phase),
     ("trimodal_phase", "trimodal, siamese and Barlow training (full width)", trimodal_phase),
+    ("backbone_phase", "the other backbones (DeiT, RN50), patchout and asynchronous checkpoints "
+     "(full width)", backbone_phase),
 )
 
 

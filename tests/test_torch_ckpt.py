@@ -232,7 +232,7 @@ def test_port_audio_from_audio_matches_jax(clip_sd, target, use_slice, regridded
 
 def test_a_clip_resnet_state_dict_is_refused_by_name():
     _, pt = towers("image")
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="ResNet"):  # into a ViT tower; a ResNet tower takes them
         clip_port.port_clip_visual({"conv1.weight": torch.zeros(1), "layer1.0.conv1.weight":
                                     torch.zeros(1), "attnpool.positional_embedding": torch.zeros(1)}, pt)
 

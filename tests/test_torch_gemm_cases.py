@@ -101,6 +101,39 @@ def test_cases_hold_the_tied_image_tower_at_its_own_rows():
     assert {(M, N, K) for N, K in _dgrad_products(C)} <= dgrad
 
 
+def backbone_rows():
+    """Rows of ``backbone_phase``'s steps at B = 64, from their configs: the
+    DeiT audio tower (trained, T = grid + 2 prefix tokens), the DeiT image
+    tower (frozen) and the patchout audio tower (trained, T = kept patches
+    + 1)."""
+    from vipant_tpu_torch.nn.heads import build_audio_head, build_image_head
+
+    deit = compose(chip_smoke.DEIT_FULL)
+    t_audio, t_image = (g[0] * g[1] + 2 for g in (build_audio_head(deit.model.audio, device="meta").grid,
+                                                  build_image_head(deit.model.image, device="meta").grid))
+    po = compose(chip_smoke.PATCHOUT_FULL)
+    tower = build_audio_head(po.model.audio, device="meta")
+    n = tower.grid[0] * tower.grid[1]
+    t_patch = max(int(n * (1.0 - tower.patchout)), 1) + 1
+    return chip_smoke.DEIT_B * t_audio, chip_smoke.DEIT_B * t_image, 64 * t_patch
+
+
+def test_cases_hold_the_backbone_steps_at_their_own_rows():
+    audio, image, patch = backbone_rows()
+    assert (audio, image, patch) == (64 * 1190, 64 * 198, 64 * 229)
+    have = {(M, N, K, act, pre) for _, M, N, K, act, _, pre in CASES}
+    dgrad = {(M, N, K, act) for _, M, N, K, act, _ in DGRAD_CASES}
+    C = 768
+    for M, mlp, trained in ((audio, "gelu", True), (image, "gelu", False), (patch, "quick_gelu", True)):
+        want = {(M, 3 * C, C, "none", False), (M, C, C, "none", False), (M, 4 * C, C, mlp, False),
+                (M, C, 4 * C, "none", False)}
+        assert want <= have, (M, sorted(want - have))
+        if trained:  # the MLP backward's recomputed fc and the act-grad product
+            assert (M, 4 * C, C, mlp, True) in have
+            assert {(M, N, K) for N, K in _dgrad_products(C)} <= {c[:3] for c in dgrad}
+            assert (M, 4 * C, C, mlp) in dgrad
+
+
 def test_the_decode_runs_the_decoder_mlp_at_every_batch():
     C = int(compose(chip_smoke.CAPTION_FULL).model.text.width)
     decode = {(M, N, K) for case, M, N, K, *_ in CASES if "decode T=1" in case}

@@ -26,10 +26,10 @@ tests/data_synth.py, on the CPU:
   batches bitwise the JAX ones (the prompt, a truncated caption that keeps
   its EOT, the cyclic pad of a clip with fewer captions, the warning for a
   clip with none, ``np_rnd`` under one seed);
-- the refusals: ``running.dataloader=lv`` and a ``pak*`` dataset are ported
-  (the monitor reaches their loaders: a missing index or pack raises
-  ``FileNotFoundError``),
-  the gradient cache (A15) and ``async_ckpt`` (A7's remainder).
+- the refusals: ``running.dataloader=lv``, a ``pak*`` dataset and
+  ``async_ckpt`` are ported (the monitor reaches their loaders: a missing
+  index or pack raises ``FileNotFoundError``); the gradient cache (A15) is
+  refused.
 """
 
 import json
@@ -395,7 +395,9 @@ def test_a_short_clip_pads_its_captions_cyclically(data):
     pytest.param(["running.data_name=pak_clotho"], FileNotFoundError, "pak_clotho.pak",
                  id="extra1-A11"),
     pytest.param(["running.grad_cache.alive=True"], NotImplementedError, "A15", id="extra2-A15"),
-    pytest.param(["async_ckpt=True"], NotImplementedError, "A7", id="extra3-A7"),
+    # ported: async_ckpt builds and the pack is reached
+    pytest.param(["async_ckpt=True", "running.data_name=pak_clotho"], FileNotFoundError,
+                 "pak_clotho.pak", id="extra3-A7"),
 ])
 def test_what_is_not_ported_is_refused_by_name(data, tmp_path, extra, error, item):
     with pytest.raises(error, match=item):

@@ -8,7 +8,9 @@ resume, a pak VA run (the packing CLI, then a training epoch on the pack)
 and a ``CVALP`` step with tied stages, or an epoch with the device frontend (int16 waveforms, uint8
 frames) followed by the file entry points and a request to the HTTP server,
 on the CPU, or an engine seeded from a CLIP file with a training step
-whose save writes a reference ``.pth`` that a second engine serves, and
+whose save writes a reference ``.pth`` that a second engine serves, or a
+ResNet, a meme-seeded DeiT and a patchout ViT step saved asynchronously and
+served, and
 never imports jax, jaxlib, flax, optax or any module of ``vipant_tpu``; the
 command lines ``python -m vipant_tpu_torch
 platform=cpu`` (an ``LAMonitor`` step; docs/recipes.md's ESC-50 zero-shot
@@ -284,6 +286,58 @@ print("ok")
 """
 
 
+BACKBONE_SCRIPT = """
+import os, sys, tempfile
+import numpy as np
+import torch
+from vipant_tpu_torch.serve import InferenceEngine
+from vipant_tpu_torch.train import Trainer
+from vipant_tpu_torch.train.checkpoint import wait_for_saves
+
+root = tempfile.mkdtemp()
+base = ["+running=bimodal", "+model/text=dummy", "+model/loss=ce", "+optimizer=standard",
+        "+running/audio=default", "worker=CVAP", "optimizer.warmup_epoch=0",
+        f"alias_root={root}", f"model_root={root}", "model_name=m", "async_ckpt=True"]
+rn = ["+model/image=rn50_val", "+model/audio=rn50_val", "model.image.width=16",
+      "model.image.embed_dim=32", "model.image.encoder.layers=[1,1,1,1]", "model.image.heads=8",
+      "model.audio.heads=8", "model.image.resolution=64", "running.audio.max_len=96"]
+w = 64
+sd = {"pos_embed": torch.randn(1, 6, w), "cls_token": torch.randn(1, 1, w),
+      "dist_token": torch.randn(1, 1, w), "patch_embed.proj.weight": torch.randn(w, 3, 16, 16),
+      "patch_embed.proj.bias": torch.randn(w), "norm.weight": torch.ones(w), "norm.bias": torch.zeros(w)}
+for k, shape in (("attn.qkv.weight", (3 * w, w)), ("attn.qkv.bias", (3 * w,)), ("attn.proj.weight", (w, w)),
+                 ("attn.proj.bias", (w,)), ("norm1.weight", (w,)), ("norm1.bias", (w,)),
+                 ("norm2.weight", (w,)), ("norm2.bias", (w,)), ("mlp.fc1.weight", (4 * w, w)),
+                 ("mlp.fc1.bias", (4 * w,)), ("mlp.fc2.weight", (w, 4 * w)), ("mlp.fc2.bias", (w,))):
+    sd[f"blocks.0.{k}"] = 0.05 * torch.randn(*shape)
+torch.save(sd, os.path.join(root, "deit.pth"))
+deit = ["+model/image=deit", "+model/audio=deit", "model.image.resolution=32", "model.image.embed_dim=32",
+        "running.audio.max_len=64", f"model.image.meme_path={root}/deit.pth",
+        f"model.audio.meme_path={root}/deit.pth",
+        *[f"model.{t}.{k}={v}" for t in ("image", "audio") for k, v in (("width", w), ("layers", 1), ("heads", 4))]]
+vit = ["+model/image=vit_val", "+model/audio=vit_val", "model.audio.pre_encoder.stride=[16,24]",
+       "running.audio.max_len=100", "model.image.width=64", "model.image.embed_dim=32",
+       "model.image.encoder.layers=1", "model.image.heads=4", "model.audio.patchout=0.25"]
+r = np.random.default_rng(0)
+for over, res in ((rn, 64), (deit, 32), (vit, 224)):
+    tr = Trainer(base + over + ["model_file="], device="cpu", steps_per_epoch=10)
+    cfg = tr.cfg
+    batch = tr.make_batch(r.standard_normal((4, 3, res, res)).astype(np.float32),
+                          r.standard_normal((4, 1, *cfg.model.audio.resolution)).astype(np.float32))
+    m = tr.train_step(*batch)
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    tr.global_step = tr.state.step
+    tr.save()
+    wait_for_saves()
+    eng = InferenceEngine(base + over + ["model_file=00000001"], batch_size=4, device="cpu")
+    assert np.isfinite(eng.embed_audio(r.standard_normal((2, *cfg.model.audio.resolution)).astype(np.float32))).all()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -358,6 +412,12 @@ def test_serving_cli_runs_without_jax(tmp_path):
         cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert np.load(out)["embeddings"].shape == (3, 32) and "wrote" in proc.stdout
+
+
+def test_port_trains_and_serves_the_other_backbones_without_jax():
+    """A ResNet, a meme-seeded DeiT and a patchout ViT VA step, each saved
+    asynchronously and served from its step directory."""
+    _run(BACKBONE_SCRIPT)
 
 
 def test_port_serves_int8_without_jax():
@@ -511,7 +571,9 @@ def test_no_source_of_the_port_imports_the_jax_package():
                 ("ckpt", "clip_port.py"), ("ckpt", "reference_port.py"),
                 ("ckpt", "reference_export.py"), ("ckpt", "loading.py"), ("ckpt", "zoo.py"),
                 ("native", "__init__.py"), ("data", "esc50.py"), ("data", "audioset.py"),
-                ("data", "packed.py"), ("data", "image_text.py"), ("nn", "tying.py")):
+                ("data", "packed.py"), ("data", "image_text.py"), ("nn", "tying.py"),
+                ("nn", "resnet.py"), ("nn", "deit.py"), ("ckpt", "deit_port.py"),
+                ("experiments", "deit_grad_gap.py")):
         assert any(p.endswith(os.path.join(*new)) for p in sources), new
     for path in sources:
         with open(path) as fh:

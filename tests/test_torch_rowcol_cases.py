@@ -81,6 +81,18 @@ def test_cases_hold_the_tied_image_tower_of_the_trimodal_step():
     assert {(M, C, "bf16"), (M, 3 * C, "fp32"), (M, 4 * C, "bf16")} <= {c[1:] for c in CS_CASES}
 
 
+def test_cases_hold_the_backbone_steps_at_their_own_rows():
+    """``backbone_phase``'s DeiT step (audio trained at 64 x 1,190 rows, image
+    frozen at 64 x 198) and patchout step (64 x 229): their LayerNorm rows
+    and the trained towers' bias grads."""
+    from test_torch_gemm_cases import backbone_rows
+
+    audio, image, patch = backbone_rows()
+    assert {(audio, 768), (image, 768), (patch, 768)} <= {(r, C) for _, r, C in LN_CASES}
+    for M in (audio, patch):
+        assert {(M, 768, "bf16"), (M, 2304, "fp32"), (M, 3072, "bf16")} <= {c[1:] for c in CS_CASES}
+
+
 def test_the_decode_runs_layernorm_at_every_batch():
     C = _width("CAPTION_FULL", "text")
     decode = {(rows, C_) for case, rows, C_ in LN_CASES if "decode T=1" in case}

@@ -23,6 +23,10 @@ STEP_SHAPES = (
     + [(16 * 77, n1, n2) for n1, n2 in DECODER]
     + [(50 * 306, n1, n2) for n1, n2 in AUDIO]       # AT step: audio tower, B = 50 (no multiple of 128)
     + [(64 * 50, n1, n2) for n1, n2 in AUDIO]        # trimodal step: the tied image tower, B = 64, T 50
+    + [(64 * 1190, n1, n2) for n1, n2 in AUDIO]      # DeiT step: the audio tower, B = 64, T 1,190
+    + [(16 * 1190, n1, n2) for n1, n2 in AUDIO]      # its grad check, B = 16
+    + [(64 * 229, n1, n2) for n1, n2 in AUDIO]       # patchout step: the audio tower, B = 64, T 229
+    + [(16 * 229, n1, n2) for n1, n2 in AUDIO]       # its grad check, B = 16
 )
 
 

@@ -19,8 +19,11 @@ the tower takes the channel mean at every forward
 (``nn/stages.py:ViTPreEncoder``), as the reference does, so the optimizer
 sees the 3-channel leaf (:func:`.loading.load_tower`; the JAX package's
 1-channel tower refuses that kernel at its first apply, ROADMAP.md queue
-C, C9). CLIP's ResNet towers wait on the ResNet backbone (ROADMAP.md queue
-A, A14).
+C, C9). A CLIP ResNet's visual entries go into a :class:`..nn.resnet.ResNetTower`
+(:func:`port_clip_resnet`): convolutions as they are (OIHW), each
+BatchNorm's weight and bias and its running mean and variance (the tower's
+``mean`` / ``var`` buffers), the attention pool's projections, and its
+positional embedding re-gridded bilinearly to the tower's grid.
 """
 
 from __future__ import annotations
@@ -93,11 +96,16 @@ def port_clip_visual(visual_sd: Mapping[str, Any], tower, use_slice: bool = True
     """CLIP visual entries -> the state dict of ``tower`` (a ViT
     ``VisionTower``), its positional embedding re-gridded from ``src_grid``
     (square from the embedding's length when omitted: CLIP's) to the
-    tower's grid and its patch kernel to the tower's patch."""
-    if any(_RESNET_KEYS.match(k) for k in visual_sd):
-        raise NotImplementedError(
-            "CLIP ResNet weights need the ResNet backbone, which is not ported yet "
-            "(ROADMAP.md queue A, A14)")
+    tower's grid and its patch kernel to the tower's patch. A
+    ``ResNetTower`` takes CLIP's ResNet entries (:func:`port_clip_resnet`)."""
+    resnet_sd = any(_RESNET_KEYS.match(k) for k in visual_sd)
+    if getattr(tower, "backbone", None) == "resnet":
+        if not resnet_sd:
+            raise ValueError("a ResNet tower takes CLIP's ResNet weights; these are a ViT's")
+        return port_clip_resnet(visual_sd, tower)
+    if resnet_sd:
+        raise ValueError("CLIP ResNet weights go into a ResNet tower (model.*.encoder.name="
+                         "ResNetBackbone), not a ViT tower")
     sd = rename(visual_sd, _VISUAL)
     pos = sd["misc.positional_embedding"]
     if src_grid is None:
@@ -129,4 +137,36 @@ def port_clip_text(text_sd: Mapping[str, Any], tower) -> StateDict:
     the positional embedding cut to its ``ctx_len``."""
     sd = rename(text_sd, _TEXT)
     sd["misc.positional_embedding"] = sd["misc.positional_embedding"][: tower.ctx_len]
+    return sd
+
+
+_BN = {"weight": "weight", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+_RESNET = [
+    (r"^(conv\d)\.weight$", r"pre_encoder.\1.weight"),
+    (r"^(bn\d)\.(weight|bias|running_mean|running_var)$", r"pre_encoder.\1.\2"),
+    (r"^layer(\d)\.(\d+)\.(conv\d)\.weight$", r"encoder.layer\1_\2.\3.weight"),
+    (r"^layer(\d)\.(\d+)\.(bn\d)\.(weight|bias|running_mean|running_var)$",
+     r"encoder.layer\1_\2.\3.\4"),
+    (r"^layer(\d)\.(\d+)\.downsample\.0\.weight$", r"encoder.layer\1_\2.downsample_conv.weight"),
+    (r"^layer(\d)\.(\d+)\.downsample\.1\.(weight|bias|running_mean|running_var)$",
+     r"encoder.layer\1_\2.downsample_bn.\3"),
+    (r"^attnpool\.positional_embedding$", "post_encoder.positional_embedding"),
+    (r"^attnpool\.([qkvc]_proj)\.(weight|bias)$", r"post_encoder.\1.\2"),
+]
+
+
+def port_clip_resnet(visual_sd: Mapping[str, Any], tower) -> StateDict:
+    """CLIP ModifiedResNet visual entries -> the state dict (parameters and
+    BatchNorm buffers) of ``tower`` (``vipant_tpu/ckpt/clip_port.py:208-277``):
+    every tensor the file's, bitwise, but the pool's positional embedding,
+    re-gridded from CLIP's square grid to the tower's (bilinear, no slice).
+    ``num_batches_tracked`` has no counterpart (flax's momentum is fixed)."""
+    sd = {}
+    for k, v in rename(visual_sd, _RESNET).items():
+        stem, last = k.rsplit(".", 1)
+        sd[f"{stem}.{_BN.get(last, last)}"] = v
+    pos = sd["post_encoder.positional_embedding"]
+    s = int(round(np.sqrt(pos.shape[0] - 1)))
+    sd["post_encoder.positional_embedding"] = slice_or_interp_pos_grid(
+        pos, (s, s), tower.post_encoder.stored_grid, n_prefix=1, use_slice=False)
     return sd

@@ -44,8 +44,20 @@ leaves as they are and only renames them).
 the port's checkpoints write their ``model.npz`` under the JAX package's
 names and layouts, so the JAX engine and the port's both serve it.
 
-The JAX ``batch_stats`` collection (Barlow's BatchNorm running ``mean`` and
-``var``) maps to the port's buffers of the same dotted names
+The ResNet towers (``pre/conv{i}``, ``pre/bn{i}``, ``encoder/layer{s}_{b}/...``,
+``post/{q,k,v,c}_proj``, ``post/positional_embedding``) keep the JAX module
+names below the stages ``pre_encoder``, ``encoder``, ``post_encoder``: HWIO
+convolution kernels become OIHW ``weight``, dense kernels [in, out] torch
+``weight`` [out, in], BatchNorm ``scale`` ``weight``. The DeiT towers
+(``patch_kernel``, ``patch_bias``, ``cls_token``, ``dist_token``,
+``pos_embed``, ``blocks/block_{i}``, ``norm``, ``head``, ``head_dist``) map
+to ``patch_embed.weight`` (OIHW), ``patch_embed.bias``, the same names,
+``blocks.resblocks.{i}`` (the trunk's leaves as above: the qkv kernel
+[C, 3, C] becomes ``attn.in_proj_weight`` [3C, C]) and ``norm.weight``.
+
+The JAX ``batch_stats`` collection (Barlow's and the ResNet towers'
+BatchNorm running ``mean`` and ``var``) maps to the port's buffers of the
+same dotted names, a tower's ``pre`` stage named ``pre_encoder``
 (:func:`batch_stats_state_dict`, :func:`to_jax_batch_stats`).
 
 Siamese ties: the JAX trainer prunes each tie's destination from its tree
@@ -61,7 +73,7 @@ Re-written here because ``vipant_tpu.ckpt`` imports JAX.
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -149,6 +161,42 @@ _DECODER_LEAVES: Dict[str, Tuple[str, Optional[Callable]]] = {
     "predictor/kernel": ("predictor.weight", _t),
     "predictor/bias": ("predictor.bias", None),
 }
+# the ResNet and DeiT towers, outside the DeiT trunk: (JAX path, port name, layout change)
+_BACKBONE_LEAVES = [
+    (r"pre/(conv\d)/kernel", r"pre_encoder.\1.weight", _oihw),
+    (r"pre/(bn\d)/scale", r"pre_encoder.\1.weight", None),
+    (r"pre/(bn\d)/bias", r"pre_encoder.\1.bias", None),
+    (r"encoder/(layer\d_\d+)/(conv\d|downsample_conv)/kernel", r"encoder.\1.\2.weight", _oihw),
+    (r"encoder/(layer\d_\d+)/(bn\d|downsample_bn)/scale", r"encoder.\1.\2.weight", None),
+    (r"encoder/(layer\d_\d+)/(bn\d|downsample_bn)/bias", r"encoder.\1.\2.bias", None),
+    (r"post/positional_embedding", "post_encoder.positional_embedding", None),
+    (r"post/([qkvc]_proj)/kernel", r"post_encoder.\1.weight", _t),
+    (r"post/([qkvc]_proj)/bias", r"post_encoder.\1.bias", None),
+    (r"patch_kernel", "patch_embed.weight", _oihw),
+    (r"patch_bias", "patch_embed.bias", None),
+    (r"(cls_token|dist_token|pos_embed|head|head_dist)", r"\1", None),
+    (r"norm/scale", "norm.weight", None),
+    (r"norm/bias", "norm.bias", None),
+]
+# the same read backwards: (port name, JAX path, layout change)
+_PORT_BACKBONE = [
+    (r"pre_encoder\.(conv\d)\.weight", r"pre/\1/kernel", _oihw),
+    (r"pre_encoder\.(bn\d)\.weight", r"pre/\1/scale", None),
+    (r"pre_encoder\.(bn\d)\.bias", r"pre/\1/bias", None),
+    (r"encoder\.(layer\d_\d+)\.(conv\d|downsample_conv)\.weight", r"encoder/\1/\2/kernel", _oihw),
+    (r"encoder\.(layer\d_\d+)\.(bn\d|downsample_bn)\.weight", r"encoder/\1/\2/scale", None),
+    (r"encoder\.(layer\d_\d+)\.(bn\d|downsample_bn)\.bias", r"encoder/\1/\2/bias", None),
+    (r"post_encoder\.positional_embedding", "post/positional_embedding", None),
+    (r"post_encoder\.([qkvc]_proj)\.weight", r"post/\1/kernel", _t),
+    (r"post_encoder\.([qkvc]_proj)\.bias", r"post/\1/bias", None),
+    (r"patch_embed\.weight", "patch_kernel", _oihw),
+    (r"patch_embed\.bias", "patch_bias", None),
+    (r"(cls_token|dist_token|pos_embed|head|head_dist)", r"\1", None),
+    (r"norm\.weight", "norm/scale", None),
+    (r"norm\.bias", "norm/bias", None),
+]
+_DEIT_BLOCK = re.compile(r"blocks/block_(\d+)/(.+)")
+_PORT_DEIT_BLOCK = re.compile(r"blocks\.resblocks\.(\d+)\.(.+)")
 _BLOCK = re.compile(r"encoder/transformer/block_(\d+)/(.+)")
 _DECODER_BLOCK = re.compile(r"transformer/block_(\d+)/(.+)")
 _CROSS_QKV = re.compile(r"cross_attn/([qkv])/(kernel|bias)")
@@ -170,6 +218,13 @@ def port_name(path: str) -> Tuple[str, Optional[Callable]]:
     if m is not None:
         name, fn = _BLOCK_LEAVES[m.group(2)]
         return f"encoder.resblocks.{int(m.group(1))}.{name}", fn
+    m = _DEIT_BLOCK.fullmatch(path)
+    if m is not None:
+        name, fn = _BLOCK_LEAVES[m.group(2)]
+        return f"blocks.resblocks.{int(m.group(1))}.{name}", fn
+    for pat, repl, fn in _BACKBONE_LEAVES:
+        if re.fullmatch(pat, path):
+            return re.sub(pat, repl, path), fn
     if path.startswith("encoder/transformer/blocks/"):
         raise NotImplementedError("pipeline-stacked trunks are not supported; unstack first "
                                   "(ROADMAP.md queue A, A15)")
@@ -179,7 +234,8 @@ def port_name(path: str) -> Tuple[str, Optional[Callable]]:
 
 
 def tower_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
-    """One ViT (``VisionTower``) or ``TextTower`` tree -> its port names."""
+    """One ViT, ResNet or DeiT image / audio tower tree, or a
+    ``TextTower``'s -> its port names."""
     out = {}
     for path, leaf in _flat(params):
         name, fn = port_name(path)
@@ -261,12 +317,15 @@ def model_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
     return out
 
 
-def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
-    """The inverse of :func:`model_state_dict` for the ViT and text towers
-    and the loss heads: the port's names (``audio.encoder.resblocks.0...``)
-    and layouts -> the JAX package's nested params, as numpy arrays. This is
-    what a checkpoint's ``model.npz`` holds, flattened with dots."""
+def to_jax_params(state_dict: Mapping[str, Any], resnet_towers: Iterable[str] = ()) -> Dict[str, Any]:
+    """The inverse of :func:`model_state_dict` for the towers and the loss
+    heads: the port's names (``audio.encoder.resblocks.0...``) and layouts
+    -> the JAX package's nested params, as numpy arrays. This is what a
+    checkpoint's ``model.npz`` holds, flattened with dots. A ResNet tower's
+    stem ``pre_encoder.conv1`` has the port name of a ViT's patch kernel:
+    ``resnet_towers`` names the towers whose backbone is a ResNet."""
     out: Dict[str, Any] = {}
+    resnet = set(resnet_towers)
     for key, value in state_dict.items():
         tower, name = key.split(".", 1)
         a = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
@@ -279,12 +338,16 @@ def to_jax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
                 raise KeyError(f"the port's parameter {key!r} has no JAX name")
             path = "/".join([*mods, last])
         elif tower in ("image", "image_v", "audio", "text"):
-            m = _PORT_BLOCK_NAME.fullmatch(name)
+            m = _PORT_BLOCK_NAME.fullmatch(name) or _PORT_DEIT_BLOCK.fullmatch(name)
+            rule = next((r for r in _PORT_BACKBONE if re.fullmatch(r[0], name)), None)
             if m is not None and m.group(2) in _PORT_BLOCK:
                 leaf, fn = _PORT_BLOCK[m.group(2)]
-                path = f"encoder/transformer/block_{int(m.group(1))}/{leaf}"
-            elif name in _PORT_TOWER:
+                trunk = "encoder/transformer" if name.startswith("encoder.") else "blocks"
+                path = f"{trunk}/block_{int(m.group(1))}/{leaf}"
+            elif name in _PORT_TOWER and tower not in resnet:
                 path, fn = _PORT_TOWER[name]
+            elif rule is not None:
+                path, fn = re.sub(rule[0], rule[1], name), rule[2]
             else:
                 raise KeyError(f"the port's parameter {key!r} has no JAX name")
         else:
@@ -320,16 +383,23 @@ def read_npz(path: str) -> Dict[str, Any]:
         return unflatten({k: data[k] for k in data.files})
 
 
+_TOWER_STAGE = re.compile(r"(image|image_v|audio)\.(pre|post)\.")
+_PORT_TOWER_STAGE = re.compile(r"(image|image_v|audio)\.(pre|post)_encoder\.")
+
+
 def batch_stats_state_dict(stats: Tree) -> Dict[str, np.ndarray]:
     """The JAX ``batch_stats`` collection -> the port's buffer names (the
-    same path, dotted; no layout changes)."""
-    return {k.replace("/", "."): _a(v) for k, v in _flat(stats)}
+    same path, dotted, a tower's ``pre`` stage as ``pre_encoder``; no
+    layout changes)."""
+    return {_TOWER_STAGE.sub(r"\1.\2_encoder.", k.replace("/", ".")): _a(v)
+            for k, v in _flat(stats)}
 
 
 def to_jax_batch_stats(buffers: Mapping[str, Any]) -> Dict[str, Any]:
     """The inverse of :func:`batch_stats_state_dict`: buffer name -> tensor
     to the nested ``batch_stats`` collection of numpy arrays."""
-    return unflatten({k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    return unflatten({_PORT_TOWER_STAGE.sub(r"\1.\2.", k):
+                      v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
                       for k, v in buffers.items()})
 
 
@@ -352,7 +422,12 @@ def jax_params_of(model: torch.nn.Module, pruned: bool = False) -> Dict[str, Any
     (``pruned=False``, what ``restore_tied`` gives), or without the tied
     destinations (``pruned=True``, the JAX trainer's state)."""
     named = model.named_parameters(remove_duplicate=pruned)
-    return to_jax_params({k: p for k, p in named})
+    return to_jax_params({k: p for k, p in named}, resnet_towers(model))
+
+
+def resnet_towers(model: torch.nn.Module) -> List[str]:
+    """The names of ``model``'s towers with a ResNet backbone."""
+    return [name for name, m in model.named_children() if getattr(m, "backbone", None) == "resnet"]
 
 
 def load_params(model: torch.nn.Module, params: Tree) -> None:

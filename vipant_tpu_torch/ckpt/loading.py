@@ -39,8 +39,9 @@ def load_tower(tower: nn.Module, sd: Mapping[str, torch.Tensor], what: str) -> N
     over a 1-channel tower's: the tower takes the 3-channel tensor as its
     parameter (a new ``Parameter``, so load before an optimizer holds the
     old one) and takes its channel mean at every forward, as the
-    reference does."""
-    own = dict(tower.named_parameters())
+    reference does. A ResNet tower's BatchNorm statistics (buffers) load
+    the same way."""
+    own = {**dict(tower.named_parameters()), **dict(tower.named_buffers())}
     if set(own) != set(sd):
         raise ValueError(f"{what}: the weights and the tower differ on {sorted(set(own) ^ set(sd))}")
     with torch.no_grad():

@@ -100,12 +100,16 @@ def port_model_from_clip(model: nn.Module, clip_sd: Mapping[str, Any]) -> List[s
     visual tower with the square grid re-gridded bilinearly to the audio
     grid (no slice), the text tower
     with its positional embedding cut to its context, and CLIP's
-    ``logit_scale`` into every loss head's. Returns the towers loaded."""
+    ``logit_scale`` into every loss head's. A ResNet tower takes a CLIP
+    ResNet's visual weights with their BatchNorm statistics, its pool's
+    positional grid re-gridded (31 x 4 for the audio tower over 1000 x 128);
+    a DeiT tower takes none (its init is the meme's). Returns the towers
+    loaded."""
     visual_sd, text_sd = split_clip_state_dict(clip_sd)
     loaded = []
     for name in ("image", "image_v", "audio"):
         tower = getattr(model, name, None)
-        if tower is not None and hasattr(tower, "grid"):  # a ViT tower (not a DummyHead)
+        if getattr(tower, "backbone", None) in ("transformer", "resnet"):  # not a DummyHead, not DeiT
             load_tower(tower, port_clip_visual(visual_sd, tower, use_slice=name != "audio"),
                        f"CLIP visual -> {name}")
             loaded.append(name)

@@ -1,10 +1,10 @@
 """Encoder towers ("heads") composed from MetaHead stages, plus registries.
 
-Counterpart of ``vipant_tpu/nn/heads.py`` for the ViT vision/audio tower and
-the GPT text tower; ``require_feature`` also returns the audio tower's
-feature grid, the captioning decoder's memory. Not ported yet: the ResNet
-backbone, patchout in training and the pipeline-stacked trunk; asking for
-them raises.
+Counterpart of ``vipant_tpu/nn/heads.py`` for the ViT vision/audio tower
+(with patchout in training), the ResNet tower (:mod:`.resnet`), the DeiT
+tower (:mod:`.deit`) and the GPT text tower; ``require_feature`` also
+returns a ViT audio tower's feature grid, the captioning decoder's memory.
+Not ported yet: the pipeline-stacked trunk (asking for it raises).
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ from torch import nn
 
 from ..ops.quant import int8_fwd_context
 from ..utils import Registry
+from .deit import deit_from_cfg
 from .layers import pack_tokens
+from .resnet import ResNetTower
 from .stages import (
     AddonEncoder,
     CLIPMisc,
@@ -55,7 +57,18 @@ class VisionTower(nn.Module):
     ``token_pack`` runs k items per attention call behind a block-diagonal
     mask (exact). ``int8_frozen`` runs the trunk on the forward-only int8
     sub-blocks: for a frozen tower only, whose output no gradient flows
-    through; on a trainable tower the backward raises."""
+    through; on a trainable tower the backward raises.
+
+    ``patchout`` (PaSST, FLAP) drops that share of the patch tokens in a
+    training forward: one subset for the whole batch, ``keep = max(int(n *
+    (1 - patchout)), 1)`` of the n patches, sorted, the class token kept,
+    after the positional embedding and before packing. The subset is drawn
+    by :meth:`patchout_indices` from ``patchout_generator`` (the trainer
+    sets it to its train state's generator, the stream SpecAugment draws
+    from, so a resume replays it; else torch's default generator of the
+    device); a test may replace the method to inject an index set."""
+
+    backbone = "transformer"
 
     def __init__(self, width: int, embed_dim: int, resolution, heads: int, layers: int,
                  patch_size=32, stride=None, in_channels: int = 3,
@@ -65,6 +78,7 @@ class VisionTower(nn.Module):
         super().__init__()
         self.grid, patch_hw, stride_hw = vit_grid(resolution, patch_size, stride)
         self.token_pack, self.patchout = int(token_pack or 1), float(patchout)
+        self.patchout_generator: Optional[torch.Generator] = None
         self.int8_frozen = bool(int8_frozen)
         self.misc = CLIPMisc(width, stored_grid=misc_stored_grid or self.grid,
                              target_grid=self.grid, device=device)
@@ -82,9 +96,15 @@ class VisionTower(nn.Module):
                 raise ValueError(
                     "patchout is incompatible with require_feature (captioning decoder memory "
                     "needs the full patch grid): set model.audio.patchout=0 for captioning configs")
-            raise NotImplementedError("patchout (training) is not ported yet (ROADMAP.md queue A, A3)")
         pos, cls = self.misc()
-        h = self.pre_encoder_addon(self.pre_encoder(x, pos, cls))
+        h = self.pre_encoder(x, pos, cls)
+        if train and self.patchout > 0.0:
+            n = h.shape[1] - 1
+            keep = max(int(n * (1.0 - self.patchout)), 1)
+            idx = self.patchout_indices(n, keep, h.device)
+            idx = torch.cat([torch.zeros(1, dtype=idx.dtype, device=idx.device), idx])
+            h = h.index_select(1, idx)
+        h = self.pre_encoder_addon(h)
         B, T, C = h.shape
         h, attn_bias = _pack(h, self.token_pack)
         # not int8_frozen: an enclosing scope (an int8 engine) stays as it is
@@ -96,6 +116,14 @@ class VisionTower(nn.Module):
             emb, feat = out
             return (normalize(emb) if normalized else emb), feat
         return normalize(out) if normalized else out
+
+
+    def patchout_indices(self, n: int, keep: int, device) -> torch.Tensor:
+        """``keep`` of the ``n`` patch tokens, sorted, as token positions
+        (1 + patch index): the first ``keep`` of a permutation."""
+        g = self.patchout_generator
+        perm = torch.randperm(n, generator=g, device=g.device if g is not None else device)
+        return torch.sort(perm[:keep])[0].to(device) + 1
 
 
 class TextTower(nn.Module):
@@ -139,18 +167,22 @@ class DummyHead(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _vision_from_cfg(cfg, dtype=torch.float32, device=None) -> VisionTower:
-    if cfg.encoder.name != "TransformerBackbone":
-        if cfg.get("int8_frozen", False):
-            raise ValueError("int8_frozen is not supported on the resnet backbone")
-        raise NotImplementedError(f"backbone {cfg.encoder.name!r} is not ported yet (ViT only; "
-                                  "ROADMAP.md queue A, A14)")
-    if cfg.get("stacked", False):
-        raise NotImplementedError("the pipeline-stacked trunk is not ported (ROADMAP.md queue A, A15)")
+def _vision_from_cfg(cfg, dtype=torch.float32, device=None):
     resolution = cfg.resolution
     if isinstance(resolution, list):
         resolution = tuple(int(v) for v in resolution)
     pre = cfg.pre_encoder
+    if cfg.encoder.name == "ResNetBackbone":
+        # ViT-only knobs: ignoring them would train other semantics than configured
+        for knob in ("patchout", "token_pack", "int8_frozen"):
+            if cfg.get(knob, None) and (knob != "token_pack" or int(cfg.get(knob)) > 1):
+                raise ValueError(f"{knob} is not supported on the resnet backbone")
+        return ResNetTower(
+            width=int(cfg.width), embed_dim=int(cfg.embed_dim), resolution=resolution,
+            heads=int(cfg.get("heads", 12)), layers=[int(v) for v in cfg.encoder.layers],
+            in_channels=int(pre.get("in_channels", 3)), dtype=dtype, device=device)
+    if cfg.get("stacked", False):
+        raise NotImplementedError("the pipeline-stacked trunk is not ported (ROADMAP.md queue A, A15)")
     return VisionTower(
         width=int(cfg.width),
         embed_dim=int(cfg.embed_dim),
@@ -201,6 +233,10 @@ def build_clip_text_head(cfg, dtype=torch.float32, device=None):
 IMAGE_HEADS.register(build_clip_image_head, name="ImageHead")
 AUDIO_HEADS.register(build_clip_audio_head, name="NaiveCLIPAudioHead")
 TEXT_HEADS.register(build_clip_text_head, name="TextHead")
+
+
+IMAGE_HEADS.register(deit_from_cfg, name="DeiTImageHead")
+AUDIO_HEADS.register(deit_from_cfg, name="NaiveDeiTAudioHead")
 
 
 def _build_dummy(cfg, dtype=torch.float32, device=None):

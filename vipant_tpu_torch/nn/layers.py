@@ -40,6 +40,13 @@ from ..ops.kernels import quick_gelu  # noqa: F401  (the MLP's activation, publi
 from ..ops.quant import int8_fwd_enabled
 
 
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal``: a normal of variance 1 / fan_in truncated at
+    two standard deviations."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with fp32 parameters and statistics; the output is cast back
     to the input dtype."""
@@ -93,11 +100,11 @@ class MultiHeadAttention(nn.Module):
     or None values to project it once and return it."""
 
     def __init__(self, width: int, heads: int, n_layers: int = 1, cross: bool = False,
-                 device=None):
+                 clip_init: bool = True, device=None):
         super().__init__()
         if width % heads:
             raise ValueError(f"width {width} is not divisible by {heads} heads")
-        self.heads, self.n_layers, self.cross = heads, n_layers, cross
+        self.heads, self.n_layers, self.cross, self.clip_init = heads, n_layers, cross, clip_init
         if cross:
             for name in ("q_proj_weight", "k_proj_weight", "v_proj_weight"):
                 setattr(self, name, nn.Parameter(torch.empty(width, width, device=device)))
@@ -113,10 +120,14 @@ class MultiHeadAttention(nn.Module):
 
     def init_weights(self, generator: torch.Generator) -> None:
         d = self.out_proj.in_features
-        for w in self._in_weights():
-            nn.init.normal_(w, std=d ** -0.5, generator=generator)
-        nn.init.normal_(self.out_proj.weight, std=d ** -0.5 * (2 * self.n_layers) ** -0.5,
-                        generator=generator)
+        if not self.clip_init:  # flax's lecun-normal default (the DeiT blocks)
+            for w in self._in_weights() + [self.out_proj.weight]:
+                lecun_normal_(w, d, generator)
+        else:
+            for w in self._in_weights():
+                nn.init.normal_(w, std=d ** -0.5, generator=generator)
+            nn.init.normal_(self.out_proj.weight, std=d ** -0.5 * (2 * self.n_layers) ** -0.5,
+                            generator=generator)
         nn.init.zeros_(self.in_proj_bias)
         nn.init.zeros_(self.out_proj.bias)
 
@@ -178,17 +189,21 @@ class MLP(nn.Module):
     ``x + c_proj(act(c_fc(LN(x))))``; act is QuickGELU (CLIP) or exact GELU."""
 
     def __init__(self, width: int, expansion: int = 4, act: str = "quick_gelu",
-                 n_layers: int = 1, device=None):
+                 n_layers: int = 1, clip_init: bool = True, device=None):
         super().__init__()
-        self.act, self.n_layers = act, n_layers
+        self.act, self.n_layers, self.clip_init = act, n_layers, clip_init
         self.c_fc = nn.Linear(width, expansion * width, device=device)
         self.c_proj = nn.Linear(expansion * width, width, device=device)
 
     def init_weights(self, generator: torch.Generator) -> None:
         d = self.c_fc.weight.shape[1]
-        nn.init.normal_(self.c_fc.weight, std=(2 * d) ** -0.5, generator=generator)
-        nn.init.normal_(self.c_proj.weight, std=d ** -0.5 * (2 * self.n_layers) ** -0.5,
-                        generator=generator)
+        if not self.clip_init:  # flax's lecun-normal default (the DeiT blocks)
+            lecun_normal_(self.c_fc.weight, d, generator)
+            lecun_normal_(self.c_proj.weight, self.c_proj.weight.shape[1], generator)
+        else:
+            nn.init.normal_(self.c_fc.weight, std=(2 * d) ** -0.5, generator=generator)
+            nn.init.normal_(self.c_proj.weight, std=d ** -0.5 * (2 * self.n_layers) ** -0.5,
+                            generator=generator)
         nn.init.zeros_(self.c_fc.bias)
         nn.init.zeros_(self.c_proj.bias)
 
@@ -208,10 +223,12 @@ class ResidualAttentionBlock(nn.Module):
     runs one cached decode position and returns ``(x, new_state)``."""
 
     def __init__(self, width: int, heads: int, act: str = "quick_gelu",
-                 n_layers: int = 1, cross_attn: bool = False, device=None):
+                 n_layers: int = 1, cross_attn: bool = False, clip_init: bool = True,
+                 device=None):
         super().__init__()
         self.ln_1 = LayerNorm(width, device=device)
-        self.attn = MultiHeadAttention(width, heads, n_layers=n_layers, device=device)
+        self.attn = MultiHeadAttention(width, heads, n_layers=n_layers, clip_init=clip_init,
+                                       device=device)
         if cross_attn:
             self.ln_c = LayerNorm(width, device=device)
             self.cross_attn = MultiHeadAttention(width, heads, n_layers=n_layers, cross=True,
@@ -219,7 +236,7 @@ class ResidualAttentionBlock(nn.Module):
         else:
             self.cross_attn = None
         self.ln_2 = LayerNorm(width, device=device)
-        self.mlp = MLP(width, act=act, n_layers=n_layers, device=device)
+        self.mlp = MLP(width, act=act, n_layers=n_layers, clip_init=clip_init, device=device)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 memory: Optional[torch.Tensor] = None, decode_state: Optional[dict] = None):
@@ -245,14 +262,16 @@ class ResidualAttentionBlock(nn.Module):
 class Transformer(nn.Module):
     """A stack of residual attention blocks (``resblocks``, CLIP's name).
     ``decode_state`` is one state per block; the call then returns
-    ``(x, new_states)``."""
+    ``(x, new_states)``. A QuickGELU stack (CLIP's) draws CLIP's
+    depth-scaled init, an exact-GELU one (DeiT's) flax's lecun-normal, as
+    the JAX module does."""
 
     def __init__(self, width: int, layers: int, heads: int, act: str = "quick_gelu",
                  cross_attn: bool = False, device=None):
         super().__init__()
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, act=act, n_layers=layers, cross_attn=cross_attn,
-                                   device=device)
+                                   clip_init=act == "quick_gelu", device=device)
             for _ in range(layers)
         )
 

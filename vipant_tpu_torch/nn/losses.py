@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils import Registry
-from .layers import LayerNorm
+from .layers import LayerNorm, lecun_normal_
 
 LOSS_HEADS = Registry("LOSS_HEADS")
 
@@ -141,8 +141,7 @@ class Dense(nn.Linear):
     bias at zero."""
 
     def init_weights(self, generator: torch.Generator) -> None:
-        std = self.in_features ** -0.5 / 0.87962566103423978
-        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+        lecun_normal_(self.weight, self.in_features, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
@@ -311,16 +310,21 @@ class BatchNorm(nn.Module):
         self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        x = x.float()
+        """x: [B, C], or [B, C, H, W] (the ResNet towers: statistics over
+        batch and space); the result is fp32 (fp64 for fp64 inputs: flax's
+        promotion to at least fp32)."""
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims, view = [0, *range(2, x.dim())], (-1,) + (1,) * (x.dim() - 2)
         if train:
-            mean = x.mean(0)
-            var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean.detach())
                 self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var.detach())
         else:
             mean, var = self.mean, self.var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return ((x - mean.view(view)) * (torch.rsqrt(var + self.eps) * self.weight).view(view)
+                + self.bias.view(view))
 
 
 @LOSS_HEADS.register()

@@ -17,7 +17,7 @@ from torch import nn
 
 from ..ops.interp import interp_pos_grid
 from ..ops.patches import patchify_embed
-from .layers import LayerNorm, Transformer, causal_mask
+from .layers import LayerNorm, Transformer, causal_mask, lecun_normal_
 
 
 def to_2tuple(v) -> Tuple[int, int]:
@@ -95,11 +95,7 @@ class ViTPreEncoder(nn.Module):
         self.ln = LayerNorm(width, device=device)
 
     def init_weights(self, generator: torch.Generator) -> None:
-        # flax lecun_normal: truncated normal, variance 1/fan_in
-        fan_in = self.conv1.weight[0].numel()
-        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-        nn.init.trunc_normal_(self.conv1.weight, std=std, a=-2 * std, b=2 * std,
-                              generator=generator)
+        lecun_normal_(self.conv1.weight, self.conv1.weight[0].numel(), generator)
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
         """x: [B, C, H, W] -> [B, 1 + grid, width]."""

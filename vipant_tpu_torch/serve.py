@@ -73,13 +73,14 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .ckpt.from_jax import load_params, read_npz
+from .ckpt.from_jax import batch_stats_state_dict, load_params, read_npz
 from .ckpt.loading import apply_reference_ckpt, clip_weights_path, model_towers, report_sources
 from .ckpt.reference_port import load_torch_file
 from .config import Config
 from .models import build_main_model, init_weights, port_model_from_clip
 from .nn.heads import normalize
 from .ops.quant import int8_fwd_context
+from .train.checkpoint import wait_for_saves
 from .utils import as_config, require_device, run_root
 
 # the ROADMAP.md queue-A item that ports multi-device serving
@@ -173,6 +174,7 @@ class InferenceEngine:
             loaded = port_model_from_clip(self.model, load_torch_file(clip_path)[1])
             report_sources(self.echo, self.model, {t: f"CLIP weights {clip_path}" for t in loaded})
             return
+        wait_for_saves()  # a step directory this process is still writing
         npz = os.path.join(ckpt_path, "model.npz")
         if not os.path.exists(npz):
             # random weights give plausible unit-norm embeddings: fail loudly
@@ -192,7 +194,23 @@ class InferenceEngine:
             self._load_from_train_state(ckpt_path, npz, sorted(params), uncovered)
             sources.update({t: f"train state {ckpt_path}/state.pt" for t in uncovered})
         load_params(self.model, params)
+        stats = os.path.join(ckpt_path, "batch_stats.npz")
+        if os.path.exists(stats):  # the exported towers' BatchNorm statistics (ResNet)
+            self._load_buffers(
+                {k: torch.from_numpy(v) for k, v in
+                 batch_stats_state_dict(read_npz(stats)).items()}, [t for t in towers if t in params])
         report_sources(self.echo, self.model, sources)
+
+    def _load_buffers(self, saved: Dict[str, torch.Tensor], towers: List[str]) -> None:
+        """The running statistics of ``towers`` from ``saved`` (buffer name
+        -> tensor); every buffer of those towers must be there."""
+        own = {k: b for k, b in self.model.named_buffers() if k.split(".", 1)[0] in towers}
+        missing = sorted(set(own) - set(saved))
+        if missing:
+            raise ValueError(f"the checkpoint holds no running statistics for {missing}")
+        with torch.no_grad():
+            for k, b in own.items():
+                b.copy_(saved[k])
 
     def _load_from_train_state(self, ckpt_path: str, npz: str, covered: List[str],
                                towers: List[str]) -> None:
@@ -214,6 +232,7 @@ class InferenceEngine:
         if set(take) != want:
             raise ValueError(f"{state} and the model disagree on {sorted(set(take) ^ want)}")
         self.model.load_state_dict(take, strict=False)
+        self._load_buffers(sd.get("buffers", {}), towers)
 
     # --------------------------------------------------------------- encode
     def _embed_dim(self) -> int:

@@ -45,11 +45,21 @@ drawn from the train state's generator), ``running.audio.ship_int16`` /
 CLIP-normalised fp32 (:mod:`..ops.frontend`).
 
 Weights (:meth:`Trainer.load_pretrained`, before the optimizer takes the
-parameters): a reference ``.pth`` ``model_file`` (a VA checkpoint's audio
-tower for AT fine-tuning), CLIP weights (``running.clip_model_root`` /
-``clip_model_name``) when there is no ``model_file``, else the seeded random
-init; ``export_pth`` writes each save's weight export as a reference
-``.pth`` too.
+parameters), by the priority checkpoint > meme > CLIP > random: a reference
+``.pth`` ``model_file`` (a VA checkpoint's audio tower for AT fine-tuning)
+or a step directory to resume; else CLIP weights (``running.clip_model_root``
+/ ``clip_model_name``) into the towers that are not DeiT, then a DeiT
+tower's ``meme_path`` (a timm ``deit_base_distilled_patch16_224`` file,
+:meth:`Trainer.load_meme`); else the seeded random init. ``export_pth``
+writes each save's weight export as a reference ``.pth`` too (not for
+ResNet and DeiT towers, which have no such layout). ``async_ckpt`` writes
+the checkpoints in the background (:mod:`.checkpoint`); ``learn`` waits for
+the last one.
+
+A tower with ``patchout`` draws its token subset from the train state's
+generator, after SpecAugment's draws of the same step. ResNet towers'
+BatchNorm statistics are buffers, carried like Barlow's below; a training
+step moves them in every tower, the frozen ones too, as the JAX step does.
 
 Siamese ties (``running.siamese``, and ``CVASP``'s view tower) share the
 image tower's ``Parameter`` objects with the tying stages after the weights
@@ -59,9 +69,8 @@ export writes it under every tower that holds it. A loss head's running
 statistics (Barlow's BatchNorm) are buffers of the model that the train
 state and its checkpoints carry.
 
-Not ported yet, and refused when asked for (ROADMAP.md's queue A names the
-item that ports each): ``async_ckpt`` (A7-rest); the gradient cache, ZeRO
-and every mesh axis beyond one device (A15).
+Not ported yet, and refused when asked for (ROADMAP.md's queue A, A15): the
+gradient cache, ZeRO and every mesh axis beyond one device.
 
 Usage::
 
@@ -83,7 +92,9 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..ckpt.loading import apply_reference_ckpt, clip_weights_path, model_towers, report_sources
+from ..ckpt.from_jax import resnet_towers
+from ..ckpt.loading import (apply_reference_ckpt, clip_weights_path, load_tower, model_towers,
+                            report_sources)
 from ..ckpt.reference_port import load_torch_file
 from ..config import Config
 from ..data import build_image_audio_dataloader
@@ -98,7 +109,7 @@ from ..ops.specaugment import spec_augment
 from ..optim import build_optimizer, partition_params
 from ..utils import (AverageMeter, PhaseTimer, as_config, numel, require_device, run_root,
                      seed_all_rng, setup_logger)
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import load_checkpoint, save_checkpoint, wait_for_saves
 from .state import TrainState
 from .step import eval_step, train_step
 
@@ -127,8 +138,6 @@ def build_monitor(cfg, **kw):
 
 
 def _refuse_unported(cfg) -> None:
-    if bool(cfg.get("async_ckpt", False)):
-        raise NotImplementedError("async_ckpt is not ported yet (ROADMAP.md queue A, A7-rest)")
     run = cfg.get("running", Config({}))
     refuse_unported_data(run)
     gc = run.get("grad_cache", None)
@@ -226,6 +235,8 @@ class Trainer:
         self.model = build_main_model(cfg, device=self.device, output_dim=self.output_dim)
         init_weights(self.model, torch.Generator(device=self.device).manual_seed(seed))
         self.load_pretrained()
+        if not self.resume_from and not str(cfg.get("model_file", "") or "").endswith(".pth"):
+            self.load_meme()
         self.ties = tie_model(cfg, self.model)
         self.trainable, self.frozen = partition_params(
             self.model, tunable_mask(cfg, self.model, self.ties))
@@ -283,6 +294,28 @@ class Trainer:
                 sources = {t: f"CLIP weights {clip_path}" for t in loaded}
         report_sources(self.echo, self.model, sources)
 
+    def load_meme(self) -> None:
+        """The "meme" DeiT init (``vipant_tpu/train/trainer.py:238-271``):
+        a DeiT tower whose config names a ``meme_path`` takes that timm
+        ``deit_base_distilled_patch16_224`` file (:func:`..ckpt.deit_port.port_deit`)
+        over its init. A missing file warns and keeps the current init. The
+        caller skips it when a checkpoint loads (a ``.pth`` or a resume)."""
+        from ..ckpt.deit_port import port_deit
+        from ..nn.deit import DeiTTower
+
+        for name in ("image", "audio"):
+            mcfg = self.cfg.model.get(name) if "model" in self.cfg else None
+            tower = getattr(self.model, name, None)
+            path = str(mcfg.get("meme_path", "") or "") if mcfg is not None else ""
+            if not path or not isinstance(tower, DeiTTower):
+                continue
+            if not os.path.exists(path):
+                self.echo.warning(f"failed to load the meme {mcfg.get('meme_name')!r} from "
+                                  f"{path!r}: not found; keeping the current init")
+                continue
+            load_tower(tower, port_deit(load_torch_file(path)[1], tower), f"meme {path} -> {name}")
+            self.echo.info(f"initialized the {name} tower from the meme DeiT weights {path}")
+
     # ------------------------------------------------------------- optimizer
     def build_optimizer(self) -> None:
         opt = build_optimizer(self.cfg.optimizer, self.steps_per_epoch, self.trainable)
@@ -291,6 +324,9 @@ class Trainer:
             optimizer=opt, generator=torch.Generator(device=self.device).manual_seed(int(self.cfg.seed)),
             loss_kwargs=self.loss_kwargs, buffers=dict(self.model.named_buffers()),
         )
+        for module in self.model.modules():  # patchout draws from the train state's stream
+            if hasattr(module, "patchout_generator"):
+                module.patchout_generator = self.state.generator
         if self.resume_from is not None:
             load_checkpoint(self.resume_from, self.state)
             self.global_step = self.state.step
@@ -430,7 +466,9 @@ class Trainer:
         self.echo = setup_logger(self.out_dir, verbose=bool(self.cfg.get("verbose", False)),
                                  name=_LOGGER)
         try:
-            return self.job()
+            out = self.job()
+            wait_for_saves()  # the last async save commits (and its error surfaces) here
+            return out
         finally:
             if self._profiler is not None:  # the window outlasted the run
                 self._end_profile()
@@ -708,12 +746,21 @@ class Trainer:
     def save(self) -> str:
         """Write ``{alias_root}/{model_name}/{step:08d}/`` (:mod:`.checkpoint`),
         with ``export_pth`` also the weight export as a reference-format
-        ``{step:08d}.pth`` there (``vipant_tpu/train/trainer.py:986-1000``)."""
+        ``{step:08d}.pth`` there (``vipant_tpu/train/trainer.py:986-1000``);
+        an exported ResNet or DeiT tower has no ``.pth`` layout, and then the
+        save warns and writes none."""
         export = self.collect_model_export()
+        export_pth = bool(self.cfg.get("export_pth", False))
+        if export_pth and {"resnet", "deit"} & {getattr(getattr(self.model, n, None), "backbone", None)
+                                                for n in self.export_towers}:
+            self.echo.warning("reference .pth export skipped: ResNet and DeiT towers have no "
+                              "reference .pth layout")
+            export_pth = False
         path = save_checkpoint(
             self.out_dir, self.global_step, self.state, cfg=self.cfg, model_only=export,
-            keep_last=int(self.cfg.get("keep_last_ckpts", 0) or 0),
-            export_pth=bool(self.cfg.get("export_pth", False)))
+            keep_last=int(self.cfg.get("keep_last_ckpts", 0) or 0), export_pth=export_pth,
+            async_save=bool(self.cfg.get("async_ckpt", False)),
+            resnet_towers=resnet_towers(self.model))
         self.echo.info(f"saving the checkpoint to {path}")
         return path
 
