@@ -5,9 +5,12 @@
 #
 #   bash bash/torch/run_bimodal_at.sh trimodal [override ...]
 #
-# Left out of the JAX script: `mesh.data=-1` and its large-batch variant
-# `running.grad_cache.alive=True` (the port runs one process on one card and
-# refuses the gradient cache: ROADMAP.md queue A, A15). `model_file` takes a
+# `mesh.data=-1` is the data axis over every rank: with NPROC > 1 the script
+# runs `torchrun --nproc_per_node=$NPROC`, one process a card, and the loss
+# sees the global batch. The large-batch variant adds
+# `running.grad_cache.alive=True running.grad_cache.chunk_size=128` (the
+# gradient cache; the trimodal monitor refuses it, as it has three streams:
+# use it with LAMonitor). `model_file` takes a
 # reference `.pth` (2- or 4-tuple), a step directory of the port's trainer,
 # or a training log for repeated eval; `async_ckpt=True` writes the
 # checkpoints in the background; `platform=cpu` runs on the CPU.
@@ -35,6 +38,12 @@ running.data_root=$data_root
 running.data_name=audiocaps_train running.eval_name=audiocaps_val
 running.test_name=audiocaps_test
 running.eval_samples=250 running.test_samples=250 running.train_samples=0.1
+mesh.data=-1
 "
 
-python -m vipant_tpu_torch +running=$run_type $mtask "$@"
+nproc=${NPROC:-1}
+if [ "$nproc" -gt 1 ]; then
+  torchrun --nproc_per_node="$nproc" -m vipant_tpu_torch +running=$run_type $mtask "$@"
+else
+  python -m vipant_tpu_torch +running=$run_type $mtask "$@"
+fi

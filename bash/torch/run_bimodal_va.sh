@@ -4,9 +4,11 @@
 #
 #   bash bash/torch/run_bimodal_va.sh bimodal [override ...]
 #
-# Left out of the JAX script: `mesh.data=-1`. The port runs one process on
-# one card (multi-device training is ROADMAP.md queue A, A15), so the
-# contrastive loss sees the batch of that card. Other backbones: BACKBONE
+# `mesh.data=-1` is the data axis over every rank: with NPROC > 1 the script
+# runs `torchrun --nproc_per_node=$NPROC`, one process a card, and the
+# contrastive loss sees the global batch of all of them (running.batch_size
+# is that global batch); `mesh.zero=True` splits the optimizer state over
+# the ranks. Without NPROC it runs one process on one card. Other backbones: BACKBONE
 # picks both towers' config, `vit_val` (the default, with the reference's
 # 3-channel 16 x 24 audio patching), `rn50_val` (with CLIP_MODEL_NAME=RN50)
 # or `deit` (with `model.audio.meme_path=<timm .pth>` after the run type).
@@ -44,6 +46,12 @@ running.save_rate=100 running.eval_samples=100
 running.data_root=$data_root running.data_name=$data_name
 running.eval_name=$eval_name
 running.clip_model_root=$clip_root running.clip_model_name=$clip_name
+mesh.data=-1
 "
 
-python -m vipant_tpu_torch +running=$run_type $mtask "$@"
+nproc=${NPROC:-1}
+if [ "$nproc" -gt 1 ]; then
+  torchrun --nproc_per_node="$nproc" -m vipant_tpu_torch +running=$run_type $mtask "$@"
+else
+  python -m vipant_tpu_torch +running=$run_type $mtask "$@"
+fi

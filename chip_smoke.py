@@ -317,6 +317,33 @@ The packed-shard and trimodal phases follow (``pak_phase``,
    ``async_ckpt`` and without, each resumed for epoch 2: the resumed runs'
    params, LARS buffers and RNG bitwise equal, the save call's ms printed in
    both modes (path ``async``: the first epoch's launches).
+22. The data axis (``dp_phase``; paths ``dp`` and ``grad_cache``). Every
+   multi-rank run is a group of subprocesses of this script (``--dp-rank``,
+   a ``FileStore`` in a temp dir, all ranks on ``cuda:0``), each printing its
+   numbers and launch counts as one JSON line; a rank that exits non-zero or
+   outlives its time limit fails the phase. First a probe: whether NCCL takes
+   two ranks on one device (it is expected to refuse); the 2-rank runs then
+   use gloo on the card (which collectives gloo takes on CUDA tensors is
+   probed and printed), and NCCL runs as a group of one. (a) The flagship step at B = 64 on a one-rank
+   NCCL group: bitwise the plain training path's step (every param's sha1),
+   with the same launch counts. (b) 2 ranks x B = 32: the loss within 1e-3
+   relative of the one-rank B = 64 step on the same global batch, the
+   averaged grads held to fp32 by phase 6 (i)'s rule against the plain ops
+   at B = 64, both ranks' params bitwise equal after 3 steps, the step's ms
+   on each rank beside the one-rank step's (both ranks share the card: no
+   scaling is measured). (c) ZeRO-1 on those ranks: params after 3 steps
+   bitwise the replicated run's, each rank's optimizer-state bytes, a ZeRO
+   save after step 1 resumed without ZeRO bitwise the uninterrupted run.
+   (d) The VA loop on 2 ranks (phase 14's synthetic index, 64 + 32 clips, B
+   = 32, a save and an eval after each of 2 steps): rank 0's report after
+   the first save equal to a one-rank eval of that checkpoint, a resume from
+   it bitwise the uninterrupted run on both ranks. (e) The gradient cache at
+   full width: the VA step at B = 128 in 2 chunks of 64 and the AT step
+   (phase 15's config, B = 50) in 2 chunks, their launches (path
+   ``grad_cache``) and grads held to fp32 by the same rule against the plain
+   step at the same batch; at B = 256 in 4 chunks, ms and peak GiB beside the
+   plain step's, the cache's peak the lower. (f) ``InferenceEngine(
+   data_parallel=True)`` on one card bitwise the engine without it.
 
 Every kernel's time stands beside its bound, the least time the card could
 take for the same work: the larger of the bytes it must move (each input
@@ -343,7 +370,8 @@ Prints a JSON line of per-kernel results (``launches`` is the sum of the
 counts read on each main path (``serve``, ``train``, ``serve_int8``,
 ``train_int8_frozen``, ``probe``, ``caption_train``, ``caption_serve``, ``va_loop``,
 ``la_loop``, ``va_loop_dev``, ``serve_files``, ``ckpt``, ``clf``, ``pak``, ``val``, ``vas``,
-``barlow``, ``deit``, ``rn50``, ``patchout``, ``async``), which ``launches_by_path`` gives apart; ``ms``,
+``barlow``, ``deit``, ``rn50``, ``patchout``, ``async``, ``dp``, ``grad_cache``), which
+``launches_by_path`` gives apart; ``ms``,
 ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` are those of the
 kernel's first case, its main-path shape; ``cases`` holds each shape's), then, as the last line, ``{"ok": true, "device": {...}}``.
 With phase names, the kernels line also names the phases that ran
@@ -431,7 +459,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 }
 PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
          "caption_serve", "va_loop", "la_loop", "va_loop_dev", "serve_files", "ckpt", "clf", "pak", "val",
-         "vas", "barlow", "deit", "rn50", "patchout", "async")
+         "vas", "barlow", "deit", "rn50", "patchout", "async", "dp", "grad_cache")
 # the other backbones and patchout (backbone_phase): the DeiT VA step (the audio tower trainable at
 # T = 99 x 12 + 2 = 1,190, the image tower frozen at T = 14 x 14 + 2 = 198), the RN50 VA step, and
 # the flagship step with patchout 0.25 (305 patches, 228 kept, T = 229)
@@ -2170,6 +2198,11 @@ def _caption_engine(torch, batch_size, quantize=""):
     return InferenceEngine(CAPTION_FULL, batch_size=batch_size, seed=0, quantize=quantize)  # on the card
 
 
+# the profiled caption calls a window: ~24,000 device events a call, whose trace
+# takes the host seconds to read
+CAPTION_PROFILE_CALLS = 1
+
+
 def caption_serve_phase(torch, results):
     from vipant_tpu_torch.models.tasks import _encode
     from vipant_tpu_torch.ops import LAUNCHES, reset_launches
@@ -2254,29 +2287,30 @@ def caption_serve_phase(torch, results):
         raise AssertionError(f"teacher-forced logits cosine {cos} < {COS_MIN}")
 
     def timings(en, B):
-        """ms per caption batch, greedy and beam 4, and the decode alone."""
+        """ms per caption batch, greedy and beam 4, and the decode alone
+        (one timed call each after a warm-up: the phase's time is bounded)."""
         fbb = np.random.default_rng(1).standard_normal((B, 1000, 128)).astype(np.float32)
         with torch.inference_mode():
             _, f = _encode(en.model.audio, torch.from_numpy(fbb[:, None]).to(en.device), False,
                            require_feature=True)
-            row = {"caption greedy": _timed_ms(torch, lambda: en.caption(fbb), 3),
-                   "caption beam=4": _timed_ms(torch, lambda: en.caption(fbb, beam=4), 3),
-                   "greedy_decode_kv": _timed_ms(torch, lambda: en.model.decoder.greedy_decode_kv(f), 3),
-                   "beam_decode_kv(4)": _timed_ms(torch, lambda: en.model.decoder.beam_decode_kv(f, beam=4), 3)}
+            row = {"caption greedy": _timed_ms(torch, lambda: en.caption(fbb), 1),
+                   "caption beam=4": _timed_ms(torch, lambda: en.caption(fbb, beam=4), 1),
+                   "greedy_decode_kv": _timed_ms(torch, lambda: en.model.decoder.greedy_decode_kv(f), 1),
+                   "beam_decode_kv(4)": _timed_ms(torch, lambda: en.model.decoder.beam_decode_kv(f, beam=4), 1)}
             if B == BATCH:
-                row["greedy_decode (re-forward)"] = _timed_ms(torch, lambda: en.model.decoder.greedy_decode(f), 3)
+                row["greedy_decode (re-forward)"] = _timed_ms(torch, lambda: en.model.decoder.greedy_decode(f), 1)
             with plain_ops():
-                row["caption greedy, plain ops"] = _timed_ms(torch, lambda: en.caption(fbb), 3)
+                row["caption greedy, plain ops"] = _timed_ms(torch, lambda: en.caption(fbb), 1)
         print(f"  batch {B}: " + "; ".join(
             f"{k} {v:.2f} ms" + (f" ({v / L:.3f} ms per decode step)" if "decode" in k else "")
             for k, v in row.items()))
         return fbb
 
     fbb = timings(eng, BATCH)
-    busy, span, by_name = _profile(torch, lambda: eng.caption(fbb))
+    busy, span, by_name = _profile(torch, lambda: eng.caption(fbb), CAPTION_PROFILE_CALLS)
     print(f"  profiler, caption greedy batch {BATCH}: device busy {busy:.2f} ms / span {span:.2f} ms per "
-          f"batch (idle {100 * (1 - busy / span):.1f} %), {sum(n for n, _ in by_name.values()) / 3:.0f} "
-          f"device events per batch")
+          f"batch (idle {100 * (1 - busy / span):.1f} %), "
+          f"{sum(n for n, _ in by_name.values()) / CAPTION_PROFILE_CALLS:.0f} device events per batch")
 
     # the same weights with quantize="int8": the decoder's fused sub-blocks decode in int8
     eng8 = _caption_engine(torch, BATCH, "int8")
@@ -2294,11 +2328,12 @@ def caption_serve_phase(torch, results):
     del eng, eng8
     eng = _caption_engine(torch, 64)
     fbb = timings(eng, 64)
-    busy, span, by_name = _profile(torch, lambda: eng.caption(fbb))
+    busy, span, by_name = _profile(torch, lambda: eng.caption(fbb), CAPTION_PROFILE_CALLS)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     print(f"  profiler, caption greedy batch 64: device busy {busy:.2f} ms / span {span:.2f} ms per "
           f"batch (idle {100 * (1 - busy / span):.1f} %); top kernels per batch: "
-          + "; ".join(f"{d / 3:.2f} ms {n // 3}x {k[:50]}" for k, (n, d) in top))
+          + "; ".join(f"{d / CAPTION_PROFILE_CALLS:.2f} ms {n // CAPTION_PROFILE_CALLS}x {k[:50]}"
+                      for k, (n, d) in top))
 
 
 # phase 14: the VA epoch loop on a synthetic index
@@ -4687,6 +4722,452 @@ def backbone_phase(torch, results):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ----------------------------------------------------------------- phase 22: the data axis
+DP_B, DP_LOOP_TRAIN, DP_LOOP_EVAL, DP_LOOP_B = 64, 64, 32, 32
+GC_B, GC_CHUNK, GC_PEAK_B = 128, 64, 256  # the grads held at B = 128 in 2 chunks, peaks at 256 in 4
+DP_TIMEOUT = {"nccl_probe": 90, "nccl_one": 180, "ranks": 300, "loop": 300}
+DP_LOSS_REL = 1e-3
+
+
+def _param_hashes(tr):
+    """Name -> sha1 of each param's bytes (bitwise comparisons across processes)."""
+    import hashlib
+
+    import torch
+
+    return {k: hashlib.sha1(p.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                            .tobytes()).hexdigest()
+            for k, p in tr.model.named_parameters()}
+
+
+def _dp_batch(B, seed=11):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, 3, 224, 224)).astype(np.float32),
+            rng.standard_normal((B, 1, 1000, 128)).astype(np.float32))
+
+
+def _dp_rank_nccl_probe(torch, spec, rank, world, d):
+    """Whether NCCL takes two ranks on one device: a sum over both."""
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(rank + 1), device="cuda:0")
+    try:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return {"nccl_two_ranks_one_device": f"accepted: {x.tolist()}"}
+    except RuntimeError as e:  # the answer this probe is after (DistBackendError is one)
+        return {"nccl_two_ranks_one_device": f"refused: {type(e).__name__}: {str(e)[:200]}"}
+
+
+def _dp_rank_nccl_one(torch, spec, rank, world, d):
+    """(a) The flagship step at B = 64 on a one-rank NCCL group."""
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.train import Trainer
+
+    tr = Trainer(FLAGSHIP + [f"running.batch_size={DP_B}"], device="cuda:0",
+                 steps_per_epoch=STEPS_PER_EPOCH)
+    batch = tr.make_batch(*_dp_batch(DP_B))
+    reset_launches()
+    m = tr.train_step(*batch)
+    torch.cuda.synchronize()
+    return {"mesh": [tr.mesh.data, tr.mesh.backend, tr.mesh.distributed], "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]), "launches": dict(LAUNCHES), "hashes": _param_hashes(tr)}
+
+
+def _dp_rank_ranks(torch, spec, rank, world, d):
+    """(b) three steps of the flagship on 2 ranks of B = 32 (the first's
+    launches counted, its averaged grads saved by rank 0), (c) the same with
+    ZeRO-1, a save after its first step, and that save resumed without ZeRO
+    for the last two."""
+    import os
+    import time as _time
+
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.parallel import shard_batch
+    from vipant_tpu_torch.train import Trainer
+
+    over = FLAGSHIP + [f"running.batch_size={DP_B}"]
+    out = {}
+
+    def run(label, *extra, save_after=None, steps=3):
+        torch.cuda.empty_cache()
+        tr = Trainer(over + list(extra), device="cuda:0", steps_per_epoch=STEPS_PER_EPOCH)
+        batch = tr.make_batch(*shard_batch(list(_dp_batch(DP_B)), tr.mesh))
+        seen, times, saved = [], [], None
+        apply = tr.state.optimizer.apply
+        tr.state.optimizer.apply = lambda g: (seen.append(g) if not seen else None, apply(g))[1]
+        reset_launches()
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = _time.perf_counter()
+            m = tr.train_step(*batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            times.append((_time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                counts, first = dict(LAUNCHES), (loss, float(m["grad_norm"]))
+                if rank == 0 and label == "plain":
+                    torch.save({k: g.float().cpu() for k, g in seen[0].items()},
+                               os.path.join(d, "grads.pt"))
+            tr.global_step += 1
+            if save_after == i + 1:
+                saved = tr.save()
+        out[label] = {"loss": first[0], "grad_norm": first[1], "launches": counts,
+                      "ms": times, "state_bytes": tr.state.optimizer.state_bytes(),
+                      "hashes": _param_hashes(tr),
+                      "backend": tr.mesh.backend}
+        return saved
+
+    run("plain")
+    saved = run("zero", "mesh.zero=True", f"alias_root={d}/zero", save_after=1)
+    run("resumed", f"model_root={os.path.dirname(os.path.dirname(saved))}",
+        f"model_file={os.path.basename(saved)}", f"alias_root={d}/resumed", steps=2)
+    # which collectives gloo takes on CUDA tensors (the port hands them as they are)
+    import torch.distributed as dist
+
+    out["gloo_cuda"] = {}
+    for name, op in (("all_reduce", lambda x: dist.all_reduce(x)),
+                     ("broadcast", lambda x: dist.broadcast(x, 0)),
+                     ("all_gather_into_tensor", lambda x: dist.all_gather_into_tensor(
+                         torch.empty(2 * x.numel(), device=x.device), x))):
+        try:
+            op(torch.ones(4, device="cuda:0"))
+            torch.cuda.synchronize()
+            out["gloo_cuda"][name] = "takes it"
+        except RuntimeError as e:  # the answer this probe is after
+            out["gloo_cuda"][name] = f"refuses: {str(e)[:120]}"
+    return out
+
+
+def _dp_rank_loop(torch, spec, rank, world, d):
+    """(d) the VA loop on 2 ranks: saves and evals after each of its 2
+    steps, then the run resumed from the first save (without the evals)."""
+    reports = []
+
+    def learn(*extra):
+        from vipant_tpu_torch.train import Trainer
+
+        torch.cuda.empty_cache()
+        tr = Trainer(FLAGSHIP + list(spec["loop"]) + list(extra), device="cuda:0")
+        infer = tr.infer
+        tr.infer = lambda *a, **k: (lambda r: (reports.append([tr.global_step, r]), r)[1])(
+            infer(*a, **k))
+        tr.learn()
+        return tr
+
+    tr = learn(f"alias_root={d}/a")
+    out = {"reports": list(reports), "step": tr.global_step, "hashes": _param_hashes(tr),
+           "out_dir": tr.out_dir}
+    del tr
+    re = learn(f"alias_root={d}/b", f"model_root={d}/a", "model_file=00000001", "running.eval_name=")
+    out.update(resumed_step=re.global_step, resumed_hashes=_param_hashes(re))
+    return out
+
+
+DP_CASES = {"nccl_probe": ("nccl", 2, _dp_rank_nccl_probe), "nccl_one": ("nccl", 1, _dp_rank_nccl_one),
+            "ranks": ("gloo", 2, _dp_rank_ranks), "loop": ("gloo", 2, _dp_rank_loop)}
+
+
+def dp_rank_main(case, rank, d):
+    """One rank of a ``dp_phase`` run (``python3 chip_smoke.py --dp-rank
+    <case> <rank> <dir>``): the group of :data:`DP_CASES` through a
+    ``FileStore`` in ``d``, both ranks on ``cuda:0``; prints its results as
+    one JSON line."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from vipant_tpu_torch.ops import _build
+    from vipant_tpu_torch.parallel import distributed_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()  # built by the parent: loaded, not rebuilt
+    backend, world, fn = DP_CASES[case]
+    with open(os.path.join(d, "spec.json")) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    distributed_init(backend, device="cuda:0", init_method=f"file://{d}/store", world_size=world,
+                     rank=rank, timeout_s=DP_TIMEOUT[case])
+    out = fn(torch, spec, rank, world, d)
+    print(json.dumps({"rank": rank, "backend": backend, **out}), flush=True)
+    if case == "nccl_probe":  # a refused NCCL group may not tear down cleanly
+        os._exit(0)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _start_dp(case, root, spec=None):
+    """Start every rank of ``case`` as a subprocess of this script, its
+    output in a file; :func:`_finish_dp` collects them."""
+    import os
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix=f"dp_{case}_", dir=root)
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump(spec or {}, f)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in range(DP_CASES[case][1])]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", case, str(r), d],
+                              stdout=log, stderr=subprocess.STDOUT, env=env)
+             for r, log in enumerate(logs)]
+    return case, d, procs, logs, time.perf_counter()
+
+
+def _finish_dp(run):
+    """Each rank's JSON line and the run's directory. A rank that exits
+    non-zero or outlives ``DP_TIMEOUT[case]`` fails the phase; every process
+    is stopped before this returns."""
+    import os
+
+    case, d, procs, logs, t0 = run
+    try:
+        for p in procs:
+            p.wait(timeout=max(DP_TIMEOUT[case] - (time.perf_counter() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"dp_phase {case}: a rank ran past {DP_TIMEOUT[case]} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    results = []
+    for r, p in enumerate(procs):
+        with open(os.path.join(d, f"rank{r}.log")) as f:
+            text = f.read()
+        if p.returncode != 0:
+            raise AssertionError(f"dp_phase {case}: rank {r} exited {p.returncode}:\n{text[-4000:]}")
+        results.append(json.loads(next(line for line in reversed(text.splitlines())
+                                       if line.startswith('{"rank"'))))
+    print(f"  [{case}: {len(procs)} rank(s) in {time.perf_counter() - t0:.1f} s]")
+    return results, d
+
+
+def _add_launches(results, path, counts):
+    for name, n in counts.items():
+        r = results.setdefault(name, {"max_abs_err": 0.0, "cases": [], "launches": {}})
+        r["launches"][path] = r["launches"].get(path, 0) + n
+
+
+def dp_phase(torch, results):
+    """(a)-(f) of the data axis; see the module docstring."""
+    import os
+    import shutil
+    import tempfile
+
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.serve import InferenceEngine
+    from vipant_tpu_torch.train import build_monitor, loss_and_grads
+
+    smi = _smi()
+    root = tempfile.mkdtemp(prefix="vipant_dp_")
+    started = []  # every run's processes, stopped in the end whatever happens
+
+    def start(case, spec=None):
+        started.append(_start_dp(case, root, spec))
+        return started[-1]
+
+    try:
+        torch.cuda.empty_cache()
+        runs = [start("nccl_probe"), start("nccl_one")]
+        data = os.path.join(root, "va")  # (d)'s index, written while the NCCL runs start
+        write_synthetic_va(data, "train", DP_LOOP_TRAIN)
+        write_synthetic_va(data, "val", DP_LOOP_EVAL, seed=1)
+        probe, _ = _finish_dp(runs[0])
+        print(f"NCCL, 2 ranks on cuda:0: {probe[0]['nccl_two_ranks_one_device']}; the 2-rank runs use "
+              "gloo on cuda:0; NCCL runs as a group of 1")
+
+        # (a) NCCL, one rank, against the plain training path in this process
+        one, _ = _finish_dp(runs[1])
+        tr = _trainer(torch, DP_B)
+        batch = tr.make_batch(*_dp_batch(DP_B))
+        with plain_ops():  # (b)'s plain bf16 grads, at the init
+            loss_p, g_p = loss_and_grads(tr.state, *batch)
+        reset_launches()
+        m = tr.train_step(*batch)
+        torch.cuda.synchronize()
+        plain_counts, plain_loss = dict(LAUNCHES), float(m["loss"])
+        want = _step_launches(24, 12)
+        diff = [k for k, v in _param_hashes(tr).items() if one[0]["hashes"][k] != v]
+        print(f"(a) {smi}: NCCL group {one[0]['mesh']}: loss {one[0]['loss']:.6f} against the plain "
+              f"path's {plain_loss:.6f}; {len(one[0]['hashes']) - len(diff)} of {len(one[0]['hashes'])} "
+              f"params bitwise after one step; launches equal: {one[0]['launches'] == plain_counts}")
+        if (one[0]["mesh"] != [1, "nccl", True] or diff or one[0]["loss"] != plain_loss
+                or one[0]["launches"] != plain_counts or plain_counts != want):
+            raise AssertionError(f"(a) the one-rank NCCL step is not the plain step: params {diff[:5]}, "
+                                 f"launches {one[0]['launches']} / {plain_counts} / {want}")
+        _add_launches(results, "dp", one[0]["launches"])
+        one_ms = _step_ms(torch, tr, batch)
+
+        # (b), (c) two ranks of B = 32 on cuda:0, plain and ZeRO-1
+        ranks, d = _finish_dp(start("ranks"))
+        r0, r1 = ranks
+        plain, zero, resumed = r0["plain"], r0["zero"], r0["resumed"]
+        rel = abs(plain["loss"] - plain_loss) / abs(plain_loss)
+        print(f"(b) {smi}: 2 ranks x B={DP_B // 2} ({plain['backend']}): "
+              f"loss {plain['loss']:.6f} against one rank's {plain_loss:.6f} at B={DP_B} "
+              f"(rel {rel:.2e}); step ms rank 0 {[round(t, 2) for t in plain['ms']]}, rank 1 "
+              f"{[round(t, 2) for t in r1['plain']['ms']]}; one rank at B={DP_B}: {one_ms:.2f} ms "
+              "(both ranks share one card: no scaling is measured)")
+        if rel > DP_LOSS_REL or r1["plain"]["loss"] != plain["loss"]:
+            raise AssertionError(f"(b) the 2-rank loss {plain['loss']} is not the 1-rank {plain_loss}")
+        if plain["launches"] != _step_launches(24, 12):
+            raise AssertionError(f"(b) a rank's step launches {plain['launches']}")
+        _add_launches(results, "dp", plain["launches"])
+        split = [k for k, v in plain["hashes"].items() if r1["plain"]["hashes"][k] != v]
+        if split:
+            raise AssertionError(f"(b) the ranks' params differ after 3 steps: {split[:5]}")
+        g_k = {k: v.to("cuda") for k, v in torch.load(os.path.join(d, "grads.pt")).items()}
+        loss_k = torch.tensor(plain["loss"])
+        del tr
+        with plain_ops():
+            ref = _trainer(torch, DP_B, "compute_dtype=float32")
+            loss_f, g_f = loss_and_grads(ref.state, *ref.make_batch(*_dp_batch(DP_B)))
+        del ref
+        hold_grads_to_fp32(torch, f"(b) 2 ranks x B={DP_B // 2}", "2-rank", (loss_k, g_k),
+                           (loss_p, g_p), (loss_f, g_f))
+        del g_k, g_p, g_f
+        print(f"  gloo on CUDA tensors: {r0['gloo_cuda']}")
+        off = [k for k, v in plain["hashes"].items() if zero["hashes"][k] != v]
+        off_resumed = [k for k, v in plain["hashes"].items() if resumed["hashes"][k] != v]
+        print(f"(c) {smi}: ZeRO-1 optimizer state bytes: rank 0 {zero['state_bytes']:,}, rank 1 "
+              f"{r1['zero']['state_bytes']:,}, without ZeRO {plain['state_bytes']:,} a rank; params "
+              f"after 3 steps bitwise the replicated run's: {not off}; a ZeRO save resumed without "
+              f"ZeRO bitwise the uninterrupted run: {not off_resumed}; step ms {[round(t, 2) for t in zero['ms']]}")
+        if off or off_resumed or not zero["state_bytes"] < plain["state_bytes"]:
+            raise AssertionError(f"(c) ZeRO-1: {off[:5]} differ from the replicated run, "
+                                 f"{off_resumed[:5]} after the resume")
+
+        # (d) the VA loop on 2 ranks, and a 1-rank eval of its first save
+        loop = [f"running.data_root={data}", "running.data_name=train", "running.eval_name=val",
+                f"running.batch_size={DP_LOOP_B}", "running.epochs=1", "loader_backend=process",
+                "num_proc=2", "running.peep_rate=1", "running.save_rate=1", "running.save_epoch=False",
+                "model_name=dploop", "metrics_jsonl=True"]
+        loop_run = start("loop", {"loop": loop + ["eval=False"]})
+
+        # (e) the gradient cache at full width: the grads while the loop runs, the times after it
+        reset_launches()
+        gc = _trainer(torch, GC_B, "running.grad_cache.alive=True",
+                      f"running.grad_cache.chunk_size={GC_CHUNK}")
+        seen = []
+        apply = gc.state.optimizer.apply
+        gc.state.optimizer.apply = lambda g: (seen.append(g), apply(g))[1]
+        batch = gc.make_batch(*_dp_batch(GC_B, seed=13))
+        reset_launches()
+        loss_k = gc.train_step(*batch)["loss"]
+        torch.cuda.synchronize()
+        n = GC_B // GC_CHUNK
+        counts, want = dict(LAUNCHES), _step_launches(36 * n, 12 * n)
+        if gc.grad_cache != (("encode_image", "encode_audio"), n) or counts != want:
+            raise AssertionError(f"(e) the VA gradient-cache step: {gc.grad_cache}, launches {counts} "
+                                 f"!= {want}")
+        _add_launches(results, "grad_cache", counts)
+        g_k = seen[0]
+        del gc, seen
+        tr = _trainer(torch, GC_B)
+        loss_p, g_p = loss_and_grads(tr.state, *batch)
+        del tr
+        with plain_ops():
+            ref = _trainer(torch, GC_B, "compute_dtype=float32")
+            loss_f, g_f = loss_and_grads(ref.state, *batch)
+        del ref
+        hold_grads_to_fp32(torch, f"(e) VA B={GC_B} in {n} chunks of {GC_CHUNK}", "gradient-cache",
+                           (loss_k, g_k), (loss_p, g_p), (loss_f, g_f))
+        del g_k, g_p, g_f, batch
+        la = _la_monitor(torch, "running.grad_cache.alive=True", f"running.grad_cache.chunk_size={LA_B // 2}",
+                         steps_per_epoch=STEPS_PER_EPOCH)
+        seen = []
+        apply = la.state.optimizer.apply
+        la.state.optimizer.apply = lambda g: (seen.append(g), apply(g))[1]
+        batch = _la_batch(la, np.random.default_rng(15), LA_B)
+        reset_launches()
+        loss_k = la.train_step(*batch)["loss"]
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        trains = [t for t in ("audio", "text") if any(p.requires_grad for p in getattr(la.model, t).parameters())]
+        layers = {t: len(getattr(la.model, t).encoder.resblocks) for t in ("audio", "text")}
+        want = _step_launches(2 * sum(layers.values()) + 2 * sum(layers[t] for t in trains),
+                              2 * sum(layers[t] for t in trains))
+        if la.grad_cache != (("encode_audio", "encode_text"), 2) or counts != want:
+            raise AssertionError(f"(e) the AT gradient-cache step: {la.grad_cache}, launches {counts} "
+                                 f"!= {want}")
+        _add_launches(results, "grad_cache", counts)
+        g_k = seen[0]
+        del la, seen
+        plain_la = _la_monitor(torch, steps_per_epoch=STEPS_PER_EPOCH)
+        loss_p, g_p = loss_and_grads(plain_la.state, *batch)
+        del plain_la
+        with plain_ops():
+            ref = _la_monitor(torch, "compute_dtype=float32", steps_per_epoch=STEPS_PER_EPOCH)
+            loss_f, g_f = loss_and_grads(ref.state, *batch)
+        del ref
+        hold_grads_to_fp32(torch, f"(e) AT B={LA_B} in 2 chunks", "AT gradient-cache", (loss_k, g_k),
+                           (loss_p, g_p), (loss_f, g_f))
+        del g_k, g_p, g_f
+
+        # (f) the engine's data_parallel on one card
+        engines = [InferenceEngine(CLAP_FULL, batch_size=BATCH, seed=0, data_parallel=dp)
+                   for dp in (False, True)]
+        rng = np.random.default_rng(16)
+        fb = rng.standard_normal((6, 1000, 128)).astype(np.float32)
+        outs = [(e.embed_audio(fb), e.embed_texts(PROMPTS)) for e in engines]
+        same = all(np.array_equal(x, y) for x, y in zip(*outs))
+        print(f"(f) {smi}: InferenceEngine(data_parallel=True) on {torch.cuda.device_count()} card: "
+              f"{len(engines[1].replicas)} replica, embeddings bitwise the engine without it: {same}")
+        if not same or len(engines[1].replicas) != torch.cuda.device_count():
+            raise AssertionError("(f) data_parallel on one card changed the engine")
+        del engines
+
+        # (d) the loop's checks
+        lp, d = _finish_dp(loop_run)
+        a, b = lp
+        torch.cuda.empty_cache()
+        evaluator = build_monitor(FLAGSHIP + loop + ["eval=True", f"alias_root={root}/one",
+                                                     f"model_root={os.path.dirname(a['out_dir'])}",
+                                                     "model_file=00000001"])
+        report = evaluator.learn()
+        del evaluator
+        print(f"(d) {smi}: the loop's steps {a['step']}, its resume's {a['resumed_step']}; rank 0's "
+              f"report after the first save: {a['reports'][0][1]}; one rank's eval of that "
+              f"checkpoint: {report}")
+        if not (a["step"] == b["step"] == a["resumed_step"] == DP_LOOP_TRAIN // DP_LOOP_B
+                and [s for s, _ in a["reports"]] == [1, 2] and a["reports"][0][1] == report
+                and a["hashes"] == b["hashes"] == a["resumed_hashes"] == b["resumed_hashes"]):
+            raise AssertionError("(d) the 2-rank loop: steps, reports or resumed params differ")
+
+        peaks, ms = {}, {}
+        for label, extra in (("plain", ()), ("grad_cache", ("running.grad_cache.alive=True",
+                                                             f"running.grad_cache.chunk_size={GC_CHUNK}"))):
+            tr = _trainer(torch, GC_PEAK_B, *extra)
+            batch = tr.make_batch(*_dp_batch(GC_PEAK_B, seed=14))
+            tr.train_step(*batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms[label] = _step_ms(torch, tr, batch, reps=2)
+            peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+            del tr, batch
+            torch.cuda.empty_cache()
+        print(f"(e) {smi}: VA at B={GC_PEAK_B}: plain {ms['plain']:.2f} ms, peak {peaks['plain']:.2f} GiB; "
+              f"gradient cache in {GC_PEAK_B // GC_CHUNK} chunks of {GC_CHUNK}: {ms['grad_cache']:.2f} ms, "
+              f"peak {peaks['grad_cache']:.2f} GiB")
+        if not peaks["grad_cache"] < peaks["plain"]:
+            raise AssertionError(f"(e) the gradient cache's peak {peaks} is not the lower")
+    finally:
+        for _, _, procs, logs, _ in started:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = (
     ("kernel_phase", "kernel phase (forward kernels vs plain PyTorch on the card)", kernel_phase),
     ("backward_kernel_phase", "backward kernel phase (vs plain PyTorch on the card)",
@@ -4709,6 +5190,8 @@ PHASES = (
     ("trimodal_phase", "trimodal, siamese and Barlow training (full width)", trimodal_phase),
     ("backbone_phase", "the other backbones (DeiT, RN50), patchout and asynchronous checkpoints "
      "(full width)", backbone_phase),
+    ("dp_phase", "the data axis: NCCL, 2 ranks, ZeRO-1, the loop, the gradient cache, data-parallel "
+     "serving (full width)", dp_phase),
 )
 
 
@@ -4716,6 +5199,8 @@ def main(argv=None) -> int:
     """``python3 chip_smoke.py [phase ...]``: the named phases of
     :data:`PHASES` in their order, or all of them."""
     names = sys.argv[1:] if argv is None else list(argv)
+    if names[:1] == ["--dp-rank"]:  # one rank of dp_phase's runs
+        return dp_rank_main(names[1], int(names[2]), names[3])
     known = [name for name, _, _ in PHASES]
     unknown = [n for n in names if n not in known]
     if unknown:

@@ -648,15 +648,16 @@ def _launch(script, tmp_path, *args, **env):
                                              ("run_bimodal_at.sh", "trimodal")])
 def test_the_launchers_are_the_jax_packages_without_the_mesh(script, run_type, tmp_path):
     """bash/torch/*.sh pass the JAX launchers' overrides to ``python -m
-    vipant_tpu_torch`` but ``mesh.data=-1``, and they compose in the port."""
+    vipant_tpu_torch``, the mesh's ``mesh.data=-1`` too since the port runs
+    the data axis, and they compose in the port."""
     jax_args = _launch(f"bash/{script}", tmp_path, run_type, "platform=cpu")
     port_args = _launch(f"bash/torch/{script}", tmp_path, run_type, "platform=cpu")
     assert jax_args[0] == "train.py" and port_args[:2] == ["-m", "vipant_tpu_torch"]
     jax_args, port_args = jax_args[1:], port_args[2:]
-    assert [a for a in jax_args if a not in port_args] == ["mesh.data=-1"]
+    assert [a for a in jax_args if a not in port_args] == []
     assert [a for a in port_args if a not in jax_args] == []
     cfg = compose(port_args)
-    assert str(cfg.platform) == "cpu" and "mesh.data=-1" not in port_args
+    assert str(cfg.platform) == "cpu" and int(cfg.mesh.data) == -1
 
 
 @pytest.mark.parametrize("backbone,image,audio", [

@@ -62,6 +62,7 @@ from vipant_tpu_torch.train import Trainer, build_monitor
 from test_reference_port import _metahead_text_sd, _naive_audio_sd
 from test_trainers import TINY_MODEL
 from torch_oracle import TorchText, TorchVisual, clip_state_dict
+from torch_dist_worker import one_rank
 
 REGRID_TOL = 1e-5  # F.interpolate against jax.image.resize, fp32
 FORWARD_TOL = 1e-4  # a 2-layer tower's fp32 output, one package against the other
@@ -621,8 +622,8 @@ def test_a_one_channel_tower_keeps_clips_three_channel_kernel(clip_sd, clip_root
     got, want = _forward_pair(ja, jparams, pa.eval(), _audio_input(2))
     np.testing.assert_allclose(got, want, atol=FORWARD_TOL, rtol=0)
 
-    tr = Trainer(_tiny_cvap("model.audio.pre_encoder.in_channels=1", "running.batch_size=2",
-                            "optimizer.warmup_epoch=0", *_with_clip(clip_root)), device="cpu")
+    tr = Trainer(one_rank(_tiny_cvap("model.audio.pre_encoder.in_channels=1", "running.batch_size=2",
+                                     "optimizer.warmup_epoch=0", *_with_clip(clip_root))), device="cpu")
     leaf = tr.trainable["audio." + KERNEL]
     assert leaf is tr.model.audio.pre_encoder.conv1.weight and leaf.shape == (W, 3, 32, 32)
     r = np.random.default_rng(0)
@@ -686,8 +687,8 @@ def audio_export(tmp_path_factory):
     """A step directory whose model.npz covers the audio tower and the loss
     head only (the VA trainer's export), without a state.pt."""
     root = str(tmp_path_factory.mktemp("npz"))
-    tr = Trainer(_tiny_cvap("running.batch_size=2", "running.clip_model_name=", f"alias_root={root}",
-                            "model_name=run"), device="cpu")
+    tr = Trainer(one_rank(_tiny_cvap("running.batch_size=2", "running.clip_model_name=",
+                                     f"alias_root={root}", "model_name=run")), device="cpu")
     step = tr.save()
     os.remove(os.path.join(step, "state.pt"))
     return tr, [f"model_root={root}", "model_name=run", f"model_file={os.path.basename(step)}"]
@@ -718,7 +719,7 @@ def jax_va(clip_root, tmp_path_factory):
 
 
 def test_the_trainer_seeds_from_clip_as_the_jax_trainer(jax_va, clip_root):
-    tr = Trainer(_tiny_cvap("running.batch_size=2", *_with_clip(clip_root)), device="cpu")
+    tr = Trainer(one_rank(_tiny_cvap("running.batch_size=2", *_with_clip(clip_root))), device="cpu")
     want = from_jax.model_state_dict(jax.tree_util.tree_map(np.asarray, jax_va.state.full_params()))
     assert_same({**tr.trainable, **tr.frozen}, want, ("audio." + POS,))
     assert set(tr.frozen) == {k for k in want if k.startswith("image.")}
@@ -726,9 +727,9 @@ def test_the_trainer_seeds_from_clip_as_the_jax_trainer(jax_va, clip_root):
 
 def test_the_trainer_loads_a_pth_and_not_clip(tmp_path, oracle, clip_root):
     path = _reference_file(tmp_path, oracle, "naive_2_cfg_grid")
-    tr = Trainer(_tiny_cvap("running.batch_size=2", *_with_clip(clip_root), f"model_file={path}"),
-                 device="cpu")
-    seeded = Trainer(_tiny_cvap("running.batch_size=2", "running.clip_model_name="), device="cpu")
+    tr = Trainer(one_rank(_tiny_cvap("running.batch_size=2", *_with_clip(clip_root),
+                                     f"model_file={path}")), device="cpu")
+    seeded = Trainer(one_rank(_tiny_cvap("running.batch_size=2", "running.clip_model_name=")), device="cpu")
     jcfg, payload = jax_reference_port.load_torch_file(path)
     ja, _ = towers("audio")
     want = jax_tree_sd(jax_reference_port.port_reference_audio(
@@ -739,12 +740,12 @@ def test_the_trainer_loads_a_pth_and_not_clip(tmp_path, oracle, clip_root):
     assert all(torch.equal(p, seeded.frozen[k]) for k, p in tr.frozen.items())
     assert tr.trainable["loss.logit_scale"].item() == pytest.approx(1.2345)
     with pytest.raises(FileNotFoundError, match="missing.pth"):
-        Trainer(_tiny_cvap("model_file=missing.pth"), device="cpu")
+        Trainer(one_rank(_tiny_cvap("model_file=missing.pth")), device="cpu")
 
 
 def test_export_pth_writes_a_two_tuple_both_packages_load(tmp_path, clip_root):
-    tr = Trainer(_tiny_cvap("running.batch_size=2", *_with_clip(clip_root), "export_pth=True",
-                            f"alias_root={tmp_path}", "model_name=va"), device="cpu")
+    tr = Trainer(one_rank(_tiny_cvap("running.batch_size=2", *_with_clip(clip_root), "export_pth=True",
+                                     f"alias_root={tmp_path}", "model_name=va")), device="cpu")
     r = np.random.default_rng(1)
     tr.train_step(*tr.make_batch(r.standard_normal((2, 3, 224, 224)).astype(np.float32),
                                  r.standard_normal((2, 1, 100, 128)).astype(np.float32)))
@@ -765,7 +766,7 @@ def test_export_pth_writes_a_two_tuple_both_packages_load(tmp_path, clip_root):
     jvars = jax_apply_reference_ckpt(jeng.model, jeng.variables, pth)
     assert_same(audio, jax_tree_sd(jvars["params"]["audio"]))
     # and a port trainer started from it holds the audio tower bitwise
-    again = Trainer(_tiny_cvap("running.batch_size=2", f"model_file={pth}"), device="cpu")
+    again = Trainer(one_rank(_tiny_cvap("running.batch_size=2", f"model_file={pth}")), device="cpu")
     assert all(torch.equal(again.trainable["audio." + k], v) for k, v in audio.items())
 
 
@@ -773,9 +774,10 @@ def test_an_la_monitor_starts_from_a_va_pth(tmp_path, oracle):
     """The AT recipe: ``LAMonitor`` with ``model_file=<VA .pth>`` takes the
     audio tower from it and trains."""
     path = _reference_file(tmp_path, oracle, "metahead_2")
-    mon = build_monitor(["+running=clotho", "worker=CLAP", "monitor=LAMonitor", *_tiny_clap(),
-                         f"model_file={path}", "running.batch_size=2", "eval=False",
-                         "running.data_name=", "running.eval_name="], device="cpu", steps_per_epoch=4)
+    mon = build_monitor(one_rank(["+running=clotho", "worker=CLAP", "monitor=LAMonitor", *_tiny_clap(),
+                                  f"model_file={path}", "running.batch_size=2", "eval=False",
+                                  "running.data_name=", "running.eval_name="]),
+                        device="cpu", steps_per_epoch=4)
     audio = torch.load(path, weights_only=False)["model"][0]
     assert all(torch.equal(mon.trainable["audio." + k], torch.as_tensor(v)) for k, v in audio.items())
     r = np.random.default_rng(2)

@@ -47,6 +47,7 @@ from data_synth import make_synth_clotho, make_synth_va_index, make_synth_va_npz
 from fbank_route import pin_numpy_fbank
 from test_torch_trainer_loop import (LARS, _assert_bitwise, _cfg, _losses, _recording, _resume_cfg,
                                      _state)
+from torch_dist_worker import one_rank
 
 SHIP = ["running.audio.on_device=True", "running.audio.wav_int16=True", "running.image_uint8=True"]
 ONE_EPOCH = ["running.epochs=1"] + LARS  # 8 clips at B = 4: two steps, an eval at the end
@@ -110,7 +111,7 @@ def _run_both(data, tmp_path_factory, *extra, inject=False):
         init = jax.tree_util.tree_map(np.asarray, jmon.state.full_params())
         np.random.seed(0)
         jmon.learn()
-        tr = Trainer(_cfg(data, str(tmp_path_factory.mktemp("port")), *extra), device="cpu")
+        tr = Trainer(one_rank(_cfg(data, str(tmp_path_factory.mktemp("port")), *extra)), device="cpu")
         from_jax.load_params(tr.model, init)
         np.random.seed(0)
         tr.learn()
@@ -170,7 +171,7 @@ def test_the_eval_runs_the_device_frontend(wav_runs, data, short, tmp_path, clip
     shorter than the crop, whose padding the frontend zeroes as the host
     does (the JAX package's does not)."""
     over = _cfg(short if clips == "short" else data, str(tmp_path), "eval=True", *LARS)
-    dev, host = Trainer(over + SHIP, device="cpu"), Trainer(over, device="cpu")
+    dev, host = Trainer(one_rank(over + SHIP), device="cpu"), Trainer(one_rank(over), device="cpu")
     assert dev.needs_device_frontend and not host.needs_device_frontend
     for t in (dev, host):
         t.model.load_state_dict(wav_runs["specaugment_injected"][1].model.state_dict())
@@ -193,8 +194,8 @@ def test_eval_norms_reads_the_fbanks_the_frontend_makes(data, tmp_path, train):
                 "running.data_name=val", "running.eval_name=val", *LARS)
     if train:
         over += ["running.eval_name=", "eval=False"]
-    got = Trainer(over + ["running.audio.on_device=True"], device="cpu").learn()
-    want = Trainer(over, device="cpu").learn()
+    got = Trainer(one_rank(over + ["running.audio.on_device=True"]), device="cpu").learn()
+    want = Trainer(one_rank(over), device="cpu").learn()
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
@@ -210,7 +211,7 @@ def test_npz_shipping_steps_match_the_jax_trainer(data, tmp_path_factory, fmt):
 
 
 def test_make_batch_keeps_the_ship_dtypes(data, tmp_path):
-    tr = Trainer(_cfg(data, str(tmp_path), *SHIP), device="cpu", steps_per_epoch=1)
+    tr = Trainer(one_rank(_cfg(data, str(tmp_path), *SHIP)), device="cpu", steps_per_epoch=1)
     arrays = (np.zeros((2, 3, 4, 4), np.uint8), np.zeros((2, 16800), np.int16),
               np.zeros((2, 1, 4, 4), np.uint16), np.zeros((2, 3), np.float64))
     got = tr.make_batch(*arrays)
@@ -233,7 +234,7 @@ def test_la_monitor_runs_unchanged_with_on_device(tmp_path):
             "model_file="]
     losses = []
     for extra in ([], ["running.audio.on_device=True"]):
-        mon = build_monitor(over + extra, device="cpu")
+        mon = build_monitor(one_rank(over + extra), device="cpu")
         assert mon.on_device_audio == bool(extra)
         (batch,) = list(mon.loader)  # the epoch run to its end: no item left in flight
         args = mon.device_put.wait(batch)
@@ -247,14 +248,14 @@ def test_an_on_device_resume_is_bitwise_the_uninterrupted_run(data, tmp_path):
     """Two epochs of 2 steps with the device frontend and SpecAugment on:
     saved at step 3 (mid-epoch) and resumed by a fresh trainer, the run ends
     bitwise the uninterrupted one, the masks drawn alike."""
-    a = Trainer(_resume_cfg(data, str(tmp_path / "a"), 10 ** 9, *SHIP), device="cpu")
+    a = Trainer(one_rank(_resume_cfg(data, str(tmp_path / "a"), 10 ** 9, *SHIP)), device="cpu")
     fresh_rng = a.state.generator.get_state()
     a.learn()
     assert a.on_device_audio and a.global_step == 4
     assert not torch.equal(a.state.generator.get_state(), fresh_rng)  # SpecAugment drew
     run = str(tmp_path / "b")
-    Trainer(_resume_cfg(data, run, 3, *SHIP), device="cpu").learn()
-    b = Trainer(_resume_cfg(data, run, 10 ** 9, *SHIP, "model_file=00000003"), device="cpu")
+    Trainer(one_rank(_resume_cfg(data, run, 3, *SHIP)), device="cpu").learn()
+    b = Trainer(one_rank(_resume_cfg(data, run, 10 ** 9, *SHIP, "model_file=00000003")), device="cpu")
     assert b.global_step == b.state.step == 3
     b.learn()
     assert b.global_step == 4

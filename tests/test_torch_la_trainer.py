@@ -29,7 +29,7 @@ tests/data_synth.py, on the CPU:
 - the refusals: ``running.dataloader=lv``, a ``pak*`` dataset and
   ``async_ckpt`` are ported (the monitor reaches their loaders: a missing
   index or pack raises ``FileNotFoundError``); the gradient cache (A15) is
-  refused.
+  ported too, and a ``mesh.model`` > 1 beside it is refused (A15-rest).
 """
 
 import json
@@ -55,6 +55,7 @@ from vipant_tpu_torch.train import LATrainer, build_monitor
 from data_synth import _tone_wav, make_synth_clotho
 from fbank_route import pin_numpy_fbank
 from test_trainers import TINY_MODEL
+from torch_dist_worker import one_rank
 
 ADAM_NEAR_ZERO = 1e-3  # tests/test_torch_trainer_loop.py's rule
 MARGIN = 1e-3  # decoded ids must agree where the JAX decoder's top-2 logits are further apart
@@ -145,7 +146,7 @@ def _run_both(data, tmp_path_factory, *extra, record=True):
         init = jax.tree_util.tree_map(np.asarray, jmon.state.full_params())
         np.random.seed(0)
         jmon.learn()
-        tr = build_monitor(_cfg(data, str(tmp_path_factory.mktemp("port")), *extra), device="cpu")
+        tr = build_monitor(one_rank(_cfg(data, str(tmp_path_factory.mktemp("port")), *extra)), device="cpu")
         from_jax.load_params(tr.model, init)
         step_grads, apply = [], tr.state.optimizer.apply
 
@@ -224,8 +225,9 @@ def test_repeated_retrieval_reports_each_saved_step_as_the_run_did(loops):
     logged = _logged_reports(tr.out_dir)
     assert [os.path.basename(p) for p, _ in logged] == ["00000002", "00000003", "00000004"]
     assert all(r.startswith("A->T") for _, r in logged)
-    reports = build_monitor(_cfg(str(tr.cfg.running.data_root), str(tr.cfg.alias_root), "eval=True",
-                                 "model_file=train_0.out", f"model.text.freeze={tr.cfg.model.text.freeze}"),
+    reports = build_monitor(one_rank(_cfg(str(tr.cfg.running.data_root), str(tr.cfg.alias_root),
+                                          "eval=True", "model_file=train_0.out",
+                                          f"model.text.freeze={tr.cfg.model.text.freeze}")),
                             device="cpu").learn()
     assert reports == [f"{p}: {r}" for p, r in logged]
 
@@ -313,8 +315,8 @@ def test_caption_report_matches_the_jax_trainer(caption_loops):
 @pytest.mark.parametrize("bound,evaluates", [("0.5", False), ("inf", True), (None, True)])
 def test_the_ce_gate_skips_and_logs_or_evaluates(data, tmp_path, bound, evaluates):
     extra = [] if bound is None else [f"running.eval_loss_bound={bound}"]
-    tr = build_monitor(_cfg(data, str(tmp_path), "running.epochs=1", "running.save_rate=1000000",
-                            "running.test_name=", *extra), device="cpu")
+    tr = build_monitor(one_rank(_cfg(data, str(tmp_path), "running.epochs=1", "running.save_rate=1000000",
+                                     "running.test_name=", *extra)), device="cpu")
     tr.learn()  # one epoch: a save at its end, gated on its last loss (~1.4-2.2 < 5)
     with open(os.path.join(tr.out_dir, "train_0.out")) as f:
         log = f.read()
@@ -394,11 +396,13 @@ def test_a_short_clip_pads_its_captions_cyclically(data):
     pytest.param(["running.dataloader=lv"], FileNotFoundError, "clotho_dev.jsonl", id="extra0-A12"),
     pytest.param(["running.data_name=pak_clotho"], FileNotFoundError, "pak_clotho.pak",
                  id="extra1-A11"),
-    pytest.param(["running.grad_cache.alive=True"], NotImplementedError, "A15", id="extra2-A15"),
+    # ported: the gradient cache builds (A15); the model axis is still refused
+    pytest.param(["running.grad_cache.alive=True", "mesh.model=2"], NotImplementedError, "A15-rest",
+                 id="extra2-A15"),
     # ported: async_ckpt builds and the pack is reached
     pytest.param(["async_ckpt=True", "running.data_name=pak_clotho"], FileNotFoundError,
                  "pak_clotho.pak", id="extra3-A7"),
 ])
 def test_what_is_not_ported_is_refused_by_name(data, tmp_path, extra, error, item):
     with pytest.raises(error, match=item):
-        build_monitor(_cfg(data, str(tmp_path), *extra), device="cpu")
+        build_monitor(one_rank(_cfg(data, str(tmp_path), *extra)), device="cpu")

@@ -15,9 +15,10 @@ never imports jax, jaxlib, flax, optax or any module of ``vipant_tpu``; the
 command lines ``python -m vipant_tpu_torch
 platform=cpu`` (an ``LAMonitor`` step; docs/recipes.md's ESC-50 zero-shot
 and x-fold and AudioSet recipes) and ``python -m vipant_tpu_torch.serve``
-run where importing any of them raises. A scan of the sources holds the
-same: no import of ``vipant_tpu`` under ``vipant_tpu_torch/`` or in
-``chip_smoke.py``. The data layer, with the native fbank, imports no torch
+run where importing any of them raises, and so do two gloo ranks training
+with ZeRO-1 and the gradient cache. A scan of the sources holds the same:
+no import of ``vipant_tpu`` under ``vipant_tpu_torch/`` (``parallel/`` too),
+in ``chip_smoke.py`` or in ``tests/torch_dist_worker.py``. The data layer, with the native fbank, imports no torch
 (its spawned workers start without it)."""
 
 import os
@@ -441,6 +442,52 @@ def test_port_serves_int8_captioning_without_jax():
     _run(CAPTION_SCRIPT.replace(" QUANTIZE", ', quantize="int8"'))
 
 
+DP_SCRIPT = """
+import sys, tempfile
+import numpy as np
+sys.path.insert(0, TESTS)
+from torch_dist_worker import run_ranks
+from vipant_tpu_torch.serve import InferenceEngine
+
+over = ["+running=bimodal", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=dummy",
+        "+model/loss=ce", "+optimizer=standard", "+running/audio=default", "worker=CVAP",
+        "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=100", "model.image.width=64",
+        "model.image.embed_dim=32", "model.image.encoder.layers=1", "model.image.heads=4",
+        "running.batch_size=4", "model_file=", "mesh.zero=True", "running.grad_cache.alive=True",
+        "running.grad_cache.chunk_size=2"]
+r = np.random.default_rng(0)
+args = [r.standard_normal((4, 3, 224, 224)).astype(np.float32),
+        r.standard_normal((4, 1, 100, 128)).astype(np.float32)]
+got = run_ranks(tempfile.mkdtemp(), "steps", {"overrides": over, "args": args}, timeout=240)
+assert [g["mesh"] for g in got] == [(0, 2, "gloo"), (1, 2, "gloo")]
+assert got[0]["grad_cache"] == (("encode_image", "encode_audio"), 2)
+assert all(np.isfinite(s["loss"]) for g in got for s in g["steps"])
+eng = InferenceEngine(over, batch_size=2, device="cpu", data_parallel=True)
+assert len(eng.replicas) == 1
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_port_trains_on_two_ranks_with_zero_and_the_grad_cache_without_jax(tmp_path):
+    """Two gloo ranks (tests/torch_dist_worker.py) train a tiny VA step with
+    ZeRO-1 and the gradient cache, and a data-parallel engine builds, where
+    importing jax, jaxlib, flax, optax or vipant_tpu raises in the parent and
+    in both ranks."""
+    blocked = tmp_path / "blocked"
+    for name in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"):
+        (blocked / name).mkdir(parents=True)
+        (blocked / name / "__init__.py").write_text(f"raise ImportError('{name} must not be imported')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(blocked), ROOT]))
+    script = DP_SCRIPT.replace("TESTS", repr(os.path.join(ROOT, "tests")))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 CLI_ARGS = [
     "+running=clotho", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=transformer_val",
     "+model/loss=ce", "+optimizer=standard", "+running/audio=default", "worker=CLAP",
@@ -561,7 +608,7 @@ def test_no_source_of_the_port_imports_the_jax_package():
     assert IMPORT_OF_JAX_PACKAGE.search("from vipant_tpu.config import compose")
     assert IMPORT_OF_JAX_PACKAGE.search("    import vipant_tpu\n")
     assert not IMPORT_OF_JAX_PACKAGE.search("from vipant_tpu_torch.config import compose")
-    sources = [os.path.join(ROOT, "chip_smoke.py")]
+    sources = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_dist_worker.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "vipant_tpu_torch")):
         sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(sources) > 35
@@ -573,7 +620,9 @@ def test_no_source_of_the_port_imports_the_jax_package():
                 ("native", "__init__.py"), ("data", "esc50.py"), ("data", "audioset.py"),
                 ("data", "packed.py"), ("data", "image_text.py"), ("nn", "tying.py"),
                 ("nn", "resnet.py"), ("nn", "deit.py"), ("ckpt", "deit_port.py"),
-                ("experiments", "deit_grad_gap.py")):
+                ("experiments", "deit_grad_gap.py"), ("parallel", "__init__.py"),
+                ("parallel", "mesh.py"), ("parallel", "collectives.py"), ("parallel", "zero.py"),
+                ("parallel", "grad_cache.py"), ("tests", "torch_dist_worker.py")):
         assert any(p.endswith(os.path.join(*new)) for p in sources), new
     for path in sources:
         with open(path) as fh:

@@ -52,6 +52,7 @@ from data_synth import (make_synth_audioset, make_synth_clotho, make_synth_va_in
                         make_synth_va_npz_index)
 from fbank_route import pin_numpy_fbank
 from test_trainers import TINY_MODEL
+from torch_dist_worker import one_rank
 
 NORMS = [-4.9384, 5.7575]
 TINY = [*TINY_MODEL, "compute_dtype=float32"]
@@ -461,7 +462,7 @@ def test_trainer_on_a_pack_matches_the_jax_trainer(roots, packs, tmp_path, kind)
     jmon = jax_build_monitor(jax_compose(_loop_over(kind, root, str(tmp_path / "jax"))))
     init = jax.tree_util.tree_map(np.asarray, jmon.state.full_params())
     jmon.learn()
-    tr = build_monitor(_loop_over(kind, root, str(tmp_path / "port")), device="cpu")
+    tr = build_monitor(one_rank(_loop_over(kind, root, str(tmp_path / "port"))), device="cpu")
     from_jax.load_params(tr.model, init)
     tr.learn()
     want, got = _losses(jmon.out_dir), _losses(tr.out_dir)

@@ -320,7 +320,21 @@ def test_cli_needs_a_card_or_platform_cpu(files, tmp_path):
               *TINY])
 
 
-@pytest.mark.parametrize("flag,item", [(["--data_parallel"], "A15"), (["--model_parallel", "2"], "A15")])
+@pytest.mark.parametrize("flag,item", [(["--data_parallel", "--model_parallel", "2"], "A15-rest"),
+                                       (["--model_parallel", "2"], "A15-rest")])
 def test_multi_device_serving_is_refused_by_name(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["--task", "embed_text", "--texts", "a dog", *flag, "--", *TINY, "platform=cpu"])
+
+
+def test_cli_serves_from_one_process_and_refuses_a_launcher_of_ranks(tmp_path, monkeypatch):
+    """Several ranks of the serving CLI would each serve every input: it
+    refuses them and points at ``--data_parallel`` (a replica a local card
+    in one process)."""
+    for k, v in dict(WORLD_SIZE="2", RANK="1", LOCAL_RANK="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT="29500").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit, match="--data_parallel"):
+        main(["--task", "embed_text", "--texts", "a dog", "--output", str(tmp_path / "o.npz"), "--",
+              *TINY, "platform=cpu"])
+    assert not (tmp_path / "o.npz").exists()

@@ -198,11 +198,13 @@ def test_cvap_overfits_eight_pairs_with_adam():
 def test_trainer_refuses_what_is_not_ported():
     for extra in (["running.audio.on_device=True", "running.audio.dither=1.0"],
                   ["running.audio.on_device=True", "running.audio.use_energy=True"],
-                  ["running.grad_cache.alive=True"], ["mesh.zero=True"], ["mesh.model=2"]):
+                  ["mesh.model=2"], ["mesh.pipe=2"], ["mesh.seq=2"]):
         with pytest.raises(NotImplementedError):
             Trainer(_cfg("float32", *extra), device="cpu")
     assert Trainer(_cfg("float32", "running.multi_view=True"), device="cpu")  # ported: builds
     assert Trainer(_cfg("float32", "async_ckpt=True"), device="cpu")
+    assert Trainer(_cfg("float32", "running.grad_cache.alive=True"), device="cpu").grad_cache
+    assert Trainer(_cfg("float32", "mesh.zero=True"), device="cpu")  # one rank: nothing to split
     for missing in ("model_file=ckpt", "model_file=x.pth"):  # a configured checkpoint that is not there
         with pytest.raises(FileNotFoundError):
             Trainer(_cfg("float32", missing), device="cpu")

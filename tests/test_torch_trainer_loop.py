@@ -63,6 +63,7 @@ from data_synth import make_synth_va_index, make_synth_va_npz_index
 from fbank_route import pin_numpy_fbank
 from test_trainers import TINY_MODEL
 from torch_oracle import TorchText, TorchVisual, clip_state_dict
+from torch_dist_worker import one_rank
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -141,7 +142,7 @@ def loops(request, data, tmp_path_factory):
         init = jax.tree_util.tree_map(np.asarray, jmon.state.full_params())
         np.random.seed(0)
         jmon.learn()
-        tr = Trainer(_cfg(data, str(tmp_path_factory.mktemp("port")), *opt), device="cpu")
+        tr = Trainer(one_rank(_cfg(data, str(tmp_path_factory.mktemp("port")), *opt)), device="cpu")
         from_jax.load_params(tr.model, init)
         step_grads, apply = [], tr.state.optimizer.apply
 
@@ -228,7 +229,7 @@ def _assert_bitwise(a, b, path="state"):
 @pytest.fixture(scope="module")
 def uninterrupted(data, tmp_path_factory):
     run = str(tmp_path_factory.mktemp("a"))
-    tr = Trainer(_resume_cfg(data, run, 2), device="cpu")  # saves at steps 2 and 4
+    tr = Trainer(one_rank(_resume_cfg(data, run, 2)), device="cpu")  # saves at steps 2 and 4
     tr.learn()
     return tr, run
 
@@ -237,9 +238,9 @@ def uninterrupted(data, tmp_path_factory):
 def test_resume_is_bitwise_the_uninterrupted_run(data, uninterrupted, tmp_path, at):
     a, _ = uninterrupted
     run = str(tmp_path)
-    b1 = Trainer(_resume_cfg(data, run, at), device="cpu")
+    b1 = Trainer(one_rank(_resume_cfg(data, run, at)), device="cpu")
     b1.learn()
-    b2 = Trainer(_resume_cfg(data, run, 10 ** 9, f"model_file={at:08d}"), device="cpu")
+    b2 = Trainer(one_rank(_resume_cfg(data, run, 10 ** 9, f"model_file={at:08d}")), device="cpu")
     assert b2.global_step == b2.state.step == b2.state.optimizer.count == at
     b2.learn()
     assert b2.global_step == a.global_step == 4
@@ -295,10 +296,10 @@ def test_both_engines_serve_the_export_alike(uninterrupted, tmp_path):
 
 # ----------------------------------------------------------------- overfit
 def test_overfits_eight_pairs_through_the_loop(data, tmp_path):
-    tr = Trainer(_cfg(data, str(tmp_path), "running.data_name=npz_train",
-                      "running.eval_name=npz_train", "running.batch_size=8", "running.epochs=40",
-                      "running.save_epoch=False", "running.audio.transform_fbank=False",
-                      "optimizer.lr=4.0e-3"), device="cpu")
+    tr = Trainer(one_rank(_cfg(data, str(tmp_path), "running.data_name=npz_train",
+                               "running.eval_name=npz_train", "running.batch_size=8", "running.epochs=40",
+                               "running.save_epoch=False", "running.audio.transform_fbank=False",
+                               "optimizer.lr=4.0e-3")), device="cpu")
     tr.learn()
     losses = _losses(tr.out_dir)
     assert len(losses) == 40 and losses[0] > 3.0, losses[:3]
@@ -311,14 +312,14 @@ def test_overfits_eight_pairs_through_the_loop(data, tmp_path):
 # ------------------------------------------------------------- the options
 def test_eval_mode_gold_report_and_eval_norms(data, tmp_path):
     over = _cfg(data, str(tmp_path), "eval=True")
-    report = Trainer(over, device="cpu").learn()
+    report = Trainer(one_rank(over), device="cpu").learn()
     assert report.startswith("I->A") and "@ 5" in report
     gold = tmp_path / "gold.jsonl"
     gold.write_text("".join(json.dumps({"id": f"clip{i}", "labels": [f"c{i % 2}"]}) + "\n"
                             for i in range(5)))
-    report = Trainer(over + [f"running.gold_file={gold}"], device="cpu").learn()
+    report = Trainer(one_rank(over + [f"running.gold_file={gold}"]), device="cpu").learn()
     assert "| I->A P@1" in report and "mAP" in report
-    tr = Trainer(over + ["running.audio.eval_norms=True"], device="cpu")
+    tr = Trainer(one_rank(over + ["running.audio.eval_norms=True"]), device="cpu")
     mean, std = tr.learn()
     feats = np.concatenate([b["audio"][: b["_count"]] for b in tr.evalloader]).astype(np.float64)
     assert feats.shape[0] == 5
@@ -328,9 +329,9 @@ def test_eval_mode_gold_report_and_eval_norms(data, tmp_path):
 @pytest.mark.parametrize("given", [True, False])
 def test_profile_window_writes_a_trace(data, tmp_path, monkeypatch, given):
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))  # the shipped dir goes under it
-    tr = Trainer(_cfg(data, str(tmp_path), "running.eval_name=", "running.save_epoch=False",
-                      "profile.alive=True", "profile.start_step=2", "profile.num_steps=2",
-                      *([f"profile.dir={tmp_path}/prof"] if given else [])), device="cpu")
+    tr = Trainer(one_rank(_cfg(data, str(tmp_path), "running.eval_name=", "running.save_epoch=False",
+                               "profile.alive=True", "profile.start_step=2", "profile.num_steps=2",
+                               *([f"profile.dir={tmp_path}/prof"] if given else []))), device="cpu")
     tr.learn()
     prof = tmp_path / ("prof" if given else "vipant_profile")
     assert os.listdir(prof) == ["trace_00000004.json"]  # steps 2 to 4: two epochs
@@ -340,19 +341,19 @@ def test_the_shipped_run_root_is_under_the_temp_dir(data, tmp_path, monkeypatch)
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     over = [o for o in _cfg(data, "unused", "running.eval_name=", "running.epochs=1")
             if not o.startswith(("alias_root=", "model_root="))]
-    tr = Trainer(over, device="cpu")
+    tr = Trainer(one_rank(over), device="cpu")
     assert tr.out_dir == os.path.join(str(tmp_path), "vipant", "run")
     tr.learn()
-    resumed = Trainer(over + ["model_file=00000002"], device="cpu")  # model_root alike
+    resumed = Trainer(one_rank(over + ["model_file=00000002"]), device="cpu")  # model_root alike
     assert resumed.global_step == 2 and os.path.isdir(os.path.join(tr.out_dir, "00000002"))
 
 
 def test_keep_last_and_halt_on_nan(data, tmp_path):
-    tr = Trainer(_cfg(data, str(tmp_path), "running.save_rate=1", "running.save_epoch=False",
-                      "running.eval_name=", "keep_last_ckpts=2"), device="cpu")
+    tr = Trainer(one_rank(_cfg(data, str(tmp_path), "running.save_rate=1", "running.save_epoch=False",
+                               "running.eval_name=", "keep_last_ckpts=2")), device="cpu")
     tr.learn()
     assert sorted(d for d in os.listdir(tr.out_dir) if d.isdigit()) == ["00000003", "00000004"]
-    bad = Trainer(_cfg(data, str(tmp_path / "nan"), "running.eval_name="), device="cpu")
+    bad = Trainer(one_rank(_cfg(data, str(tmp_path / "nan"), "running.eval_name=")), device="cpu")
     with torch.no_grad():
         next(iter(bad.trainable.values())).fill_(float("nan"))
     with pytest.raises(FloatingPointError):
@@ -360,21 +361,23 @@ def test_keep_last_and_halt_on_nan(data, tmp_path):
 
 
 def test_monitor_registry_names_what_is_not_ported(data, tmp_path):
-    assert type(build_monitor(compose(_cfg(data, str(tmp_path), "eval=True")), device="cpu")) is Trainer
-    la = build_monitor(compose(_cfg(data, str(tmp_path), "eval=True", "monitor=LAMonitor",
-                                    "worker=CLAP", "+model/text=transformer_val",
-                                    "model.text.width=32", "model.text.heads=4",
-                                    "model.text.encoder.layers=2", "running.eval_name=")), device="cpu")
+    cfg = compose(one_rank(_cfg(data, str(tmp_path), "eval=True")))
+    assert type(build_monitor(cfg, device="cpu")) is Trainer
+    la = build_monitor(compose(one_rank(_cfg(data, str(tmp_path), "eval=True", "monitor=LAMonitor",
+                                             "worker=CLAP", "+model/text=transformer_val",
+                                             "model.text.width=32", "model.text.heads=4",
+                                             "model.text.encoder.layers=2", "running.eval_name="))),
+                       device="cpu")
     assert isinstance(la, LATrainer)
     # the trimodal and siamese monitors are ported; an unknown name lists the known ones
     assert trainer_module.MONITORS["VALMonitor"].__name__ == "VALTrainer"
     assert trainer_module.MONITORS["VASMonitor"].__name__ == "VASTrainer"
     with pytest.raises(ValueError, match="unknown monitor 'NoSuchMonitor'.*VALMonitor.*VASMonitor"):
-        build_monitor(compose(_cfg(data, str(tmp_path), "monitor=NoSuchMonitor")), device="cpu")
+        build_monitor(compose(one_rank(_cfg(data, str(tmp_path), "monitor=NoSuchMonitor"))), device="cpu")
 
 
 def test_only_a_training_loader_gets_the_pinned_put(data, tmp_path):
-    train = Trainer(_cfg(data, str(tmp_path)), device="cpu")
+    train = Trainer(one_rank(_cfg(data, str(tmp_path))), device="cpu")
     assert train.loader.device_put_fn is train.device_put is not None
-    assert Trainer(_cfg(data, str(tmp_path), "eval=True"), device="cpu").device_put is None
-    assert Trainer(_cfg(data, str(tmp_path)), device="cpu", steps_per_epoch=2).device_put is None
+    assert Trainer(one_rank(_cfg(data, str(tmp_path), "eval=True")), device="cpu").device_put is None
+    assert Trainer(one_rank(_cfg(data, str(tmp_path))), device="cpu", steps_per_epoch=2).device_put is None

@@ -75,6 +75,7 @@ from vipant_tpu_torch.train import (LATrainer, Trainer, VALTrainer, VASTrainer, 
 from data_synth import make_synth_audioset, make_synth_va_index
 from fbank_route import pin_numpy_fbank
 from test_trainers import TINY_MODEL
+from torch_dist_worker import one_rank
 
 TINY = [*TINY_MODEL, "compute_dtype=float32"]
 HEAD_TOL = 1e-5
@@ -287,7 +288,7 @@ def steps(request, tmp_path_factory):
     which = request.param
     run = str(tmp_path_factory.mktemp(which))
     over = STEPS[which] + [f"alias_root={run}", f"model_root={run}", "model_file="]
-    tr = build_monitor(over, device="cpu", steps_per_epoch=10)
+    tr = build_monitor(one_rank(over), device="cpu", steps_per_epoch=10)
     jcfg = jax_compose(over)
     jmodel = _jax_model(jcfg)
     ties = jax_siamese_ties(jcfg)
@@ -360,8 +361,8 @@ def test_the_export_restores_the_tied_stages(steps):
 
 
 def test_a_tie_whose_shapes_differ_raises(tmp_path):
-    tr = build_monitor(STEPS["CVALP"] + [f"alias_root={tmp_path}", f"model_root={tmp_path}"],
-                       device="cpu", steps_per_epoch=1)
+    tr = build_monitor(one_rank(STEPS["CVALP"] + [f"alias_root={tmp_path}", f"model_root={tmp_path}"]),
+                                device="cpu", steps_per_epoch=1)
     with pytest.raises(ValueError, match=r"text/misc.*image/misc|image/misc.*text/misc"):
         tie_parameters(tr.model, [("text/misc", "image/misc")])
     with pytest.raises(ValueError, match="text/encoder/.*image/encoder/"):
@@ -372,7 +373,7 @@ def test_int8_frozen_on_a_tower_with_a_trained_tie_raises(tmp_path):
     over = STEPS["CVALP_tied"] + [f"alias_root={tmp_path}", f"model_root={tmp_path}",
                                   "model.image.int8_frozen=True"]
     with pytest.raises(ValueError, match="int8_frozen"):
-        build_monitor(over, device="cpu", steps_per_epoch=1)
+        build_monitor(one_rank(over), device="cpu", steps_per_epoch=1)
 
 
 # ------------------------------------------------------------ conversions
@@ -384,8 +385,8 @@ def test_tied_models_take_and_give_pruned_and_full_trees(tmp_path, which):
     ties = jax_siamese_ties(jcfg)
     full = _np(init_model(jcfg, jmodel)["params"])
     pruned = prune_tied(full, ties)
-    a = build_monitor(over, device="cpu", steps_per_epoch=1)
-    b = build_monitor(over, device="cpu", steps_per_epoch=1)
+    a = build_monitor(one_rank(over), device="cpu", steps_per_epoch=1)
+    b = build_monitor(one_rank(over), device="cpu", steps_per_epoch=1)
     from_jax.load_params(a.model, pruned)
     from_jax.load_params(b.model, restore_tied(pruned, ties))  # a full tree: the sources win
     for (k, p), (_, q) in zip(a.model.named_parameters(), b.model.named_parameters()):
@@ -567,7 +568,7 @@ def as_root(tmp_path_factory):
 
 def _monitor_pair(over):
     jmon = jax_build_monitor(jax_compose(over))
-    tr = build_monitor(over, device="cpu")
+    tr = build_monitor(one_rank(over), device="cpu")
     from_jax.load_params(tr.model, _np(jmon.state.full_params()))
     return jmon, tr
 
@@ -602,11 +603,11 @@ def test_lv_monitor_report_is_the_jax_monitors(it_root, tmp_path):
 
 # ---------------------------------------------------------------- resumes
 def _vas_run(va, run, *extra):
-    return build_monitor([*SIAMESE, f"running.data_root={va}", "running.data_name=train",
-                          "running.eval_name=", "running.epochs=2", "running.peep_rate=1",
-                          "running.save_epoch=False", "loader_backend=process", "model.loss.aa=True",
-                          f"alias_root={run}", f"model_root={run}", "model_name=run", "eval=False",
-                          *extra], device="cpu")
+    return build_monitor(one_rank([*SIAMESE, f"running.data_root={va}", "running.data_name=train",
+                                   "running.eval_name=", "running.epochs=2", "running.peep_rate=1",
+                                   "running.save_epoch=False", "loader_backend=process", "model.loss.aa=True",
+                                   f"alias_root={run}", f"model_root={run}", "model_name=run", "eval=False",
+                                   *extra]), device="cpu")
 
 
 def _state(tr):
@@ -667,12 +668,12 @@ def test_the_jax_loaders_views_differ_after_a_resume(va):
 # ---------------------------------------------------------- Barlow trainer
 def test_a_barlow_trainer_resumes_its_statistics_bitwise(va, tmp_path):
     def run(path, *extra):
-        return Trainer(["+running=bimodal", *TINY, "+model/loss=barlow_ce",
-                        "model.loss.barlow.layers=[24,16,16]", f"running.data_root={va}",
-                        "running.data_name=train", "running.eval_name=", "running.batch_size=4",
-                        "running.epochs=2", "running.peep_rate=1", "running.save_epoch=False",
-                        "loader_backend=process", "num_proc=2", f"alias_root={path}",
-                        f"model_root={path}", "model_name=run", "eval=False", *extra], device="cpu")
+        return Trainer(one_rank(["+running=bimodal", *TINY, "+model/loss=barlow_ce",
+                                 "model.loss.barlow.layers=[24,16,16]", f"running.data_root={va}",
+                                 "running.data_name=train", "running.eval_name=", "running.batch_size=4",
+                                 "running.epochs=2", "running.peep_rate=1", "running.save_epoch=False",
+                                 "loader_backend=process", "num_proc=2", f"alias_root={path}",
+                                 f"model_root={path}", "model_name=run", "eval=False", *extra]), device="cpu")
 
     a = run(tmp_path / "a", "running.save_rate=1000000", "model_file=")
     init = {k: b.clone() for k, b in a.state.buffers.items()}
@@ -709,10 +710,10 @@ def test_the_siamese_on_device_form_ships_waveforms_and_trains(va, tmp_path):
         got, want = items
         assert got["audio_v1"].tobytes() == want["audio_v1"].tobytes()
         assert got["audio_v2"].shape == (1, 1, 1) and 0 < got["audio_len"] <= got["audio_v1"].shape[0]
-    tr = build_monitor([*SIAMESE, *extra, f"running.data_root={va}", "running.data_name=train",
-                        "running.eval_name=", "model.loss.aa=True", f"alias_root={tmp_path}",
-                        f"model_root={tmp_path}", "model_file=", "eval=False", "num_proc=1"],
-                       device="cpu")
+    tr = build_monitor(one_rank([*SIAMESE, *extra, f"running.data_root={va}", "running.data_name=train",
+                                 "running.eval_name=", "model.loss.aa=True", f"alias_root={tmp_path}",
+                                 f"model_root={tmp_path}", "model_file=", "eval=False", "num_proc=1"]),
+                                device="cpu")
     batch = next(iter(tr.loader))
     assert batch["audio_v1"].ndim == 2 and batch["audio_v2"].ndim == 2 and "audio_len" in batch
     m = tr.train_step(*tr.device_put.wait(batch), audio_len=batch["audio_len"])
@@ -726,8 +727,8 @@ def test_clip_logit_scale_reaches_every_pair_head(tmp_path):
     reaches every nested ``logit_scale``."""
     from vipant_tpu_torch.ckpt.loading import copy_logit_scales
 
-    tr = build_monitor(STEPS["CVALP"] + [f"alias_root={tmp_path}", f"model_root={tmp_path}"],
-                       device="cpu", steps_per_epoch=1)
+    tr = build_monitor(one_rank(STEPS["CVALP"] + [f"alias_root={tmp_path}", f"model_root={tmp_path}"]),
+                                device="cpu", steps_per_epoch=1)
     copy_logit_scales(tr.model, torch.tensor(4.25))
     scales = {k: p.item() for k, p in tr.model.named_parameters() if k.endswith("logit_scale")}
     assert sorted(scales) == ["loss.ce_al.logit_scale", "loss.ce_lv.logit_scale",

@@ -9,6 +9,14 @@ the trimodal ``CVALP`` (image-audio-text), the multi-view siamese ``CVASP``
 (a pivot image tower, a view image tower, the audio tower) and the
 image-text ``CLVP``. Siamese parameter ties are made on the built model
 (:mod:`..nn.tying`), outside these modules.
+
+Under data parallelism the trainer sets ``data_group`` (the data mesh,
+:mod:`..parallel.mesh`) and every loss sees the global batch, as the JAX
+package's one SPMD program does (``vipant_tpu/train/step.py:1-7``): each
+task gathers its embeddings (and labels) over the ranks, with gradient,
+before its loss head (:func:`..parallel.gather_batch`), and the captioning
+loss normalises by the global token count. Eval paths (``features``,
+``encode_*``) stay local.
 """
 
 from __future__ import annotations
@@ -22,8 +30,21 @@ from torch import nn
 from ..utils import Registry
 
 from ..nn.heads import normalize
+from ..parallel.collectives import gather_batch
 
 MODELS = Registry("MODELS")
+
+
+class _Task(nn.Module):
+    """A task model; ``data_group`` is the data mesh whose ranks' rows the
+    loss gathers (None: one device)."""
+
+    data_group = None
+
+    def _global(self, *xs, train: bool = True):
+        """Each of ``xs`` (None passes) gathered over the ranks in training;
+        as given in eval, which stays local."""
+        return tuple(gather_batch(x, self.data_group) if train else x for x in xs)
 
 
 def _run(tower: nn.Module, x: torch.Tensor, train: bool, **kw):
@@ -45,7 +66,7 @@ def _encode(tower: nn.Module, x: torch.Tensor, train: bool, require_feature: boo
 
 
 @MODELS.register()
-class CVAP(nn.Module):
+class CVAP(_Task):
     """Image <-> audio contrastive model."""
 
     def __init__(self, image: nn.Module, audio: nn.Module, loss: nn.Module):
@@ -62,13 +83,13 @@ class CVAP(nn.Module):
         return self.encode_image(images, train), self.encode_audio(audios, train)
 
     def forward(self, images, audios, train: bool = True):
-        v = self.encode_image(images, train)
-        a = self.encode_audio(audios, train)
+        v, a = self._global(self.encode_image(images, train), self.encode_audio(audios, train),
+                            train=train)
         return self.loss(v, a, normalized=True)
 
 
 @MODELS.register()
-class CLAP(nn.Module):
+class CLAP(_Task):
     """Audio <-> text retrieval, or captioning: ``decoder`` is the
     SeqGenerationHead of the captioning branch and ``lm_loss`` its loss; a
     captioning model has no text tower (``text=None``) and no contrastive
@@ -90,8 +111,8 @@ class CLAP(nn.Module):
         return self.encode_audio(audios, train), self.encode_text(text, train)
 
     def forward_retrieval(self, audios, text, train: bool = True):
-        a = self.encode_audio(audios, train)
-        t = self.encode_text(text, train)
+        a, t = self._global(self.encode_audio(audios, train), self.encode_text(text, train),
+                            train=train)
         return self.loss(a, t, normalized=True)
 
     def forward_caption(self, audios, text, train: bool = True):
@@ -99,7 +120,7 @@ class CLAP(nn.Module):
             raise ValueError("forward_caption needs a decoder and its lm_loss")
         _, feat = _encode(self.audio, audios, train, require_feature=True)
         _, logits = self.decoder(text, feat, time_first=True)
-        return self.lm_loss(logits, text[:, 1:])
+        return self.lm_loss(logits, text[:, 1:], mesh=self.data_group if train else None)
 
     def forward(self, audios, text, retrieval: Optional[bool] = None, train: bool = True):
         if retrieval is None:  # a captioning config has no dual text tower
@@ -119,7 +140,7 @@ class CLAP(nn.Module):
 
 
 @MODELS.register()
-class ASClassifier(nn.Module):
+class ASClassifier(_Task):
     """AudioSet multi-label classification, with the "imagination" CE
     branch against the image embedding when the loss is an
     ``ImagineAndClassifyLossHead`` and the model has an image tower. The
@@ -143,12 +164,14 @@ class ASClassifier(nn.Module):
         a = _run(self.audio, audios, train)
         if images is not None and self.image is not None and isinstance(
                 self.loss, ImagineAndClassifyLossHead):
-            return self.loss(a, labels, _encode(self.image, images, train), train=train)
+            a, labels, v = self._global(a, labels, _encode(self.image, images, train), train=train)
+            return self.loss(a, labels, v, train=train)
+        a, labels = self._global(a, labels, train=train)
         return self.loss(a, labels, train=train)
 
 
 @MODELS.register()
-class ESClassifier(nn.Module):
+class ESClassifier(_Task):
     """ESC-50 / US8K classification on the audio tower's raw embedding; the
     text tower serves zero-shot. ``predictions`` is the argmax of the eval
     logits."""
@@ -164,14 +187,15 @@ class ESClassifier(nn.Module):
         return _encode(self.text, text, train)
 
     def forward(self, audios, labels, train: bool = True):
-        return self.loss(_run(self.audio, audios, train), labels, train=train)
+        a, labels = self._global(_run(self.audio, audios, train), labels, train=train)
+        return self.loss(a, labels, train=train)
 
     def predictions(self, audios):
         return torch.argmax(self.loss(_run(self.audio, audios, False), train=False), dim=-1)
 
 
 @MODELS.register()
-class CVALP(nn.Module):
+class CVALP(_Task):
     """Trimodal vision-audio-language training
     (parity: `reference/cvap/model/cvalp.py`): each tower's normalised
     embedding into ``VALCELossHead``."""
@@ -194,12 +218,12 @@ class CVALP(nn.Module):
                 self.encode_text(text, train))
 
     def forward(self, images, audios, text, train: bool = True):
-        v, a, l = self.features(images, audios, text, train)
+        v, a, l = self._global(*self.features(images, audios, text, train), train=train)
         return self.loss(v, a, l, normalized=True)
 
 
 @MODELS.register()
-class CVASP(nn.Module):
+class CVASP(_Task):
     """Multi-view siamese VA training
     (parity: `reference/cvap/model/siamese_va.py`): the pivot image through
     ``image``, the augmented image views through ``image_v`` (tied whole to
@@ -228,11 +252,11 @@ class CVASP(nn.Module):
         a1 = _encode(self.audio, audios_v1, train)
         v2 = _encode(self.image_v, images_v2, train) if images_v2 is not None else None
         a2 = _encode(self.audio, audios_v2, train) if audios_v2 is not None else None
-        return self.loss(vp, v1, a1, v2, a2, normalized=True)
+        return self.loss(*self._global(vp, v1, a1, v2, a2, train=train), normalized=True)
 
 
 @MODELS.register()
-class CLVP(nn.Module):
+class CLVP(_Task):
     """Image <-> text retrieval (parity: `reference/cvap/model/clvp.py`)."""
 
     def __init__(self, image: nn.Module, text: nn.Module, loss: nn.Module):
@@ -249,5 +273,5 @@ class CLVP(nn.Module):
         return self.encode_image(images, train), self.encode_text(text, train)
 
     def forward(self, images, text, train: bool = True):
-        v, t = self.features(images, text, train)
+        v, t = self._global(*self.features(images, text, train), train=train)
         return self.loss(v, t, normalized=True)

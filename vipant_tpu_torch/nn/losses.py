@@ -28,9 +28,12 @@ the identity-matching loss over the batch-standardised cross-correlation;
 (momentum 0.99, eps 1e-5, the variance E[x^2] - E[x]^2 clipped at 0 and
 biased, the running statistics updated from the batch's in train mode and
 read in eval), not ``torch.nn.BatchNorm1d`` (unbiased running variance,
-``momentum`` the other way round). Its running ``mean`` and ``var`` are
-buffers: the train state, its checkpoints and :mod:`..ckpt.from_jax` (the
-JAX ``batch_stats`` collection) carry them.
+``momentum`` the other way round). A tower's BatchNorm under data
+parallelism (``data_group`` set by the trainer) takes the global batch's
+statistics from the ranks' sums; the loss heads' see the gathered batch.
+Its running ``mean`` and ``var`` are buffers: the train state, its
+checkpoints and :mod:`..ckpt.from_jax` (the JAX ``batch_stats`` collection)
+carry them.
 """
 
 from __future__ import annotations
@@ -103,14 +106,28 @@ class LMLossHead(nn.Module):
         if self.logit_scale is not None:
             nn.init.constant_(self.logit_scale, LOGIT_SCALE_INIT)
 
-    def forward(self, logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    def forward(self, logits: torch.Tensor, targets: torch.Tensor, mesh=None) -> torch.Tensor:
+        """``mesh``: the data mesh when the ranks hold parts of the batch.
+        The loss is then the global batch's, ``sum(nll * mask) / max(sum(mask),
+        1)`` over every rank's tokens (ranks pad differently, so a mean of
+        the ranks' means would be another loss), and its grad is ``ranks``
+        times this rank's part, so that the mean of the ranks' grads is the
+        global loss's grad (:mod:`..parallel.collectives`)."""
         logits = logits.float()
         if self.logit_scale is not None:
             logits = torch.exp(self.logit_scale.float()) * logits
         # token ids come as int32 from the loader; the loss takes int64 class indices
         nll = F.cross_entropy(logits.flatten(0, -2), targets.flatten().long(), reduction="none")
         mask = (targets.flatten() != 0).float()
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        if mesh is None or not mesh.parallel:
+            return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        from ..parallel.collectives import all_reduce_sum
+
+        num = (nll * mask).sum()
+        den = torch.clamp(all_reduce_sum(mask.sum(), mesh), min=1.0)
+        part = num * float(mesh.data) / den
+        whole = all_reduce_sum(num.detach(), mesh) / den
+        return part + (whole - part).detach()
 
 
 class _LogitScale(nn.Module):
@@ -295,6 +312,8 @@ class BatchNorm(nn.Module):
     affine ``weight`` (flax's ``scale``) starts at 1, ``bias`` at 0; the
     running mean at 0, the running variance at 1."""
 
+    data_group = None  # the data mesh whose batch a tower's BatchNorm normalises by
+
     def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5, device=None):
         super().__init__()
         self.momentum, self.eps = float(momentum), float(eps)
@@ -315,9 +334,19 @@ class BatchNorm(nn.Module):
         promotion to at least fp32)."""
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         dims, view = [0, *range(2, x.dim())], (-1,) + (1,) * (x.dim() - 2)
-        if train:
+        if train and self.data_group is not None and self.data_group.parallel:
+            # the global batch's statistics, as flax takes them under GSPMD: the
+            # sums and the sums of squares over every rank's rows, with gradient
+            from ..parallel.collectives import all_reduce_sum
+
+            n = x.numel() // x.shape[1] * self.data_group.data
+            sums = all_reduce_sum(torch.stack([x.sum(dims), (x * x).sum(dims)]), self.data_group)
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+        elif train:
             mean = x.mean(dims)
             var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        if train:
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean.detach())
                 self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var.detach())

@@ -13,6 +13,11 @@ the two uniforms of one mask per item from an explicit ``torch.Generator``
 given uniforms into the mask exactly as the JAX package does
 (``width = u * param``, ``start = u' * (len - width)``, in fp32), so the
 same uniforms give the same masks in both.
+
+Under data parallelism every rank draws the uniforms of the global batch
+from its copy of the train state's generator (the copies are equal) and
+masks its own rows with its slice (``shard``), so a step on several ranks
+masks as the step on one rank over the same global batch does.
 """
 
 from __future__ import annotations
@@ -29,6 +34,12 @@ def axis_uniforms(generator: torch.Generator, batch: int) -> Uniforms:
     the generator's device."""
     u = torch.rand((2, batch, 1), generator=generator, device=generator.device)
     return u[0], u[1]
+
+
+def _rows(uniforms: Uniforms, shard: Tuple[int, int], batch: int) -> Uniforms:
+    """Shard ``(i, n)``'s ``batch`` rows of uniforms drawn for ``batch * n``."""
+    i = shard[0]
+    return tuple(u[i * batch:(i + 1) * batch] for u in uniforms)
 
 
 def _axis_mask(u_width: torch.Tensor, u_start: torch.Tensor, axis_len: int,
@@ -55,11 +66,16 @@ def time_mask(feats: torch.Tensor, mask_param: int, uniforms: Uniforms,
 
 
 def spec_augment(feats: torch.Tensor, generator: torch.Generator, freq_param: int = 32,
-                 time_param: int = 200, mask_value: float = 0.0) -> torch.Tensor:
+                 time_param: int = 200, mask_value: float = 0.0,
+                 shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """A frequency mask, then a time mask, each with its own draws (a
-    param of 0 masks nothing and draws nothing)."""
+    param of 0 masks nothing and draws nothing); ``shard``: (rank, ranks)
+    of these rows in the global batch."""
+    B, n = feats.shape[0], shard[1]
     if freq_param:
-        feats = freq_mask(feats, freq_param, axis_uniforms(generator, feats.shape[0]), mask_value)
+        u = _rows(axis_uniforms(generator, B * n), shard, B)
+        feats = freq_mask(feats, freq_param, u, mask_value)
     if time_param:
-        feats = time_mask(feats, time_param, axis_uniforms(generator, feats.shape[0]), mask_value)
+        u = _rows(axis_uniforms(generator, B * n), shard, B)
+        feats = time_mask(feats, time_param, u, mask_value)
     return feats

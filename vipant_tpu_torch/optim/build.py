@@ -14,7 +14,7 @@ Clipping is optax's ``clip_by_global_norm``: grads are scaled by
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 
@@ -59,13 +59,22 @@ class Optimizer:
         lr = self.schedule(self.count)
         for group in self.inner.param_groups:
             group["lr"] = lr
-        for n, g in zip(names, gs):
+        self._update(dict(zip(names, gs)))
+        self.count += 1
+        return {"grad_norm": norm, "lr": lr}
+
+    def _update(self, grads: Mapping[str, torch.Tensor]) -> None:
+        """Step ``inner`` on the (clipped) grads."""
+        for n, g in grads.items():
             self.params[n].grad = g
         self.inner.step()
         for p in self.params.values():
             p.grad = None
-        self.count += 1
-        return {"grad_norm": norm, "lr": lr}
+
+    def state_bytes(self) -> int:
+        """Bytes of the optimizer state this process holds."""
+        return sum(v.numel() * v.element_size() for st in self.inner.state.values()
+                   for v in st.values() if torch.is_tensor(v))
 
     def state_dict(self) -> dict:
         return {"count": self.count, "inner": self.inner.state_dict()}
@@ -75,33 +84,43 @@ class Optimizer:
         self.inner.load_state_dict(sd["inner"])
 
 
+def inner_factory(opt_cfg) -> Callable[[Mapping[str, torch.nn.Parameter]], torch.optim.Optimizer]:
+    """``optimizer`` config -> the builder of the inner optimizer (:class:`LARS`
+    or ``torch.optim.AdamW``) over named params."""
+    if bool(opt_cfg.get("use_lars", False)):
+        kw = dict(lr_weight=float(opt_cfg.get("lr_weight", 0.2)),
+                  lr_bias=float(opt_cfg.get("lr_bias", 0.0048)), eta=float(opt_cfg.get("eta", 0.001)),
+                  weight_decay=float(opt_cfg.get("weight_decay", 1e-6)))
+        return lambda named: LARS(named.items(), **kw)
+    betas = opt_cfg.get("betas", [0.9, 0.999])
+    kw = dict(lr=float(opt_cfg.lr), betas=(float(betas[0]), float(betas[1])), eps=1e-8,
+              weight_decay=float(opt_cfg.get("weight_decay", 0.0)))
+    return lambda named: torch.optim.AdamW(list(named.values()), **kw)
+
+
 def build_optimizer(opt_cfg, steps_per_epoch: int,
-                    params: Mapping[str, torch.nn.Parameter]) -> Optimizer:
+                    params: Mapping[str, torch.nn.Parameter], zero_mesh=None) -> Optimizer:
     """``optimizer`` config -> :class:`Optimizer` over ``params`` (the
-    trainable ones, by name)."""
+    trainable ones, by name). ``zero_mesh``: a data mesh of more than one
+    rank over which the optimizer state is split (ZeRO-1,
+    :class:`..parallel.zero.ZeroOptimizer`)."""
     epochs = int(opt_cfg.epochs)
     total_steps = max(epochs * steps_per_epoch, 1)
     if bool(opt_cfg.get("use_lars", False)):
         base_lr = float(opt_cfg.batch_size) / 256.0
         warmup_steps = int(opt_cfg.get("warmup_epoch", 10)) * steps_per_epoch
         schedule = warmup_cosine_lr(base_lr, total_steps, warmup_steps)
-        inner = LARS(
-            params.items(),
-            lr_weight=float(opt_cfg.get("lr_weight", 0.2)),
-            lr_bias=float(opt_cfg.get("lr_bias", 0.0048)),
-            eta=float(opt_cfg.get("eta", 0.001)),
-            weight_decay=float(opt_cfg.get("weight_decay", 1e-6)),
-        )
     else:
         lr = float(opt_cfg.lr)
         warmup_steps = int(opt_cfg.get("warmup_steps", 0)) if opt_cfg.get("warmup", False) else 0
         milestones = tuple(int(m) * steps_per_epoch for m in (opt_cfg.get("steps", []) or []))
         schedule = warmup_multistep_lr(lr, max(warmup_steps, 1), milestones,
                                        float(opt_cfg.get("gamma", 0.5)))
-        betas = opt_cfg.get("betas", [0.9, 0.999])
-        inner = torch.optim.AdamW(
-            list(params.values()), lr=lr, betas=(float(betas[0]), float(betas[1])), eps=1e-8,
-            weight_decay=float(opt_cfg.get("weight_decay", 0.0)),
-        )
     max_norm = opt_cfg.get("max_norm", None)
-    return Optimizer(params, inner, schedule, float(max_norm) if max_norm else None)
+    max_norm = float(max_norm) if max_norm else None
+    make_inner = inner_factory(opt_cfg)
+    if zero_mesh is not None and zero_mesh.parallel:
+        from ..parallel.zero import ZeroOptimizer
+
+        return ZeroOptimizer(params, make_inner, schedule, max_norm, zero_mesh)
+    return Optimizer(params, make_inner(dict(params)), schedule, max_norm)

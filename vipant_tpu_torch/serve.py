@@ -41,8 +41,19 @@ sub-blocks run int8; the cross-attention has no int8 form and stays bf16.
 Weights (:meth:`InferenceEngine._load`): a reference ``.pth``
 (``model_file=x.pth``), a step directory's ``model.npz``, CLIP weights
 (``running.clip_model_root`` / ``clip_model_name``, e.g. ``ViT-B-32.pt``),
-or the seeded random init. Not ported yet: multi-device serving (A15 of
-ROADMAP.md's queue A).
+or the seeded random init.
+
+``data_parallel=True`` (counterpart of ``vipant_tpu/serve.py:120-230``) puts
+one replica of the model on every local card (``torch.cuda.device_count()``)
+in this one process, splits each engine batch over them and gathers the
+results in order; on one card it changes nothing, as in JAX. Token packing
+must fit a replica's share of the batch: the engine's own ``token_pack`` is
+dropped with a log line where it does not, and a pack that the config sets
+raises, each configured pack checked (the JAX engine checks only the
+largest: ROADMAP.md queue C, C20). ``model_parallel`` > 1 is not ported yet
+(ROADMAP.md queue A, A15-rest). An engine built under a launcher
+(``torchrun``) sits on ``cuda:{LOCAL_RANK}``; the command line serves from
+one process and refuses a launcher of several ranks.
 
 Usage::
 
@@ -66,6 +77,7 @@ Command line (``platform=cpu`` among the overrides runs on the CPU)::
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -80,21 +92,29 @@ from .config import Config
 from .models import build_main_model, init_weights, port_model_from_clip
 from .nn.heads import normalize
 from .ops.quant import int8_fwd_context
+from .parallel.mesh import REST, launcher_device, launcher_env
 from .train.checkpoint import wait_for_saves
 from .utils import as_config, require_device, run_root
 
-# the ROADMAP.md queue-A item that ports multi-device serving
-_MULTI_DEVICE = "A15"
+
+def _local_devices(device: torch.device) -> List[torch.device]:
+    """The devices of this process that ``data_parallel`` replicates over:
+    every card for a CUDA engine, else the engine's device alone."""
+    if device.type != "cuda":
+        return [device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 class InferenceEngine:
-    """Config-to-embeddings engine on one device.
+    """Config-to-embeddings engine on one device, or on every local card with
+    ``data_parallel``.
 
     ``cfg``: a composed :class:`vipant_tpu_torch.config.Config` or a list of
     override strings. ``device`` defaults to the card. ``quantize`` is ``""``
     or ``"int8"``. ``token_pack`` packs k items per
     attention call in the image and text towers (exact; applied only when
-    it divides ``batch_size``). Weights come from ``model_file`` (a
+    it divides ``batch_size``, and each replica's share under
+    ``data_parallel``). Weights come from ``model_file`` (a
     reference ``.pth``, or a step directory under ``model_root/model_name``),
     CLIP weights, or a random init seeded with ``seed`` (:meth:`_load`).
     """
@@ -114,16 +134,27 @@ class InferenceEngine:
         if quantize not in ("", "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r} (only 'int8')")
         self._int8 = bool(quantize)
-        if data_parallel:
-            raise NotImplementedError(
-                f"data-parallel serving is not ported yet (ROADMAP.md queue A, {_MULTI_DEVICE})")
         if model_parallel != 1:
             raise NotImplementedError(
-                f"model-parallel serving is not ported yet (ROADMAP.md queue A, {_MULTI_DEVICE})")
+                f"model-parallel serving is not ported yet (ROADMAP.md queue A, {REST})")
         self.echo = echo or logging.getLogger(__name__)
         self.cfg = as_config(cfg)
-        self.device = require_device(device, "InferenceEngine")
+        self.device = require_device(launcher_device(device), "InferenceEngine")
+        if self.device.type == "cuda" and self.device.index is None:  # "cuda": the current card
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.batch_size = int(batch_size)
+        devices = [self.device]
+        if data_parallel:  # every local device, the engine's first
+            devices = _local_devices(self.device)
+            devices.insert(0, devices.pop(devices.index(self.device)) if self.device in devices
+                           else self.device)
+        n = len(devices)
+        if n > 1 and self.batch_size % n:
+            raise ValueError(f"batch_size {self.batch_size} does not split over the {n} devices")
+        if token_pack > 1 and n > 1 and (self.batch_size // n) % token_pack:
+            self.echo.info(f"token_pack={token_pack} does not divide a replica's {self.batch_size // n} "
+                           f"items (batch_size {self.batch_size} over {n} devices); packing disabled")
+            token_pack = 1
         if token_pack > 1 and self.batch_size % token_pack == 0:
             # patch a copy: the caller's config may build something else later
             patched, changed = Config(self.cfg.to_dict(resolve=False)), False
@@ -138,10 +169,41 @@ class InferenceEngine:
                     changed = True
             if changed:
                 self.cfg = patched
+        if n > 1:
+            for key, pack in self._packs().items():
+                if (self.batch_size // n) % pack:
+                    raise ValueError(
+                        f"model.{key}.token_pack={pack} does not divide a replica's "
+                        f"{self.batch_size // n} items (batch_size {self.batch_size} over {n} "
+                        "devices): lower the pack or change batch_size / data_parallel")
         self.model = build_main_model(self.cfg, device=self.device)
         init_weights(self.model, torch.Generator(device=self.device).manual_seed(seed))
         self._load()
         self.model.eval()
+        # one replica a device, the engine's own first; each takes 1/n of a batch
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d) for d in devices[1:]]
+        if n > 1:
+            self.echo.info(f"data_parallel: {n} replicas on {', '.join(map(str, devices))}, "
+                           f"{self.batch_size // n} items each")
+
+    def _packs(self) -> Dict[str, int]:
+        """Each tower's configured ``token_pack`` above 1."""
+        out = {}
+        model = self.cfg.get("model", None)
+        for key in ("image", "text"):
+            head = model.get(key) if model is not None else None
+            pack = head.get("token_pack", None) if head is not None else None
+            if pack and int(pack) > 1:
+                out[key] = int(pack)
+        return out
+
+    def _split(self, fn, batch: np.ndarray) -> List[Any]:
+        """``fn(replica, its rows on its device)`` for each replica's share of
+        a fixed-size host batch, in order: every replica's work is queued
+        before any result is read."""
+        parts = np.split(batch, len(self.replicas)) if len(self.replicas) > 1 else [batch]
+        return [fn(m, torch.from_numpy(np.ascontiguousarray(x)).to(next(m.parameters()).device))
+                for m, x in zip(self.replicas, parts)]
 
     # ------------------------------------------------------------- loading
     def _load(self) -> None:
@@ -250,7 +312,6 @@ class InferenceEngine:
         [N, D] fp32, normalised twice (tower, then here, clip 1e-8)."""
         if arr.shape[0] == 0:
             return np.zeros((0, self._embed_dim()), np.float32)
-        fn = getattr(self.model, method)
         B = self.batch_size
         outs = []
         with torch.inference_mode(), int8_fwd_context(self._int8):
@@ -259,8 +320,8 @@ class InferenceEngine:
                 n = chunk.shape[0]
                 if n < B:  # pad to the fixed batch by repeating the last row
                     chunk = np.concatenate([chunk, np.repeat(chunk[-1:], B - n, axis=0)])
-                out = normalize(fn(torch.from_numpy(chunk).to(self.device), train=False))
-                outs.append(out.float().cpu().numpy()[:n])
+                parts = self._split(lambda m, x: normalize(getattr(m, method)(x, train=False)), chunk)
+                outs.append(np.concatenate([o.float().cpu().numpy() for o in parts])[:n])
         return np.concatenate(outs, axis=0)
 
     def embed_audio(self, fbanks: np.ndarray) -> np.ndarray:
@@ -367,8 +428,9 @@ class InferenceEngine:
                 n = chunk.shape[0]
                 if n < B:  # pad to the fixed batch by repeating the last row
                     chunk = np.concatenate([chunk, np.repeat(chunk[-1:], B - n, axis=0)])
-                ids, _ = self.model.decode(torch.from_numpy(chunk).to(self.device), beam=int(beam))
-                out.extend(detokenize_ids(row) for row in ids.cpu().numpy()[:n])
+                parts = self._split(lambda m, x: m.decode(x, beam=int(beam))[0], chunk)
+                ids = np.concatenate([p.cpu().numpy() for p in parts])
+                out.extend(detokenize_ids(row) for row in ids[:n])
         return out
 
     def caption_files(self, paths: Sequence[str], beam: int = 0) -> List[str]:
@@ -578,10 +640,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--quantize", default="", choices=["", "int8"],
                     help="int8: every sub-block on the int8 kernels (serving only)")
     ap.add_argument("--data_parallel", action="store_true",
-                    help=f"not ported yet (ROADMAP.md queue A, {_MULTI_DEVICE})")
+                    help="a replica on every local card, each engine batch split over them")
     ap.add_argument("--model_parallel", type=int, default=1,
-                    help=f"> 1 is not ported yet (ROADMAP.md queue A, {_MULTI_DEVICE})")
+                    help=f"> 1 is not ported yet (ROADMAP.md queue A, {REST})")
     args, overrides = ap.parse_known_args(argv)
+    env = launcher_env()
+    if env is not None and env["world"] > 1:
+        raise SystemExit("serving runs as one process: --data_parallel puts a replica on every "
+                         "local card; start it without torchrun")
     cfg = as_config([o for o in overrides if o != "--"])
     eng = InferenceEngine(cfg, batch_size=args.batch_size, quantize=args.quantize,
                           data_parallel=args.data_parallel, model_parallel=args.model_parallel,

@@ -36,6 +36,12 @@ writer is raised by the next wait. ``keep_last`` counts committed step
 directories only: an async save prunes when it is issued, so the newest
 committed checkpoint survives beside the one in flight.
 
+Under data parallelism (``mesh``) every rank calls :func:`save_checkpoint`
+(a ZeRO optimizer gathers its state to rank 0 there), only rank 0 writes,
+and the ranks meet at a barrier once ``COMMITTED`` is written; with
+``async_save`` only rank 0's writer thread runs, and ``wait_for_saves(mesh)``
+waits for it on every rank. Every rank loads the same files.
+
 A model with ResNet or DeiT towers has no reference ``.pth`` layout (nor
 in the JAX package, ``vipant_tpu/train/trainer.py:1001``): the trainer
 passes ``export_pth=False`` for it, with a warning.
@@ -85,9 +91,10 @@ _PENDING: Optional[_Save] = None
 _LOCK = threading.Lock()
 
 
-def wait_for_saves() -> None:
+def wait_for_saves(mesh=None) -> None:
     """Block until the save in flight has written ``COMMITTED``; raise its
-    writer's error, if any."""
+    writer's error, if any. With a data ``mesh``, every rank waits for rank
+    0's writer (a barrier)."""
     global _PENDING
     with _LOCK:
         pending, _PENDING = _PENDING, None
@@ -96,6 +103,8 @@ def wait_for_saves() -> None:
         if pending.error is not None:
             raise RuntimeError(f"the asynchronous checkpoint save failed: {pending.error!r}") \
                 from pending.error
+    if mesh is not None:
+        mesh.barrier()
 
 
 def _host(x):
@@ -127,7 +136,7 @@ def _prune(root: str, name: str, keep_last: int, new_committed: bool) -> None:
 def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, cfg=None,
                     model_only: Optional[Mapping[str, torch.Tensor]] = None,
                     keep_last: int = 0, export_pth: bool = False,
-                    async_save: bool = False, resnet_towers: Sequence[str] = ()) -> str:
+                    async_save: bool = False, resnet_towers: Sequence[str] = (), mesh=None) -> str:
     """Write ``{ckpt_dir}/{step:08d}/`` (see the module docstring) and
     return its path. ``model_only``: the port's name -> tensor of the
     params to export as ``model.npz`` (and with ``export_pth`` as
@@ -135,12 +144,18 @@ def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, cfg=None,
     step directories (never the one just written) and removes uncommitted
     ones. ``async_save``: return once the state is on the host and write in
     the background. ``resnet_towers``: the export's towers with a ResNet
-    backbone (see :func:`..ckpt.from_jax.to_jax_params`)."""
+    backbone (see :func:`..ckpt.from_jax.to_jax_params`). ``mesh``: the
+    data mesh; every rank calls, rank 0 writes (see the module docstring)."""
     global _PENDING
     wait_for_saves()
     root = os.path.abspath(ckpt_dir)
     name = f"{step:08d}"
     path = os.path.join(root, name)
+    if mesh is not None and mesh.rank != 0:
+        state.optimizer.state_dict()  # a collective under ZeRO: the state gathers to rank 0
+        if not async_save:
+            mesh.barrier()
+        return path
     if os.path.exists(path):  # re-saving a step (a resumed run) overwrites
         shutil.rmtree(path)
     os.makedirs(path)
@@ -174,6 +189,8 @@ def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, cfg=None,
 
     if not async_save:
         write()
+        if mesh is not None:
+            mesh.barrier()
         return path
     if keep_last > 0:
         _prune(root, name, keep_last, new_committed=False)

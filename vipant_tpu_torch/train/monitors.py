@@ -67,6 +67,7 @@ class LATrainer(Trainer):
 
     batch_keys = ("audio", "text")
     reads_worker = None
+    grad_cache_methods = ("encode_audio", "encode_text")
 
     @property
     def image_text(self) -> bool:
@@ -80,13 +81,14 @@ class LATrainer(Trainer):
         run = self.cfg.running
         if self.image_text:
             self.batch_keys = ("image", "text")
+            self.grad_cache_methods = ("encode_image", "encode_text")
         super().build_data(steps_per_epoch)
         if self._reads_data and run.get("test_name"):
             self.testloader = self._build_testloader()
 
     def build_loader(self, data_name: str, train: bool, device_put_fn=None):
         build = build_image_text_dataloader if self.image_text else build_audio_text_dataloader
-        return build(self.cfg, data_name, train, device_put_fn=device_put_fn)
+        return build(self.cfg, data_name, train, *self.shard(train), device_put_fn=device_put_fn)
 
     # ---------------------------------------------------------------- jobs
     def job(self):
@@ -243,6 +245,7 @@ class VALTrainer(Trainer):
     """Trimodal V-A-L training on AudioSet (see the module docstring)."""
 
     batch_keys = ("image", "audio", "text")
+    grad_cache_methods = None  # not a two-stream contrastive model
     reads_worker = None
     export_towers = ("image", "audio", "text", "loss")
 
@@ -256,7 +259,9 @@ class VALTrainer(Trainer):
             self.testloader = self._build_testloader()
 
     def build_loader(self, data_name: str, train: bool, device_put_fn=None):
-        return build_audioset_dataloader(self.cfg, data_name, train, label_map=self.label_map,
+        pid, nproc = self.shard(train)
+        return build_audioset_dataloader(self.cfg, data_name, train, process_id=pid,
+                                         num_processes=nproc, label_map=self.label_map,
                                          device_put_fn=device_put_fn)
 
     def infer(self, loader, samples=None, gold_file=None) -> str:
@@ -314,6 +319,7 @@ class VASTrainer(Trainer):
     """Multi-view siamese VA training (see the module docstring)."""
 
     batch_keys = ("image", "image_v1", "audio_v1", "image_v2", "audio_v2")
+    grad_cache_methods = None  # not a two-stream contrastive model
     reads_worker = None
 
     def __init__(self, cfg, *args, **kw):
@@ -323,7 +329,8 @@ class VASTrainer(Trainer):
         super().__init__(cfg, *args, **kw)
 
     def build_loader(self, data_name: str, train: bool, device_put_fn=None):
-        return build_image_audio_dataloader(self.cfg, data_name, train, device_put_fn=device_put_fn)
+        return build_image_audio_dataloader(self.cfg, data_name, train, *self.shard(train),
+                                            device_put_fn=device_put_fn)
 
     def views(self, args: Tuple) -> Tuple:
         """The model's args with a view that is off as None (`reference/
@@ -366,6 +373,7 @@ class ASTrainer(Trainer):
     zero-shot; an audio-embedding dump."""
 
     batch_keys = ("image", "audio", "label")
+    grad_cache_methods = None  # not a two-stream contrastive model
     reads_worker = None
 
     def build_data(self, steps_per_epoch: Optional[int] = None) -> None:
@@ -377,7 +385,9 @@ class ASTrainer(Trainer):
             self.testloader = self._build_testloader()
 
     def build_loader(self, data_name: str, train: bool, device_put_fn=None):
-        return build_audioset_dataloader(self.cfg, data_name, train, label_map=self.label_map,
+        pid, nproc = self.shard(train)
+        return build_audioset_dataloader(self.cfg, data_name, train, process_id=pid,
+                                         num_processes=nproc, label_map=self.label_map,
                                          device_put_fn=device_put_fn)
 
     @torch.no_grad()
@@ -471,6 +481,7 @@ class ESCTrainer(Trainer):
     length (else each fold's training loader's length does)."""
 
     batch_keys = ("audio", "label")
+    grad_cache_methods = None  # not a two-stream contrastive model
     reads_worker = None
 
     def build_data(self, steps_per_epoch: Optional[int] = None) -> None:

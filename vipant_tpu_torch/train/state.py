@@ -6,13 +6,15 @@ and the optimizer's buffers are updated in place and the state holds
 references to them. ``buffers`` are the model's running statistics (the JAX
 ``batch_stats`` collection: Barlow's BatchNorm), which a training forward
 updates in place. ``state_dict()`` gathers everything a resume needs, for
-``torch.save``.
+``torch.save`` (under ZeRO every rank takes part and rank 0 gets the full
+optimizer state). ``mesh`` is the data mesh (:mod:`..parallel.mesh`) whose
+ranks average the grads; None on one device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -32,6 +34,7 @@ class TrainState:
     # (CLAP with a decoder: ``retrieval``)
     loss_kwargs: Dict[str, Any] = field(default_factory=dict)
     buffers: Dict[str, torch.Tensor] = field(default_factory=dict)
+    mesh: Optional[Any] = None
 
     def state_dict(self) -> Dict[str, Any]:
         return {

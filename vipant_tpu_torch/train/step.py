@@ -13,6 +13,14 @@ differentiated function).
 (``vipant_tpu/train/step.py:175-189``): the model's ``features`` (each
 tower's normalised embedding) under ``torch.no_grad()``, on the same
 forward kernels as serving.
+
+Under data parallelism (``state.mesh``, :mod:`..parallel`) each rank's loss
+is the global batch's (the task models gather the embeddings), and
+:func:`..parallel.all_reduce_grads` averages the grads over the ranks
+between the backward and the optimizer, so ``grad_norm``, clipping and
+LARS's per-leaf trust ratios act on the global grads.
+:func:`grad_cache_step` is the counterpart of ``make_grad_cache_step``
+(``vipant_tpu/train/step.py:97-172``).
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..parallel.collectives import all_reduce_grads, gather_batch
+from ..parallel.grad_cache import grad_cache_value_and_grad
 from .state import TrainState
 
 
@@ -47,9 +57,10 @@ def loss_and_grads(state: TrainState, *batch) -> Tuple[torch.Tensor, Dict[str, t
 
 
 def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor]) -> Dict[str, object]:
-    """Clip and update from ``grads``; advances ``state.step``. Returns
-    ``{"grad_norm", "lr"}``."""
-    metrics = state.optimizer.apply(grads)
+    """Average ``grads`` over the mesh's ranks (when there is a group), then
+    clip and update; advances ``state.step``. Returns ``{"grad_norm",
+    "lr"}``."""
+    metrics = state.optimizer.apply(all_reduce_grads(grads, state.mesh))
     state.step += 1
     return metrics
 
@@ -60,6 +71,33 @@ def train_step(state: TrainState, *batch) -> Dict[str, object]:
     and grad_norm as 0-d device tensors (reading them syncs the host)."""
     loss, aux, grads = loss_aux_and_grads(state, *batch)
     return {"loss": loss, **{f"loss_{k}": v for k, v in aux.items()}, **apply_gradients(state, grads)}
+
+
+def tower_trains(model: torch.nn.Module, method: str) -> bool:
+    """Whether the tower behind ``encode_<tower>`` holds a trainable param."""
+    tower = getattr(model, method[len("encode_"):])
+    return any(p.requires_grad for p in tower.parameters())
+
+
+def grad_cache_step(state: TrainState, batch_a: torch.Tensor, batch_b: torch.Tensor,
+                    methods: Tuple[str, str], n_chunks: int) -> Dict[str, object]:
+    """One gradient-cache step (:mod:`..parallel.grad_cache`): the two
+    streams encoded by ``methods`` (e.g. ``("encode_image",
+    "encode_audio")``) in ``n_chunks`` chunks each, the model's loss head on
+    the whole embedding matrices (gathered over the ranks), the grads
+    averaged over the ranks, clip and update. ``{"loss", "grad_norm",
+    "lr"}`` as :func:`train_step`."""
+    model, mesh = state.model, state.mesh
+    enc_a, enc_b = (getattr(model, m) for m in methods)
+
+    def loss_of_embs(ea, eb):
+        return model.loss(gather_batch(ea, mesh), gather_batch(eb, mesh), normalized=True)
+
+    loss, grads = grad_cache_value_and_grad(
+        lambda x: enc_a(x, train=True), lambda x: enc_b(x, train=True), loss_of_embs,
+        state.trainable, batch_a, batch_b, n_chunks, generator=state.generator,
+        train_a=tower_trains(model, methods[0]), train_b=tower_trains(model, methods[1]))
+    return {"loss": loss, **apply_gradients(state, grads)}
 
 
 @torch.no_grad()

@@ -69,8 +69,26 @@ export writes it under every tower that holds it. A loss head's running
 statistics (Barlow's BatchNorm) are buffers of the model that the train
 state and its checkpoints carry.
 
-Not ported yet, and refused when asked for (ROADMAP.md's queue A, A15): the
-gradient cache, ZeRO and every mesh axis beyond one device.
+Data parallelism (the ``data`` axis of A15; counterpart of the JAX
+trainer's mesh): under a launcher (``torchrun``, or the JAX launcher's
+environment) the trainer runs one process a rank (:mod:`..parallel`), on
+``cuda:{LOCAL_RANK}`` by default; ``mesh.data=-1`` takes the world size, an
+explicit ``mesh.data`` must equal it. Each rank's training loader reads its
+share of the records at ``running.batch_size / ranks`` a batch, the losses
+see the global batch (the task models gather the embeddings, a ResNet
+tower's BatchNorm takes the global statistics, SpecAugment masks by the
+global draw), and the grads are averaged over the ranks before the
+optimizer. The replicas start equal (rank 0's params and statistics are
+broadcast after loading) and stay equal. Rank 0 logs to the console and
+writes ``metrics.jsonl`` and the checkpoints; every rank evaluates the whole
+eval split, as the JAX trainer does, and rank 0's report is the one shown.
+``mesh.zero=true`` splits the optimizer state over the ranks (ZeRO-1,
+:mod:`..parallel.zero`). ``running.grad_cache.alive=true`` trains with the
+gradient cache (:mod:`..parallel.grad_cache`) in the chunk count of the JAX
+rule (:func:`..parallel.chunk_count`), for the two-tower monitors
+(``grad_cache_methods``); ignored for captioning, refused with running
+statistics. ``mesh.model``, ``pipe`` and ``seq`` above 1 are refused
+(ROADMAP.md queue A, A15-rest).
 
 Usage::
 
@@ -107,11 +125,12 @@ from ..ops.fbank import fbank_fixed_len
 from ..ops.frontend import device_normalize_image
 from ..ops.specaugment import spec_augment
 from ..optim import build_optimizer, partition_params
+from ..parallel import attach, chunk_count, data_shard_info, launcher_device, make_mesh, replicate
 from ..utils import (AverageMeter, PhaseTimer, as_config, numel, require_device, run_root,
                      seed_all_rng, setup_logger)
 from .checkpoint import load_checkpoint, save_checkpoint, wait_for_saves
 from .state import TrainState
-from .step import eval_step, train_step
+from .step import eval_step, grad_cache_step, train_step
 
 MONITORS: Dict[str, type] = {}
 _LOGGER = "vipant_tpu_torch"
@@ -137,19 +156,6 @@ def build_monitor(cfg, **kw):
     return MONITORS[name](cfg, **kw)
 
 
-def _refuse_unported(cfg) -> None:
-    run = cfg.get("running", Config({}))
-    refuse_unported_data(run)
-    gc = run.get("grad_cache", None)
-    if gc is not None and bool(gc.get("alive", False)):
-        raise NotImplementedError("the gradient cache is not ported yet (ROADMAP.md queue A, A15)")
-    mesh = cfg.get("mesh", Config({}))
-    if bool(mesh.get("zero", False)):
-        raise NotImplementedError("ZeRO is not ported yet (ROADMAP.md queue A, A15)")
-    for axis in ("model", "pipe", "seq"):
-        if int(mesh.get(axis, 1)) > 1:
-            raise NotImplementedError(
-                f"mesh.{axis} > 1 is not ported yet (one device; ROADMAP.md queue A, A15)")
 
 
 class Trainer:
@@ -161,15 +167,22 @@ class Trainer:
 
     batch_keys: Tuple[str, ...] = ("image", "audio")
     reads_worker: Optional[str] = "CVAP"  # the worker whose data this monitor reads; None: any
+    # the two streams of the gradient cache (``vipant_tpu/train/monitors.py:37,50``); None: refused
+    grad_cache_methods: Optional[Tuple[str, str]] = ("encode_image", "encode_audio")
 
     def __init__(self, cfg: Union[Config, Sequence[str]], device: Union[str, torch.device] = "cuda",
                  steps_per_epoch: Optional[int] = None):
         self.cfg = as_config(cfg)
-        _refuse_unported(self.cfg)
-        self.device = require_device(device, "Trainer")
+        refuse_unported_data(self.cfg.get("running", Config({})))
+        self.device = require_device(launcher_device(device), "Trainer")
+        mesh = self.cfg.get("mesh", Config({}))  # model, pipe and seq > 1 raise (A15-rest)
+        self.mesh = make_mesh(*(int(mesh.get(axis, n)) for axis, n in
+                                (("data", -1), ("model", 1), ("pipe", 1), ("seq", 1))),
+                              device=self.device)
         seed_all_rng(int(self.cfg.seed))
         self.out_dir = os.path.join(run_root(self.cfg.alias_root), str(self.cfg.model_name))
-        self.echo = setup_logger(None, verbose=bool(self.cfg.get("verbose", False)), name=_LOGGER)
+        self.echo = setup_logger(None, rank=self.mesh.rank,
+                                 verbose=bool(self.cfg.get("verbose", False)), name=_LOGGER)
         self.timer = PhaseTimer()
         self.eval_mode = bool(self.cfg.get("eval", False))
         self.global_step = 0
@@ -186,7 +199,8 @@ class Trainer:
         self.timer.stop("build")
         self.echo.info(
             f"model params: {numel(self.trainable) + numel(self.frozen):,} "
-            f"(tunable {numel(self.trainable):,}) on {self.device}")
+            f"(tunable {numel(self.trainable):,}) on {self.device}, mesh {self.mesh.shape}"
+            + (f", rank {self.mesh.rank} ({self.mesh.backend})" if self.mesh.distributed else ""))
 
     # ------------------------------------------------------------------ data
     def build_data(self, steps_per_epoch: Optional[int] = None) -> None:
@@ -206,8 +220,15 @@ class Trainer:
         self.steps_per_epoch = len(self.loader) if self.loader is not None else max(
             int(steps_per_epoch or 1), 1)
 
+    def shard(self, train: bool) -> Tuple[int, int]:
+        """(shard id, shards) of a loader: a training loader reads this
+        rank's share of the records; an eval loader every record, on every
+        rank (``vipant_tpu/train/trainer.py:183-187``)."""
+        return data_shard_info(self.mesh) if train else (0, 1)
+
     def build_loader(self, data_name: str, train: bool, device_put_fn=None):
-        return build_image_audio_dataloader(self.cfg, data_name, train, device_put_fn=device_put_fn)
+        return build_image_audio_dataloader(self.cfg, data_name, train, *self.shard(train),
+                                            device_put_fn=device_put_fn)
 
     def _build_evalloader(self):
         run = self.cfg.get("running", Config({}))
@@ -240,6 +261,8 @@ class Trainer:
         self.ties = tie_model(cfg, self.model)
         self.trainable, self.frozen = partition_params(
             self.model, tunable_mask(cfg, self.model, self.ties))
+        attach(self.model, self.mesh)
+        replicate(self.model, self.mesh)  # the replicas start from rank 0's weights and statistics
         for name, tower in self.model.named_children():
             if getattr(tower, "int8_frozen", False) and any(p.requires_grad for p in tower.parameters()):
                 raise ValueError(f"model.{name}.int8_frozen: the tower holds trainable parameters "
@@ -318,11 +341,17 @@ class Trainer:
 
     # ------------------------------------------------------------- optimizer
     def build_optimizer(self) -> None:
-        opt = build_optimizer(self.cfg.optimizer, self.steps_per_epoch, self.trainable)
+        zero = bool(self.cfg.get("mesh", Config({})).get("zero", False)) and self.mesh.parallel
+        opt = build_optimizer(self.cfg.optimizer, self.steps_per_epoch, self.trainable,
+                              zero_mesh=self.mesh if zero else None)
+        if zero:
+            self.echo.info(f"ZeRO-1: the optimizer state split over the {self.mesh.data} ranks of "
+                           f"the data axis ({opt.state_bytes()} bytes on rank {self.mesh.rank} "
+                           "before the first step)")
         self.state = TrainState(
             step=0, model=self.model, trainable=self.trainable, frozen=self.frozen,
             optimizer=opt, generator=torch.Generator(device=self.device).manual_seed(int(self.cfg.seed)),
-            loss_kwargs=self.loss_kwargs, buffers=dict(self.model.named_buffers()),
+            loss_kwargs=self.loss_kwargs, buffers=dict(self.model.named_buffers()), mesh=self.mesh,
         )
         for module in self.model.modules():  # patchout draws from the train state's stream
             if hasattr(module, "patchout_generator"):
@@ -331,6 +360,33 @@ class Trainer:
             load_checkpoint(self.resume_from, self.state)
             self.global_step = self.state.step
             self.echo.info(f"resumed from {self.resume_from} at step {self.global_step}")
+        self.grad_cache = self._grad_cache_plan()
+
+    def _grad_cache_plan(self) -> Optional[Tuple[Tuple[str, str], int]]:
+        """``(methods, chunks)`` when ``running.grad_cache.alive``, else
+        None: ignored for captioning (no contrastive loss), refused with
+        running statistics (the two passes cannot replay them: the JAX
+        package's ``batch_stats`` rule) and by a monitor without two
+        streams."""
+        run = self.cfg.get("running", Config({}))
+        gc = run.get("grad_cache", None)
+        if gc is None or not bool(gc.get("alive", False)):
+            return None
+        if getattr(self.model, "decoder", None) is not None:
+            self.echo.info("gradient cache ignored: captioning has no contrastive loss")
+            return None
+        if self.state.buffers:
+            raise ValueError("running.grad_cache.alive=True is incompatible with models carrying "
+                             "batch_stats (running statistics: ResNet towers, Barlow's BatchNorm); "
+                             "the two-pass encode cannot replay them")
+        if self.grad_cache_methods is None:
+            raise ValueError(f"{type(self).__name__} has no gradient cache: it trains the two "
+                             "streams of VAMonitor and LAMonitor")
+        bsz = int(self.cfg.running.batch_size)
+        n = chunk_count(bsz, int(gc.get("chunk_size", 128)), self.mesh.data)
+        self.echo.info(f"gradient cache on: {n} chunks of {bsz // n} ({bsz // n // self.mesh.data} "
+                       "a rank)")
+        return tuple(self.grad_cache_methods), n
 
     # ---------------------------------------------------------------- batch
     def make_batch(self, *arrays: np.ndarray):
@@ -354,6 +410,9 @@ class Trainer:
         ``batch["audio_len"]``)."""
         if self.needs_device_frontend:
             batch = self.device_frontend(batch, train=True, audio_len=audio_len)
+        if self.grad_cache is not None:
+            methods, n = self.grad_cache
+            return grad_cache_step(self.state, *batch, methods=methods, n_chunks=n)
         return train_step(self.state, *batch)
 
     # ------------------------------------------------------- device frontend
@@ -444,8 +503,9 @@ class Trainer:
         if audio_len is not None:
             audio_len = torch.as_tensor(np.asarray(audio_len)).to(wav.device)
         feats = fbank_fixed_len(wav, params, max_len, norms=norms, num_samples=audio_len)
-        if train and (freq_p or time_p):
-            feats = spec_augment(feats, self.state.generator, freq_p, time_p)
+        if train and (freq_p or time_p):  # the global batch's draw, this rank's rows
+            feats = spec_augment(feats, self.state.generator, freq_p, time_p,
+                                 shard=data_shard_info(self.mesh))
         return feats[:, None]
 
     def eval_frontend_args(self, batch) -> Tuple[torch.Tensor, ...]:
@@ -463,11 +523,11 @@ class Trainer:
     def learn(self):
         """Run :meth:`job` with the log written to ``{out_dir}/train_0.out``,
         then stop the loaders' workers."""
-        self.echo = setup_logger(self.out_dir, verbose=bool(self.cfg.get("verbose", False)),
-                                 name=_LOGGER)
+        self.echo = setup_logger(self.out_dir, rank=self.mesh.rank,
+                                 verbose=bool(self.cfg.get("verbose", False)), name=_LOGGER)
         try:
             out = self.job()
-            wait_for_saves()  # the last async save commits (and its error surfaces) here
+            wait_for_saves(self.mesh)  # the last async save commits (and its error surfaces) here
             return out
         finally:
             if self._profiler is not None:  # the window outlasted the run
@@ -567,7 +627,7 @@ class Trainer:
                 self.echo.info(
                     f"epoch {ie} step {self.global_step} loss {loss:.4f} (avg {meter.avg:.4f}) "
                     f"{comp}lr {lr:.2e} {nsample / dt:.1f} samples/s ({self.timer.summary()})")
-                if bool(self.cfg.get("metrics_jsonl", False)):
+                if bool(self.cfg.get("metrics_jsonl", False)) and self.mesh.rank == 0:
                     # `run` tells rows re-logged after a crash-resume apart;
                     # non-finite values become null so every line stays JSON
                     fin = lambda v: float(v) if np.isfinite(v) else None
@@ -760,7 +820,7 @@ class Trainer:
             self.out_dir, self.global_step, self.state, cfg=self.cfg, model_only=export,
             keep_last=int(self.cfg.get("keep_last_ckpts", 0) or 0), export_pth=export_pth,
             async_save=bool(self.cfg.get("async_ckpt", False)),
-            resnet_towers=resnet_towers(self.model))
+            resnet_towers=resnet_towers(self.model), mesh=self.mesh)
         self.echo.info(f"saving the checkpoint to {path}")
         return path
 
