@@ -111,8 +111,7 @@
    bf16 step's; the launch counts of one step (the image tower on the int8
    chain only, the audio tower's forward and backward unchanged); five LARS
    steps with the image params bitwise unchanged; at B = 64 ms per step
-   beside the bf16 step's, with the profiler's device busy time of both;
-   the Adam descent smoke under ``int8_frozen``.
+   beside the bf16 step's; the Adam descent smoke under ``int8_frozen``.
 
 10. Flash kernel phase: ``flash_attention_fwd``, ``_bwd`` and ``_dbias``
    against their plain versions at ``FLASH_CASES``: the captioning decoder's
@@ -148,7 +147,9 @@
    time, peak memory and the profiler's top kernels; (d) an Adam smoke on one
    fixed batch: the LM loss falls below 0.9x its start in 60 steps.
 13. Captioning serving: ``InferenceEngine.caption`` at batch 4 and 64, greedy
-   and ``beam=4``: ms per batch, ms per decode step; the launch counts of the
+   and ``beam=4``: ms per batch and per decode step at batch 64 (one timed
+   call each; the batch-4 timings and the profiler windows left out to keep
+   the script's time); the launch counts of the
    path; KV-cached greedy against the re-forward decoder (per-step logits
    within 0.1 up to a row's first differing token, which must fall where the
    re-forward's top-2 margin is below that; the share of equal ids is
@@ -344,6 +345,35 @@ The packed-shard and trimodal phases follow (``pak_phase``,
    step at the same batch; at B = 256 in 4 chunks, ms and peak GiB beside the
    plain step's, the cache's peak the lower. (f) ``InferenceEngine(
    data_parallel=True)`` on one card bitwise the engine without it.
+23. The model, pipe and seq axes and model-parallel serving (``mp_phase``;
+   paths ``mp_model``, ``mp_pipe``, ``mp_seq``, ``mp_serve``,
+   ``mp_serve_int8``). One pair of gloo ranks on ``cuda:0`` (``--dp-rank
+   mp``) drives (a)-(d); the parent first runs the one-rank kernel step and
+   the one-rank steps and engines they are held to. (a) ``mesh.model=2``:
+   the flagship VA step at B = 16 on the plain ops in fp32, every trainable
+   grad (the slices gathered) at cosine >= 0.999 to the one-rank fp32 step's
+   and its loss within 1e-2 relative; the same step on the kernels, its loss
+   and grad norm within 1e-2 relative of the one-rank kernel step's, its
+   grads held to the one-rank fp32 grads by phase 6 (i)'s rule with the
+   one-rank kernel grads in the plain grads' place (no further from fp32
+   than one rank's kernels are: in bf16 a change of summation order alone
+   moves small grads by more than 0.999 of cosine, so the per-grad cosine to
+   one rank's kernel grads is printed, not gated), each rank's launches
+   printed and every kernel of the sub-blocks' chains launched; a save after the step,
+   the run's second step, and a resume's second step bitwise equal to it;
+   the save loaded into a one-rank trainer, every param bitwise the
+   gathered one. (b) ``mesh.pipe=2`` with 4 microbatches and (c)
+   ``mesh.seq=2``: the same step and gates (on the ring the attention
+   kernels give way to plain products). (d) ``InferenceEngine(
+   model_parallel=2)``: ``embed_audio`` and ``embed_texts`` at batch 64,
+   bf16 and int8, cosine >= 0.999 to one rank, int8 >= 0.99 to bf16, every
+   int8 kernel launched; the captioning engine's greedy decode at batch 4,
+   its first step's logits at cosine >= 0.999 to one rank, the captions
+   printed beside one rank's. (e) A probe, in a pair of its own, of what gloo
+   does with a bf16 all-reduce and a point-to-point exchange of CUDA
+   tensors, printed (a crash is its answer). Step and batch ms are printed
+   beside the card's name and power limit: readings of two ranks sharing one
+   card through host memory, not a scaling number.
 
 Every kernel's time stands beside its bound, the least time the card could
 take for the same work: the larger of the bytes it must move (each input
@@ -370,7 +400,8 @@ Prints a JSON line of per-kernel results (``launches`` is the sum of the
 counts read on each main path (``serve``, ``train``, ``serve_int8``,
 ``train_int8_frozen``, ``probe``, ``caption_train``, ``caption_serve``, ``va_loop``,
 ``la_loop``, ``va_loop_dev``, ``serve_files``, ``ckpt``, ``clf``, ``pak``, ``val``, ``vas``,
-``barlow``, ``deit``, ``rn50``, ``patchout``, ``async``, ``dp``, ``grad_cache``), which
+``barlow``, ``deit``, ``rn50``, ``patchout``, ``async``, ``dp``, ``grad_cache``, ``mp_model``,
+``mp_pipe``, ``mp_seq``, ``mp_serve``, ``mp_serve_int8``), which
 ``launches_by_path`` gives apart; ``ms``,
 ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` are those of the
 kernel's first case, its main-path shape; ``cases`` holds each shape's), then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -459,11 +490,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 }
 PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
          "caption_serve", "va_loop", "la_loop", "va_loop_dev", "serve_files", "ckpt", "clf", "pak", "val",
-         "vas", "barlow", "deit", "rn50", "patchout", "async", "dp", "grad_cache")
+         "vas", "barlow", "deit", "rn50", "patchout", "async", "dp", "grad_cache", "mp_model", "mp_pipe",
+         "mp_seq", "mp_serve", "mp_serve_int8")
 # the other backbones and patchout (backbone_phase): the DeiT VA step (the audio tower trainable at
 # T = 99 x 12 + 2 = 1,190, the image tower frozen at T = 14 x 14 + 2 = 198), the RN50 VA step, and
 # the flagship step with patchout 0.25 (305 patches, 228 kept, T = 229)
 DEIT_B, DEIT_T, DEIT_IMAGE_T, PATCHOUT_T = 64, 1190, 198, 229
+# the model axis of 2 in mp_phase: (tower, rows, width) of the trained audio tower's step at B = 16,
+# the serving batch of 64 and the text tower (4 captions packed to T = 308) at batch 64
+TP_TOWERS = (("audio B16 T306", 16 * 306, 768), ("audio B64 T306", 64 * 306, 768),
+             ("text B16 T308", 16 * 308, 512))
 # every product shape the paths give gemm_bias_act: (case, M, N, K, activation, residual, fp32
 # pre-activation). The kernel phase holds each to its plain version; experiments/kernel_times.py
 # times each, parent against change.
@@ -514,6 +550,15 @@ GEMM_FWD_CASES = [
                                      ("proj+res", 768, 3072, "none", True, False),
                                      (f"fc recompute, fp32 preact ({mlp})", 3072, 768, mlp, False, True))
       if not (pre and "image" in tower)],
+    # mp_phase's model axis of 2 (TP_TOWERS): each rank's head block and hidden columns; the out and
+    # proj products keep their fp32 partial (summed over the model group, then the residual added)
+    *[(f"{tower} tp2 {p}", M, N, K, act, False, pre)
+      for tower, M, C in TP_TOWERS
+      for p, N, K, act, pre in (("qkv", 3 * C // 2, C, "none", False),
+                                ("out, fp32 partial", C, C // 2, "none", True),
+                                ("fc+quick_gelu", 2 * C, C, "quick_gelu", False),
+                                ("proj, fp32 partial", C, 2 * C, "none", True),
+                                ("fc recompute, fp32 preact", 2 * C, C, "quick_gelu", True))],
 ]
 # every product shape the training paths give gemm_dgrad: (case, M, N, K, activation whose grad
 # multiplies the product, rounded to bf16). dy [M, K] . w [K, N]: the attention's do = g.Wout and
@@ -531,7 +576,13 @@ GEMM_DGRAD_CASES = [
                                   ("dh=dqkv.Wqkv fp32", C, 3 * C, "none", False),
                                   ("da=(gy.Wproj)*quick_gelu'(a)", 4 * C, C, "quick_gelu", True),
                                   ("da=(gy.Wproj)*gelu'(a)", 4 * C, C, "gelu", True),
-                                  ("dh=da.Wfc fp32", C, 4 * C, "none", False))
+                                  ("dh=da.Wfc fp32", C, 4 * C, "none", False))] + [  # mp_phase's model axis of 2: the trained audio tower's shard products (each dh fp32, summed
+    # over the model group before the LayerNorm backward)
+    ("audio B16 T306 tp2 " + p, 16 * 306, N, K, act, rounded)
+    for p, N, K, act, rounded in (("do=g.Wout", 384, 768, "none", True),
+                                  ("dh=dqkv.Wqkv fp32", 768, 1152, "none", False),
+                                  ("da=(gy.Wproj)*quick_gelu'(a)", 1536, 768, "quick_gelu", True),
+                                  ("dh=da.Wfc fp32", 768, 1536, "none", False))
 ]
 # every product shape the int8 paths give gemm_i8: (case, M, N, K, activation, residual, fp32 out,
 # column scale first). xq [M, K] . wq [N, K]^T: qkv, out + residual, fc + activation (fp32 out) and
@@ -547,7 +598,13 @@ GEMM_I8_CASES = [
                                               ("out+res", C, C, "none", True, False, False),
                                               ("fc+quick_gelu fp32", 4 * C, C, "quick_gelu", False, True, False),
                                               ("fc+gelu fp32", 4 * C, C, "gelu", False, True, False),
-                                              ("proj+res", C, 4 * C, "none", True, False, False))
+                                              ("proj+res", C, 4 * C, "none", True, False, False))] + [  # int8 model-parallel serving: each rank's slices, the out and proj partials in fp32
+    (f"{tower} tp2 {p}", M, N, K, act, False, f32, col_first)
+    for tower, M, C in TP_TOWERS[1:]
+    for p, N, K, act, f32, col_first in (("qkv", 3 * C // 2, C, "none", False, True),
+                                         ("out fp32", C, C // 2, "none", True, False),
+                                         ("fc+quick_gelu fp32", 2 * C, C, "quick_gelu", True, False),
+                                         ("proj fp32", C, 2 * C, "none", True, False))
 ]
 # every (rows, C) the seven paths give layernorm_fwd, and the int8 paths layernorm_rowquant: (case,
 # rows, C). The forward kernel phase holds layernorm_fwd, the int8 kernel phase layernorm_rowquant
@@ -632,7 +689,12 @@ ROWQUANT_CASES = [
       for p, N, K, dtype in (("Wqkv bf16", 3 * C, C, "bf16"), ("Wout bf16", C, C, "bf16"),
                              ("Wfc fp32", 4 * C, C, "fp32"), ("Wproj fp32", C, 4 * C, "fp32"))],
     *[(f"{tower} {p}", M, K, "fp32") for tower, M, C in INT8_TOWERS
-      for p, K in (("context", C), ("act(a)", 4 * C))],
+      for p, K in (("context", C), ("act(a)", 4 * C))],    # int8 model-parallel serving: each rank's weight slices and its heads' and columns' activations
+    *[(f"C{C} tp2 {p}", N, K, dtype) for C in (768, 512)
+      for p, N, K, dtype in (("Wqkv bf16", 3 * C // 2, C, "bf16"), ("Wout bf16", C, C // 2, "bf16"),
+                             ("Wfc fp32", 2 * C, C, "fp32"), ("Wproj fp32", C, 2 * C, "fp32"))],
+    *[(f"{tower} tp2 {p}", M, K, "fp32") for tower, M, C in TP_TOWERS[1:]
+      for p, K in (("context", C // 2), ("act(a)", 2 * C))],
 ]
 # dot_variant's shapes: (case, M, K, N). The probe's product (fused_block_probe.DOT_MKN, the only
 # shape a path launches), one of multiples of 16 that are not of 64, and one whose K takes more than
@@ -643,6 +705,14 @@ DOT_CASES = [
     ("ragged M80 K32 N48", 80, 32, 48),
     ("deep M256 K1024 N384", 256, 1024, 384),
 ]
+def TP_ATTENTION_CASES(torch):
+    """The attention kernels' shapes on a model axis of 2 (mp_phase): the trained audio tower's 6
+    heads of 12 at B = 16, the text tower's 4 of 8 (causal, 4 captions packed) at batch 64."""
+    _, text_bias = _biases(torch)
+    return (("audio B16 T306 C384 H6 (tp2)", 16, 306, 384, 6, None),
+            ("text B16 T308 C256 H4 causal+pack (tp2)", 16, 308, 256, 4, text_bias))
+
+
 ATTENTION_STREAMING_T = (705, 971, DEIT_T)  # attention_fwd past the 704 keys it keeps resident
 DECODE_TOL = 0.1  # bf16 per-step logits, KV-cached against re-forward decoding
 DOT_TOL = 1e-3  # dot_variant: fp32 sums of up to 1024 bf16 products, in another order than the plain one
@@ -751,9 +821,9 @@ def device_us(torch, fn, calls=20, tries=3):
 
 
 def compare(torch, results, name, case, fn, plain, reads=(), ops=(), library=None, check=None,
-            also=None, iters=20, device=False):
+            also=None, iters=10, device=False):
     """Hold ``fn()`` (kernels) to ``plain()`` (``check``, by default output
-    by output), time both (CUDA events, order plain, kernel, kernel, plain)
+    by output), time both (CUDA events, order plain, kernel, kernel)
     and record the result under ``name``, beside the bound from ``reads``
     (the input tensors; the outputs are taken from the run) and ``ops``, the
     time of ``library()`` if given, and of each callable in ``also``; with
@@ -762,11 +832,10 @@ def compare(torch, results, name, case, fn, plain, reads=(), ops=(), library=Non
     got, want = _outputs(fn()), _outputs(plain())
     torch.cuda.synchronize()
     case_err, errs = (check or check_default)(torch, got, want, f"{name} {case}")
-    tp1 = cuda_ms(torch, plain, iters)
+    plain_ms = cuda_ms(torch, plain, iters)
     tk1 = cuda_ms(torch, fn, iters)
     tk2 = cuda_ms(torch, fn, iters)
-    tp2 = cuda_ms(torch, plain, iters)
-    ms, plain_ms = (tk1 + tk2) / 2, (tp1 + tp2) / 2
+    ms = (tk1 + tk2) / 2
     bound_ms, bound_by = bound(_nbytes(reads) + _nbytes(got), ops)
     library_ms = None
     if library is not None:
@@ -791,14 +860,16 @@ def compare(torch, results, name, case, fn, plain, reads=(), ops=(), library=Non
 
 @contextlib.contextmanager
 def plain_ops():
-    """Every fused sub-block, bf16 and int8, and the flash attention under
-    the dispatcher on their plain versions, forward and backward."""
+    """Every fused sub-block, bf16 and int8, the ring's attention sub-block
+    and the flash attention under the dispatcher on their plain versions,
+    forward and backward."""
     from vipant_tpu_torch.ops import attention, fused_attn, fused_mlp
+    from vipant_tpu_torch.parallel import sequence
 
     with contextlib.ExitStack() as stack:
         for mod, names in ((fused_attn, ("fused_ln_attention_block", "fused_ln_attention_block_int8")),
                            (fused_mlp, ("fused_ln_mlp_block", "fused_ln_mlp_block_int8")),
-                           (attention, ("flash_attention",))):
+                           (attention, ("flash_attention",)), (sequence, ("ring_ln_attention_block",))):
             for n in names:
                 stack.enter_context(mock.patch.object(mod, n, getattr(mod, n + "_plain")))
         yield
@@ -887,7 +958,7 @@ def kernel_phase(torch, results):
         lns_b, lnb_b = lns.bfloat16(), lnb.bfloat16()
         compare(torch, results, "layernorm_fwd", f"{case} [{M}x{C}]", lambda: kernels.layernorm_fwd(x, lns, lnb),
                 lambda: kernels.layernorm_plain(x, lns, lnb), reads=(x, lns, lnb), ops=[(8 * M * C, "fp32")],
-                library=lambda: F.layer_norm(x, (C,), lns_b, lnb_b), iters=10 if M > 5000 else 20, device=True)
+                library=lambda: F.layer_norm(x, (C,), lns_b, lnb_b), iters=5 if M > 5000 else 10, device=True)
 
     attn_cases = [  # (case, B, T, C, H, bias): audio, packed text, packed image, audio at batch 64
         ("audio B4 T306 C768 H12", BATCH, 306, 768, 12, None),
@@ -896,7 +967,7 @@ def kernel_phase(torch, results):
         ("audio B64 T306 C768 H12", 64, 306, 768, 12, None),
     ]
     for case, B, T, C, H, bias in attn_cases:
-        cmp = lambda *a, **k: compare(torch, results, *a, iters=10 if B > BATCH else 20, **k)
+        cmp = lambda *a, **k: compare(torch, results, *a, iters=5 if B > BATCH else 10, **k)
         M = B * T
         x = rn(B, T, C)
         lns, lnb = 1 + rn(C, std=0.1, dtype=torch.float32), rn(C, std=0.1, dtype=torch.float32)
@@ -918,7 +989,7 @@ def kernel_phase(torch, results):
     for case, B, T, C in (("audio B4 T306 C768 E3072", BATCH, 306, 768),
                           ("text B1 T308 C512 E2048", 1, 308, 512),
                           ("audio B64 T306 C768 E3072", 64, 306, 768)):
-        cmp = lambda *a, **k: compare(torch, results, *a, iters=10 if B > BATCH else 20, **k)
+        cmp = lambda *a, **k: compare(torch, results, *a, iters=5 if B > BATCH else 10, **k)
         E, M = 4 * C, B * T
         x = rn(B, T, C)
         lns, lnb = 1 + rn(C, std=0.1, dtype=torch.float32), rn(C, std=0.1, dtype=torch.float32)
@@ -930,13 +1001,19 @@ def kernel_phase(torch, results):
             ops=gemm_ops(M, E, C) + gemm_ops(M, C, E))
 
     # gemm_bias_act alone at every shape the paths give it, bitwise equal over two runs
+    for case, B, T, C, H, bias in TP_ATTENTION_CASES(torch):  # mp_phase's head blocks on a model axis of 2
+        qkv, cb = rn(B, T, 3 * C), fused_attn.canon_bias(bias)
+        compare(torch, results, "attention_fwd", case, lambda: kernels.attention_fwd(qkv, cb, H, 0.125),
+                lambda: kernels.attention_plain(qkv, cb, H, 0.125), reads=(qkv, cb),
+                ops=attn_ops(B, T, H), library=_sdpa(torch, qkv, cb, H, 0.125), iters=10)
+
     for case, M, N, K, act, res, pre in GEMM_FWD_CASES:
         x, w, b = rn(M, K), rn(N, K, std=K ** -0.5), rn(N, std=0.02, dtype=torch.float32)
         r, bb = (rn(M, N) if res else None), b.bfloat16()
         compare(torch, results, "gemm_bias_act", f"{case} [{M}x{N}x{K}]",
                 lambda: kernels.gemm_bias_act(x, w, b, act, r, pre),
                 lambda: kernels.gemm_bias_act_plain(x, w, b, act, r, pre), reads=(x, w, b, r),
-                ops=gemm_ops(M, N, K), library=lambda: F.linear(x, w, bb), iters=10 if M > 5000 else 20)
+                ops=gemm_ops(M, N, K), library=lambda: F.linear(x, w, bb), iters=5 if M > 5000 else 10)
         if not all(torch.equal(u, v) for u, v in zip(_outputs(kernels.gemm_bias_act(x, w, b, act, r, pre)),
                                                      _outputs(kernels.gemm_bias_act(x, w, b, act, r, pre)))):
             raise AssertionError(f"gemm_bias_act {case}: two runs differ")
@@ -1021,7 +1098,7 @@ def backward_kernel_phase(torch, results):
             raise AssertionError(f"colsum {case}: {blocks} blocks for {kernels.SM_COUNT} SMs")
         compare(torch, results, "colsum", f"{case} [{M}x{N} {dtype}: S={S} chunks of {rows} rows, {blocks} blocks]",
                 lambda: kernels.colsum(x), lambda: kernels.colsum_plain(x), reads=(x,), ops=[(M * N, "fp32")],
-                library=lambda: x.sum(0, dtype=torch.float32), iters=10 if M > 5000 else 20, device=True)
+                library=lambda: x.sum(0, dtype=torch.float32), iters=5 if M > 5000 else 10, device=True)
         got = kernels.colsum(x)
         if not (torch.equal(got, kernels.colsum(x)) and torch.equal(got, kernels.colsum_ordered(x))):
             raise AssertionError(f"colsum {case}: two runs differ, or the sum is not in colsum_ordered's order")
@@ -1040,7 +1117,7 @@ def backward_kernel_phase(torch, results):
         compare(torch, results, "layernorm_bwd", f"{case} [{M}x{C}: {warps} warps of {rows} rows]", call,
                 lambda: kernels.layernorm_bwd_plain(x, w, dh, res), reads=(x, w, dh, res),
                 ops=[(20 * M * C, "fp32")], library=_layer_norm_bwd(torch, x, w, dh),
-                iters=10 if M > 5000 else 20, device=True)
+                iters=5 if M > 5000 else 10, device=True)
         (_, dw, db), (_, dw2, db2) = call(), call()
         if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
             raise AssertionError(f"layernorm_bwd {case}: two runs differ")
@@ -1097,12 +1174,13 @@ def backward_kernel_phase(torch, results):
             ops=gemm_ops(M, C, C) * 2 + gemm_ops(M, 3 * C, C) * 2 + attn_ops(B, T, H, products=5))
         torch.cuda.empty_cache()
 
-    # attention_bwd at the captioning decoder's self-attention, at a packed batch of images and at the
-    # trimodal step's tied image tower
+    # attention_bwd at the captioning decoder's self-attention, at a packed batch of images, at the
+    # trimodal step's tied image tower and at mp_phase's head blocks of a model axis of 2
     pack_bias, _ = _biases(torch)
     for case, B, T, C, H, bias in (("decoder B64 T77 C512 H8 causal", 64, 77, 512, 8, causal_mask(77, device="cuda")),
                                    ("image B16 T200 C768 H12 pack", 16, 200, 768, 12, pack_bias(50, 4)),
-                                   ("image B64 T50 C768 H12 (trimodal tied)", 64, 50, 768, 12, None)):
+                                   ("image B64 T50 C768 H12 (trimodal tied)", 64, 50, 768, 12, None),
+                                   *TP_ATTENTION_CASES(torch)):
         qkv, do, cb = rn(B, T, 3 * C), rn(B, T, C), fused_attn.canon_bias(bias)
         _, stats = kernels.attention_fwd(qkv, cb, H, 0.125, stats=True)
         bwd = lambda: kernels.attention_bwd(qkv, do, cb, H, 0.125, stats)
@@ -1160,6 +1238,11 @@ def backward_kernel_phase(torch, results):
             wgrad(cmp, f"{tower} C768 {name}", rn(B, T, N1), rn(B, T, N2))
             torch.cuda.empty_cache()
 
+    # mp_phase's trained audio tower on a model axis of 2: each rank's four weight grads
+    for name, N1, N2 in (("dWout", 768, 384), ("dWqkv", 1152, 768), ("dWproj", 768, 1536),
+                         ("dWfc", 1536, 768)):
+        wgrad(cmp, f"audio B16 T306 tp2 {name}", rn(16, 306, N1), rn(16, 306, N2))
+
     # gemm_dgrad alone at every shape the paths give it, bitwise equal over two runs
     for case, M, N, K, act, rounded in GEMM_DGRAD_CASES:
         dy, w = rn(M, K), rn(K, N, std=K ** -0.5)
@@ -1167,7 +1250,7 @@ def backward_kernel_phase(torch, results):
         compare(torch, results, "gemm_dgrad", f"{case} [{M}x{N}x{K}]",
                 lambda: kernels.gemm_dgrad(dy, w, rounded, act, a),
                 lambda: kernels.gemm_dgrad_plain(dy, w, rounded, act, a), reads=(dy, w, a),
-                ops=gemm_ops(M, N, K), library=lambda: torch.matmul(dy, w), iters=10 if M > 5000 else 20)
+                ops=gemm_ops(M, N, K), library=lambda: torch.matmul(dy, w), iters=5 if M > 5000 else 10)
         if not torch.equal(kernels.gemm_dgrad(dy, w, rounded, act, a), kernels.gemm_dgrad(dy, w, rounded, act, a)):
             raise AssertionError(f"gemm_dgrad {case}: two runs differ")
         del dy, w, a
@@ -1337,7 +1420,7 @@ def int8_kernel_phase(torch, results):
         compare(torch, results, "layernorm_rowquant", f"{case} [{M}x{C}]",
                 lambda: kernels.layernorm_rowquant(x, lns, lnb),
                 lambda: kernels.layernorm_rowquant_plain(x, lns, lnb), reads=(x, lns, lnb),
-                ops=[(12 * M * C, "fp32")], check=ln_codes(x, lns, lnb), iters=10 if M > 5000 else 20,
+                ops=[(12 * M * C, "fp32")], check=ln_codes(x, lns, lnb), iters=5 if M > 5000 else 10,
                 device=True)
 
     # rowquant at every (rows, K, dtype) of ROWQUANT_CASES (one all-zero row), bitwise its plain
@@ -1347,7 +1430,7 @@ def int8_kernel_phase(torch, results):
         x[1] = 0
         compare(torch, results, "rowquant", f"{case} [{M}x{K} {dtype}]", lambda: kernels.rowquant(x),
                 lambda: kernels.rowquant_plain(x), reads=(x,), ops=quant_ops(x), check=codes(x),
-                iters=10 if M * K > 2 ** 24 else 20, device=True)
+                iters=5 if M * K > 2 ** 24 else 10, device=True)
         del x
 
     attn_cases = [  # audio, packed text, packed image; serving and batch shapes
@@ -1358,7 +1441,7 @@ def int8_kernel_phase(torch, results):
         ("image B16 T200 C768 H12 pack", 16, 200, 768, 12, pack_bias(50, 4)),
     ]
     for case, B, T, C, H, bias in attn_cases:
-        cmp = lambda *a, **k: compare(torch, results, *a, iters=10 if B > BATCH else 20, **k)
+        cmp = lambda *a, **k: compare(torch, results, *a, iters=5 if B > BATCH else 10, **k)
         M = B * T
         x = rn(B, T, C)
         x[0, 1] = 0  # an all-zero token
@@ -1392,7 +1475,7 @@ def int8_kernel_phase(torch, results):
                           ("text B1 T308 C512 E2048", 1, 308, 512),
                           ("text B16 T308 C512 E2048", 16, 308, 512),
                           ("image B16 T200 C768 E3072", 16, 200, 768)):
-        cmp = lambda *a, **k: compare(torch, results, *a, iters=10 if B > BATCH else 20, **k)
+        cmp = lambda *a, **k: compare(torch, results, *a, iters=5 if B > BATCH else 10, **k)
         E, M = 4 * C, B * T
         x = rn(B, T, C)
         x[0, 1] = 0
@@ -1430,7 +1513,7 @@ def int8_kernel_phase(torch, results):
         run = lambda: kernels.gemm_i8(xq, rs, wq, cs, b, **kw)
         compare(torch, results, "gemm_i8", f"{case} [{M}x{N}x{K}]", run,
                 lambda: kernels.gemm_i8_plain(xq, rs, wq, cs, b, **kw), reads=(xq, rs, wq, cs, b, r),
-                ops=gemm_ops(M, N, K, "int8"), library=int_mm(xq, wq), iters=10 if M > 5000 else 20)
+                ops=gemm_ops(M, N, K, "int8"), library=int_mm(xq, wq), iters=5 if M > 5000 else 10)
         if not torch.equal(run(), run()):
             raise AssertionError(f"gemm_i8 {case}: two runs differ")
         ones = lambda n: torch.ones(n, 1, device="cuda")
@@ -1822,10 +1905,6 @@ def train_int8_phase(torch, results):
     print(f"(iv) B={B}: {(i1 + i2) / 2:.2f} ms/step with int8_frozen ({B / ((i1 + i2) / 2) * 1e3:.1f} "
           f"clips/s), {(b1 + b2) / 2:.2f} ms/step bf16 ({B / ((b1 + b2) / 2) * 1e3:.1f} clips/s); the "
           f"frozen image tower alone: {fi:.2f} ms int8, {fb:.2f} ms bf16")
-    for label, t in (("int8_frozen", tr8), ("bf16", tr)):  # device or host: where a difference lies
-        busy, span, by_name = _profile(torch, lambda: t.train_step(*batch))
-        print(f"(iv) profiler, {label} step at B={B}: device busy {busy:.2f} ms / span {span:.2f} ms per "
-              f"step, {sum(n for n, _ in by_name.values()) / 3:.0f} device events per step")
     del tr8, tr, batch
 
     # (v) Adam descent smoke under int8_frozen
@@ -2198,11 +2277,6 @@ def _caption_engine(torch, batch_size, quantize=""):
     return InferenceEngine(CAPTION_FULL, batch_size=batch_size, seed=0, quantize=quantize)  # on the card
 
 
-# the profiled caption calls a window: ~24,000 device events a call, whose trace
-# takes the host seconds to read
-CAPTION_PROFILE_CALLS = 1
-
-
 def caption_serve_phase(torch, results):
     from vipant_tpu_torch.models.tasks import _encode
     from vipant_tpu_torch.ops import LAUNCHES, reset_launches
@@ -2297,20 +2371,11 @@ def caption_serve_phase(torch, results):
                    "caption beam=4": _timed_ms(torch, lambda: en.caption(fbb, beam=4), 1),
                    "greedy_decode_kv": _timed_ms(torch, lambda: en.model.decoder.greedy_decode_kv(f), 1),
                    "beam_decode_kv(4)": _timed_ms(torch, lambda: en.model.decoder.beam_decode_kv(f, beam=4), 1)}
-            if B == BATCH:
-                row["greedy_decode (re-forward)"] = _timed_ms(torch, lambda: en.model.decoder.greedy_decode(f), 1)
             with plain_ops():
                 row["caption greedy, plain ops"] = _timed_ms(torch, lambda: en.caption(fbb), 1)
         print(f"  batch {B}: " + "; ".join(
             f"{k} {v:.2f} ms" + (f" ({v / L:.3f} ms per decode step)" if "decode" in k else "")
             for k, v in row.items()))
-        return fbb
-
-    fbb = timings(eng, BATCH)
-    busy, span, by_name = _profile(torch, lambda: eng.caption(fbb), CAPTION_PROFILE_CALLS)
-    print(f"  profiler, caption greedy batch {BATCH}: device busy {busy:.2f} ms / span {span:.2f} ms per "
-          f"batch (idle {100 * (1 - busy / span):.1f} %), "
-          f"{sum(n for n, _ in by_name.values()) / CAPTION_PROFILE_CALLS:.0f} device events per batch")
 
     # the same weights with quantize="int8": the decoder's fused sub-blocks decode in int8
     eng8 = _caption_engine(torch, BATCH, "int8")
@@ -2327,13 +2392,7 @@ def caption_serve_phase(torch, results):
           f"{ {k: v for k, v in c8.items() if 'int8' in k} }")
     del eng, eng8
     eng = _caption_engine(torch, 64)
-    fbb = timings(eng, 64)
-    busy, span, by_name = _profile(torch, lambda: eng.caption(fbb), CAPTION_PROFILE_CALLS)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    print(f"  profiler, caption greedy batch 64: device busy {busy:.2f} ms / span {span:.2f} ms per "
-          f"batch (idle {100 * (1 - busy / span):.1f} %); top kernels per batch: "
-          + "; ".join(f"{d / CAPTION_PROFILE_CALLS:.2f} ms {n // CAPTION_PROFILE_CALLS}x {k[:50]}"
-                      for k, (n, d) in top))
+    timings(eng, 64)
 
 
 # phase 14: the VA epoch loop on a synthetic index
@@ -4404,16 +4463,6 @@ def _step_ms(torch, tr, batch, reps=3):
     return cuda_ms(torch, lambda: tr.train_step(*batch), reps, 1)
 
 
-def _print_profile(torch, label, fn, top=8):
-    """The device busy time of ``fn`` (one training step) per call and its
-    top kernels by device time, from a ``torch.profiler`` trace."""
-    busy, span, by_name = _profile(torch, fn)
-    print(f"{label}: device busy {busy:.2f} ms / span {span:.2f} ms a step (idle "
-          f"{100 * (1 - busy / span):.1f} % of the traced span); top kernels by device time a step:")
-    for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
-        print(f"    {d / 3:9.3f} ms  {n // 3:5d}x  {name[:90]}")
-
-
 def backbone_phase(torch, results):
     """(a) DeiT, (b) RN50, (c) patchout, (d) asynchronous checkpoints; see
     the module docstring."""
@@ -4538,7 +4587,6 @@ def backbone_phase(torch, results):
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise AssertionError(f"DeiT step: the loss is not finite and falling: {losses}")
         results["_deit_step_ms"] = ms
-        _print_profile(torch, f"(a) DeiT step B={DEIT_B}, profiler", lambda: tr.train_step(*batch))
         del tr, batch
         torch.cuda.empty_cache()
         eng = InferenceEngine(deit, batch_size=DEIT_B, seed=0)
@@ -4613,7 +4661,6 @@ def backbone_phase(torch, results):
                 and gap <= 1e-3):
             raise AssertionError("RN50 step: the loss or the statistics differ from the plain run's")
         results["_rn50_step_ms"] = ms
-        _print_profile(torch, "(b) RN50 step B=64, profiler", lambda: tk.train_step(*batch))
         del tk, tr, batch
         torch.cuda.empty_cache()
         eng = InferenceEngine(rn50, batch_size=64, seed=0)
@@ -5168,6 +5215,384 @@ def dp_phase(torch, results):
         shutil.rmtree(root, ignore_errors=True)
 
 
+MP_B, MP_MICRO, MP_SERVE_B, MP_CAPTION_B = 16, 4, 64, 4
+MP_TIMEOUT = {"mp_probe": 60, "mp": 600}
+MP_LOSS_REL = 1e-2  # (a)-(c): the loss and grad norm against the one-rank kernel step
+MP_AXES = (("model", ["mesh.model=2"]), ("pipe", ["mesh.pipe=2", f"mesh.microbatches={MP_MICRO}"]),
+           ("seq", ["mesh.seq=2"]))
+# the kernels each axis's step launches: every kernel of the sub-blocks' chains on the model and pipe
+# axes; on the seq axis the attention leaves for the ring (plain products), its LayerNorm and
+# products and the whole MLP chain stay on the kernels
+MP_KERNELS = {
+    "model": ("layernorm_fwd", "gemm_bias_act", "attention_fwd", "layernorm_bwd", "gemm_dgrad",
+              "gemm_wgrad", "colsum", "attention_bwd", "fused_ln_attention_block",
+              "fused_ln_attention_block_bwd", "fused_ln_mlp_block", "fused_ln_mlp_block_bwd"),
+    "seq": ("layernorm_fwd", "gemm_bias_act", "layernorm_bwd", "gemm_dgrad", "gemm_wgrad", "colsum",
+            "fused_ln_mlp_block", "fused_ln_mlp_block_bwd"),
+}
+MP_KERNELS["pipe"] = MP_KERNELS["model"]
+MP_INT8_KERNELS = ("layernorm_rowquant", "rowquant", "gemm_i8", "attention_fwd_f32",
+                   "fused_ln_attention_block_int8", "fused_ln_mlp_block_int8")
+
+
+def _mp_rank_probe(torch, spec, rank, world, d):
+    """(e) What gloo does with CUDA tensors beyond the data axis's three collectives:
+    a bf16 all-reduce and a point-to-point send and receive, each printed as
+    soon as it returns (a crash leaves the lines before it)."""
+    import torch.distributed as dist
+
+    out = {}
+
+    def report(key, value):
+        out[key] = value
+        print(json.dumps({"rank": rank, "probe": out}), flush=True)
+
+    x = torch.full((4,), 1.5 + rank, dtype=torch.bfloat16, device="cuda:0")
+    try:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        report("all_reduce_bf16", f"takes it: {x.float().tolist()}")
+    except RuntimeError as e:  # the answer this probe is after
+        report("all_reduce_bf16", f"refuses: {str(e)[:160]}")
+    t = torch.arange(4, dtype=torch.float32, device="cuda:0") + 10 * (rank + 1)
+    got = torch.zeros(4, device="cuda:0")
+    try:
+        reqs = [dist.isend(t, 1 - rank), dist.irecv(got, 1 - rank)]
+        for r in reqs:
+            r.wait()
+        torch.cuda.synchronize()
+        want = torch.arange(4, dtype=torch.float32, device="cuda:0") + 10 * (2 - rank)
+        report("isend_irecv_cuda", "takes it, " + ("right" if torch.equal(got, want) else
+                                                  f"WRONG data {got.tolist()}"))
+    except RuntimeError as e:
+        report("isend_irecv_cuda", f"refuses: {str(e)[:160]}")
+    return {"probe": out}
+
+
+def _mp_full(tr, tensors, names):
+    return {k: v.float() for k, v in tr.placement.full(dict(tensors), names).items()}
+
+
+def _full_hashes(tr):
+    """sha1 of every full parameter (trainable and frozen) of a split trainer:
+    a collective."""
+    import hashlib
+
+    import torch
+
+    full = {**tr.placement.full(tr.trainable, tr.full_names[0]),
+            **tr.placement.full(tr.frozen, tr.full_names[1])}
+    return {k: hashlib.sha1(v.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                            .tobytes()).hexdigest() for k, v in full.items()}
+
+
+def _mp_rank(torch, spec, rank, world, d):
+    """(a)-(c) the flagship step at B = 16 on each axis of 2, on the kernels
+    in bf16 and on the plain ops in fp32, against the parent's one-rank steps
+    (``ref.pt``), a save after the kernel step, the run's second step and a
+    resume's; (d) the model-parallel engines."""
+    import contextlib
+    import io
+    import os
+    import time as _time
+
+    from vipant_tpu_torch.ops import LAUNCHES, reset_launches
+    from vipant_tpu_torch.parallel import shard_batch
+    from vipant_tpu_torch.serve import InferenceEngine
+    from vipant_tpu_torch.train import Trainer, loss_and_grads, reduce_grads
+
+    ref = torch.load(os.path.join(d, "ref.pt"), map_location="cuda:0")
+    out = {}
+    for axis, extra in MP_AXES:
+        torch.cuda.empty_cache()
+        over = FLAGSHIP + [f"running.batch_size={MP_B}", "mesh.data=-1", *extra]
+        # the fp32 step on the plain ops: every grad against the one-rank fp32 step's
+        with plain_ops():
+            tr = Trainer(over + ["compute_dtype=float32"], device="cuda:0", steps_per_epoch=STEPS_PER_EPOCH)
+            loss32, g32 = loss_and_grads(tr.state, *tr.make_batch(*shard_batch(list(_dp_batch(MP_B, seed=21)),
+                                                                                tr.mesh)))
+        g32 = _mp_full(tr, reduce_grads(tr.state, g32), tr.full_names[0])
+        cos32 = {k: _cos(torch, g32[k], ref["F"][k]) for k in ref["F"]}
+        del tr, g32
+        torch.cuda.empty_cache()
+        # the step on the kernels
+        tr = Trainer(over + [f"alias_root={d}/{axis}"], device="cuda:0", steps_per_epoch=STEPS_PER_EPOCH)
+        batch = tr.make_batch(*shard_batch(list(_dp_batch(MP_B, seed=21)), tr.mesh))
+        seen = []
+        apply = tr.state.optimizer.apply
+        tr.state.optimizer.apply = lambda g: (seen.append(g) if not seen else None, apply(g))[1]
+        reset_launches()
+        ms = []
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        m = tr.train_step(*batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        ms.append((_time.perf_counter() - t0) * 1e3)
+        counts = dict(LAUNCHES)
+        grads = _mp_full(tr, seen[0], tr.full_names[0])
+        seen.clear()
+        cos = {k: _cos(torch, grads[k], ref["K"][k]) for k in ref["K"]}
+        report, held = io.StringIO(), True
+        if rank == 0:  # the axis's kernel step no further from fp32 than the one-rank kernel step
+            with contextlib.redirect_stdout(report):
+                try:
+                    hold_grads_to_fp32(torch, f"  {axis}=2 kernels (K below) against one rank's kernels "
+                                       "(P below) and fp32", f"mesh.{axis}=2", (loss, grads),
+                                       (ref["loss"], ref["K"]), (ref["loss_f"], ref["F"]))
+                except AssertionError as e:
+                    held = False
+                    print(f"    {e}")
+        del grads
+        tr.global_step += 1
+        saved = tr.save()
+        at_save = _full_hashes(tr)
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        tr.train_step(*batch)
+        torch.cuda.synchronize()
+        ms.append((_time.perf_counter() - t0) * 1e3)
+        tr.global_step += 1
+        after = _full_hashes(tr)
+        local = sum(p.numel() for p in tr.trainable.values())
+        del tr
+        torch.cuda.empty_cache()
+        re = Trainer(over + [f"alias_root={d}/{axis}_re", f"model_root={os.path.dirname(os.path.dirname(saved))}",
+                             f"model_file={os.path.basename(saved)}"], device="cuda:0",
+                     steps_per_epoch=STEPS_PER_EPOCH)
+        re.train_step(*batch)
+        resumed = _full_hashes(re)
+        del re, batch
+        out[axis] = {"loss": loss, "grad_norm": gnorm, "loss32": float(loss32), "ms": ms, "launches": counts,
+                     "cos": cos, "cos32": cos32, "held": held, "report": report.getvalue(), "saved": saved,
+                     "at_save": at_save if rank == 0 else None, "resumed_bitwise": resumed == after,
+                     "local_params": local}
+    # (d) the engines on the model axis: CLAP at batch 64 in bf16 and int8, the captioning decoder
+    fb = np.random.default_rng(22).standard_normal((MP_SERVE_B, 1000, 128)).astype(np.float32)
+    texts = [PROMPTS[i % len(PROMPTS)] + f" {i}" for i in range(MP_SERVE_B)]
+    serve = {}
+    for quantize in ("", "int8"):
+        torch.cuda.empty_cache()
+        eng = InferenceEngine(CLAP_FULL, batch_size=MP_SERVE_B, seed=0, quantize=quantize,
+                              model_parallel=world, device="cuda:0")
+        reset_launches()
+        a, t = eng.embed_audio(fb), eng.embed_texts(texts)
+        counts = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        eng.embed_audio(fb)
+        torch.cuda.synchronize()
+        serve[quantize or "bf16"] = {"audio_ms": (_time.perf_counter() - t0) * 1e3, "launches": counts}
+        np.save(os.path.join(d, f"mp_{quantize or 'bf16'}_audio_{rank}.npy"), a)
+        np.save(os.path.join(d, f"mp_{quantize or 'bf16'}_text_{rank}.npy"), t)
+        del eng
+    torch.cuda.empty_cache()
+    cap = InferenceEngine(CAPTION_FULL, batch_size=MP_CAPTION_B, seed=0, model_parallel=world,
+                          device="cuda:0")
+    fb4 = fb[:MP_CAPTION_B]
+    with torch.inference_mode():
+        _, logits = cap.model.decode(torch.from_numpy(fb4[:, None]).to("cuda:0"))
+    np.save(os.path.join(d, f"mp_caption_logits_{rank}.npy"), logits[:, 0].float().cpu().numpy())
+    torch.cuda.synchronize()
+    t0 = _time.perf_counter()
+    serve["captions"] = cap.caption(fb4)
+    torch.cuda.synchronize()
+    serve["caption_ms"] = (_time.perf_counter() - t0) * 1e3
+    out["serve"] = serve
+    return out
+
+
+DP_CASES.update({"mp_probe": ("gloo", 2, _mp_rank_probe), "mp": ("gloo", 2, _mp_rank)})
+DP_TIMEOUT.update(MP_TIMEOUT)
+
+
+def _finish_probe(run):
+    """The probe's ranks' last lines and exit codes; a rank that crashes or
+    hangs is the probe's answer, not a failure (every process is stopped)."""
+    import os
+
+    case, d, procs, logs, t0 = run
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(MP_TIMEOUT[case] - (time.perf_counter() - t0), 1.0))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    found = []
+    for r, p in enumerate(procs):
+        with open(os.path.join(d, f"rank{r}.log")) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.startswith('{"rank"')]
+        found.append({"exit": p.returncode, **(json.loads(lines[-1])["probe"] if lines else {})})
+    return found
+
+
+def mp_phase(torch, results):
+    """(a)-(e) of the model, pipe and seq axes and model-parallel serving; see
+    the module docstring."""
+    import os
+    import shutil
+    import tempfile
+
+    from vipant_tpu_torch.serve import InferenceEngine
+    from vipant_tpu_torch.train import Trainer, loss_and_grads
+
+    smi = _smi()
+    root = tempfile.mkdtemp(prefix="vipant_mp_")
+    started = []
+
+    def start(case, spec=None):
+        started.append(_start_dp(case, root, spec))
+        return started[-1]
+
+    try:
+        probe = start("mp_probe")
+        # the one-rank kernel step the axes are held to, and the one-rank engines
+        tr = _trainer(torch, MP_B)
+        batch = tr.make_batch(*_dp_batch(MP_B, seed=21))
+        seen = []
+        apply = tr.state.optimizer.apply
+        tr.state.optimizer.apply = lambda g: (seen.append(g), apply(g))[1]
+        m = tr.train_step(*batch)
+        one = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        with plain_ops():
+            f = _trainer(torch, MP_B, "compute_dtype=float32")
+            loss_f, g_f = loss_and_grads(f.state, *f.make_batch(*_dp_batch(MP_B, seed=21)))
+        d = os.path.join(root, "mp")
+        os.makedirs(d)
+        torch.save({**one, "K": {k: g.float().cpu() for k, g in seen[0].items()},
+                    "loss_f": float(loss_f), "F": {k: g.float().cpu() for k, g in g_f.items()}},
+                   os.path.join(d, "ref.pt"))
+        del f, g_f
+        one_ms = _step_ms(torch, tr, batch, reps=2)
+        del tr, seen, batch
+        found = _finish_probe(probe)
+        print(f"(e) {smi}: gloo with CUDA tensors on cuda:0, beyond all_reduce / broadcast / "
+              f"all_gather: {found}; the port's point-to-point (pipeline, ring) goes through "
+              "collectives.host_staged_exchange (pinned host buffers) on gloo, and its bf16 sums are "
+              "widened to fp32 on gloo's wire")
+        run = _start_dp_in("mp", d)
+        started.append(run)
+        fb = np.random.default_rng(22).standard_normal((MP_SERVE_B, 1000, 128)).astype(np.float32)
+        texts = [PROMPTS[i % len(PROMPTS)] + f" {i}" for i in range(MP_SERVE_B)]
+        ref_serve = {}
+        for quantize in ("", "int8"):
+            eng = InferenceEngine(CLAP_FULL, batch_size=MP_SERVE_B, seed=0, quantize=quantize)
+            ref_serve[quantize or "bf16"] = (eng.embed_audio(fb), eng.embed_texts(texts))
+            del eng
+        cap = _caption_engine(torch, MP_CAPTION_B)
+        with torch.inference_mode():
+            _, logits = cap.model.decode(torch.from_numpy(fb[:MP_CAPTION_B, None]).to("cuda"))
+        ref_logits, ref_caps = logits[:, 0].float().cpu().numpy(), cap.caption(fb[:MP_CAPTION_B])
+        del cap, logits
+        torch.cuda.empty_cache()
+        ranks, _ = _finish_dp(run)
+        for axis, _ in MP_AXES:
+            r0, r1 = ranks[0][axis], ranks[1][axis]
+            rel = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
+            rel_n = abs(r0["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+            rel32 = abs(r0["loss32"] - loss_f) / abs(loss_f)
+            low32 = sorted((c, k) for k, c in r0["cos32"].items() if not c >= COS_MIN)
+            label = {"model": "(a) mesh.model=2", "pipe": f"(b) mesh.pipe=2, {MP_MICRO} microbatches",
+                     "seq": "(c) mesh.seq=2"}[axis]
+            print(f"{label} {smi}: 2 gloo ranks on cuda:0, B={MP_B}: the kernel step's loss "
+                  f"{r0['loss']:.6f} against one rank's {one['loss']:.6f} (rel {rel:.2e}), grad norm "
+                  f"{r0['grad_norm']:.6f} against {one['grad_norm']:.6f} (rel {rel_n:.2e}); per-grad cosine to "
+                  f"one rank's kernel grads: min {min(r0['cos'].values()):.6f}, "
+                  f"{sum(c >= COS_MIN for c in r0['cos'].values())} of {len(r0['cos'])} >= {COS_MIN} (bf16: "
+                  f"held to fp32 below); the fp32 plain step's loss rel {rel32:.2e}, "
+                  f"{len(r0['cos32']) - len(low32)} of {len(r0['cos32'])} grads at cosine >= {COS_MIN} to "
+                  f"one rank's fp32 grads (lowest {min(r0['cos32'].values()):.6f}); step ms rank 0 "
+                  f"{[round(t, 2) for t in r0['ms']]}, rank 1 {[round(t, 2) for t in r1['ms']]} (one rank: "
+                  f"{one_ms:.2f} ms; gloo through host memory on one shared card: no scaling is measured); "
+                  f"trainable params a rank {r0['local_params']:,} / {r1['local_params']:,}; resume bitwise: "
+                  f"{r0['resumed_bitwise']} / {r1['resumed_bitwise']}")
+            print(r0["report"], end="")
+            for r, x in enumerate((r0, r1)):
+                print(f"  rank {r} launches: {x['launches']}")
+            missing = [k for k in MP_KERNELS[axis] for x in (r0, r1) if not x["launches"].get(k)]
+            if (rel > MP_LOSS_REL or rel_n > MP_LOSS_REL or rel32 > MP_LOSS_REL or low32 or missing
+                    or not r0["held"]):
+                raise AssertionError(f"{label}: loss rel {rel:.2e}, grad norm rel {rel_n:.2e}, fp32 loss "
+                                     f"rel {rel32:.2e}, fp32 grads below {COS_MIN}: {low32[:5]}, kernels "
+                                     f"not launched: {missing}, kernel grads held to fp32: {r0['held']}")
+            if not (r0["resumed_bitwise"] and r1["resumed_bitwise"]):
+                raise AssertionError(f"{label}: the resumed step is not bitwise the run's")
+            _add_launches(results, f"mp_{axis}", r0["launches"])
+            torch.cuda.empty_cache()
+            one_rank = Trainer(FLAGSHIP + [f"running.batch_size={MP_B}", f"alias_root={root}/one_{axis}",
+                                           f"model_root={os.path.dirname(os.path.dirname(r0['saved']))}",
+                                           f"model_file={os.path.basename(r0['saved'])}"],
+                               steps_per_epoch=STEPS_PER_EPOCH)
+            off = [k for k, v in _param_hashes(one_rank).items() if r0["at_save"].get(k) != v]
+            print(f"  the {axis} save in a one-rank trainer: {len(r0['at_save']) - len(off)} of "
+                  f"{len(r0['at_save'])} params bitwise the gathered ones")
+            if off or len(r0["at_save"]) != len(_param_hashes(one_rank)):
+                raise AssertionError(f"{label}: the save loads into one rank with {off[:5]} off")
+            del one_rank
+        serve = ranks[0]["serve"]
+        for mode in ("bf16", "int8"):
+            a_ref, t_ref = ref_serve[mode]
+            for r in range(2):
+                a = np.load(os.path.join(d, f"mp_{mode}_audio_{r}.npy"))
+                t = np.load(os.path.join(d, f"mp_{mode}_text_{r}.npy"))
+                ca, ct = _row_cos(a, a_ref).min(), _row_cos(t, t_ref).min()
+                print(f"(d) {smi}: InferenceEngine(model_parallel=2) {mode} rank {r}: embed_audio x"
+                      f"{MP_SERVE_B} cosine to one rank >= {ca:.6f}, embed_texts >= {ct:.6f}"
+                      + (f"; {serve[mode]['audio_ms']:.2f} ms a batch of {MP_SERVE_B}" if r == 0 else ""))
+                if not (ca >= COS_MIN and ct >= COS_MIN):
+                    raise AssertionError(f"(d) {mode} rank {r}: cosine {ca}, {ct} to one rank")
+            _add_launches(results, "mp_serve" if mode == "bf16" else "mp_serve_int8", serve[mode]["launches"])
+        for r in range(2):
+            a8, a16 = (np.load(os.path.join(d, f"mp_{m}_audio_{r}.npy")) for m in ("int8", "bf16"))
+            t8, t16 = (np.load(os.path.join(d, f"mp_{m}_text_{r}.npy")) for m in ("int8", "bf16"))
+            c8 = min(_row_cos(a8, a16).min(), _row_cos(t8, t16).min())
+            if not c8 >= INT8_COS_MIN:
+                raise AssertionError(f"(d) rank {r}: int8 against bf16 cosine {c8}")
+        missing = [k for k in MP_INT8_KERNELS if not serve["int8"]["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"(d) int8 kernels not launched: {missing}")
+        for r in range(2):
+            lg = np.load(os.path.join(d, f"mp_caption_logits_{r}.npy"))
+            cl = _row_cos(lg, ref_logits).min()
+            print(f"(d) rank {r}: greedy caption at batch {MP_CAPTION_B}, the first step's logits cosine "
+                  f"to one rank >= {cl:.6f}" + (f"; captions equal to one rank's: "
+                                                f"{serve['captions'] == ref_caps}, {serve['caption_ms']:.2f} ms"
+                                                if r == 0 else ""))
+            if not cl >= COS_MIN:
+                raise AssertionError(f"(d) caption logits rank {r}: cosine {cl}")
+    finally:
+        for _, _, procs, logs, _ in started:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _start_dp_in(case, d):
+    """:func:`_start_dp` in the directory ``d`` the parent has filled."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump({}, f)
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in range(DP_CASES[case][1])]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", case, str(r), d],
+                              stdout=log, stderr=subprocess.STDOUT, env=env)
+             for r, log in enumerate(logs)]
+    return case, d, procs, logs, time.perf_counter()
+
+
 PHASES = (
     ("kernel_phase", "kernel phase (forward kernels vs plain PyTorch on the card)", kernel_phase),
     ("backward_kernel_phase", "backward kernel phase (vs plain PyTorch on the card)",
@@ -5192,6 +5617,8 @@ PHASES = (
      "(full width)", backbone_phase),
     ("dp_phase", "the data axis: NCCL, 2 ranks, ZeRO-1, the loop, the gradient cache, data-parallel "
      "serving (full width)", dp_phase),
+    ("mp_phase", "the model, pipe and seq axes and model-parallel serving (full width, 2 gloo ranks)",
+     mp_phase),
 )
 
 

@@ -28,8 +28,9 @@ tests/data_synth.py, on the CPU:
   clip with none, ``np_rnd`` under one seed);
 - the refusals: ``running.dataloader=lv``, a ``pak*`` dataset and
   ``async_ckpt`` are ported (the monitor reaches their loaders: a missing
-  index or pack raises ``FileNotFoundError``); the gradient cache (A15) is
-  ported too, and a ``mesh.model`` > 1 beside it is refused (A15-rest).
+  index or pack raises ``FileNotFoundError``); the gradient cache and the
+  model axis (A15) are ported too: ``mesh.model=2`` in one process, which
+  has no second rank to split over, raises ``ValueError``.
 """
 
 import json
@@ -396,9 +397,10 @@ def test_a_short_clip_pads_its_captions_cyclically(data):
     pytest.param(["running.dataloader=lv"], FileNotFoundError, "clotho_dev.jsonl", id="extra0-A12"),
     pytest.param(["running.data_name=pak_clotho"], FileNotFoundError, "pak_clotho.pak",
                  id="extra1-A11"),
-    # ported: the gradient cache builds (A15); the model axis is still refused
-    pytest.param(["running.grad_cache.alive=True", "mesh.model=2"], NotImplementedError, "A15-rest",
-                 id="extra2-A15"),
+    # ported: the gradient cache builds and the model axis is reached (A15); one process has no
+    # second rank to split over
+    pytest.param(["running.grad_cache.alive=True", "mesh.model=2"], ValueError,
+                 "1 ranks do not divide into model=2", id="extra2-A15"),
     # ported: async_ckpt builds and the pack is reached
     pytest.param(["async_ckpt=True", "running.data_name=pak_clotho"], FileNotFoundError,
                  "pak_clotho.pak", id="extra3-A7"),

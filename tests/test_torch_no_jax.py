@@ -488,6 +488,50 @@ def test_port_trains_on_two_ranks_with_zero_and_the_grad_cache_without_jax(tmp_p
     assert proc.stdout.strip().endswith("ok")
 
 
+AXES_SCRIPT = """
+import sys, tempfile
+import numpy as np
+sys.path.insert(0, TESTS)
+from torch_dist_worker import run_ranks
+
+over = ["+running=bimodal", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=dummy",
+        "+model/loss=ce", "+optimizer=standard", "+running/audio=default", "worker=CVAP",
+        "model.audio.pre_encoder.stride=[16,24]", "running.audio.max_len=100", "model.image.width=64",
+        "model.image.embed_dim=32", "model.image.encoder.layers=2", "model.image.heads=4",
+        "running.batch_size=4", "model_file=", "mesh.data=-1"]
+r = np.random.default_rng(0)
+args = [r.standard_normal((4, 3, 224, 224)).astype(np.float32),
+        r.standard_normal((4, 1, 100, 128)).astype(np.float32)]
+runs = {axis: ("mesh_steps", {"overrides": over + [f"mesh.{axis}=2"], "args": args, "steps": 1})
+        for axis in ("model", "pipe", "seq")}
+got = run_ranks(tempfile.mkdtemp(), "multi", {"runs": runs}, timeout=240)
+for axis in runs:
+    assert [g[axis]["shape"][axis] for g in got] == [2, 2]
+    assert got[0][axis]["steps"][0]["loss"] == got[1][axis]["steps"][0]["loss"]
+    assert np.isfinite(got[0][axis]["steps"][0]["loss"])
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_port_trains_on_the_model_pipe_and_seq_axes_without_jax(tmp_path):
+    """Two gloo ranks train a tiny VA step on mesh.model=2, mesh.pipe=2 and
+    mesh.seq=2, where importing jax, jaxlib, flax, optax or vipant_tpu
+    raises in the parent and in both ranks."""
+    blocked = tmp_path / "blocked"
+    for name in ("jax", "jaxlib", "flax", "optax", "vipant_tpu"):
+        (blocked / name).mkdir(parents=True)
+        (blocked / name / "__init__.py").write_text(f"raise ImportError('{name} must not be imported')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(blocked), ROOT]))
+    script = AXES_SCRIPT.replace("TESTS", repr(os.path.join(ROOT, "tests")))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 CLI_ARGS = [
     "+running=clotho", "+model/image=vit_val", "+model/audio=vit_val", "+model/text=transformer_val",
     "+model/loss=ce", "+optimizer=standard", "+running/audio=default", "worker=CLAP",
@@ -622,7 +666,8 @@ def test_no_source_of_the_port_imports_the_jax_package():
                 ("nn", "resnet.py"), ("nn", "deit.py"), ("ckpt", "deit_port.py"),
                 ("experiments", "deit_grad_gap.py"), ("parallel", "__init__.py"),
                 ("parallel", "mesh.py"), ("parallel", "collectives.py"), ("parallel", "zero.py"),
-                ("parallel", "grad_cache.py"), ("tests", "torch_dist_worker.py")):
+                ("parallel", "grad_cache.py"), ("parallel", "tensor.py"), ("parallel", "pipeline.py"),
+                ("parallel", "sequence.py"), ("tests", "torch_dist_worker.py")):
         assert any(p.endswith(os.path.join(*new)) for p in sources), new
     for path in sources:
         with open(path) as fh:

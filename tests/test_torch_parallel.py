@@ -34,9 +34,9 @@ the JAX init.
   to one device (atol 1e-6: another batch size per product), and the
   ``token_pack`` guard checking each configured pack where the JAX engine
   checks only the largest (ROADMAP.md queue C, C20).
-- The mesh: the refusals of ``model``, ``pipe``, ``seq`` (A15-rest), the
-  launchers' environments, the owners of ZeRO's leaves, the collectives
-  without a group.
+- The mesh: its four axes laid out as the JAX mesh's devices, the JAX
+  asserts, the launchers' environments, the owners of ZeRO's leaves, the
+  collectives without a group.
 """
 
 import logging
@@ -446,10 +446,30 @@ LAUNCHER_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT
                  "PROCESS_ID", "COORDINATOR_ADDRESS")
 
 
-def test_the_mesh_refuses_the_other_axes_and_reads_the_launchers(monkeypatch):
-    for axis in ("model", "pipe", "seq"):
-        with pytest.raises(NotImplementedError, match="A15-rest"):
-            parallel.make_mesh(**{axis: 2})
+def test_the_mesh_lays_out_four_axes_and_reads_the_launchers(monkeypatch):
+    """Rank r sits at the JAX mesh's coordinate of device r (``reshape(data,
+    model, pipe, seq)``, data-major); each axis's group lists the ranks that
+    differ only on it; the JAX asserts (pipe with seq, seq with model) and
+    the world's size hold before any group forms."""
+    mesh = jax_make_mesh(data=2, model=2, pipe=1, seq=2)
+    sizes = {"data": 2, "model": 2, "pipe": 1, "seq": 2}
+    ids = [d.id for d in jax.devices()[:8]]
+    for r in range(8):
+        c = parallel.mesh.coords_of(r, sizes)
+        assert mesh.devices[c["data"], c["model"], c["pipe"], c["seq"]].id == ids[r]
+        for axis in ("data", "model", "seq"):
+            group = parallel.mesh.axis_ranks(r, sizes, axis)
+            assert r in group and len(group) == 2
+            assert all(parallel.mesh.coords_of(q, sizes)[a] == c[a]
+                       for q in group for a in sizes if a != axis)
+            assert [parallel.mesh.coords_of(q, sizes)[axis] for q in group] == [0, 1]
+    m = parallel.Mesh(2, 5, "gloo", model=2, seq=2)
+    assert (m.data_index, m.index("model"), m.index("seq"), m.world) == (1, 0, 1, 8)
+    assert parallel.data_shard_info(m) == (1, 2)
+    with pytest.raises(ValueError, match="mesh.pipe and mesh.seq cannot combine"):
+        parallel.make_mesh(pipe=2, seq=2)
+    with pytest.raises(ValueError, match="seq and model"):
+        parallel.make_mesh(model=2, seq=2)
     for k in LAUNCHER_VARS:
         monkeypatch.delenv(k, raising=False)
     assert parallel.launcher_env() is None
@@ -458,6 +478,8 @@ def test_the_mesh_refuses_the_other_axes_and_reads_the_launchers(monkeypatch):
     assert parallel.make_mesh(data=1).data == 1
     with pytest.raises(ValueError, match=r"mesh.data=2 must equal the number of ranks \(1\)"):
         parallel.make_mesh(data=2)  # without a launcher the world is one rank: nothing falls back
+    with pytest.raises(ValueError, match="1 ranks do not divide into model=2"):
+        parallel.make_mesh(model=2)
     monkeypatch.setenv("NUM_PROCESSES", "1")  # the JAX launcher forms no group of one
     assert parallel.launcher_env() is None
     monkeypatch.setenv("NUM_PROCESSES", "4")

@@ -133,7 +133,7 @@ def test_bridge_matches_reference_export():
 def test_engine_rejects_what_is_not_ported():
     with pytest.raises(ValueError):
         InferenceEngine(TINY, quantize="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="A15-rest"):
+    with pytest.raises(ValueError, match=r"must equal the number of ranks \(1\)"):  # ported: needs 2 ranks
         InferenceEngine(TINY, model_parallel=2, device="cpu")
     with pytest.raises(FileNotFoundError):
         InferenceEngine([o for o in TINY if o != "model_file="] + ["model_file=missing"],

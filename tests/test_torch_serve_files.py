@@ -320,10 +320,13 @@ def test_cli_needs_a_card_or_platform_cpu(files, tmp_path):
               *TINY])
 
 
-@pytest.mark.parametrize("flag,item", [(["--data_parallel", "--model_parallel", "2"], "A15-rest"),
-                                       (["--model_parallel", "2"], "A15-rest")])
+@pytest.mark.parametrize("flag,item", [  # ids kept: model-parallel serving is ported (A15-rest)
+    pytest.param(["--data_parallel", "--model_parallel", "2"], "pick one", id="flag0-A15-rest"),
+    pytest.param(["--model_parallel", "2"], r"must equal the number of ranks \(1\)", id="flag1-A15-rest")])
 def test_multi_device_serving_is_refused_by_name(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """``--model_parallel`` with ``--data_parallel`` is refused; without a
+    launcher of 2 ranks ``--model_parallel 2`` has no second rank."""
+    with pytest.raises(ValueError, match=item):
         main(["--task", "embed_text", "--texts", "a dog", *flag, "--", *TINY, "platform=cpu"])
 
 

@@ -8,12 +8,14 @@ monitor it names, the counterpart of the repo root's ``train.py``:
 
 It runs on the card and raises when there is none; ``platform=cpu`` runs
 the plain PyTorch versions on the CPU. ``blockprint=True`` sends standard
-output to the null device (the log file stays). Data-parallel training runs
-one process a rank under ``torchrun`` (each on ``cuda:{LOCAL_RANK}``, the
-group over NCCL; gloo with ``platform=cpu``) or under the JAX launcher's
-``NUM_PROCESSES`` / ``PROCESS_ID`` / ``COORDINATOR_ADDRESS``::
+output to the null device (the log file stays). Training on a mesh runs one
+process a rank under ``torchrun`` (each on ``cuda:{LOCAL_RANK}``, the group
+over NCCL; gloo with ``platform=cpu``) or under the JAX launcher's
+``NUM_PROCESSES`` / ``PROCESS_ID`` / ``COORDINATOR_ADDRESS``; ``mesh.model``,
+``mesh.pipe`` or ``mesh.seq`` take their ranks and the data axis the rest::
 
     torchrun --nproc_per_node=8 -m vipant_tpu_torch <overrides> mesh.data=-1 [mesh.zero=true]
+    torchrun --nproc_per_node=2 -m vipant_tpu_torch <overrides> mesh.model=2   # or mesh.pipe=2, mesh.seq=2
 """
 
 from __future__ import annotations

@@ -225,9 +225,6 @@ def port_name(path: str) -> Tuple[str, Optional[Callable]]:
     for pat, repl, fn in _BACKBONE_LEAVES:
         if re.fullmatch(pat, path):
             return re.sub(pat, repl, path), fn
-    if path.startswith("encoder/transformer/blocks/"):
-        raise NotImplementedError("pipeline-stacked trunks are not supported; unstack first "
-                                  "(ROADMAP.md queue A, A15)")
     if path not in _TOWER_LEAVES:
         raise KeyError(f"JAX parameter {path!r} has no counterpart in the port")
     return _TOWER_LEAVES[path]
@@ -235,9 +232,14 @@ def port_name(path: str) -> Tuple[str, Optional[Callable]]:
 
 def tower_state_dict(params: Tree, convert: bool = True) -> Dict[str, Any]:
     """One ViT, ResNet or DeiT image / audio tower tree, or a
-    ``TextTower``'s -> its port names."""
+    ``TextTower``'s -> its port names. A stacked trunk (``model.*.stacked``:
+    the JAX ``StackedTransformer``'s ``blocks`` [L, ...]) is read unstacked,
+    into the unrolled layers the port keeps
+    (:func:`..parallel.pipeline.unstack_in_tree`)."""
+    from ..parallel.pipeline import unstack_in_tree
+
     out = {}
-    for path, leaf in _flat(params):
+    for path, leaf in _flat(unstack_in_tree(params)):
         name, fn = port_name(path)
         if convert:
             leaf = _a(leaf) if fn is None else fn(_a(leaf))
@@ -430,12 +432,18 @@ def resnet_towers(model: torch.nn.Module) -> List[str]:
     return [name for name, m in model.named_children() if getattr(m, "backbone", None) == "resnet"]
 
 
-def load_params(model: torch.nn.Module, params: Tree) -> None:
+def load_params(model: torch.nn.Module, params: Tree, placement=None) -> None:
     """Copy JAX params into ``model`` (towers absent from ``params`` are left
     as they are). Every key must exist in the model with the same shape. A
-    tied destination's leaves are skipped: its source's are loaded."""
+    tied destination's leaves are skipped: its source's are loaded. A model
+    split over the model or pipe axis (``placement``,
+    :class:`..parallel.tensor.Placement`) takes this rank's slices and
+    stage."""
     dst = tied_names(model)
     sd = {k: v for k, v in model_state_dict(params).items() if k not in dst}
+    if placement is not None and not placement.empty:
+        sd = {k: placement.local(k, torch.as_tensor(v)).numpy() for k, v in sd.items()
+              if placement.here(k)}
     own = model.state_dict()
     for k, v in sd.items():
         if k not in own:

@@ -15,6 +15,10 @@ K falls furthest behind P::
 
 (default B = 8, seeds 3,5,7,11; seed 3 is the phase's batch seed). Each
 seed also prints cos(K, F) - cos(P, F) on the first seed's three grads.
+The one-op forward variants swap a single forward kernel: the LayerNorm's
+(``layernorm_fwd``, whose backward recomputes h through it too), and
+``gemm_bias_act`` only where it applies the exact GELU (DeiT's fc products),
+the other products staying on the kernel.
 """
 
 import contextlib
@@ -40,7 +44,19 @@ VARIANTS = {
     "K, attention plain": ("attention_fwd", "attention_bwd"),
     "K forward, plain backward": BACKWARD,
     "plain forward, K backward": FORWARD,
+    "K, layernorm_fwd plain": ("layernorm_fwd",),
+    "K, gemm_bias_act(gelu) plain": ("gemm_bias_act:gelu",),
+    "K, gemm_bias_act plain": ("gemm_bias_act",),
 }
+
+
+def _gelu_plain(x, w, b, act="none", residual=None, preact=False):
+    """``gemm_bias_act`` on its plain version where it applies the exact
+    GELU, on the kernel otherwise."""
+    from vipant_tpu_torch.ops import kernels
+
+    f = kernels.gemm_bias_act_plain if act == "gelu" else kernels.gemm_bias_act
+    return f(x, w, b, act, residual, preact)
 
 
 @contextlib.contextmanager
@@ -49,7 +65,10 @@ def hybrid(plain_names):
     plain versions."""
     from vipant_tpu_torch.ops import fused_attn, fused_mlp, kernels
 
-    ops = kernels.KERNEL_OPS._replace(**{n: getattr(kernels.PLAIN_OPS, n) for n in plain_names})
+    swap = {n: getattr(kernels.PLAIN_OPS, n) for n in plain_names if ":" not in n}
+    if "gemm_bias_act:gelu" in plain_names:
+        swap["gemm_bias_act"] = _gelu_plain
+    ops = kernels.KERNEL_OPS._replace(**swap)
     with mock.patch.object(fused_attn, "KERNEL_OPS", ops), mock.patch.object(fused_mlp, "KERNEL_OPS", ops):
         yield
 

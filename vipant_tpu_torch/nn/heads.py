@@ -4,7 +4,9 @@ Counterpart of ``vipant_tpu/nn/heads.py`` for the ViT vision/audio tower
 (with patchout in training), the ResNet tower (:mod:`.resnet`), the DeiT
 tower (:mod:`.deit`) and the GPT text tower; ``require_feature`` also
 returns a ViT audio tower's feature grid, the captioning decoder's memory.
-Not ported yet: the pipeline-stacked trunk (asking for it raises).
+``stacked`` (``model.*.stacked``, which the trainer sets for the ``pipe``
+and ``seq`` axes) marks a tower's trunk for the pipeline or the ring
+(:class:`.layers.Transformer`), in ``pipe_microbatches`` microbatches.
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ class VisionTower(nn.Module):
     def __init__(self, width: int, embed_dim: int, resolution, heads: int, layers: int,
                  patch_size=32, stride=None, in_channels: int = 3,
                  misc_stored_grid: Optional[Tuple[int, int]] = None, token_pack: int = 1,
-                 patchout: float = 0.0, int8_frozen: bool = False,
+                 patchout: float = 0.0, int8_frozen: bool = False, stacked: bool = False,
+                 pipe_microbatches: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.grid, patch_hw, stride_hw = vit_grid(resolution, patch_size, stride)
@@ -85,7 +88,8 @@ class VisionTower(nn.Module):
         self.pre_encoder = ViTPreEncoder(width, patch_hw, stride_hw, in_channels,
                                          dtype=dtype, device=device)
         self.pre_encoder_addon = AddonEncoder()
-        self.encoder = TransformerBackbone(int(layers), width, heads, device=device)
+        self.encoder = TransformerBackbone(int(layers), width, heads, stacked=stacked,
+                                           pipe_microbatches=pipe_microbatches, device=device)
         self.post_encoder_addon = AddonEncoder()
         self.post_encoder = ViTPostEncoder(width, embed_dim, device=device)
 
@@ -133,6 +137,7 @@ class TextTower(nn.Module):
 
     def __init__(self, width: int, embed_dim: int, vocab_size: int = 49408,
                  ctx_len: int = 77, heads: int = 8, layers: int = 12, token_pack: int = 1,
+                 stacked: bool = False, pipe_microbatches: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.ctx_len, self.token_pack = ctx_len, int(token_pack or 1)
@@ -140,6 +145,7 @@ class TextTower(nn.Module):
         self.pre_encoder = GPTPreEncoder(vocab_size, width, dtype=dtype, device=device)
         self.pre_encoder_addon = AddonEncoder()
         self.encoder = TransformerBackbone(layers, width, heads, use_attn_mask=True,
+                                           stacked=stacked, pipe_microbatches=pipe_microbatches,
                                            device=device)
         self.post_encoder_addon = AddonEncoder()
         self.post_encoder = GPTPostEncoder(width, embed_dim, device=device)
@@ -167,6 +173,12 @@ class DummyHead(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _stacking(cfg) -> dict:
+    mb = cfg.get("pipe_microbatches", None)
+    return {"stacked": bool(cfg.get("stacked", False)),
+            "pipe_microbatches": int(mb) if mb else None}
+
+
 def _vision_from_cfg(cfg, dtype=torch.float32, device=None):
     resolution = cfg.resolution
     if isinstance(resolution, list):
@@ -181,8 +193,6 @@ def _vision_from_cfg(cfg, dtype=torch.float32, device=None):
             width=int(cfg.width), embed_dim=int(cfg.embed_dim), resolution=resolution,
             heads=int(cfg.get("heads", 12)), layers=[int(v) for v in cfg.encoder.layers],
             in_channels=int(pre.get("in_channels", 3)), dtype=dtype, device=device)
-    if cfg.get("stacked", False):
-        raise NotImplementedError("the pipeline-stacked trunk is not ported (ROADMAP.md queue A, A15)")
     return VisionTower(
         width=int(cfg.width),
         embed_dim=int(cfg.embed_dim),
@@ -195,6 +205,7 @@ def _vision_from_cfg(cfg, dtype=torch.float32, device=None):
         token_pack=int(cfg.get("token_pack", 1) or 1),
         patchout=float(cfg.get("patchout", 0.0) or 0.0),
         int8_frozen=bool(cfg.get("int8_frozen", False)),
+        **_stacking(cfg),
         dtype=dtype,
         device=device,
     )
@@ -212,8 +223,6 @@ def build_clip_audio_head(cfg, dtype=torch.float32, device=None):
 
 @TEXT_HEADS.register(name="CLIPTextHead")
 def build_clip_text_head(cfg, dtype=torch.float32, device=None):
-    if cfg.get("stacked", False):
-        raise NotImplementedError("the pipeline-stacked trunk is not ported (ROADMAP.md queue A, A15)")
     return TextTower(
         width=int(cfg.width),
         embed_dim=int(cfg.embed_dim),
@@ -222,6 +231,7 @@ def build_clip_text_head(cfg, dtype=torch.float32, device=None):
         heads=int(cfg.get("heads", 8)),
         layers=int(cfg.encoder.layers),
         token_pack=int(cfg.get("token_pack", 1) or 1),
+        **_stacking(cfg),
         dtype=dtype,
         device=device,
     )

@@ -21,8 +21,13 @@ any kernel in the JAX package too) and attends through
 int8 form. The single-position KV-cached decode paths attend with plain
 products and a softmax, as the JAX package does there.
 
-Not ported here: the layer-stacked ``StackedTransformer`` (pipeline and
-sequence parallelism).
+The mesh's axes reach the layers as attributes that :mod:`..parallel` sets:
+a sub-block with ``tp`` (the mesh) holds its model rank's head block or
+hidden columns and sums its partial output over the model group
+(:mod:`..parallel.tensor`); a stacked trunk (``stacked``, the JAX package's
+``StackedTransformer``, whose ``[L, ...]`` parameter stack the port does
+not keep) with ``pipe`` runs as a GPipe stage (:mod:`..parallel.pipeline`),
+with ``seq`` splits its tokens over the ring (:mod:`..parallel.sequence`).
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from ..ops import attention as attention_ops
 from ..ops import fused_attn, fused_mlp
 from ..ops.kernels import quick_gelu  # noqa: F401  (the MLP's activation, public here)
 from ..ops.quant import int8_fwd_enabled
+from ..parallel import sequence
+from ..parallel.pipeline import gpipe
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -98,6 +105,8 @@ class MultiHeadAttention(nn.Module):
     writes this position's k, v at ``pos`` and attends over positions
     ``<= pos``; cross-attention takes ``{"k", "v"}``, the projected memory,
     or None values to project it once and return it."""
+
+    tp = None  # the mesh whose model axis holds this module's head block (parallel.tensor)
 
     def __init__(self, width: int, heads: int, n_layers: int = 1, cross: bool = False,
                  clip_init: bool = True, device=None):
@@ -176,17 +185,25 @@ class MultiHeadAttention(nn.Module):
             return self._out(o.reshape(*x.shape))
         if decode_state is not None:
             return self._decode_self(x, ln, decode_state)
+        ring = sequence.ring_mesh()
+        if ring is not None:  # the tokens are split over the seq ring (no int8 form)
+            return sequence.ring_ln_attention_block(
+                x, ln.weight, ln.bias, self.in_proj_weight, self.in_proj_bias,
+                self.out_proj.weight, self.out_proj.bias, bias, self.heads, ring)
         block = (fused_attn.fused_ln_attention_block_int8 if int8_fwd_enabled()
                  else fused_attn.fused_ln_attention_block)
+        heads = self.heads if self.tp is None else self.heads // self.tp.model
         return block(
             x, ln.weight, ln.bias, self.in_proj_weight, self.in_proj_bias,
-            self.out_proj.weight, self.out_proj.bias, bias=bias, heads=self.heads,
+            self.out_proj.weight, self.out_proj.bias, bias=bias, heads=heads, tp=self.tp,
         )
 
 
 class MLP(nn.Module):
     """4x-expansion MLP as the pre-LN residual sub-block
     ``x + c_proj(act(c_fc(LN(x))))``; act is QuickGELU (CLIP) or exact GELU."""
+
+    tp = None  # the mesh whose model axis holds this module's hidden columns (parallel.tensor)
 
     def __init__(self, width: int, expansion: int = 4, act: str = "quick_gelu",
                  n_layers: int = 1, clip_init: bool = True, device=None):
@@ -212,7 +229,7 @@ class MLP(nn.Module):
                  else fused_mlp.fused_ln_mlp_block)
         return block(
             x, ln.weight, ln.bias, self.c_fc.weight, self.c_fc.bias,
-            self.c_proj.weight, self.c_proj.bias, act=self.act,
+            self.c_proj.weight, self.c_proj.bias, act=self.act, tp=self.tp,
         )
 
 
@@ -264,7 +281,21 @@ class Transformer(nn.Module):
     ``decode_state`` is one state per block; the call then returns
     ``(x, new_states)``. A QuickGELU stack (CLIP's) draws CLIP's
     depth-scaled init, an exact-GELU one (DeiT's) flax's lecun-normal, as
-    the JAX module does."""
+    the JAX module does.
+
+    ``stacked`` (``model.*.stacked``) marks the trunk that the ``pipe`` and
+    ``seq`` axes take: with ``pipe`` (the mesh, set by
+    :func:`..parallel.tensor.shard_model`) it runs this rank's stage of the
+    GPipe schedule in ``pipe_microbatches`` microbatches; with ``seq`` (set
+    by :func:`..parallel.mesh.attach`) it splits its tokens over the ring,
+    unless the token count or the mask does not split, which warns and runs
+    whole (``vipant_tpu/nn/layers.py:528-549``)."""
+
+    stacked = False
+    pipe = None  # the mesh of a pipelined trunk (parallel.pipeline)
+    seq = None  # the mesh whose seq axis a stacked trunk's tokens are split over
+    rang = False  # the last forward ran over the seq ring
+    pipe_microbatches: Optional[int] = None
 
     def __init__(self, width: int, layers: int, heads: int, act: str = "quick_gelu",
                  cross_attn: bool = False, device=None):
@@ -275,8 +306,32 @@ class Transformer(nn.Module):
             for _ in range(layers)
         )
 
+    def _stage(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """This pipe rank's blocks."""
+        for block in self.resblocks:
+            if not isinstance(block, ResidualAttentionBlock):  # another stage's
+                continue
+            x = block(x, bias)
+        return x
+
+    def _ring(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        mesh = self.seq
+        xs, rows = sequence.split_tokens(x, mesh), sequence.split_rows(bias, mesh)
+        with sequence.ring_context(mesh):
+            for block in self.resblocks:
+                xs = block(xs, rows)
+        return sequence.gather_tokens(xs, mesh)
+
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 memory: Optional[torch.Tensor] = None, decode_state=None):
+        if decode_state is None and memory is None:
+            if self.pipe is not None:
+                return gpipe(self._stage, self, x, self.pipe, bias, self.pipe_microbatches)
+            if self.seq is not None:
+                self.rang = sequence.usable(self.seq, x.shape[1], bias)
+                if self.rang:
+                    return self._ring(x, bias)
+                sequence.warn_whole(self.seq, x.shape[1], bias)
         if decode_state is None:
             for block in self.resblocks:
                 x = block(x, bias, memory)

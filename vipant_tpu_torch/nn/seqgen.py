@@ -30,12 +30,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor import row_product, vocab_lookup
 from .layers import LayerNorm, Transformer, causal_mask
 
 SOT_TOKEN, EOT_TOKEN = 49406, 49407
 
 
 class SeqGenerationHead(nn.Module):
+    tp = None  # the mesh whose model axis holds rows of token_embedding and text_proj
+
     def __init__(self, width: int = 512, layers: int = 12, heads: int = 8, ctx_len: int = 77,
                  vocab_size: int = 49408, embed_dim: int = 512, mem_width: int = 768,
                  max_len_dec: int = 32, bias: bool = True,
@@ -72,7 +75,7 @@ class SeqGenerationHead(nn.Module):
         return self.mem_ln(m.mean(dim=2 if time_first else 1))
 
     def _features(self, ids: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        x = self.token_embedding[ids].to(self.dtype)
+        x = vocab_lookup(self.token_embedding, ids, self.tp).to(self.dtype)
         x = x + self.positional_embedding[: x.shape[1]].to(self.dtype)
         x = self.transformer(x, causal_mask(x.shape[1], device=x.device), memory)
         return self.ln_final(x)
@@ -88,7 +91,7 @@ class SeqGenerationHead(nn.Module):
         logits = self._predict(h)[:, :-1]
         eot = torch.argmax(ids, dim=-1)
         z = h[torch.arange(h.shape[0], device=h.device), eot]
-        z = z @ self.text_proj.to(z.dtype)
+        z = row_product(z, self.text_proj, self.tp)
         if normalized:
             z = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
         return z, logits
@@ -109,7 +112,7 @@ class SeqGenerationHead(nn.Module):
 
     def _one_step(self, tok: torch.Tensor, pos: int, memory: torch.Tensor, states):
         """Logits [n, vocab] of the token at ``pos`` and the new states."""
-        x = self.token_embedding[tok][:, None, :].to(self.dtype)
+        x = vocab_lookup(self.token_embedding, tok, self.tp)[:, None, :].to(self.dtype)
         x = x + self.positional_embedding[pos][None, None].to(self.dtype)
         x, states = self.transformer(x, memory=memory, decode_state=states)
         return self._predict(self.ln_final(x))[:, 0], states

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..ops.interp import interp_pos_grid
 from ..ops.patches import patchify_embed
+from ..parallel.tensor import row_product, vocab_lookup
 from .layers import LayerNorm, Transformer, causal_mask, lecun_normal_
 
 
@@ -116,7 +117,10 @@ class ViTPostEncoder(nn.Module):
     """ln on the class token + projection to the joint space. With
     ``require_feature`` the ln runs over all tokens and the call returns
     ``(embedding, feature)``, the patch tokens as [B, grid_h, grid_w, width]
-    when ``grid`` is given: the captioning decoder's memory."""
+    when ``grid`` is given: the captioning decoder's memory. With ``tp``
+    (the mesh) ``proj`` holds this model rank's rows."""
+
+    tp = None
 
     def __init__(self, width: int, embed_dim: int, device=None):
         super().__init__()
@@ -131,18 +135,21 @@ class ViTPostEncoder(nn.Module):
                 grid: Optional[Tuple[int, int]] = None):
         if require_feature:
             x = self.ln(x)
-            emb = x[:, 0, :] @ self.proj.to(x.dtype)
+            emb = row_product(x[:, 0, :], self.proj, self.tp)
             feature = x[:, 1:]
             if grid is not None:
                 feature = feature.reshape(x.shape[0], grid[0], grid[1], x.shape[-1])
             return emb, feature
         x = self.ln(x[:, 0, :])
-        return x @ self.proj.to(x.dtype)
+        return row_product(x, self.proj, self.tp)
 
 
 class GPTPreEncoder(nn.Module):
     """Token + positional embedding; also returns the EOT index (argmax of
-    the ids: EOT is the largest token id)."""
+    the ids: EOT is the largest token id). With ``tp`` (the mesh) the table
+    holds this model rank's vocabulary rows (Megatron's masked lookup)."""
+
+    tp = None
 
     def __init__(self, vocab_size: int, width: int, dtype: torch.dtype = torch.float32,
                  device=None):
@@ -155,13 +162,16 @@ class GPTPreEncoder(nn.Module):
 
     def forward(self, ids: torch.Tensor, pos: torch.Tensor):
         eot_idx = torch.argmax(ids, dim=-1)
-        x = self.token_embedding(ids).to(self.dtype)
+        x = vocab_lookup(self.token_embedding.weight, ids, self.tp).to(self.dtype)
         x = x + pos[: x.shape[1]].to(self.dtype)
         return x, eot_idx
 
 
 class GPTPostEncoder(nn.Module):
-    """Final ln over all tokens, gather the EOT position, project."""
+    """Final ln over all tokens, gather the EOT position, project (``proj``
+    this model rank's rows under ``tp``)."""
+
+    tp = None
 
     def __init__(self, width: int, embed_dim: int, device=None):
         super().__init__()
@@ -175,17 +185,20 @@ class GPTPostEncoder(nn.Module):
     def forward(self, x: torch.Tensor, eot_idx: torch.Tensor) -> torch.Tensor:
         x = self.ln(x)
         x = x[torch.arange(x.shape[0], device=x.device), eot_idx]
-        return x @ self.proj.to(x.dtype)
+        return row_product(x, self.proj, self.tp)
 
 
 class TransformerBackbone(Transformer):
     """The shared transformer trunk; ``use_attn_mask`` adds the causal text
-    mask, which composes with an ``attn_bias`` (token packing) by addition."""
+    mask, which composes with an ``attn_bias`` (token packing) by addition.
+    ``stacked`` marks the trunk the ``pipe`` and ``seq`` axes take, in
+    ``pipe_microbatches`` microbatches (:class:`.layers.Transformer`)."""
 
     def __init__(self, layers: int, width: int, heads: int, use_attn_mask: bool = False,
-                 device=None):
+                 stacked: bool = False, pipe_microbatches: Optional[int] = None, device=None):
         super().__init__(width, layers, heads, device=device)
         self.use_attn_mask = use_attn_mask
+        self.stacked, self.pipe_microbatches = bool(stacked), pipe_microbatches
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         mask = causal_mask(x.shape[1], device=x.device) if self.use_attn_mask else None

@@ -54,18 +54,35 @@ def _weights(x, wfc, wproj):
     return wfc.to(x.dtype).contiguous(), wproj.to(x.dtype).contiguous()
 
 
-def _forward(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act):
+def _model_sum(y, tp):
+    from ..parallel.collectives import _all_reduce_
+
+    return _all_reduce_(y, tp, "model")
+
+
+def _forward(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act, tp=None):
+    """The forward chain. Under a model axis (``tp``, the mesh) ``wfc`` holds
+    this rank's hidden rows and ``wproj`` its hidden columns (Megatron's
+    split): the proj product takes ``bproj / tp`` and no residual, the fp32
+    partial outputs are summed over the group and rounded once to x's dtype,
+    then the residual is added (:func:`.fused_attn._forward`'s order)."""
     if act not in ACTS:
         raise ValueError(f"unknown MLP activation {act!r} (expected one of {ACTS})")
     wf, wp = _weights(x, wfc, wproj)
     h = ops.layernorm_fwd(x, acc(lns), acc(lnb))
     g = ops.gemm_bias_act(h, wf, acc(bfc), act)
-    return ops.gemm_bias_act(g, wp, acc(bproj), residual=x)
+    if tp is None:
+        return ops.gemm_bias_act(g, wp, acc(bproj), residual=x)
+    _, a = ops.gemm_bias_act(g, wp, acc(bproj) / tp.model, preact=True)
+    return x + _model_sum(a, tp).to(x.dtype)
 
 
-def _backward(ops, gy, x, lns, lnb, wfc, bfc, wproj, act):
+def _backward(ops, gy, x, lns, lnb, wfc, bfc, wproj, act, tp=None):
     """The backward chain (Pallas ``_bwd_kernel``'s rounding order) for the
-    output grad ``gy``: ``(dx, dlns, dlnb, dwfc, dbfc, dwproj, dbproj)``."""
+    output grad ``gy``: ``(dx, dlns, dlnb, dwfc, dbfc, dwproj, dbproj)``.
+    Under a model axis the fp32 dh of this rank's hidden columns is summed
+    over the group before the full-width LayerNorm backward; the weight
+    grads stay this rank's."""
     wf, wp = _weights(x, wfc, wproj)
     gy = gy.to(x.dtype).contiguous()
     h = ops.layernorm_fwd(x, acc(lns), acc(lnb))
@@ -76,6 +93,8 @@ def _backward(ops, gy, x, lns, lnb, wfc, bfc, wproj, act):
     dbfc = ops.colsum(da)  # of the rounded da, as in the Pallas kernel
     dwfc = ops.gemm_wgrad(da, h)
     dh = ops.gemm_dgrad(da, wf, rounded=False)
+    if tp is not None:
+        dh = _model_sum(dh, tp)
     dx, dlns, dlnb = ops.layernorm_bwd(x, acc(lns), dh, residual=gy)
     return dx, dlns, dlnb, dwfc, dbfc, dwproj, dbproj
 
@@ -87,11 +106,11 @@ class _FusedLNMLP(torch.autograd.Function):
     shapes; ``act`` and ``ops`` get none."""
 
     @staticmethod
-    def forward(ctx, x, lns, lnb, wfc, bfc, wproj, bproj, act, ops):
-        out = _forward(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act)
+    def forward(ctx, x, lns, lnb, wfc, bfc, wproj, bproj, act, ops, tp=None):
+        out = _forward(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act, tp)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(x, lns, lnb, wfc, bfc, wproj, bproj)
-            ctx.act, ctx.ops = act, ops
+            ctx.act, ctx.ops, ctx.tp = act, ops, tp
         if x.is_cuda and ops is KERNEL_OPS:
             LAUNCHES["fused_ln_mlp_block"] += 1
         return out
@@ -99,12 +118,12 @@ class _FusedLNMLP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, lns, lnb, wfc, bfc, wproj, bproj = ctx.saved_tensors
-        grads = _backward(ctx.ops, gy, x, lns, lnb, wfc, bfc, wproj, ctx.act)
+        grads = _backward(ctx.ops, gy, x, lns, lnb, wfc, bfc, wproj, ctx.act, ctx.tp)
         if x.is_cuda and ctx.ops is KERNEL_OPS:
             LAUNCHES["fused_ln_mlp_block_bwd"] += 1
         dx, *rest = grads
         params = (lns, lnb, wfc, bfc, wproj, bproj)
-        return (dx, *(d.to(p.dtype) for d, p in zip(rest, params)), None, None)
+        return (dx, *(d.to(p.dtype) for d, p in zip(rest, params)), None, None, None)
 
 
 def fused_ln_mlp_block(
@@ -116,13 +135,20 @@ def fused_ln_mlp_block(
     wproj: torch.Tensor,
     bproj: torch.Tensor,
     act: str = "quick_gelu",
+    tp=None,
 ) -> torch.Tensor:
-    """x + proj(act(fc(LN(x)))). x: [B, T, C]; wfc: [E, C]; wproj: [C, E]."""
-    return _FusedLNMLP.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, KERNEL_OPS)
+    """x + proj(act(fc(LN(x)))). x: [B, T, C]; wfc: [E, C]; wproj: [C, E].
+    ``tp``: the mesh whose model axis E is split over (this rank's rows of
+    ``wfc`` and columns of ``wproj``), or None."""
+    return _FusedLNMLP.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, KERNEL_OPS, tp)
 
 
-def _forward_int8(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act):
-    """The int8 forward chain (Pallas ``_fwd_int8_kernel``'s rounding order)."""
+def _forward_int8(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act, tp=None):
+    """The int8 forward chain (Pallas ``_fwd_int8_kernel``'s rounding order).
+    Under a model axis each rank quantizes its own weight slices (the proj
+    scales over its E/tp rows) and the activation's per-token scale is taken
+    over its hidden columns (``fused_ln_mlp_block_int8``); the fp32 partial
+    outputs are summed, rounded once, then the residual is added."""
     if act not in ACTS:
         raise ValueError(f"unknown MLP activation {act!r} (expected one of {ACTS})")
     wf8, sfc = ops.rowquant(wfc.float().contiguous())
@@ -130,7 +156,10 @@ def _forward_int8(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act):
     h8, hs = ops.layernorm_rowquant(x, acc(lns), acc(lnb))
     g = ops.gemm_i8(h8, hs, wf8, sfc, acc(bfc), act=act, out_dtype=torch.float32)
     g8, gs = ops.rowquant(g)
-    return ops.gemm_i8(g8, gs, wp8, spj, acc(bproj), residual=x, out_dtype=x.dtype)
+    if tp is None:
+        return ops.gemm_i8(g8, gs, wp8, spj, acc(bproj), residual=x, out_dtype=x.dtype)
+    y = ops.gemm_i8(g8, gs, wp8, spj, acc(bproj) / tp.model, out_dtype=torch.float32)
+    return x + _model_sum(y, tp).to(x.dtype)
 
 
 class _FusedLNMLPInt8(torch.autograd.Function):
@@ -138,8 +167,8 @@ class _FusedLNMLPInt8(torch.autograd.Function):
     sub-block is forward only, as the Pallas kernel has no VJP."""
 
     @staticmethod
-    def forward(ctx, x, lns, lnb, wfc, bfc, wproj, bproj, act, ops):
-        out = _forward_int8(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act)
+    def forward(ctx, x, lns, lnb, wfc, bfc, wproj, bproj, act, ops, tp=None):
+        out = _forward_int8(ops, x, lns, lnb, wfc, bfc, wproj, bproj, act, tp)
         if x.is_cuda and ops is KERNEL_OPS:
             LAUNCHES["fused_ln_mlp_block_int8"] += 1
         return out
@@ -151,18 +180,18 @@ class _FusedLNMLPInt8(torch.autograd.Function):
             "torch.no_grad() (a frozen tower, serving), not on a trainable tower")
 
 
-def fused_ln_mlp_block_int8(x, lns, lnb, wfc, bfc, wproj, bproj, act="quick_gelu"):
+def fused_ln_mlp_block_int8(x, lns, lnb, wfc, bfc, wproj, bproj, act="quick_gelu", tp=None):
     """Int8 x + proj(act(fc(LN(x)))): forward only. Same signature and
     semantics as :func:`fused_ln_mlp_block`; both products in int8."""
-    return _FusedLNMLPInt8.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, KERNEL_OPS)
+    return _FusedLNMLPInt8.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, KERNEL_OPS, tp)
 
 
-def fused_ln_mlp_block_int8_plain(x, lns, lnb, wfc, bfc, wproj, bproj, act="quick_gelu"):
-    return _FusedLNMLPInt8.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, PLAIN_OPS)
+def fused_ln_mlp_block_int8_plain(x, lns, lnb, wfc, bfc, wproj, bproj, act="quick_gelu", tp=None):
+    return _FusedLNMLPInt8.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, PLAIN_OPS, tp)
 
 
-def fused_ln_mlp_block_plain(x, lns, lnb, wfc, bfc, wproj, bproj, act="quick_gelu"):
+def fused_ln_mlp_block_plain(x, lns, lnb, wfc, bfc, wproj, bproj, act="quick_gelu", tp=None):
     """:func:`fused_ln_mlp_block` on the plain versions, forward and backward
     (the chain above), on any device."""
-    return _FusedLNMLP.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, PLAIN_OPS)
+    return _FusedLNMLP.apply(x, lns, lnb, wfc, bfc, wproj, bproj, act, PLAIN_OPS, tp)
 

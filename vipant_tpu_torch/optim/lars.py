@@ -69,12 +69,17 @@ class LARS(torch.optim.Optimizer):
         v = momentum * v + lr * lr_weight * q * d;   p -= v
 
     and for a bias or gain ``v = momentum * v + lr * lr_bias * g``. A
-    parameter without a grad is updated as if its grad were zero."""
+    parameter without a grad is updated as if its grad were zero. Each
+    parameter's trust ratio is its own, as the JAX LARS takes one per layer
+    of a stacked trunk. ``reduce(p, sq)`` turns a sum of squares of this
+    rank's ``p`` into the full leaf's (a leaf split over the model axis);
+    by default the sum is the leaf's."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  lr_weight: float = 0.2, lr_bias: float = 0.0048, momentum: float = 0.9,
-                 eta: float = 0.001, weight_decay: float = 1e-6):
+                 eta: float = 0.001, weight_decay: float = 1e-6, reduce=None):
         named = list(named_params)
+        self.reduce = reduce
         groups = [
             {"params": [p for n, p in named if is_lars_weight(n, p)], "weight": True},
             {"params": [p for n, p in named if not is_lars_weight(n, p)], "weight": False},
@@ -95,7 +100,11 @@ class LARS(torch.optim.Optimizer):
                 v = state["momentum"]
                 if group["weight"]:
                     d = g + group["weight_decay"] * p
-                    pn, dn = torch.linalg.vector_norm(p), torch.linalg.vector_norm(d)
+                    if self.reduce is None:
+                        pn, dn = torch.linalg.vector_norm(p), torch.linalg.vector_norm(d)
+                    else:
+                        pn = torch.sqrt(self.reduce(p, torch.sum(torch.square(p))))
+                        dn = torch.sqrt(self.reduce(p, torch.sum(torch.square(d))))
                     q = torch.where((pn > 0) & (dn > 0),
                                     group["eta"] * pn / torch.clamp(dn, min=1e-12),
                                     torch.ones_like(pn))

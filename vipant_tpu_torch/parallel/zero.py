@@ -19,6 +19,11 @@ ZeRO and one without resume from each other (the JAX rule of
 ``tests/test_zero.py:135``). With one rank there is nothing to split and
 :func:`..optim.build_optimizer` builds the plain optimizer, as the JAX
 package leaves a one-device state as it is.
+
+On a mesh with a ``model`` or ``pipe`` axis the owners are dealt over the
+data group among each rank's own leaves (its slices and its stage's layers),
+as the JAX package shards each leaf's free dim over ``data`` on top of its
+model or pipe placement (``vipant_tpu/parallel/zero.py:14-16``).
 """
 
 from __future__ import annotations
@@ -59,12 +64,12 @@ class ZeroOptimizer(Optimizer):
 
     def __init__(self, params: Mapping[str, torch.nn.Parameter],
                  make_inner: Callable[[Mapping[str, torch.nn.Parameter]], torch.optim.Optimizer],
-                 schedule, max_norm: Optional[float], mesh: Mesh, min_size: int = MIN_SIZE):
-        self.mesh = mesh
+                 schedule, max_norm: Optional[float], mesh: Mesh, min_size: int = MIN_SIZE,
+                 split: Optional[Mapping[str, str]] = None):
         self.owners = assign_owners({n: p.numel() for n, p in params.items()}, mesh.data, min_size)
-        self.local = [n for n in params if self.owners[n] in (None, mesh.rank)]
-        self.make_inner = make_inner
-        super().__init__(params, make_inner({n: params[n] for n in self.local}), schedule, max_norm)
+        self.local = [n for n in params if self.owners[n] in (None, mesh.data_index)]
+        super().__init__(params, make_inner({n: params[n] for n in self.local}), schedule, max_norm,
+                         split=split, mesh=mesh, make_inner=make_inner)
 
     def _update(self, grads: Mapping[str, torch.Tensor]) -> None:
         for n in self.local:
@@ -83,10 +88,10 @@ class ZeroOptimizer(Optimizer):
             if owner is not None:
                 groups.setdefault((owner, self.params[n].dtype), []).append(self.params[n])
         for (owner, _), ps in groups.items():
-            flat = torch.cat([p.data.reshape(-1) for p in ps]) if owner == self.mesh.rank else \
+            flat = torch.cat([p.data.reshape(-1) for p in ps]) if owner == self.mesh.data_index else \
                 torch.empty(sum(p.numel() for p in ps), dtype=ps[0].dtype, device=ps[0].device)
             broadcast_(flat, owner, self.mesh)
-            if owner != self.mesh.rank:
+            if owner != self.mesh.data_index:
                 off = 0
                 for p in ps:
                     p.data.copy_(flat[off:off + p.numel()].view_as(p))
@@ -117,7 +122,7 @@ class ZeroOptimizer(Optimizer):
         specs = self._entry_specs()
         for owner in range(self.mesh.data):
             names = [n for n, o in self.owners.items() if o == owner]
-            mine, keep = owner == self.mesh.rank, self.mesh.rank in (owner, 0)
+            mine, keep = owner == self.mesh.data_index, self.mesh.data_index in (owner, 0)
             groups: Dict[torch.dtype, list] = {}
             for n in names:
                 for k, spec in specs[n].items():
@@ -147,8 +152,8 @@ class ZeroOptimizer(Optimizer):
 
     def state_dict(self) -> dict:
         """The full state in the replicated optimizer's format: every rank
-        takes part, rank 0 gets every leaf's state (the others their own
-        and the small leaves')."""
+        takes part, data index 0 gets every leaf's state (the others their
+        own and the small leaves')."""
         layout = self._layout()
         for n, owner in self.owners.items():
             if owner is None and self.params[n] in self.inner.state:

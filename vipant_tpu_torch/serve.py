@@ -50,10 +50,22 @@ results in order; on one card it changes nothing, as in JAX. Token packing
 must fit a replica's share of the batch: the engine's own ``token_pack`` is
 dropped with a log line where it does not, and a pack that the config sets
 raises, each configured pack checked (the JAX engine checks only the
-largest: ROADMAP.md queue C, C20). ``model_parallel`` > 1 is not ported yet
-(ROADMAP.md queue A, A15-rest). An engine built under a launcher
-(``torchrun``) sits on ``cuda:{LOCAL_RANK}``; the command line serves from
-one process and refuses a launcher of several ranks.
+largest: ROADMAP.md queue C, C20). An engine built under a launcher
+(``torchrun``) sits on ``cuda:{LOCAL_RANK}``.
+
+``model_parallel=N`` (counterpart of ``vipant_tpu/serve.py:126-145,
+217-229``) runs under a launcher of N ranks (or a process group formed
+already), one engine a rank: the model axis of N splits the weights by the
+training rule (:func:`..parallel.shard_model`: head blocks, Megatron's MLP
+split, the vocabulary rows, the final projections), the int8 engine
+quantizes each rank's slices, and every entry point gives every rank, rank
+0 among them, what one rank gives. Every rank calls the same entry points
+with the same inputs. The command line under ``torchrun`` with
+``--model_parallel`` equal to the world: every rank runs the task, rank 0
+writes the output; with ``--task serve`` rank 0 binds the port and
+broadcasts each request (its route and inputs) to the other ranks, which
+follow (:meth:`InferenceEngine.follow`). A launcher of several ranks without
+``--model_parallel`` is refused.
 
 Usage::
 
@@ -92,7 +104,8 @@ from .config import Config
 from .models import build_main_model, init_weights, port_model_from_clip
 from .nn.heads import normalize
 from .ops.quant import int8_fwd_context
-from .parallel.mesh import REST, launcher_device, launcher_env
+from .parallel.mesh import launcher_device, launcher_env, make_mesh, replicate
+from .parallel.tensor import shard_model
 from .train.checkpoint import wait_for_saves
 from .utils import as_config, require_device, run_root
 
@@ -134,9 +147,9 @@ class InferenceEngine:
         if quantize not in ("", "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r} (only 'int8')")
         self._int8 = bool(quantize)
-        if model_parallel != 1:
-            raise NotImplementedError(
-                f"model-parallel serving is not ported yet (ROADMAP.md queue A, {REST})")
+        if int(model_parallel) > 1 and data_parallel:
+            raise ValueError("model_parallel runs one engine a rank under a launcher; "
+                             "data_parallel replicates in one process: pick one")
         self.echo = echo or logging.getLogger(__name__)
         self.cfg = as_config(cfg)
         self.device = require_device(launcher_device(device), "InferenceEngine")
@@ -180,11 +193,59 @@ class InferenceEngine:
         init_weights(self.model, torch.Generator(device=self.device).manual_seed(seed))
         self._load()
         self.model.eval()
+        self.mesh = self.placement = None
+        if int(model_parallel) > 1:
+            self.mesh = make_mesh(data=1, model=int(model_parallel), device=self.device)
+            replicate(self.model, self.mesh)  # rank 0's weights, before each rank takes its slices
+            self.placement = shard_model(self.model, self.mesh)
+            self.echo.info(f"model_parallel: rank {self.mesh.rank} of {self.mesh.model} holds "
+                           f"{len(self.placement.splits)} split parameters")
         # one replica a device, the engine's own first; each takes 1/n of a batch
         self.replicas = [self.model] + [copy.deepcopy(self.model).to(d) for d in devices[1:]]
         if n > 1:
             self.echo.info(f"data_parallel: {n} replicas on {', '.join(map(str, devices))}, "
                            f"{self.batch_size // n} items each")
+
+    # ------------------------------------------------------- model-parallel
+    FOLLOWED = ("embed_texts", "embed_audio", "embed_images", "caption", "zero_shot")
+
+    def lead(self, method: str, *args, **kwargs):
+        """Rank 0 of a model-parallel engine: broadcast the call to the ranks
+        in :meth:`follow`, then make it; without a model axis, just make it."""
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            if method not in self.FOLLOWED:
+                raise ValueError(f"{method!r} is not an entry point the ranks follow")
+            dist.broadcast_object_list([(method, args, kwargs)], src=0)
+        return getattr(self, method)(*args, **kwargs)
+
+    def stop_followers(self) -> None:
+        """Rank 0: release the ranks in :meth:`follow`."""
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.broadcast_object_list([None], src=0)
+
+    def follow(self) -> int:
+        """Ranks other than 0 of a model-parallel server: make every call that
+        rank 0 makes through :meth:`lead`, in its order, until :meth:`stop_followers`;
+        returns the number of calls made. A failing call is logged and the
+        rank goes on, as rank 0's server does."""
+        import torch.distributed as dist
+
+        n = 0
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0)
+            if box[0] is None:
+                return n
+            method, args, kwargs = box[0]
+            try:
+                getattr(self, method)(*args, **kwargs)
+            except Exception as e:  # noqa: BLE001 - rank 0 reports it to the client
+                self.echo.warning(f"follower rank {self.mesh.rank}: {method} failed: {e!r}")
+            n += 1
 
     def _packs(self) -> Dict[str, int]:
         """Each tower's configured ``token_pack`` above 1."""
@@ -554,27 +615,27 @@ def make_server(engine: InferenceEngine, port: int = 8080, host: str = "127.0.0.
             if path == "/embed_text":
                 payload = json.loads(body)
                 with lock:
-                    emb = engine.embed_texts(payload["texts"], prompt=payload.get("prompt", ""))
+                    emb = engine.lead("embed_texts", payload["texts"], prompt=payload.get("prompt", ""))
                 return 200, {"embeddings": emb.tolist()}
             if path == "/embed_audio":
                 tmp += wavs_from_request(body, ctype)
                 fb = engine.fbank_files(tmp)
                 with lock:
-                    emb = engine.embed_audio(fb)
+                    emb = engine.lead("embed_audio", fb)
                 return 200, {"embeddings": emb.tolist()}
             if path == "/embed_image":
                 payload = json.loads(body)
                 blobs = payload.get("images_b64") or [payload["image_b64"]]
                 imgs = engine.preprocess_images([io.BytesIO(base64.b64decode(b)) for b in blobs])
                 with lock:
-                    emb = engine.embed_images(imgs)
+                    emb = engine.lead("embed_images", imgs)
                 return 200, {"embeddings": emb.tolist()}
             if path == "/caption":
                 tmp += wavs_from_request(body, ctype)
                 beam = int(query.get("beam", ["0"])[0])
                 fb = engine.fbank_files(tmp)
                 with lock:
-                    caps = engine.caption(fb, beam=beam)
+                    caps = engine.lead("caption", fb, beam=beam)
                 return 200, {"captions": caps}
             if path == "/zero_shot":
                 payload = json.loads(body)
@@ -582,7 +643,8 @@ def make_server(engine: InferenceEngine, port: int = 8080, host: str = "127.0.0.
                 prompt = payload.get("prompt", "the sound of ")
                 fb = engine.fbank_files(tmp)
                 with lock:
-                    res = engine.zero_shot(fb, {label: [f"{prompt}{label}"] for label in payload["labels"]})
+                    res = engine.lead("zero_shot", fb,
+                                      {label: [f"{prompt}{label}"] for label in payload["labels"]})
                 return 200, {"classes": list(res["classes"]),
                              "scores": np.asarray(res["scores"]).tolist(),
                              "prediction": list(res["prediction"])}
@@ -642,16 +704,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--data_parallel", action="store_true",
                     help="a replica on every local card, each engine batch split over them")
     ap.add_argument("--model_parallel", type=int, default=1,
-                    help=f"> 1 is not ported yet (ROADMAP.md queue A, {REST})")
+                    help="N > 1: the weights split over the N ranks of a launcher (torchrun "
+                         "--nproc_per_node=N); rank 0 writes the output and serves the port")
     args, overrides = ap.parse_known_args(argv)
     env = launcher_env()
-    if env is not None and env["world"] > 1:
-        raise SystemExit("serving runs as one process: --data_parallel puts a replica on every "
-                         "local card; start it without torchrun")
+    if env is not None and env["world"] > 1 and env["world"] != args.model_parallel:
+        raise SystemExit(f"a launcher of {env['world']} ranks serves only with --model_parallel "
+                         f"{env['world']}; --data_parallel puts a replica on every local card "
+                         "from one process: start it without torchrun")
     cfg = as_config([o for o in overrides if o != "--"])
     eng = InferenceEngine(cfg, batch_size=args.batch_size, quantize=args.quantize,
                           data_parallel=args.data_parallel, model_parallel=args.model_parallel,
                           device="cpu" if str(cfg.get("platform") or "") == "cpu" else "cuda")
+    lead = eng.mesh is None or eng.mesh.rank == 0  # the rank that writes and serves
+    if not lead and args.task == "serve":
+        n = eng.follow()
+        print(f"rank {eng.mesh.rank} followed {n} requests", flush=True)
+        return 0
+
+    def save(path, **arrays):
+        if lead:
+            np.savez(path, **arrays)
+
+    def say(line):
+        if lead:
+            print(line)
 
     def inputs() -> List[str]:
         paths = sorted(glob.glob(args.inputs))
@@ -662,13 +739,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.task in ("embed_audio", "embed_image"):
         paths = inputs()
         embed = eng.embed_audio_files if args.task == "embed_audio" else eng.embed_image_files
-        np.savez(args.output, embeddings=embed(paths), names=np.array(paths))
+        save(args.output, embeddings=embed(paths), names=np.array(paths))
     elif args.task == "caption":
         paths = inputs()
         caps = eng.caption_files(paths, beam=args.beam)
-        np.savez(args.output, captions=np.array(caps), names=np.array(paths))
+        save(args.output, captions=np.array(caps), names=np.array(paths))
         for p, c in zip(paths, caps):
-            print(f"{p}\t{c}")
+            say(f"{p}\t{c}")
     elif args.task == "serve":
         srv = make_server(eng, port=args.port, host=args.host)
         print(f"serving on http://{args.host}:{srv.server_address[1]} (ctrl-c to stop)", flush=True)
@@ -678,12 +755,19 @@ def main(argv: Optional[List[str]] = None) -> int:
             pass
         finally:
             srv.server_close()
+            eng.stop_followers()
         return 0
     elif args.task == "embed_frames":
         if not (args.index and args.output_dir):
             raise SystemExit("embed_frames needs --index and --output_dir")
-        n = eng.export_frame_embeddings(args.index, args.output_dir)
-        print(f"wrote {n} frame embeddings to {args.output_dir}")
+        if lead:
+            n = eng.export_frame_embeddings(args.index, args.output_dir)
+        else:  # the same calls, written where rank 0's files are not
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as d:
+                n = eng.export_frame_embeddings(args.index, d)
+        say(f"wrote {n} frame embeddings to {args.output_dir}")
         return 0
     elif args.task == "embed_text":
         if os.path.exists(args.texts):
@@ -691,17 +775,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                 texts = [line.strip() for line in f if line.strip()]
         else:
             texts = [t for t in args.texts.split(";") if t]
-        np.savez(args.output, embeddings=eng.embed_texts(texts), names=np.array(texts))
+        save(args.output, embeddings=eng.embed_texts(texts), names=np.array(texts))
     else:
         paths, labels = inputs(), [label for label in args.labels.split(";") if label]
         if not labels:
             raise SystemExit("zero_shot needs --labels")
         res = eng.zero_shot(eng.fbank_files(paths), {label: [f"{args.prompt}{label}"] for label in labels})
-        np.savez(args.output, scores=res["scores"], names=np.array(paths),
-                 classes=np.array(res["classes"]), prediction=np.array(res["prediction"]))
+        save(args.output, scores=res["scores"], names=np.array(paths),
+             classes=np.array(res["classes"]), prediction=np.array(res["prediction"]))
         for p, c in zip(paths, res["prediction"]):
-            print(f"{p}\t{c}")
-    print(f"wrote {args.output}")
+            say(f"{p}\t{c}")
+    say(f"wrote {args.output}")
     return 0
 
 

@@ -37,7 +37,10 @@ directories only: an async save prunes when it is issued, so the newest
 committed checkpoint survives beside the one in flight.
 
 Under data parallelism (``mesh``) every rank calls :func:`save_checkpoint`
-(a ZeRO optimizer gathers its state to rank 0 there), only rank 0 writes,
+(a ZeRO optimizer gathers its state to rank 0 there, and over a model or
+pipe axis the slices and stages gather: the file holds the full
+reference-named tensors whatever the mesh, and a load takes each rank's
+slices of it, :meth:`.state.TrainState.load_state_dict`), only rank 0 writes,
 and the ranks meet at a barrier once ``COMMITTED`` is written; with
 ``async_save`` only rank 0's writer thread runs, and ``wait_for_saves(mesh)``
 waits for it on every rank. Every rank loads the same files.
@@ -152,7 +155,8 @@ def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, cfg=None,
     name = f"{step:08d}"
     path = os.path.join(root, name)
     if mesh is not None and mesh.rank != 0:
-        state.optimizer.state_dict()  # a collective under ZeRO: the state gathers to rank 0
+        # a collective under ZeRO and over a model or pipe axis: the state gathers to rank 0
+        state.state_dict()
         if not async_save:
             mesh.barrier()
         return path
@@ -233,12 +237,7 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
         raise FileNotFoundError(f"{path} holds no committed checkpoint (no {COMMIT_MARKER})")
     sd: Dict[str, Any] = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
                                     weights_only=True)
-    _restore(state.trainable, sd["params"], "trainable param")
-    _restore(state.frozen, sd["frozen_params"], "frozen param")
-    _restore(state.buffers, sd.get("buffers", {}), "running statistic")
-    state.optimizer.load_state_dict(sd["opt_state"])
-    state.generator.set_state(sd["rng"])
-    state.step = int(sd["step"])
+    state.load_state_dict(sd, _restore)
     return state
 
 

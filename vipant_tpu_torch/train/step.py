@@ -16,9 +16,12 @@ forward kernels as serving.
 
 Under data parallelism (``state.mesh``, :mod:`..parallel`) each rank's loss
 is the global batch's (the task models gather the embeddings), and
-:func:`..parallel.all_reduce_grads` averages the grads over the ranks
+:func:`..parallel.all_reduce_grads` averages the grads over the data ranks
 between the backward and the optimizer, so ``grad_norm``, clipping and
-LARS's per-leaf trust ratios act on the global grads.
+LARS's per-leaf trust ratios act on the global grads. Over the model and
+pipe axes each rank's grads are its own slices' and stage's, complete (the
+sub-blocks sum their partial products in the forward and backward); over
+the seq axis a ringed trunk's grads are summed over the seq group.
 :func:`grad_cache_step` is the counterpart of ``make_grad_cache_step``
 (``vipant_tpu/train/step.py:97-172``).
 """
@@ -31,6 +34,7 @@ import torch
 
 from ..parallel.collectives import all_reduce_grads, gather_batch
 from ..parallel.grad_cache import grad_cache_value_and_grad
+from ..parallel.mesh import seq_partial
 from .state import TrainState
 
 
@@ -56,11 +60,18 @@ def loss_and_grads(state: TrainState, *batch) -> Tuple[torch.Tensor, Dict[str, t
     return loss, grads
 
 
+def reduce_grads(state: TrainState, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The grads the optimizer takes: ``grads`` averaged over the mesh's data
+    ranks (when there is a group), the grads of the trunks split over the
+    seq ring summed over its group first."""
+    seq_sum = seq_partial(state.model, grads) if state.mesh is not None and state.mesh.seq > 1 else ()
+    return all_reduce_grads(grads, state.mesh, seq_sum=seq_sum)
+
+
 def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor]) -> Dict[str, object]:
-    """Average ``grads`` over the mesh's ranks (when there is a group), then
-    clip and update; advances ``state.step``. Returns ``{"grad_norm",
-    "lr"}``."""
-    metrics = state.optimizer.apply(all_reduce_grads(grads, state.mesh))
+    """:func:`reduce_grads`, then clip and update; advances ``state.step``.
+    Returns ``{"grad_norm", "lr"}``."""
+    metrics = state.optimizer.apply(reduce_grads(state, grads))
     state.step += 1
     return metrics
 

@@ -69,26 +69,40 @@ export writes it under every tower that holds it. A loss head's running
 statistics (Barlow's BatchNorm) are buffers of the model that the train
 state and its checkpoints carry.
 
-Data parallelism (the ``data`` axis of A15; counterpart of the JAX
-trainer's mesh): under a launcher (``torchrun``, or the JAX launcher's
-environment) the trainer runs one process a rank (:mod:`..parallel`), on
-``cuda:{LOCAL_RANK}`` by default; ``mesh.data=-1`` takes the world size, an
-explicit ``mesh.data`` must equal it. Each rank's training loader reads its
-share of the records at ``running.batch_size / ranks`` a batch, the losses
-see the global batch (the task models gather the embeddings, a ResNet
-tower's BatchNorm takes the global statistics, SpecAugment masks by the
-global draw), and the grads are averaged over the ranks before the
-optimizer. The replicas start equal (rank 0's params and statistics are
-broadcast after loading) and stay equal. Rank 0 logs to the console and
-writes ``metrics.jsonl`` and the checkpoints; every rank evaluates the whole
+The mesh (counterpart of the JAX trainer's ``make_mesh``): under a launcher
+(``torchrun``, or the JAX launcher's environment) the trainer runs one
+process a rank (:mod:`..parallel`), on ``cuda:{LOCAL_RANK}`` by default;
+``mesh.data=-1`` takes ``world // (model * pipe * seq)``, an explicit
+``mesh.data`` must make the product the world size. The replicas start equal
+(rank 0's params and statistics are broadcast after loading), then the
+model and pipe axes take their slices (:func:`..parallel.shard_model`).
+
+- ``data``: each rank's training loader reads its data shard's share of the
+  records at ``running.batch_size / data`` a batch (every model, pipe and
+  seq rank of one shard the same rows), the losses see the global batch
+  (the task models gather the embeddings, a ResNet tower's BatchNorm takes
+  the global statistics, SpecAugment and patchout draw for the global
+  batch), and the grads are averaged over the data ranks before the
+  optimizer. ``mesh.zero=true`` splits the optimizer state over them
+  (ZeRO-1, :mod:`..parallel.zero`).
+- ``model``: the sub-blocks, token embeddings and final projections are
+  split Megatron's way (:mod:`..parallel.tensor`).
+- ``pipe`` and ``seq``: the towers with a ``TransformerBackbone`` are marked
+  ``stacked`` (explicit per-tower settings win; ``mesh.microbatches`` sets
+  ``pipe_microbatches``), as ``_apply_pipeline_cfg`` does; their trunks run
+  as GPipe stages (:mod:`..parallel.pipeline`) or over the ring
+  (:mod:`..parallel.sequence`). ``pipe`` and ``seq`` do not combine, nor
+  ``seq`` and ``model``.
+
+Rank 0 logs to the console and writes ``metrics.jsonl`` and the
+checkpoints, which hold the full reference-named tensors whatever the mesh
+(every rank takes part in gathering them); every rank evaluates the whole
 eval split, as the JAX trainer does, and rank 0's report is the one shown.
-``mesh.zero=true`` splits the optimizer state over the ranks (ZeRO-1,
-:mod:`..parallel.zero`). ``running.grad_cache.alive=true`` trains with the
-gradient cache (:mod:`..parallel.grad_cache`) in the chunk count of the JAX
-rule (:func:`..parallel.chunk_count`), for the two-tower monitors
+``running.grad_cache.alive=true`` trains with the gradient cache
+(:mod:`..parallel.grad_cache`) in the chunk count of the JAX rule
+(:func:`..parallel.chunk_count`), for the two-tower monitors
 (``grad_cache_methods``); ignored for captioning, refused with running
-statistics. ``mesh.model``, ``pipe`` and ``seq`` above 1 are refused
-(ROADMAP.md queue A, A15-rest).
+statistics.
 
 Usage::
 
@@ -125,7 +139,8 @@ from ..ops.fbank import fbank_fixed_len
 from ..ops.frontend import device_normalize_image
 from ..ops.specaugment import spec_augment
 from ..optim import build_optimizer, partition_params
-from ..parallel import attach, chunk_count, data_shard_info, launcher_device, make_mesh, replicate
+from ..parallel import (attach, chunk_count, data_shard_info, launcher_device, make_mesh, replicate,
+                        shard_model)
 from ..utils import (AverageMeter, PhaseTimer, as_config, numel, require_device, run_root,
                      seed_all_rng, setup_logger)
 from .checkpoint import load_checkpoint, save_checkpoint, wait_for_saves
@@ -175,7 +190,7 @@ class Trainer:
         self.cfg = as_config(cfg)
         refuse_unported_data(self.cfg.get("running", Config({})))
         self.device = require_device(launcher_device(device), "Trainer")
-        mesh = self.cfg.get("mesh", Config({}))  # model, pipe and seq > 1 raise (A15-rest)
+        mesh = self.cfg.get("mesh", Config({}))
         self.mesh = make_mesh(*(int(mesh.get(axis, n)) for axis, n in
                                 (("data", -1), ("model", 1), ("pipe", 1), ("seq", 1))),
                               device=self.device)
@@ -183,6 +198,7 @@ class Trainer:
         self.out_dir = os.path.join(run_root(self.cfg.alias_root), str(self.cfg.model_name))
         self.echo = setup_logger(None, rank=self.mesh.rank,
                                  verbose=bool(self.cfg.get("verbose", False)), name=_LOGGER)
+        self._apply_pipeline_cfg()
         self.timer = PhaseTimer()
         self.eval_mode = bool(self.cfg.get("eval", False))
         self.global_step = 0
@@ -201,6 +217,33 @@ class Trainer:
             f"model params: {numel(self.trainable) + numel(self.frozen):,} "
             f"(tunable {numel(self.trainable):,}) on {self.device}, mesh {self.mesh.shape}"
             + (f", rank {self.mesh.rank} ({self.mesh.backend})" if self.mesh.distributed else ""))
+
+    def _apply_pipeline_cfg(self) -> None:
+        """``mesh.pipe`` or ``mesh.seq`` above 1: mark the towers whose encoder
+        is a ``TransformerBackbone`` as ``stacked`` (a tower's explicit
+        setting wins) and hand them ``mesh.microbatches`` as
+        ``pipe_microbatches`` (``vipant_tpu/train/trainer.py:101-139``)."""
+        cfg = self.cfg
+        axis_name, axis = ("pipe", self.mesh.pipe) if self.mesh.pipe > 1 else ("seq", self.mesh.seq)
+        if axis <= 1 or "model" not in cfg:
+            return
+        mb = cfg.get("mesh", Config({})).get("microbatches", None)
+        stacked_any = False
+        for key in ("image", "image_v", "audio", "text"):
+            head = cfg.model.get(key)
+            if head is None or not hasattr(head, "get"):
+                continue
+            enc = head.get("encoder")
+            if enc is None or str(enc.get("name", "")) != "TransformerBackbone":
+                continue
+            if head.get("stacked", None) is None:
+                head["stacked"] = True
+            stacked_any = stacked_any or bool(head.get("stacked"))
+            if mb and head.get("pipe_microbatches", None) is None:
+                head["pipe_microbatches"] = int(mb)
+        if not stacked_any:
+            self.echo.info(f"mesh.{axis_name}={axis} but no transformer-trunk tower to stack: the "
+                           f"{axis_name} axis will only replicate compute")
 
     # ------------------------------------------------------------------ data
     def build_data(self, steps_per_epoch: Optional[int] = None) -> None:
@@ -259,10 +302,13 @@ class Trainer:
         if not self.resume_from and not str(cfg.get("model_file", "") or "").endswith(".pth"):
             self.load_meme()
         self.ties = tie_model(cfg, self.model)
+        replicate(self.model, self.mesh)  # the replicas start from rank 0's weights and statistics
+        whole = partition_params(self.model, tunable_mask(cfg, self.model, self.ties))
+        self.full_names = (list(whole[0]), list(whole[1]))
+        self.placement = shard_model(self.model, self.mesh)  # the model and pipe axes' slices
         self.trainable, self.frozen = partition_params(
             self.model, tunable_mask(cfg, self.model, self.ties))
         attach(self.model, self.mesh)
-        replicate(self.model, self.mesh)  # the replicas start from rank 0's weights and statistics
         for name, tower in self.model.named_children():
             if getattr(tower, "int8_frozen", False) and any(p.requires_grad for p in tower.parameters()):
                 raise ValueError(f"model.{name}.int8_frozen: the tower holds trainable parameters "
@@ -342,8 +388,9 @@ class Trainer:
     # ------------------------------------------------------------- optimizer
     def build_optimizer(self) -> None:
         zero = bool(self.cfg.get("mesh", Config({})).get("zero", False)) and self.mesh.parallel
+        split = {n: s.axis for n, s in self.placement.splits.items()}
         opt = build_optimizer(self.cfg.optimizer, self.steps_per_epoch, self.trainable,
-                              zero_mesh=self.mesh if zero else None)
+                              zero_mesh=self.mesh if zero else None, split=split, mesh=self.mesh)
         if zero:
             self.echo.info(f"ZeRO-1: the optimizer state split over the {self.mesh.data} ranks of "
                            f"the data axis ({opt.state_bytes()} bytes on rank {self.mesh.rank} "
@@ -352,6 +399,7 @@ class Trainer:
             step=0, model=self.model, trainable=self.trainable, frozen=self.frozen,
             optimizer=opt, generator=torch.Generator(device=self.device).manual_seed(int(self.cfg.seed)),
             loss_kwargs=self.loss_kwargs, buffers=dict(self.model.named_buffers()), mesh=self.mesh,
+            placement=self.placement, full_names=self.full_names,
         )
         for module in self.model.modules():  # patchout draws from the train state's stream
             if hasattr(module, "patchout_generator"):
@@ -810,6 +858,9 @@ class Trainer:
         an exported ResNet or DeiT tower has no ``.pth`` layout, and then the
         save warns and writes none."""
         export = self.collect_model_export()
+        if not self.placement.empty:  # the full tensors, gathered on every rank
+            names = [n for n in self.placement.all_names if n.split(".", 1)[0] in self.export_towers]
+            export = self.placement.full(export, names)
         export_pth = bool(self.cfg.get("export_pth", False))
         if export_pth and {"resnet", "deit"} & {getattr(getattr(self.model, n, None), "backbone", None)
                                                 for n in self.export_towers}:
