@@ -28,7 +28,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..utils import require_device
+from ..utils import require_device, span
 
 # pinned buffer sets in turn: a set is reused only after its copy finished,
 # so more slots only let more copies run ahead
@@ -56,6 +56,10 @@ class PinnedDevicePut:
         return buf
 
     def __call__(self, batch: Dict) -> Dict:
+        with span("vipant.data.put"):
+            return self._put(batch)
+
+    def _put(self, batch: Dict) -> Dict:
         arrays = {k: np.ascontiguousarray(batch[k]) for k in self.keys}
         if not self.on_card:
             batch.update({k: torch.from_numpy(a) for k, a in arrays.items()})

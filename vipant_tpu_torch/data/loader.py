@@ -41,6 +41,7 @@ from typing import Any, Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils.trace import span
 from .indexfile import epoch_permutation
 
 # ---------------------------------------------------------------- workers
@@ -323,7 +324,8 @@ class DataLoader:
         t.start()
         try:
             while True:
-                item = out_q.get()
+                with span("vipant.data.wait"):
+                    item = out_q.get()
                 if item is StopIteration:
                     return
                 if isinstance(item, Exception):

@@ -24,6 +24,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 
+from ..utils import span
 from .lars import LARS, Schedule, warmup_cosine_lr, warmup_multistep_lr
 
 
@@ -108,17 +109,21 @@ class Optimizer:
         """One update from ``grads`` (name -> grad of every trainable
         param). Returns ``{"grad_norm": norm before clipping (0-d tensor),
         "lr": this update's rate}``."""
-        names = list(self.params)
-        gs = [grads[n] for n in names]
-        norm = split_norm(dict(zip(names, gs)), self.split, self.mesh) if self.split else global_norm(gs)
-        if self.max_norm:
-            gs = clip_by_global_norm(gs, float(self.max_norm), norm)
-        lr = self.schedule(self.count)
-        for group in self.inner.param_groups:
-            group["lr"] = lr
-        self._update(dict(zip(names, gs)))
-        self.count += 1
-        return {"grad_norm": norm, "lr": lr}
+        with span("vipant.optim"):
+            names = list(self.params)
+            gs = [grads[n] for n in names]
+            with span("vipant.optim.clip"):
+                norm = (split_norm(dict(zip(names, gs)), self.split, self.mesh) if self.split
+                        else global_norm(gs))
+                if self.max_norm:
+                    gs = clip_by_global_norm(gs, float(self.max_norm), norm)
+            lr = self.schedule(self.count)
+            for group in self.inner.param_groups:
+                group["lr"] = lr
+            with span("vipant.optim.update"):
+                self._update(dict(zip(names, gs)))
+            self.count += 1
+            return {"grad_norm": norm, "lr": lr}
 
     def _update(self, grads: Mapping[str, torch.Tensor]) -> None:
         """Step ``inner`` on the (clipped) grads."""

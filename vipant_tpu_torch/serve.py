@@ -107,7 +107,7 @@ from .ops.quant import int8_fwd_context
 from .parallel.mesh import launcher_device, launcher_env, make_mesh, replicate
 from .parallel.tensor import shard_model
 from .train.checkpoint import wait_for_saves
-from .utils import as_config, require_device, run_root
+from .utils import PhaseTimer, as_config, require_device, run_root, span
 
 
 def _local_devices(device: torch.device) -> List[torch.device]:
@@ -189,10 +189,14 @@ class InferenceEngine:
                         f"model.{key}.token_pack={pack} does not divide a replica's "
                         f"{self.batch_size // n} items (batch_size {self.batch_size} over {n} "
                         "devices): lower the pack or change batch_size / data_parallel")
+        self.timer = PhaseTimer()
+        self.timer.start("build_model")
         self.model = build_main_model(self.cfg, device=self.device)
         init_weights(self.model, torch.Generator(device=self.device).manual_seed(seed))
         self._load()
         self.model.eval()
+        self.timer.stop("build_model")
+        self.timer.start("build_parallel")
         self.mesh = self.placement = None
         if int(model_parallel) > 1:
             self.mesh = make_mesh(data=1, model=int(model_parallel), device=self.device)
@@ -202,9 +206,11 @@ class InferenceEngine:
                            f"{len(self.placement.splits)} split parameters")
         # one replica a device, the engine's own first; each takes 1/n of a batch
         self.replicas = [self.model] + [copy.deepcopy(self.model).to(d) for d in devices[1:]]
+        self.timer.stop("build_parallel")
         if n > 1:
             self.echo.info(f"data_parallel: {n} replicas on {', '.join(map(str, devices))}, "
                            f"{self.batch_size // n} items each")
+        self.echo.info(f"engine built in {self.timer.summary()}")
 
     # ------------------------------------------------------- model-parallel
     FOLLOWED = ("embed_texts", "embed_audio", "embed_images", "caption", "zero_shot")
@@ -263,8 +269,13 @@ class InferenceEngine:
         a fixed-size host batch, in order: every replica's work is queued
         before any result is read."""
         parts = np.split(batch, len(self.replicas)) if len(self.replicas) > 1 else [batch]
-        return [fn(m, torch.from_numpy(np.ascontiguousarray(x)).to(next(m.parameters()).device))
-                for m, x in zip(self.replicas, parts)]
+        out = []
+        for m, x in zip(self.replicas, parts):
+            with span("vipant.serve.h2d"):
+                x = torch.from_numpy(np.ascontiguousarray(x)).to(next(m.parameters()).device)
+            with span("vipant.serve.forward"):
+                out.append(fn(m, x))
+        return out
 
     # ------------------------------------------------------------- loading
     def _load(self) -> None:
@@ -375,14 +386,15 @@ class InferenceEngine:
             return np.zeros((0, self._embed_dim()), np.float32)
         B = self.batch_size
         outs = []
-        with torch.inference_mode(), int8_fwd_context(self._int8):
+        with span("vipant.serve.request"), torch.inference_mode(), int8_fwd_context(self._int8):
             for i in range(0, arr.shape[0], B):
                 chunk = arr[i : i + B]
                 n = chunk.shape[0]
                 if n < B:  # pad to the fixed batch by repeating the last row
                     chunk = np.concatenate([chunk, np.repeat(chunk[-1:], B - n, axis=0)])
                 parts = self._split(lambda m, x: normalize(getattr(m, method)(x, train=False)), chunk)
-                outs.append(np.concatenate([o.float().cpu().numpy() for o in parts])[:n])
+                with span("vipant.serve.d2h"):
+                    outs.append(np.concatenate([o.float().cpu().numpy() for o in parts])[:n])
         return np.concatenate(outs, axis=0)
 
     def embed_audio(self, fbanks: np.ndarray) -> np.ndarray:

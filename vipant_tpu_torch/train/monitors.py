@@ -56,7 +56,7 @@ from ..eval.metrics import (_normalize, cider_d, classification_p1, corpus_bleu,
                             multilabel_report, one_vs_k_retrieval, rouge_l, symmetric_retrieval,
                             zero_shot_classification)
 from ..tokenizer import detokenize_ids
-from ..utils import as_config
+from ..utils import as_config, timed_span
 from .checkpoint import extract_model_files, load_checkpoint
 from .trainer import Trainer, register_monitor
 
@@ -136,11 +136,10 @@ class LATrainer(Trainer):
         self.warn_gold_unused(gold_file)
         if self.model.text is None:
             return self.caption_report(loader, samples=samples)
-        self.timer.start("report")
-        data = self.collect_features(loader, samples=samples)
-        a, t = data["x1"], data["x2"]
-        m = one_vs_k_retrieval(a, t, k=t.shape[0] // a.shape[0])
-        self.timer.stop("report")
+        with timed_span(self.timer, "report"):
+            data = self.collect_features(loader, samples=samples)
+            a, t = data["x1"], data["x2"]
+            m = one_vs_k_retrieval(a, t, k=t.shape[0] // a.shape[0])
         ref = m["ref_a2t"]
         return (
             f"A->T: t1 = {m['a2t']['t1']:2.2f} t5 = {m['a2t']['t5']:2.2f} mR = {m['a2t']['mR']:2.2f} "

@@ -35,6 +35,7 @@ import torch
 from ..parallel.collectives import all_reduce_grads, gather_batch
 from ..parallel.grad_cache import grad_cache_value_and_grad
 from ..parallel.mesh import seq_partial
+from ..utils import span
 from .state import TrainState
 
 
@@ -44,10 +45,12 @@ def loss_aux_and_grads(state: TrainState, *batch
     current params; nothing is updated. A loss head that returns
     ``(loss, aux)`` (``ImagineAndClassifyLossHead``: ``ce``, ``bce``) gives
     its parts, detached; the others none."""
-    out = state.model(*batch, train=True, **state.loss_kwargs)
+    with span("vipant.train.forward"):
+        out = state.model(*batch, train=True, **state.loss_kwargs)
     loss, aux = out if isinstance(out, tuple) else (out, {})
     names = list(state.trainable)
-    grads = torch.autograd.grad(loss, [state.trainable[n] for n in names], allow_unused=True)
+    with span("vipant.train.backward"):
+        grads = torch.autograd.grad(loss, [state.trainable[n] for n in names], allow_unused=True)
     grads = {n: torch.zeros_like(state.trainable[n]) if g is None else g
              for n, g in zip(names, grads)}
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
@@ -71,7 +74,9 @@ def reduce_grads(state: TrainState, grads: Dict[str, torch.Tensor]) -> Dict[str,
 def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor]) -> Dict[str, object]:
     """:func:`reduce_grads`, then clip and update; advances ``state.step``.
     Returns ``{"grad_norm", "lr"}``."""
-    metrics = state.optimizer.apply(reduce_grads(state, grads))
+    with span("vipant.train.grad_reduce"):
+        grads = reduce_grads(state, grads)
+    metrics = state.optimizer.apply(grads)
     state.step += 1
     return metrics
 
@@ -104,10 +109,11 @@ def grad_cache_step(state: TrainState, batch_a: torch.Tensor, batch_b: torch.Ten
     def loss_of_embs(ea, eb):
         return model.loss(gather_batch(ea, mesh), gather_batch(eb, mesh), normalized=True)
 
-    loss, grads = grad_cache_value_and_grad(
-        lambda x: enc_a(x, train=True), lambda x: enc_b(x, train=True), loss_of_embs,
-        state.trainable, batch_a, batch_b, n_chunks, generator=state.generator,
-        train_a=tower_trains(model, methods[0]), train_b=tower_trains(model, methods[1]))
+    with span("vipant.train.grad_cache"):
+        loss, grads = grad_cache_value_and_grad(
+            lambda x: enc_a(x, train=True), lambda x: enc_b(x, train=True), loss_of_embs,
+            state.trainable, batch_a, batch_b, n_chunks, generator=state.generator,
+            train_a=tower_trains(model, methods[0]), train_b=tower_trains(model, methods[1]))
     return {"loss": loss, **apply_gradients(state, grads)}
 
 

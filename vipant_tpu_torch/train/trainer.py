@@ -17,7 +17,8 @@ the loss peeped every ``peep_rate`` steps (``halt_on_nan``,
 at the end of warmup and at the schedule's milestones (non-LARS) and at
 each epoch's end (``save_epoch``), each gated on the step's loss by
 :meth:`Trainer.mid_train_eval_ok` (always open here), and a
-``torch.profiler`` window (``profile``). Checkpoints are ``torch.save``
+``torch.profiler`` window (``profile``) that carries the program's spans
+(:mod:`..utils.trace`). Checkpoints are ``torch.save``
 step directories (:mod:`.checkpoint`); ``model_file=<step dir>`` resumes
 from one exactly, mid-epoch too: the restored step fast-forwards the
 deterministic epoch order to its batch. ``eval=True`` runs the retrieval
@@ -142,7 +143,7 @@ from ..optim import build_optimizer, partition_params
 from ..parallel import (attach, chunk_count, data_shard_info, launcher_device, make_mesh, replicate,
                         shard_model)
 from ..utils import (AverageMeter, PhaseTimer, as_config, numel, require_device, run_root,
-                     seed_all_rng, setup_logger)
+                     seed_all_rng, setup_logger, span, timed_span)
 from .checkpoint import load_checkpoint, save_checkpoint, wait_for_saves
 from .state import TrainState
 from .step import eval_step, grad_cache_step, train_step
@@ -208,15 +209,20 @@ class Trainer:
         self._profiler = None  # the ``profile`` window, open across epochs
         self.run_id = f"{int(time.time())}-{os.getpid()}"  # metrics.jsonl rows
 
-        self.timer.start("build")
+        self.timer.start("build_data")
         self.build_data(steps_per_epoch)
+        self.timer.stop("build_data")
+        self.timer.start("build_model")
         self.build_model()
+        self.timer.stop("build_model")
+        self.timer.start("build_optimizer")
         self.build_optimizer()
-        self.timer.stop("build")
+        self.timer.stop("build_optimizer")
         self.echo.info(
             f"model params: {numel(self.trainable) + numel(self.frozen):,} "
             f"(tunable {numel(self.trainable):,}) on {self.device}, mesh {self.mesh.shape}"
-            + (f", rank {self.mesh.rank} ({self.mesh.backend})" if self.mesh.distributed else ""))
+            + (f", rank {self.mesh.rank} ({self.mesh.backend})" if self.mesh.distributed else "")
+            + f"; built in {self.timer.summary()}")
 
     def _apply_pipeline_cfg(self) -> None:
         """``mesh.pipe`` or ``mesh.seq`` above 1: mark the towers whose encoder
@@ -456,12 +462,14 @@ class Trainer:
         device frontend when the config ships waveforms or compact formats
         (``audio_len``: the waveforms' true lengths, the loader's
         ``batch["audio_len"]``)."""
-        if self.needs_device_frontend:
-            batch = self.device_frontend(batch, train=True, audio_len=audio_len)
-        if self.grad_cache is not None:
-            methods, n = self.grad_cache
-            return grad_cache_step(self.state, *batch, methods=methods, n_chunks=n)
-        return train_step(self.state, *batch)
+        with span("vipant.train.step", {"step": self.state.step}):
+            if self.needs_device_frontend:
+                with span("vipant.train.frontend"):
+                    batch = self.device_frontend(batch, train=True, audio_len=audio_len)
+            if self.grad_cache is not None:
+                methods, n = self.grad_cache
+                return grad_cache_step(self.state, *batch, methods=methods, n_chunks=n)
+            return train_step(self.state, *batch)
 
     # ------------------------------------------------------- device frontend
     def _audio_flag(self, key: str) -> bool:
@@ -638,27 +646,20 @@ class Trainer:
         comp_meters: Dict[str, AverageMeter] = {}
         nsample = 0
         t_epoch = time.time()
-        self.timer.start("data")
-        for batch in self.loader:
-            args = self.device_put.wait(batch)
-            self.timer.stop("data")
-            self.timer.start("model")
-            if prof_on and self.global_step + 1 == int(prof.get("start_step", 10)):
-                activities = [torch.profiler.ProfilerActivity.CPU]
-                if self.device.type == "cuda":
-                    activities.append(torch.profiler.ProfilerActivity.CUDA)
-                self._profiler = torch.profiler.profile(activities=activities)
-                self._profiler.start()
-            metrics = self._last_metrics = self.train_step(*args, audio_len=batch.get("audio_len"))
-            self.global_step += 1
-            if self._profiler is not None and self.global_step == int(
-                    prof.get("start_step", 10)) + int(prof.get("num_steps", 5)):
-                self._end_profile()
+        batches = iter(self.loader)
+        while True:
+            with timed_span(self.timer, "data"):
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                args = self.device_put.wait(batch)
+            with timed_span(self.timer, "model"):
+                metrics = self._model_phase(args, batch, prof if prof_on else None)
             nsample += len(batch["name"])
-            self.timer.stop("model")
 
             if self.global_step % peep_rate == 0:
-                loss = float(metrics["loss"])  # host read (sync point)
+                with span("vipant.train.peep"):
+                    loss = float(metrics["loss"])  # host read (sync point)
                 if not np.isfinite(loss):
                     self.echo.error(f"non-finite loss {loss} at step {self.global_step}")
                     if halt_on_nan:
@@ -689,12 +690,30 @@ class Trainer:
                         }) + "\n")
             force_eval = self.global_step == warmup_done_step or self.global_step in milestone_steps
             if force_eval or (save_rate > 0 and self.global_step % save_rate == 0):
-                loss = float(metrics["loss"])  # the gate's, whether or not peeped this step
-                self.save()
-                self.mid_train_evals(loss)
-            self.timer.start("data")
-        self.timer.stop("data")
+                with span("vipant.train.save"):
+                    loss = float(metrics["loss"])  # the gate's, whether or not peeped this step
+                    self.save()
+                with span("vipant.train.eval"):
+                    self.mid_train_evals(loss)
         self.echo.info(f"epoch {ie} done: {nsample} samples in {time.time() - t_epoch:.1f}s")
+
+    def _model_phase(self, args, batch, prof) -> Dict[str, object]:
+        """The step on a placed batch, with the ``profile`` window (``prof``,
+        None when off) opened before its first step and closed after its
+        last."""
+        if prof is not None and self.global_step + 1 == int(prof.get("start_step", 10)):
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            # record_shapes: the ops' input shapes and the spans' args (the step number)
+            self._profiler = torch.profiler.profile(activities=activities, record_shapes=True)
+            self._profiler.start()
+        metrics = self._last_metrics = self.train_step(*args, audio_len=batch.get("audio_len"))
+        self.global_step += 1
+        if self._profiler is not None and self.global_step == int(
+                prof.get("start_step", 10)) + int(prof.get("num_steps", 5)):
+            self._end_profile()
+        return metrics
 
     def _end_profile(self) -> None:
         """Stop the ``profile`` window and write its Chrome trace."""
@@ -799,16 +818,15 @@ class Trainer:
         """Paired retrieval eval (I↔A), plus per-class precision/recall
         when a gold file is configured (parity:
         `reference/cvap/monitor/cvap.py:246-272`)."""
-        self.timer.start("report")
-        data = self.collect_features(loader, samples=samples)
-        sym = symmetric_retrieval(data["x1"], data["x2"])
-        n = data["x1"].shape[0]
-        msg = ""
-        if gold_file is None:
-            gold_file = self.cfg.running.get("gold_file") if "running" in self.cfg else None
-        if gold_file:
-            msg = " " + self._gold_report(data, gold_file)
-        self.timer.stop("report")
+        with timed_span(self.timer, "report"):
+            data = self.collect_features(loader, samples=samples)
+            sym = symmetric_retrieval(data["x1"], data["x2"])
+            n = data["x1"].shape[0]
+            msg = ""
+            if gold_file is None:
+                gold_file = self.cfg.running.get("gold_file") if "running" in self.cfg else None
+            if gold_file:
+                msg = " " + self._gold_report(data, gold_file)
         return format_retrieval_report(sym, n) + msg
 
     def _gold_report(self, data, gold_file: str) -> str:

@@ -2,7 +2,8 @@
 a device and as a configuration, where a run's files go, and the trainer's
 seeding, logging, meters and phase timers (the port's own copies of ``vipant_tpu/utils/__init__.py``'s
 ``seed_all_rng``, ``setup_logger``, ``AverageMeter``, ``PhaseTimer`` and
-``numel``; ``numel`` counts a mapping or sequence of tensors here)."""
+``numel``; ``numel`` counts a mapping or sequence of tensors here), and the
+spans of the profiler's timeline (:mod:`.trace`)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 from .cfg import as_config
 from .device import require_device
 from .registry import Registry
+from .trace import span, timed_span
 
 __all__ = [
     "AverageMeter",
@@ -31,6 +33,8 @@ __all__ = [
     "run_root",
     "seed_all_rng",
     "setup_logger",
+    "span",
+    "timed_span",
 ]
 
 
