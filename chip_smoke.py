@@ -22,8 +22,14 @@
    VA step's image tower, the captioning decoder's four products at
    M = 64 x 77 and its KV-cached decode at T = 1, M = 4, 16, 64, 256, the AT
    step's audio tower at M = 50 x 306 and text tower at 50 and 250 x 77), each
-   held bitwise equal over two runs; ``attention_fwd``'s streaming form
-   (T > 704) at B16 T705 and T971 beside SDPA.
+   held bitwise equal over two runs; ``patch_gather`` at the towers' inputs
+   (``PATCH_CASES``: the VA step's audio and image at B432, the embed
+   request's audio at B64, the AT step's at B50, DeiT's stride-10 audio grid),
+   bitwise its plain version and over two runs, beside the library path it
+   replaced (the input rounded to bf16, then ``F.unfold``) and the one PyTorch call that
+   gives the same bits in one launch (a rounding copy of the input's unfold
+   view, ``unfold_copy_ms``); ``attention_fwd``'s streaming
+   form (T > 704) at B16 T705 and T971 beside SDPA.
 4. Backward kernel phase: each backward kernel, and each sub-block's
    backward through its autograd boundary (``torch.autograd.grad`` from fp32
    params, as the training step takes it), against its plain version, from
@@ -487,6 +493,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "dot_variant": ("vipant_tpu_torch/csrc/dot_variants.cu", "experiments/fused_block_probe.py:46"),
     "probe_fused_fwd": ("vipant_tpu_torch/experiments/fused_block_probe.py",
                         "experiments/fused_block_probe.py:85"),
+    "patch_gather": ("vipant_tpu_torch/csrc/patches.cu", "none (XLA: vipant_tpu/ops/patches.py)"),
 }
 PATHS = ("serve", "train", "serve_int8", "train_int8_frozen", "probe", "caption_train",
          "caption_serve", "va_loop", "la_loop", "va_loop_dev", "serve_files", "ckpt", "clf", "pak", "val",
@@ -713,6 +720,14 @@ def TP_ATTENTION_CASES(torch):
             ("text B16 T308 C256 H4 causal+pack (tp2)", 16, 308, 256, 4, text_bias))
 
 
+# patch_gather at the main paths' inputs: (case, B, Cin, H, W, patch, stride), fp32 in, bf16 rows out
+PATCH_CASES = [
+    ("VA audio B432", 432, 1, 1000, 128, (32, 32), (16, 24)),
+    ("VA image B432", 432, 3, 224, 224, (32, 32), (32, 32)),
+    ("embed audio B64", 64, 1, 1000, 128, (32, 32), (16, 24)),
+    ("AT audio B50", LA_B, 1, 1000, 128, (32, 32), (16, 24)),
+    ("DeiT audio B64 (stride 10)", DEIT_B, 1, 1000, 128, (16, 16), (10, 10)),
+]
 ATTENTION_STREAMING_T = (705, 971, DEIT_T)  # attention_fwd past the 704 keys it keeps resident
 DECODE_TOL = 0.1  # bf16 per-step logits, KV-cached against re-forward decoding
 DOT_TOL = 1e-3  # dot_variant: fp32 sums of up to 1024 bf16 products, in another order than the plain one
@@ -793,6 +808,13 @@ def check_codes(torch, got, want, what):
         raise AssertionError(f"{what}: codes off by up to {off}, share {share:.2e} > {FLIP_SHARE}")
     err = (q.float() * s - q0.float() * s0).abs().max().item()
     return err, f"codes: {share:.1e} off by one; dequantized {err:.2e}"
+
+
+def check_bitwise(torch, got, want, what):
+    """Every output bitwise the plain version's."""
+    if len(got) != len(want) or not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: not bitwise its plain version")
+    return 0.0, "bitwise"
 
 
 def device_us(torch, fn, calls=20, tries=3):
@@ -1017,6 +1039,27 @@ def kernel_phase(torch, results):
         if not all(torch.equal(u, v) for u, v in zip(_outputs(kernels.gemm_bias_act(x, w, b, act, r, pre)),
                                                      _outputs(kernels.gemm_bias_act(x, w, b, act, r, pre)))):
             raise AssertionError(f"gemm_bias_act {case}: two runs differ")
+
+    # patch_gather at the towers' inputs, bitwise its plain version and across two runs; the library
+    # call is the path it replaced: the input rounded to bf16, then F.unfold's per-item im2col; beside
+    # them, one TensorIterator copy of the input's unfold view into F.unfold's layout, rounding
+    def unfold_copy(x, patch, stride):
+        v = x.unfold(2, patch[0], stride[0]).unfold(3, patch[1], stride[1])  # [B, C, nrow, ncol, ph, pw]
+        out = torch.empty((*v.shape[:2], *patch, *v.shape[2:4]), dtype=torch.bfloat16, device=x.device)
+        return out.copy_(v.permute(0, 1, 4, 5, 2, 3)).view(x.shape[0], -1, v.shape[2] * v.shape[3])
+
+    for case, B, Cin, H, W, patch, stride in PATCH_CASES:
+        x = rn(B, Cin, H, W, dtype=torch.float32)
+        shape = f"{B}x{Cin}x{H}x{W} {patch[0]}x{patch[1]}/{stride[0]}x{stride[1]}"
+        compare(torch, results, "patch_gather", f"{case} [{shape}]",
+                lambda: kernels.patch_gather(x, patch, stride), lambda: kernels.patch_gather_plain(x, patch, stride),
+                reads=(x,), library=lambda: F.unfold(x.to(torch.bfloat16), patch, stride=stride),
+                check=check_bitwise, also={"unfold_copy_ms": lambda: unfold_copy(x, patch, stride)},
+                iters=5 if B > 64 else 10, device=True)
+        if not torch.equal(kernels.patch_gather(x, patch, stride), kernels.patch_gather(x, patch, stride)):
+            raise AssertionError(f"patch_gather {case}: two runs differ")
+        del x
+        torch.cuda.empty_cache()
 
     # attention_fwd's streaming form (T > 704: keys and values pass through the block in tiles of
     # 64), which the DeiT audio tower launches at T = 1,190 (backbone_phase)
@@ -1276,14 +1319,15 @@ def _engine(torch, batch_size, quantize=""):
 
 
 def _serve_blocks(eng, n_audio=6, n_zero_shot=3):
-    """Sub-block calls of each kind on the serving path below: layers times
-    chunks, for the audio and the text tower."""
+    """(sub-block calls of each kind, audio tower calls) on the serving path
+    below: layers times chunks, for the audio and the text tower; one patch
+    gather an audio chunk."""
     nchunks = lambda n: -(-n // eng.batch_size)
     n_prompts = sum(len(v) for v in CLASSES.values())
     audio_chunks = nchunks(n_audio) + nchunks(n_zero_shot)
     text_chunks = nchunks(len(PROMPTS)) + nchunks(n_prompts)
     return (len(eng.model.audio.encoder.resblocks) * audio_chunks
-            + len(eng.model.text.encoder.resblocks) * text_chunks)
+            + len(eng.model.text.encoder.resblocks) * text_chunks), audio_chunks
 
 
 def _check_embeddings(eng, a, t, zs):
@@ -1327,13 +1371,14 @@ def slice_phase(torch, results):
     counts = dict(LAUNCHES)
     print(f"launches on the serving path: {json.dumps(counts, sort_keys=True)}")
 
-    blocks = _serve_blocks(eng)
+    blocks, audio_chunks = _serve_blocks(eng)
     want = {
         "fused_ln_attention_block": blocks,
         "fused_ln_mlp_block": blocks,
         "layernorm_fwd": 2 * blocks,
         "gemm_bias_act": 4 * blocks,
         "attention_fwd": blocks,
+        "patch_gather": audio_chunks,
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
@@ -1541,11 +1586,11 @@ def int8_serve_phase(torch, results):
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     print(f"launches on the int8 serving path: {json.dumps(counts, sort_keys=True)}")
-    blocks = _serve_blocks(eng8)
+    blocks, audio_chunks = _serve_blocks(eng8)
     want = {  # every sub-block call of both towers on the int8 chain, none on the bf16 one
         "fused_ln_attention_block_int8": blocks, "fused_ln_mlp_block_int8": blocks,
         "rowquant": 6 * blocks, "layernorm_rowquant": 2 * blocks, "gemm_i8": 4 * blocks,
-        "attention_fwd_f32": blocks,
+        "attention_fwd_f32": blocks, "patch_gather": audio_chunks,
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
@@ -1754,6 +1799,7 @@ def train_phase(torch, results):
         "layernorm_fwd": 2 * fwd_blocks + 2 * bwd_blocks, "gemm_bias_act": 4 * fwd_blocks + bwd_blocks,
         "attention_fwd": fwd_blocks, "attention_bwd": bwd_blocks, "layernorm_bwd": 2 * bwd_blocks,
         "colsum": 4 * bwd_blocks, "gemm_dgrad": 4 * bwd_blocks, "gemm_wgrad": 4 * bwd_blocks,
+        "patch_gather": 2,  # one a tower
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
@@ -1875,7 +1921,7 @@ def train_int8_phase(torch, results):
         "fused_ln_attention_block_bwd": bwd, "fused_ln_mlp_block_bwd": bwd,
         "layernorm_fwd": 2 * fwd + 2 * bwd, "gemm_bias_act": 4 * fwd + bwd,
         "attention_fwd": fwd, "attention_bwd": bwd, "layernorm_bwd": 2 * bwd,
-        "colsum": 4 * bwd, "gemm_dgrad": 4 * bwd, "gemm_wgrad": 4 * bwd,
+        "colsum": 4 * bwd, "gemm_dgrad": 4 * bwd, "gemm_wgrad": 4 * bwd, "patch_gather": 2,
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
@@ -2211,6 +2257,7 @@ def caption_train_phase(torch, results):
         "attention_bwd": blocks, "layernorm_bwd": 2 * blocks, "colsum": 4 * blocks,
         "gemm_dgrad": 4 * blocks, "gemm_wgrad": 4 * blocks,
         "flash_attention_fwd": dec_layers, "flash_attention_bwd": dec_layers,  # and no bias grad
+        "patch_gather": 1,  # the audio tower
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
@@ -2297,7 +2344,7 @@ def caption_serve_phase(torch, results):
     mlp = chunks * (audio_layers + L * dec_layers)  # the audio tower's, and one per layer and decode step
     want = {"fused_ln_attention_block": chunks * audio_layers, "attention_fwd": chunks * audio_layers,
             "fused_ln_mlp_block": mlp, "layernorm_fwd": chunks * audio_layers + mlp,
-            "gemm_bias_act": 2 * chunks * audio_layers + 2 * mlp}
+            "gemm_bias_act": 2 * chunks * audio_layers + 2 * mlp, "patch_gather": chunks}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     record_launches(results, "caption_serve", counts)
@@ -2884,6 +2931,7 @@ def la_phase(torch, results):
         "layernorm_fwd": 2 * fwd_blocks + 2 * bwd_blocks, "gemm_bias_act": 4 * fwd_blocks + bwd_blocks,
         "attention_fwd": fwd_blocks, "attention_bwd": bwd_blocks, "layernorm_bwd": 2 * bwd_blocks,
         "colsum": 4 * bwd_blocks, "gemm_dgrad": 4 * bwd_blocks, "gemm_wgrad": 4 * bwd_blocks,
+        "patch_gather": 1,  # the audio tower
     }
     print(f"(a) launches in one AT step: {json.dumps(counts, sort_keys=True)}")
     if counts != want:
@@ -3521,7 +3569,8 @@ def ckpt_phase(torch, results):
         counts = dict(LAUNCHES)
         blocks = len(eng.model.audio.encoder.resblocks) + len(eng.model.text.encoder.resblocks)
         want = {"fused_ln_attention_block": blocks, "fused_ln_mlp_block": blocks,
-                "layernorm_fwd": 2 * blocks, "gemm_bias_act": 4 * blocks, "attention_fwd": blocks}
+                "layernorm_fwd": 2 * blocks, "gemm_bias_act": 4 * blocks, "attention_fwd": blocks,
+                "patch_gather": 1}  # one audio chunk of CKPT_B
         print(f"(b) launches of embed_audio (batch {CKPT_B}) and embed_texts: "
               f"{json.dumps(counts, sort_keys=True)}")
         if counts != want:
@@ -4433,16 +4482,17 @@ def _ported_vs_tower(torch, tower, ported, own_names):
     return off_port, off_file
 
 
-def _step_launches(fwd_blocks, bwd_blocks):
+def _step_launches(fwd_blocks, bwd_blocks, patches=2):
     """The launches of one training step whose towers run ``fwd_blocks``
-    sub-block pairs forward and ``bwd_blocks`` backward (train_phase's
-    count)."""
+    sub-block pairs forward and ``bwd_blocks`` backward, and ``patches``
+    forwards of a tower with a patch embedding (train_phase's count)."""
     return {
         "fused_ln_attention_block": fwd_blocks, "fused_ln_mlp_block": fwd_blocks,
         "fused_ln_attention_block_bwd": bwd_blocks, "fused_ln_mlp_block_bwd": bwd_blocks,
         "layernorm_fwd": 2 * fwd_blocks + 2 * bwd_blocks, "gemm_bias_act": 4 * fwd_blocks + bwd_blocks,
         "attention_fwd": fwd_blocks, "attention_bwd": bwd_blocks, "layernorm_bwd": 2 * bwd_blocks,
         "colsum": 4 * bwd_blocks, "gemm_dgrad": 4 * bwd_blocks, "gemm_wgrad": 4 * bwd_blocks,
+        "patch_gather": patches,
     }
 
 
@@ -5109,7 +5159,8 @@ def dp_phase(torch, results):
         loss_k = gc.train_step(*batch)["loss"]
         torch.cuda.synchronize()
         n = GC_B // GC_CHUNK
-        counts, want = dict(LAUNCHES), _step_launches(36 * n, 12 * n)
+        # both towers a chunk without grad, then the audio tower's re-forward a chunk
+        counts, want = dict(LAUNCHES), _step_launches(36 * n, 12 * n, 3 * n)
         if gc.grad_cache != (("encode_image", "encode_audio"), n) or counts != want:
             raise AssertionError(f"(e) the VA gradient-cache step: {gc.grad_cache}, launches {counts} "
                                  f"!= {want}")
@@ -5139,7 +5190,7 @@ def dp_phase(torch, results):
         trains = [t for t in ("audio", "text") if any(p.requires_grad for p in getattr(la.model, t).parameters())]
         layers = {t: len(getattr(la.model, t).encoder.resblocks) for t in ("audio", "text")}
         want = _step_launches(2 * sum(layers.values()) + 2 * sum(layers[t] for t in trains),
-                              2 * sum(layers[t] for t in trains))
+                              2 * sum(layers[t] for t in trains), 2 + 2 * ("audio" in trains))
         if la.grad_cache != (("encode_audio", "encode_text"), 2) or counts != want:
             raise AssertionError(f"(e) the AT gradient-cache step: {la.grad_cache}, launches {counts} "
                                  f"!= {want}")

@@ -22,7 +22,9 @@ gemm_i8, attention_bwd, whose recomputed p is bitwise the forward's, and
 colsum, whose sum is also bitwise kernels.colsum_ordered (the plain sum in
 the kernel's order). dot_variant gives the same bits in every run and for
 every storage of one logical product (NN, NT, TN, TT), max |d| <= 1e-3
-from its fp32 plain version at every chip_smoke.DOT_CASES case."""
+from its fp32 plain version at every chip_smoke.DOT_CASES case. patch_gather
+is bitwise its plain version (F.unfold of the input rounded to the output's
+dtype) and the same in every run."""
 
 import os
 import sys
@@ -1039,3 +1041,79 @@ def test_captioning_step_and_caption_run_through_the_kernels(gen):
     out = eng.caption(r.standard_normal((3, 1000, 128)).astype(np.float32))
     assert len(out) == 3 and all(isinstance(c, str) for c in out)
     assert LAUNCHES["fused_ln_mlp_block"] == 2 * (2 + 4 * 2)  # 2 chunks: tower, and 4 steps x 2 layers
+
+
+PATCH_SHAPES = [  # (Cin, H, W, patch, stride): the image and audio grids, DeiT's audio and image
+    (3, 224, 224, (32, 32), (32, 32)),
+    (1, 1000, 128, (32, 32), (16, 24)),
+    (1, 1000, 128, (16, 16), (10, 10)),  # a stride of 10
+    (3, 224, 224, (16, 16), (16, 16)),
+]
+
+
+@pytest.mark.parametrize("Cin,H,W,patch,stride", PATCH_SHAPES)
+@pytest.mark.parametrize("B", [1, 4, 64])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_patch_gather_is_bitwise_its_plain_version(gen, Cin, H, W, patch, stride, B, x_dtype, dtype):
+    x = _rn(gen, B, Cin, H, W).to(x_dtype)
+    reset_launches()
+    got = kernels.patch_gather(x, patch, stride, dtype)
+    assert LAUNCHES == {"patch_gather": 1}
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, kernels.patch_gather_plain(x, patch, stride, dtype))
+    assert torch.equal(got, kernels.patch_gather(x, patch, stride, dtype))  # the same bits every run
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_patch_gather_of_an_unaligned_input_is_bitwise_its_plain_version(gen, x_dtype):
+    """A base 2 or 4 bytes past a 16-byte boundary."""
+    buf = _rn(gen, 4 * 224 * 224 * 3 + 1).to(x_dtype)
+    x = buf[1:].view(4, 3, 224, 224)
+    got = kernels.patch_gather(x, (32, 32), (32, 32))
+    assert torch.equal(got, kernels.patch_gather_plain(x, (32, 32), (32, 32)))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_patch_gather_reads_views_through_their_strides(gen, x_dtype):
+    """The device frontend's fbanks cropped in time and a transposed view,
+    bitwise their plain versions."""
+    x = _rn(gen, 4, 1, 1030, 128).to(x_dtype)
+    for view in (x[:, :, :1000], x[:, :, :128].transpose(2, 3)):
+        got = kernels.patch_gather(view, (32, 32), (16, 24))
+        assert torch.equal(got, kernels.patch_gather_plain(view, (32, 32), (16, 24)))
+
+
+def test_patch_gather_rejects_what_the_kernel_does_not_take(gen):
+    x = _rn(gen, 2, 1, 1000, 128)
+    with pytest.raises(ValueError, match="grad"):
+        kernels.patch_gather(x.requires_grad_(), (32, 32), (16, 24))
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        kernels.patch_gather(x.detach().half(), (32, 32), (16, 24))
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        kernels.patch_gather(x.detach(), (32, 32), (16, 24), torch.float16)
+    with pytest.raises(ValueError, match="4096"):
+        kernels.patch_gather(_rn(gen, 1, 1, 32, 4104), (32, 32), (16, 24))
+
+
+@pytest.mark.parametrize("Cin,H,W,patch,stride", PATCH_SHAPES)
+def test_vit_pre_encoder_on_the_card_matches_the_cpu(Cin, H, W, patch, stride):
+    """The audio and image towers' first stage, bf16, fp32 input: one patch
+    gather on the card, within the bf16 tolerance of the CPU's plain path."""
+    from vipant_tpu_torch.nn.stages import ViTPreEncoder
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator().manual_seed(0)
+    enc = ViTPreEncoder(768, patch, stride, in_channels=3, dtype=torch.bfloat16)
+    enc.init_weights(g)
+    T = 1 + ((H - patch[0]) // stride[0] + 1) * ((W - patch[1]) // stride[1] + 1)
+    x, pos, cls = torch.randn(4, Cin, H, W, generator=g), torch.randn(T, 768, generator=g) * 0.02, \
+        torch.randn(768, generator=g) * 0.02
+    with torch.no_grad():
+        want = enc(x, pos, cls)
+        enc.cuda()
+        reset_launches()
+        got = enc(x.cuda(), pos.cuda(), cls.cuda())
+    assert LAUNCHES["patch_gather"] == 1
+    _close(got.cpu(), want, f"ViTPreEncoder {Cin}x{H}x{W} {patch}/{stride}")

@@ -78,7 +78,7 @@ class DeiTTower(nn.Module):
         w = self.patch_embed.weight
         if x.shape[1] != w.shape[1]:  # channel collapse
             w = w.mean(dim=1, keepdim=True)
-        h = patchify_embed(x.to(self.dtype), w.to(self.dtype), self.patch_hw, self.stride_hw)
+        h = patchify_embed(x, w.to(self.dtype), self.patch_hw, self.stride_hw)
         h = h + self.patch_embed.bias.to(self.dtype)
         B, _, D = h.shape
         prefix = torch.stack([self.cls_token, self.dist_token]).to(self.dtype)

@@ -105,7 +105,7 @@ class ViTPreEncoder(nn.Module):
         w = self.conv1.weight
         if x.shape[1] != w.shape[1]:  # channel mismatch -> mean-collapse
             w = w.mean(dim=1, keepdim=True)
-        h = patchify_embed(x.to(self.dtype), w.to(self.dtype), self.patch_hw, self.stride_hw)
+        h = patchify_embed(x, w.to(self.dtype), self.patch_hw, self.stride_hw)
         B = h.shape[0]
         c = cls.to(self.dtype).expand(B, 1, self.width)
         h = torch.cat([c, h], dim=1)

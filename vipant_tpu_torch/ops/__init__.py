@@ -2,10 +2,11 @@
 (:mod:`.kernels`), the fused transformer sub-blocks built from them
 (:mod:`.fused_attn`, :mod:`.fused_mlp`), bf16 and forward-only int8,
 attention on separate q, k, v with its dispatcher (:mod:`.attention`), the
-int8 scope and plain quantizers (:mod:`.quant`), plain-PyTorch helpers
-(:mod:`.patches`, :mod:`.interp`), the device frontend's plain-PyTorch ops
-(:mod:`.fbank`, :mod:`.specaugment`, :mod:`.frontend`), and the host Kaldi
-fbank of the data loader (:mod:`.fbank_np`, :mod:`.mel`: NumPy only).
+int8 scope and plain quantizers (:mod:`.quant`), the ViT patch embedding
+(:mod:`.patches`), a plain-PyTorch helper (:mod:`.interp`), the device
+frontend's plain-PyTorch ops (:mod:`.fbank`, :mod:`.specaugment`,
+:mod:`.frontend`), and the host Kaldi fbank of the data loader
+(:mod:`.fbank_np`, :mod:`.mel`: NumPy only).
 
 Importing builds nothing: the kernels are compiled at their first launch
 (:mod:`._build`). The names below are imported at first use, so that the

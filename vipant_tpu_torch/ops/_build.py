@@ -64,6 +64,7 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _F, _I, _I, _P],
     "vt_dot_variant": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vt_dot_plan": [_I, _I, _I, _P],  # fills int[3]: the launch vt_dot_variant makes (kernels.dot_plan)
+    "vt_patch_gather": [_P, _I, _L, _L, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -36,7 +36,10 @@ their backward chains:
   :func:`flash_attention_dbias_ordered`;
 - :func:`dot_variant` (``csrc/dot_variants.cu``): one product in the four
   operand orientations (the probe of ``experiments/fused_block_probe.py``),
-  in the blocks of :func:`dot_plan`.
+  in the blocks of :func:`dot_plan`;
+- :func:`patch_gather` (``csrc/patches.cu``): the patches of a ViT patch
+  embedding (im2col) in ``F.unfold``'s layout, rounded to the tower's dtype,
+  for the whole batch in one launch (``ops/patches.py``).
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor, after checking device, dtype (bf16
@@ -389,6 +392,13 @@ def flash_attention_dbias_ordered(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 def dot_variant_plain(a: torch.Tensor, b: torch.Tensor, orientation: str) -> torch.Tensor:
     ta, tb = ORIENTATIONS[orientation]
     return torch.matmul(acc(a.t() if ta else a), acc(b.t() if tb else b))
+
+
+def patch_gather_plain(x: torch.Tensor, patch_hw: Tuple[int, int], stride_hw: Tuple[int, int],
+                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``F.unfold`` of x [B, Cin, H, W] rounded to ``dtype``: [B, Cin*ph*pw, L],
+    contiguous (:func:`patch_gather`)."""
+    return torch.nn.functional.unfold(x.to(dtype), kernel_size=patch_hw, stride=stride_hw)
 
 
 def rowquant_plain(x: torch.Tensor):
@@ -1064,6 +1074,35 @@ def dot_variant(a: torch.Tensor, b: torch.Tensor, orientation: str) -> torch.Ten
              f"M={M}, N={N}, K={K} must be multiples of 16 and the operands 32-byte aligned")
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     _launch("dot_variant", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, ta, tb)
+    return out
+
+
+def patch_gather(x: torch.Tensor, patch_hw: Tuple[int, int], stride_hw: Tuple[int, int],
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The patches of x [B, Cin, H, W] in ``F.unfold``'s layout [B, Cin*ph*pw,
+    L], contiguous, in ``dtype``: column l is the patch at grid cell (l //
+    ncol, l % ncol), flattened in (c, h, w) order (an OIHW weight's reshaped
+    to [D, K]), rounded to nearest even as ``Tensor.to`` rounds: bitwise
+    :func:`patch_gather_plain`. On CUDA one launch for the batch, x read
+    through its strides (the device frontend's fbanks are a view cropped in
+    time); x fp32 or bf16 and not requiring grad (every path feeds it data,
+    so the kernel has no backward), W <= 4096, ``dtype`` bf16 or fp32."""
+    _require(x.dim() == 4, f"x must be [B, Cin, H, W], got {tuple(x.shape)}")
+    (ph, pw), (sh, sw) = patch_hw, stride_hw
+    B, Cin, H, W = x.shape
+    _require(0 < ph <= H and 0 < pw <= W, f"patch {ph}x{pw} does not fit the input's {H}x{W}")
+    _require(sh > 0 and sw > 0, f"stride {sh}x{sw} must be positive")
+    if not x.is_cuda:
+        return patch_gather_plain(x, patch_hw, stride_hw, dtype)
+    _require(x.dtype in (torch.float32, torch.bfloat16), f"x must be fp32 or bf16 on CUDA, got {x.dtype}")
+    _require(dtype in (torch.float32, torch.bfloat16), f"dtype must be fp32 or bf16 on CUDA, got {dtype}")
+    _require(not x.requires_grad, "x must not require grad: the patch gather has no backward")
+    _require(W <= 4096, f"W={W} must be at most 4096 (a block stages whole input rows)")
+    out = torch.empty((B, Cin * ph * pw, ((H - ph) // sh + 1) * ((W - pw) // sw + 1)), dtype=dtype,
+                      device=x.device)
+    if out.numel():
+        _launch("patch_gather", x.device, x.data_ptr(), int(x.dtype == torch.float32), *x.stride(),
+                out.data_ptr(), int(dtype == torch.float32), B, Cin, H, W, ph, pw, sh, sw)
     return out
 
 
